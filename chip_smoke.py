@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Smoke run of repro_torch on one NVIDIA GPU.
+
+Run from the root of a checkout, with one CUDA card visible:
+
+    python3 chip_smoke.py [--report PATH]
+
+Phases (any failure exits non-zero; no phase catches its own failure):
+
+1. card: name and power limit (nvidia-smi), build of every CUDA kernel
+   from ``src/repro_torch/csrc`` (all compilers started together);
+2. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's shapes, exact equality (integer results, tolerance 0),
+   timed with CUDA events beside its byte bound and, for ``pack_rows``,
+   one PyTorch library call computing the same gather;
+3. main path: the quickstart loop (insert, delete/pop, commit, crash,
+   reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
+   the B+Tree at 2**20, both modes, every epoch drain through
+   ``pack_rows``; the recovered state is checked, and every kernel's
+   launch counter must have moved during this phase;
+4. card vs CPU: the same workload at 2**14 on ``cuda`` and on ``cpu``
+   must write identical arena images (sha256) and FlushStats.
+
+The line before the last is the per-kernel JSON summary; the last line is
+``{"ok": true, "device": {...}}``.  ``--report`` also writes every phase's
+numbers to a JSON file.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+SECTOR = 32                    # bytes moved by one random DRAM access
+BATCH = 8192
+MAIN_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 20}
+PARITY_N = 1 << 14
+KINDS = ("dll", "hashmap", "bptree")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# ------------------------------------------------------------------ workload
+
+def build_structure(kind: str, mode: str, n: int, device):
+    from repro_torch.core.arena import open_arena
+    from repro_torch.pstruct.bptree import BPTree
+    from repro_torch.pstruct.dll import DoublyLinkedList
+    from repro_torch.pstruct.hashmap import Hashmap
+    if kind == "dll":
+        a = open_arena(None, DoublyLinkedList.layout(n, mode), device=device)
+        return a, DoublyLinkedList(a, n, mode)
+    if kind == "hashmap":
+        a = open_arena(None, Hashmap.layout(n, mode), device=device)
+        return a, Hashmap(a, n, mode)
+    a = open_arena(None, BPTree.layout(n, 2 * n, mode), device=device)
+    return a, BPTree(a, n, 2 * n, mode)
+
+
+def workload(kind: str, mode: str, n: int, device, seed: int = 0) -> dict:
+    """Insert n entries in batches of 8192, delete (and, for the DLL, pop)
+    1/8 of them, commit, crash, reopen, reconstruct, then check the
+    recovered state against what the workload expects.  Data comes from
+    numpy seeded by ``seed``, so every device sees the same inputs."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    keys = rng.permutation(n).astype(np.int64)
+    vals = rng.integers(0, 1 << 40, (n, 7)).astype(np.int64)
+    gone = np.sort(rng.choice(n, n // 8 if kind != "dll" else n // 16,
+                              replace=False))
+    a, s = build_structure(kind, mode, n, device)
+    sync = torch.cuda.synchronize if a.device.type == "cuda" else (
+        lambda: None)
+    t0 = time.perf_counter()
+    for i in range(0, n, BATCH):
+        if kind == "dll":
+            s.append_batch(vals[i:i + BATCH])
+        else:
+            s.insert_batch(keys[i:i + BATCH], vals[i:i + BATCH])
+    sync()
+    t_insert = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(0, gone.size, BATCH):
+        if kind == "dll":
+            s.delete_batch(gone[i:i + BATCH])       # dll ids = 0..n-1
+        elif kind == "hashmap":
+            s.remove_batch(keys[gone[i:i + BATCH]])
+        else:
+            s.delete_batch(keys[gone[i:i + BATCH]])
+    pops = n // 16 if kind == "dll" else 0
+    for i in range(0, pops, BATCH):
+        s.pop_front_batch(min(BATCH, pops - i))
+    sync()
+    t_delete = time.perf_counter() - t0
+    a.commit()
+    lines = a.stats.lines
+    a.crash()
+    t0 = time.perf_counter()
+    a.reopen()
+    s.reconstruct()
+    sync()
+    t_recover = time.perf_counter() - t0
+    live = np.ones(n, bool)
+    live[gone] = False
+    if kind == "dll":
+        want = np.flatnonzero(live)[pops:]
+        got = s.to_list().cpu().numpy()
+        if s.count != want.size or not np.array_equal(got, want):
+            raise AssertionError(f"dll {mode}: recovered order differs")
+    else:
+        if kind == "bptree":
+            s.check_invariants()
+        ok, got = s.find_batch(keys[live])
+        if not bool(ok.all()) or not np.array_equal(got.cpu().numpy(),
+                                                    vals[live]):
+            raise AssertionError(f"{kind} {mode}: live keys not recovered")
+        ok, _ = s.find_batch(keys[gone])
+        if bool(ok.any()):
+            raise AssertionError(f"{kind} {mode}: deleted keys recovered")
+    return {"kind": kind, "mode": mode, "n": n, "arena": a, "lines": lines,
+            "insert_s": t_insert, "delete_s": t_delete,
+            "recover_s": t_recover, "stats": dataclasses.asdict(a.stats)}
+
+
+def count_syncs(fn) -> int:
+    """Device synchronizations ``fn`` causes, as torch's sync debug mode
+    reports them."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def syncs_per_op(device) -> dict:
+    """Device syncs of one operation of each kind, on structures holding
+    64k entries."""
+    import numpy as np
+    n = 1 << 16
+    rng = np.random.default_rng(1)
+    out = {}
+    for kind in KINDS:
+        a, s = build_structure(kind, "partly", n, device)
+        keys = rng.permutation(n).astype(np.int64)
+        vals = rng.integers(0, 1 << 40, (n, 7)).astype(np.int64)
+        for i in range(0, n - BATCH, BATCH):
+            if kind == "dll":
+                s.append_batch(vals[i:i + BATCH])
+            else:
+                s.insert_batch(keys[i:i + BATCH], vals[i:i + BATCH])
+        tail = slice(n - BATCH, n)
+        if kind == "dll":
+            out["dll.append_batch"] = count_syncs(
+                lambda: s.append_batch(vals[tail]))
+            out["dll.delete_batch"] = count_syncs(
+                lambda: s.delete_batch(np.arange(0, 4096, 2)))
+            out["dll.pop_front_batch"] = count_syncs(
+                lambda: s.pop_front_batch(BATCH))
+        else:
+            out[f"{kind}.insert_batch"] = count_syncs(
+                lambda: s.insert_batch(keys[tail], vals[tail]))
+            out[f"{kind}.find_batch"] = count_syncs(
+                lambda: s.find_batch(keys[:BATCH]))
+            rm = s.remove_batch if kind == "hashmap" else s.delete_batch
+            out[f"{kind}.{rm.__name__}"] = count_syncs(
+                lambda: rm(keys[:BATCH]))
+        a.commit()
+        a.crash()
+        a.reopen()
+        out[f"{kind}.reconstruct"] = count_syncs(s.reconstruct)
+    return out
+
+
+# ------------------------------------------------------------------- timing
+
+def time_ms(fn, reps: int = 20, flush=None) -> float:
+    """Median CUDA-event time of ``fn`` in ms, after warm-up; ``flush``
+    runs between reps, outside the timed region."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def max_abs_err(got, want) -> float:
+    import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    return float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+
+
+def require_equal(name: str, pairs) -> float:
+    import torch
+    err = 0.0
+    for got, want in pairs:
+        e = max_abs_err(got, want)
+        if e != 0.0 or not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version (max abs err {e})")
+        err = max(err, e)
+    return err
+
+
+def kernel_parity(dev, n: int = 1 << 22) -> dict:
+    """Phase 2: every kernel against its plain version at main-path shapes
+    (``n``-row sources and chains); returns the rows of the kernels line
+    (all keys but ``launches``) and the pack_rows timings per row width."""
+    import torch
+    from repro_torch.core import recovery as TR
+    from repro_torch.kernels import chain_order as K
+    from repro_torch.kernels import pack_flush as P
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    l2 = torch.ones(1 << 25, dtype=torch.int32, device=dev)   # 128 MB
+
+    def flush():
+        # evict the 50 MB L2 by READING a larger buffer: a write would
+        # leave dirty lines whose write-back the next launch would pay
+        l2.sum()
+
+    rows = {}
+    # ---- pack_rows: M = 8192 rows out of a 2**22-row source
+    n_src, m = n, BATCH
+    pack = {}
+    for rowbytes in (64, 128, 256):
+        src = torch.randint(-(1 << 62), 1 << 62, (n_src, rowbytes // 8),
+                            dtype=torch.int64, device=dev, generator=g)
+        idx = torch.randint(0, n_src, (m,), dtype=torch.int32, device=dev,
+                            generator=g)
+        idx_pad = idx.clone()
+        idx_pad[::97] = -1
+        err = require_equal("pack_rows", [
+            (P.pack_rows(src, idx_pad), P.pack_rows_plain(src, idx_pad))])
+        lidx = idx.long()
+        pack[rowbytes] = {
+            "ms": time_ms(lambda: P.pack_rows(src, idx_pad), flush=flush),
+            "plain_ms": time_ms(lambda: P.pack_rows_plain(src, idx_pad),
+                                flush=flush),
+            "library_ms": time_ms(lambda: torch.index_select(src, 0, lidx),
+                                  flush=flush),
+            "bound_ms": bound_ms(2 * m * rowbytes + 4 * m),
+            "max_abs_err": err}
+        del src
+    rows["pack_rows"] = dict(pack[64], shape=f"M={m} rows of 64 B from "
+                             f"{n_src}; 128 B and 256 B in the report",
+                             source="src/repro_torch/csrc/pack_flush.cu",
+                             replaces="src/repro/kernels/pack_flush.py:66")
+    # ---- jump_double: n nodes with NULL, out-of-range values, a cycle
+    perm = torch.randperm(n, device=dev, generator=g)
+    nxt = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    nxt[perm[:-1]] = perm[1:]
+    nxt[perm[n // 3]] = -1
+    nxt[perm[n // 2]] = n + 11
+    nxt[perm[-2]] = perm[-5]                     # cycle
+    jump = K.sanitize32(nxt)
+    jump[perm[n // 4]] = (1 << 31) - 1           # out of range at int32
+    cnt = torch.randint(1, 9, (n,), dtype=torch.int64, device=dev,
+                        generator=g)
+    err = require_equal("jump_double", zip(K.jump_double(jump, cnt),
+                                           K.jump_double_plain(jump, cnt)))
+    rows["jump_double"] = {
+        "ms": time_ms(lambda: K.jump_double(jump, cnt), flush=flush),
+        "plain_ms": time_ms(lambda: K.jump_double_plain(jump, cnt),
+                            flush=flush),
+        "library_ms": None, "bound_ms": bound_ms(24 * n),
+        "sector_bound_ms": bound_ms(n * (2 * SECTOR + 24)),
+        "max_abs_err": err, "shape": f"n={n}, int32 jump, int64 cnt",
+        "source": "src/repro_torch/csrc/chain_order.cu",
+        "replaces": "src/repro/kernels/chain_order.py:133"}
+    # ---- contraction of a 2**22-node random-permutation chain
+    nxt = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    nxt[perm[:-1]] = perm[1:]
+    head, k = int(perm[0]), TR.CONTRACT_K
+    order = TR.chain_order(nxt, head, n, method="contract")
+    if not torch.equal(order, perm):
+        raise AssertionError("contraction order differs from the chain")
+    nxt32 = K.sanitize32(nxt)
+    n_mult = (n + k - 1) // k
+    spine = torch.arange(0, n, k, dtype=torch.int32, device=dev)
+    promoted = head % k != 0
+    if promoted:
+        spine = torch.cat([spine, torch.tensor([head], dtype=torch.int32,
+                                               device=dev)])
+    walk_kw = dict(k=k, head=head, n_mult=n_mult, promoted=promoted,
+                   budget=max(2 * k, 64))
+    got_w = K.walk_segments(nxt32, spine, **walk_kw)
+    err = require_equal("walk_segments", zip(
+        got_w, K.walk_segments_plain(nxt32, spine, **walk_kw)))
+    hops = int(got_w[2].long().sum())
+    lanes = spine.shape[0]
+    rows["walk_segments"] = {
+        "ms": time_ms(lambda: K.walk_segments(nxt32, spine, **walk_kw),
+                      flush=flush),
+        "plain_ms": time_ms(
+            lambda: K.walk_segments_plain(nxt32, spine, **walk_kw), reps=5),
+        "library_ms": None, "bound_ms": bound_ms(4 * hops + 16 * lanes),
+        "sector_bound_ms": bound_ms(SECTOR * hops + 16 * lanes),
+        "max_abs_err": err,
+        "shape": f"first round: {lanes} lanes, budget 64, {hops} hops",
+        "source": "src/repro_torch/csrc/chain_order.cu",
+        "replaces": "src/repro/kernels/chain_order.py:282"}
+    sp, hpos, cnext, w = TR._contract(
+        nxt32, torch.tensor([head], dtype=torch.int64, device=dev), k)
+    cjump = TR._contract_tables(cnext, min(n, sp.shape[0]))
+    starts, posn, rem = TR._expand_plan(sp, cjump, w, int(hpos[0]), n)
+    got_e = K.expand_segments(nxt32, starts, posn, rem, n)
+    err = require_equal("expand_segments", [
+        (got_e, K.expand_segments_plain(nxt32, starts, posn, rem, n)),
+        (got_e, perm)])
+    ehops = n - starts.shape[0]
+    rows["expand_segments"] = {
+        "ms": time_ms(lambda: K.expand_segments(nxt32, starts, posn, rem, n),
+                      flush=flush),
+        "plain_ms": time_ms(lambda: K.expand_segments_plain(
+            nxt32, starts, posn, rem, n), reps=5),
+        "library_ms": None,
+        "bound_ms": bound_ms(4 * ehops + 12 * starts.shape[0] + 8 * n),
+        "sector_bound_ms": bound_ms(SECTOR * ehops + 12 * starts.shape[0]
+                                    + 8 * n),
+        "max_abs_err": err,
+        "shape": f"{starts.shape[0]} segments, count={n}",
+        "source": "src/repro_torch/csrc/chain_order.cu",
+        "replaces": "src/repro/kernels/chain_order.py:357"}
+    return {"rows": rows, "pack_rowbytes": pack}
+
+
+# ---------------------------------------------------------------------- main
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--report", help="also write every phase's numbers to "
+                   "this JSON file")
+    args = p.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.interop import image_of
+    from repro_torch.kernels import (_build, launch_counts,
+                                     reset_launch_counts)
+
+    report = {}
+    dev = torch.device("cuda", 0)
+    # ---- phase 1: card and build
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    per_source = _build.build()
+    build_s = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in _build.library_path(name).with_suffix(
+        ".log").read_text().splitlines() if "registers" in ln]
+        for name in _build.SOURCES}
+    report["build"] = {"seconds": build_s, "per_source": per_source,
+                       "ptxas": ptxas}
+    emit({"phase": "build", **report["build"]})
+    # ---- phase 2: kernel parity at main-path shapes
+    parity = kernel_parity(dev)
+    report["kernel_parity"] = parity
+    emit({"phase": "kernel_parity", "pack_rowbytes": parity["pack_rowbytes"]})
+    # ---- phase 3: the main path at real size
+    reset_launch_counts()
+    main_runs = []
+    for kind in KINDS:
+        by_mode = {}
+        for mode in ("full", "partly"):
+            r = workload(kind, mode, MAIN_N[kind], dev)
+            r.pop("arena")
+            by_mode[mode] = r
+            torch.cuda.empty_cache()
+        saved = 1 - by_mode["partly"]["lines"] / by_mode["full"]["lines"]
+        row = {"phase": "main_path", "kind": kind, "n": MAIN_N[kind],
+               "lines_full": by_mode["full"]["lines"],
+               "lines_partly": by_mode["partly"]["lines"],
+               "saved": saved,
+               **{f"{m}_{t}": by_mode[m][t] for m in by_mode
+                  for t in ("insert_s", "delete_s", "recover_s")}}
+        main_runs.append(row)
+        emit(row)
+    launches = launch_counts()
+    report["main_path"] = {"runs": main_runs, "launches": launches}
+    emit({"phase": "main_path_launches", **launches})
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+    syncs = syncs_per_op(dev)
+    report["syncs_per_op"] = syncs
+    emit({"phase": "syncs_per_op", **syncs})
+    # ---- phase 4: card vs CPU
+    same = []
+    for kind in KINDS:
+        for mode in ("partly", "full"):
+            out = {}
+            for d in ("cuda", "cpu"):
+                r = workload(kind, mode, PARITY_N, d, seed=3)
+                out[d] = (hashlib.sha256(image_of(r["arena"])).hexdigest(),
+                          r["stats"])
+            if out["cuda"] != out["cpu"]:
+                raise AssertionError(f"{kind} {mode}: card and CPU images "
+                                     f"or FlushStats differ")
+            same.append(f"{kind}.{mode}:{out['cuda'][0][:12]}")
+    report["card_vs_cpu"] = same
+    emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same})
+    # ---- summary
+    kernels = []
+    for name, row in parity["rows"].items():
+        kernels.append({"name": name, "route": "cuda",
+                        "launches": launches[name], "bound_by": "bytes",
+                        **row})
+    report["card"] = card
+    if args.report:
+        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.report).write_text(json.dumps(report, indent=1,
+                                                default=str))
+    print(card, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,393 @@
+"""Persistent arena: the framework's "persistent memory", the port of the
+single-arena barrier core of ``repro.core.arena``.
+
+* Every region's VOLATILE copy (``Region.vol``) is a torch tensor on the
+  arena's device — the working copy the structures mutate.
+* The PERSISTENT image stays in host memory: an ``np.uint8`` buffer for
+  ``path=None``, or an ``np.memmap`` of the backing file.  Its byte layout
+  is the reference's exactly (regions row-aligned to 64 B after a 4 KiB
+  header page, the ``_HDR_FMT`` commit header, the ``.layout`` sidecar),
+  so an arena file moves between the two packages.
+* Structures mark dirty rows inside ``Arena.epoch()``; the epoch exit
+  drains the write set once (core/writeset.py): rows deduplicated, lines
+  coalesced across the operation, data regions before header regions.
+  Flush cost is accounted in 64 B lines, with the optional synthetic
+  per-line and per-fence latencies of the reference.
+* ``commit()`` orders data before metadata: drain, flush the file, fence,
+  then set the header's valid flag.  ``crash()`` drops all volatile
+  state; ``reopen()`` copies each region back to the device.
+
+The arena runs on ``cuda`` unless the caller passes ``device="cpu"``.  With
+no device given and no GPU present it raises: it never falls back to the
+CPU silently.  The reference's other feature axes (shadow commit,
+sharding, paging, integrity sidecars) are not ported yet; asking for one
+raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import struct
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.writeset import WriteSet, gather_rows, host_rows
+
+LINE = 64                 # flush granularity (bytes) — paper's cache line
+MEDIA_GRAIN = 256         # DCPMM internal granularity (§IV-D bucket sizing)
+
+_MAGIC = b"RPRA"
+_HDR_FMT = "<4sQQ?7x"     # magic, n_regions, generation, valid flag
+
+_TORCH_DTYPES = {np.dtype(d): t for d, t in (
+    (np.int64, torch.int64), (np.int32, torch.int32),
+    (np.int16, torch.int16), (np.int8, torch.int8),
+    (np.uint8, torch.uint8), (np.float64, torch.float64),
+    (np.float32, torch.float32), (np.float16, torch.float16),
+    (np.bool_, torch.bool))}
+
+
+def not_ported(feature: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to repro_torch yet (ROADMAP Queue 1, "
+        f"Slice A item 4: {feature})")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the GPU, and raises when
+    there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("repro_torch runs on a CUDA device; none is "
+                               "available (pass device='cpu' to run on the "
+                               "CPU)")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+@dataclass
+class FlushStats:
+    lines: int = 0
+    bytes: int = 0
+    calls: int = 0
+    fence_ns: int = 0      # synthetic latency accumulated (if enabled)
+    fences: int = 0        # ordering points paid (barrier phases + commits)
+    # epoch-flush (write-set) counters
+    epochs: int = 0        # batched epoch flushes performed
+    marks: int = 0         # mark_rows calls absorbed by the write set
+    dedup_rows: int = 0    # row marks dropped as duplicates within an epoch
+    saved_lines: int = 0   # lines one accounting call PER MARK would have
+                           # charged minus lines the epoch flush charged
+    # the reference's separate counters for snapshot, journal and
+    # integrity-sidecar lines; zero until those features are ported
+    snapshot_lines: int = 0
+    journal_lines: int = 0
+    integrity_lines: int = 0
+
+
+class Region:
+    """A named, row-structured persistent region."""
+
+    def __init__(self, arena: "Arena", name: str, dtype,
+                 shape: Tuple[int, ...], offset: int,
+                 meta: Optional[bool] = None):
+        self.arena = arena
+        self.name = name
+        self.dtype = np.dtype(dtype)
+        if self.dtype not in _TORCH_DTYPES:
+            raise TypeError(f"region {name!r}: no torch dtype for "
+                            f"{self.dtype}")
+        self.tdtype = _TORCH_DTYPES[self.dtype]
+        self.shape = tuple(int(s) for s in shape)
+        self.offset = offset
+        # Metadata regions (structure headers) flush AFTER data regions
+        # within an epoch — data-before-metadata ordering.
+        self.meta = name.endswith("header") if meta is None else meta
+        self.rowbytes = int(self.dtype.itemsize
+                            * np.prod(self.shape[1:], dtype=np.int64)) \
+            if len(self.shape) > 1 else self.dtype.itemsize
+        self.nbytes = self.rowbytes * self.shape[0]
+        self._crash_reset()
+
+    def _crash_reset(self) -> None:
+        """Volatile copy zeroed: creation, and a simulated power loss."""
+        self.vol = torch.zeros(self.shape, dtype=self.tdtype,
+                               device=self.arena.device)
+
+    # -- persistence ------------------------------------------------------
+    def _pview(self) -> np.ndarray:
+        flat = np.frombuffer(self.arena._mm, dtype=np.uint8,
+                             count=self.nbytes, offset=self.offset)
+        return flat.view(self.dtype).reshape(self.shape)
+
+    def read_row(self, i: int) -> np.ndarray:
+        """Host copy of volatile row i (one device sync on a card)."""
+        return self.vol[i].cpu().numpy().copy()
+
+    def write_row(self, i: int, row: np.ndarray) -> None:
+        self.vol[i] = torch.from_numpy(row).to(self.vol.device)
+
+    def persist_rows(self, rows) -> None:
+        """Flush the given row indices (volatile -> persistent) NOW, with
+        per-call line accounting.  Structures prefer ``mark_rows``."""
+        rows = np.unique(host_rows(rows))
+        if rows.size == 0:
+            return
+        self._pview()[rows] = gather_rows(self, rows)
+        self.arena._account_rows(self.offset, self.rowbytes, rows)
+
+    def mark_rows(self, rows, fresh: bool = False) -> None:
+        """Add rows to the arena's write set (flushed once, deduplicated,
+        when the enclosing epoch closes); outside any epoch this is an
+        immediate ``persist_rows``.  ``fresh`` is the reference's shadow
+        commit hint, which barrier mode ignores."""
+        if self.arena._epoch_depth > 0:
+            self.arena.writeset.mark(self, rows)
+        else:
+            self.persist_rows(rows)
+
+    def mark_range(self, lo: int, hi: int, fresh: bool = False) -> None:
+        if hi > lo:
+            self.mark_rows(np.arange(lo, hi, dtype=np.int64), fresh=fresh)
+
+    def load(self) -> None:
+        """Reload the volatile copy from persistent memory (post-crash),
+        paying the synthetic media read latency when the arena models
+        one."""
+        self.vol = torch.from_numpy(np.array(self._pview())).to(
+            self.arena.device)
+        self.arena.synth_read(self.nbytes)
+
+
+class Arena:
+    """Host-image persistent arena with device-resident volatile regions
+    and flush accounting."""
+
+    def __init__(self, path: Optional[str], synth_line_ns: float = 0.0,
+                 commit_mode: str = "barrier",
+                 synth_fence_ns: float = 0.0, paged: Optional[bool] = None,
+                 integrity: Optional[bool] = None, device=None):
+        if commit_mode != "barrier":
+            if commit_mode == "shadow":
+                raise not_ported("shadow commit")
+            raise ValueError(f"unknown commit_mode {commit_mode!r}")
+        if paged:
+            raise not_ported("paging")
+        if integrity:
+            raise not_ported("integrity sidecars")
+        self.device = resolve_device(device)
+        self.path = path
+        self.regions: Dict[str, Region] = {}
+        self.stats = FlushStats()
+        self.synth_line_ns = synth_line_ns
+        self.synth_fence_ns = synth_fence_ns
+        self.commit_mode = commit_mode
+        self._defer = False
+        self._defer_ns = 0
+        self.writeset = WriteSet(self)
+        self._epoch_depth = 0
+        self._layout_final = False
+        self._mm: Optional[np.ndarray] = None
+        self._cursor = 4096  # header page
+        self._meta: Dict[str, dict] = {}
+        self.generation = 0
+
+    # -- epochs -----------------------------------------------------------
+    @contextlib.contextmanager
+    def epoch(self):
+        """One logical operation: ``mark_rows`` calls inside the block
+        accumulate in the write set; the outermost epoch exit flushes them
+        once."""
+        self._epoch_depth += 1
+        try:
+            yield self
+        finally:
+            self._epoch_depth -= 1
+            if self._epoch_depth == 0:
+                self.writeset.flush()
+
+    # -- layout -----------------------------------------------------------
+    def region(self, name: str, dtype, shape: Tuple[int, ...],
+               meta: Optional[bool] = None) -> Region:
+        if self._layout_final:
+            raise RuntimeError("layout already finalized")
+        if name in self.regions:
+            raise ValueError(f"region {name!r} already declared")
+        # Row-align every region to LINE so a row flush never straddles an
+        # unrelated region (paper: __attribute__((aligned(64)))).
+        self._cursor = _align(self._cursor, LINE)
+        r = Region(self, name, dtype, shape, self._cursor, meta=meta)
+        self._cursor += _align(r.nbytes, LINE)
+        self.regions[name] = r
+        self._meta[name] = {"dtype": np.dtype(dtype).str,
+                            "shape": list(shape), "offset": r.offset}
+        return r
+
+    def finalize(self) -> None:
+        if self._layout_final:
+            raise RuntimeError("layout already finalized")
+        self._layout_final = True
+        total = _align(self._cursor, 4096)
+        if self.path is None:
+            self._mm = np.zeros(total, np.uint8)  # in-memory image
+        else:
+            create = not os.path.exists(self.path)
+            if create:
+                with open(self.path, "wb") as f:
+                    f.truncate(total)
+            elif os.path.getsize(self.path) < total:
+                # np.memmap in r+ mode would silently re-extend a short
+                # file with zeros
+                raise OSError(f"backing file {self.path!r} truncated: "
+                              f"{os.path.getsize(self.path)} < {total} "
+                              f"bytes")
+            self._mm = np.memmap(self.path, dtype=np.uint8, mode="r+",
+                                 shape=(total,))
+            if create:
+                self._write_header(valid=False)
+            with open(self.path + ".layout", "w") as f:
+                json.dump(self._meta, f)
+
+    # -- header / commit protocol -----------------------------------------
+    def _write_header(self, valid: bool) -> None:
+        hdr = struct.pack(_HDR_FMT, _MAGIC, len(self.regions),
+                          self.generation, valid)
+        self._mm[: len(hdr)] = np.frombuffer(hdr, np.uint8)
+
+    def header_generation(self) -> int:
+        """Committed generation as persisted in the header — survives a
+        fresh-process reopen, unlike the in-memory ``generation``."""
+        raw = bytes(self._mm[: struct.calcsize(_HDR_FMT)])
+        magic, _, gen, _ = struct.unpack(_HDR_FMT, raw)
+        return int(gen) if magic == _MAGIC else 0
+
+    def commit(self) -> None:
+        """Data-before-metadata ordering: drain the write set, flush file
+        contents, fence, then set the valid flag."""
+        self.writeset.flush()
+        if isinstance(self._mm, np.memmap):
+            self._mm.flush()
+        self._fence()
+        self.generation += 1
+        self._write_header(valid=True)
+        if isinstance(self._mm, np.memmap):
+            self._mm.flush()
+        self.stats.calls += 1
+
+    def _fence(self) -> None:
+        """One ordering point, counted and paid synthetically when
+        ``synth_fence_ns`` models the stall."""
+        self.stats.fences += 1
+        if self.synth_fence_ns:
+            self._stall(int(self.synth_fence_ns))
+
+    # -- crash simulation ---------------------------------------------------
+    def crash(self) -> None:
+        """Discard all volatile state (keep the persistent image); pending
+        write-set marks die with it."""
+        self.writeset.discard()
+        for r in self.regions.values():
+            r._crash_reset()
+
+    def reopen(self) -> None:
+        """Copy every region back to the device from the persistent image,
+        and re-anchor the in-memory generation to the committed one."""
+        for r in self.regions.values():
+            r.load()
+        self.generation = max(self.generation, self.header_generation())
+
+    # -- accounting ---------------------------------------------------------
+    @staticmethod
+    def _rows_line_count(base: int, rowbytes: int, rows: np.ndarray) -> int:
+        """Distinct 64 B lines touched by flushing `rows` (sorted unique)."""
+        if rowbytes % LINE == 0 and base % LINE == 0:
+            return int(rows.size) * (rowbytes // LINE)
+        if rowbytes and LINE % rowbytes == 0 and base % LINE == 0:
+            # sub-line rows that tile lines exactly: sorted-unique rows
+            # sharing a line are adjacent, so distinct lines = breaks + 1
+            per = LINE // rowbytes
+            if rows.size == 0:
+                return 0
+            return int(np.count_nonzero(np.diff(rows // per))) + 1
+        # exact distinct-line count over sorted row intervals (adjacent
+        # rows may share a line — the Fig-12 unaligned-flush effect)
+        starts = (base + rows * rowbytes) // LINE
+        ends = (base + (rows + 1) * rowbytes - 1) // LINE
+        starts = np.maximum(starts,
+                            np.concatenate(([-1], ends[:-1])) + 1)
+        return int(np.sum(np.maximum(0, ends - starts + 1)))
+
+    def _account_rows(self, base: int, rowbytes: int,
+                      rows: np.ndarray) -> None:
+        lines = self._rows_line_count(base, rowbytes, rows)
+        self.stats.lines += lines
+        self.stats.bytes += int(rows.size) * rowbytes
+        self.stats.calls += 1
+        self._synth(lines)
+
+    def _synth(self, lines: int) -> None:
+        if self.synth_line_ns:
+            self._stall(int(lines * self.synth_line_ns))
+
+    def synth_read(self, nbytes: int) -> None:
+        """Synthetic media READ latency for a reload of `nbytes`, at 256 B
+        media grains (zero-cost unless ``synth_line_ns`` is set)."""
+        if self.synth_line_ns:
+            grains = (nbytes + MEDIA_GRAIN - 1) // MEDIA_GRAIN
+            self._stall(int(grains * self.synth_line_ns))
+
+    @contextlib.contextmanager
+    def stall_scope(self):
+        """Aggregate synthetic stalls issued inside the block into ONE
+        stall paid at exit; the ``fence_ns`` accounting is unchanged."""
+        self._defer_ns = 0
+        self._defer = True
+        try:
+            yield
+        finally:
+            self._defer = False
+            ns, self._defer_ns = self._defer_ns, 0
+            if ns:
+                self._pay(ns)
+
+    def _stall(self, ns: int) -> None:
+        self.stats.fence_ns += ns
+        if self._defer:
+            self._defer_ns += ns
+            return
+        self._pay(ns)
+
+    @staticmethod
+    def _pay(ns: int) -> None:
+        t0 = time.perf_counter_ns()
+        while time.perf_counter_ns() - t0 < ns:
+            pass
+
+    def close(self) -> None:
+        if isinstance(self._mm, np.memmap):
+            self._mm.flush()
+        self._mm = None
+
+
+def _align(x: int, a: int) -> int:
+    return ((x + a - 1) // a) * a
+
+
+def open_arena(path: Optional[str], layout: Dict[str, Tuple],
+               n_shards: int = 1, **kw) -> Arena:
+    """Create/open an arena with the given layout: ``{name: (dtype,
+    shape)}`` (a third router entry, as the reference's layouts carry, is
+    ignored).  Keyword arguments go to ``Arena``; ``device`` picks where
+    the volatile regions live."""
+    if n_shards != 1:
+        raise not_ported("sharding")
+    a = Arena(path, **kw)
+    for name, spec in layout.items():
+        a.region(name, spec[0], spec[1])
+    a.finalize()
+    return a

@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Every kernel wrapper counts its launches in a ``launches`` attribute;
+``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them,
+so a run can show which kernels its main path went through.
+"""
+from typing import Dict
+
+from repro_torch.kernels import chain_order, pack_flush
+
+WRAPPERS = {
+    "pack_rows": pack_flush.pack_rows,
+    "jump_double": chain_order.jump_double,
+    "walk_segments": chain_order.walk_segments,
+    "expand_segments": chain_order.expand_segments,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

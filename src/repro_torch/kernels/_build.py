@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
+plain C interface, which ``ctypes`` loads.  The library lands in
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
+named after a hash of its source and flags, so an edited source rebuilds
+and an unchanged one is built once.  Nothing here runs at import time: the
+first launch builds, and ``build()`` starts every compiler at once when a
+caller wants all kernels ready up front.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCES = ("pack_flush", "chain_order")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+# argtypes of every C entry point: pointers and the stream as c_void_p, or
+# ctypes would pass them as 32-bit ints and cut them
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "pack_flush": {
+        "pack_rows_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _P],
+    },
+    "chain_order": {
+        "jump_double_launch": [_P, _P, _P, _P, _I64, _P],
+        "walk_segments_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
+                                 _INT, _INT, _INT, _INT, _P],
+        "expand_segments_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+    },
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when the toolkit is missing."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=SOURCES) -> Dict[str, float]:
+    """Compile every library in ``names`` that is not built yet, all
+    compilers started together.  Returns {name: seconds} for the ones it
+    built; raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List[Tuple[str, Path, Path, subprocess.Popen, float]] = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp,
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT),
+                      time.perf_counter()))
+    took: Dict[str, float] = {}
+    failed = []
+    for name, out, tmp, proc, t0 in procs:
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_bytes(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
+                          f"{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)     # atomic: a concurrent loader sees all or none
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built on first use), its entry points
+    typed from SIGNATURES."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    path = library_path(name)
+    if not path.exists():
+        build((name,))
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _loaded[name] = lib
+    return lib

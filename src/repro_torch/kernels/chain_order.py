@@ -1,0 +1,336 @@
+"""chain_order: the list-ranking kernels of recovery, and the driver
+pieces that run between them.
+
+Three kernels, each a wrapper that dispatches by where its tensors live
+(CPU tensors take the ``*_plain`` version; CUDA tensors launch the kernel
+or raise) and counts its launches:
+
+* ``jump_double`` — one pointer-doubling round (``jump' = jump[jump]``,
+  ``cnt' = cnt + cnt[jump]``, NULL absorbing).  It builds the
+  binary-lifting tables and ranks the contracted chain.
+* ``walk_segments`` — the contraction local walk: every lane hops toward
+  its next spine node, up to ``budget`` hops per launch.
+* ``expand_segments`` — the contraction expand: every used segment writes
+  its run of node ids into the final order.
+
+``csrc/chain_order.cu`` holds the Hopper kernels and their design notes.
+The driver pieces below (``sanitize32``, ``chain_tables``,
+``contract_walk``, ``walk_positions``) are torch ops on whatever device
+the chain lives on; ``core/recovery.py`` composes them into the chain
+primitives with the host reference's exact semantics.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+NULL = -1
+
+__all__ = ["jump_double", "jump_double_plain", "walk_segments",
+           "walk_segments_plain", "expand_segments", "expand_segments_plain",
+           "sanitize32", "chain_tables", "contract_walk", "walk_positions"]
+
+
+# ----------------------------------------------------------------- checks
+
+def _vec(name: str, t: torch.Tensor, dtype: torch.dtype,
+         device: torch.device) -> None:
+    if t.dim() != 1 or t.dtype != dtype:
+        raise TypeError(f"{name} must be 1-D {dtype}, got {t.dtype} shape "
+                        f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _cuda(t: torch.Tensor, fn: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise RuntimeError(f"{fn}: no kernel for device {t.device}")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{fn}: {t.numel()} nodes exceed int32 node ids")
+    return True
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, fn: str) -> None:
+    if rc:
+        raise RuntimeError(f"{fn}: kernel launch failed (CUDA error {rc})")
+
+
+# ------------------------------------------------------------ jump_double
+
+def jump_double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of one doubling round.  ``jump`` int32 (n,), ``cnt``
+    int64 (n,) or None.  Values outside [0, n) are NULL on input and
+    output."""
+    n = jump.shape[0]
+    live = (jump >= 0) & (jump < n)
+    safe = torch.where(live, jump, 0).long()
+    nj = jump[safe]
+    nj = torch.where(live & (nj >= 0) & (nj < n), nj, NULL).to(torch.int32)
+    if cnt is None:
+        return nj, None
+    return nj, cnt + torch.where(live, cnt[safe], 0)
+
+
+def jump_double(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One pointer-doubling round: ``jump'[i] = jump[jump[i]]`` and, when
+    ``cnt`` is given, ``cnt'[i] = cnt[i] + cnt[jump[i]]`` for live lanes.
+    NULL absorbs; a pointer outside [0, n) terminates like NULL."""
+    _vec("jump", jump, torch.int32, jump.device)
+    if cnt is not None:
+        _vec("cnt", cnt, torch.int64, jump.device)
+        if cnt.shape != jump.shape:
+            raise ValueError("jump_double: jump and cnt differ in shape")
+    if not _cuda(jump, "jump_double"):
+        return jump_double_plain(jump, cnt)
+    n = jump.shape[0]
+    jout = torch.empty_like(jump)
+    cout = torch.empty_like(cnt) if cnt is not None else None
+    if n == 0:
+        return jout, cout
+    lib = _build.load("chain_order")
+    with torch.cuda.device(jump.device):
+        rc = lib.jump_double_launch(
+            jump.data_ptr(), cnt.data_ptr() if cnt is not None else None,
+            jout.data_ptr(), cout.data_ptr() if cout is not None else None,
+            n, _stream(jump))
+    _raise_on(rc, "jump_double")
+    jump_double.launches += 1
+    return jout, cout
+
+
+jump_double.launches = 0
+
+
+# ---------------------------------------------------------- walk_segments
+
+def _spine_index(cur: torch.Tensor, k: int, head: int, n_mult: int,
+                 promoted: bool, spine_pos: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """Spine index of each id (NULL off the spine); ids must be >= 0."""
+    if spine_pos is not None:
+        return spine_pos[cur.long()]
+    sp = torch.where(cur % k == 0, cur // k, NULL)
+    if promoted:
+        sp = torch.where(cur == head, n_mult, sp)
+    return sp.to(torch.int32)
+
+
+def walk_segments_plain(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
+                        head: int, n_mult: int, promoted: bool,
+                        budget: int,
+                        spine_pos: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the fused local walk: every lane advances one hop
+    per step, freezing when it reaches a spine node or the chain end."""
+    n = nxt.shape[0]
+    cur = starts.clone()
+    w = torch.zeros_like(starts)
+    sp = torch.full_like(starts, NULL)
+    done = cur < 0
+    for _ in range(budget):
+        live = ~done
+        if not bool(live.any()):
+            break
+        inr = (cur >= 0) & (cur < n)
+        nv = torch.where(inr, nxt[torch.where(inr, cur, 0).long()], NULL)
+        nv = torch.where((nv >= 0) & (nv < n), nv, NULL)
+        cur = torch.where(live, nv, cur)
+        w = torch.where(live, w + 1, w)
+        spv = _spine_index(torch.where(cur >= 0, cur, 0), k, head, n_mult,
+                           promoted, spine_pos)
+        arrived = live & (cur >= 0) & (spv >= 0)
+        sp = torch.where(arrived, spv, sp)
+        done = done | (live & ((cur < 0) | arrived))
+    return cur, sp, w
+
+
+def walk_segments(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
+                  head: int, n_mult: int, promoted: bool, budget: int,
+                  spine_pos: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Walk every lane's segment toward its next spine node, up to
+    ``budget`` hops.  Spine nodes are ``id % k == 0`` (spine index
+    ``id // k``) plus, when ``promoted``, ``head`` (index ``n_mult``) — or,
+    when ``spine_pos`` (int32 (n,), NULL off the spine) is given, the ids
+    it maps.  Returns int32 ``(cur, sp, w)`` per lane: the final id (NULL
+    once the chain ended), the spine index arrived at (NULL if still
+    walking or ended) and the hops taken."""
+    dev = nxt.device
+    _vec("nxt", nxt, torch.int32, dev)
+    _vec("starts", starts, torch.int32, dev)
+    if spine_pos is not None:
+        _vec("spine_pos", spine_pos, torch.int32, dev)
+    if not _cuda(nxt, "walk_segments"):
+        return walk_segments_plain(nxt, starts, k=k, head=head,
+                                   n_mult=n_mult, promoted=promoted,
+                                   budget=budget, spine_pos=spine_pos)
+    lanes = starts.shape[0]
+    cur = torch.empty_like(starts)
+    sp = torch.empty_like(starts)
+    w = torch.empty_like(starts)
+    if lanes == 0:
+        return cur, sp, w
+    lib = _build.load("chain_order")
+    with torch.cuda.device(dev):
+        rc = lib.walk_segments_launch(
+            nxt.data_ptr(), starts.data_ptr(),
+            spine_pos.data_ptr() if spine_pos is not None else None,
+            cur.data_ptr(), sp.data_ptr(), w.data_ptr(), nxt.shape[0], lanes,
+            int(k), int(head), int(n_mult), int(promoted), int(budget),
+            _stream(nxt))
+    _raise_on(rc, "walk_segments")
+    walk_segments.launches += 1
+    return cur, sp, w
+
+
+walk_segments.launches = 0
+
+
+# -------------------------------------------------------- expand_segments
+
+def expand_segments_plain(nxt: torch.Tensor, starts: torch.Tensor,
+                          posn: torch.Tensor, rem: torch.Tensor,
+                          count: int) -> torch.Tensor:
+    """Plain version of the expand: all lanes advance together, each
+    retiring when its run is written."""
+    n = nxt.shape[0]
+    out = torch.empty(count, dtype=torch.int64, device=nxt.device)
+    keep = rem > 0
+    cur, p, r = starts[keep].long(), posn[keep].long(), rem[keep].long()
+    while cur.numel():
+        out[p] = cur
+        r = r - 1
+        kp = r > 0
+        cur = cur[kp]
+        inr = (cur >= 0) & (cur < n)
+        cur = torch.where(inr, nxt[torch.where(inr, cur, 0)].long(), NULL)
+        cur = torch.where((cur >= 0) & (cur < n), cur, NULL)
+        p, r = p[kp] + 1, r[kp]
+    return out
+
+
+def expand_segments(nxt: torch.Tensor, starts: torch.Tensor,
+                    posn: torch.Tensor, rem: torch.Tensor,
+                    count: int) -> torch.Tensor:
+    """Lane i walks ``rem[i]`` hops from ``starts[i]`` and writes each
+    visited id at ``out[posn[i] + t]``; returns the int64 (count,) order.
+    The runs must tile [0, count) (the driver guarantees it)."""
+    dev = nxt.device
+    for name, t in (("nxt", nxt), ("starts", starts), ("posn", posn),
+                    ("rem", rem)):
+        _vec(name, t, torch.int32, dev)
+    if not (starts.shape == posn.shape == rem.shape):
+        raise ValueError("expand_segments: starts, posn and rem differ")
+    if not _cuda(nxt, "expand_segments"):
+        return expand_segments_plain(nxt, starts, posn, rem, count)
+    out = torch.empty(count, dtype=torch.int64, device=dev)
+    lanes = starts.shape[0]
+    if lanes == 0 or count == 0:
+        return out
+    lib = _build.load("chain_order")
+    with torch.cuda.device(dev):
+        rc = lib.expand_segments_launch(
+            nxt.data_ptr(), starts.data_ptr(), posn.data_ptr(),
+            rem.data_ptr(), out.data_ptr(), nxt.shape[0], lanes,
+            _stream(nxt))
+    _raise_on(rc, "expand_segments")
+    expand_segments.launches += 1
+    return out
+
+
+expand_segments.launches = 0
+
+
+# ---------------------------------------------------------- driver pieces
+
+def sanitize32(nxt: torch.Tensor) -> torch.Tensor:
+    """Out-of-range pointers -> NULL, narrowed to int32 only AFTER the
+    range check at the input's own width: a torn 2**32+3 must end the
+    chain, not alias node 3."""
+    n = nxt.shape[0]
+    return torch.where((nxt >= 0) & (nxt < n), nxt, NULL).to(
+        torch.int32).contiguous()
+
+
+def chain_tables(jump0: torch.Tensor, bits: int,
+                 cnt: Optional[torch.Tensor] = None
+                 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+    """Binary-lifting tables from ``jump_double`` rounds: ``tables[b][i]``
+    is the node 2**b hops after i (NULL-absorbing), b < bits.  With
+    ``cnt`` (int64 node weights) one more round runs so the returned
+    counts are the weights summed over min(2**bits, chain length) nodes."""
+    tables = [jump0]
+    jump = jump0
+    for _ in range(bits - 1):
+        jump, cnt = jump_double(jump, cnt)
+        tables.append(jump)
+    if cnt is not None:
+        _, cnt = jump_double(jump, cnt)
+    return tables, cnt
+
+
+def walk_positions(tables: List[torch.Tensor], start: int, count: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Node at each position 0..count-1 of the chain from ``start``, read
+    off the tables bit by bit.  Returns (int32 ids, dead) where ``dead``
+    marks positions past the chain end (absorbed into NULL)."""
+    dev = tables[0].device
+    pos = torch.arange(count, device=dev)
+    cur = torch.full((count,), start, dtype=torch.int32, device=dev)
+    dead = torch.zeros(count, dtype=torch.bool, device=dev)
+    for b in range(min(len(tables), int(count - 1).bit_length())):
+        m = ((pos >> b) & 1).bool() & ~dead
+        nb = tables[b][torch.where(dead, 0, cur).long()]
+        cur = torch.where(m, nb, cur)
+        dead = dead | (cur == NULL)
+    return cur, dead
+
+
+def contract_walk(nxt32: torch.Tensor, spine: torch.Tensor, *, k: int,
+                  head: int, n_mult: int, promoted: bool,
+                  spine_pos: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The contraction local walk, fused: ``walk_segments`` rounds of up to
+    ``budget`` hops per lane, lanes that arrive (or end) retired between
+    rounds, until every segment closed or n hops proved a spine-free
+    cycle — whose lanes get the POISON weight n+1, so any length summed
+    through them exceeds n.  Returns (cnext, w): the contracted next
+    pointer (spine-index space, NULL-terminated) and the segment weights
+    (nodes per segment)."""
+    n = nxt32.shape[0]
+    dev = nxt32.device
+    S = spine.shape[0]
+    cnext = torch.full((S,), NULL, dtype=torch.int32, device=dev)
+    w = torch.zeros(S, dtype=torch.int64, device=dev)
+    lanes = torch.arange(S, device=dev)
+    cur = spine.to(torch.int32)
+    budget = max(2 * k, 64)
+    hops = 0
+    while lanes.numel() and hops <= n:
+        c2, sp, wd = walk_segments(nxt32, cur.contiguous(), k=k, head=head,
+                                   n_mult=n_mult, promoted=promoted,
+                                   budget=budget, spine_pos=spine_pos)
+        w[lanes] += wd.long()
+        arrived = sp >= 0
+        cnext[lanes[arrived]] = sp[arrived]
+        alive = (c2 >= 0) & ~arrived
+        lanes = lanes[alive]
+        cur = c2[alive]
+        hops += budget
+    if lanes.numel():                  # spine-free cycle: poison
+        w[lanes] = n + 1
+    return cnext, torch.clamp(w, min=1)

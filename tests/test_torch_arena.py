@@ -1,0 +1,164 @@
+"""repro_torch arena + write set vs the reference: the same mark / epoch /
+commit / crash sequences give byte-identical persistent images and equal
+FlushStats (every field).  The port runs on CPU tensors, with every epoch
+drain gathering through ``pack_rows`` (its plain version here)."""
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import arena as RA
+from repro_torch.core import arena as TA
+
+LAYOUT = {"a": (np.int64, (64, 8)),       # 64 B rows: one line each
+          "b": (np.int64, (64, 2)),       # 16 B rows: four per line
+          "c": (np.int32, (40, 5)),       # 20 B rows: straddle lines
+          "w": (np.int32, (16, 64)),      # 256 B rows (B+Tree nodes)
+          "x.header": (np.int64, (1, 8))}
+
+
+def _ref(path=None, **kw):
+    return RA.open_arena(path, LAYOUT, integrity=False, **kw)
+
+
+def _port(path=None, **kw):
+    return TA.open_arena(path, LAYOUT, device="cpu", **kw)
+
+
+def _put(arena, name, rows, vals):
+    r = arena.regions[name]
+    if isinstance(r.vol, torch.Tensor):
+        r.vol[torch.as_tensor(rows)] = torch.as_tensor(vals, dtype=r.vol.dtype)
+    else:
+        r.vol[rows] = vals
+
+
+def _stats(a):
+    return dataclasses.asdict(a.stats)
+
+
+def _scenario(a, rng):
+    """A mixed sequence; returns the images + stats after each commit."""
+    out = []
+    for step in range(6):
+        with a.epoch():
+            for name in ("a", "b", "c", "w"):
+                n, width = LAYOUT[name][1]
+                for _ in range(3):    # overlapping marks: dedup + coalesce
+                    rows = rng.choice(n, rng.integers(1, 9), replace=False)
+                    _put(a, name, rows, rng.integers(
+                        -999, 999, (rows.size, width)))
+                    a.regions[name].mark_rows(rows)
+            _put(a, "x.header", [0], rng.integers(0, 99, (1, 8)))
+            a.regions["x.header"].mark_rows(np.array([0]))
+            if step == 2:
+                with a.epoch():       # nested epoch flushes at outermost
+                    a.regions["a"].mark_rows(np.array([5, 6]))
+        if step == 3:
+            # outside any epoch: immediate per-call persists
+            a.regions["b"].mark_rows(np.array([1, 2, 3]))
+            a.regions["c"].persist_rows(np.array([9, 3, 4, 3]))
+        a.commit()
+        out.append((np.array(a._mm), _stats(a), a.header_generation()))
+    return out
+
+
+def test_scenario_images_and_stats_identical():
+    got = _scenario(_port(), np.random.default_rng(1))
+    want = _scenario(_ref(), np.random.default_rng(1))
+    for (gi, gs, gg), (wi, ws, wg) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        assert gs == ws
+        assert gg == wg
+
+
+def test_every_drain_gathers_through_pack_rows(monkeypatch):
+    """The port's drain has no non-kernel gather: every flushed region's
+    rows go through pack_rows, once per region per drain."""
+    from repro_torch.core import writeset
+    calls = []
+    real = writeset.pack_rows
+
+    def counting(src, idx):
+        calls.append(int(idx.shape[0]))
+        return real(src, idx)
+
+    monkeypatch.setattr(writeset, "pack_rows", counting)
+    a = _port()
+    with a.epoch():
+        a.regions["a"].mark_rows(np.array([1, 2, 2]))
+        a.regions["w"].mark_rows(np.array([3]))
+        a.regions["x.header"].mark_rows(np.array([0]))
+    assert calls == [2, 1, 1]
+    a.regions["b"].persist_rows(np.array([4, 5]))    # outside any epoch
+    assert calls[-1] == 2
+
+
+def test_torn_epoch_data_before_metadata():
+    """flush(include_meta=False) writes the data half and drops the
+    header marks: both packages leave the same bytes and stats."""
+    res = []
+    for a in (_port(), _ref()):
+        rng = np.random.default_rng(3)
+        _scenario(a, rng)
+        with a.epoch():
+            _put(a, "a", [9, 10], rng.integers(0, 9, (2, 8)))
+            a.regions["a"].mark_rows(np.array([9, 10]))
+            _put(a, "x.header", [0], rng.integers(0, 9, (1, 8)))
+            a.regions["x.header"].mark_rows(np.array([0]))
+            a.writeset.flush(include_meta=False)
+            assert not a.writeset
+            a.crash()
+        a.reopen()
+        res.append((np.array(a._mm), _stats(a), a.generation,
+                    np.asarray(a.regions["x.header"].vol).copy()))
+    np.testing.assert_array_equal(res[0][0], res[1][0])
+    assert res[0][1] == res[1][1] and res[0][2] == res[1][2]
+    np.testing.assert_array_equal(res[0][3], res[1][3])
+
+
+def test_crash_drops_volatile_and_reopen_reloads():
+    a = _port()
+    _scenario(a, np.random.default_rng(4))
+    a.crash()
+    assert all(int(r.vol.abs().sum()) == 0 for r in a.regions.values())
+    a.reopen()
+    for r in a.regions.values():
+        np.testing.assert_array_equal(r.vol.numpy(), r._pview())
+
+
+def test_path_backed_file_and_layout_sidecar_identical(tmp_path):
+    for mk, p in ((_port, tmp_path / "t.arena"), (_ref, tmp_path / "r.arena")):
+        a = mk(str(p))
+        _scenario(a, np.random.default_rng(5))
+        a.close()
+    assert (tmp_path / "t.arena").read_bytes() == \
+        (tmp_path / "r.arena").read_bytes()
+    assert json.loads((tmp_path / "t.arena.layout").read_text()) == \
+        json.loads((tmp_path / "r.arena.layout").read_text())
+    # a fresh process reopening the file reads the committed generation
+    a = _port(str(tmp_path / "r.arena"))
+    assert a.header_generation() == 6
+
+
+def test_synthetic_latency_accounting_matches():
+    got = _scenario(_port(synth_line_ns=5.0, synth_fence_ns=20.0),
+                    np.random.default_rng(6))
+    want = _scenario(_ref(synth_line_ns=5.0, synth_fence_ns=20.0),
+                     np.random.default_rng(6))
+    assert got[-1][1] == want[-1][1]
+    assert got[-1][1]["fence_ns"] > 0
+
+
+def test_device_and_feature_axes():
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TA.Arena(None)              # no silent CPU fallback
+    for kw in ({"commit_mode": "shadow"}, {"paged": True},
+               {"integrity": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TA.Arena(None, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="sharding"):
+        TA.open_arena(None, LAYOUT, n_shards=2, device="cpu")

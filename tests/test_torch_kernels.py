@@ -1,0 +1,181 @@
+"""repro_torch kernel modules vs the JAX reference kernels.
+
+The port's kernels run only on the card; here, on CPU tensors, every
+wrapper takes its plain version, which is held against the reference's
+Pallas kernel in interpret mode and its jnp oracle.  All results are
+integers, compared for exact equality (tolerance 0).  ``chip_smoke.py``
+holds the CUDA kernels against the same plain versions on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import recovery as R
+from repro.kernels import chain_order as jco
+from repro.kernels import pack_flush as jpf
+from repro.kernels import ref
+from repro_torch.core import recovery as TR
+from repro_torch.kernels import chain_order as tco
+from repro_torch.kernels import launch_counts, pack_flush as tpf
+
+
+# ---------------------------------------------------------------- pack
+
+@pytest.mark.parametrize("rowbytes", [64, 128, 256])
+def test_pack_rows_plain_matches_pallas_and_oracle(rowbytes):
+    rng = np.random.default_rng(rowbytes)
+    n, m = 96, 40
+    src = rng.integers(-(1 << 62), 1 << 62, (n, rowbytes // 8),
+                       dtype=np.int64)
+    idx = rng.integers(-1, n, m).astype(np.int32)   # includes -1 sentinels
+    idx[:3] = -1
+    got = tpf.pack_rows(torch.from_numpy(src), torch.from_numpy(idx))
+    assert got.dtype == torch.int64 and got.shape == (m, rowbytes // 8)
+    got_words = got.numpy().view(np.uint32)
+    # the reference kernels run on uint32 words, D padded to 128 lanes
+    words = src.view(np.uint32)
+    pad = np.zeros((n, 128 * -(-words.shape[1] // 128)), np.uint32)
+    pad[:, :words.shape[1]] = words
+    want = np.asarray(jpf.pack_rows(jnp.asarray(pad), jnp.asarray(idx),
+                                    block_d=128, interpret=True))
+    oracle = np.asarray(ref.pack_rows_ref(jnp.asarray(words),
+                                          jnp.asarray(idx)))
+    np.testing.assert_array_equal(got_words, want[:, :words.shape[1]])
+    np.testing.assert_array_equal(got_words, oracle)
+    assert (got_words[:3] == 0).all()
+
+
+def test_pack_rows_wrapper_dispatch_and_checks():
+    src = torch.arange(32, dtype=torch.int64).reshape(4, 8)
+    idx = torch.tensor([3, -1, 0], dtype=torch.int32)
+    before = launch_counts()["pack_rows"]
+    out = tpf.pack_rows(src, idx)
+    # CPU tensors take the plain version: no kernel launch is counted
+    assert launch_counts()["pack_rows"] == before
+    np.testing.assert_array_equal(out.numpy(),
+                                  tpf.pack_rows_plain(src, idx).numpy())
+    with pytest.raises(TypeError):
+        tpf.pack_rows(src, idx.long())
+    with pytest.raises(ValueError):
+        tpf.pack_rows(src.reshape(-1), idx)
+
+
+# ------------------------------------------------------------ doubling
+
+def _chain_with_faults(n, seed):
+    """A random permutation chain with NULL cuts, out-of-range values and a
+    short cycle, as int32."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    nxt = np.full(n, -1, np.int64)
+    nxt[perm[:-1]] = perm[1:]
+    nxt[perm[n // 3]] = -1                       # NULL cut
+    nxt[perm[n // 2]] = n + 7                    # out of range
+    nxt[perm[2 * n // 3]] = 2 ** 31 - 1          # out of range, int32 max
+    a, b = perm[-3], perm[-2]
+    nxt[b] = a                                   # cycle a -> b -> a
+    return nxt.astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [8, 61, 256, 512])
+def test_jump_double_plain_matches_pallas_and_oracle(n):
+    nxt = _chain_with_faults(n, n)
+    cnt = np.random.default_rng(n + 1).integers(1, 5, n).astype(np.int32)
+    jump_t = torch.from_numpy(nxt)
+    cnt_t = torch.from_numpy(cnt.astype(np.int64))
+    jump_j, cnt_j = jnp.asarray(nxt), jnp.asarray(cnt)
+    for _ in range(3):   # several rounds, as the tables are built
+        gj, gc = tco.jump_double(jump_t, cnt_t)
+        wj, wc = jco.jump_double(jump_j, cnt_j, interpret=True)
+        np.testing.assert_array_equal(gj.numpy(), np.asarray(wj))
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+        # the oracle does not sanitize: compare on an already-sane input
+        sane = jnp.where((jump_j >= 0) & (jump_j < n), jump_j, -1)
+        oj, oc = ref.jump_double_ref(sane, cnt_j)
+        np.testing.assert_array_equal(gj.numpy(), np.asarray(oj))
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(oc))
+        jump_t, cnt_t, jump_j, cnt_j = gj, gc, wj, wc
+    nj, none = tco.jump_double(jump_t)
+    assert none is None
+    np.testing.assert_array_equal(nj.numpy(), tco.jump_double(jump_t,
+                                                              cnt_t)[0])
+
+
+def test_chain_kernel_wrappers_reject_wrong_types():
+    j = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        tco.jump_double(j)
+    with pytest.raises(TypeError):
+        tco.walk_segments(j, j, k=2, head=0, n_mult=2, promoted=False,
+                          budget=4)
+    z = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tco.expand_segments(z, z, z, z[:1], 2)
+
+
+# --------------------------------------------------------- contraction
+
+def _perm_chain(n, live, seed):
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)[:live]
+    nxt = np.full(n, -1, np.int64)
+    nxt[perm[:-1]] = perm[1:]
+    return nxt, perm
+
+
+@pytest.mark.parametrize("n,live,k,pallas", [
+    (96, 71, 4, True), (64, 64, 8, True),      # interpret mode is slow:
+    (96, 71, 32, False), (512, 512, 8, False),  # small chains only
+    (300, 1, 7, False)])
+def test_contraction_pipeline_matches_host_and_pallas(n, live, k, pallas):
+    """walk_segments/expand_segments plain versions under the port's
+    contraction driver vs the host primitive and the reference's device
+    pipeline (per-hop cascade: the fused Pallas walk cannot run on this
+    jax)."""
+    nxt, perm = _perm_chain(n, live, n + k)
+    head = int(perm[0])
+    got = TR.chain_order(torch.from_numpy(nxt), head, method="contract",
+                         k=k).numpy()
+    np.testing.assert_array_equal(got, perm)
+    np.testing.assert_array_equal(got, R.chain_order(nxt, head,
+                                                     method="contract", k=k))
+    if pallas:
+        np.testing.assert_array_equal(
+            got, jco.chain_order_device(nxt, head, method="contract", k=k,
+                                        fuse=False, interpret=True))
+    # with the committed count: the path the DLL reconstructor takes
+    c = max(1, live // 2)
+    np.testing.assert_array_equal(
+        TR.chain_order(torch.from_numpy(nxt), head, c, method="contract",
+                       k=k).numpy(),
+        R.chain_order(nxt, head, c, method="contract", k=k))
+
+
+def test_walk_and_expand_plain_step_semantics():
+    # 0 -> 5 -> 6 -> 7 -> 4 -> 9 -> NULL, k = 4: spine {0, 4, 8}
+    nxt = torch.tensor([5, -1, -1, -1, 9, 6, 7, 4, -1, -1], dtype=torch.int32)
+    starts = torch.tensor([0, 4, 8, -1], dtype=torch.int32)
+    cur, sp, w = tco.walk_segments(nxt, starts, k=4, head=-1, n_mult=3,
+                                   promoted=False, budget=8)
+    assert cur.tolist() == [4, -1, -1, -1]
+    assert sp.tolist() == [1, -1, -1, -1]
+    assert w.tolist() == [4, 2, 1, 0]
+    # a budget too small leaves the lane walking
+    cur, sp, w = tco.walk_segments(nxt, starts[:1], k=4, head=-1, n_mult=3,
+                                   promoted=False, budget=2)
+    assert (cur.tolist(), sp.tolist(), w.tolist()) == ([6], [-1], [2])
+    # a promoted head and a spine_pos table agree
+    spos = torch.full((10,), -1, dtype=torch.int32)
+    spos[torch.tensor([0, 4, 8, 6])] = torch.tensor([0, 1, 2, 3],
+                                                    dtype=torch.int32)
+    a = tco.walk_segments(nxt, starts[:1], k=4, head=6, n_mult=3,
+                          promoted=True, budget=8)
+    b = tco.walk_segments(nxt, starts[:1], k=4, head=6, n_mult=3,
+                          promoted=True, budget=8, spine_pos=spos)
+    assert [x.tolist() for x in a] == [x.tolist() for x in b] \
+        == [[6], [3], [2]]
+    out = tco.expand_segments(nxt, torch.tensor([0, 4], dtype=torch.int32),
+                              torch.tensor([0, 4], dtype=torch.int32),
+                              torch.tensor([4, 2], dtype=torch.int32), 6)
+    assert out.tolist() == [0, 5, 6, 7, 4, 9]
