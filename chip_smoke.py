@@ -11,15 +11,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    from ``src/repro_torch/csrc`` (all compilers started together);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes, exact equality (integer results, tolerance 0),
-   timed with CUDA events beside its byte bound and, for ``pack_rows``,
-   one PyTorch library call computing the same gather;
+   timed with CUDA events beside its byte bound and, for ``pack_rows``
+   and ``gather_next``, one PyTorch library call computing the same
+   gather;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
-   the B+Tree at 2**20, both modes, every epoch drain through
-   ``pack_rows``; the recovered state is checked, and every kernel's
-   launch counter must have moved during this phase;
+   the B+Tree at 2**20, both modes, order snapshots and integrity pinned
+   off, every epoch drain through ``pack_rows``; the recovered state is
+   checked; then device syncs per operation, snapshots off and on;
 4. card vs CPU: the same workload at 2**14 on ``cuda`` and on ``cpu``
-   must write identical arena images (sha256) and FlushStats.
+   must write identical arena images (sha256) and FlushStats; with order
+   snapshots on, the DLL and hashmap runs of phase 5 at 2**14 must also
+   give identical stage details (timing fields aside);
+5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
+   modes, order snapshots on, a commit after every batch of 8192, then
+   deletes and pops, a commit, a suffix of 120 appends or inserts and a
+   commit; crash and recover through ``RecoveryManager`` three times
+   (clean; newest record torn; whole snapshot ring corrupted), checking
+   ``chain``/``replayed`` and the recovered state each time.
+
+Every kernel's launch counter must move over phases 3 and 5 together,
+and ``gather_next``'s in phase 5; each count is zeroed just before its
+phase and read just after.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--report`` also writes every phase's
@@ -43,8 +56,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 SECTOR = 32                    # bytes moved by one random DRAM access
 BATCH = 8192
 MAIN_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 20}
+SNAP_N = 1 << 22
 PARITY_N = 1 << 14
 KINDS = ("dll", "hashmap", "bptree")
+SNAP_KINDS = ("dll", "hashmap")
+TIMING = {"seconds", "t_start", "t_end", "ready_at", "queue_wait",
+          "total_seconds", "wall_ms", "total_ms", "critical_path_ms"}
 
 
 def emit(obj) -> None:
@@ -53,46 +70,54 @@ def emit(obj) -> None:
 
 # ------------------------------------------------------------------ workload
 
-def build_structure(kind: str, mode: str, n: int, device):
+def build_structure(kind: str, mode: str, n: int, device,
+                    snapshot: bool = False):
+    """One structure on its own arena, every feature axis pinned."""
     from repro_torch.core.arena import open_arena
     from repro_torch.pstruct.bptree import BPTree
     from repro_torch.pstruct.dll import DoublyLinkedList
     from repro_torch.pstruct.hashmap import Hashmap
     if kind == "dll":
-        a = open_arena(None, DoublyLinkedList.layout(n, mode), device=device)
-        return a, DoublyLinkedList(a, n, mode)
+        a = open_arena(None, DoublyLinkedList.layout(n, mode,
+                                                     snapshot=snapshot),
+                       device=device, integrity=False)
+        return a, DoublyLinkedList(a, n, mode, snapshot=snapshot)
     if kind == "hashmap":
-        a = open_arena(None, Hashmap.layout(n, mode), device=device)
-        return a, Hashmap(a, n, mode)
-    a = open_arena(None, BPTree.layout(n, 2 * n, mode), device=device)
+        a = open_arena(None, Hashmap.layout(n, mode, snapshot=snapshot),
+                       device=device, integrity=False)
+        return a, Hashmap(a, n, mode, snapshot=snapshot)
+    a = open_arena(None, BPTree.layout(n, 2 * n, mode), device=device,
+                   integrity=False)
     return a, BPTree(a, n, 2 * n, mode)
 
 
-def workload(kind: str, mode: str, n: int, device, seed: int = 0) -> dict:
-    """Insert n entries in batches of 8192, delete (and, for the DLL, pop)
-    1/8 of them, commit, crash, reopen, reconstruct, then check the
-    recovered state against what the workload expects.  Data comes from
-    numpy seeded by ``seed``, so every device sees the same inputs."""
+def _inputs(kind: str, n: int, seed: int):
+    """Keys (a permutation), 7-word values and the sorted row indices to
+    delete (1/8; the DLL deletes 1/16 and pops 1/16), from numpy seeded by
+    ``seed``, so every device sees the same inputs."""
     import numpy as np
-    import torch
-
     rng = np.random.default_rng(seed)
     keys = rng.permutation(n).astype(np.int64)
     vals = rng.integers(0, 1 << 40, (n, 7)).astype(np.int64)
     gone = np.sort(rng.choice(n, n // 8 if kind != "dll" else n // 16,
                               replace=False))
-    a, s = build_structure(kind, mode, n, device)
-    sync = torch.cuda.synchronize if a.device.type == "cuda" else (
-        lambda: None)
-    t0 = time.perf_counter()
-    for i in range(0, n, BATCH):
+    return rng, keys, vals, gone
+
+
+def _fill(kind: str, a, s, keys, vals, commit_each: bool = False) -> None:
+    """Insert (DLL: append) every row in batches of 8192."""
+    for i in range(0, len(vals), BATCH):
         if kind == "dll":
             s.append_batch(vals[i:i + BATCH])
         else:
             s.insert_batch(keys[i:i + BATCH], vals[i:i + BATCH])
-    sync()
-    t_insert = time.perf_counter() - t0
-    t0 = time.perf_counter()
+        if commit_each:
+            a.commit()               # with snapshots on, seals a record
+
+
+def _thin(kind: str, s, keys, gone) -> int:
+    """Delete the rows ``gone`` and, for the DLL, pop as many again from
+    the front; returns the number popped."""
     for i in range(0, gone.size, BATCH):
         if kind == "dll":
             s.delete_batch(gone[i:i + BATCH])       # dll ids = 0..n-1
@@ -100,9 +125,50 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0) -> dict:
             s.remove_batch(keys[gone[i:i + BATCH]])
         else:
             s.delete_batch(keys[gone[i:i + BATCH]])
-    pops = n // 16 if kind == "dll" else 0
+    pops = gone.size if kind == "dll" else 0
     for i in range(0, pops, BATCH):
         s.pop_front_batch(min(BATCH, pops - i))
+    return pops
+
+
+def _check(kind: str, label: str, s, want_order=None, live_keys=None,
+           live_vals=None, gone_keys=None) -> None:
+    """The recovered state: the DLL's order, or every live key found with
+    its value and no deleted key found."""
+    import numpy as np
+    if kind == "dll":
+        got = s.to_list().cpu().numpy()
+        if s.count != want_order.size or not np.array_equal(got, want_order):
+            raise AssertionError(f"{label}: recovered order differs")
+        return
+    if kind == "bptree":
+        s.check_invariants()
+    ok, got = s.find_batch(live_keys)
+    if not bool(ok.all()) or not np.array_equal(got.cpu().numpy(),
+                                                live_vals):
+        raise AssertionError(f"{label}: live keys not recovered")
+    ok, _ = s.find_batch(gone_keys)
+    if bool(ok.any()):
+        raise AssertionError(f"{label}: deleted keys recovered")
+
+
+def workload(kind: str, mode: str, n: int, device, seed: int = 0) -> dict:
+    """Insert n entries in batches of 8192, delete (and, for the DLL, pop)
+    1/8 of them, commit, crash, reopen, reconstruct, then check the
+    recovered state against what the workload expects."""
+    import numpy as np
+    import torch
+
+    _, keys, vals, gone = _inputs(kind, n, seed)
+    a, s = build_structure(kind, mode, n, device)
+    sync = torch.cuda.synchronize if a.device.type == "cuda" else (
+        lambda: None)
+    t0 = time.perf_counter()
+    _fill(kind, a, s, keys, vals)
+    sync()
+    t_insert = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pops = _thin(kind, s, keys, gone)
     sync()
     t_delete = time.perf_counter() - t0
     a.commit()
@@ -115,24 +181,82 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0) -> dict:
     t_recover = time.perf_counter() - t0
     live = np.ones(n, bool)
     live[gone] = False
-    if kind == "dll":
-        want = np.flatnonzero(live)[pops:]
-        got = s.to_list().cpu().numpy()
-        if s.count != want.size or not np.array_equal(got, want):
-            raise AssertionError(f"dll {mode}: recovered order differs")
-    else:
-        if kind == "bptree":
-            s.check_invariants()
-        ok, got = s.find_batch(keys[live])
-        if not bool(ok.all()) or not np.array_equal(got.cpu().numpy(),
-                                                    vals[live]):
-            raise AssertionError(f"{kind} {mode}: live keys not recovered")
-        ok, _ = s.find_batch(keys[gone])
-        if bool(ok.any()):
-            raise AssertionError(f"{kind} {mode}: deleted keys recovered")
+    _check(kind, f"{kind} {mode}", s, np.flatnonzero(live)[pops:],
+           keys[live], vals[live], keys[gone])
     return {"kind": kind, "mode": mode, "n": n, "arena": a, "lines": lines,
             "insert_s": t_insert, "delete_s": t_delete,
             "recover_s": t_recover, "stats": dataclasses.asdict(a.stats)}
+
+
+def snapshot_workload(kind: str, mode: str, n: int, device,
+                      seed: int = 0) -> dict:
+    """Phase 5: insert n entries in batches of 8192 with a commit after
+    each, delete (DLL: and pop) as phase 3 does, commit, append or insert
+    a suffix of 120, commit; then crash and recover through
+    RecoveryManager three times — clean, the newest record torn, the whole
+    snapshot ring corrupted — checking ``chain``/``replayed`` and the
+    recovered state after each."""
+    import numpy as np
+    import torch
+    from repro_torch.core.recovery import chain_method
+    from repro_torch.snapshot_recovery import (SUFFIX, corrupt_ring,
+                                               recover, tear_newest)
+
+    rng, keys, vals, gone = _inputs(kind, n, seed)
+    sfx_keys = np.arange(n, n + SUFFIX, dtype=np.int64)
+    sfx_vals = rng.integers(0, 1 << 40, (SUFFIX, 7)).astype(np.int64)
+    a, s = build_structure(kind, mode, n + SUFFIX, device, snapshot=True)
+    sync = torch.cuda.synchronize if a.device.type == "cuda" else (
+        lambda: None)
+    t0 = time.perf_counter()
+    _fill(kind, a, s, keys, vals, commit_each=True)
+    sync()
+    t_insert = time.perf_counter() - t0
+    pops = _thin(kind, s, keys, gone)
+    a.commit()
+    sfx = s.append_batch(sfx_vals) if kind == "dll" else \
+        s.insert_batch(sfx_keys, sfx_vals)
+    a.commit()
+    sync()
+    live = np.ones(n, bool)
+    live[gone] = False
+    want = (np.concatenate([np.flatnonzero(live)[pops:], sfx.cpu().numpy()])
+            if kind == "dll" else None)
+    live_keys = np.concatenate([keys[live], sfx_keys])
+    live_vals = np.concatenate([vals[live], sfx_vals])
+    size = want.size if kind == "dll" else live_keys.size
+    # a corrupted ring falls back to the full rank (DLL) or the rebuild
+    expect = {"clean": ("snapshot", 0), "torn": ("snapshot", SUFFIX),
+              "corrupt": (chain_method(n + SUFFIX, size) if kind == "dll"
+                          else "rebuild", size)}
+    scenarios, details = [], []
+    for name, damage in (("clean", None), ("torn", tear_newest),
+                         ("corrupt", corrupt_ring)):
+        if damage is not None:
+            damage(s)
+        report = recover(a, kind, s, f"pstruct.{kind}")
+        det = report.stage(kind).detail
+        if (det["chain"], det["replayed"]) != expect[name]:
+            raise AssertionError(f"{kind} {mode} {name}: chain="
+                                 f"{det['chain']} replayed={det['replayed']}"
+                                 f", expected {expect[name]}")
+        _check(kind, f"{kind} {mode} {name}", s, want, live_keys, live_vals,
+               keys[gone])
+        scenarios.append({"scenario": name, "chain": det["chain"],
+                          "replayed": det["replayed"],
+                          "reopen_s": report.seconds("reopen"),
+                          "stage_s": report.seconds(kind),
+                          "wall_s": report.total_seconds})
+        d = report.as_dict()
+        details.append({**{k: v for k, v in d.items() if k not in TIMING},
+                        "stages": [{k: v for k, v in st.items()
+                                    if k not in TIMING}
+                                   for st in d["stages"]]})
+    return {"kind": kind, "mode": mode, "n": n, "arena": a,
+            "insert_s": t_insert, "lines": a.stats.lines,
+            "snapshot_lines": a.stats.snapshot_lines,
+            "stats": dataclasses.asdict(a.stats), "scenarios": scenarios,
+            "details": details}
 
 
 def count_syncs(fn) -> int:
@@ -149,15 +273,15 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def syncs_per_op(device) -> dict:
+def syncs_per_op(device, kinds=KINDS, snapshot: bool = False) -> dict:
     """Device syncs of one operation of each kind, on structures holding
-    64k entries."""
+    64k entries, order snapshots on or off."""
     import numpy as np
     n = 1 << 16
     rng = np.random.default_rng(1)
     out = {}
-    for kind in KINDS:
-        a, s = build_structure(kind, "partly", n, device)
+    for kind in kinds:
+        a, s = build_structure(kind, "partly", n, device, snapshot=snapshot)
         keys = rng.permutation(n).astype(np.int64)
         vals = rng.integers(0, 1 << 40, (n, 7)).astype(np.int64)
         for i in range(0, n - BATCH, BATCH):
@@ -357,7 +481,44 @@ def kernel_parity(dev, n: int = 1 << 22) -> dict:
         "shape": f"{starts.shape[0]} segments, count={n}",
         "source": "src/repro_torch/csrc/chain_order.cu",
         "replaces": "src/repro/kernels/chain_order.py:357"}
-    return {"rows": rows, "pack_rowbytes": pack}
+    # ---- gather_next: the DLL snapshot verify (L = the recovered count of
+    # phase 5, int64 ids) and a chain_walk round (L = 2**23 bucket heads)
+    nxt_g = torch.randint(-1, n, (n,), dtype=torch.int32, device=dev,
+                          generator=g)
+    nxt_g[::101] = n + 9                     # stored out of range: passed
+    gather = {}
+    for lanes in (n - n // 8, 2 * n):
+        ids = torch.randint(0, n, (lanes,), dtype=torch.int64, device=dev,
+                            generator=g)
+        if lanes != 2 * n:
+            ids[::97] = -1
+            ids[1::89] = -5
+            ids[2::83] = 2 ** 32 + 3
+            ids[3::79] = n
+        valid = (ids >= 0) & (ids < n)
+        n_valid = int(valid.sum())
+        distinct = int(torch.unique(ids[valid]).numel())
+        err = require_equal("gather_next", [
+            (K.gather_next(nxt_g, ids), K.gather_next_plain(nxt_g, ids))])
+        lib_ids = torch.randint(0, n, (lanes,), dtype=torch.int64,
+                                device=dev, generator=g)
+        gather[lanes] = {
+            "ms": time_ms(lambda: K.gather_next(nxt_g, ids), flush=flush),
+            "plain_ms": time_ms(lambda: K.gather_next_plain(nxt_g, ids),
+                                flush=flush),
+            "library_ms": time_ms(
+                lambda: torch.index_select(nxt_g, 0, lib_ids), flush=flush),
+            "bound_ms": bound_ms(12 * lanes + 4 * distinct),
+            "sector_bound_ms": bound_ms(12 * lanes + SECTOR * n_valid),
+            "max_abs_err": err, "valid_ids": n_valid,
+            "distinct_ids": distinct}
+    first = min(gather)
+    rows["gather_next"] = dict(
+        gather[first], shape=f"L={first} int64 ids (NULL, negatives, "
+        f"2**32+3) over n={n}; L={2 * n} in the report",
+        source="src/repro_torch/csrc/chain_order.cu",
+        replaces="src/repro/kernels/chain_order.py:189")
+    return {"rows": rows, "pack_rowbytes": pack, "gather_next": gather}
 
 
 # ---------------------------------------------------------------------- main
@@ -422,13 +583,11 @@ def main(argv=None) -> int:
                   for t in ("insert_s", "delete_s", "recover_s")}}
         main_runs.append(row)
         emit(row)
-    launches = launch_counts()
-    report["main_path"] = {"runs": main_runs, "launches": launches}
-    emit({"phase": "main_path_launches", **launches})
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    syncs = syncs_per_op(dev)
+    launches3 = launch_counts()
+    report["main_path"] = {"runs": main_runs, "launches": launches3}
+    emit({"phase": "main_path_launches", **launches3})
+    syncs = {"off": syncs_per_op(dev),
+             "on": syncs_per_op(dev, SNAP_KINDS, snapshot=True)}
     report["syncs_per_op"] = syncs
     emit({"phase": "syncs_per_op", **syncs})
     # ---- phase 4: card vs CPU
@@ -444,8 +603,40 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{kind} {mode}: card and CPU images "
                                      f"or FlushStats differ")
             same.append(f"{kind}.{mode}:{out['cuda'][0][:12]}")
+    for kind in SNAP_KINDS:
+        for mode in ("partly", "full"):
+            out = {}
+            for d in ("cuda", "cpu"):
+                r = snapshot_workload(kind, mode, PARITY_N, d, seed=3)
+                out[d] = (hashlib.sha256(image_of(r["arena"])).hexdigest(),
+                          r["stats"], r["details"])
+            if out["cuda"] != out["cpu"]:
+                raise AssertionError(f"{kind} {mode} snapshots: card and "
+                                     f"CPU images, FlushStats or stage "
+                                     f"details differ")
+            same.append(f"{kind}.{mode}.snapshot:{out['cuda'][0][:12]}")
     report["card_vs_cpu"] = same
     emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same})
+    # ---- phase 5: snapshot recovery at full size
+    reset_launch_counts()
+    snap_runs = []
+    for kind in SNAP_KINDS:
+        for mode in ("full", "partly"):
+            r = snapshot_workload(kind, mode, SNAP_N, dev)
+            r.pop("arena")
+            r.pop("details")
+            snap_runs.append(r)
+            emit({"phase": "snapshot_recovery", **r})
+            torch.cuda.empty_cache()
+    launches5 = launch_counts()
+    report["snapshot_recovery"] = {"runs": snap_runs, "launches": launches5}
+    emit({"phase": "snapshot_recovery_launches", **launches5})
+    launches = {k: launches3[k] + launches5[k] for k in launches3}
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"phases 3 and 5 never launched {missing}")
+    if launches5["gather_next"] == 0:
+        raise AssertionError("phase 5 never launched gather_next")
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():

@@ -16,12 +16,21 @@ single-arena barrier core of ``repro.core.arena``.
 * ``commit()`` orders data before metadata: drain, flush the file, fence,
   then set the header's valid flag.  ``crash()`` drops all volatile
   state; ``reopen()`` copies each region back to the device.
+* Order-snapshot regions (a ``.snap`` in the name) are metadata: they
+  flush in the metadata phase, and their lines land in
+  ``FlushStats.snapshot_lines``, never in ``lines``/``bytes``/``calls``.
+  The structures register snapshot providers that every drain asks for
+  their dirty rows; the one-line record format is at the end of this
+  module (the reference's, byte for byte).
 
 The arena runs on ``cuda`` unless the caller passes ``device="cpu"``.  With
 no device given and no GPU present it raises: it never falls back to the
-CPU silently.  The reference's other feature axes (shadow commit,
-sharding, paging, integrity sidecars) are not ported yet; asking for one
-raises ``NotImplementedError`` naming its ROADMAP item.
+CPU silently.  ``integrity=None`` and ``snapshot=None`` resolve through the
+reference's env axes (``integrity_enabled``, ``snapshot_enabled``), both
+on by default.  The reference's other feature axes (shadow commit,
+sharding, paging, integrity sidecars) are not ported yet; asking for one,
+or leaving ``integrity`` to resolve on, raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ import os
 import struct
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +65,24 @@ def not_ported(feature: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported to repro_torch yet (ROADMAP Queue 1, "
         f"Slice A item 4: {feature})")
+
+
+def snapshot_enabled(flag: Optional[bool] = None) -> bool:
+    """Resolve a structure's ``snapshot=`` argument as the reference does:
+    an explicit flag wins; ``None`` defers to ``REPRO_SNAPSHOT`` (default
+    on)."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("REPRO_SNAPSHOT", "1") != "0"
+
+
+def integrity_enabled(flag: Optional[bool] = None) -> bool:
+    """Resolve an arena's ``integrity=`` argument as the reference does:
+    an explicit flag wins; ``None`` defers to ``REPRO_INTEGRITY`` (default
+    on)."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("REPRO_INTEGRITY", "1") != "0"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,9 +110,11 @@ class FlushStats:
     dedup_rows: int = 0    # row marks dropped as duplicates within an epoch
     saved_lines: int = 0   # lines one accounting call PER MARK would have
                            # charged minus lines the epoch flush charged
-    # the reference's separate counters for snapshot, journal and
-    # integrity-sidecar lines; zero until those features are ported
+    # order-snapshot lines, kept out of lines/bytes/calls/saved_lines so
+    # the data accounting stays equal to a snapshot-off run
     snapshot_lines: int = 0
+    # the reference's journal and integrity-sidecar lines; zero until
+    # those features are ported
     journal_lines: int = 0
     integrity_lines: int = 0
 
@@ -105,9 +134,14 @@ class Region:
         self.tdtype = _TORCH_DTYPES[self.dtype]
         self.shape = tuple(int(s) for s in shape)
         self.offset = offset
-        # Metadata regions (structure headers) flush AFTER data regions
-        # within an epoch — data-before-metadata ordering.
-        self.meta = name.endswith("header") if meta is None else meta
+        # order-snapshot regions: derivable mirrors, accounted apart
+        self.snap = ".snap" in name
+        # Metadata regions (structure headers, order snapshots) flush
+        # AFTER data regions within an epoch — data-before-metadata
+        # ordering; a torn data phase never leaves half a snapshot behind
+        # the committed header.
+        self.meta = (name.endswith("header") or self.snap) \
+            if meta is None else meta
         self.rowbytes = int(self.dtype.itemsize
                             * np.prod(self.shape[1:], dtype=np.int64)) \
             if len(self.shape) > 1 else self.dtype.itemsize
@@ -139,7 +173,8 @@ class Region:
         if rows.size == 0:
             return
         self._pview()[rows] = gather_rows(self, rows)
-        self.arena._account_rows(self.offset, self.rowbytes, rows)
+        self.arena._account_rows(self.offset, self.rowbytes, rows,
+                                 snap=self.snap)
 
     def mark_rows(self, rows, fresh: bool = False) -> None:
         """Add rows to the arena's write set (flushed once, deduplicated,
@@ -178,7 +213,7 @@ class Arena:
             raise ValueError(f"unknown commit_mode {commit_mode!r}")
         if paged:
             raise not_ported("paging")
-        if integrity:
+        if integrity_enabled(integrity):
             raise not_ported("integrity sidecars")
         self.device = resolve_device(device)
         self.path = path
@@ -196,6 +231,9 @@ class Arena:
         self._cursor = 4096  # header page
         self._meta: Dict[str, dict] = {}
         self.generation = 0
+        # order-snapshot providers: callables returning [(region, rows)]
+        # of snapshot rows to persist, asked at every write-set drain
+        self._snap_providers: List = []
 
     # -- epochs -----------------------------------------------------------
     @contextlib.contextmanager
@@ -253,11 +291,22 @@ class Arena:
             with open(self.path + ".layout", "w") as f:
                 json.dump(self._meta, f)
 
+    def add_snapshot_provider(self, fn) -> None:
+        """Register an order-snapshot provider: a callable returning
+        ``[(region, rows), ...]`` of snapshot-region rows to persist,
+        asked by the write set at every drain."""
+        self._snap_providers.append(fn)
+
     # -- header / commit protocol -----------------------------------------
     def _write_header(self, valid: bool) -> None:
         hdr = struct.pack(_HDR_FMT, _MAGIC, len(self.regions),
                           self.generation, valid)
         self._mm[: len(hdr)] = np.frombuffer(hdr, np.uint8)
+
+    def header_valid(self) -> bool:
+        raw = bytes(self._mm[: struct.calcsize(_HDR_FMT)])
+        magic, _, _, valid = struct.unpack(_HDR_FMT, raw)
+        return magic == _MAGIC and bool(valid)
 
     def header_generation(self) -> int:
         """Committed generation as persisted in the header — survives a
@@ -322,9 +371,15 @@ class Arena:
                             np.concatenate(([-1], ends[:-1])) + 1)
         return int(np.sum(np.maximum(0, ends - starts + 1)))
 
-    def _account_rows(self, base: int, rowbytes: int,
-                      rows: np.ndarray) -> None:
+    def _account_rows(self, base: int, rowbytes: int, rows: np.ndarray,
+                      snap: bool = False) -> None:
         lines = self._rows_line_count(base, rowbytes, rows)
+        if snap:
+            # snapshot lines are real media traffic (they pay the synthetic
+            # stall) but stay out of the data counters
+            self.stats.snapshot_lines += lines
+            self._synth(lines)
+            return
         self.stats.lines += lines
         self.stats.bytes += int(rows.size) * rowbytes
         self.stats.calls += 1
@@ -376,6 +431,103 @@ class Arena:
 
 def _align(x: int, a: int) -> int:
     return ((x + a - 1) // a) * a
+
+
+# ----------------------------------------------------------------------
+# Order-snapshot records: one 64 B line each, packed and parsed on the host
+# with numpy's uint64 arithmetic (wraparound and logical shifts), exactly
+# as the reference packs them.
+# ----------------------------------------------------------------------
+
+SNAP_MAGIC = 0x50414E53          # "SNAP" little-endian
+SNAP_SLOTS = 4                   # record-ring slots; one 64 B line each
+SNAP_WORDS = 8                   # int64 words per record (= one line)
+
+_POS_KEYS: Dict[int, np.ndarray] = {}
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    # 1-D internally: numpy's scalar ufunc paths warn on the intended
+    # uint64 wraparound
+    x = np.asarray(x).astype(np.uint64, copy=False)
+    shape = x.shape
+    x = x.reshape(-1)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return (x ^ (x >> np.uint64(31))).reshape(shape)
+
+
+def _pos_keys(n: int) -> np.ndarray:
+    """``n`` distinct odd 64-bit multipliers, one per word position."""
+    k = _POS_KEYS.get(n)
+    if k is None:
+        k = _splitmix64(np.arange(1, n + 1, dtype=np.uint64)) \
+            | np.uint64(1)
+        _POS_KEYS[n] = k
+    return k
+
+
+def mix_checksums(words: np.ndarray) -> np.ndarray:
+    """The reference's checksum: each word times a distinct odd position
+    key, xor-folded over the trailing axis, splitmix64-finalized.
+    ``(..., k)`` integer words -> ``(...)`` int64."""
+    w = np.asarray(words)
+    if w.dtype == np.int64 and w.flags.c_contiguous:
+        w = w.view(np.uint64)
+    elif w.dtype != np.uint64:
+        w = w.astype(np.uint64)
+    shape = w.shape[:-1]
+    w = np.atleast_2d(w)
+    k = _pos_keys(w.shape[-1])
+    acc = w[..., 0] * k[0]
+    for j in range(1, w.shape[-1]):
+        acc = acc ^ (w[..., j] * k[j])
+    return _splitmix64(acc).astype(np.int64).reshape(shape)
+
+
+def snap_checksum(rec: np.ndarray) -> int:
+    """Checksum over the first 7 words of a snapshot record."""
+    return int(mix_checksums(np.asarray(rec, np.int64)[:7]))
+
+
+def snap_record_pack(gen: int, seq: int, a: int, b: int, c: int,
+                     d: int = 0) -> np.ndarray:
+    """Sealed record ``[magic, gen, seq, a, b, c, d, cksum]``: ``gen`` is
+    the generation the enclosing commit seals, ``seq % SNAP_SLOTS`` the
+    ring slot, so a torn append can only damage the slot it targets."""
+    rec = np.array([SNAP_MAGIC, gen, seq, a, b, c, d, 0], np.int64)
+    rec[7] = snap_checksum(rec)
+    return rec
+
+
+def snap_record_parse(rec: np.ndarray) -> Optional[Tuple[int, ...]]:
+    """``(gen, seq, a, b, c, d)`` if the record line is intact, else
+    ``None`` (torn append, never-written slot, or foreign bytes)."""
+    rec = np.asarray(rec, np.int64).ravel()
+    if rec.size != SNAP_WORDS or int(rec[0]) != SNAP_MAGIC:
+        return None
+    if int(rec[7]) != snap_checksum(rec):
+        return None
+    return tuple(int(x) for x in rec[1:7])
+
+
+def snap_records(snaprec: Region) -> List[Tuple[int, ...]]:
+    """Intact records of a loaded record ring (one copy to the host)."""
+    ring = snaprec.vol.cpu().numpy()
+    return [r for r in map(snap_record_parse, ring) if r is not None]
+
+
+def newest_committed(snaprec: Region) -> Optional[Tuple[int, ...]]:
+    """The intact record with the highest sequence number among those
+    whose generation the header has committed; a record sealed by a
+    generation that never committed (a crash inside the commit window)
+    is skipped."""
+    committed = snaprec.arena.header_generation()
+    best = None
+    for r in snap_records(snaprec):
+        if r[0] <= committed and (best is None or r[1] > best[1]):
+            best = r
+    return best
 
 
 def open_arena(path: Optional[str], layout: Dict[str, Tuple],

@@ -4,12 +4,16 @@ The port of ``repro.core.reconstruct``.  Every DERIVABLE piece of state
 names a reconstructor that rebuilds it from essential state;
 reconstructors must be pure given (essential state, static config).  The
 three paper structures register "pstruct.dll", "pstruct.bptree" and
-"pstruct.hashmap" (pstruct/*.py).  The "rng" reconstructor waits for the
-training slice (ROADMAP Queue 1).
+"pstruct.hashmap" (pstruct/*.py); ``RecoveryManager`` (core/recovery.py)
+runs them by name through ``run``, which times each one.  The "rng"
+reconstructor waits for the training slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+import time
+from typing import Any, Callable, Dict, Tuple
+
+import torch
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
 
@@ -23,6 +27,36 @@ def register(name: str):
 
 def get(name: str) -> Callable[..., Any]:
     return _REGISTRY[name]
+
+
+def names() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def _cuda_devices(args) -> set:
+    """CUDA devices of the arenas the arguments carry (a structure's
+    ``arena``)."""
+    devs = set()
+    for a in args:
+        dev = getattr(getattr(a, "arena", None), "device", None)
+        if isinstance(dev, torch.device) and dev.type == "cuda":
+            devs.add(dev)
+    return devs
+
+
+def run(name: str, *args, **kw):
+    """Run a reconstructor, returning (result, seconds).  When the target's
+    arena lives on a CUDA device, that device is synchronised before each
+    clock read, so the seconds are the card's work, not the time to
+    enqueue it."""
+    devs = _cuda_devices(args)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    out = _REGISTRY[name](*args, **kw)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    return out, time.perf_counter() - t0
 
 
 @register("schedule")

@@ -14,18 +14,34 @@ segment, rank the ~n/k contracted chain with the same tables, expand).
 
 Every round runs where the chain lives: on a CUDA tensor the rounds are
 the Hopper kernels of ``kernels/chain_order.py`` (``jump_double``,
-``walk_segments``, ``expand_segments``) with torch ops between them; on a
-CPU tensor the same driver runs the kernels' plain versions.
+``walk_segments``, ``expand_segments``, ``gather_next``) with torch ops
+between them; on a CPU tensor the same code runs the kernels' plain
+versions.
 
-``RecoveryManager`` and its reports, and order snapshots, are not ported
-yet (ROADMAP, Queue 1).
+``chain_order(snapshot=)`` adopts an order-snapshot candidate after one
+verify pass (DESIGN.md §10), with the reference HOST primitive's
+semantics.
+
+``RecoveryManager`` (the port of the reference's) reopens the arenas once,
+checks validity once, and runs the registered pure reconstructors in
+dependency order, serially or by dependency counters in a thread pool,
+timing each stage into a ``RecoveryReport``.  The stages' threads share
+the current CUDA stream: results are right, but stages do not overlap on
+the card.  The sharded region-load split, salvage and the paged
+block-fault counters wait for their slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import reconstruct
+from repro_torch.core.arena import not_ported
 from repro_torch.kernels import chain_order as K
 
 NULL = -1
@@ -34,6 +50,7 @@ __all__ = [
     "NULL", "chain_order", "chain_lengths", "chain_walk", "jump_tables",
     "chain_method", "ChainSnapshot", "CONTRACT_K", "CONTRACT_MIN_N",
     "CONTRACT_MIN_COUNT",
+    "StageReport", "RecoveryReport", "Recoverable", "RecoveryManager",
 ]
 
 # Method selection, the reference's constants (repro.core.recovery).
@@ -58,14 +75,44 @@ def chain_method(n: int, count: Optional[int] = None,
 
 
 class ChainSnapshot:
-    """A candidate order from a committed order snapshot (DESIGN.md §10).
-    Kept so signatures match the reference; order snapshots are not ported
-    yet, and ``chain_order`` refuses one."""
+    """A candidate node order seeded from a committed order snapshot
+    (DESIGN.md §10), handed to ``chain_order(snapshot=...)``: int64 ids on
+    the chain's device.  Never trusted: ``chain_order`` adopts it only
+    after verifying it IS the committed chain.  ``outcome`` is filled by
+    ``chain_order`` ("snapshot" on adoption, else the fallback method);
+    ``replayed`` is the suffix length the structure walked to build it,
+    reset to the full count on fallback."""
 
     def __init__(self, candidate, replayed: int = 0):
         self.candidate = torch.as_tensor(candidate, dtype=torch.int64)
         self.replayed = int(replayed)
         self.outcome: Optional[str] = None
+
+
+def _snapshot_verify(nxt: torch.Tensor, head: int, count: Optional[int],
+                     cand: torch.Tensor) -> bool:
+    """True iff ``cand`` IS chain_order(nxt, head, count).
+
+    Two verify semantics exist in the reference; this is the HOST one
+    (``repro.core.recovery._snapshot_verify``): ``cand.size == count``,
+    ``cand[0] == head``, every id in range, ``nxt[cand[:-1]] ==
+    cand[1:]``, and nothing about the tail.  The device variant
+    (``_snapshot_verify_device``) has no count and requires
+    ``nxt[cand[-1]] == NULL``; after a torn epoch the last committed
+    node's NEXT may point at a row the torn epoch appended, so it would
+    fall back where the host adopts, and the stage detail would differ.
+    The link check is one ``gather_next`` launch on a CUDA chain; all the
+    checks resolve in one device sync."""
+    if count is None or cand.numel() != count:
+        return False
+    n = nxt.shape[0]
+    ok = (cand[0] == head) & ((cand >= 0) & (cand < n)).all()
+    if count > 1:
+        # sanitize first: an out-of-range stored NEXT becomes NULL, which
+        # differs from the in-range cand[i+1] exactly as the raw value does
+        succ = K.gather_next(K.sanitize32(nxt), cand[:-1])
+        ok = ok & (succ.long() == cand[1:]).all()
+    return bool(ok)
 
 
 def _bits(x: int) -> int:
@@ -188,15 +235,21 @@ def chain_order(nxt: torch.Tensor, head: int, count: Optional[int] = None,
     ``count=None`` derives the length (cycle-detected); an explicit count
     (the DLL's committed count) bounds the walk to the committed prefix,
     and a count past the chain end raises ``ValueError``.  A head outside
-    [0, n) is a terminated chain: empty order."""
-    if snapshot is not None:
-        raise NotImplementedError(
-            "order snapshots are not ported yet (ROADMAP Queue 1: order "
-            "snapshots)")
+    [0, n) is a terminated chain: empty order.  ``snapshot`` is adopted
+    when it verifies (``snapshot.outcome = "snapshot"``); otherwise the
+    full rank runs and ``outcome`` names its method."""
     n = nxt.shape[0]
     dev = nxt.device
     if head < 0 or head >= n or count == 0:
         return torch.empty(0, dtype=torch.int64, device=dev)
+    if snapshot is not None:
+        cand = snapshot.candidate.to(dev).contiguous()
+        if _snapshot_verify(nxt, head, count, cand):
+            snapshot.outcome = "snapshot"
+            return cand.clone()
+        # the snapshot lied about the committed chain: full rank
+        snapshot.outcome = chain_method(n, count, method)
+        snapshot.replayed = int(count or 0)
     if chain_method(n, count, method) == "contract":
         return _order_contract(nxt, head, count, k or CONTRACT_K)
     jump0 = K.sanitize32(nxt)
@@ -270,10 +323,11 @@ def _walk_contract(nxt: torch.Tensor, heads: torch.Tensor,
 def chain_walk(nxt: torch.Tensor, heads, *, method: str = "auto",
                k: Optional[int] = None) -> torch.Tensor:
     """(H, Lmax) member matrix: row h = the chain from heads[h] in order,
-    NULL-padded.  Level-synchronous by default (one round per chain
-    position, all chains together); "auto" escalates to the shared
-    contraction only once a few chains over a big table have proven
-    longer than _WALK_ESCALATE_ROUNDS."""
+    NULL-padded.  Level-synchronous by default (one ``gather_next`` round
+    per chain position, all chains together; one device sync per round to
+    test for the end, rounds = the longest chain); "auto" escalates to the
+    shared contraction only once a few chains over a big table have
+    proven longer than _WALK_ESCALATE_ROUNDS."""
     dev = nxt.device
     heads = torch.as_tensor(heads, dtype=torch.int64, device=dev)
     n = nxt.shape[0]
@@ -285,16 +339,344 @@ def chain_walk(nxt: torch.Tensor, heads, *, method: str = "auto",
                 and 0 < heads.numel() <= _CONTRACT_WALK_HEADS)
     cols: List[torch.Tensor] = []
     cur = torch.where((heads >= 0) & (heads < n), heads, NULL)
+    nxt32 = None
     while bool((cur != NULL).any()):
         if escalate and len(cols) >= _WALK_ESCALATE_ROUNDS:
             return _walk_contract(nxt, heads, k or CONTRACT_K)
         cols.append(cur)
-        live = cur != NULL
-        cur = torch.where(live, nxt[torch.where(live, cur, 0)], NULL)
-        cur = torch.where((cur >= 0) & (cur < n), cur, NULL)
+        if nxt32 is None:
+            nxt32 = K.sanitize32(nxt)    # gathered values: in range or NULL
+        cur = K.gather_next(nxt32, cur).long()
         if len(cols) > n:
             raise RuntimeError("cycle in chain")
     if not cols:
         return torch.empty((heads.shape[0], 0), dtype=torch.int64,
                            device=dev)
     return torch.stack(cols, dim=1)
+
+
+# ======================================================================
+# Recovery reports
+# ======================================================================
+
+@dataclass
+class StageReport:
+    """One timed rebuild stage.  ``t_start`` / ``t_end`` are offsets
+    (seconds) from the start of the recovery pass; ``ready_at`` is the
+    offset at which the stage's dependencies were all satisfied, so
+    ``t_start - ready_at`` is queue wait.  ``quarantined`` / ``degraded``
+    are the reference's salvage outcomes, always False until salvage is
+    ported."""
+    name: str
+    seconds: float
+    detail: Dict[str, Any] = field(default_factory=dict)
+    t_start: float = 0.0
+    t_end: float = 0.0
+    ready_at: float = 0.0
+    quarantined: bool = False
+    degraded: bool = False
+
+    @property
+    def queue_wait(self) -> float:
+        return max(0.0, self.t_start - self.ready_at)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {"name": self.name, "seconds": self.seconds,
+                "t_start": self.t_start, "t_end": self.t_end,
+                "ready_at": self.ready_at, "queue_wait": self.queue_wait,
+                "quarantined": self.quarantined, "degraded": self.degraded,
+                **self.detail}
+
+
+@dataclass
+class RecoveryReport:
+    """Per-stage timing + validity of one recovery pass.  ``total_ms`` is
+    the summed stage time, ``critical_path_ms`` the longest dependency
+    chain, ``wall_ms`` what the pass took (``total_seconds``)."""
+    valid: bool = True
+    generation: int = 0
+    total_seconds: float = 0.0
+    concurrency: int = 1
+    critical_path_seconds: float = 0.0
+    stages: List[StageReport] = field(default_factory=list)
+    quarantined: List[str] = field(default_factory=list)
+    degraded: List[str] = field(default_factory=list)
+
+    @property
+    def wall_ms(self) -> float:
+        return self.total_seconds * 1e3
+
+    @property
+    def total_ms(self) -> float:
+        return sum(s.seconds for s in self.stages) * 1e3
+
+    @property
+    def critical_path_ms(self) -> float:
+        return self.critical_path_seconds * 1e3
+
+    def add(self, name: str, seconds: float, **detail: Any) -> StageReport:
+        st = StageReport(name, seconds, dict(detail))
+        self.stages.append(st)
+        return st
+
+    def stage(self, name: str) -> Optional[StageReport]:
+        for st in self.stages:
+            if st.name == name:
+                return st
+        return None
+
+    def seconds(self, name: str) -> float:
+        st = self.stage(name)
+        return st.seconds if st is not None else 0.0
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {"valid": self.valid, "generation": self.generation,
+                "total_seconds": self.total_seconds,
+                "concurrency": self.concurrency,
+                "wall_ms": self.wall_ms, "total_ms": self.total_ms,
+                "critical_path_ms": self.critical_path_ms,
+                "quarantined": list(self.quarantined),
+                "degraded": list(self.degraded),
+                "stages": [s.as_dict() for s in self.stages]}
+
+
+# ======================================================================
+# RecoveryManager
+# ======================================================================
+
+@dataclass(frozen=True)
+class Recoverable:
+    name: str
+    reconstructor: str          # name in the core.reconstruct registry
+    target: Any                 # object handed to the reconstructor
+    depends: Tuple[str, ...] = ()
+    # regions the reconstructor reads; the reference turns them into
+    # per-region load stages on a SHARDED arena, which waits for the
+    # sharding slice — on one arena they are recorded and change nothing
+    regions: Optional[Tuple[str, ...]] = None
+
+
+class RecoveryManager:
+    """Dependency-ordered, timed crash recovery::
+
+        mgr = RecoveryManager(arena)
+        mgr.add("lru", "pstruct.dll", dll)
+        mgr.add("table", "pstruct.hashmap", hm, depends=("lru",))
+        report = mgr.recover()
+
+    ``recover()`` reopens every arena once (the validity and generation
+    check happens here, not in each structure), then runs the registered
+    reconstructors in topological order, timing each; the report's stage
+    list is in deterministic order whatever the completion order was."""
+
+    def __init__(self, *arenas: Any):
+        # dedupe by identity: several structures often share one arena
+        seen: set = set()
+        self.arenas = []
+        for a in arenas:
+            if a is not None and id(a) not in seen:
+                seen.add(id(a))
+                self.arenas.append(a)
+        self._items: Dict[str, Recoverable] = {}
+        self._listeners: List[Callable[[StageReport], None]] = []
+
+    # ------------------------------------------------------------- setup
+    def add(self, name: str, reconstructor: str, target: Any,
+            depends: Sequence[str] = (),
+            regions: Optional[Sequence[str]] = None) -> "RecoveryManager":
+        if name in self._items:
+            raise ValueError(f"recoverable {name!r} already registered")
+        if reconstructor not in reconstruct.names():
+            raise KeyError(f"unknown reconstructor {reconstructor!r}")
+        self._items[name] = Recoverable(
+            name, reconstructor, target, tuple(depends),
+            tuple(regions) if regions is not None else None)
+        return self
+
+    def add_listener(self, fn: Callable[[StageReport], None]
+                     ) -> "RecoveryManager":
+        """Register a stage-completion callback, invoked the moment each
+        stage (including "reopen") lands, serialized by the manager's
+        lock."""
+        self._listeners.append(fn)
+        return self
+
+    def levels(self) -> List[List[str]]:
+        """Topological levels over declared dependencies, stable in
+        registration order within a level."""
+        items = self._items
+        for it in items.values():
+            for dep in it.depends:
+                if dep not in items:
+                    raise KeyError(
+                        f"recoverable {it.name!r} depends on unregistered "
+                        f"{dep!r}")
+        done: set = set()
+        out: List[List[str]] = []
+        pending = list(items)
+        while pending:
+            ready = [n for n in pending
+                     if all(d in done for d in items[n].depends)]
+            if not ready:
+                raise ValueError(f"dependency cycle among {pending}")
+            out.append(ready)
+            done.update(ready)
+            pending = [n for n in pending if n not in done]
+        return out
+
+    def order(self) -> List[str]:
+        """Topological order (levels, flattened)."""
+        return [n for level in self.levels() for n in level]
+
+    # ----------------------------------------------------------- recover
+    def recover(self, reopen: bool = True, concurrency: int = 1,
+                on_stage: Optional[Callable[[StageReport], None]] = None,
+                salvage: bool = False) -> RecoveryReport:
+        if salvage:
+            raise not_ported("salvage recovery")
+        t_all = time.perf_counter()
+        report = RecoveryReport(concurrency=max(1, int(concurrency)))
+        lock = threading.Lock()
+        listeners = list(self._listeners)
+        if on_stage is not None:
+            listeners.append(on_stage)
+
+        def emit(st: StageReport) -> None:
+            with lock:
+                for fn in listeners:
+                    fn(st)
+
+        order = self.order()            # validates deps / detects cycles
+        items = self._items
+
+        reopen_secs = 0.0
+        if reopen and self.arenas:
+            t0 = time.perf_counter()
+            valids = []
+            for a in self.arenas:
+                a.reopen()
+                if a.device.type == "cuda":
+                    torch.cuda.synchronize(a.device)
+                # the reference also checks the header magic here
+                # (verify_header, a typed integrity error): that waits for
+                # the integrity slice
+                valids.append(bool(a.header_valid()))
+            reopen_secs = time.perf_counter() - t0
+            st = report.add("reopen", reopen_secs,
+                            arenas=len(self.arenas), valid=valids,
+                            shards=[1 for _ in self.arenas],
+                            modes=[a.commit_mode for a in self.arenas])
+            st.t_start, st.t_end = 0.0, reopen_secs
+            report.valid = all(valids)
+            # the committed (persisted) generation: survives a fresh
+            # process, unlike the in-memory commit counter
+            report.generation = max(a.header_generation()
+                                    for a in self.arenas)
+            emit(st)
+
+        results: Dict[str, StageReport] = {}
+        # when each stage's dependencies landed; stages without any are
+        # ready when the reopen is done
+        ready_at: Dict[str, float] = {}
+
+        def run_stage(name: str) -> StageReport:
+            t0 = time.perf_counter()
+            it = items[name]
+            out, secs = reconstruct.run(it.reconstructor, it.target)
+            detail = dict(out) if isinstance(out, dict) else {}
+            detail.setdefault("reconstructor", it.reconstructor)
+            t1 = time.perf_counter()
+            st = StageReport(name, secs, detail,
+                             t_start=t0 - t_all, t_end=t1 - t_all,
+                             ready_at=ready_at.get(name, reopen_secs))
+            emit(st)
+            return st
+
+        depends_of = {n: list(items[n].depends) for n in order}
+        if report.concurrency == 1:
+            # serial: topological order; a stage is "ready" the moment its
+            # last dependency finished
+            for name in order:
+                st = run_stage(name)
+                results[name] = st
+                for m in order:
+                    if name in depends_of[m]:
+                        ready_at[m] = max(ready_at.get(m, 0.0), st.t_end)
+        else:
+            self._run_counters(order, depends_of, run_stage, results,
+                               ready_at, report.concurrency, t_all)
+        report.stages.extend(results[n] for n in order if n in results)
+        report.total_seconds = time.perf_counter() - t_all
+        report.critical_path_seconds = reopen_secs + self._critical_path(
+            order, depends_of, {s.name: s.seconds for s in report.stages})
+        return report
+
+    def _run_counters(self, order: List[str],
+                      depends_of: Dict[str, List[str]], run_stage, results,
+                      ready_at, concurrency: int, t_all: float) -> None:
+        """Dependency-counter scheduler: one pool for the whole DAG; a
+        stage is submitted the instant its own dependency counter hits
+        zero.  Dependents of a failed stage are never scheduled; the
+        earliest failure (in topological order) re-raises once in-flight
+        stages drain."""
+        remaining = {n: len(depends_of[n]) for n in order}
+        dependents: Dict[str, List[str]] = {n: [] for n in order}
+        for n in order:
+            for d in depends_of[n]:
+                dependents[d].append(n)
+        errors: Dict[str, BaseException] = {}
+        # RLock: a future that finishes before its done-callback attaches
+        # runs the callback INLINE in the submitting thread, which may
+        # already hold the scheduler lock
+        done_cv = threading.Condition(threading.RLock())
+        outstanding = [0]
+        # an inline callback can also fire mid-submission-loop and submit
+        # a LATER loop stage before the loop reaches it; the loop would
+        # then submit it again and double-decrement its dependents.
+        # `submitted` makes submission idempotent.
+        submitted: set = set()
+
+        with ThreadPoolExecutor(max_workers=concurrency) as ex:
+            def submit(name: str) -> None:
+                if name in submitted:
+                    return
+                submitted.add(name)
+                outstanding[0] += 1
+                fut = ex.submit(run_stage, name)
+                fut.add_done_callback(lambda f, n=name: finished(n, f))
+
+            def finished(name: str, fut) -> None:
+                with done_cv:
+                    try:
+                        results[name] = fut.result()
+                    except BaseException as e:   # noqa: BLE001
+                        errors[name] = e
+                    now = time.perf_counter() - t_all
+                    if name not in errors:
+                        for m in dependents[name]:
+                            remaining[m] -= 1
+                            ready_at[m] = max(ready_at.get(m, 0.0), now)
+                            if remaining[m] == 0:
+                                submit(m)
+                    outstanding[0] -= 1
+                    done_cv.notify_all()
+
+            with done_cv:
+                for n in order:
+                    if remaining[n] == 0:
+                        submit(n)
+                while outstanding[0] > 0:
+                    done_cv.wait()
+        if errors:
+            raise errors[min(errors, key=order.index)]
+
+    @staticmethod
+    def _critical_path(order: List[str], depends_of: Dict[str, List[str]],
+                       secs: Dict[str, float]) -> float:
+        """Longest dependency-chain sum of stage times (the reopen
+        prologue excluded; the caller adds it)."""
+        memo: Dict[str, float] = {}
+        for name in order:               # deps resolve before dependents
+            memo[name] = secs.get(name, 0.0) + max(
+                (memo[d] for d in depends_of[name]), default=0.0)
+        return max(memo.values(), default=0.0)

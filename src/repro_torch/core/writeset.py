@@ -17,6 +17,13 @@ arena; the reference's ``Arena(pack_flush_rows=N)`` path, here always
 on), copies that buffer to the host once, and writes it into the
 persistent image.  Unlike the reference there is no silent fallback: a
 failed kernel raises.
+
+Every flush first asks the arena's order-snapshot providers for their
+dirty snapshot rows (``_drain_snapshots``), at every drain and not only
+at commits.  Snapshot rows ride the same ``pack_rows`` gather as data
+rows, flush in the metadata phase, and stay out of the ``marks`` /
+``dedup_rows`` / ``saved_lines`` ledger: their lines land in
+``FlushStats.snapshot_lines``.
 """
 from __future__ import annotations
 
@@ -51,6 +58,10 @@ class WriteSet:
         rows = np.unique(host_rows(rows))
         if rows.size == 0:
             return
+        if region.snap:
+            # snapshot rows stay off the marks/dedup/saved ledger
+            self._pending.setdefault(region.name, []).append((rows, 0))
+            return
         would = self.arena._rows_line_count(region.offset, region.rowbytes,
                                             rows)
         self._pending.setdefault(region.name, []).append((rows, would))
@@ -67,6 +78,7 @@ class WriteSet:
         """Flush all pending marks, data regions first, then metadata
         regions; ``include_meta=False`` flushes only the data half and
         DROPS the metadata marks."""
+        self._drain_snapshots()
         if not self._pending:
             return
         flushed = self.flush_phase(meta=False)
@@ -76,6 +88,16 @@ class WriteSet:
             self._pending.clear()   # crash point: metadata marks are lost
         if flushed:
             self.arena.stats.epochs += 1
+
+    def _drain_snapshots(self) -> None:
+        """Mark each registered provider's dirty snapshot rows.  Providers
+        are idempotent (nothing newly dirty, nothing emitted), so draining
+        them at every flush leaves a commit's own flush adding no bytes
+        beyond the preceding epoch's; a record sealed at a non-commit
+        flush names a generation recovery skips until it commits."""
+        for prov in self.arena._snap_providers:
+            for region, rows in prov():
+                self.mark(region, rows)
 
     def flush_phase(self, meta: bool) -> bool:
         """Flush only the data half (``meta=False``) or only the metadata
@@ -99,12 +121,16 @@ class WriteSet:
             would_lines = sum(w for _, w in marks)
             marked_rows = sum(r.size for r, _ in marks)
             self._copy_rows(region, rows)
+            flushed_any = True
+            if region.snap:
+                arena._account_rows(region.offset, region.rowbytes, rows,
+                                    snap=True)
+                continue
             before = arena.stats.lines
             arena._account_rows(region.offset, region.rowbytes, rows)
             actual = arena.stats.lines - before
             arena.stats.saved_lines += max(0, would_lines - actual)
             arena.stats.dedup_rows += marked_rows - rows.size
-            flushed_any = True
         return flushed_any
 
     def _copy_rows(self, region, rows: np.ndarray) -> None:

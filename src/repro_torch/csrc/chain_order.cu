@@ -36,6 +36,20 @@
 //   loop, and each output slot is written exactly once.
 //   Bound: latency, as walk_segments; byte floor hops * 32 B plus the 8 B
 //   output per position.
+//
+// gather_next
+//   Replaces src/repro/kernels/chain_order.py:152 gather_next
+//   (_gather_kernel), one prefetch-steered chain hop per lane.  Computes
+//   out[i] = nxt[ids[i]] for 0 <= ids[i] < n, else NULL.  ids are read at
+//   their own width (int64 or int32) and range-checked before use, so a
+//   torn 2**32 + 3 gives NULL instead of aliasing node 3.  The gathered
+//   value is returned as stored, as the Pallas kernel returns it: callers
+//   sanitize nxt first.
+//   Bound: bytes.  Per lane the ids read and the 4 B store stream; the
+//   nxt load is data-dependent, one 32 B sector per lane while nxt misses
+//   the 50 MB L2 (a 2**22-node column is 16 MB and fits).  Design: one
+//   thread per lane, grid-stride, one dependent load each; the streaming
+//   half coalesces.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -119,6 +133,19 @@ __global__ void expand_segments_kernel(const int32_t* __restrict__ nxt,
   }
 }
 
+template <typename Id>
+__global__ void gather_next_kernel(const int32_t* __restrict__ nxt,
+                                   const Id* __restrict__ ids,
+                                   int32_t* __restrict__ out, int64_t n,
+                                   int64_t lanes) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes;
+       i += stride) {
+    const int64_t id = (int64_t)ids[i];
+    out[i] = (id >= 0 && id < n) ? __ldg(nxt + id) : kNull;
+  }
+}
+
 unsigned grid_for(int64_t work, int threads) {
   int64_t blocks = (work + threads - 1) / threads;
   if (blocks > 132 * 16) blocks = 132 * 16;  // 16 resident blocks per SM
@@ -164,5 +191,25 @@ extern "C" int expand_segments_launch(const void* nxt, const void* starts,
       static_cast<const int32_t*>(nxt), static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(posn), static_cast<const int32_t*>(rem),
       static_cast<int64_t*>(out), n, lanes);
+  return (int)cudaGetLastError();
+}
+
+// id_bytes: 8 for int64 ids, 4 for int32 ids.
+extern "C" int gather_next_launch(const void* nxt, const void* ids,
+                                  int id_bytes, void* out, int64_t n,
+                                  int64_t lanes, void* stream) {
+  const int threads = 256;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (id_bytes == 8) {
+    gather_next_kernel<int64_t><<<grid_for(lanes, threads), threads, 0, s>>>(
+        static_cast<const int32_t*>(nxt), static_cast<const int64_t*>(ids),
+        static_cast<int32_t*>(out), n, lanes);
+  } else if (id_bytes == 4) {
+    gather_next_kernel<int32_t><<<grid_for(lanes, threads), threads, 0, s>>>(
+        static_cast<const int32_t*>(nxt), static_cast<const int32_t*>(ids),
+        static_cast<int32_t*>(out), n, lanes);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.arena import Arena
+from repro_torch.core.arena import Arena, not_ported
 
 __all__ = ["arena_from_image", "image_of"]
 
@@ -22,8 +22,12 @@ def arena_from_image(image: np.ndarray, layout: dict, device) -> Arena:
     reference's ``_meta`` and ``.layout`` sidecar), reopened: its volatile
     regions are loaded onto ``device`` and its generation is the committed
     one.  Raises ValueError if the layout does not place the regions
-    where the port would."""
-    a = Arena(None, device=device)
+    where the port would, and NotImplementedError for an image that
+    carries integrity sidecars."""
+    if any(name.endswith(".integ") for name in layout):
+        raise not_ported("integrity sidecars")
+    # the layout lists every region the image holds, sidecars excluded
+    a = Arena(None, device=device, integrity=False)
     for name, spec in layout.items():
         r = a.region(name, np.dtype(spec["dtype"]), tuple(spec["shape"]))
         if r.offset != int(spec["offset"]):

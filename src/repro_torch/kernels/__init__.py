@@ -13,6 +13,7 @@ WRAPPERS = {
     "jump_double": chain_order.jump_double,
     "walk_segments": chain_order.walk_segments,
     "expand_segments": chain_order.expand_segments,
+    "gather_next": chain_order.gather_next,
 }
 
 

@@ -39,6 +39,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "walk_segments_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
                                  _INT, _INT, _INT, _INT, _P],
         "expand_segments_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+        "gather_next_launch": [_P, _P, _INT, _P, _I64, _I64, _P],
     },
 }
 

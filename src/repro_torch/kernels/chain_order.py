@@ -1,7 +1,7 @@
 """chain_order: the list-ranking kernels of recovery, and the driver
 pieces that run between them.
 
-Three kernels, each a wrapper that dispatches by where its tensors live
+Four kernels, each a wrapper that dispatches by where its tensors live
 (CPU tensors take the ``*_plain`` version; CUDA tensors launch the kernel
 or raise) and counts its launches:
 
@@ -12,6 +12,9 @@ or raise) and counts its launches:
   its next spine node, up to ``budget`` hops per launch.
 * ``expand_segments`` — the contraction expand: every used segment writes
   its run of node ids into the final order.
+* ``gather_next`` — one chain hop per lane (``nxt[ids[i]]``): the
+  level-synchronous rounds of ``chain_walk`` and the link check that
+  verifies an order-snapshot candidate.
 
 ``csrc/chain_order.cu`` holds the Hopper kernels and their design notes.
 The driver pieces below (``sanitize32``, ``chain_tables``,
@@ -31,7 +34,8 @@ NULL = -1
 
 __all__ = ["jump_double", "jump_double_plain", "walk_segments",
            "walk_segments_plain", "expand_segments", "expand_segments_plain",
-           "sanitize32", "chain_tables", "contract_walk", "walk_positions"]
+           "gather_next", "gather_next_plain", "sanitize32", "chain_tables",
+           "contract_walk", "walk_positions"]
 
 
 # ----------------------------------------------------------------- checks
@@ -253,6 +257,63 @@ def expand_segments(nxt: torch.Tensor, starts: torch.Tensor,
 
 
 expand_segments.launches = 0
+
+
+# ------------------------------------------------------------ gather_next
+
+def _check_ids(ids: torch.Tensor, device: torch.device) -> None:
+    if ids.dim() != 1 or ids.dtype not in (torch.int64, torch.int32):
+        raise TypeError(f"ids must be 1-D int64 or int32, got {ids.dtype} "
+                        f"shape {tuple(ids.shape)}")
+    if ids.device != device:
+        raise ValueError(f"ids on {ids.device}, expected {device}")
+    if not ids.is_contiguous():
+        raise ValueError("ids must be contiguous")
+
+
+def gather_next_plain(nxt: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of one chain hop per lane: ``nxt[ids[i]]`` for ids in
+    [0, n), else NULL; int32 (L,)."""
+    n = nxt.shape[0]
+    ok = (ids >= 0) & (ids < n)
+    if n == 0:
+        return torch.full(ids.shape, NULL, dtype=torch.int32,
+                          device=ids.device)
+    got = nxt[torch.where(ok, ids, 0).long()]
+    return torch.where(ok, got, NULL).to(torch.int32)
+
+
+def gather_next(nxt: torch.Tensor, ids: torch.Tensor, *, segments=None,
+                seg_rows: int = 0) -> torch.Tensor:
+    """One chain hop for a batch of lanes: ``out[i] = nxt[ids[i]]``, NULL
+    where ``ids[i]`` lies outside [0, n).  ``nxt`` is int32 (n,); ``ids``
+    is int64 or int32 (L,) and is range-checked at its own width before
+    any narrowing, so a torn 2**32 + 3 gives NULL, not node 3.  The
+    gathered value is returned as stored (callers sanitize ``nxt``).  The
+    shard-major ``segments``/``seg_rows`` layout waits for sharding."""
+    if segments is not None or seg_rows:
+        from repro_torch.core.arena import not_ported
+        raise not_ported("sharding")
+    dev = nxt.device
+    _vec("nxt", nxt, torch.int32, dev)
+    _check_ids(ids, dev)
+    if not _cuda(nxt, "gather_next"):
+        return gather_next_plain(nxt, ids)
+    lanes = ids.shape[0]
+    out = torch.empty(lanes, dtype=torch.int32, device=dev)
+    if lanes == 0:
+        return out
+    lib = _build.load("chain_order")
+    with torch.cuda.device(dev):
+        rc = lib.gather_next_launch(nxt.data_ptr(), ids.data_ptr(),
+                                    ids.element_size(), out.data_ptr(),
+                                    nxt.shape[0], lanes, _stream(nxt))
+    _raise_on(rc, "gather_next")
+    gather_next.launches += 1
+    return out
+
+
+gather_next.launches = 0
 
 
 # ---------------------------------------------------------- driver pieces

@@ -22,6 +22,16 @@ Reconstruction (paper §IV-C3): rank the persisted NEXT chain with the
 shared ``chain_order`` primitive (contraction list ranking at this size,
 on the card's kernels), then PREV by one scatter, TAIL = last, free slots
 = complement of the live ids below the fresh-water mark.
+
+Order snapshots (DESIGN.md §10, on unless ``snapshot=False`` or
+``REPRO_SNAPSHOT=0``): a persisted mirror of the order ring
+(``snapring``) and a 4-slot record ring (``snaprec``), written by a
+snapshot provider at every drain.  Recovery seeds the order from the
+newest committed record plus a walk of the suffix appended after it, and
+adopts it only when ``chain_order``'s verify pass proves it IS the chain.
+The dirty-slot mask is a bool tensor on the arena's device, so marking a
+slot costs no sync; each emit finds the dirty slots with one
+``nonzero``.
 """
 from __future__ import annotations
 
@@ -31,8 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import reconstruct as rec
-from repro_torch.core.arena import Arena, not_ported
-from repro_torch.core.recovery import chain_method, chain_order
+from repro_torch.core.arena import (SNAP_SLOTS, SNAP_WORDS, Arena,
+                                    newest_committed, snap_record_pack,
+                                    snap_records, snapshot_enabled)
+from repro_torch.core.recovery import (ChainSnapshot, chain_method,
+                                       chain_order)
 from repro_torch.core.writeset import host_rows
 
 NULL = -1
@@ -50,8 +63,6 @@ class DoublyLinkedList:
                  snapshot: Optional[bool] = None):
         if mode not in ("partly", "full"):
             raise ValueError(f"unknown mode {mode!r}")
-        if snapshot:
-            raise not_ported("order snapshots")
         self.mode = mode
         self.capacity = capacity
         self.chain_method = chain_method
@@ -68,15 +79,36 @@ class DoublyLinkedList:
         self._ring = torch.empty(capacity * 2, dtype=torch.int64, device=dev)
         self._r0 = 0
         self._r1 = 0
+        # order snapshots; OFF when the layout was finalized without the
+        # snapshot regions (an older image, or REPRO_SNAPSHOT=0 at
+        # creation), as in the reference
+        snap_on = snapshot_enabled(snapshot)
+        self.snapring = arena.regions.get(f"{name}.snapring")
+        self.snaprec = arena.regions.get(f"{name}.snaprec")
+        if snap_on and self.snapring is None and not arena._layout_final:
+            self.snapring = arena.region(f"{name}.snapring", np.int64,
+                                         (capacity * 2,))
+            self.snaprec = arena.region(f"{name}.snaprec", np.int64,
+                                        (SNAP_SLOTS, SNAP_WORDS))
+        self.snapshot = snap_on and self.snapring is not None
+        if self.snapshot:
+            self._snap_dirty = torch.zeros(capacity * 2, dtype=torch.bool,
+                                           device=dev)
+            self._snap_seq = 0
+            self._snap_resync = True   # first drain mirrors the window
+            self._snap_last = None     # (r0, r1, count) at the last emit
+            arena.add_snapshot_provider(self._snap_emit)
 
     @staticmethod
     def layout(capacity: int, mode: str = "partly", name: str = "dll",
                snapshot: Optional[bool] = None):
-        if snapshot:
-            raise not_ported("order snapshots")
         row = 8 if mode == "partly" else 16
-        return {f"{name}.nodes": (np.int64, (capacity, row)),
-                f"{name}.header": (np.int64, (1, 8))}
+        out = {f"{name}.nodes": (np.int64, (capacity, row)),
+               f"{name}.header": (np.int64, (1, 8))}
+        if snapshot_enabled(snapshot):
+            out[f"{name}.snapring"] = (np.int64, (capacity * 2,))
+            out[f"{name}.snaprec"] = (np.int64, (SNAP_SLOTS, SNAP_WORDS))
+        return out
 
     # ------------- views -------------
     def _next_col(self) -> torch.Tensor:
@@ -148,6 +180,8 @@ class DoublyLinkedList:
             self._compact_ring()
         self._ring[self._r1:self._r1 + m] = ids
         self._r1 += m
+        if self.snapshot:
+            self._snap_dirty[self._r1 - m:self._r1] = True
         self.header.write_row(0, hv)
         # ---- mark dirty (flushed once at epoch close) ----
         new = ids_h[ids_h >= fresh0]
@@ -244,6 +278,9 @@ class DoublyLinkedList:
         live = self._ring[self._r0:self._r1].clone()
         self._ring[:live.shape[0]] = live
         self._r0, self._r1 = 0, live.shape[0]
+        if self.snapshot:
+            # every slot moved: the persisted mirror diverges wholesale
+            self._snap_resync = True
 
     def _ring_pop(self, m: int) -> torch.Tensor:
         """The m oldest live ids; the front advances past the m-th one
@@ -256,7 +293,10 @@ class DoublyLinkedList:
 
     def _ring_invalidate(self, ids: torch.Tensor) -> None:
         window = self._ring[self._r0:self._r1]
-        window[torch.isin(window, ids)] = NULL
+        hit = torch.isin(window, ids)
+        window[hit] = NULL
+        if self.snapshot:
+            self._snap_dirty[self._r0:self._r1] |= hit
 
     # ------------- traversal -------------
     def to_list(self) -> torch.Tensor:
@@ -269,13 +309,93 @@ class DoublyLinkedList:
         window = self._ring[self._r0:self._r1]
         return window[window != NULL].clone()
 
+    # ------------- incremental order snapshots (DESIGN.md §10) -------
+    def _snap_emit(self):
+        """Snapshot provider: mirror the ring slots dirtied since the last
+        emit and seal one record line naming the window, the count and
+        the generation the next commit seals.  Idempotent: nothing newly
+        dirty and an unchanged window emit nothing."""
+        out = []
+        if self._snap_resync:
+            self._snap_dirty.zero_()
+            self._snap_dirty[self._r0:self._r1] = True
+            self._snap_resync = False
+        dirty = torch.nonzero(self._snap_dirty).squeeze(1)
+        count = int(self.header.vol[0, H_COUNT])
+        state = (self._r0, self._r1, count)
+        if not dirty.numel() and state == self._snap_last:
+            return out
+        self._snap_last = state
+        if dirty.numel():
+            self.snapring.vol[dirty] = self._ring[dirty]
+            out.append((self.snapring, dirty))
+            self._snap_dirty.zero_()
+        seq = self._snap_seq
+        self._snap_seq += 1
+        slot = seq % SNAP_SLOTS
+        self.snaprec.write_row(slot, snap_record_pack(
+            self.arena.generation + 1, seq, self._r0, self._r1, count))
+        out.append((self.snaprec, np.asarray([slot], np.int64)))
+        return out
+
     # ------------- crash / reconstruction -------------
     def reconstruct(self) -> None:
         """Reload the regions and rebuild all volatile redundancy from the
         persistent fields (paper §IV-C3)."""
         self.header.load()
         self.nodes.load()
+        if self.snapshot:
+            self.snapring.load()
+            self.snaprec.load()
         rec.get("pstruct.dll")(self)
+
+
+def _snap_resume(d: DoublyLinkedList) -> None:
+    """Provider state after recovery: resume the record sequence past
+    every intact slot and re-mirror the whole window at the next drain
+    (the rebuilt ring starts at slot 0)."""
+    recs = snap_records(d.snaprec)
+    d._snap_seq = (max(r[1] for r in recs) + 1) if recs else 0
+    d._snap_dirty.zero_()
+    d._snap_resync = True
+    d._snap_last = None
+
+
+def _snap_candidate(d: DoublyLinkedList, count: int
+                    ) -> Optional[ChainSnapshot]:
+    """Candidate order from the newest committed record: the persisted
+    window's live slots, plus a walk along NEXT past the snapshot tail
+    (the appends the record predates), minus any front overhang (pops
+    since the record).  Every failure returns None; chain_order's verify
+    pass is what makes adoption safe.
+
+    The reference walks the suffix one ``int(nxt[cur])`` at a time; on
+    the card that would be one device sync per hop, and after a torn
+    newest record the suffix can be a whole batch.  The loaded NEXT
+    column is copied to the host once and walked there instead."""
+    best = newest_committed(d.snaprec)
+    if best is None:
+        return None
+    _, _, r0, r1, _, _ = best
+    if not (0 <= r0 <= r1 <= d.snapring.shape[0]):
+        return None
+    window = d.snapring.vol[r0:r1]
+    base = window[window != NULL]
+    if base.numel() == 0 or bool(((base < 0) | (base >= d.capacity)).any()):
+        return None
+    nxt = d._next_col().cpu().numpy()
+    suffix = []
+    cur = int(base[-1])
+    while len(suffix) < count:
+        nx = int(nxt[cur])
+        if nx < 0 or nx >= d.capacity:
+            break
+        suffix.append(nx)
+        cur = nx
+    cand = torch.cat([base, d._dev(suffix)]) if suffix else base
+    if cand.numel() < count:
+        return None
+    return ChainSnapshot(cand[cand.numel() - count:], replayed=len(suffix))
 
 
 @rec.register("pstruct.dll")
@@ -299,11 +419,17 @@ def _reconstruct_dll(d: DoublyLinkedList) -> dict:
         d._free = []
         d._r0 = d._r1 = 0
         d.header.write_row(0, hv)
+        if d.snapshot:
+            _snap_resume(d)
         return {"mode": d.mode, "count": 0}
     # The committed COUNT bounds the walk: rows appended by a torn epoch
-    # (data flushed, header not) stay unreachable.
+    # (data flushed, header not) stay unreachable.  It also bounds the
+    # snapshot verify (the host primitive's semantics), so a torn epoch
+    # that linked the last committed node onward still adopts.
     method = d.chain_method
-    order = chain_order(d._next_col(), head, count, method=method)
+    snap = _snap_candidate(d, count) if d.snapshot else None
+    order = chain_order(d._next_col(), head, count, method=method,
+                        snapshot=snap)
     d.prev[order[1:]] = order[:-1]
     hv[H_TAIL] = int(order[-1])
     live = torch.zeros(d.capacity, dtype=torch.bool, device=dev)
@@ -320,5 +446,14 @@ def _reconstruct_dll(d: DoublyLinkedList) -> dict:
         d.nodes.vol[order[1:], DATA_WORDS + 1] = order[:-1]
         d.nodes.vol[order[:1], DATA_WORDS + 1] = NULL
     d.header.write_row(0, hv)
-    return {"mode": d.mode, "count": count,
-            "chain": chain_method(d.capacity, count, method)}
+    detail = {"mode": d.mode, "count": count,
+              "chain": chain_method(d.capacity, count, method)}
+    if d.snapshot:
+        # "snapshot" (seeded, suffix-only walk) or the fallback rank the
+        # verify pass forced; replayed = rows walked
+        if snap is not None:
+            detail["chain"] = snap.outcome
+        detail["replayed"] = snap.replayed if snap is not None \
+            and snap.outcome == "snapshot" else count
+        _snap_resume(d)
+    return detail

@@ -16,6 +16,16 @@ lookup one link per round (rounds = longest chain).  Reconstruction
 (§IV-E3): scan the slab rows below the fresh-water mark, drop tombstones,
 recompute hashes, derive the bucket count from SIZE and rebuild the
 chains in slab order with a stable sort.
+
+Order snapshots (DESIGN.md §10, on unless ``snapshot=False`` or
+``REPRO_SNAPSHOT=0``): persisted mirrors of the bucket heads
+(``snapbkt``) and chain links (``snapchain``) plus a 4-slot record ring
+(``snaprec``), written by a snapshot provider at every drain.  Recovery
+seeds the chains from the newest committed record, links the slab rows
+appended after it, verifies the result is the canonical chain assembly
+and adopts it (restoring the record's bucket count), else rebuilds.  The
+dirty masks are bool tensors on the arena's device, so marking costs no
+sync; each emit finds the dirty rows with one ``nonzero`` per mask.
 """
 from __future__ import annotations
 
@@ -25,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import reconstruct as rec
-from repro_torch.core.arena import Arena, not_ported
+from repro_torch.core.arena import (SNAP_SLOTS, SNAP_WORDS, Arena,
+                                    newest_committed, snap_record_pack,
+                                    snap_records, snapshot_enabled)
 from repro_torch.core.recovery import chain_walk
 
 NULL = -1
@@ -78,8 +90,6 @@ class Hashmap:
                  snapshot: Optional[bool] = None):
         if mode not in ("partly", "full"):
             raise ValueError(f"unknown mode {mode!r}")
-        if snapshot:
-            raise not_ported("order snapshots")
         self.mode = mode
         self.capacity = capacity
         self.load_factor = load_factor
@@ -105,18 +115,42 @@ class Hashmap:
                                 device=dev)
         # cached hashes: uint64 values held as int64 bit patterns
         self.hashes = torch.zeros(capacity, dtype=torch.int64, device=dev)
+        # order snapshots; OFF when the layout was finalized without the
+        # snapshot regions, as in the reference
+        snap_on = snapshot_enabled(snapshot)
+        self.snapbkt = arena.regions.get(f"{name}.snapbkt")
+        self.snapchain = arena.regions.get(f"{name}.snapchain")
+        self.snaprec = arena.regions.get(f"{name}.snaprec")
+        if snap_on and self.snapbkt is None and not arena._layout_final:
+            self.snapbkt = arena.region(f"{name}.snapbkt", np.int64, (n_max,))
+            self.snapchain = arena.region(f"{name}.snapchain", np.int64,
+                                          (capacity,))
+            self.snaprec = arena.region(f"{name}.snaprec", np.int64,
+                                        (SNAP_SLOTS, SNAP_WORDS))
+        self.snapshot = snap_on and self.snapbkt is not None
+        if self.snapshot:
+            self._snap_bkt_dirty = torch.zeros(n_max, dtype=torch.bool,
+                                               device=dev)
+            self._snap_chain_dirty = torch.zeros(capacity, dtype=torch.bool,
+                                                 device=dev)
+            self._snap_seq = 0
+            self._snap_resync = True
+            self._snap_last = None     # (nb, fresh, size) at the last emit
+            arena.add_snapshot_provider(self._snap_emit)
 
     @staticmethod
     def layout(capacity: int, mode: str = "partly", name: str = "hm",
                load_factor: float = 0.75, snapshot: Optional[bool] = None):
-        if snapshot:
-            raise not_ported("order snapshots")
         row = 8 if mode == "partly" else 16
         out = {f"{name}.entries": (np.int64, (capacity, row)),
                f"{name}.header": (np.int64, (1, 8))}
+        n_max = _next_pow2(max(16, int(capacity / load_factor)))
         if mode == "full":
-            n_max = _next_pow2(max(16, int(capacity / load_factor)))
             out[f"{name}.buckets"] = (np.int64, (n_max, 1))
+        if snapshot_enabled(snapshot):
+            out[f"{name}.snapbkt"] = (np.int64, (n_max,))
+            out[f"{name}.snapchain"] = (np.int64, (capacity,))
+            out[f"{name}.snaprec"] = (np.int64, (SNAP_SLOTS, SNAP_WORDS))
         return out
 
     def _dev(self, x) -> torch.Tensor:
@@ -221,16 +255,20 @@ class Hashmap:
         self.chain[ids_s[-1]] = NULL
         heads = ids_s[grp_start]
         empty = tails == NULL
-        self.buckets[gb[empty]] = heads[empty]
-        self.chain[tails[~empty]] = heads[~empty]
+        new_bkts, link_dirty = gb[empty], tails[~empty]
+        self.buckets[new_bkts] = heads[empty]
+        self.chain[link_dirty] = heads[~empty]
+        if self.snapshot:
+            self._snap_chain_dirty[ids_s] = True
+            self._snap_chain_dirty[link_dirty] = True
+            self._snap_bkt_dirty[new_bkts] = True
         if self.mode == "full":
             vol = self.entries.vol
             vol[ids_s, 9] = self.chain[ids_s]
-            link_dirty = tails[~empty]
             if link_dirty.numel():
                 vol[link_dirty, 9] = self.chain[link_dirty]
                 self.entries.mark_rows(link_dirty)
-            self._persist_buckets(gb[empty])
+            self._persist_buckets(new_bkts)
 
     def _chain_tails(self, bkts: torch.Tensor) -> torch.Tensor:
         cur = self.buckets[bkts]
@@ -272,6 +310,9 @@ class Hashmap:
         bkts = torch.unique(self.hashes[slots] & (self.n_buckets - 1))
         members = chain_walk(self.chain, self.buckets[bkts],
                              method=self.chain_method)
+        if self.snapshot:
+            self._snap_bkt_dirty[bkts] = True
+            self._snap_chain_dirty[slots] = True
         if members.shape[1] == 0:
             self.chain[slots] = NULL
             return
@@ -291,14 +332,16 @@ class Hashmap:
             m = (torch.arange(width, device=comp.device)[None, :] + 1) \
                 < cnt[:, None]
             src, dst = comp[:, :-1][m], comp[:, 1:][m]
-            changed = self.chain[src] != dst
+            moved = src[self.chain[src] != dst]
             self.chain[src] = dst
-            chain_dirty.append(src[changed])
+            chain_dirty.append(moved)
         nz = torch.nonzero(cnt > 0).squeeze(1)
         last = comp[nz, cnt[nz] - 1]
-        last_changed = self.chain[last] != NULL
+        chain_dirty.append(last[self.chain[last] != NULL])
         self.chain[last] = NULL
-        chain_dirty.append(last[last_changed])
+        if self.snapshot:
+            for moved in chain_dirty:
+                self._snap_chain_dirty[moved] = True
         self.chain[slots] = NULL
         if self.mode == "full":
             dirty = torch.unique(torch.cat(chain_dirty))
@@ -329,6 +372,10 @@ class Hashmap:
                                   device=dev)
         self.chain = torch.full((self.capacity,), NULL, dtype=torch.int64,
                                 device=dev)
+        if self.snapshot:
+            # every link may have moved: re-mirror wholesale at the next
+            # drain (grows are O(log N) rare)
+            self._snap_resync = True
         if live.numel() == 0:
             return
         b = self.hashes[live] & (self.n_buckets - 1)
@@ -339,12 +386,153 @@ class Hashmap:
         self.chain[ls[:-1]] = torch.where(~grp_start[1:], ls[1:], NULL)
         self.chain[ls[-1]] = NULL
 
+    # -------- incremental order snapshots (DESIGN.md §10) --------
+    def _snap_emit(self):
+        """Snapshot provider: mirror the bucket heads and chain links
+        dirtied since the last emit, then seal one record line naming
+        (n_buckets, fresh, size) for the generation the next commit
+        seals.  Idempotent: nothing newly dirty and an unchanged state
+        emit nothing."""
+        out = []
+        hv = self.header.read_row(0)
+        fresh = int(hv[H_FRESH])
+        if self._snap_resync:
+            self._snap_chain_dirty.zero_()
+            self._snap_bkt_dirty.zero_()
+            self._snap_chain_dirty[:fresh] = True
+            self._snap_bkt_dirty[:self.n_buckets] = True
+            self._snap_resync = False
+        cd = torch.nonzero(self._snap_chain_dirty).squeeze(1)
+        bd = torch.nonzero(self._snap_bkt_dirty).squeeze(1)
+        state = (self.n_buckets, fresh, int(hv[H_SIZE]))
+        if state == self._snap_last and not cd.numel() and not bd.numel():
+            return out
+        self._snap_last = state
+        if cd.numel():
+            self.snapchain.vol[cd] = self.chain[cd]
+            out.append((self.snapchain, cd))
+            self._snap_chain_dirty.zero_()
+        if bd.numel():
+            self.snapbkt.vol[bd] = self.buckets[bd]
+            out.append((self.snapbkt, bd))
+            self._snap_bkt_dirty.zero_()
+        seq = self._snap_seq
+        self._snap_seq += 1
+        slot = seq % SNAP_SLOTS
+        self.snaprec.write_row(slot, snap_record_pack(
+            self.arena.generation + 1, seq, self.n_buckets, fresh,
+            int(hv[H_SIZE])))
+        out.append((self.snaprec, np.asarray([slot], np.int64)))
+        return out
+
     # -------- crash / reconstruction --------
     def reconstruct(self) -> None:
         """Reload the regions and rebuild the volatile redundancy."""
         self.header.load()
         self.entries.load()
+        if self.snapshot:
+            self.snapbkt.load()
+            self.snapchain.load()
+            self.snaprec.load()
         rec.get("pstruct.hashmap")(self)
+
+
+def _hm_snap_resume(h: Hashmap) -> None:
+    recs = snap_records(h.snaprec)
+    h._snap_seq = (max(r[1] for r in recs) + 1) if recs else 0
+    h._snap_bkt_dirty.zero_()
+    h._snap_chain_dirty.zero_()
+    h._snap_resync = True
+    h._snap_last = None
+
+
+def _hm_snap_adopt(h: Hashmap, fresh: int, idx: torch.Tensor
+                   ) -> Optional[int]:
+    """Seed the bucket chains from the newest committed snapshot, link the
+    slab rows younger than the record, VERIFY the result is the canonical
+    chain assembly (every live row once, in its hash bucket, ascending
+    slab order) and scatter it into fresh volatile tensors, restoring the
+    record's bucket count.  Returns the replayed-suffix length on
+    adoption, None on any mismatch (the caller rebuilds).
+
+    The suffix tail walk and ``chain_walk`` test for their end with one
+    device sync per round; rounds are bounded by the longest bucket
+    chain (about 10 at load factor 0.75)."""
+    best = newest_committed(h.snaprec)
+    if best is None:
+        return None
+    _, _, rec_nb, rec_fresh, _, _ = best
+    if not (16 <= rec_nb <= h.n_buckets_max and rec_nb & (rec_nb - 1) == 0):
+        return None
+    if not 0 <= rec_fresh <= fresh:
+        return None
+    dev = h.arena.device
+    mask = rec_nb - 1
+    cand_bkt = h.snapbkt.vol[:rec_nb].clone()
+    cand_chain = h.snapchain.vol.clone()
+    # link only the suffix: rows the record predates were appended at
+    # their bucket's chain tail in ascending slab order; replay that
+    sfx = idx[idx >= rec_fresh]
+    if sfx.numel():
+        b = hash64(h.keys[sfx]) & mask
+        bs, order = torch.sort(b, stable=True)
+        ids_s = sfx[order]
+        grp_start = _group_starts(bs)
+        tb = bs[grp_start]
+        cur = cand_bkt[tb]
+        tails = torch.full_like(tb, NULL)
+        # tails over the candidate arrays; torn links can cycle, so the
+        # rounds are capped
+        for _ in range(fresh + 1):
+            ok = (cur >= 0) & (cur < h.capacity) & (cur < rec_fresh)
+            if not bool(ok.any()):
+                break
+            tails = torch.where(ok, cur, tails)
+            cur = torch.where(ok, cand_chain[torch.where(ok, cur, 0)], NULL)
+        else:
+            return None                       # never terminated: cycle
+        cand_chain[ids_s[:-1]] = torch.where(~grp_start[1:], ids_s[1:], NULL)
+        cand_chain[ids_s[-1]] = NULL
+        heads = ids_s[grp_start]
+        empty = tails == NULL
+        cand_bkt[tb[empty]] = heads[empty]
+        cand_chain[tails[~empty]] = heads[~empty]
+    # verify-always: materialize every chain and check it IS the canonical
+    # state
+    try:
+        members = chain_walk(cand_chain, cand_bkt, method=h.chain_method)
+    except RuntimeError:
+        return None                           # cycle in a torn chain
+    valid = members != NULL
+    flat = members[valid]
+    if flat.numel() != idx.numel():
+        return None
+    if flat.numel():
+        if bool(((flat < 0) | (flat >= fresh)).any()):
+            return None
+        keys = h.keys[flat]
+        want_b = hash64(keys) & mask
+        got_b = torch.arange(rec_nb, device=dev)[:, None].expand(
+            members.shape)[valid]
+        bad = (keys == KEY_NULL).any() | (want_b != got_b).any()
+        if members.shape[1] > 1:
+            # ascending slab order within each bucket row (rules out both
+            # misordering and duplicates: a dupe must share a bucket)
+            step = valid[:, 1:]
+            bad = bad | (members[:, 1:][step] <= members[:, :-1][step]).any()
+        if bool(bad):
+            return None
+    # adopt: the record's basis, the verified chains scattered
+    h.n_buckets = int(rec_nb)
+    h.buckets = torch.full((h.n_buckets,), NULL, dtype=torch.int64,
+                           device=dev)
+    h.chain = torch.full((h.capacity,), NULL, dtype=torch.int64, device=dev)
+    if members.shape[1]:
+        h.buckets[valid[:, 0]] = members[valid[:, 0], 0]
+        if members.shape[1] > 1:
+            step = valid[:, 1:]
+            h.chain[members[:, :-1][step]] = members[:, 1:][step]
+    return int(sfx.numel())
 
 
 @rec.register("pstruct.hashmap")
@@ -365,8 +553,16 @@ def _reconstruct_hashmap(h: Hashmap) -> dict:
                            device=h.arena.device)
     idx = torch.nonzero(h.keys[:fresh] != KEY_NULL).squeeze(1)
     h.hashes[idx] = hash64(h.keys[idx])
-    h._rebuild_chains(fresh)
-    return {"mode": h.mode, "size": size, "live": int(idx.numel())}
+    detail = {"mode": h.mode, "size": size, "live": int(idx.numel())}
+    replayed = _hm_snap_adopt(h, fresh, idx) if h.snapshot else None
+    if replayed is None:
+        h._rebuild_chains(fresh)
+    if h.snapshot:
+        detail["chain"] = "snapshot" if replayed is not None else "rebuild"
+        detail["replayed"] = replayed if replayed is not None \
+            else detail["live"]
+        _hm_snap_resume(h)
+    return detail
 
 
 def _next_pow2(x: int) -> int:

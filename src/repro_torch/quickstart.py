@@ -3,7 +3,9 @@
 
 Builds each of the three partly-persistent structures, runs a workload,
 crashes, reconstructs, and prints the flush savings vs fully-persistent.
-It runs on the GPU; ``--device cpu`` runs it on the CPU.
+It runs on the GPU; ``--device cpu`` runs it on the CPU.  The arenas pin
+``integrity=False`` (integrity sidecars are not ported); order snapshots
+follow ``REPRO_SNAPSHOT`` as in the reference example.
 
     PYTHONPATH=src python -m repro_torch.quickstart [--n 20000] [--device cpu]
 """
@@ -27,14 +29,15 @@ def demo(kind: str, n: int, rng: np.random.Generator, device) -> str:
     for mode in ("full", "partly"):
         if kind == "dll":
             a = open_arena(None, DoublyLinkedList.layout(n + 64, mode),
-                           device=device)
+                           device=device, integrity=False)
             s = DoublyLinkedList(a, n + 64, mode)
         elif kind == "bptree":
             a = open_arena(None, BPTree.layout(n, n * 2, mode),
-                           device=device)
+                           device=device, integrity=False)
             s = BPTree(a, n, n * 2, mode)
         else:
-            a = open_arena(None, Hashmap.layout(n + 64, mode), device=device)
+            a = open_arena(None, Hashmap.layout(n + 64, mode), device=device,
+                           integrity=False)
             s = Hashmap(a, n + 64, mode)
 
         keys = rng.permutation(n).astype(np.int64)

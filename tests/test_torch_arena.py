@@ -24,7 +24,7 @@ def _ref(path=None, **kw):
 
 
 def _port(path=None, **kw):
-    return TA.open_arena(path, LAYOUT, device="cpu", **kw)
+    return TA.open_arena(path, LAYOUT, device="cpu", integrity=False, **kw)
 
 
 def _put(arena, name, rows, vals):
@@ -155,10 +155,11 @@ def test_synthetic_latency_accounting_matches():
 def test_device_and_feature_axes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            TA.Arena(None)              # no silent CPU fallback
+            TA.Arena(None, integrity=False)   # no silent CPU fallback
     for kw in ({"commit_mode": "shadow"}, {"paged": True},
                {"integrity": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TA.Arena(None, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="sharding"):
-        TA.open_arena(None, LAYOUT, n_shards=2, device="cpu")
+        TA.open_arena(None, LAYOUT, n_shards=2, device="cpu",
+                      integrity=False)

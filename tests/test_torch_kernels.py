@@ -179,3 +179,77 @@ def test_walk_and_expand_plain_step_semantics():
                               torch.tensor([0, 4], dtype=torch.int32),
                               torch.tensor([4, 2], dtype=torch.int32), 6)
     assert out.tolist() == [0, 5, 6, 7, 4, 9]
+
+
+# --------------------------------------------------------- gather_next
+
+def test_gather_next_returns_stored_value_like_pallas():
+    """The Pallas kernel range-checks ids at their own width and returns
+    the gathered value as stored, out of range or not."""
+    nxt = np.array([1, 2, -1, 7, 0], np.int32)
+    ids = np.array([0, 1, 2, 3, 2 ** 32 + 3, -1], np.int64)
+    want = np.asarray(jco.gather_next(jnp.asarray(nxt), ids, interpret=True))
+    got = tco.gather_next(torch.from_numpy(nxt), torch.from_numpy(ids))
+    assert want.tolist() == [1, 2, -1, 7, -1, -1]
+    assert got.dtype == torch.int32 and got.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("ids_dtype", [np.int64, np.int32])
+@pytest.mark.parametrize("n,lanes", [(1, 7), (97, 130), (300, 512)])
+def test_gather_next_plain_matches_pallas(ids_dtype, n, lanes):
+    """Unsanitized nxt (out-of-range values, negatives) and ids with NULL,
+    negatives and, at 64 bits, 2**32 + 3."""
+    rng = np.random.default_rng(n * lanes)
+    nxt = rng.integers(-1, n, n).astype(np.int32)
+    nxt[::7] = n + 5
+    nxt[1::11] = -9
+    ids = rng.integers(-3, n + 3, lanes).astype(np.int64)
+    ids[:3] = [-1, n, 0]
+    if ids_dtype == np.int64:
+        ids[3:6] = [2 ** 32 + 3, 2 ** 40, -(2 ** 33)]
+    ids = ids.astype(ids_dtype)
+    want = np.asarray(jco.gather_next(jnp.asarray(nxt), ids, interpret=True))
+    got = tco.gather_next(torch.from_numpy(nxt), torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tco.gather_next_plain(torch.from_numpy(nxt),
+                              torch.from_numpy(ids)).numpy(), want)
+
+
+def test_gather_next_wrapper_dispatch_and_checks():
+    nxt = torch.tensor([1, -1], dtype=torch.int32)
+    before = launch_counts()["gather_next"]
+    assert tco.gather_next(nxt, torch.tensor([0, 1, 5])).tolist() == [1, -1,
+                                                                       -1]
+    assert launch_counts()["gather_next"] == before   # plain version on CPU
+    assert tco.gather_next(nxt[:0], torch.tensor([0])).tolist() == [-1]
+    with pytest.raises(TypeError):
+        tco.gather_next(nxt.long(), torch.tensor([0]))
+    with pytest.raises(TypeError):
+        tco.gather_next(nxt, torch.tensor([0.0]))
+    with pytest.raises(ValueError):
+        tco.gather_next(nxt, torch.tensor([0, 1, 0, 1])[::2])
+    with pytest.raises(NotImplementedError, match="sharding"):
+        tco.gather_next(nxt, torch.tensor([0]), segments=[0, 2], seg_rows=64)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("method", ["auto", "double", "contract"])
+def test_chain_walk_rounds_match_host(seed, method):
+    """chain_walk's level-synchronous rounds go through gather_next; on
+    random bucket-like chains (many short, a NULL head, torn pointers)
+    the member matrix equals the host primitive's."""
+    rng = np.random.default_rng(seed)
+    n = 400
+    perm = rng.permutation(n)
+    cuts = np.sort(rng.choice(np.arange(1, n), 40, replace=False))
+    nxt = np.full(n, -1, np.int64)
+    heads = []
+    for seg in np.split(perm, cuts):
+        nxt[seg[:-1]] = seg[1:]
+        heads.append(int(seg[0]))
+    nxt[perm[cuts[3] - 1]] = 2 ** 32 + 3          # torn: ends that chain
+    hs = np.asarray(heads + [-1], np.int64)
+    want = R.chain_walk(nxt, hs, method=method, k=8)
+    got = TR.chain_walk(torch.from_numpy(nxt), hs, method=method, k=8)
+    np.testing.assert_array_equal(got.numpy(), want)

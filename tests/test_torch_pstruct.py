@@ -1,6 +1,6 @@
 """repro_torch structures vs the reference, in both modes.
 
-The same seeded operations run in both packages (reference pinned to
+The same seeded operations run in both packages (both pinned to
 ``integrity=False``, ``snapshot=False``; the port on CPU tensors):
 
 * after every commit: byte-identical persistent images, equal FlushStats;
@@ -33,22 +33,21 @@ def _np(x):
 
 def _layout(pkg, kind, mode):
     if kind == "dll":
-        return (RD.DoublyLinkedList.layout(CAP[kind], mode, snapshot=False)
-                if pkg == "ref" else TD.DoublyLinkedList.layout(CAP[kind],
-                                                                mode))
+        return (RD if pkg == "ref" else TD).DoublyLinkedList.layout(
+            CAP[kind], mode, snapshot=False)
     if kind == "hashmap":
-        return (RH.Hashmap.layout(CAP[kind], mode, snapshot=False)
-                if pkg == "ref" else TH.Hashmap.layout(CAP[kind], mode))
+        return (RH if pkg == "ref" else TH).Hashmap.layout(
+            CAP[kind], mode, snapshot=False)
     return (RB if pkg == "ref" else TB).BPTree.layout(*CAP[kind], mode)
 
 
 def _struct(pkg, kind, mode, a):
     if kind == "dll":
-        return (RD.DoublyLinkedList(a, CAP[kind], mode, snapshot=False)
-                if pkg == "ref" else TD.DoublyLinkedList(a, CAP[kind], mode))
+        return (RD if pkg == "ref" else TD).DoublyLinkedList(
+            a, CAP[kind], mode, snapshot=False)
     if kind == "hashmap":
-        return (RH.Hashmap(a, CAP[kind], mode, snapshot=False)
-                if pkg == "ref" else TH.Hashmap(a, CAP[kind], mode))
+        return (RH if pkg == "ref" else TH).Hashmap(
+            a, CAP[kind], mode, snapshot=False)
     return (RB if pkg == "ref" else TB).BPTree(a, *CAP[kind], mode)
 
 
@@ -56,7 +55,8 @@ def _make(pkg, kind, mode, path=None):
     if pkg == "ref":
         a = ref_open(path, _layout(pkg, kind, mode), integrity=False)
     else:
-        a = port_open(path, _layout(pkg, kind, mode), device="cpu")
+        a = port_open(path, _layout(pkg, kind, mode), device="cpu",
+                      integrity=False)
     return a, _struct(pkg, kind, mode, a)
 
 
@@ -309,10 +309,3 @@ def test_bptree_invariants_and_splits():
     t.check_invariants()
     ok, got = t.find_batch(keys)
     assert bool(ok.all()) and (_np(got) == vals).all()
-
-
-def test_snapshot_axis_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.DoublyLinkedList.layout(8, snapshot=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TH.Hashmap.layout(8, snapshot=True)

@@ -162,6 +162,12 @@ def test_jump_tables_and_method_match_host():
             n, count, method)
     with pytest.raises(ValueError):
         TR.chain_method(4, None, "bogus")
-    with pytest.raises(NotImplementedError):
-        TR.chain_order(torch.from_numpy(nxt), 0,
-                       snapshot=TR.ChainSnapshot([0]))
+    # a snapshot with no count never verifies (host semantics): both
+    # packages fall back to the full rank and report its method
+    head = int(np.flatnonzero(nxt >= 0)[0])
+    ref_s, port_s = R.ChainSnapshot([head]), TR.ChainSnapshot([head])
+    _same(lambda: R.chain_order(nxt, head, snapshot=ref_s),
+          lambda: TR.chain_order(torch.from_numpy(nxt), head,
+                                 snapshot=port_s).numpy())
+    assert (port_s.outcome, port_s.replayed) == (ref_s.outcome,
+                                                 ref_s.replayed)
