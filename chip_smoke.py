@@ -10,29 +10,40 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. card: name and power limit (nvidia-smi), build of every CUDA kernel
    from ``src/repro_torch/csrc`` (all compilers started together);
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes, exact equality (integer results, tolerance 0),
+   the main path's shapes, exact equality (integer results, and the
+   quantize kernels' int8, scales and dequantized floats: tolerance 0),
    timed with CUDA events beside its byte bound and, for ``pack_rows``
    and ``gather_next``, one PyTorch library call computing the same
    gather;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
-   the B+Tree at 2**20, both modes, order snapshots and integrity pinned
+   the B+Tree at 2**19, both modes, order snapshots and integrity pinned
    off, every epoch drain through ``pack_rows``; the recovered state is
    checked; then device syncs per operation, snapshots off and on;
 4. card vs CPU: the same workload at 2**14 on ``cuda`` and on ``cpu``
    must write identical arena images (sha256) and FlushStats; with order
    snapshots on, the DLL and hashmap runs of phase 5 at 2**14 must also
-   give identical stage details (timing fields aside);
+   give identical stage details (timing fields aside); a checkpoint of a
+   small llama3.2-3b-shaped state (d_model 256, 2 layers) under each of
+   the four policies must write identical files (sha256) on both;
 5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
    modes, order snapshots on, a commit after every batch of 8192, then
    deletes and pops, a commit, a suffix of 120 appends or inserts and a
    commit; crash and recover through ``RecoveryManager`` three times
    (clean; newest record torn; whole snapshot ring corrupted), checking
-   ``chain``/``replayed`` and the recovered state each time.
+   ``chain``/``replayed`` and the recovered state each time;
+6. checkpoint: a train state at the full width of llama3.2-3b, cut to 4
+   layers (params, mu and nu: 796,683,264 parameters each, 9.56 GB on the
+   card), saved by ``CheckpointManager`` under ``PARTLY_Q8`` with
+   incremental on, saved again unchanged (0 bytes), "crashed" (manager
+   and state dropped), restored inline and with background warmup; params
+   must match the manifest's md5 digests, moments equal the plain
+   dequantization of their files exactly and lie within amax/127 of the
+   originals, ``rng`` equal ``rebuild_rng(seed, step)``.
 
-Every kernel's launch counter must move over phases 3 and 5 together,
-and ``gather_next``'s in phase 5; each count is zeroed just before its
-phase and read just after.
+The first five kernels' launch counters must move over phases 3 and 5
+together, and ``gather_next``'s in phase 5; the quantize kernels' in
+phase 6.  Each count is zeroed just before its phase and read just after.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--report`` also writes every phase's
@@ -44,6 +55,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -55,11 +67,14 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 SECTOR = 32                    # bytes moved by one random DRAM access
 BATCH = 8192
-MAIN_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 20}
+MAIN_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 19}
 SNAP_N = 1 << 22
 PARITY_N = 1 << 14
 KINDS = ("dll", "hashmap", "bptree")
 SNAP_KINDS = ("dll", "hashmap")
+CKPT_ARCH, CKPT_LAYERS = "llama3.2-3b", 4
+CKPT_SEED, CKPT_STEP = 7, 1000
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 TIMING = {"seconds", "t_start", "t_end", "ready_at", "queue_wait",
           "total_seconds", "wall_ms", "total_ms", "critical_path_ms"}
 
@@ -312,6 +327,207 @@ def syncs_per_op(device, kinds=KINDS, snapshot: bool = False) -> dict:
     return out
 
 
+# --------------------------------------------------------------- checkpoint
+
+def ckpt_config(small: bool = False):
+    """llama3.2-3b at its published widths, cut to CKPT_LAYERS layers; with
+    ``small``, the card-vs-CPU config (d_model 256, 2 layers, the reduced
+    config's heads, d_ff 1024, vocab 8192)."""
+    from repro_torch.configs import base, registry
+    cfg = registry.get(CKPT_ARCH)
+    if small:
+        return dataclasses.replace(base.reduced(cfg), d_model=256,
+                                   n_layers=2, d_ff=1024, vocab=8192)
+    return dataclasses.replace(cfg, n_layers=CKPT_LAYERS)
+
+
+def quant_rows_shape():
+    """The (rows, width) that ``quantize_leaf`` gives the largest leaf of
+    phase 6 (the embedding table)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.backbone import param_specs
+    embed = param_specs(ckpt_config())["embed"]
+    return tuple(ops._as_rows(torch.empty(embed.shape,
+                                          device="meta")).shape)
+
+
+def ckpt_state(cfg, device, seed: int = 0):
+    """A TrainState of ``cfg`` on ``device`` from a seeded generator:
+    params by ``init_params``' rule, mu ~ N(0, 1e-3), nu ~ |N(0, 1e-6)|,
+    step CKPT_STEP, data_seed CKPT_SEED and rng their ``rebuild_rng``.
+    The same generator seed gives the same state again."""
+    import torch
+    from repro_torch.core.policy import tree_map
+    from repro_torch.core.reconstruct import rebuild_rng
+    from repro_torch.models.backbone import init_params
+    from repro_torch.train.state import new_state
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    params = init_params(cfg, g, device)
+
+    def draw(std):
+        return lambda p: torch.randn(p.shape, generator=g,
+                                     device=device).mul_(std)
+    mu = tree_map(draw(1e-3), params)
+    nu = tree_map(lambda t: t.abs_(), tree_map(draw(1e-6), params))
+    st = new_state(params, mu, nu, seed=CKPT_SEED, device=device)
+    return st._replace(
+        step=torch.tensor(CKPT_STEP, dtype=torch.int32, device=device),
+        rng=rebuild_rng(CKPT_SEED, CKPT_STEP).to(device))
+
+
+def ckpt_files(state, policy, directory: Path) -> dict:
+    """Save ``state`` under ``policy`` into a fresh ``directory``; the
+    sha256 of every file written."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    shutil.rmtree(directory, ignore_errors=True)
+    CheckpointManager(str(directory), policy).save(state)
+    return {f.name: hashlib.sha256(f.read_bytes()).hexdigest()
+            for f in sorted(directory.iterdir())}
+
+
+def save_breakdown(state) -> dict:
+    """Where a PARTLY_Q8 save's time goes, measured apart on the same
+    state: the quantize kernels (with ``_as_rows``' padding copy), the
+    device-to-host copies, md5 of the host bytes (the manifest digests)
+    and zlib's crc32 over them (what ``np.savez``'s zip adds)."""
+    import zlib
+    import torch
+    from repro_torch.core import policy as pol
+    from repro_torch.kernels import ops
+    sd = state.as_dict()
+    leaves = dict(pol.tree_flatten_with_path(sd))
+    tensors, quant_s = [], 0.0
+    for p in pol.plan(sd, pol.PARTLY_Q8):
+        if not p.persisted:
+            continue
+        leaf = leaves[tuple(p.path.split("/"))]
+        if p.quantized:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q, s = ops.quantize_leaf(leaf)
+            torch.cuda.synchronize()
+            quant_s += time.perf_counter() - t0
+            tensors += [q, s]
+        else:
+            tensors.append(leaf)
+    t0 = time.perf_counter()
+    host = [t.to("cpu", copy=True).numpy() for t in tensors]
+    d2h_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for a in host:
+        hashlib.md5(a).hexdigest()
+    md5_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for a in host:
+        zlib.crc32(a)
+    crc_s = time.perf_counter() - t0
+    return {"bytes": sum(a.nbytes for a in host), "quantize_s": quant_s,
+            "d2h_s": d2h_s, "md5_s": md5_s, "crc32_s": crc_s}
+
+
+def checkpoint_phase(dev) -> dict:
+    """Phase 6: save, save unchanged, crash, restore (inline and
+    background) a llama3.2-3b-width state under PARTLY_Q8; check what
+    comes back.  Returns the phase's numbers and its launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core import policy as pol
+    from repro_torch.core.reconstruct import rebuild_rng
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.quant_pack import dequantize_blockwise_plain
+
+    cfg = ckpt_config()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    st = ckpt_state(cfg, dev)
+    spec = pol.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), st)
+    flat = pol.tree_flatten_with_path(st.as_dict())
+    out = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params": sum(t.numel() for p, t in flat if p[0] == "params"),
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for _, t in flat)}
+    torch.cuda.synchronize()
+    out["breakdown"] = save_breakdown(st)
+    del flat
+    # ---- the main path: save, save again, crash, restore twice
+    reset_launch_counts()
+    mgr = CheckpointManager(str(CKPT_DIR), pol.PARTLY_Q8, incremental=True)
+    r1 = mgr.save(st)
+    r2 = mgr.save(st)
+    del mgr, st                              # crash: the card's state is gone
+    torch.cuda.empty_cache()
+    mgr = CheckpointManager(str(CKPT_DIR), pol.PARTLY_Q8, incremental=True)
+    t0 = time.perf_counter()
+    got = mgr.restore(spec, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    inline = mgr.last_recovery
+    t0 = time.perf_counter()
+    bg = mgr.finish_warmup(mgr.restore(spec, device=dev,
+                                       warmup="background"))
+    torch.cuda.synchronize()
+    restore_bg_s = time.perf_counter() - t0
+    launches = launch_counts()
+    # ---- checks
+    for r in (r1, r2):
+        out.setdefault("saves", []).append(dataclasses.asdict(r))
+    if r2.bytes_written or r2.n_leaves_written or \
+            r2.bytes_skipped_unchanged != r1.bytes_written:
+        raise AssertionError(f"second incremental save wrote {r2}")
+    manifest = json.loads((CKPT_DIR / "manifest.json").read_text())
+    orig = ckpt_state(cfg, dev)              # the same seed: the same state
+    gl = dict(pol.tree_flatten_with_path(got.as_dict()))
+    bl = dict(pol.tree_flatten_with_path(bg.as_dict()))
+    ol = dict(pol.tree_flatten_with_path(orig.as_dict()))
+    worst = 0.0
+    for path, t in gl.items():
+        name = pol.path_str(path)
+        if name == "rng":
+            continue
+        if not torch.equal(t, bl[path]):
+            raise AssertionError(f"{name}: background restore differs")
+        ent = manifest["leaves"][name]
+        if not ent["quantized"]:
+            if hashlib.md5(t.cpu().numpy()).hexdigest() != ent["digest"] \
+                    or not torch.equal(t, ol[path]):
+                raise AssertionError(f"{name}: not restored bit-exact")
+            continue
+        with np.load(CKPT_DIR / ent["file"]) as z:
+            q = torch.from_numpy(z["q"]).to(dev)
+            s = torch.from_numpy(z["s"]).to(dev)
+        plain = dequantize_blockwise_plain(q, s).reshape(-1)[:t.numel()]
+        if not torch.equal(t, plain.reshape(t.shape)):
+            raise AssertionError(f"{name}: differs from the plain "
+                                 f"dequantization of its file")
+        err = float((t - ol[path]).abs().max())
+        amax = float(ol[path].abs().max())
+        if err > amax / 127:
+            raise AssertionError(f"{name}: error {err} above amax/127 "
+                                 f"({amax / 127})")
+        worst = max(worst, err / amax if amax else 0.0)
+        del q, s, plain
+    want_rng = rebuild_rng(CKPT_SEED, CKPT_STEP)
+    if not (torch.equal(got.rng.cpu(), want_rng)
+            and torch.equal(bg.rng.cpu(), want_rng)):
+        raise AssertionError("rng not rebuilt as fold_in(seed, step)")
+    if (int(got.step), int(got.data_seed)) != (CKPT_STEP, CKPT_SEED):
+        raise AssertionError("step or data_seed not restored")
+    out.update({
+        "restore_s": restore_s, "restore_background_s": restore_bg_s,
+        "stages": {st.name: st.seconds for st in inline.stages},
+        "stages_background": {st.name: st.seconds
+                              for st in mgr.last_recovery.stages},
+        "moment_err_over_amax": worst, "launches": launches,
+        "files_bytes": sum(f.stat().st_size for f in CKPT_DIR.iterdir())})
+    del got, bg, orig, gl, bl, ol
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
+
+
 # ------------------------------------------------------------------- timing
 
 def time_ms(fn, reps: int = 20, flush=None) -> float:
@@ -368,6 +584,7 @@ def kernel_parity(dev, n: int = 1 << 22) -> dict:
     from repro_torch.core import recovery as TR
     from repro_torch.kernels import chain_order as K
     from repro_torch.kernels import pack_flush as P
+    from repro_torch.kernels import quant_pack as Q
 
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -518,6 +735,40 @@ def kernel_parity(dev, n: int = 1 << 22) -> dict:
         f"2**32+3) over n={n}; L={2 * n} in the report",
         source="src/repro_torch/csrc/chain_order.cu",
         replaces="src/repro/kernels/chain_order.py:189")
+    # ---- quantize/dequantize_blockwise: the rows of phase 6's largest
+    # leaf, an embed-shaped moment, with per-row magnitudes from 1e-8 to
+    # 1e2 and zero groups
+    qrows = quant_rows_shape()
+    el = qrows[0] * qrows[1]
+    mag = torch.pow(10.0, torch.rand((qrows[0], 1), generator=g,
+                                     device=dev) * 10 - 8)
+    x = torch.randn(qrows, generator=g, device=dev).mul_(mag)
+    x[::97, :256] = 0
+    x[1::89, 256:512] = 0
+    del mag
+    q, s = Q.quantize_blockwise(x)
+    err = require_equal("quantize_blockwise",
+                        zip((q, s), Q.quantize_blockwise_plain(x)))
+    shape = f"({qrows[0]}, {qrows[1]}) f32, the embed moment of phase 6"
+    qbytes = 5 * el + 4 * (el // 256)     # f32 in, int8 + scales out
+    rows["quantize_blockwise"] = {
+        "ms": time_ms(lambda: Q.quantize_blockwise(x), flush=flush),
+        "plain_ms": time_ms(lambda: Q.quantize_blockwise_plain(x), reps=5),
+        "library_ms": None, "bound_ms": bound_ms(qbytes),
+        "max_abs_err": err, "shape": shape,
+        "source": "src/repro_torch/csrc/quant_pack.cu",
+        "replaces": "src/repro/kernels/quant_pack.py:44"}
+    del x
+    err = require_equal("dequantize_blockwise", [
+        (Q.dequantize_blockwise(q, s), Q.dequantize_blockwise_plain(q, s))])
+    rows["dequantize_blockwise"] = {
+        "ms": time_ms(lambda: Q.dequantize_blockwise(q, s), flush=flush),
+        "plain_ms": time_ms(lambda: Q.dequantize_blockwise_plain(q, s),
+                            reps=5),
+        "library_ms": None, "bound_ms": bound_ms(qbytes),
+        "max_abs_err": err, "shape": shape,
+        "source": "src/repro_torch/csrc/quant_pack.cu",
+        "replaces": "src/repro/kernels/quant_pack.py:74"}
     return {"rows": rows, "pack_rowbytes": pack, "gather_next": gather}
 
 
@@ -615,6 +866,21 @@ def main(argv=None) -> int:
                                      f"CPU images, FlushStats or stage "
                                      f"details differ")
             same.append(f"{kind}.{mode}.snapshot:{out['cuda'][0][:12]}")
+    from repro_torch.core import policy as pol
+    small = ckpt_state(ckpt_config(small=True), torch.device("cpu"), seed=3)
+    small_dev = pol.tree_map(lambda t: t.to(dev), small)
+    for name in ("FULLY_PERSISTENT", "PARTLY_PERSISTENT", "PARTLY_Q8",
+                 "PARTLY_DROP"):
+        out = {d: ckpt_files(st, getattr(pol, name),
+                             ROOT / "build" / "chip_smoke_parity" / d)
+               for d, st in (("cuda", small_dev), ("cpu", small))}
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"checkpoint {name}: card and CPU files "
+                                 f"differ")
+        same.append(f"ckpt.{name}:{len(out['cuda'])} files:"
+                    f"{out['cuda']['manifest.json'][:12]}")
+    del small, small_dev
+    shutil.rmtree(ROOT / "build" / "chip_smoke_parity")
     report["card_vs_cpu"] = same
     emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same})
     # ---- phase 5: snapshot recovery at full size
@@ -631,12 +897,25 @@ def main(argv=None) -> int:
     launches5 = launch_counts()
     report["snapshot_recovery"] = {"runs": snap_runs, "launches": launches5}
     emit({"phase": "snapshot_recovery_launches", **launches5})
-    launches = {k: launches3[k] + launches5[k] for k in launches3}
+    # ---- phase 6: checkpoint save and restore at llama3.2-3b width
+    ckpt = checkpoint_phase(dev)
+    report["checkpoint"] = ckpt
+    for rep in ckpt["saves"]:
+        emit({"phase": "checkpoint_save", **rep})
+    emit({"phase": "checkpoint", **{k: v for k, v in ckpt.items()
+                                    if k != "saves"}})
+    quant = ("quantize_blockwise", "dequantize_blockwise")
+    launches = {k: launches3[k] + launches5[k] for k in launches3
+                if k not in quant}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"phases 3 and 5 never launched {missing}")
     if launches5["gather_next"] == 0:
         raise AssertionError("phase 5 never launched gather_next")
+    launches.update({k: ckpt["launches"][k] for k in quant})
+    missing = [k for k in quant if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 6 never launched {missing}")
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.kernels.pack_flush import pack_rows
 
-__all__ = ["WriteSet", "gather_rows", "host_rows"]
+__all__ = ["DigestWriteSet", "WriteSet", "gather_rows", "host_rows"]
 
 
 def host_rows(rows) -> np.ndarray:
@@ -145,3 +145,32 @@ def gather_rows(region, rows: np.ndarray) -> np.ndarray:
     idx = torch.from_numpy(rows.astype(np.int32)).to(vol.device)
     staged = pack_rows(vol, idx)
     return staged.cpu().numpy().reshape((rows.size,) + region.shape[1:])
+
+
+class DigestWriteSet:
+    """Content-digest dirty tracking for file-per-leaf persistence.
+
+    ``dirty(key, digest, present)`` returns True when the leaf must be
+    rewritten (digest changed, or the backing file is missing) and
+    records the new digest; unchanged leaves are counted as deduplicated
+    writes, mirroring ``WriteSet``'s row dedup at file granularity."""
+
+    def __init__(self):
+        self._digests: Dict[str, str] = {}
+        self.skipped = 0
+        self.written = 0
+
+    def dirty(self, key: str, digest: str, present: bool = True) -> bool:
+        clean = present and self._digests.get(key) == digest
+        self._digests[key] = digest
+        if clean:
+            self.skipped += 1
+            return False
+        self.written += 1
+        return True
+
+    def note(self, key: str, digest: str) -> None:
+        """Record a write that happens regardless of digest (callers not
+        running in incremental mode), keeping the counters truthful."""
+        self._digests[key] = digest
+        self.written += 1

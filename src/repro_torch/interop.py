@@ -6,14 +6,23 @@ either package with ``open_arena(path, layout)``.  For in-memory images,
 ``arena_from_image`` builds a port arena from a reference arena's raw
 persistent bytes and its layout (the reference's ``Arena._mm`` and
 ``Arena._meta``), and ``image_of`` returns a port arena's bytes.
+
+A train state moves as numpy leaves: ``state_from_numpy`` carries a
+TrainState whose leaves are numpy arrays (the reference's, through
+``np.asarray``) into the port, ``state_to_numpy`` back.  Checkpoints
+need no carrier: both packages write and read the same files.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from repro_torch.core.arena import Arena, not_ported
+from repro_torch.core.arena import Arena, not_ported, resolve_device
+from repro_torch.core.policy import tree_map
+from repro_torch.train.state import TrainState
 
-__all__ = ["arena_from_image", "image_of"]
+__all__ = ["arena_from_image", "image_of", "state_from_numpy",
+           "state_to_numpy"]
 
 
 def arena_from_image(image: np.ndarray, layout: dict, device) -> Arena:
@@ -46,3 +55,20 @@ def arena_from_image(image: np.ndarray, layout: dict, device) -> Arena:
 def image_of(arena: Arena) -> np.ndarray:
     """A copy of the arena's persistent bytes."""
     return np.array(arena._mm, np.uint8)
+
+
+def state_from_numpy(tree, device=None) -> TrainState:
+    """A port TrainState on ``device`` (None means the GPU) holding copies
+    of ``tree``'s numpy leaves (any NamedTuple with TrainState's fields,
+    the reference's included); dtypes are kept, uint32 included."""
+    device = resolve_device(device)
+
+    def conv(leaf):
+        return torch.from_numpy(np.array(leaf, copy=True)).to(device)
+    return TrainState(**{k: tree_map(conv, v)
+                         for k, v in tree._asdict().items()})
+
+
+def state_to_numpy(state: TrainState) -> TrainState:
+    """``state`` with every leaf copied to a host numpy array."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), state)

@@ -6,7 +6,7 @@ so a run can show which kernels its main path went through.
 """
 from typing import Dict
 
-from repro_torch.kernels import chain_order, pack_flush
+from repro_torch.kernels import chain_order, pack_flush, quant_pack
 
 WRAPPERS = {
     "pack_rows": pack_flush.pack_rows,
@@ -14,6 +14,8 @@ WRAPPERS = {
     "walk_segments": chain_order.walk_segments,
     "expand_segments": chain_order.expand_segments,
     "gather_next": chain_order.gather_next,
+    "quantize_blockwise": quant_pack.quantize_blockwise,
+    "dequantize_blockwise": quant_pack.dequantize_blockwise,
 }
 
 

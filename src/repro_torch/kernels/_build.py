@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("pack_flush", "chain_order")
+SOURCES = ("pack_flush", "chain_order", "quant_pack")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -40,6 +40,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                  _INT, _INT, _INT, _INT, _P],
         "expand_segments_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P],
         "gather_next_launch": [_P, _P, _INT, _P, _I64, _I64, _P],
+    },
+    "quant_pack": {
+        "quantize_blockwise_launch": [_P, _P, _P, _I64, _P],
+        "dequantize_blockwise_launch": [_P, _P, _P, _I64, _P],
     },
 }
 

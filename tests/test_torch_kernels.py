@@ -5,6 +5,8 @@ wrapper takes its plain version, which is held against the reference's
 Pallas kernel in interpret mode and its jnp oracle.  All results are
 integers, compared for exact equality (tolerance 0).  ``chip_smoke.py``
 holds the CUDA kernels against the same plain versions on the card.
+The quantize kernels' results are floats and int8, also compared for
+exact equality: the plain versions repeat the reference's arithmetic.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,10 +16,12 @@ import torch
 from repro.core import recovery as R
 from repro.kernels import chain_order as jco
 from repro.kernels import pack_flush as jpf
+from repro.kernels import quant_pack as jqp
 from repro.kernels import ref
 from repro_torch.core import recovery as TR
 from repro_torch.kernels import chain_order as tco
 from repro_torch.kernels import launch_counts, pack_flush as tpf
+from repro_torch.kernels import quant_pack as tqp
 
 
 # ---------------------------------------------------------------- pack
@@ -253,3 +257,68 @@ def test_chain_walk_rounds_match_host(seed, method):
     want = R.chain_walk(nxt, hs, method=method, k=8)
     got = TR.chain_walk(torch.from_numpy(nxt), hs, method=method, k=8)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------------ quantize
+
+def _quant_rows(n, d, seed):
+    """Rows with per-row magnitudes from 1e-8 to 1e2, signed values, an
+    all-zero group and a group holding a single nonzero value."""
+    rng = np.random.default_rng(seed)
+    mag = 10.0 ** rng.uniform(-8, 2, (n, 1))
+    x = (rng.standard_normal((n, d)) * mag).astype(np.float32)
+    x[n // 2, :256] = 0.0
+    x[-1, -256:] = 0.0
+    x[-1, -1] = -3.5
+    return x
+
+
+def _bits(a):
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+@pytest.mark.parametrize("n,d", [(8, 256), (64, 1024), (40, 4096),
+                                 (16, 768)])
+def test_quantize_blockwise_plain_matches_pallas(n, d):
+    x = _quant_rows(n, d, n + d)
+    qt, st = tqp.quantize_blockwise(torch.from_numpy(x))
+    qj, sj = jqp.quantize_blockwise(jnp.asarray(x), interpret=True)
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    assert tuple(st.shape) == (n, d // 256)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(_bits(st.numpy()), _bits(np.asarray(sj)))
+    got = tqp.dequantize_blockwise(qt, st)
+    want = jqp.dequantize_blockwise(qj, sj, interpret=True)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(np.asarray(want)))
+    # the int8 payload spans the group: its absmax lane quantizes to +-127
+    assert int(qt.abs().max()) == 127
+
+
+def test_quantize_zero_group_scale_is_the_floor():
+    x = np.zeros((8, 512), np.float32)
+    x[:, 256:] = 1.0
+    q, s = tqp.quantize_blockwise(torch.from_numpy(x))
+    floor = np.float32(1e-12) * np.float32(1.0 / 127.0)
+    assert (s[:, 0].numpy() == floor).all()
+    assert (q[:, :256] == 0).all() and (q[:, 256:] == 127).all()
+    _, sj = jqp.quantize_blockwise(jnp.asarray(x), interpret=True)
+    np.testing.assert_array_equal(_bits(s.numpy()), _bits(np.asarray(sj)))
+
+
+def test_quant_wrappers_dispatch_and_checks():
+    x = torch.from_numpy(_quant_rows(8, 256, 3))
+    before = launch_counts()
+    q, s = tqp.quantize_blockwise(x)
+    tqp.dequantize_blockwise(q, s)
+    # CPU tensors take the plain versions: no kernel launch is counted
+    assert launch_counts() == before
+    with pytest.raises(TypeError):
+        tqp.quantize_blockwise(x.double())
+    with pytest.raises(ValueError):
+        tqp.quantize_blockwise(x[:, :200])
+    with pytest.raises(ValueError):
+        tqp.quantize_blockwise(x.t())
+    with pytest.raises(ValueError):
+        tqp.dequantize_blockwise(q, s[:, :0])
+    with pytest.raises(TypeError):
+        tqp.dequantize_blockwise(q.to(torch.int16), s)
