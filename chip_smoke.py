@@ -10,11 +10,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. card: name and power limit (nvidia-smi), build of every CUDA kernel
    from ``src/repro_torch/csrc`` (all compilers started together);
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes, exact equality (integer results, and the
-   quantize kernels' int8, scales and dequantized floats: tolerance 0),
-   timed with CUDA events beside its byte bound and, for ``pack_rows``
-   and ``gather_next``, one PyTorch library call computing the same
-   gather;
+   the main path's shapes, exact equality (integer results, the quantize
+   kernels' int8, scales and dequantized floats, and ``scatter_rows`` at
+   the phase-7 cache leaf: tolerance 0), ``flash_attention`` within 1e-4
+   in f32 (summation order) and 2e-2 in bf16 (one bf16 rounding of the
+   output), causal with 96 query heads over 32 KV heads at S = 1024 and
+   a ragged S = 1000; each timed with CUDA events beside its bound and,
+   where one exists, one PyTorch library call computing the same
+   function;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
    the B+Tree at 2**19, both modes, order snapshots and integrity pinned
@@ -25,7 +28,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    snapshots on, the DLL and hashmap runs of phase 5 at 2**14 must also
    give identical stage details (timing fields aside); a checkpoint of a
    small llama3.2-3b-shaped state (d_model 256, 2 layers) under each of
-   the four policies must write identical files (sha256) on both;
+   the four policies must write identical files (sha256) on both; and
+   a llama3.2-3b engine at full width, 2 layers, f32, parameters drawn
+   on the CPU and copied to the card, serving two requests for 8 steps
+   on each: prefill and decode logits within 1e-4 of the largest |logit|,
+   the same tokens (a differing token passes only where its top-2 logit
+   gap is below that tolerance) and identical engine arena files;
 5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
    modes, order snapshots on, a commit after every batch of 8192, then
    deletes and pops, a commit, a suffix of 120 appends or inserts and a
@@ -39,11 +47,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and state dropped), restored inline and with background warmup; params
    must match the manifest's md5 digests, moments equal the plain
    dequantization of their files exactly and lie within amax/127 of the
-   originals, ``rng`` equal ``rebuild_rng(seed, step)``.
+   originals, ``rng`` equal ``rebuild_rng(seed, step)``;
+7. serving: llama3.2-3b at full width and depth (28 layers,
+   3,212,749,824 parameters, f32), two ``ServingEngine``s with
+   ``max_batch=8, s_max=2048`` (3.76 GB of KV cache each), journal and
+   order snapshots on, eight numpy-seeded prompts of 1536, 1536, 1024,
+   1024, 512, 512, 128 and 128 tokens; 8 steps, one request finished, 8
+   steps, then one engine crashes and recovers (four re-prefill groups)
+   beside its twin: caches within 1e-4 of the largest |k|, |v|, 8 more
+   steps with equal tokens and logits within 1e-4 relative, the finished
+   request refused, a new request seated on its slot
+   (``repro_torch.serve_recover.run``).
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
-phase 6.  Each count is zeroed just before its phase and read just after.
+phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7.  Each
+count is zeroed just before its phase and read just after.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--report`` also writes every phase's
@@ -55,6 +74,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -65,6 +85,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 SECTOR = 32                    # bytes moved by one random DRAM access
 BATCH = 8192
 MAIN_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 19}
@@ -75,6 +97,10 @@ SNAP_KINDS = ("dll", "hashmap")
 CKPT_ARCH, CKPT_LAYERS = "llama3.2-3b", 4
 CKPT_SEED, CKPT_STEP = 7, 1000
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+SERVE_ARCH = "llama3.2-3b"
+SERVE_PROMPTS = (1536, 1536, 1024, 1024, 512, 512, 128, 128)
+SERVE_S_MAX, SERVE_STEPS, SERVE_SEED = 2048, 8, 7
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TIMING = {"seconds", "t_start", "t_end", "ready_at", "queue_wait",
           "total_seconds", "wall_ms", "total_ms", "critical_path_ms"}
 
@@ -769,7 +795,240 @@ def kernel_parity(dev, n: int = 1 << 22) -> dict:
         "max_abs_err": err, "shape": shape,
         "source": "src/repro_torch/csrc/quant_pack.cu",
         "replaces": "src/repro/kernels/quant_pack.py:74"}
-    return {"rows": rows, "pack_rowbytes": pack, "gather_next": gather}
+    del q, s
+    # ---- scatter_rows: one re-prefill group (2 slots) seated into the
+    # phase-7 cache leaf viewed as rows: (28 * 8, 2048 * 8 * 128) f32
+    cfg = serve_config()
+    row = SERVE_S_MAX * cfg.n_kv_heads * cfg.resolved_head_dim
+    n_rows = cfg.n_layers * 8
+    dst = torch.randn((n_rows, row), generator=g, device=dev)
+    packed = torch.randn((cfg.n_layers * 2, row), generator=g, device=dev)
+    idx = (torch.arange(cfg.n_layers, device=dev)[:, None] * 8
+           + torch.tensor([2, 5], device=dev)[None]).reshape(-1).to(
+        torch.int32)
+    err = require_equal("scatter_rows", [
+        (P.scatter_rows(dst, packed, idx),
+         P.scatter_rows_plain(dst.clone(), packed, idx))])
+    lidx = idx.long()
+    m_bytes = packed.numel() * 4
+    rows["scatter_rows"] = {
+        "ms": time_ms(lambda: P.scatter_rows_(dst, packed, idx),
+                      flush=flush),
+        "plain_ms": time_ms(lambda: P.scatter_rows_plain(dst, packed, idx),
+                            flush=flush),
+        "library_ms": time_ms(lambda: dst.index_copy_(0, lidx, packed),
+                              flush=flush),
+        "bound_ms": bound_ms(2 * m_bytes + 4 * idx.numel()),
+        "max_abs_err": err,
+        "shape": f"{idx.numel()} rows of {row * 4} B into ({n_rows}, "
+                 f"{row}) f32, one phase-7 group",
+        "source": "src/repro_torch/csrc/pack_flush.cu",
+        "replaces": "src/repro/kernels/pack_flush.py:116"}
+    del dst, packed
+    # ---- flash_attention: a phase-7 layer's shape class (24 heads over 8
+    # KV heads, D = 128) at 4 sequences of 1024, causal; then the shapes
+    # phase 7 gives it: re-prefill groups of two slots at 1040 tokens and
+    # of one slot at 1552 (ragged; 1552 is the longest S of the run), two
+    # slots at 1552, and an admission of 1536
+    flash = {}
+    for name, dt, h, hk, seq in (
+            ("float32", torch.float32, 96, 32, 1024),
+            ("bfloat16", torch.bfloat16, 96, 32, 1024),
+            ("float32_ragged", torch.float32, 96, 32, 1000),
+            ("float32_p7_1040", torch.float32, 48, 16, 1040),
+            ("float32_p7_2x1552", torch.float32, 48, 16, 1552),
+            ("float32_p7_1552", torch.float32, 24, 8, 1552),
+            ("float32_p7_1536", torch.float32, 24, 8, 1536)):
+        flash[name] = flash_case(dev, g, dt, h, hk, seq, 128, flush)
+    rows["flash_attention"] = dict(
+        flash["float32"], bound_by="operations",
+        shape="q (96, 1024, 128) over k, v (32, 1024, 128) f32, causal; "
+              "bf16 and S = 1000 in the report",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:91")
+    return {"rows": rows, "pack_rowbytes": pack, "gather_next": gather,
+            "flash_attention": flash}
+
+
+def flash_bound_ms(h: int, hk: int, sq: int, skv: int, d: int, itemsize: int,
+                   causal: bool = True) -> float:
+    """The larger of the causal pairs' flops (4 per pair and width) over
+    the peak for the input type and q, k, v, o once over the HBM rate."""
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    flops = 4 * h * d * pairs
+    peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
+    nbytes = itemsize * d * (2 * h * sq + 2 * hk * skv)
+    return max(flops / peak * 1e3, bound_ms(nbytes))
+
+
+def flash_case(dev, g, dt, h: int, hk: int, seq: int, d: int, flush) -> dict:
+    """flash_attention vs its plain version at (h, seq, d) over (hk, seq,
+    d), causal, in ``dt``, timed beside its bound and the library's
+    scaled_dot_product_attention (grouped, causal)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    q = torch.randn((h, seq, d), generator=g, device=dev).to(dt)
+    k = torch.randn((hk, seq, d), generator=g, device=dev).to(dt)
+    v = torch.randn((hk, seq, d), generator=g, device=dev).to(dt)
+    err = max_abs_err(FA.flash_attention(q, k, v),
+                      FA.flash_attention_plain(q, k, v))
+    tol = FLASH_TOL[str(dt).split(".")[-1]]
+    if not err <= tol:
+        raise AssertionError(f"flash_attention {dt} S={seq}: max abs err "
+                             f"{err} above {tol}")
+    return {
+        "ms": time_ms(lambda: FA.flash_attention(q, k, v), flush=flush),
+        "plain_ms": time_ms(lambda: FA.flash_attention_plain(q, k, v),
+                            reps=5),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, enable_gqa=True),
+            flush=flush),
+        "bound_ms": flash_bound_ms(h, hk, seq, seq, d, q.element_size()),
+        "max_abs_err": err, "tolerance": tol}
+
+
+# -------------------------------------------------------------- serving
+
+def serve_config(layers: int = 0):
+    """llama3.2-3b at its published widths; ``layers`` cuts the depth."""
+    from repro_torch.configs import registry
+    cfg = registry.get(SERVE_ARCH)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def serve_once(cfg, params, device, prompts, steps: int, path: Path) -> dict:
+    """One engine on ``device`` serving ``prompts`` for ``steps`` greedy
+    steps (max_batch 2, s_max 64); the prefill logits of each prompt, the
+    tokens and logits of every step, and the engine arena file's bytes."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+    model = Model(cfg, compute_dtype=torch.float32)
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    eng = ServingEngine(model, params, EngineConfig(max_batch=2, s_max=64),
+                        arena_path=str(path / "engine"), device=device)
+    pre = [model.prefill(params, {"tokens": torch.as_tensor(p[None]).to(
+        device)}, s_max=64)[0][0].cpu() for p in prompts]
+    for rid, p in enumerate(prompts):
+        eng.add_request(rid, p)
+    toks, logits = [], []
+    for _ in range(steps):
+        toks.append(eng.step())
+        logits.append({r: lg.cpu() for r, lg in eng.step_logits.items()})
+    return {"prefill": pre, "tokens": toks, "logits": logits,
+            "stats": dataclasses.asdict(eng.arena.stats),
+            "file": (path / "engine").read_bytes()}
+
+
+def serve_card_vs_cpu(dev) -> dict:
+    """Phase 4's serving check: full width, 2 layers, f32, parameters drawn
+    once on the CPU and copied to the card."""
+    import torch
+    from repro_torch.core.policy import tree_map
+    from repro_torch.models.backbone import init_params
+    from repro_torch.serve_recover import LOGIT_TOL, prompts_for
+    cfg = serve_config(layers=2)
+    gen = torch.Generator()
+    gen.manual_seed(SERVE_SEED)
+    cpu_params = init_params(cfg, gen, "cpu")
+    card_params = tree_map(lambda t: t.to(dev), cpu_params)
+    prompts = prompts_for((12, 7), cfg.vocab, SERVE_SEED)
+    out = {d: serve_once(cfg, prm, d, prompts, 8,
+                         ROOT / "build" / "chip_smoke_serve" / str(d))
+           for d, prm in ((dev, card_params), (torch.device("cpu"),
+                                               cpu_params))}
+    card, cpu = out[dev], out[torch.device("cpu")]
+    worst, gaps, same_tokens = 0.0, [], True
+    for a, b in zip(card["prefill"], cpu["prefill"]):
+        worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    for st, (ta, tb) in enumerate(zip(card["tokens"], cpu["tokens"])):
+        for rid in tb:
+            a, b = card["logits"][st][rid], cpu["logits"][st][rid]
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+            top2 = torch.topk(b, 2).values
+            gap = float((top2[0] - top2[1]) / b.abs().max())
+            gaps.append(gap)
+            if ta[rid] != tb[rid]:
+                same_tokens = False
+                if gap >= LOGIT_TOL:
+                    raise AssertionError(f"serve step {st} request {rid}: "
+                                         f"card token {ta[rid]} != CPU "
+                                         f"{tb[rid]} with top-2 gap {gap}")
+    if worst > LOGIT_TOL:
+        raise AssertionError(f"serve: card and CPU logits differ by {worst} "
+                             f"of the largest |logit|")
+    if same_tokens and (card["file"] != cpu["file"]
+                        or card["stats"] != cpu["stats"]):
+        raise AssertionError("serve: same tokens but different engine "
+                             "arena files or FlushStats")
+    shutil.rmtree(ROOT / "build" / "chip_smoke_serve")
+    return {"logit_rel_err": worst, "same_tokens": same_tokens,
+            "min_top2_gap": min(gaps),
+            "tokens": [list(t.values()) for t in cpu["tokens"]],
+            "file_sha256": hashlib.sha256(card["file"]).hexdigest()[:12]}
+
+
+def model_decode_ms(cfg, params, dev) -> float:
+    """Median host time of one ``Model.decode_step`` at batch 1 against a
+    2048-slot cache at position 1600, ending in a sync: the model's share
+    of a slot-step, without the engine's table and token-log work."""
+    import torch
+    from repro_torch.models.model import Model
+    model = Model(cfg, compute_dtype=torch.float32)
+    cache = model.init_cache(1, SERVE_S_MAX, dev)
+    tok = torch.tensor([11], device=dev)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode_step(params, cache, tok, 1600)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times[1:])
+
+
+def serving_phase(dev) -> dict:
+    """Phase 7: the twin protocol at llama3.2-3b full width and depth;
+    returns its numbers with the launch counts of its run."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.backbone import init_params
+    from repro_torch.serve_recover import run
+    cfg = serve_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run(cfg, dev, prompt_lens=SERVE_PROMPTS, max_batch=8,
+              s_max=SERVE_S_MAX, steps=SERVE_STEPS, max_requests=64,
+              seed=SERVE_SEED, params=params,
+              workdir=str(ROOT / "build"))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    out["init_params_s"] = init_s
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # a group's re-prefill time: from the previous admission (the first:
+    # from the engine stage's start, which also holds the slab scan)
+    prev = 0.0
+    for grp in sorted(out["groups"], key=lambda x: x["admitted_s"]):
+        grp["seconds"] = grp["admitted_s"] - prev
+        grp["tokens_per_s"] = len(grp["slots"]) * grp["tokens"] \
+            / grp["seconds"]
+        prev = grp["admitted_s"]
+    for p in out["prefill"]:
+        p["tokens_per_s"] = p["tokens"] / p["seconds"]
+    out["model_decode_ms"] = model_decode_ms(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------- main
@@ -790,8 +1049,13 @@ def main(argv=None) -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    # the port has no integrity sidecars; every arena here runs without
+    # them (phases 3-6 also pin integrity=False explicitly)
+    os.environ["REPRO_INTEGRITY"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.interop import image_of
-    from repro_torch.kernels import (_build, launch_counts,
+    from repro_torch.kernels import (WRAPPERS, _build, launch_counts,
                                      reset_launch_counts)
 
     report = {}
@@ -814,7 +1078,8 @@ def main(argv=None) -> int:
     # ---- phase 2: kernel parity at main-path shapes
     parity = kernel_parity(dev)
     report["kernel_parity"] = parity
-    emit({"phase": "kernel_parity", "pack_rowbytes": parity["pack_rowbytes"]})
+    emit({"phase": "kernel_parity", "pack_rowbytes": parity["pack_rowbytes"],
+          "flash_attention": parity["flash_attention"]})
     # ---- phase 3: the main path at real size
     reset_launch_counts()
     main_runs = []
@@ -881,8 +1146,11 @@ def main(argv=None) -> int:
                     f"{out['cuda']['manifest.json'][:12]}")
     del small, small_dev
     shutil.rmtree(ROOT / "build" / "chip_smoke_parity")
-    report["card_vs_cpu"] = same
-    emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same})
+    serve = serve_card_vs_cpu(dev)
+    same.append(f"serve:{serve['file_sha256']}")
+    report["card_vs_cpu"] = {"identical": same, "serve": serve}
+    emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same,
+          "serve": serve})
     # ---- phase 5: snapshot recovery at full size
     reset_launch_counts()
     snap_runs = []
@@ -905,8 +1173,9 @@ def main(argv=None) -> int:
     emit({"phase": "checkpoint", **{k: v for k, v in ckpt.items()
                                     if k != "saves"}})
     quant = ("quantize_blockwise", "dequantize_blockwise")
+    served = ("flash_attention", "scatter_rows")
     launches = {k: launches3[k] + launches5[k] for k in launches3
-                if k not in quant}
+                if k not in quant + served}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"phases 3 and 5 never launched {missing}")
@@ -916,12 +1185,24 @@ def main(argv=None) -> int:
     missing = [k for k in quant if launches[k] == 0]
     if missing:
         raise AssertionError(f"phase 6 never launched {missing}")
+    # ---- phase 7: serving at llama3.2-3b full width and depth
+    serving = serving_phase(dev)
+    report["serving"] = serving
+    emit({"phase": "serving", **{k: v for k, v in serving.items()
+                                 if k != "stats"}})
+    emit({"phase": "serving_flush", **serving["stats"]})
+    launches.update({k: serving["launches"][k] for k in served})
+    missing = [k for k in served if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 7 never launched {missing}")
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():
         kernels.append({"name": name, "route": "cuda",
                         "launches": launches[name], "bound_by": "bytes",
                         **row})
+    if sorted(k["name"] for k in kernels) != sorted(WRAPPERS):
+        raise AssertionError("the kernels line does not list every kernel")
     report["card"] = card
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

@@ -19,6 +19,8 @@ single-arena barrier core of ``repro.core.arena``.
 * Order-snapshot regions (a ``.snap`` in the name) are metadata: they
   flush in the metadata phase, and their lines land in
   ``FlushStats.snapshot_lines``, never in ``lines``/``bytes``/``calls``.
+  Request-journal rings (a ``.jrnl`` in the name) are data-phase regions
+  whose lines land in ``FlushStats.journal_lines`` the same way.
   The structures register snapshot providers that every drain asks for
   their dirty rows; the one-line record format is at the end of this
   module (the reference's, byte for byte).
@@ -76,6 +78,15 @@ def snapshot_enabled(flag: Optional[bool] = None) -> bool:
     return os.environ.get("REPRO_SNAPSHOT", "1") != "0"
 
 
+def journal_enabled(flag: Optional[bool] = None) -> bool:
+    """Resolve a structure's ``journal=`` argument as the reference does:
+    an explicit flag wins; ``None`` defers to ``REPRO_JOURNAL`` (default
+    on)."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("REPRO_JOURNAL", "1") != "0"
+
+
 def integrity_enabled(flag: Optional[bool] = None) -> bool:
     """Resolve an arena's ``integrity=`` argument as the reference does:
     an explicit flag wins; ``None`` defers to ``REPRO_INTEGRITY`` (default
@@ -87,14 +98,18 @@ def integrity_enabled(flag: Optional[bool] = None) -> bool:
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a torch.device; None means the GPU, and raises when
-    there is none."""
+    there is none.  A CUDA device without an index gets the current one,
+    so it compares equal to the device its tensors report."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("repro_torch runs on a CUDA device; none is "
                                "available (pass device='cpu' to run on the "
                                "CPU)")
         return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 @dataclass
@@ -113,8 +128,8 @@ class FlushStats:
     # order-snapshot lines, kept out of lines/bytes/calls/saved_lines so
     # the data accounting stays equal to a snapshot-off run
     snapshot_lines: int = 0
-    # the reference's journal and integrity-sidecar lines; zero until
-    # those features are ported
+    # request-journal ring lines, kept out of the data counters the same
+    # way; integrity-sidecar lines stay zero until integrity is ported
     journal_lines: int = 0
     integrity_lines: int = 0
 
@@ -136,6 +151,10 @@ class Region:
         self.offset = offset
         # order-snapshot regions: derivable mirrors, accounted apart
         self.snap = ".snap" in name
+        # request-journal rings: data-phase regions (an entry becomes
+        # visible through the committed head on a metadata line), accounted
+        # in FlushStats.journal_lines
+        self.jrnl = ".jrnl" in name
         # Metadata regions (structure headers, order snapshots) flush
         # AFTER data regions within an epoch — data-before-metadata
         # ordering; a torn data phase never leaves half a snapshot behind
@@ -166,6 +185,40 @@ class Region:
     def write_row(self, i: int, row: np.ndarray) -> None:
         self.vol[i] = torch.from_numpy(row).to(self.vol.device)
 
+    # -- row accessors (the reference's ``_RowAccess``) --------------------
+    # Views and copies of the volatile tensor, on the arena's device; only
+    # ``read_one`` brings a value to the host.
+    def read_rows(self, rows) -> torch.Tensor:
+        return self.vol[self._idx(rows)]
+
+    def read_at(self, rows, col) -> torch.Tensor:
+        return self.vol[self._idx(rows), col]
+
+    def read_one(self, row: int, col: int) -> int:
+        """One element as a Python int.  On a card-resident region this is
+        one device sync."""
+        return int(self.vol[row, col])
+
+    def write_rows(self, rows, vals) -> None:
+        self.vol[self._idx(rows)] = self._val(vals)
+
+    def write_at(self, rows, col, vals) -> None:
+        self.vol[self._idx(rows), col] = self._val(vals)
+
+    def _idx(self, rows) -> torch.Tensor:
+        if isinstance(rows, torch.Tensor):
+            return rows.to(self.vol.device, torch.int64)
+        return torch.as_tensor(np.asarray(rows, np.int64),
+                               device=self.vol.device)
+
+    def _val(self, vals):
+        if isinstance(vals, (int, float)):
+            return vals
+        if isinstance(vals, torch.Tensor):
+            return vals.to(self.vol.device, self.tdtype)
+        return torch.as_tensor(np.asarray(vals), dtype=self.tdtype,
+                               device=self.vol.device)
+
     def persist_rows(self, rows) -> None:
         """Flush the given row indices (volatile -> persistent) NOW, with
         per-call line accounting.  Structures prefer ``mark_rows``."""
@@ -174,7 +227,7 @@ class Region:
             return
         self._pview()[rows] = gather_rows(self, rows)
         self.arena._account_rows(self.offset, self.rowbytes, rows,
-                                 snap=self.snap)
+                                 snap=self.snap, jrnl=self.jrnl)
 
     def mark_rows(self, rows, fresh: bool = False) -> None:
         """Add rows to the arena's write set (flushed once, deduplicated,
@@ -291,6 +344,11 @@ class Arena:
             with open(self.path + ".layout", "w") as f:
                 json.dump(self._meta, f)
 
+    def region_shards(self, name: str, rows) -> np.ndarray:
+        """Shard id of each row of region ``name``: all zeros on this
+        single arena (callers group work per shard either way)."""
+        return np.zeros(len(np.atleast_1d(rows)), np.int64)
+
     def add_snapshot_provider(self, fn) -> None:
         """Register an order-snapshot provider: a callable returning
         ``[(region, rows), ...]`` of snapshot-region rows to persist,
@@ -372,12 +430,15 @@ class Arena:
         return int(np.sum(np.maximum(0, ends - starts + 1)))
 
     def _account_rows(self, base: int, rowbytes: int, rows: np.ndarray,
-                      snap: bool = False) -> None:
+                      snap: bool = False, jrnl: bool = False) -> None:
         lines = self._rows_line_count(base, rowbytes, rows)
-        if snap:
-            # snapshot lines are real media traffic (they pay the synthetic
-            # stall) but stay out of the data counters
-            self.stats.snapshot_lines += lines
+        if snap or jrnl:
+            # snapshot and journal lines are real media traffic (they pay
+            # the synthetic stall) but stay out of the data counters
+            if snap:
+                self.stats.snapshot_lines += lines
+            else:
+                self.stats.journal_lines += lines
             self._synth(lines)
             return
         self.stats.lines += lines

@@ -23,7 +23,8 @@ dirty snapshot rows (``_drain_snapshots``), at every drain and not only
 at commits.  Snapshot rows ride the same ``pack_rows`` gather as data
 rows, flush in the metadata phase, and stay out of the ``marks`` /
 ``dedup_rows`` / ``saved_lines`` ledger: their lines land in
-``FlushStats.snapshot_lines``.
+``FlushStats.snapshot_lines``.  Request-journal rings (``.jrnl``) stay
+off that ledger too; their lines land in ``FlushStats.journal_lines``.
 """
 from __future__ import annotations
 
@@ -58,8 +59,9 @@ class WriteSet:
         rows = np.unique(host_rows(rows))
         if rows.size == 0:
             return
-        if region.snap:
-            # snapshot rows stay off the marks/dedup/saved ledger
+        if region.snap or region.jrnl:
+            # snapshot and journal rows stay off the marks/dedup/saved
+            # ledger
             self._pending.setdefault(region.name, []).append((rows, 0))
             return
         would = self.arena._rows_line_count(region.offset, region.rowbytes,
@@ -122,9 +124,9 @@ class WriteSet:
             marked_rows = sum(r.size for r, _ in marks)
             self._copy_rows(region, rows)
             flushed_any = True
-            if region.snap:
+            if region.snap or region.jrnl:
                 arena._account_rows(region.offset, region.rowbytes, rows,
-                                    snap=True)
+                                    snap=region.snap, jrnl=region.jrnl)
                 continue
             before = arena.stats.lines
             arena._account_rows(region.offset, region.rowbytes, rows)

@@ -9,8 +9,11 @@ persistent bytes and its layout (the reference's ``Arena._mm`` and
 
 A train state moves as numpy leaves: ``state_from_numpy`` carries a
 TrainState whose leaves are numpy arrays (the reference's, through
-``np.asarray``) into the port, ``state_to_numpy`` back.  Checkpoints
-need no carrier: both packages write and read the same files.
+``np.asarray``) into the port, ``state_to_numpy`` back.  A parameter tree
+moves the same way: ``params_from_numpy`` takes the reference's tree as
+``jax.tree.map(np.asarray, params)``, so both packages compute the same
+function; ``params_to_numpy`` goes back.  Checkpoints need no carrier:
+both packages write and read the same files.
 """
 from __future__ import annotations
 
@@ -21,8 +24,8 @@ from repro_torch.core.arena import Arena, not_ported, resolve_device
 from repro_torch.core.policy import tree_map
 from repro_torch.train.state import TrainState
 
-__all__ = ["arena_from_image", "image_of", "state_from_numpy",
-           "state_to_numpy"]
+__all__ = ["arena_from_image", "image_of", "params_from_numpy",
+           "params_to_numpy", "state_from_numpy", "state_to_numpy"]
 
 
 def arena_from_image(image: np.ndarray, layout: dict, device) -> Arena:
@@ -55,6 +58,19 @@ def arena_from_image(image: np.ndarray, layout: dict, device) -> Arena:
 def image_of(arena: Arena) -> np.ndarray:
     """A copy of the arena's persistent bytes."""
     return np.array(arena._mm, np.uint8)
+
+
+def params_from_numpy(tree, device=None):
+    """A parameter tree (nested dicts of numpy arrays) as torch tensors on
+    ``device`` (None means the GPU), dtypes kept."""
+    device = resolve_device(device)
+    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
+        device), tree)
+
+
+def params_to_numpy(tree):
+    """A tree of torch tensors as host numpy arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
 
 
 def state_from_numpy(tree, device=None) -> TrainState:

@@ -6,7 +6,8 @@ so a run can show which kernels its main path went through.
 """
 from typing import Dict
 
-from repro_torch.kernels import chain_order, pack_flush, quant_pack
+from repro_torch.kernels import (chain_order, flash_attention, pack_flush,
+                                 quant_pack)
 
 WRAPPERS = {
     "pack_rows": pack_flush.pack_rows,
@@ -16,6 +17,8 @@ WRAPPERS = {
     "gather_next": chain_order.gather_next,
     "quantize_blockwise": quant_pack.quantize_blockwise,
     "dequantize_blockwise": quant_pack.dequantize_blockwise,
+    "scatter_rows": pack_flush.scatter_rows_,
+    "flash_attention": flash_attention.flash_attention,
 }
 
 

@@ -23,16 +23,18 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("pack_flush", "chain_order", "quant_pack")
+SOURCES = ("pack_flush", "chain_order", "quant_pack", "flash_attention")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 # argtypes of every C entry point: pointers and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "pack_flush": {
         "pack_rows_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _P],
+        "scatter_rows_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
     },
     "chain_order": {
         "jump_double_launch": [_P, _P, _P, _P, _I64, _P],
@@ -44,6 +46,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "quant_pack": {
         "quantize_blockwise_launch": [_P, _P, _P, _I64, _P],
         "dequantize_blockwise_launch": [_P, _P, _P, _I64, _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT,
+                                   _INT, _INT, _F32, _INT, _P],
     },
 }
 

@@ -1,4 +1,5 @@
-"""pack_flush: gather dirty rows into one staging buffer.
+"""pack_flush: gather dirty rows into one staging buffer, and scatter
+packed rows back.
 
 The device half of the epoch drain (core/writeset.py): the dirty rows of a
 region's volatile tensor are packed into one contiguous (M, ...) buffer on
@@ -6,8 +7,13 @@ the card, which the drain then copies to the host in one transfer and
 writes into the persistent image.  ``csrc/pack_flush.cu`` holds the Hopper
 kernel and its design note.
 
-``pack_rows`` dispatches by where its tensors live: CPU tensors take
-``pack_rows_plain``; CUDA tensors launch the kernel or raise.
+``scatter_rows_`` is the inverse, in place: ``dst[idx[i]] = packed[i]``.
+The serving engine seats each re-prefill group's cache rows with it, one
+launch per cache leaf per group (``serve/engine.py``); ``scatter_rows`` is
+the reference's functional form on a copy.
+
+Both dispatch by where their tensors live: CPU tensors take the plain
+version; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -15,7 +21,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["pack_rows", "pack_rows_plain"]
+__all__ = ["pack_rows", "pack_rows_plain", "scatter_rows",
+           "scatter_rows_", "scatter_rows_plain"]
 
 
 def _check(src: torch.Tensor, idx: torch.Tensor) -> None:
@@ -80,3 +87,97 @@ def pack_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 pack_rows.launches = 0
+
+
+# ---------------------------------------------------------------- scatter
+
+def _check_scatter(dst: torch.Tensor, packed: torch.Tensor,
+                   idx: torch.Tensor) -> None:
+    if dst.dim() != 2 or packed.dim() != 2 or packed.shape[1] != dst.shape[1]:
+        raise ValueError(f"scatter_rows: dst (N, W) and packed (M, W) "
+                         f"expected, got {tuple(dst.shape)} and "
+                         f"{tuple(packed.shape)}")
+    if packed.dtype != dst.dtype:
+        raise TypeError(f"scatter_rows: packed {packed.dtype} != dst "
+                        f"{dst.dtype}")
+    if idx.dim() != 1 or idx.dtype != torch.int32 or \
+            idx.shape[0] != packed.shape[0]:
+        raise TypeError(f"scatter_rows: idx must be 1-D int32 of "
+                        f"{packed.shape[0]} rows, got {idx.dtype} shape "
+                        f"{tuple(idx.shape)}")
+    if not (dst.device == packed.device == idx.device):
+        raise ValueError("scatter_rows: dst, packed, idx on different "
+                         "devices")
+    if not (dst.is_contiguous() and packed.is_contiguous()
+            and idx.is_contiguous()):
+        raise ValueError("scatter_rows: dst, packed and idx must be "
+                         "contiguous")
+
+
+def _winners(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Mask of the packed rows that land: a valid index, and the last row
+    naming its dst row (the reference's sequential scatter keeps the last
+    of duplicates)."""
+    valid = (idx >= 0) & (idx < n)
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    inv = torch.full((n,), -1, dtype=torch.int64, device=idx.device)
+    inv.scatter_reduce_(0, idx[valid].long(), pos[valid], reduce="amax")
+    return valid & (inv[torch.where(valid, idx, 0).long()] == pos)
+
+
+def scatter_rows_plain(dst: torch.Tensor, packed: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """Plain version, in place: ``dst[idx[i]] = packed[i]`` by advanced
+    indexing for every ``0 <= idx[i] < len(dst)``, the last of duplicate
+    indices winning.  Returns ``dst``."""
+    _check_scatter(dst, packed, idx)
+    keep = _winners(idx, dst.shape[0])
+    dst[idx[keep].long()] = packed[keep]
+    return dst
+
+
+def scatter_rows_(dst: torch.Tensor, packed: torch.Tensor,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """In place ``dst[idx[i]] = packed[i]`` for ``0 <= idx[i] < N``; rows
+    with another index (-1 is the padding sentinel) are skipped, and of
+    duplicate indices the last packed row wins.  dst (N, W) and packed
+    (M, W) of one dtype, idx (M,) int32.  Returns ``dst``.  Only the M
+    scattered rows are touched, so a multi-GB dst is never copied."""
+    _check_scatter(dst, packed, idx)
+    if dst.device.type == "cpu":
+        return scatter_rows_plain(dst, packed, idx)
+    if dst.device.type != "cuda":
+        raise RuntimeError(f"scatter_rows: no kernel for device "
+                           f"{dst.device}")
+    m = idx.shape[0]
+    rowbytes = dst.shape[1] * dst.element_size()
+    chunk = next(c for c in (16, 8, 4, 2, 1) if rowbytes % c == 0)
+    if dst.data_ptr() % chunk or packed.data_ptr() % chunk:
+        raise ValueError(f"scatter_rows: {rowbytes} B rows are not "
+                         f"{chunk}-byte aligned")
+    if m == 0 or rowbytes == 0:
+        return dst
+    inv = torch.full((dst.shape[0],), -1, dtype=torch.int32,
+                     device=dst.device)
+    lib = _build.load("pack_flush")
+    with torch.cuda.device(dst.device):
+        stream = torch.cuda.current_stream(dst.device).cuda_stream
+        rc = lib.scatter_rows_launch(dst.data_ptr(), packed.data_ptr(),
+                                     idx.data_ptr(), inv.data_ptr(),
+                                     dst.shape[0], m, rowbytes, chunk,
+                                     stream)
+    if rc:
+        raise RuntimeError(f"scatter_rows: kernel launch failed (CUDA error "
+                           f"{rc})")
+    scatter_rows_.launches += 1
+    return dst
+
+
+scatter_rows_.launches = 0
+
+
+def scatter_rows(dst: torch.Tensor, packed: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Functional form, as the reference's: a copy of ``dst`` with the
+    rows scattered (through ``scatter_rows_``)."""
+    return scatter_rows_(dst.clone(), packed, idx)

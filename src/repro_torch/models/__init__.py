@@ -1,4 +1,4 @@
-"""Model code of the port.  So far the parameter shapes and their
-initialisation (``backbone``) and the analytical parameter and FLOP
-accounting built on them (``accounting``); the forward pass waits for the
-model slice."""
+"""Model code of the port: parameter and cache shapes and their
+initialisation, dense layer application (``backbone``), the layers
+(``layers``), the prefill/decode programs (``model``), and the analytical
+parameter and FLOP accounting (``accounting``)."""

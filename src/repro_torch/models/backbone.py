@@ -1,22 +1,30 @@
-"""Backbone parameter shapes and initialisation, the port of the
-parameter-shape part of ``repro.models.backbone``.
+"""Backbone: parameter and cache shapes, initialisation and layer
+application, the port of ``repro.models.backbone``.
 
 The stack is ``n_super`` repetitions of the config's ``layer_pattern``
 ("superblock") plus an unrolled remainder.  Superblock parameters are
 stacked on a leading axis, so ``param_specs`` has the reference's tree:
 ``embed``, ``final_norm``, ``blocks/pos<i>/...`` (leading dim n_super),
 ``rem/rem<i>/...``, ``lm_head`` when embeddings are untied, and the
-encoder's ``enc_blocks``/``enc_final_norm``.  The forward pass waits for
-the model slice.
+encoder's ``enc_blocks``/``enc_final_norm``.  Decode caches have the same
+tree shape (``cache_specs``).
+
+``apply_layer`` runs the dense attention layers (base ``dense`` or
+``attn``, full or ``bidir``) in prefill and decode mode.  Every other base
+or variant (``local``, ``cross``, ``moe``, ``hybrid``, ``mlstm``,
+``slstm``) raises ``NotImplementedError`` naming itself, and so does the
+train mode, which waits for the training slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.arena import not_ported
 from repro_torch.core.policy import tree_map
+from repro_torch.models import layers as L
 
 PyTree = Any
 
@@ -200,3 +208,152 @@ def _fix_special_inits(params: PyTree) -> PyTree:
             return torch.ones(x.shape, dtype=x.dtype, device=x.device)
         return x
     return tree_map(fix, params, with_path=True)
+
+
+# ---------------------------------------------------------------------------
+# Cache shape construction (decode)
+# ---------------------------------------------------------------------------
+
+
+def _cache_shapes(cfg: ArchConfig, tag: str, batch: int, s_max: int,
+                  dtype) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{name: (shape, dtype)} of one layer's decode cache."""
+    base, var = parse_tag(tag)
+    k, e = cfg.n_kv_heads, cfg.resolved_head_dim
+    sh: Dict[str, Any] = {}
+    if base in ("dense", "attn", "moe", "hybrid"):
+        if var == "cross" and cfg.family == "vlm":
+            ctx = cfg.context_seq
+            sh["xk"] = ((batch, ctx, k, e), dtype)
+            sh["xv"] = ((batch, ctx, k, e), dtype)
+        else:
+            cap = min(cfg.window, s_max) if var == "local" else s_max
+            sh["k"] = ((batch, cap, k, e), dtype)
+            sh["v"] = ((batch, cap, k, e), dtype)
+            if var == "cross":   # audio self+cross
+                sh["xk"] = ((batch, cfg.encoder_seq, k, e), dtype)
+                sh["xv"] = ((batch, cfg.encoder_seq, k, e), dtype)
+    if base == "hybrid":
+        di = cfg.ssm.expand * cfg.d_model
+        sh["ssm"] = ((batch, di, cfg.ssm.state_dim), torch.float32)
+        sh["conv"] = ((batch, cfg.ssm.conv_width - 1, di), dtype)
+    if base == "mlstm":
+        h, dv = cfg.n_heads, cfg.resolved_head_dim
+        dk = max(dv // 2, 8)
+        sh["c"] = ((batch, h, dk, dv), torch.float32)
+        sh["n"] = ((batch, h, dk), torch.float32)
+        sh["m"] = ((batch, h), torch.float32)
+    if base == "slstm":
+        h = cfg.n_heads
+        dh = cfg.d_model // cfg.n_heads
+        for name in ("c", "n", "h", "m"):
+            sh[name] = ((batch, h, dh), torch.float32)
+    return sh
+
+
+def cache_specs(cfg: ArchConfig, batch: int, s_max: int,
+                dtype=torch.bfloat16) -> PyTree:
+    """The decode-cache tree as ``meta`` tensors (shapes and dtypes)."""
+    pattern, n_super, rem = cfg.pattern_plan()
+
+    def meta(shapes, prefix=()):
+        return {n: torch.empty(prefix + shape, dtype=dt, device="meta")
+                for n, (shape, dt) in shapes.items()}
+    out: Dict[str, Any] = {}
+    if n_super:
+        out["blocks"] = {
+            f"pos{i}": meta(_cache_shapes(cfg, t, batch, s_max, dtype),
+                            (n_super,))
+            for i, t in enumerate(pattern)}
+    if rem:
+        out["rem"] = {
+            f"rem{i}": meta(_cache_shapes(cfg, t, batch, s_max, dtype))
+            for i, t in enumerate(rem)}
+    return out
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, device=None) -> PyTree:
+    return tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                          device=device),
+                    cache_specs(cfg, batch, s_max, dtype))
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+
+def _attn_params(p: Dict[str, torch.Tensor]) -> L.AttnParams:
+    return L.AttnParams(wq=p["wq"], wk=p["wk"], wv=p["wv"],
+                        wo=p.get("wo"), q_norm=p.get("q_norm"),
+                        k_norm=p.get("k_norm"))
+
+
+def _self_attention_seq(cfg: ArchConfig, p, x, positions, *, causal,
+                        window):
+    q, k, v = L.project_qkv(x, _attn_params(p), cfg.n_kv_heads,
+                            positions=positions, theta=cfg.rope_theta)
+    att = L.blockwise_attention(q, k, v, causal=causal, window=window,
+                                softcap=cfg.attn_softcap)
+    return att, k, v
+
+
+def _seat_cache(k_all: torch.Tensor, cap_total: int) -> torch.Tensor:
+    """Place the tail of prefill K/V (B, S, ...) into a fresh ring/linear
+    cache of capacity cap_total, at the slots decode will expect
+    (slot = abs_pos % cap_total)."""
+    b, s = k_all.shape[:2]
+    t = min(cap_total, s)
+    slots = torch.arange(s - t, s, device=k_all.device) % cap_total
+    out = k_all.new_zeros((b, cap_total) + tuple(k_all.shape[2:]))
+    out[:, slots] = k_all[:, s - t:]
+    return out
+
+
+DENSE_VARIANTS = ("full", "bidir")
+
+
+def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
+                x: torch.Tensor, *, mode: str,
+                ctx: Optional[torch.Tensor] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                pos: Optional[int] = None,
+                s_max: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Apply one dense attention layer in ``prefill`` or ``decode`` mode.
+    Returns (x, new_cache).  ``pos`` (decode) is the position written."""
+    base, var = parse_tag(tag)
+    if base not in ("dense", "attn"):
+        raise not_ported(f"layer base {base!r} ({tag})")
+    if var not in DENSE_VARIANTS:
+        raise not_ported(f"layer variant {var!r} ({tag})")
+    if mode not in ("prefill", "decode"):
+        raise not_ported(f"{mode} mode")
+    b, s, d = x.shape
+    s_max = s_max or s
+    new_cache: Dict[str, torch.Tensor] = {}
+    y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if mode == "decode":
+        cap = cache["k"].shape[1]
+        positions = torch.tensor([pos], device=x.device)
+        q, k_new, v_new = L.project_qkv(
+            y, _attn_params(p["attn"]), cfg.n_kv_heads,
+            positions=positions, theta=cfg.rope_theta)
+        k_c = L.ring_write(cache["k"], k_new, pos, cap)
+        v_c = L.ring_write(cache["v"], v_new, pos, cap)
+        kv_pos = L.ring_slot_positions(pos, cap, x.device)
+        att = L.decode_attention(q, k_c, v_c, kv_pos, pos,
+                                 softcap=cfg.attn_softcap)
+        new_cache["k"], new_cache["v"] = k_c, v_c
+    else:
+        positions = torch.arange(s, device=x.device)
+        att, k_all, v_all = _self_attention_seq(
+            cfg, p["attn"], y, positions, causal=var != "bidir", window=0)
+        new_cache["k"] = _seat_cache(k_all, s_max)
+        new_cache["v"] = _seat_cache(v_all, s_max)
+    x = x + L.attn_out(att, p["attn"]["wo"])
+    y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + L.gated_mlp(y, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                        p["mlp"]["w_down"], cfg.act)
+    return x, new_cache

@@ -1,0 +1,149 @@
+"""Model: config -> prefill and decode programs over a parameter tree, the
+port of ``repro.models.model``.
+
+Plain functions over the reference's parameter dictionary tree (the tree
+``CheckpointManager`` and ``interop`` already carry), not ``nn.Module``s.
+The superblock ``lax.scan`` of the reference is a Python loop over the
+stacked leading dim: superblock j's parameters and caches are views
+``leaf[j]``, and the per-layer caches of a prefill or decode are stacked
+back on that dim.  Programs run on the device their parameters live on.
+``compute_dtype`` defaults to bf16 as in the reference.  The loss and the
+train mode wait for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.arena import not_ported
+from repro_torch.core.policy import tree_map
+from repro_torch.models import backbone as B
+from repro_torch.models.layers import rms_norm
+
+PyTree = Any
+
+
+def _mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    vp = logits.shape[-1]
+    if vp == vocab:
+        return logits
+    ids = torch.arange(vp, device=logits.device)
+    return torch.where(ids < vocab, logits,
+                       torch.finfo(logits.dtype).min)
+
+
+def _stack_caches(per_super) -> PyTree:
+    """A list of per-superblock cache dicts -> one dict of stacked
+    leaves."""
+    return {pos: {name: torch.stack([c[pos][name] for c in per_super])
+                  for name in per_super[0][pos]}
+            for pos in per_super[0]}
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig, compute_dtype=torch.bfloat16,
+                 loss_chunk: int = 512):
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.loss_chunk = loss_chunk
+
+    # ---------------- parameters ----------------
+    def param_specs(self) -> PyTree:
+        return B.param_specs(self.cfg)
+
+    def init_params(self, generator: torch.Generator, device=None) -> PyTree:
+        return B.init_params(self.cfg, generator, device)
+
+    def cache_specs(self, batch: int, s_max: int) -> PyTree:
+        return B.cache_specs(self.cfg, batch, s_max, self.compute_dtype)
+
+    def init_cache(self, batch: int, s_max: int, device=None) -> PyTree:
+        return B.init_cache(self.cfg, batch, s_max, self.compute_dtype,
+                            device)
+
+    # ---------------- forward pieces ----------------
+    def _embed(self, params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
+        e = params["embed"]
+        return e[tokens.to(e.device, torch.int64)].to(self.compute_dtype)
+
+    def _context(self, batch: Dict[str, torch.Tensor]) -> None:
+        if self.cfg.family in ("vlm", "audio"):
+            raise not_ported(f"{self.cfg.family} context")
+        return None
+
+    def _stack(self, params: PyTree, x: torch.Tensor, mode: str,
+               cache: Optional[PyTree] = None, pos: Optional[int] = None,
+               s_max: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Optional[PyTree]]:
+        cfg = self.cfg
+        pattern, n_super, rem = cfg.pattern_plan()
+        new_cache: Dict[str, Any] = {}
+        if n_super:
+            per_super = []
+            for j in range(n_super):
+                bp = tree_map(lambda t: t[j], params["blocks"])
+                bc = tree_map(lambda t: t[j], cache["blocks"]) \
+                    if mode == "decode" else None
+                caches = {}
+                for i, tag in enumerate(pattern):
+                    x, caches[f"pos{i}"] = B.apply_layer(
+                        cfg, tag, bp[f"pos{i}"], x, mode=mode,
+                        cache=bc[f"pos{i}"] if bc is not None else None,
+                        pos=pos, s_max=s_max)
+                per_super.append(caches)
+            new_cache["blocks"] = _stack_caches(per_super)
+        if rem:
+            rem_caches = {}
+            for i, tag in enumerate(rem):
+                x, rem_caches[f"rem{i}"] = B.apply_layer(
+                    cfg, tag, params["rem"][f"rem{i}"], x, mode=mode,
+                    cache=cache["rem"][f"rem{i}"] if mode == "decode"
+                    else None, pos=pos, s_max=s_max)
+            new_cache["rem"] = rem_caches
+        return x, (new_cache or None)
+
+    def _head(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+        """x: (..., d) -> logits (..., Vp) f32."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            w = params["embed"].to(self.compute_dtype).t()   # (d, Vp)
+        else:
+            w = params["lm_head"].to(self.compute_dtype)
+        logits = torch.matmul(x, w).float()
+        if cfg.final_softcap:
+            logits = cfg.final_softcap * torch.tanh(
+                logits / cfg.final_softcap)
+        return logits
+
+    # ---------------- public programs ----------------
+    def prefill(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                s_max: Optional[int] = None
+                ) -> Tuple[torch.Tensor, PyTree]:
+        """batch["tokens"]: (B, S).  s_max: decode-cache capacity to
+        allocate (>= S; defaults to S).  Returns (last-position logits
+        (B, vocab_padded) f32, caches)."""
+        self._context(batch)
+        x = self._embed(params, batch["tokens"])
+        x, kv = self._stack(params, x, "prefill", s_max=s_max)
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        logits = self._head(params, x[:, -1])
+        return _mask_padded_vocab(logits, self.cfg.vocab), kv
+
+    def decode_step(self, params: PyTree, cache: PyTree,
+                    tokens: torch.Tensor, pos: int
+                    ) -> Tuple[torch.Tensor, PyTree]:
+        """tokens: (B,) ints; pos: the position being written.  Returns
+        (logits (B, vocab_padded) f32, new caches); ``cache`` is left as
+        it was."""
+        self._context({})
+        x = self._embed(params, tokens[:, None])
+        x, kv = self._stack(params, x, "decode", cache=cache, pos=int(pos))
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        logits = self._head(params, x[:, 0])
+        return _mask_padded_vocab(logits, self.cfg.vocab), kv
+
+
+def build(cfg: ArchConfig, **kw) -> Model:
+    return Model(cfg, **kw)

@@ -111,6 +111,11 @@ class DoublyLinkedList:
         return out
 
     # ------------- views -------------
+    def data_rows(self, ids) -> torch.Tensor:
+        """DATA words of the given node ids, (len(ids), 7) on the arena's
+        device."""
+        return self.nodes.read_at(ids, slice(0, DATA_WORDS))
+
     def _next_col(self) -> torch.Tensor:
         return self.nodes.vol[:, DATA_WORDS]
 

@@ -1,0 +1,241 @@
+"""Serving with partly-persistent request state and crash recovery, held
+against an uninterrupted twin: the port of ``examples/serve_recover.py``.
+
+Two engines share one model and its parameters and take the same requests
+and steps.  One crashes (dropping KV caches, the request hashmap, the
+paged-LRU metadata and the journal index) and recovers from its arenas;
+the other never crashes.  Then:
+
+* the recovered cache tree must equal the twin's (max abs error over the
+  largest |k|, |v|, on the live slots);
+* both serve more steps: tokens equal, logits within tolerance;
+* a request finished before the crash is not re-admitted, and adding it
+  again raises ``DuplicateRequestError``; a new request takes its slot.
+
+The comparison covers caches and logits because greedy tokens alone prove
+little: a small model with random weights and tied embeddings tends to
+repeat its last input token.  The run prints how many distinct tokens it
+generated.  Caches are compared where the twin holds them, positions
+``[0, pos - 1)`` of each live slot: the last logged token is cached by
+the next decode step, while the re-prefill already holds it.  (The
+reference engine's step feeds token p - 1 at position p, so its
+recovered caches differ from its twin's once tokens vary; the port's
+engine feeds it at p - 1, see ``serve/engine.py``.)
+
+It runs llama3.2-3b at full width on the card; ``--device cpu`` runs on
+the CPU, ``--layers`` cuts the depth, ``--reduced`` takes the reduced
+smoke config.  Integrity sidecars are not ported, so the command sets
+``REPRO_INTEGRITY=0`` unless the environment already names it:
+
+    PYTHONPATH=src python -m repro_torch.serve_recover [--device cpu] [--layers N]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import tempfile
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import base, registry
+from repro_torch.core.arena import resolve_device
+from repro_torch.core.policy import tree_flatten_with_path
+from repro_torch.models.model import Model
+from repro_torch.serve.engine import EngineConfig, ServingEngine
+from repro_torch.serve.journal import DuplicateRequestError
+
+ARCH = "llama3.2-3b"
+CACHE_TOL = 1e-4      # recovered vs twin cache, relative to max |k|, |v|
+LOGIT_TOL = 1e-4      # recovered vs twin logits, relative to max |logit|
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def prompts_for(lens: Sequence[int], vocab: int, seed: int
+                ) -> List[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, int(n)).astype(np.int64) for n in lens]
+
+
+def cache_error(a: ServingEngine, b: ServingEngine, slots) -> Dict:
+    """Max abs difference of two engines' caches over ``slots``, each at
+    the positions an uninterrupted engine holds there, ``[0, pos - 1)``
+    (the last token of the log is cached by the next decode step), and the
+    largest |value| of ``b``'s over the same positions."""
+    err, amax = 0.0, 0.0
+    for grp in a.cache:
+        for pos in a.cache[grp]:
+            for name, leaf in a.cache[grp][pos].items():
+                other = b.cache[grp][pos][name]
+                for s in slots:
+                    n = int(b.pos[s]) - 1
+                    x, y = (t[:, s, :n] if grp == "blocks" else t[s, :n]
+                            for t in (leaf, other))
+                    err = max(err, float((x - y).abs().max()))
+                    amax = max(amax, float(y.abs().max()))
+    return {"max_abs_err": err, "max_abs": amax,
+            "rel_err": err / amax if amax else 0.0}
+
+
+def _step_both(eng: ServingEngine, twin: ServingEngine, log: Dict,
+               key: str) -> None:
+    """One step of each engine; tokens must be equal, logits are compared
+    relative to the twin's largest |logit|."""
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    got = eng.step()
+    _sync(eng.device)
+    log.setdefault("slot_step_s", []).append(
+        (time.perf_counter() - t0) / max(1, len(got)))
+    want = twin.step()
+    if got != want:
+        raise AssertionError(f"{key}: tokens {got} != twin's {want}")
+    for rid, lg in eng.step_logits.items():
+        ref = twin.step_logits[rid]
+        e = float((lg - ref).abs().max()) / float(ref.abs().max())
+        log[f"{key}_logit_rel_err"] = max(log.get(f"{key}_logit_rel_err",
+                                                  0.0), e)
+    log.setdefault("tokens", []).extend(got.values())
+
+
+def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
+        s_max: int, steps: int = 8, max_requests: int = 64, seed: int = 0,
+        concurrency: int = 1, params=None,
+        workdir: Optional[str] = None) -> Dict:
+    """The twin protocol at ``cfg``: admit one request per prompt length to
+    both engines, serve ``steps``, finish the first request, serve
+    ``steps`` more, crash and recover one engine, compare caches, check
+    the finished rid, admit a new request on its slot and serve ``steps``
+    further, all in f32.  Returns the run's numbers; raises on any
+    mismatch."""
+    device = resolve_device(device)
+    model = Model(cfg, compute_dtype=torch.float32)
+    if params is None:
+        g = torch.Generator(device=device)
+        g.manual_seed(seed)
+        params = model.init_params(g, device)
+    ec = EngineConfig(max_batch=max_batch, s_max=s_max,
+                      max_requests=max_requests)
+    prompts = prompts_for(list(prompt_lens) + [prompt_lens[-1]], cfg.vocab,
+                          seed)
+    rids = [1000 + i for i in range(len(prompt_lens))]
+    out: Dict = {"arch": cfg.name, "layers": cfg.n_layers,
+                 "d_model": cfg.d_model, "device": str(device),
+                 "params": sum(t.numel() for _, t in
+                               tree_flatten_with_path(params)),
+                 "prompt_lens": list(prompt_lens), "steps": steps}
+    with tempfile.TemporaryDirectory(dir=workdir) as td:
+        eng = ServingEngine(model, params, ec, os.path.join(td, "eng"),
+                            device=device)
+        twin = ServingEngine(model, params, ec, os.path.join(td, "twin"),
+                             device=device)
+        out["kv_cache_bytes"] = sum(t.numel() * t.element_size() for _, t
+                                    in tree_flatten_with_path(eng.cache))
+        prefill = []
+        for rid, prompt in zip(rids, prompts):
+            _sync(device)
+            t0 = time.perf_counter()
+            eng.add_request(rid, prompt)
+            _sync(device)
+            prefill.append({"tokens": len(prompt),
+                            "seconds": time.perf_counter() - t0})
+            twin.add_request(rid, prompt)
+        out["prefill"] = prefill
+        log: Dict = {}
+        for _ in range(steps):
+            _step_both(eng, twin, log, "before")
+        done = rids[0]
+        freed = int(np.flatnonzero(eng.slot_rid == done)[0])
+        eng.finish_request(done)
+        twin.finish_request(done)
+        for _ in range(steps):
+            _step_both(eng, twin, log, "before")
+        live = np.flatnonzero(eng.slot_rid >= 0)
+        # ---- crash and recover
+        eng.crash()
+        admitted = []
+        eng.on_slot_ready = lambda sl, tl, s: admitted.append(
+            {"slots": [int(x) for x in sl], "tokens": int(tl),
+             "admitted_s": s})
+        out["recover_s"] = eng.recover(concurrency=concurrency)
+        eng.on_slot_ready = None
+        rep = eng.last_recovery
+        out["stages"] = {st.name: st.seconds for st in rep.stages}
+        out["engine_detail"] = rep.stage("engine").detail
+        out["groups"] = admitted
+        out["cache"] = cache_error(eng, twin, live)
+        if out["cache"]["rel_err"] > CACHE_TOL:
+            raise AssertionError(f"recovered cache differs from the twin's: "
+                                 f"{out['cache']}")
+        # ---- the finished request stays finished; its slot takes new work
+        if done in eng.slot_rid.tolist():
+            raise AssertionError(f"finished request {done} re-admitted")
+        try:
+            eng.add_request(done, prompts[0])
+        except DuplicateRequestError:
+            pass
+        else:
+            raise AssertionError(f"re-adding finished request {done} was "
+                                 f"not refused")
+        new_rid = 1000 + len(prompt_lens)
+        slots = (eng.add_request(new_rid, prompts[-1]),
+                 twin.add_request(new_rid, prompts[-1]))
+        if slots != (freed, freed):
+            raise AssertionError(f"new request seated on {slots}, not on "
+                                 f"the freed slot {freed}")
+        for _ in range(steps):
+            _step_both(eng, twin, log, "after")
+        out["logit_rel_err"] = {k: log[f"{k}_logit_rel_err"]
+                                for k in ("before", "after")}
+        if out["logit_rel_err"]["after"] > LOGIT_TOL:
+            raise AssertionError(f"logits after recovery differ from the "
+                                 f"twin's: {out['logit_rel_err']}")
+        out["decode_ms_per_slot_step"] = 1e3 * float(np.median(
+            log["slot_step_s"]))
+        out["distinct_tokens"] = len(set(log["tokens"]))
+        out["tokens_generated"] = len(log["tokens"])
+        out["stats"] = dataclasses.asdict(eng.arena.stats)
+        out["paging_stats"] = dataclasses.asdict(eng.paging.arena.stats)
+    return out
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the GPU)")
+    p.add_argument("--layers", type=int, default=None,
+                   help="cut the depth to N layers")
+    p.add_argument("--reduced", action="store_true",
+                   help="the reduced smoke config instead of full width")
+    args = p.parse_args(argv)
+    os.environ.setdefault("REPRO_INTEGRITY", "0")
+    cfg = registry.get(ARCH)
+    if args.reduced:
+        cfg = base.reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    lens = [24, 24, 16, 16, 8, 8, 4, 4]
+    out = run(cfg, args.device, prompt_lens=lens, max_batch=len(lens),
+              s_max=64, steps=8)
+    print(f"{out['arch']} x{out['layers']} d_model {out['d_model']} on "
+          f"{out['device']}: {len(lens)} requests, recovered in "
+          f"{out['recover_s']:.3f} s, stages {out['stages']}")
+    print(f"cache vs twin: max abs err {out['cache']['max_abs_err']:.3e} "
+          f"over max |k|,|v| {out['cache']['max_abs']:.3e}")
+    print(f"logits vs twin (relative): {out['logit_rel_err']}; "
+          f"{out['distinct_tokens']} distinct of {out['tokens_generated']} "
+          f"tokens generated")
+    print(json.dumps({"flush": out["stats"]}))
+    print("post-recovery generations identical to the uninterrupted twin")
+
+
+if __name__ == "__main__":
+    main()

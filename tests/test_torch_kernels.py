@@ -322,3 +322,63 @@ def test_quant_wrappers_dispatch_and_checks():
         tqp.dequantize_blockwise(q, s[:, :0])
     with pytest.raises(TypeError):
         tqp.dequantize_blockwise(q.to(torch.int16), s)
+
+
+# ------------------------------------------------------------- scatter
+
+@pytest.mark.parametrize("n,d", [(16, 128), (40, 300), (7, 3), (64, 896)])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_scatter_rows_plain_matches_reference(n, d, dtype):
+    """-1 and out-of-range rows skipped, duplicate indices resolved as the
+    reference's sequential scatter resolves them (the last row wins); D
+    not a multiple of 128 goes through the reference's padding wrapper."""
+    from repro.kernels import ops
+    rng = np.random.default_rng(n * d)
+    m = n + 5
+    dst = (rng.standard_normal((n, d)) * 100).astype(dtype)
+    packed = (rng.standard_normal((m, d)) * 100).astype(dtype)
+    idx = rng.integers(0, n, m).astype(np.int32)     # duplicates included
+    idx[::4] = -1
+    idx[1] = n                                       # out of range
+    want = np.asarray(ops.scatter_rows(jnp.asarray(dst), jnp.asarray(packed),
+                                       jnp.asarray(idx)))
+    np.testing.assert_array_equal(want, np.asarray(ref.scatter_rows_ref(
+        jnp.asarray(dst), jnp.asarray(packed), jnp.asarray(idx))))
+    t_dst = torch.from_numpy(dst.copy())
+    got = tpf.scatter_rows(t_dst, torch.from_numpy(packed),
+                           torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.array_equal(t_dst.numpy(), dst)        # functional: a copy
+    out = tpf.scatter_rows_(t_dst, torch.from_numpy(packed),
+                            torch.from_numpy(idx))
+    assert out is t_dst
+    np.testing.assert_array_equal(t_dst.numpy(), want)
+
+
+def test_scatter_rows_roundtrip_with_pack_rows():
+    """scatter(pack(x)) restores exactly the selected rows, as the
+    reference's round-trip test checks."""
+    rng = np.random.default_rng(3)
+    src = torch.from_numpy(rng.standard_normal((40, 96)).astype(np.float32))
+    idx = torch.from_numpy(rng.choice(40, 20, replace=False).astype(np.int32))
+    got = tpf.scatter_rows(torch.zeros_like(src), tpf.pack_rows(src, idx),
+                           idx)
+    assert torch.equal(got[idx.long()], src[idx.long()])
+    keep = torch.ones(40, dtype=torch.bool)
+    keep[idx.long()] = False
+    assert not got[keep].any()
+
+
+def test_scatter_rows_wrapper_checks():
+    dst, packed = torch.zeros(8, 4), torch.ones(3, 4)
+    idx = torch.tensor([0, 1, 2], dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tpf.scatter_rows_(dst, packed, idx.long())
+    with pytest.raises(TypeError):
+        tpf.scatter_rows_(dst, packed.double(), idx)
+    with pytest.raises(ValueError):
+        tpf.scatter_rows_(dst, torch.ones(3, 5), idx)
+    with pytest.raises(ValueError):
+        tpf.scatter_rows_(dst.t(), torch.ones(3, 8), idx)
+    tpf.scatter_rows_(dst, packed, idx)
+    assert launch_counts()["scatter_rows"] == 0      # CPU: plain version
