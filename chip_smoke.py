@@ -15,9 +15,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the phase-7 cache leaf: tolerance 0), ``flash_attention`` within 1e-4
    in f32 (summation order) and 2e-2 in bf16 (one bf16 rounding of the
    output), causal with 96 query heads over 32 KV heads at S = 1024 and
-   a ragged S = 1000; each timed with CUDA events beside its bound and,
-   where one exists, one PyTorch library call computing the same
-   function;
+   a ragged S = 1000; ``probe`` at phase 8's table and queries, exact,
+   also with out-of-range bucket ids; each timed with CUDA events beside
+   its bound and, where one exists, one PyTorch library call computing
+   the same function;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
    the B+Tree at 2**19, both modes, order snapshots and integrity pinned
@@ -33,7 +34,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    on the CPU and copied to the card, serving two requests for 8 steps
    on each: prefill and decode logits within 1e-4 of the largest |logit|,
    the same tokens (a differing token passes only where its top-2 logit
-   gap is below that tolerance) and identical engine arena files;
+   gap is below that tolerance) and identical engine arena files; the
+   feature store (both modes, journal on and off: 48 requests, a torn
+   crash, recovery, a replay of 64), a sample index (3000 ids, crash,
+   recover) and ``ops.pack_rows``/``scatter_rows`` at D = 100 and 256,
+   with identical images, FlushStats and answers; then the serving
+   launcher ``repro_torch.launch.serve --arch llama3.2-3b --crash`` on
+   the card, which must return 0 after recovering;
 5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
    modes, order snapshots on, a commit after every batch of 8192, then
    deletes and pops, a commit, a suffix of 120 appends or inserts and a
@@ -57,12 +64,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    beside its twin: caches within 1e-4 of the largest |k|, |v|, 8 more
    steps with equal tokens and logits within 1e-4 relative, the finished
    request refused, a new request seated on its slot
-   (``repro_torch.serve_recover.run``).
+   (``repro_torch.serve_recover.run``);
+8. hash lookup: ``ops.hash_lookup`` over a (2**20, 128) int32 table
+   (512 MiB) holding 2**25 distinct keys placed by ``hash32`` (mean load
+   32 of 128, no bucket overflowing), 2**22 shuffled queries: half
+   present keys, a quarter absent, a quarter negative ints with -1 among
+   them; every answer equal to a numpy oracle built from the placement;
+   ``hash_lookup``, its hashing alone and its probe alone timed under
+   the same L2 eviction;
+9. feature store: ``FeatureConfig(n_keys=2**22, dim=4, n_samples=2**18)``,
+   partly, journal on; 256 requests of 1024 unique keys (of 2**21),
+   deltas in [-9, 9]; a torn crash in request 192, recovery, a replay of
+   all 256 that must refuse exactly the 192 completed ones, and vectors,
+   counts, cursor and journal classes equal to an uninterrupted twin's
+   (``repro_torch.feature_recover.twin``); then a ``SampleIndex`` of
+   2**18 ids, one add, crash, recover, a lookup of every 13th id.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
-phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7.  Each
-count is zeroed just before its phase and read just after.
+phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7;
+``probe``'s in phase 8; ``pack_rows``' and ``jump_double``'s in phase 9.
+Each count is zeroed just before its phase and read just after.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--report`` also writes every phase's
@@ -71,8 +93,10 @@ numbers to a JSON file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -101,6 +125,12 @@ SERVE_ARCH = "llama3.2-3b"
 SERVE_PROMPTS = (1536, 1536, 1024, 1024, 512, 512, 128, 128)
 SERVE_S_MAX, SERVE_STEPS, SERVE_SEED = 2048, 8, 7
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+PROBE_BUCKETS, PROBE_KEYS, PROBE_QUERIES = 1 << 20, 1 << 25, 1 << 22
+PROBE_SEED = 11
+FS_CONFIG = {"n_keys": 1 << 22, "dim": 4, "n_samples": 1 << 18}
+FS_REQUESTS, FS_KEYS_PER_REQUEST, FS_KEY_SPACE = 256, 1024, 1 << 21
+FS_CRASH_AT, FS_SEED = 192, 5
+INDEX_N = 1 << 18
 TIMING = {"seconds", "t_start", "t_end", "ready_at", "queue_wait",
           "total_seconds", "wall_ms", "total_ms", "critical_path_ms"}
 
@@ -602,10 +632,11 @@ def require_equal(name: str, pairs) -> float:
     return err
 
 
-def kernel_parity(dev, n: int = 1 << 22) -> dict:
+def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
     """Phase 2: every kernel against its plain version at main-path shapes
-    (``n``-row sources and chains); returns the rows of the kernels line
-    (all keys but ``launches``) and the pack_rows timings per row width."""
+    (``n``-row sources and chains; the probe at phase 8's table and
+    queries, ``probe_inp``); returns the rows of the kernels line (all keys
+    but ``launches``) and the pack_rows timings per row width."""
     import torch
     from repro_torch.core import recovery as TR
     from repro_torch.kernels import chain_order as K
@@ -846,6 +877,35 @@ def kernel_parity(dev, n: int = 1 << 22) -> dict:
               "bf16 and S = 1000 in the report",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91")
+    # ---- probe: phase 8's 512 MiB table and 2**22 queries, then the same
+    # queries with bucket ids out of range in every 101st and 103rd lane
+    from repro_torch.kernels import hash_probe as H
+    from repro_torch.kernels.ops import hash32
+    table = torch.from_numpy(probe_inp["table"]).to(dev)
+    q = torch.from_numpy(probe_inp["queries"]).to(dev)
+    bid = (hash32(q) % table.shape[0]).to(torch.int32)
+    bad = bid.clone()
+    bad[::101] = table.shape[0] + 5
+    bad[1::103] = -3
+    err = require_equal("probe", [
+        (H.probe(table, q, bid), H.probe_plain(table, q, bid)),
+        (H.probe(table, q, bad), H.probe_plain(table, q, bad))])
+    # bytes once: each distinct bucket row read once, q and bid read and
+    # the answer written once; the row per query is the sector bound
+    rows_read = int(torch.unique(bid).numel())
+    rows["probe"] = {
+        "ms": time_ms(lambda: H.probe(table, q, bid), flush=flush),
+        "plain_ms": time_ms(lambda: H.probe_plain(table, q, bid), reps=5),
+        "library_ms": None,
+        "bound_ms": bound_ms(4 * 128 * rows_read + 12 * q.numel()),
+        "sector_bound_ms": bound_ms(q.numel() * (4 * 128 + 12)),
+        "distinct_rows": rows_read,
+        "max_abs_err": err,
+        "shape": f"{q.numel()} int32 queries over ({table.shape[0]}, 128) "
+                 f"int32, mean load {probe_inp['mean_fill']:.0f} of 128",
+        "source": "src/repro_torch/csrc/hash_probe.cu",
+        "replaces": "src/repro/kernels/hash_probe.py:55"}
+    del table, q, bid, bad
     return {"rows": rows, "pack_rowbytes": pack, "gather_next": gather,
             "flash_attention": flash}
 
@@ -1031,6 +1091,236 @@ def serving_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ hash probe
+
+def hash32_np(x):
+    """The reference's uint32 hash in numpy (uint32 products wrap)."""
+    import numpy as np
+    u = np.asarray(x).astype(np.uint32)
+    u = (u ^ (u >> np.uint32(16))) * np.uint32(0x7FEB352D)
+    u = (u ^ (u >> np.uint32(15))) * np.uint32(0x846CA68B)
+    return u ^ (u >> np.uint32(16))
+
+
+def probe_inputs(nb: int = PROBE_BUCKETS, n_keys: int = PROBE_KEYS,
+                 n_q: int = PROBE_QUERIES, seed: int = PROBE_SEED) -> dict:
+    """Phase 8's table, queries and answers, on the host.  ``n_keys``
+    distinct int32 keys (an odd multiplier mod 2**32 is a bijection; -1,
+    the empty-lane value, left out) placed by ``hash32`` into the first
+    free lanes of ``nb`` buckets of 128; ``n_q`` shuffled queries: half
+    present keys, a quarter absent keys, a quarter negative ints, one in
+    1024 of them -1 (which finds the first empty lane of its bucket).
+    ``want`` is the numpy oracle built from the placement."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    mult = np.uint64(2 * int(rng.integers(1 << 30, 1 << 31)) + 1)
+    add = np.uint64(int(rng.integers(0, 1 << 32)))
+
+    def images(lo: int, n: int):
+        x = ((np.arange(lo, lo + n + 1, dtype=np.uint64) * mult + add)
+             & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+        return x[x != -1][:n]
+    keys = images(0, n_keys)
+    bucket = (hash32_np(keys) % np.uint32(nb)).astype(np.int64)
+    order = np.argsort(bucket)          # any order within a bucket
+    bs = bucket[order]
+    fill = np.bincount(bucket, minlength=nb)
+    lane = np.arange(n_keys) - (np.cumsum(fill) - fill)[bs]
+    if int(fill.max()) > 128:
+        raise AssertionError(f"a bucket overflows: {int(fill.max())} keys")
+    table = np.full((nb, 128), -1, np.int32)
+    placed = keys[order]
+    table[bs, lane] = placed
+    slot = (bs * 128 + lane).astype(np.int32)
+    neg = rng.integers(-(1 << 31), 0, n_q // 4).astype(np.int32)
+    neg[::1024] = -1
+    queries = np.concatenate([
+        keys[rng.integers(0, n_keys, n_q // 2)],
+        images(n_keys + 1, n_q // 4), neg])[rng.permutation(n_q)]
+    ks = np.argsort(placed)
+    sk = placed[ks]
+    pos = np.minimum(np.searchsorted(sk, queries), n_keys - 1)
+    want = np.where(sk[pos] == queries, slot[ks][pos], -1).astype(np.int32)
+    empty = queries == -1
+    qb = (hash32_np(queries[empty]) % np.uint32(nb)).astype(np.int64)
+    want[empty] = np.where(fill[qb] < 128, qb * 128 + fill[qb], -1)
+    return {"table": table, "queries": queries, "want": want,
+            "max_fill": int(fill.max()), "mean_fill": float(fill.mean()),
+            "found": int((want >= 0).sum()), "minus_one": int(empty.sum())}
+
+
+def probe_phase(dev, inp: dict) -> dict:
+    """Phase 8: ``ops.hash_lookup`` over phase-8's table on the card, held
+    against the numpy oracle; returns its numbers and the launch counts of
+    its run.  ``hash_lookup``, its hashing alone and its probe alone are
+    timed under the same L2 eviction, so their difference is the hashing's
+    share."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import (hash_probe, launch_counts, ops,
+                                     reset_launch_counts)
+    table = torch.from_numpy(inp["table"]).to(dev)
+    queries = torch.from_numpy(inp["queries"]).to(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = ops.hash_lookup(table, queries)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    bad = int((got.cpu().numpy() != inp["want"]).sum())
+    if bad:
+        raise AssertionError(f"hash_lookup: {bad} of {queries.numel()} "
+                             f"answers differ from the oracle")
+    if launches["probe"] == 0:
+        raise AssertionError("phase 8 never launched probe")
+    nb = table.shape[0]
+
+    def bucket_ids():
+        return (ops.hash32(queries) % nb).to(torch.int32)
+    bid = bucket_ids()
+    rows_read = int(torch.unique(bid).numel())
+    l2 = torch.ones(1 << 25, dtype=torch.int32, device=dev)   # 128 MB
+
+    def flush():
+        l2.sum()                      # evict the L2 by reading, as phase 2
+    n_q = queries.numel()
+    out = {"buckets": nb, "table_bytes": table.numel() * 4,
+           "keys": PROBE_KEYS, "queries": n_q,
+           "mean_fill": inp["mean_fill"], "max_fill": inp["max_fill"],
+           "found": inp["found"], "minus_one_queries": inp["minus_one"],
+           "first_call_s": first_s,
+           "hash_lookup_ms": time_ms(lambda: ops.hash_lookup(table, queries),
+                                     flush=flush),
+           "hashing_ms": time_ms(bucket_ids, flush=flush),
+           "probe_ms": time_ms(lambda: hash_probe.probe(table, queries, bid),
+                               flush=flush),
+           "hash_lookup_warm_ms": time_ms(lambda: ops.hash_lookup(table,
+                                                                  queries)),
+           "distinct_rows": rows_read,
+           # bytes once: queries read, answers written, each distinct row
+           # read once; one row per query is the sector bound
+           "bound_ms": bound_ms(8 * n_q + 512 * rows_read),
+           "sector_bound_ms": bound_ms(n_q * (512 + 8)),
+           "launches": launches}
+    del table, queries, got, bid, l2
+    torch.cuda.empty_cache()
+    return out
+
+
+# -------------------------------------------------------- feature store
+
+def feature_small(mode: str, journal: bool, device) -> tuple:
+    """Phase 4's feature-store run: 48 requests of 8 keys (of 256), a torn
+    crash in the 49th, recovery, a replay of all 64; the image's sha256,
+    the FlushStats and every key's vector."""
+    from repro_torch.feature_recover import requests
+    from repro_torch.interop import image_of
+    from repro_torch.serve.feature_store import FeatureConfig, FeatureStore
+    import numpy as np
+    fs = FeatureStore(FeatureConfig(n_keys=256, dim=4, n_samples=1024,
+                                    mode=mode, journal=journal),
+                      device=device)
+    ops = requests(64, 8, 256, 4, seed=3)
+    for op in ops[:48]:
+        fs.apply(*op)
+    fs.apply(*ops[48], _torn_crash=True)
+    fs.recover()
+    for op in ops:
+        fs.apply(*op)
+    return (hashlib.sha256(image_of(fs.arena)).hexdigest(),
+            dataclasses.asdict(fs.arena.stats),
+            fs.lookup(np.arange(256)).cpu().numpy().tolist())
+
+
+def index_small(device) -> tuple:
+    """Phase 4's sample-index run: 3 adds of 1000 ids, crash, recover,
+    a lookup of every id; the image's sha256, FlushStats and answers."""
+    import numpy as np
+    from repro_torch.data.index import SampleIndex
+    from repro_torch.interop import image_of
+    rng = np.random.default_rng(3)
+    idx = SampleIndex(None, 4096, device=device)
+    for _ in range(3):
+        ids = rng.choice(8192, 1000, replace=False).astype(np.int64)
+        idx.add(ids, ids % 7, ids * 64, rng.integers(1, 99, 1000))
+    idx.arena.crash()
+    idx.recover()
+    got = [t.cpu().numpy().tolist() for t in idx.lookup(np.arange(8192))]
+    return (hashlib.sha256(image_of(idx.arena)).hexdigest(),
+            dataclasses.asdict(idx.arena.stats), got)
+
+
+def ops_small(device) -> list:
+    """Phase 4's ``ops.pack_rows``/``scatter_rows`` at D = 100 (padded to
+    128) and 256, f32, on ``device``; host copies of the results."""
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator()
+    g.manual_seed(3)
+    out = []
+    for d in (100, 256):
+        src = torch.randn((300, d), generator=g).to(device)
+        idx = torch.randperm(300, generator=g)[:64].to(torch.int32)
+        idx[::9] = -1
+        idx = idx.to(device)
+        packed = ops.pack_rows(src, idx)
+        out += [packed.cpu(), ops.scatter_rows(src, packed * 2, idx).cpu()]
+    return out
+
+
+def feature_phase(dev) -> dict:
+    """Phase 9: the feature store at real size, journal on: the twin
+    protocol with a torn crash at request FS_CRASH_AT; then a SampleIndex
+    of INDEX_N ids, one add, crash, recover, lookups.  Returns its numbers
+    and the launch counts of its run."""
+    import numpy as np
+    import torch
+    from repro_torch.data.index import SampleIndex
+    from repro_torch.feature_recover import requests, twin
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.feature_store import FeatureConfig
+    cfg = FeatureConfig(**FS_CONFIG, mode="partly", journal=True)
+    ops = requests(FS_REQUESTS, FS_KEYS_PER_REQUEST, FS_KEY_SPACE, cfg.dim,
+                   seed=FS_SEED)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = twin(cfg, ops, FS_CRASH_AT, torn=True, device=dev)
+    out["twin_protocol_s"] = time.perf_counter() - t0
+    st = out["stats"]
+    if out["refused"] != FS_CRASH_AT or \
+            not 0 < st["journal_lines"] <= st["epochs"]:
+        raise AssertionError(f"feature store: refused {out['refused']}, "
+                             f"journal lines {st['journal_lines']} over "
+                             f"{st['epochs']} epochs")
+    ids = np.arange(INDEX_N, dtype=np.int64)
+    t0 = time.perf_counter()
+    idx = SampleIndex(None, INDEX_N, device=dev)
+    idx.add(ids, ids % 7, ids * 64, np.full(INDEX_N, 64, np.int64))
+    torch.cuda.synchronize()
+    out["index_add_s"] = time.perf_counter() - t0
+    idx.arena.crash()
+    out["index_recover_s"] = idx.recover()
+    ok, shard, off, ln = idx.lookup(ids[::13])
+    if not (bool(ok.all())
+            and np.array_equal(shard.cpu().numpy(), ids[::13] % 7)
+            and np.array_equal(off.cpu().numpy(), ids[::13] * 64)
+            and bool((ln == 64).all())):
+        raise AssertionError("sample index: recovered lookups differ")
+    out["index_stages"] = {s.name: s.seconds
+                           for s in idx.last_recovery.stages}
+    out["launches"] = launch_counts()
+    for k in ("pack_rows", "jump_double"):
+        if out["launches"][k] == 0:
+            raise AssertionError(f"phase 9 never launched {k}")
+    out.update(requests=FS_REQUESTS, keys_per_request=FS_KEYS_PER_REQUEST,
+               key_space=FS_KEY_SPACE, crash_at=FS_CRASH_AT,
+               index_ids=INDEX_N, **FS_CONFIG)
+    del idx
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -1076,7 +1366,10 @@ def main(argv=None) -> int:
                        "ptxas": ptxas}
     emit({"phase": "build", **report["build"]})
     # ---- phase 2: kernel parity at main-path shapes
-    parity = kernel_parity(dev)
+    t0 = time.perf_counter()
+    probe_inp = probe_inputs()
+    report["probe_inputs_s"] = time.perf_counter() - t0
+    parity = kernel_parity(dev, probe_inp)
     report["kernel_parity"] = parity
     emit({"phase": "kernel_parity", "pack_rowbytes": parity["pack_rowbytes"],
           "flash_attention": parity["flash_attention"]})
@@ -1146,11 +1439,42 @@ def main(argv=None) -> int:
                     f"{out['cuda']['manifest.json'][:12]}")
     del small, small_dev
     shutil.rmtree(ROOT / "build" / "chip_smoke_parity")
+    for mode in ("partly", "full"):
+        for journal in (True, False):
+            out = {d: feature_small(mode, journal, d) for d in ("cuda",
+                                                                "cpu")}
+            if out["cuda"] != out["cpu"]:
+                raise AssertionError(f"feature store {mode} journal="
+                                     f"{journal}: card and CPU images, "
+                                     f"FlushStats or vectors differ")
+            same.append(f"feature_store.{mode}.journal_{journal}:"
+                        f"{out['cuda'][0][:12]}")
+    out = {d: index_small(d) for d in ("cuda", "cpu")}
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError("sample index: card and CPU images, "
+                             "FlushStats or lookups differ")
+    same.append(f"sample_index:{out['cuda'][0][:12]}")
+    for a, b in zip(ops_small(dev), ops_small("cpu")):
+        if not torch.equal(a, b):
+            raise AssertionError("ops.pack_rows/scatter_rows: card and CPU "
+                                 "differ")
+    same.append("ops.pack_rows+scatter_rows:D=100,256")
     serve = serve_card_vs_cpu(dev)
     same.append(f"serve:{serve['file_sha256']}")
-    report["card_vs_cpu"] = {"identical": same, "serve": serve}
+    # the serving launcher's entry point, on the card (its default device)
+    from repro_torch.launch import serve as tserve
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        rc = tserve.main(["--arch", "llama3.2-3b", "--crash"])
+    launcher = {"rc": rc, "seconds": time.perf_counter() - t0,
+                "lines": len(said.getvalue().splitlines())}
+    if rc != 0 or "[serve] recovered" not in said.getvalue():
+        raise AssertionError(f"launch.serve --crash on the card: rc {rc}")
+    report["card_vs_cpu"] = {"identical": same, "serve": serve,
+                             "launch_serve": launcher}
     emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same,
-          "serve": serve})
+          "serve": serve, "launch_serve": launcher})
     # ---- phase 5: snapshot recovery at full size
     reset_launch_counts()
     snap_runs = []
@@ -1174,8 +1498,9 @@ def main(argv=None) -> int:
                                     if k != "saves"}})
     quant = ("quantize_blockwise", "dequantize_blockwise")
     served = ("flash_attention", "scatter_rows")
+    probed = ("probe",)
     launches = {k: launches3[k] + launches5[k] for k in launches3
-                if k not in quant + served}
+                if k not in quant + served + probed}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"phases 3 and 5 never launched {missing}")
@@ -1195,6 +1520,19 @@ def main(argv=None) -> int:
     missing = [k for k in served if launches[k] == 0]
     if missing:
         raise AssertionError(f"phase 7 never launched {missing}")
+    # ---- phase 8: hash_lookup at real size
+    probe = probe_phase(dev, probe_inp)
+    del probe_inp
+    report["hash_lookup"] = probe
+    emit({"phase": "hash_lookup", **probe})
+    launches["probe"] = probe["launches"]["probe"]
+    # ---- phase 9: the feature store and the sample index at real size
+    feature = feature_phase(dev)
+    report["feature_store"] = feature
+    emit({"phase": "feature_store", **{k: v for k, v in feature.items()
+                                       if k not in ("stats", "twin_stats")}})
+    emit({"phase": "feature_store_flush", "crashed": feature["stats"],
+          "twin": feature["twin_stats"]})
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():

@@ -37,11 +37,11 @@ naming its ROADMAP item.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import struct
 import time
-from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,6 +61,13 @@ _TORCH_DTYPES = {np.dtype(d): t for d, t in (
     (np.uint8, torch.uint8), (np.float64, torch.float64),
     (np.float32, torch.float32), (np.float16, torch.float16),
     (np.bool_, torch.bool))}
+
+
+class QuarantinedError(RuntimeError):
+    """An operation touched state that a salvage recovery quarantined (the
+    reference's error of that name; the port's structures keep the
+    quarantine sets and ``readmit``, which salvage fills once it is
+    ported)."""
 
 
 def not_ported(feature: str) -> NotImplementedError:
@@ -112,7 +119,7 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-@dataclass
+@dataclasses.dataclass
 class FlushStats:
     lines: int = 0
     bytes: int = 0
@@ -132,6 +139,13 @@ class FlushStats:
     # way; integrity-sidecar lines stay zero until integrity is ported
     journal_lines: int = 0
     integrity_lines: int = 0
+
+    def snapshot(self) -> "FlushStats":
+        return dataclasses.replace(self)
+
+    def delta(self, since: "FlushStats") -> "FlushStats":
+        return FlushStats(*(getattr(self, f.name) - getattr(since, f.name)
+                            for f in dataclasses.fields(self)))
 
 
 class Region:

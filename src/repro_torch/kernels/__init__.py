@@ -6,8 +6,8 @@ so a run can show which kernels its main path went through.
 """
 from typing import Dict
 
-from repro_torch.kernels import (chain_order, flash_attention, pack_flush,
-                                 quant_pack)
+from repro_torch.kernels import (chain_order, flash_attention, hash_probe,
+                                 pack_flush, quant_pack)
 
 WRAPPERS = {
     "pack_rows": pack_flush.pack_rows,
@@ -19,6 +19,7 @@ WRAPPERS = {
     "dequantize_blockwise": quant_pack.dequantize_blockwise,
     "scatter_rows": pack_flush.scatter_rows_,
     "flash_attention": flash_attention.flash_attention,
+    "probe": hash_probe.probe,
 }
 
 

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("pack_flush", "chain_order", "quant_pack", "flash_attention")
+SOURCES = ("pack_flush", "chain_order", "quant_pack", "flash_attention",
+           "hash_probe")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -50,6 +51,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT,
                                    _INT, _INT, _F32, _INT, _P],
+    },
+    "hash_probe": {
+        "probe_launch": [_P, _P, _P, _P, _I64, _I64, _P],
     },
 }
 

@@ -1,5 +1,14 @@
-"""Leaf-level wrappers around the quantize kernels, the port of
-``repro.kernels.ops.quantize_leaf``/``dequantize_leaf``.
+"""Public wrappers around the kernels, the port of ``repro.kernels.ops``.
+
+* ``pack_rows``/``scatter_rows`` pad the row width D up to a multiple of
+  128 elements, as the reference does, call the kernels of
+  ``kernels/pack_flush.py`` and slice the result back to D.  ``block_d``
+  is accepted and has no effect: the CUDA kernels do not tile D.
+* ``quantize_leaf``/``dequantize_leaf`` flatten any leaf to rows for the
+  quantize kernels (below).
+* ``hash_lookup`` hashes each query to its bucket with ``hash32`` in plain
+  torch ops on the tensors' device, as the reference hashes outside its
+  Pallas kernel, and probes the bucketed table with ``kernels/hash_probe``.
 
 ``_as_rows`` flattens any leaf to (rows, width) with the reference's exact
 geometry, so the int8 payload and the scales land in the same places and
@@ -11,10 +20,42 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import quant_pack
+from repro_torch.kernels import hash_probe, pack_flush, quant_pack
 from repro_torch.kernels.quant_pack import GROUP
 
-__all__ = ["quantize_leaf", "dequantize_leaf"]
+__all__ = ["pack_rows", "scatter_rows", "quantize_leaf", "dequantize_leaf",
+           "hash_lookup", "hash32"]
+
+LANE = 128
+
+
+def _pad_cols(x: torch.Tensor, mult: int = LANE) -> torch.Tensor:
+    """``x`` (N, D) with zero columns appended up to a multiple of
+    ``mult``; ``x`` itself when D already is one."""
+    pad = (-x.shape[1]) % mult
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], pad))], 1)
+
+
+# ---------------- pack / scatter ----------------
+
+def pack_rows(src: torch.Tensor, idx: torch.Tensor,
+              block_d: int = 512) -> torch.Tensor:
+    """Gather rows ``idx`` (M,) int32 of ``src`` (N, D) into a contiguous
+    (M, D) buffer; -1 gives a zero row."""
+    d0 = src.shape[1]
+    return pack_flush.pack_rows(_pad_cols(src), idx)[:, :d0].contiguous()
+
+
+def scatter_rows(dst: torch.Tensor, packed: torch.Tensor, idx: torch.Tensor,
+                 block_d: int = 512) -> torch.Tensor:
+    """A copy of ``dst`` (N, D) with ``packed[i]`` written to row
+    ``idx[i]`` for every ``idx[i] >= 0``."""
+    d0 = dst.shape[1]
+    out = pack_flush.scatter_rows(_pad_cols(dst), _pad_cols(packed), idx)
+    return out[:, :d0].contiguous()
+
 
 
 def _as_rows(x: torch.Tensor) -> torch.Tensor:
@@ -42,3 +83,27 @@ def dequantize_leaf(q: torch.Tensor, s: torch.Tensor, shape,
     for d in shape:
         n_el *= int(d)
     return rows.reshape(-1)[:n_el].reshape(tuple(shape)).to(dtype)
+
+
+# ---------------- hash probe ----------------
+
+def hash_lookup(keys_table: torch.Tensor, queries: torch.Tensor
+                ) -> torch.Tensor:
+    """keys_table: (n_buckets, 128) int32; queries (Q,) int32.  Returns
+    global slot ids (Q,) int32, -1 where absent."""
+    nb = keys_table.shape[0]
+    bid = (hash32(queries) % nb).to(torch.int32)
+    return hash_probe.probe(keys_table, queries, bid)
+
+
+def hash32(x: torch.Tensor) -> torch.Tensor:
+    """The reference's uint32 xorshift-multiply hash of ``x`` taken as
+    uint32 (a negative int32 as its two's complement), returned as int64
+    values in [0, 2**32).  torch has no unsigned ``>>`` for wide types and
+    ``>>`` on int64 is arithmetic, so the words are kept non-negative in
+    int64: masked to 32 bits after every multiply, whose int64 product
+    wraps mod 2**64 and so keeps its low 32 bits exact."""
+    u = x.to(torch.int64) & 0xFFFFFFFF
+    u = ((u ^ (u >> 16)) * 0x7FEB352D) & 0xFFFFFFFF
+    u = ((u ^ (u >> 15)) * 0x846CA68B) & 0xFFFFFFFF
+    return u ^ (u >> 16)

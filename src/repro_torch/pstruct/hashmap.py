@@ -170,6 +170,11 @@ class Hashmap:
     def values(self) -> torch.Tensor:
         return self.entries.vol[:, 1:1 + VALUE_WORDS]
 
+    @property
+    def size(self) -> int:
+        """Live entries, from the header line (one device sync)."""
+        return self.header.read_one(0, H_SIZE)
+
     # -------- core probe (vectorized chain walk) --------
     def _find_slots(self, keys: torch.Tensor) -> torch.Tensor:
         """Slab index of each key (NULL if absent)."""
