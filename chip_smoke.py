@@ -8,17 +8,23 @@ Run from the root of a checkout, with one CUDA card visible:
 Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. card: name and power limit (nvidia-smi), build of every CUDA kernel
-   from ``src/repro_torch/csrc`` (all compilers started together);
+   from ``src/repro_torch/csrc`` (all compilers started together), and
+   the registers, spills, stack and shared memory of each flash kernel;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes, exact equality (integer results, the quantize
    kernels' int8, scales and dequantized floats, and ``scatter_rows`` at
    the phase-7 cache leaf: tolerance 0), ``flash_attention`` within 1e-4
-   in f32 (summation order) and 2e-2 in bf16 (one bf16 rounding of the
-   output), causal with 96 query heads over 32 KV heads at S = 1024 and
-   a ragged S = 1000; ``probe`` at phase 8's table and queries, exact,
-   also with out-of-range bucket ids; each timed with CUDA events beside
-   its bound and, where one exists, one PyTorch library call computing
-   the same function;
+   in f32 (summation order) and 2e-2 in bf16 (the kernel's rounding of P
+   and one bf16 rounding of the output), causal with 96 query heads over
+   32 KV heads at S = 1024 and at the four shapes phase 7 gives it, in
+   both dtypes, and a ragged S = 1000 in f32; untimed at every head width
+   (16, 32, 64, 128) in both dtypes, causal and not, 6 heads over 2 at
+   S = 1000; a llama3.2-3b bf16 prefill at full width and depth (2 x 1536
+   tokens) through the kernel against the same prefill through the plain
+   version, logits within 5e-2 of the largest |logit|; ``probe`` at phase
+   8's table and queries, exact, also with out-of-range bucket ids; each
+   timed with CUDA events beside its bound and, where one exists, one
+   PyTorch library call computing the same function;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
    the B+Tree at 2**19, both modes, order snapshots and integrity pinned
@@ -125,6 +131,7 @@ SERVE_ARCH = "llama3.2-3b"
 SERVE_PROMPTS = (1536, 1536, 1024, 1024, 512, 512, 128, 128)
 SERVE_S_MAX, SERVE_STEPS, SERVE_SEED = 2048, 8, 7
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_PREFILL_TOL = 5e-2       # bf16 prefill logits, of the largest |logit|
 PROBE_BUCKETS, PROBE_KEYS, PROBE_QUERIES = 1 << 20, 1 << 25, 1 << 22
 PROBE_SEED = 11
 FS_CONFIG = {"n_keys": 1 << 22, "dim": 4, "n_samples": 1 << 18}
@@ -818,15 +825,19 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
     del x
     err = require_equal("dequantize_blockwise", [
         (Q.dequantize_blockwise(q, s), Q.dequantize_blockwise_plain(q, s))])
+    # one library call for the same function: int8 times the broadcast f32
+    # scales, promoted to f32 (the result stays grouped, a view away)
+    qg, sg = q.view(q.shape[0], -1, 256), s[..., None]
     rows["dequantize_blockwise"] = {
         "ms": time_ms(lambda: Q.dequantize_blockwise(q, s), flush=flush),
         "plain_ms": time_ms(lambda: Q.dequantize_blockwise_plain(q, s),
                             reps=5),
-        "library_ms": None, "bound_ms": bound_ms(qbytes),
+        "library_ms": time_ms(lambda: torch.mul(qg, sg), flush=flush),
+        "bound_ms": bound_ms(qbytes),
         "max_abs_err": err, "shape": shape,
         "source": "src/repro_torch/csrc/quant_pack.cu",
         "replaces": "src/repro/kernels/quant_pack.py:74"}
-    del q, s
+    del q, s, qg, sg
     # ---- scatter_rows: one re-prefill group (2 slots) seated into the
     # phase-7 cache leaf viewed as rows: (28 * 8, 2048 * 8 * 128) f32
     cfg = serve_config()
@@ -860,21 +871,24 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
     # KV heads, D = 128) at 4 sequences of 1024, causal; then the shapes
     # phase 7 gives it: re-prefill groups of two slots at 1040 tokens and
     # of one slot at 1552 (ragged; 1552 is the longest S of the run), two
-    # slots at 1552, and an admission of 1536
+    # slots at 1552, and an admission of 1536; each in f32 (phase 7's
+    # dtype) and bf16 (the model's default)
     flash = {}
-    for name, dt, h, hk, seq in (
-            ("float32", torch.float32, 96, 32, 1024),
-            ("bfloat16", torch.bfloat16, 96, 32, 1024),
-            ("float32_ragged", torch.float32, 96, 32, 1000),
-            ("float32_p7_1040", torch.float32, 48, 16, 1040),
-            ("float32_p7_2x1552", torch.float32, 48, 16, 1552),
-            ("float32_p7_1552", torch.float32, 24, 8, 1552),
-            ("float32_p7_1536", torch.float32, 24, 8, 1536)):
-        flash[name] = flash_case(dev, g, dt, h, hk, seq, 128, flush)
+    for name, h, hk, seq in (("", 96, 32, 1024), ("_p7_1040", 48, 16, 1040),
+                             ("_p7_2x1552", 48, 16, 1552),
+                             ("_p7_1552", 24, 8, 1552),
+                             ("_p7_1536", 24, 8, 1536)):
+        for dt in (torch.float32, torch.bfloat16):
+            flash[str(dt).split(".")[-1] + name] = flash_case(
+                dev, g, dt, h, hk, seq, 128, flush)
+    flash["float32_ragged"] = flash_case(dev, g, torch.float32, 96, 32, 1000,
+                                         128, flush)
+    flash_widths = flash_width_parity(dev, g)
+    flash_prefill = flash_prefill_bf16(dev)
     rows["flash_attention"] = dict(
         flash["float32"], bound_by="operations",
         shape="q (96, 1024, 128) over k, v (32, 1024, 128) f32, causal; "
-              "bf16 and S = 1000 in the report",
+              "bf16, the phase-7 shapes and S = 1000 in the report",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91")
     # ---- probe: phase 8's 512 MiB table and 2**22 queries, then the same
@@ -907,7 +921,8 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
         "replaces": "src/repro/kernels/hash_probe.py:55"}
     del table, q, bid, bad
     return {"rows": rows, "pack_rowbytes": pack, "gather_next": gather,
-            "flash_attention": flash}
+            "flash_attention": flash, "flash_widths": flash_widths,
+            "flash_prefill_bf16": flash_prefill}
 
 
 def flash_bound_ms(h: int, hk: int, sq: int, skv: int, d: int, itemsize: int,
@@ -946,6 +961,129 @@ def flash_case(dev, g, dt, h: int, hk: int, seq: int, d: int, flush) -> dict:
             flush=flush),
         "bound_ms": flash_bound_ms(h, hk, seq, seq, d, q.element_size()),
         "max_abs_err": err, "tolerance": tol}
+
+
+def flash_width_parity(dev, g, seq: int = 1000) -> dict:
+    """flash_attention vs its plain version, untimed, at every head width
+    of ``HEAD_DIMS`` in both dtypes, causal and not: 6 query heads over 2
+    KV heads at a ragged S.  Returns {case: max abs err}."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    errs = {}
+    for d in FA.HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((6, seq, d), generator=g, device=dev).to(dt)
+            k = torch.randn((2, seq, d), generator=g, device=dev).to(dt)
+            v = torch.randn((2, seq, d), generator=g, device=dev).to(dt)
+            tol = FLASH_TOL[str(dt).split(".")[-1]]
+            for causal in (True, False):
+                err = max_abs_err(FA.flash_attention(q, k, v, causal=causal),
+                                  FA.flash_attention_plain(q, k, v,
+                                                           causal=causal))
+                name = f"{str(dt).split('.')[-1]} D={d} causal={causal}"
+                if not err <= tol:
+                    raise AssertionError(f"flash_attention {name} S={seq}: "
+                                         f"max abs err {err} above {tol}")
+                errs[name] = err
+    return errs
+
+
+def flash_prefill_bf16(dev, batch: int = 2, tokens: int = 1536) -> dict:
+    """A llama3.2-3b prefill at full width and depth in bf16 (the models'
+    default compute dtype) through flash_attention (48 query heads over 16
+    KV heads per layer, phase 7's shape), against the same prefill with
+    flash_attention_plain substituted.  The two differ only in how
+    attention rounds: the kernel rounds P to bf16 before P.V and sums in
+    another order, so an attention output may differ by a bf16 rounding
+    (2**-8 of its size) in any of 28 layers, and bf16 matmuls and residual
+    adds carry that into the logits.  Tolerance: FLASH_PREFILL_TOL of the
+    largest |logit|, room for about a dozen such roundings.  For scale,
+    both are also held (untested) against the f32 prefill of the same
+    parameters."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers
+    from repro_torch.models.backbone import init_params
+    from repro_torch.models.model import Model
+    cfg = serve_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    params = init_params(cfg, gen, dev)
+    toks = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+        1, cfg.vocab, (batch, tokens))).to(dev)
+
+    def prefill(dtype, attention):
+        layers.flash_attention = attention
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = Model(cfg, compute_dtype=dtype).prefill(
+                params, {"tokens": toks})[0]
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        finally:
+            layers.flash_attention = FA.flash_attention
+    prefill(torch.bfloat16, FA.flash_attention_plain)   # first-use set-up
+    before = FA.flash_attention.launches
+    got, kernel_s = prefill(torch.bfloat16, FA.flash_attention)
+    launches = FA.flash_attention.launches - before
+    want, plain_s = prefill(torch.bfloat16, FA.flash_attention_plain)
+    ref, _ = prefill(torch.float32, FA.flash_attention)
+    del params
+    torch.cuda.empty_cache()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"bf16 prefill launched flash_attention "
+                             f"{launches} times, not {cfg.n_layers}")
+    if not (bool(torch.isfinite(got).all()) and got.shape == want.shape):
+        raise AssertionError("bf16 prefill: logits not finite or misshapen")
+    amax = float(want.abs().max())
+    err = float((got - want).abs().max()) / amax
+    if not err <= FLASH_PREFILL_TOL:
+        raise AssertionError(f"bf16 prefill: logits differ from the plain "
+                             f"attention's by {err} of the largest |logit| "
+                             f"(tolerance {FLASH_PREFILL_TOL})")
+    ref_amax = float(ref.abs().max())
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
+            "tokens": tokens, "launches": launches, "logit_rel_err": err,
+            "tolerance": FLASH_PREFILL_TOL, "max_abs_logit": amax,
+            "kernel_vs_f32": float((got - ref).abs().max()) / ref_amax,
+            "plain_vs_f32": float((want - ref).abs().max()) / ref_amax,
+            "same_argmax": bool(torch.equal(got.argmax(-1),
+                                            want.argmax(-1))),
+            "kernel_s": kernel_s, "plain_s": plain_s}
+
+
+def flash_build_report() -> dict:
+    """Registers, spills and stack of each flash kernel, read from the
+    build's ptxas report, and the dynamic shared memory each launches with
+    (ptxas reports static shared memory only)."""
+    import re
+    from repro_torch.kernels import _build
+    log = _build.library_path("flash_attention").with_suffix(
+        ".log").read_text()
+    lib = _build.load("flash_attention")
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '\S*flash_(bf16|f32)ILi(\d+)E", ln)
+        if m:
+            name = f"{m.group(1)} D={m.group(2)}"
+            out[name] = {"smem_bytes": lib.flash_attention_smem_bytes(
+                int(m.group(2)), int(m.group(1) == "bf16"))}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    if len(out) != 8 or any("registers" not in v for v in out.values()):
+        raise AssertionError(f"ptxas report of flash_attention incomplete: "
+                             f"{out}")
+    return out
 
 
 # -------------------------------------------------------------- serving
@@ -1363,7 +1501,7 @@ def main(argv=None) -> int:
         ".log").read_text().splitlines() if "registers" in ln]
         for name in _build.SOURCES}
     report["build"] = {"seconds": build_s, "per_source": per_source,
-                       "ptxas": ptxas}
+                       "ptxas": ptxas, "flash_kernels": flash_build_report()}
     emit({"phase": "build", **report["build"]})
     # ---- phase 2: kernel parity at main-path shapes
     t0 = time.perf_counter()
@@ -1372,7 +1510,9 @@ def main(argv=None) -> int:
     parity = kernel_parity(dev, probe_inp)
     report["kernel_parity"] = parity
     emit({"phase": "kernel_parity", "pack_rowbytes": parity["pack_rowbytes"],
-          "flash_attention": parity["flash_attention"]})
+          "flash_attention": parity["flash_attention"],
+          "flash_widths": parity["flash_widths"],
+          "flash_prefill_bf16": parity["flash_prefill_bf16"]})
     # ---- phase 3: the main path at real size
     reset_launch_counts()
     main_runs = []

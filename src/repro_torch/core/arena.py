@@ -72,8 +72,7 @@ class QuarantinedError(RuntimeError):
 
 def not_ported(feature: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (ROADMAP Queue 1, "
-        f"Slice A item 4: {feature})")
+        f"{feature} is not ported to repro_torch yet (see ROADMAP Queue 1)")
 
 
 def snapshot_enabled(flag: Optional[bool] = None) -> bool:
@@ -92,6 +91,15 @@ def journal_enabled(flag: Optional[bool] = None) -> bool:
     if flag is not None:
         return bool(flag)
     return os.environ.get("REPRO_JOURNAL", "1") != "0"
+
+
+def paged_enabled(flag: Optional[bool] = None) -> bool:
+    """Resolve an arena's ``paged=`` argument as the reference does: an
+    explicit flag wins; ``None`` defers to ``REPRO_PAGED`` (default
+    off)."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("REPRO_PAGED", "0") != "0"
 
 
 def integrity_enabled(flag: Optional[bool] = None) -> bool:
@@ -278,7 +286,7 @@ class Arena:
             if commit_mode == "shadow":
                 raise not_ported("shadow commit")
             raise ValueError(f"unknown commit_mode {commit_mode!r}")
-        if paged:
+        if paged_enabled(paged):
             raise not_ported("paging")
         if integrity_enabled(integrity):
             raise not_ported("integrity sidecars")

@@ -7,216 +7,913 @@
 // across the KV axis, relying on the TPU's sequential minor-axis order.
 //
 // Computes, for query head h and KV head h / group:
-//   s = (q * scale) . k^T in f32, masked where kpos > qpos (causal) or where
+//   s = q . k^T * scale in f32, masked where kpos > qpos (causal) or where
 //   kpos >= Skv (the ragged tile edge); m_new = max(m, rowmax s);
 //   p = exp(s - m_new) where s > 0.5 * NEG_INF, else 0;
 //   l = l * exp(m - m_new) + rowsum p; acc = acc * exp(m - m_new) + p . v;
-//   out = acc / max(l, 1e-30), in q's dtype.
-// With group == 1 this is exactly the TPU kernel's function.
+//   out = acc / max(l, 1e-30), in q's dtype; rows >= Sq are not written.
+// With group == 1 this is exactly the TPU kernel's function.  Both kernels
+// give a masked score -inf and exponentiate a row that has no visible key
+// yet against 0, which excludes it as the s > 0.5 * NEG_INF test does.
 //
-// Bound on an H100: operations.  4 * H * Sq * Skv * D flops (halved when
-// causal) against the f32 rate (67 TFLOP/s, no tensor cores) for f32 inputs
-// and 989 TFLOP/s for bf16; the bytes (q, k, v, o once) are far below.
+// Bound on an H100: operations, 4 * H * Sq * Skv * D flops (about halved
+// when causal); the bytes (q, k, v, o once) are far below.  One C entry
+// point, two kernels, one per input type:
 //
-// Design: one block of 128 threads owns a 64-row q tile and loops over the
-// KV tiles of 32 keys that its rows can see (the causal prefix only), so
-// m, l and acc never leave the block: acc (64 x D) lives in registers, 8
-// rows x D/16 columns per thread.  Q (pre-scaled, f32), the K tile, the V
-// tile and the probability tile sit in shared memory as f32 (bf16 inputs
-// are widened on load).  The 16 threads that share a row group are one
-// half-warp, so the row max and row sum are half-warp shuffles and the P
-// tile needs only __syncwarp.  K rows are padded to D + 1 floats so the 16
-// threads of a half-warp read 16 banks.  Scalar FMA in f32: no wgmma, no
-// TMA, no tensor cores; those are later work.
+// bf16, on the tensor cores (989 TFLOP/s).  A block owns 128 q rows of one
+// head: two consumer warpgroups of 64 rows and one producer warp.  The
+// producer loads Q once and the K and V tiles of 128 keys through TMA into
+// a two-stage ring in shared memory (bf16, never widened), each tile
+// described as a 3-D (D, S, heads) tensor so that rows past S are zero
+// filled and never the next head's; an mbarrier per stage reports K, V and
+// the release of the stage.  A consumer computes S = Q.K^T as a chain of
+// wgmma m64n128k16 (both operands K-major in shared memory), scales the f32
+// scores after the product (Q stays unscaled bf16, so no rounding is added
+// before the product), runs the online softmax on the accumulator fragments
+// in log2 units, one ex2 per score (row max and row sum are quad shuffles;
+// l stays a per-thread partial until the end), rounds P to bf16 in
+// registers and feeds it as wgmma's register-sourced A for O += P.V, with V
+// read MN-major from shared memory (the transpose bit).  With D = 128 a
+// row is 256 B, past the 128 B that a 128-byte-swizzled TMA box may hold,
+// so every tile is two 64-column slabs and the descriptors walk the same
+// two.  D = 32 and 16 use the 64 B and 32 B swizzles.  Causal: KV tiles
+// above a block's diagonal are never loaded, a warpgroup skips the product
+// on a tile wholly above its own 64 rows, and only tiles that cross the
+// diagonal or the ragged edge are masked.  The output is stored from
+// registers, rows >= Sq masked.  A barrier wait that never ends traps
+// rather than hanging the card.
+//
+// f32, on the FMA units (67 TFLOP/s; the reference's products are f32 and
+// its 1e-4 tolerance rules out TF32).  A block of 128 threads owns 64 q
+// rows and walks KV tiles of 32 keys; cp.async double-buffers K and V so
+// the next tile's copy overlaps this tile's products.  A plain loop is
+// bound by shared-memory reads, not FMAs: a warp's float4 read delivers
+// 512 B at the SM's 128 B per clock.  So both products are register-
+// blocked like a SIMT SGEMM.  A score is split over a pair of lanes, each
+// summing every other float4 of D for 4 rows x 8 keys (12 reads for 128
+// FMAs), and the pair swaps halves with one shuffle each; a thread's
+// output is 8 rows x D / 16 columns from float4 reads of P and V (16 reads
+// for 256 FMAs at D = 128).  Q and K rows are padded to D + 8 floats and
+// P rows to 36, so the reads of a warp fall in distinct 16-byte bank
+// groups.  Q is scaled in f32 on load, as the TPU kernel does; P and each
+// row's rescale pass through shared memory between the two products.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------- f32 path
+namespace f32p {
+
 constexpr int BQ = 64;
 constexpr int BK = 32;
 constexpr int THREADS = 128;
-constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+template <int D>
+struct Shape {
+  static constexpr int QS = D + 8;                  // q and k row stride
+  static constexpr int PS = BK + 4;                 // p row stride
+  static constexpr int VEC = D >= 64 ? 4 : D / 16;  // o columns per read
+  static constexpr int NCH = D / 16 / VEC;          // reads per key and row
+  static constexpr size_t SMEM =
+      sizeof(float) *
+      (BQ * QS + 2 * BK * QS + 2 * BK * D + BQ * PS + 2 * BQ);
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  // a chunk past Skv is zero filled (src-size 0): its V row must be finite
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
-__device__ __forceinline__ void narrow(float x, float* p) { *p = x; }
-__device__ __forceinline__ void narrow(float x, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(x);
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+__device__ __forceinline__ void load_kv(float* ks, float* vs, const float* kh,
+                                        const float* vh, int k0, int skv,
+                                        int tid) {
+  constexpr int C4 = D / 4;
+#pragma unroll
+  for (int i = tid; i < BK * C4; i += THREADS) {
+    const int r = i / C4, c = (i - r * C4) * 4;
+    const bool in = k0 + r < skv;
+    const int64_t off = (int64_t)(in ? k0 + r : 0) * D + c;
+    cp_async16(ks + r * Shape<D>::QS + c, kh + off, in);
+    cp_async16(vs + r * D + c, vh + off, in);
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
-                 int group, int causal, float scale) {
-  constexpr int CW = D / 16;            // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                     // BQ x (D + 1), scaled q
-  float* ks = qs + BQ * (D + 1);        // BK x (D + 1)
-  float* vs = ks + BK * (D + 1);        // BK x D
-  float* ps = vs + BK * D;              // BQ x (BK + 1), probabilities
+template <int N>
+__device__ __forceinline__ void load_vec(float (&dst)[N], const float* src) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+  else if constexpr (N == 2)
+    *reinterpret_cast<float2*>(dst) = *reinterpret_cast<const float2*>(src);
+  else
+    dst[0] = *src;
+}
 
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4;              // rows rg*8 .. rg*8+7
-  const int cg = tid & 15;              // key cg + 16j, out column cg + 16c
-  const T* qh = q + (int64_t)h * sq * D;
-  const T* kh = k + (int64_t)(h / group) * skv * D;
-  const T* vh = v + (int64_t)(h / group) * skv * D;
+template <int N>
+__device__ __forceinline__ void store_vec(float* dst, const float (&src)[N]) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+  else if constexpr (N == 2)
+    *reinterpret_cast<float2*>(dst) = *reinterpret_cast<const float2*>(src);
+  else
+    *dst = src[0];
+}
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i - r * D;
-    const int qr = q0 + r;
-    qs[r * (D + 1) + c] =
-        qr < sq ? widen(qh[(int64_t)qr * D + c]) * scale : 0.f;
-  }
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2)
+    flash_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int sq,
+              int skv, int group, int causal, float scale) {
+  using S = Shape<D>;
+  constexpr int OC = S::NCH * S::VEC;   // o columns per thread
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                     // BQ x QS, scaled q
+  float* ks = qs + BQ * S::QS;          // 2 x BK x QS
+  float* vs = ks + 2 * BK * S::QS;      // 2 x BK x D
+  float* ps = vs + 2 * BK * D;          // BQ x PS, probabilities
+  float* alpha_s = ps + BQ * S::PS;     // BQ: this tile's rescale per row
+  float* l_s = alpha_s + BQ;            // BQ: the running sum per row
 
-  float m[8], l[8], acc[8][CW];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
-  }
-
+  const int h = blockIdx.x;
+  // causal: the longest q blocks first, so the short ones fill the tail
+  const int qb = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                        : (int)blockIdx.y;
+  const int q0 = qb * BQ;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // scores: the pair (lane, lane ^ 16) shares 4 rows x 8 keys, each
+  // summing every other float4 of D (dh); rows rg + 16 i, keys kg + 4 j
+  const int dh = lane >> 4;
+  const int rg = (tid >> 5) * 4 + ((lane >> 2) & 3);
+  const int kg = lane & 3;
+  // output: rows og + 8 i, columns c * 64 + ocg * VEC + e
+  const int og = tid >> 4, ocg = tid & 15;
+  const float* qh = q + (int64_t)h * sq * D;
+  const float* kh = k + (int64_t)(h / group) * skv * D;
+  const float* vh = v + (int64_t)(h / group) * skv * D;
   const int kv_end = causal ? min(skv, q0 + BQ) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // Q visible; the previous tile's K, V, P reads done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i - r * D;
-      const int kr = k0 + r;
-      const bool in = kr < skv;
-      ks[r * (D + 1) + c] = in ? widen(kh[(int64_t)kr * D + c]) : 0.f;
-      vs[r * D + c] = in ? widen(vh[(int64_t)kr * D + c]) : 0.f;
-    }
-    __syncthreads();
+  const int n_tiles = (kv_end + BK - 1) / BK;
 
-    float s[8][2];
+  load_kv<D>(ks, vs, kh, vh, 0, skv, tid);
+  cp_async_commit();
+  for (int i = tid; i < BQ * D / 4; i += THREADS) {
+    const int r = i / (D / 4), c = (i - r * (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < sq)
+      x = *reinterpret_cast<const float4*>(qh + (int64_t)(q0 + r) * D + c);
+    x.x *= scale;
+    x.y *= scale;
+    x.z *= scale;
+    x.w *= scale;
+    *reinterpret_cast<float4*>(qs + r * S::QS + c) = x;
+  }
+
+  float m[4], l[4], acc[8][OC];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s[i][0] = s[i][1] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    const int buf = t & 1;
+    cp_async_wait0();    // this tile's copies have landed ...
+    __syncthreads();     // ... for every thread, and tile t - 1 is done
+    if (t + 1 < n_tiles) {
+      load_kv<D>(ks + (buf ^ 1) * BK * S::QS, vs + (buf ^ 1) * BK * D, kh,
+                 vh, k0 + BK, skv, tid);
+      cp_async_commit();
+    }
+    const float* kt = ks + buf * BK * S::QS;
+    const float* vt = vs + buf * BK * D;
+
+    // partial scores over this thread's half of D
+    float sp[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float k0v = ks[cg * (D + 1) + d];
-      const float k1v = ks[(cg + 16) * (D + 1) + d];
+    for (int d = 4 * dh; d < D; d += 8) {
+      float4 kv[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float qv = qs[(rg * 8 + i) * (D + 1) + d];
-        s[i][0] = fmaf(qv, k0v, s[i][0]);
-        s[i][1] = fmaf(qv, k1v, s[i][1]);
+      for (int j = 0; j < 8; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(kt + (kg + 4 * j) * S::QS + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(qs + (rg + 16 * i) * S::QS + d);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sp[i][j] = fmaf(qv.x, kv[j].x, sp[i][j]);
+          sp[i][j] = fmaf(qv.y, kv[j].y, sp[i][j]);
+          sp[i][j] = fmaf(qv.z, kv[j].z, sp[i][j]);
+          sp[i][j] = fmaf(qv.w, kv[j].w, sp[i][j]);
+        }
       }
     }
+    // reduce-scatter over the pair: this thread keeps keys
+    // kg + 4 jj + 16 dh, jj < 4, and hands its partner the other four
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float mine = dh ? sp[i][jj + 4] : sp[i][jj];
+        const float theirs = dh ? sp[i][jj] : sp[i][jj + 4];
+        s[i][jj] = mine + __shfl_xor_sync(0xffffffffu, theirs, 16);
+      }
+
+    // a masked key is -inf; a row with no visible key yet keeps m = -inf
+    // and exponentiates against 0, so its p are 0 (the TPU kernel's
+    // s > 0.5 * NEG_INF exclusion)
+    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rg + 16 * i;
+      if (edge) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int kp = k0 + kg + 4 * jj + 16 * dh;
+          if (kp >= skv || (causal && kp > q0 + row)) s[i][jj] = -INFINITY;
+        }
+      }
+      // a row's 32 keys lie on the 8 lanes that differ in bits 0, 1, 4
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float m_new = fmaxf(m[i], mx);
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      float p[4], rs = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        p[jj] = __expf(s[i][jj] - base);
+        rs += p[jj];
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 16);
+      const float alpha = __expf(m[i] - base);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+      if (kg == 0 && dh == 0) {
+        alpha_s[row] = alpha;
+        l_s[row] = l[i];
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        ps[row * S::PS + kg + 4 * jj + 16 * dh] = p[jj];
+    }
+    __syncthreads();   // P and the rescales are visible to every warp
 
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int qp = q0 + rg * 8 + i;
+      const float a = alpha_s[og + 8 * i];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kp = k0 + cg + 16 * j;
-        if (kp >= skv || (causal && kp > qp)) s[i][j] = NEG_INF;
-      }
-      float mx = fmaxf(s[i][0], s[i][1]);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float p0 = s[i][0] > 0.5f * NEG_INF ? expf(s[i][0] - m_new) : 0.f;
-      const float p1 = s[i][1] > 0.5f * NEG_INF ? expf(s[i][1] - m_new) : 0.f;
-      float rs = p0 + p1;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[i][c] *= alpha;
-      ps[(rg * 8 + i) * (BK + 1) + cg] = p0;
-      ps[(rg * 8 + i) * (BK + 1) + cg + 16] = p1;
+      for (int c = 0; c < OC; ++c) acc[i][c] *= a;
     }
-    __syncwarp();  // a row group's P is written and read by one half-warp
-
 #pragma unroll 2
-    for (int j = 0; j < BK; ++j) {
-      float vv[CW];
+    for (int j4 = 0; j4 < BK; j4 += 4) {
+      float pv[8][4];
 #pragma unroll
-      for (int c = 0; c < CW; ++c) vv[c] = vs[j * D + cg + 16 * c];
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float4*>(pv[i]) =
+            *reinterpret_cast<const float4*>(ps + (og + 8 * i) * S::PS + j4);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = ps[(rg * 8 + i) * (BK + 1) + j];
+      for (int jj = 0; jj < 4; ++jj) {
+        const float* vrow = vt + (j4 + jj) * D + ocg * S::VEC;
 #pragma unroll
-        for (int c = 0; c < CW; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        for (int c = 0; c < S::NCH; ++c) {
+          float vv[S::VEC];
+          load_vec(vv, vrow + c * 64);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < S::VEC; ++e)
+              acc[i][c * S::VEC + e] =
+                  fmaf(pv[i][jj], vv[e], acc[i][c * S::VEC + e]);
+        }
       }
     }
   }
 
-  T* oh = o + (int64_t)h * sq * D;
+  float* oh = o + (int64_t)h * sq * D;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int qr = q0 + rg * 8 + i;
+    const int qr = q0 + og + 8 * i;
     if (qr >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = fmaxf(l_s[og + 8 * i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < CW; ++c)
-      narrow(acc[i][c] / denom, oh + (int64_t)qr * D + cg + 16 * c);
+    for (int c = 0; c < S::NCH; ++c) {
+      float out[S::VEC];
+#pragma unroll
+      for (int e = 0; e < S::VEC; ++e) out[e] = acc[i][c * S::VEC + e] / denom;
+      store_vec(oh + (int64_t)qr * D + c * 64 + ocg * S::VEC, out);
+    }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int64_t h, int64_t sq, int64_t skv, int group, int causal,
                    float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = Shape<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((sq + BQ - 1) / BQ), (unsigned)h);
-  flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), (int)sq, (int)skv, group,
-      causal, scale);
+  const dim3 grid((unsigned)h, (unsigned)((sq + BQ - 1) / BQ));
+  flash_f32<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), (int)sq,
+      (int)skv, group, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int d, const void* q, const void* k, const void* v,
-                     void* o, int64_t h, int64_t sq, int64_t skv, int group,
-                     int causal, float scale, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-    default: return cudaErrorInvalidValue;
+}  // namespace f32p
+
+// ------------------------------------------------------------ bf16 path
+namespace bf16p {
+
+constexpr int BQ = 128;                 // two consumer warpgroups of 64 rows
+constexpr int BK = 128;
+constexpr int STAGES = 2;
+constexpr int CONSUMERS = 256;
+constexpr int THREADS = CONSUMERS + 32; // and one producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Shape {
+  static constexpr int ROWB = (D < 64 ? D : 64) * 2;  // bytes of a swizzled row
+  static constexpr int SLABS = D * 2 / ROWB;          // 64-column slabs
+  static constexpr int KPS = ROWB / 32;               // k16 steps per slab
+  // wgmma layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
+  static constexpr uint64_t SWZ = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
+  static constexpr int QBYTES = BQ * D * 2;
+  static constexpr int KBYTES = BK * D * 2;
+  // + 1024 to align the ring to the swizzle period, + the barriers
+  static constexpr size_t SMEM =
+      QBYTES + 2 * STAGES * KBYTES + 1024 + 8 * (1 + 3 * STAGES);
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// returns once the phase with this parity has completed; a wait that
+// never ends traps (a launch error) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  int64_t spins = 0;
+  do {
+    if (++spins > (int64_t(1) << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// shared-memory matrix descriptor: start, leading and stride byte offsets
+// (16-byte units), swizzle layout type
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swz) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (swz << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// orders the compiler's reads and writes of an accumulator around the
+// asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x in one MUFU op: -inf gives 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+
+__device__ __forceinline__ void wgmma_ss_n128(
+    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(o, a, db);
+  else if constexpr (D == 64)
+    wgmma_rs_n64(o, a, db);
+  else if constexpr (D == 32)
+    wgmma_rs_n32(o, a, db);
+  else
+    wgmma_rs_n16(o, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               __nv_bfloat16* __restrict__ o, int sq, int skv, int group,
+               int causal, float scale) {
+  using S = Shape<D>;
+  constexpr int ROWB = S::ROWB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = qs + S::QBYTES;                 // STAGES x KBYTES
+  uint8_t* vs = ks + STAGES * S::KBYTES;        // STAGES x KBYTES
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(vs + STAGES * S::KBYTES);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
+
+  const int h = blockIdx.x;
+  const int qb = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                        : (int)blockIdx.y;
+  const int q0 = qb * BQ;
+  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(kfull + s, 1);
+      mbar_init(vfull + s, 1);
+      mbar_init(empty + s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- producer: one thread keeps the ring full
+    if (tid == CONSUMERS) {
+      const int hk = h / group;
+      mbar_expect_tx(qfull, S::QBYTES);
+      for (int c = 0; c < S::SLABS; ++c)
+        tma_load(qs + c * BQ * ROWB, &tq, qfull, c * 64, q0, h);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES;
+        if (t >= STAGES) mbar_wait(empty + st, (t / STAGES - 1) & 1);
+        uint8_t* kd = ks + st * S::KBYTES;
+        uint8_t* vd = vs + st * S::KBYTES;
+        mbar_expect_tx(kfull + st, S::KBYTES);
+        for (int c = 0; c < S::SLABS; ++c)
+          tma_load(kd + c * BK * ROWB, &tk, kfull + st, c * 64, t * BK, hk);
+        mbar_expect_tx(vfull + st, S::KBYTES);
+        for (int c = 0; c < S::SLABS; ++c)
+          tma_load(vd + c * BK * ROWB, &tv, vfull + st, c * 64, t * BK, hk);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns block rows wg * 64 .. wg * 64 + 63
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int row0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const int qp0 = q0 + row0, qp1 = qp0 + 8;   // this thread's two rows
+  const int wg_first = q0 + wg * 64;
+  const bool rows_dead = wg_first >= sq;
+  const uint32_t qaddr = smem_u32(qs) + wg * 64 * ROWB;
+
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(qfull, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const int par = (t / STAGES) & 1;
+    const int k0 = t * BK;
+    // a tile wholly above this warpgroup's rows (or rows past Sq) is only
+    // waited for, so the stage is released in order
+    const bool dead = rows_dead || (causal && k0 > wg_first + 63);
+    mbar_wait(kfull + st, par);
+    if (!dead) {
+      // S = Q . K^T, f32, 64 x 128 per warpgroup
+      float sacc[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+      const uint32_t kaddr = smem_u32(ks + st * S::KBYTES);
+      fence_regs(sacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int slab = kk / S::KPS, sub = (kk % S::KPS) * 32;
+        wgmma_ss_n128(
+            sacc,
+            smem_desc(qaddr + slab * BQ * ROWB + sub, 16, 8 * ROWB, S::SWZ),
+            smem_desc(kaddr + slab * BK * ROWB + sub, 16, 8 * ROWB, S::SWZ),
+            1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sacc);
+
+      // online softmax on the fragments: sacc[i] is row qp0 (i & 2: qp1),
+      // key k0 + 8 (i / 4) + 2 (lane & 3) + (i & 1).  Scores, m and the
+      // exponents are in log2 units (x = s * scale * log2 e, p = 2^(x - m));
+      // a masked key is -inf, and a row with no visible key yet keeps
+      // m = -inf and exponentiates against 0, so its p are 0: the TPU
+      // kernel's s > 0.5 * NEG_INF exclusion, without a compare per score
+      const float c = scale * LOG2E;
+      const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > wg_first);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        float x = sacc[i] * c;
+        if (edge) {
+          const int kp = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          const int qp = (i & 2) ? qp1 : qp0;
+          if (kp >= skv || (causal && kp > qp)) x = -INFINITY;
+        }
+        sacc[i] = x;
+        if (i & 2)
+          mx1 = fmaxf(mx1, x);
+        else
+          mx0 = fmaxf(mx0, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float b0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float b1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float a0 = ex2(m0 - b0), a1 = ex2(m1 - b1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const float p = ex2(sacc[i] - ((i & 2) ? b1 : b0));
+        sacc[i] = p;
+        if (i & 2)
+          rs1 += p;
+        else
+          rs0 += p;
+      }
+      l0 = l0 * a0 + rs0;   // a per-thread partial of the row sum
+      l1 = l1 * a1 + rs1;
+      uint32_t pa[BK / 16][4];   // P in bf16, wgmma's A fragment layout
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt) {
+        pa[kt][0] = pack_bf16(sacc[8 * kt + 0], sacc[8 * kt + 1]);
+        pa[kt][1] = pack_bf16(sacc[8 * kt + 2], sacc[8 * kt + 3]);
+        pa[kt][2] = pack_bf16(sacc[8 * kt + 4], sacc[8 * kt + 5]);
+        pa[kt][3] = pack_bf16(sacc[8 * kt + 6], sacc[8 * kt + 7]);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] *= (i & 2) ? a1 : a0;
+
+      // O += P . V: V (keys x D) is MN-major; 16 keys per step, the next
+      // 64-column slab BK * ROWB bytes on
+      mbar_wait(vfull + st, par);
+      const uint32_t vaddr = smem_u32(vs + st * S::KBYTES);
+      fence_regs(oacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < BK / 16; ++kt)
+        wgmma_pv<D>(oacc, pa[kt],
+                    smem_desc(vaddr + kt * 16 * ROWB, BK * ROWB, 8 * ROWB,
+                              S::SWZ));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(oacc);
+    } else {
+      mbar_wait(vfull + st, par);
+    }
+    mbar_arrive(empty + st);
+  }
+  if (rows_dead) return;
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // one reciprocal per row: the output is rounded to bf16 after it
+  const float r0 = 1.f / fmaxf(l0, 1e-30f), r1 = 1.f / fmaxf(l1, 1e-30f);
+  __nv_bfloat16* oh = o + (int64_t)h * sq * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    if (qp0 < sq)
+      *reinterpret_cast<uint32_t*>(oh + (int64_t)qp0 * D + col) =
+          pack_bf16(oacc[4 * j] * r0, oacc[4 * j + 1] * r0);
+    if (qp1 < sq)
+      *reinterpret_cast<uint32_t*>(oh + (int64_t)qp1 * D + col) =
+          pack_bf16(oacc[4 * j + 2] * r1, oacc[4 * j + 3] * r1);
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver call; the library links only the
+// runtime, so the function is fetched through the runtime's entry-point
+// query once
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (D, S, heads) bf16 tensor, boxes of (ROWB / 2, rows, 1), swizzled as
+// the descriptors expect; a 3-D map zero-fills rows past S within a head
+CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                  int d, int64_t s, int64_t heads, int rows, int rowb) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)(rowb / 2), (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swz = rowb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : rowb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+constexpr int ENCODE_ERROR = 10000;   // + the CUresult of a failed encode
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int64_t h,
+           int64_t sq, int64_t skv, int group, int causal, float scale,
+           cudaStream_t stream) {
+  using S = Shape<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  CUresult res = make_map(encode, &tq, q, D, sq, h, BQ, S::ROWB);
+  if (res == CUDA_SUCCESS)
+    res = make_map(encode, &tk, k, D, skv, h / group, BK, S::ROWB);
+  if (res == CUDA_SUCCESS)
+    res = make_map(encode, &tv, v, D, skv, h / group, BK, S::ROWB);
+  if (res != CUDA_SUCCESS) return ENCODE_ERROR + (int)res;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)S::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)h, (unsigned)((sq + BQ - 1) / BQ));
+  flash_bf16<D><<<grid, THREADS, S::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), (int)sq, (int)skv, group,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf16p
+
 }  // namespace
 
-// q, o: (h, sq, d); k, v: (h / group, skv, d); all contiguous, one dtype
-// (f32 when is_bf16 == 0, bf16 otherwise).  Returns the CUDA error code.
+// q, o: (h, sq, d); k, v: (h / group, skv, d); all contiguous, 16-byte
+// aligned, one dtype (f32 when is_bf16 == 0, bf16 otherwise).  Returns 0,
+// a CUDA runtime error code, or 10000 + the driver's CUresult when a
+// tensor map cannot be encoded.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int64_t h,
                                       int64_t sq, int64_t skv, int d,
                                       int group, int causal, float scale,
                                       int is_bf16, void* stream) {
-  if (h <= 0 || sq <= 0 || h > 65535 || group <= 0 || h % group)
+  if (h <= 0 || sq <= 0 || skv <= 0 || group <= 0 || h % group ||
+      sq > (int64_t)f32p::BQ * 65535 || sq > INT32_MAX || skv > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? (int)dispatch<__nv_bfloat16>(d, q, k, v, o, h, sq, skv,
-                                                group, causal, scale, s)
-                 : (int)dispatch<float>(d, q, k, v, o, h, sq, skv, group,
-                                        causal, scale, s);
+  if (is_bf16) {
+    switch (d) {
+      case 16: return bf16p::launch<16>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+      case 32: return bf16p::launch<32>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+      case 64: return bf16p::launch<64>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+      case 128: return bf16p::launch<128>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (d) {
+    case 16: return (int)f32p::launch<16>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+    case 32: return (int)f32p::launch<32>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+    case 64: return (int)f32p::launch<64>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+    case 128: return (int)f32p::launch<128>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dynamic shared memory of the kernel that takes head width d in the given
+// type (ptxas reports static shared memory only); -1 for a width it lacks
+extern "C" int flash_attention_smem_bytes(int d, int is_bf16) {
+  switch (d) {
+    case 16: return (int)(is_bf16 ? bf16p::Shape<16>::SMEM : f32p::Shape<16>::SMEM);
+    case 32: return (int)(is_bf16 ? bf16p::Shape<32>::SMEM : f32p::Shape<32>::SMEM);
+    case 64: return (int)(is_bf16 ? bf16p::Shape<64>::SMEM : f32p::Shape<64>::SMEM);
+    case 128: return (int)(is_bf16 ? bf16p::Shape<128>::SMEM : f32p::Shape<128>::SMEM);
+    default: return -1;
+  }
 }

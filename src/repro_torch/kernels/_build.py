@@ -51,6 +51,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT,
                                    _INT, _INT, _F32, _INT, _P],
+        "flash_attention_smem_bytes": [_INT, _INT],
     },
     "hash_probe": {
         "probe_launch": [_P, _P, _P, _P, _I64, _I64, _P],

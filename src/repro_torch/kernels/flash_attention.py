@@ -4,19 +4,22 @@ The model's prefill attention (``models/layers.blockwise_attention``) runs
 here: q (H, Sq, D) against k, v (H / group, Skv, D), query head h reading
 KV head h // group, so grouped-query attention needs no repeated copy of
 K/V.  With group 1 this is the function of the TPU kernel it replaces,
-``repro/kernels/flash_attention.py:flash_attention``: q is scaled in f32
-before the product, scores and the running max, sum and accumulator are
-f32, masked scores are excluded by ``s > 0.5 * NEG_INF``, and the output is
-``acc / max(l, 1e-30)`` in q's dtype.  ``csrc/flash_attention.cu`` holds
-the kernel and its design note; the ragged edge (any Sq, Skv) is masked in
-the kernel, where the TPU wrapper asserted divisibility.
+``repro/kernels/flash_attention.py:flash_attention``: scores and the
+running max, sum and accumulator are f32, masked scores are excluded by
+``s > 0.5 * NEG_INF``, and the output is ``acc / max(l, 1e-30)`` in q's
+dtype.  ``csrc/flash_attention.cu`` holds the two kernels and their design
+note: bf16 inputs run on the tensor cores (wgmma on TMA-filled tiles, the
+scale applied to the f32 scores, P rounded to bf16 for P.V); f32 inputs run
+a register-blocked FMA kernel with q scaled in f32 before the product, as
+the TPU kernel does.  The ragged edge (any Sq, Skv) is masked in the
+kernels, where the TPU wrapper asserted divisibility.
 
 Bound: the larger of 4·H·Sq·Skv·D flops (halved when causal) over the f32
 rate (67 TFLOP/s) or, for bf16, 989 TFLOP/s, and the bytes of q, k, v and
 o once over 3.35 TB/s; operations bound it at every shape the model uses.
 
 ``flash_attention`` dispatches by where its tensors live: CPU tensors take
-``flash_attention_plain``; CUDA tensors launch the kernel or raise.
+``flash_attention_plain``; CUDA tensors launch a kernel or raise.
 """
 from __future__ import annotations
 
@@ -97,6 +100,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if sq == 0:
         return out
+    if k.shape[1] == 0:
+        raise ValueError("flash_attention: no keys (Skv = 0)")
+    # the kernels read 16-byte vectors and the TMA maps need 16-byte-aligned
+    # bases (their strides, multiples of D * itemsize, are)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: q, k, v and the output must start "
+                         "on 16-byte boundaries")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
@@ -106,8 +116,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k.shape[1], d, g, int(causal), scale,
             int(q.dtype == torch.bfloat16), stream)
     if rc:
-        raise RuntimeError(f"flash_attention: kernel launch failed (CUDA "
-                           f"error {rc})")
+        raise RuntimeError(f"flash_attention: kernel launch failed (error "
+                           f"{rc}: a CUDA error, or 10000 + the driver's "
+                           f"CUresult when a TMA map cannot be encoded)")
     flash_attention.launches += 1
     return out
 

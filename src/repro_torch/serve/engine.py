@@ -39,9 +39,10 @@ overlaps, the kernels do not.
 The engine runs on the card unless the caller passes ``device="cpu"``;
 its parameters must live there.  Not ported (raise
 ``NotImplementedError``): ``recover(salvage=True)``, ``n_shards > 1``,
-``commit_mode="shadow"`` and ``paged=True``, as the port's arena.  Since
-salvage is the only source of quarantined rids, ``quarantined_rids`` stays
-empty and admission has no quarantine gate.
+``commit_mode="shadow"`` and paging (``paged=True``, or ``None`` under
+``REPRO_PAGED=1``), as the port's arena.  Since salvage is the only
+source of quarantined rids, ``quarantined_rids`` stays empty and
+admission has no quarantine gate.
 """
 from __future__ import annotations
 

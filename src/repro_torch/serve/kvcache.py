@@ -57,7 +57,7 @@ class PagedAllocator:
         layout = DoublyLinkedList.layout(cfg.n_pages, cfg.mode, name="lru",
                                          snapshot=cfg.snapshot)
         # block_bytes/cache_blocks configure paging, which the port's
-        # arena refuses (paged=True raises)
+        # arena refuses (paging resolved on raises)
         self.arena = open_arena(path, layout, n_shards=cfg.n_shards,
                                 commit_mode=cfg.commit_mode,
                                 paged=cfg.paged, device=device)

@@ -163,3 +163,27 @@ def test_device_and_feature_axes():
     with pytest.raises(NotImplementedError, match="sharding"):
         TA.open_arena(None, LAYOUT, n_shards=2, device="cpu",
                       integrity=False)
+
+
+def test_paged_none_resolves_like_reference(monkeypatch):
+    from repro.pstruct.dll import DoublyLinkedList as RDLL
+    from repro_torch.pstruct.dll import DoublyLinkedList as TDLL
+    monkeypatch.setenv("REPRO_INTEGRITY", "0")
+    monkeypatch.setenv("REPRO_PAGED", "1")
+    ref = RA.open_arena(None, RDLL.layout(4096, snapshot=False))
+    assert ref.paged is True
+    with pytest.raises(NotImplementedError, match="paging"):
+        TA.open_arena(None, TDLL.layout(4096, snapshot=False), device="cpu")
+    monkeypatch.delenv("REPRO_PAGED")
+    ref = RA.open_arena(None, RDLL.layout(4096, snapshot=False))
+    assert ref.paged is False
+    port = TA.open_arena(None, TDLL.layout(4096, snapshot=False),
+                         device="cpu")
+    assert not TA.paged_enabled(None)
+    assert np.array_equal(np.array(ref._mm), np.array(port._mm))
+
+
+def test_not_ported_names_the_queue_only():
+    msg = str(TA.not_ported("x"))
+    assert "x" in msg and "ROADMAP Queue 1" in msg
+    assert "Slice A" not in msg and "item" not in msg

@@ -199,6 +199,58 @@ def test_flash_plain_gqa_matches_repeated_layout():
         b * nk * g, s, dh))
 
 
+def _wgmma_tile_model(q, k, v, causal, bq=128, bk=128):
+    """The bf16 tensor-core kernel's arithmetic, tile by tile, in torch on
+    the CPU: bf16 Q and K products summed in f32, the scale applied to the
+    f32 scores, an online rescale per KV tile, P rounded to bf16 before
+    P.V, and the output rounded to bf16 once.  q (H, Sq, D), k, v (H / G,
+    Skv, D), all bf16; query head h reads KV head h // G."""
+    h, sq, d = q.shape
+    g, skv = h // k.shape[0], k.shape[1]
+    scale = 1.0 / np.sqrt(d)
+    out = torch.empty_like(q)
+    for hh in range(h):
+        kh, vh = k[hh // g].float(), v[hh // g].float()
+        for q0 in range(0, sq, bq):
+            rows = q[hh, q0:q0 + bq].float()
+            qpos = torch.arange(q0, q0 + rows.shape[0])[:, None]
+            m = torch.full((rows.shape[0], 1), -1e30)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(rows.shape[0], d)
+            for k0 in range(0, min(skv, q0 + bq) if causal else skv, bk):
+                s = (rows @ kh[k0:k0 + bk].T) * scale
+                if causal:
+                    kpos = torch.arange(k0, k0 + s.shape[1])[None, :]
+                    s = torch.where(kpos > qpos, -1e30, s)
+                m_new = torch.maximum(m, s.amax(1, keepdim=True))
+                p = torch.where(s > -0.5e30, torch.exp(s - m_new), 0.0)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(1, keepdim=True)
+                acc = acc * alpha + p.bfloat16().float() @ vh[k0:k0 + bk]
+                m = m_new
+            out[hh, q0:q0 + bq] = (acc / torch.clamp(l, min=1e-30)).bfloat16()
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_design_rounding_within_bf16_tolerance(d, causal):
+    """Design (a) of csrc/flash_attention.cu rounds P to bf16 before P.V,
+    a rounding the Pallas kernel does not have; at a ragged length and
+    group 3 its tile model stays within the reference's bf16 tolerance of
+    the Pallas kernel in interpret mode (K/V repeated per group)."""
+    h, g, s = 3, 3, 1000
+    rng = np.random.default_rng(d + int(causal))
+    q, k, v = (_rand(rng, n, s, d) for n in (h, h // g, h // g))
+    qb, kb, vb = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = _wgmma_tile_model(qb, kb, vb, causal)
+    want = jflash(*(jnp.repeat(jnp.asarray(a, jnp.bfloat16), r, axis=0)
+                    for a, r in ((q, 1), (k, g), (v, g))),
+                  causal=causal, block_q=200, block_k=200, interpret=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (h, s, d)
+    _close(got, np.asarray(want, np.float32), 2e-2)
+
+
 def test_flash_attention_checks():
     q = torch.zeros(6, 8, 16)
     with pytest.raises(ValueError):
