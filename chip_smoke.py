@@ -8,8 +8,10 @@ Run from the root of a checkout, with one CUDA card visible:
 Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. card: name and power limit (nvidia-smi), build of every CUDA kernel
-   from ``src/repro_torch/csrc`` (all compilers started together), and
-   the registers, spills, stack and shared memory of each flash kernel;
+   from ``src/repro_torch/csrc`` (all compilers started together), the
+   registers, spills, stack and shared memory of each flash kernel, and
+   the pinned device-to-host rate (256 MB copies), the link bound of the
+   drains;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes, exact equality (integer results, the quantize
    kernels' int8, scales and dequantized floats, and ``scatter_rows`` at
@@ -24,12 +26,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    version, logits within 5e-2 of the largest |logit|; ``probe`` at phase
    8's table and queries, exact, also with out-of-range bucket ids; each
    timed with CUDA events beside its bound and, where one exists, one
-   PyTorch library call computing the same function;
+   PyTorch library call computing the same function; then the grouped
+   ``pack_rows`` at two drains captured from real structures (one epoch
+   of the DLL and of the hashmap, 2**22, partly, snapshots on) and at its
+   edge cases (-1 and out-of-range indices, empty regions, 4/12/20 B rows,
+   more than 64 regions), exact against its plain version, the write
+   set's gather exact against the per-region gather; each drain's device
+   half (indices up, gather, rows to the host, synchronize) timed on the
+   host clock and with CUDA events, in rotating order, as the write set's
+   grouped gather (the kernel writing pinned host memory), as the same
+   kernel into a device buffer plus one pinned download, as the
+   per-region gather drains used before and as ``index_select`` per
+   region with one ``torch.cat``, beside the kernel alone and the bound
+   (bytes once at 3.35 TB/s or the staging bytes at phase 1's link
+   rate);
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
    the B+Tree at 2**19, both modes, order snapshots and integrity pinned
    off, every epoch drain through ``pack_rows``; the recovered state is
-   checked; then device syncs per operation, snapshots off and on;
+   checked; ``pack_rows`` launches must equal the write sets' grouped
+   gathers (one per drain); then device syncs per operation, snapshots
+   off and on;
 4. card vs CPU: the same workload at 2**14 on ``cuda`` and on ``cpu``
    must write identical arena images (sha256) and FlushStats; with order
    snapshots on, the DLL and hashmap runs of phase 5 at 2**14 must also
@@ -52,7 +69,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    deletes and pops, a commit, a suffix of 120 appends or inserts and a
    commit; crash and recover through ``RecoveryManager`` three times
    (clean; newest record torn; whole snapshot ring corrupted), checking
-   ``chain``/``replayed`` and the recovered state each time;
+   ``chain``/``replayed`` and the recovered state each time; launches
+   equal to gathers as in phase 3; then ``pack_rows``, ``jump_double``
+   and ``gather_next`` timed at every power-of-two size phases 3 and 5
+   launched them at (and ``jump_double`` at the contracted 131,073), for
+   launches x (time - bound);
 6. checkpoint: a train state at the full width of llama3.2-3b, cut to 4
    layers (params, mu and nu: 796,683,264 parameters each, 9.56 GB on the
    card), saved by ``CheckpointManager`` under ``PARTLY_Q8`` with
@@ -84,13 +105,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    all 256 that must refuse exactly the 192 completed ones, and vectors,
    counts, cursor and journal classes equal to an uninterrupted twin's
    (``repro_torch.feature_recover.twin``); then a ``SampleIndex`` of
-   2**18 ids, one add, crash, recover, a lookup of every 13th id.
+   2**18 ids, one add, crash, recover, a lookup of every 13th id;
+   launches equal to gathers as in phase 3.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
 phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7;
 ``probe``'s in phase 8; ``pack_rows``' and ``jump_double``'s in phase 9.
-Each count is zeroed just before its phase and read just after.
+Each count is zeroed just before its phase and read just after; phases
+3, 5 and 9 also print each kernel's launches by power-of-two size.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--report`` also writes every phase's
@@ -138,6 +161,12 @@ FS_CONFIG = {"n_keys": 1 << 22, "dim": 4, "n_samples": 1 << 18}
 FS_REQUESTS, FS_KEYS_PER_REQUEST, FS_KEY_SPACE = 256, 1024, 1 << 21
 FS_CRASH_AT, FS_SEED = 192, 5
 INDEX_N = 1 << 18
+LINK_BYTES = 256 << 20         # the pinned device-to-host copy of phase 1
+DRAIN_FILL = 64                # batches before the captured drain
+CONTRACTED_N = 131073          # the 2**22-node chain contracted by 32
+# pack_rows launches on an H100 when drains launched once per region
+PER_REGION_PACK_LAUNCHES = {"main_path": 5568, "snapshot_recovery": 10867,
+                            "feature_store": 4616}
 TIMING = {"seconds", "t_start", "t_end", "ready_at", "queue_wait",
           "total_seconds", "wall_ms", "total_ms", "critical_path_ms"}
 
@@ -925,6 +954,329 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
             "flash_prefill_bf16": flash_prefill}
 
 
+# ------------------------------------------------------------- drains
+
+def l2_flusher(dev):
+    """A function that evicts the 50 MB L2 by READING 128 MB: a write
+    would leave dirty lines whose write-back the next launch would pay."""
+    import torch
+    l2 = torch.ones(1 << 25, dtype=torch.int32, device=dev)
+
+    def flush():
+        l2.sum()
+    return flush
+
+
+def pinned_d2h(dev) -> dict:
+    """Phase 1: the pinned device-to-host rate, copies of LINK_BYTES into
+    pinned host memory (CUDA events, after one warm-up copy); the link
+    bound of every drain below."""
+    import torch
+    src = torch.ones(LINK_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    if not bool((dst[:: 1 << 20] == 1).all()):
+        raise AssertionError("pinned copy: wrong bytes on the host")
+    ms = statistics.median(times)
+    del src, dst
+    return {"bytes": LINK_BYTES, "ms": ms, "all_ms": times,
+            "bytes_per_s": LINK_BYTES / ms * 1e3}
+
+
+def capture_drain(kind: str, dev):
+    """One epoch drain of a real structure: ``kind`` at SNAP_N, partly,
+    order snapshots on, filled with DRAIN_FILL batches of 8192 (a commit
+    after each, as phase 5), then the next batch's drain, captured as the
+    write set hands it to its gather.  Returns (write set, plan)."""
+    _, keys, vals, _ = _inputs(kind, SNAP_N, 0)
+    a, s = build_structure(kind, "partly", SNAP_N, dev, snapshot=True)
+    _fill(kind, a, s, keys[:DRAIN_FILL * BATCH], vals[:DRAIN_FILL * BATCH],
+          commit_each=True)
+    ws, plans = a.writeset, []
+    real = ws.gather
+
+    def record(plan):
+        plans.append([(r, rows.copy()) for r, rows in plan])
+        return real(plan)
+    ws.gather = record
+    lo = DRAIN_FILL * BATCH
+    _fill(kind, a, s, keys[lo:lo + BATCH], vals[lo:lo + BATCH])
+    ws.gather = real
+    if len(plans) != 1:
+        raise AssertionError(f"{kind}: one epoch made {len(plans)} gathers")
+    return ws, plans[0]
+
+
+def time_host_ms(fns: dict, flush, reps: int = 30) -> dict:
+    """{name: (host clock, CUDA events)} medians in ms of each of ``fns``,
+    each of which ends in a synchronize; the L2 evicted and the card idle
+    before each call.  Every rep calls all of them, in an order rotated
+    by one each rep, so no path always runs first or after another."""
+    import torch
+    names = list(fns)
+    for name in names:
+        for _ in range(3):
+            fns[name]()
+    host = {name: [] for name in names}
+    dev_ms = {name: [] for name in names}
+    for r in range(reps):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            flush()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fns[name]()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            dev_ms[name].append(start.elapsed_time(end))
+    return {name: (statistics.median(host[name]),
+                   statistics.median(dev_ms[name])) for name in names}
+
+
+def drain_case(dev, ws, plan, link: float, flush) -> dict:
+    """The device half of one captured drain: the grouped kernel against
+    its plain version (exact) and the write set's gather against the
+    per-region gather drains used before (exact); then the kernel alone,
+    and three whole device halves (indices up, gather, rows to the host,
+    synchronize): the write set's grouped gather (the kernel writing
+    pinned host memory), ``gather_rows`` per region (the drains' earlier
+    path), and ``index_select`` per region with one ``torch.cat`` and one
+    pinned download; and, to split the write set's cost, the kernel into
+    a device buffer plus one pinned download and the kernel writing
+    pinned memory (the same host code around each: the A/B of the write
+    set's choice), the wrapper's call alone (indices already on the card)
+    and a bare synchronize."""
+    import numpy as np
+    import torch
+    from repro_torch.core.writeset import gather_rows
+    from repro_torch.kernels import pack_flush as P
+    srcs = [r.vol.reshape(r.shape[0], -1) for r, _ in plan]
+    counts = [int(rows.size) for _, rows in plan]
+    flat = np.concatenate([rows for _, rows in plan]).astype(np.int32)
+    idx = torch.from_numpy(flat).to(dev)
+    err = require_equal("pack_rows_grouped", [
+        (P.pack_rows_grouped(srcs, idx, counts),
+         P.pack_rows_grouped_plain(srcs, idx, counts))])
+    for (r, rows), got in zip(plan, ws.gather(plan)):
+        if not np.array_equal(got, gather_rows(r, rows)):
+            raise AssertionError(f"{r.name}: the grouped gather differs "
+                                 f"from the per-region gather")
+    staged = P.group_layout(srcs, counts)[1]
+    moved = sum(m * (2 * r.rowbytes + 4) for (r, _), m in zip(plan, counts))
+    hidx = torch.empty(flat.size, dtype=torch.int32, pin_memory=True)
+    hout = torch.empty(staged, dtype=torch.uint8, pin_memory=True)
+
+    def index_select_cat():
+        hidx.numpy()[:] = np.concatenate([rows for _, rows in plan])
+        d = hidx.to(dev, non_blocking=True)
+        parts, pos = [], 0
+        for src, m in zip(srcs, counts):
+            parts.append(torch.index_select(src, 0, d[pos:pos + m])
+                         .reshape(-1).view(torch.uint8))
+            pos += m
+        cat = torch.cat(parts)
+        hout[:cat.numel()].copy_(cat, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+
+    out = {"regions": [(r.name, r.rowbytes, m) for (r, _), m in
+                       zip(plan, counts)],
+           "rows": int(flat.size), "staged_bytes": staged,
+           "moved_bytes": moved, "max_abs_err": err,
+           "kernel_ms": time_ms(lambda: P.pack_rows_grouped(srcs, idx,
+                                                            counts),
+                                flush=flush),
+           "kernel_to_host_ms": time_ms(lambda: P.pack_rows_grouped(
+               srcs, idx, counts, out=hout), flush=flush),
+           "plain_ms": time_ms(lambda: P.pack_rows_grouped_plain(
+               srcs, idx, counts), flush=flush),
+           "bound_hbm_ms": bound_ms(moved),
+           "bound_link_ms": staged / link * 1e3}
+    out["bound_ms"] = max(out["bound_hbm_ms"], out["bound_link_ms"])
+    def staged_copy():
+        # the A/B variant: the kernel into a device staging buffer, then
+        # one pinned download (the write set's gather writes host memory
+        # directly)
+        hidx.numpy()[:] = np.concatenate([rows for _, rows in plan])
+        d = hidx.to(dev, non_blocking=True)
+        buf = P.pack_rows_grouped(srcs, d, counts)
+        hout.copy_(buf, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+        return hout
+    def zero_copy():
+        # the same host code, the kernel writing pinned memory directly
+        hidx.numpy()[:] = np.concatenate([rows for _, rows in plan])
+        d = hidx.to(dev, non_blocking=True)
+        P.pack_rows_grouped(srcs, d, counts, out=hout)
+        torch.cuda.current_stream(dev).synchronize()
+        return hout
+
+    def wrapper_only():
+        P.pack_rows_grouped(srcs, idx, counts)
+        torch.cuda.current_stream(dev).synchronize()
+
+    want = P.pack_rows_grouped_plain(srcs, idx, counts).cpu()
+    require_equal("pack_rows_grouped staged", [(staged_copy(), want)])
+    require_equal("pack_rows_grouped zero-copy", [(zero_copy(), want)])
+    paths = time_host_ms({
+        "grouped": lambda: ws.gather(plan), "staged_copy": staged_copy,
+        "zero_copy": zero_copy,
+        "per_region": lambda: [gather_rows(r, rows)
+                                    for r, rows in plan],
+        "index_select_cat": index_select_cat, "wrapper_only": wrapper_only,
+        "sync_only": torch.cuda.current_stream(dev).synchronize}, flush)
+    for name, (host, event) in paths.items():
+        out[f"{name}_host_ms"], out[f"{name}_event_ms"] = host, event
+    return out
+
+
+def grouped_edge_cases(dev, g) -> dict:
+    """The grouped kernel against its plain version, exact, on the cases
+    the drains do not reach: -1 and out-of-range indices, empty regions,
+    4 B rows, and more than MAX_GROUPS regions (two launches)."""
+    import torch
+    from repro_torch.kernels import pack_flush as P
+
+    def region(rowbytes: int, m: int, bad: bool = False):
+        dt = torch.int64 if rowbytes % 8 == 0 else torch.int32
+        n = int(torch.randint(50, 3000, (1,), generator=g, device=dev))
+        src = torch.randint(-(1 << 30), 1 << 30,
+                            (n, rowbytes // (8 if dt == torch.int64 else 4)),
+                            generator=g, device=dev).to(dt)
+        idx = torch.randint(0, n, (m,), generator=g, device=dev,
+                            dtype=torch.int32)
+        if bad:
+            idx[::5] = -1
+            idx[1::7] = n
+            idx[2::11] = 2 ** 31 - 1
+            idx[3::13] = -(2 ** 31)
+        return src, idx
+
+    cases = {
+        "bad_indices": [region(64, 300, True), region(8, 777, True),
+                        region(4, 129, True), region(256, 65, True)],
+        "empty_regions": [region(8, 0), region(64, 1000), region(4, 0),
+                          region(128, 33), region(64, 0)],
+        "rows_4_12_20_B": [region(4, 4097), region(12, 100), region(20, 31)],
+        "more_than_64": [region((64, 8, 4, 128, 2048)[i % 5],
+                                (3, 0, 170, 32, 1)[i % 5])
+                         for i in range(P.MAX_GROUPS + 6)],
+    }
+    out = {}
+    for name, regs in cases.items():
+        srcs = [s for s, _ in regs]
+        counts = [int(i.numel()) for _, i in regs]
+        idx = torch.cat([i for _, i in regs])
+        before = P.pack_rows.launches
+        got = P.pack_rows_grouped(srcs, idx, counts)
+        launches = P.pack_rows.launches - before
+        require_equal(f"pack_rows_grouped {name}", [
+            (got, P.pack_rows_grouped_plain(srcs, idx, counts))])
+        want = -(-len(regs) // P.MAX_GROUPS)
+        if launches != want:
+            raise AssertionError(f"pack_rows_grouped {name}: {launches} "
+                                 f"launches for {len(regs)} regions")
+        out[name] = {"regions": len(regs), "rows": int(idx.numel()),
+                     "launches": launches}
+    return out
+
+
+def drain_parity(dev, link: float) -> dict:
+    """Phase 2's drain half: the grouped kernel at two captured drain
+    shapes (the DLL's and the hashmap's, partly, snapshots on, 2**22) and
+    at its edge cases, exact; each drain's device half timed."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    flush = l2_flusher(dev)
+    out = {"edge_cases": grouped_edge_cases(dev, g)}
+    for kind in SNAP_KINDS:
+        ws, plan = capture_drain(kind, dev)
+        out[kind] = drain_case(dev, ws, plan, link, flush)
+        del ws, plan
+        torch.cuda.empty_cache()
+    return out
+
+
+def size_ranking(dev, launches: dict, sizes: dict) -> dict:
+    """Each of pack_rows (64 B rows of a 2**22-row source), jump_double
+    and gather_next (over a 2**22-entry table) timed at every power of two
+    its histogram of phases 3 and 5 holds (the bucket's upper end), beside
+    its bound there; gap = launches x (ms - bound), summed per kernel."""
+    import torch
+    from repro_torch.kernels import chain_order as K
+    from repro_torch.kernels import pack_flush as P
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    flush = l2_flusher(dev)
+    n = SNAP_N
+    src = torch.randint(0, 1 << 40, (n, 8), generator=g, device=dev)
+    nxt = torch.randint(-1, n, (n,), dtype=torch.int32, generator=g,
+                        device=dev)
+
+    def pack(size):
+        idx = torch.randint(0, n, (size,), dtype=torch.int32, generator=g,
+                            device=dev)
+        return (lambda: P.pack_rows(src, idx)), bound_ms(size * (2 * 64 + 4))
+
+    def jump(size):
+        perm = torch.randperm(size, device=dev, generator=g)
+        j = torch.full((size,), -1, dtype=torch.int32, device=dev)
+        j[perm[:-1]] = perm[1:].to(torch.int32)
+        cnt = torch.ones(size, dtype=torch.int64, device=dev)
+        return (lambda: K.jump_double(j, cnt)), bound_ms(24 * size)
+
+    def gather(size):
+        ids = torch.randint(0, n, (size,), dtype=torch.int64, generator=g,
+                            device=dev)
+        distinct = int(torch.unique(ids).numel())
+        return (lambda: K.gather_next(nxt, ids)), \
+            bound_ms(12 * size + 4 * distinct)
+
+    out = {}
+    for name, make in (("pack_rows", pack), ("jump_double", jump),
+                       ("gather_next", gather)):
+        rows, gap = [], 0.0
+        points = dict(sizes[name])
+        if name == "jump_double":
+            points.setdefault(CONTRACTED_N, 0)   # the contracted chain
+        for size, count in sorted(points.items()):
+            fn, bnd = make(size)
+            ms = time_ms(fn, flush=flush)
+            gap += count * (ms - bnd)
+            rows.append({"size": size, "launches": count, "ms": ms,
+                         "bound_ms": bnd})
+        out[name] = {"launches": launches[name], "gap_ms": gap,
+                     "by_size": rows}
+    del src, nxt
+    torch.cuda.empty_cache()
+    return out
+
+
+def gathers_check(phase: str, launches: dict, gathers: int) -> dict:
+    """pack_rows must have launched once per non-empty grouped gather (no
+    drain of these phases holds more than MAX_GROUPS regions)."""
+    if launches["pack_rows"] != gathers:
+        raise AssertionError(f"{phase}: {launches['pack_rows']} pack_rows "
+                             f"launches for {gathers} grouped gathers")
+    return {"phase": f"{phase}_gathers", "pack_rows_launches": gathers,
+            "grouped_gathers": gathers,
+            "per_region_pack_rows_launches":
+                PER_REGION_PACK_LAUNCHES[phase]}
+
+
 def flash_bound_ms(h: int, hk: int, sq: int, skv: int, d: int, itemsize: int,
                    causal: bool = True) -> float:
     """The larger of the causal pairs' flops (4 per pair and width) over
@@ -1416,12 +1768,15 @@ def feature_phase(dev) -> dict:
     import torch
     from repro_torch.data.index import SampleIndex
     from repro_torch.feature_recover import requests, twin
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.core.writeset import WriteSet
+    from repro_torch.kernels import (launch_counts, launch_sizes,
+                                     reset_launch_counts)
     from repro_torch.serve.feature_store import FeatureConfig
     cfg = FeatureConfig(**FS_CONFIG, mode="partly", journal=True)
     ops = requests(FS_REQUESTS, FS_KEYS_PER_REQUEST, FS_KEY_SPACE, cfg.dim,
                    seed=FS_SEED)
     reset_launch_counts()
+    WriteSet.gathers = 0
     t0 = time.perf_counter()
     out = twin(cfg, ops, FS_CRASH_AT, torn=True, device=dev)
     out["twin_protocol_s"] = time.perf_counter() - t0
@@ -1447,7 +1802,9 @@ def feature_phase(dev) -> dict:
         raise AssertionError("sample index: recovered lookups differ")
     out["index_stages"] = {s.name: s.seconds
                            for s in idx.last_recovery.stages}
-    out["launches"] = launch_counts()
+    out["launches"], out["launch_sizes"] = launch_counts(), launch_sizes()
+    out["gathers"] = gathers_check("feature_store", out["launches"],
+                                   WriteSet.gathers)
     for k in ("pack_rows", "jump_double"):
         if out["launches"][k] == 0:
             raise AssertionError(f"phase 9 never launched {k}")
@@ -1483,8 +1840,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.interop import image_of
+    from repro_torch.core.writeset import WriteSet
     from repro_torch.kernels import (WRAPPERS, _build, launch_counts,
-                                     reset_launch_counts)
+                                     launch_sizes, reset_launch_counts)
 
     report = {}
     dev = torch.device("cuda", 0)
@@ -1503,6 +1861,8 @@ def main(argv=None) -> int:
     report["build"] = {"seconds": build_s, "per_source": per_source,
                        "ptxas": ptxas, "flash_kernels": flash_build_report()}
     emit({"phase": "build", **report["build"]})
+    report["link"] = pinned_d2h(dev)
+    emit({"phase": "pinned_d2h", **report["link"]})
     # ---- phase 2: kernel parity at main-path shapes
     t0 = time.perf_counter()
     probe_inp = probe_inputs()
@@ -1513,8 +1873,12 @@ def main(argv=None) -> int:
           "flash_attention": parity["flash_attention"],
           "flash_widths": parity["flash_widths"],
           "flash_prefill_bf16": parity["flash_prefill_bf16"]})
+    drains = drain_parity(dev, report["link"]["bytes_per_s"])
+    report["drains"] = drains
+    emit({"phase": "drain_parity", **drains})
     # ---- phase 3: the main path at real size
     reset_launch_counts()
+    WriteSet.gathers = 0
     main_runs = []
     for kind in KINDS:
         by_mode = {}
@@ -1532,9 +1896,13 @@ def main(argv=None) -> int:
                   for t in ("insert_s", "delete_s", "recover_s")}}
         main_runs.append(row)
         emit(row)
-    launches3 = launch_counts()
-    report["main_path"] = {"runs": main_runs, "launches": launches3}
+    launches3, sizes3 = launch_counts(), launch_sizes()
+    gathers3 = gathers_check("main_path", launches3, WriteSet.gathers)
+    report["main_path"] = {"runs": main_runs, "launches": launches3,
+                           "launch_sizes": sizes3, "gathers": gathers3}
     emit({"phase": "main_path_launches", **launches3})
+    emit(gathers3)
+    emit({"phase": "main_path_launch_sizes", **sizes3})
     syncs = {"off": syncs_per_op(dev),
              "on": syncs_per_op(dev, SNAP_KINDS, snapshot=True)}
     report["syncs_per_op"] = syncs
@@ -1617,6 +1985,7 @@ def main(argv=None) -> int:
           "serve": serve, "launch_serve": launcher})
     # ---- phase 5: snapshot recovery at full size
     reset_launch_counts()
+    WriteSet.gathers = 0
     snap_runs = []
     for kind in SNAP_KINDS:
         for mode in ("full", "partly"):
@@ -1626,9 +1995,21 @@ def main(argv=None) -> int:
             snap_runs.append(r)
             emit({"phase": "snapshot_recovery", **r})
             torch.cuda.empty_cache()
-    launches5 = launch_counts()
-    report["snapshot_recovery"] = {"runs": snap_runs, "launches": launches5}
+    launches5, sizes5 = launch_counts(), launch_sizes()
+    gathers5 = gathers_check("snapshot_recovery", launches5,
+                             WriteSet.gathers)
+    report["snapshot_recovery"] = {"runs": snap_runs, "launches": launches5,
+                                   "launch_sizes": sizes5,
+                                   "gathers": gathers5}
     emit({"phase": "snapshot_recovery_launches", **launches5})
+    emit(gathers5)
+    emit({"phase": "snapshot_recovery_launch_sizes", **sizes5})
+    # launches x (time - bound) at the sizes phases 3 and 5 launched
+    both = {k: {sz: sizes3[k].get(sz, 0) + sizes5[k].get(sz, 0)
+                for sz in set(sizes3[k]) | set(sizes5[k])} for k in sizes3}
+    report["size_ranking"] = size_ranking(
+        dev, {k: launches3[k] + launches5[k] for k in launches3}, both)
+    emit({"phase": "size_ranking", **report["size_ranking"]})
     # ---- phase 6: checkpoint save and restore at llama3.2-3b width
     ckpt = checkpoint_phase(dev)
     report["checkpoint"] = ckpt
@@ -1670,9 +2051,13 @@ def main(argv=None) -> int:
     feature = feature_phase(dev)
     report["feature_store"] = feature
     emit({"phase": "feature_store", **{k: v for k, v in feature.items()
-                                       if k not in ("stats", "twin_stats")}})
+                                       if k not in ("stats", "twin_stats",
+                                                    "gathers",
+                                                    "launch_sizes")}})
     emit({"phase": "feature_store_flush", "crashed": feature["stats"],
           "twin": feature["twin_stats"]})
+    emit(feature["gathers"])
+    emit({"phase": "feature_store_launch_sizes", **feature["launch_sizes"]})
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():

@@ -47,7 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.writeset import WriteSet, gather_rows, host_rows
+from repro_torch.core.writeset import WriteSet, host_rows
 
 LINE = 64                 # flush granularity (bytes) — paper's cache line
 MEDIA_GRAIN = 256         # DCPMM internal granularity (§IV-D bucket sizing)
@@ -247,7 +247,7 @@ class Region:
         rows = np.unique(host_rows(rows))
         if rows.size == 0:
             return
-        self._pview()[rows] = gather_rows(self, rows)
+        self._pview()[rows] = self.arena.writeset.gather([(self, rows)])[0]
         self.arena._account_rows(self.offset, self.rowbytes, rows,
                                  snap=self.snap, jrnl=self.jrnl)
 

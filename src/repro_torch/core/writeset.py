@@ -11,29 +11,40 @@ recovery tests inject.
 
 The bookkeeping (row sets, line counts) is host numpy, the reference's own
 arithmetic, so the accounting matches it exactly.  The row DATA stays on
-the arena's device until the drain: every drain gathers the dirty rows
-there into one staging buffer with ``pack_rows`` (the kernel on a CUDA
-arena; the reference's ``Arena(pack_flush_rows=N)`` path, here always
-on), copies that buffer to the host once, and writes it into the
-persistent image.  Unlike the reference there is no silent fallback: a
-failed kernel raises.
+the arena's device until the drain.  A drain first plans both barrier
+phases on the host (which regions, their unique rows, the line costs),
+then gathers every row it will write, data and metadata phase alike, in
+ONE grouped gather (``WriteSet.gather``): the indices go to the card in
+one pinned copy, ``pack_rows_grouped`` packs every region's rows into
+one staging buffer in pinned host memory, which the kernel writes
+directly over the bus (one launch for up to 64 regions; no device
+staging buffer and no download, one copy fewer than staging on the card
+and copying back, and as fast on an H100 within the host's spread:
+PERF.md), and one stream synchronize precedes the host's reads.  Then,
+phase by phase in the reference's order, it writes the rows into the
+persistent image, accounts them and fences.  Gathering both phases at
+once is safe: nothing writes the volatile tensors between the two
+phases of one drain.  The reference's ``Arena(pack_flush_rows=N)`` path
+is here always on, and unlike the reference there is no silent
+fallback: a failed kernel raises.
 
 Every flush first asks the arena's order-snapshot providers for their
 dirty snapshot rows (``_drain_snapshots``), at every drain and not only
-at commits.  Snapshot rows ride the same ``pack_rows`` gather as data
-rows, flush in the metadata phase, and stay out of the ``marks`` /
-``dedup_rows`` / ``saved_lines`` ledger: their lines land in
+at commits.  Snapshot rows ride the same gather as data rows, flush in
+the metadata phase, and stay out of the ``marks`` / ``dedup_rows`` /
+``saved_lines`` ledger: their lines land in
 ``FlushStats.snapshot_lines``.  Request-journal rings (``.jrnl``) stay
 off that ledger too; their lines land in ``FlushStats.journal_lines``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.pack_flush import pack_rows
+from repro_torch.kernels.pack_flush import (group_layout, pack_rows,
+                                            pack_rows_grouped)
 
 __all__ = ["DigestWriteSet", "WriteSet", "gather_rows", "host_rows"]
 
@@ -46,13 +57,30 @@ def host_rows(rows) -> np.ndarray:
     return np.asarray(rows, np.int64).reshape(-1)
 
 
+class _Planned(NamedTuple):
+    """One region of a drain: its sorted unique rows, the line cost its
+    marks claimed, and how many rows they named."""
+    region: object
+    rows: np.ndarray
+    would_lines: int
+    marked_rows: int
+
+
 class WriteSet:
     """Per-arena dirty-row tracker with epoch-batched flushing."""
+
+    # non-empty grouped gathers, summed over every write set: a run sets it
+    # to 0 and compares it with pack_rows' launches
+    gathers = 0
 
     def __init__(self, arena):
         self.arena = arena
         # region name -> list of (unique rows, per-call line cost)
         self._pending: Dict[str, List[Tuple[np.ndarray, int]]] = {}
+        # pinned host indices and staging, card arenas only: grown on
+        # demand, reused by every drain (each ends in a stream synchronize)
+        self._pinned_idx: Optional[torch.Tensor] = None
+        self._pinned_out: Optional[torch.Tensor] = None
 
     def mark(self, region, rows: np.ndarray) -> None:
         """Record dirty rows of `region`; flushed at epoch close."""
@@ -79,15 +107,21 @@ class WriteSet:
     def flush(self, include_meta: bool = True) -> None:
         """Flush all pending marks, data regions first, then metadata
         regions; ``include_meta=False`` flushes only the data half and
-        DROPS the metadata marks."""
+        DROPS the metadata marks.  One gather covers every region the
+        flush writes."""
         self._drain_snapshots()
         if not self._pending:
             return
-        flushed = self.flush_phase(meta=False)
+        plans = [self._plan(meta=False)]
         if include_meta:
-            flushed = self.flush_phase(meta=True) or flushed
+            plans.append(self._plan(meta=True))
         else:
             self._pending.clear()   # crash point: metadata marks are lost
+        staged = iter(self.gather([(p.region, p.rows)
+                                   for plan in plans for p in plan]))
+        flushed = False
+        for plan in plans:
+            flushed = self._write_phase(plan, staged) or flushed
         if flushed:
             self.arena.stats.epochs += 1
 
@@ -103,46 +137,100 @@ class WriteSet:
 
     def flush_phase(self, meta: bool) -> bool:
         """Flush only the data half (``meta=False``) or only the metadata
-        half (``meta=True``) of the pending marks; returns whether
-        anything flushed."""
+        half (``meta=True``) of the pending marks, with a gather of its
+        own; returns whether anything flushed."""
+        plan = self._plan(meta)
+        return self._write_phase(plan, iter(self.gather(
+            [(p.region, p.rows) for p in plan])))
+
+    def _plan(self, meta: bool) -> List[_Planned]:
+        """Pop the pending marks of one phase's regions, in offset order."""
         arena = self.arena
         names = [n for n in self._pending if arena.regions[n].meta == meta]
         names.sort(key=lambda n: arena.regions[n].offset)
-        with arena.stall_scope():
-            flushed_any = self._flush_names(names, arena)
-        if flushed_any:
-            arena._fence()      # one ordering point per barrier phase
-        return flushed_any
-
-    def _flush_names(self, names, arena) -> bool:
-        flushed_any = False
+        plan = []
         for name in names:
-            region = arena.regions[name]
             marks = self._pending.pop(name)
-            rows = np.unique(np.concatenate([r for r, _ in marks]))
-            would_lines = sum(w for _, w in marks)
-            marked_rows = sum(r.size for r, _ in marks)
-            self._copy_rows(region, rows)
-            flushed_any = True
-            if region.snap or region.jrnl:
-                arena._account_rows(region.offset, region.rowbytes, rows,
-                                    snap=region.snap, jrnl=region.jrnl)
-                continue
-            before = arena.stats.lines
-            arena._account_rows(region.offset, region.rowbytes, rows)
-            actual = arena.stats.lines - before
-            arena.stats.saved_lines += max(0, would_lines - actual)
-            arena.stats.dedup_rows += marked_rows - rows.size
-        return flushed_any
+            plan.append(_Planned(
+                arena.regions[name],
+                np.unique(np.concatenate([r for r, _ in marks])),
+                sum(w for _, w in marks), sum(r.size for r, _ in marks)))
+        return plan
 
-    def _copy_rows(self, region, rows: np.ndarray) -> None:
-        region._pview()[rows] = gather_rows(region, rows)
+    def _write_phase(self, plan: List[_Planned], staged) -> bool:
+        """Write one phase's gathered rows (the next ``len(plan)`` arrays
+        of ``staged``) into the persistent image, account them, and fence
+        once; returns whether anything flushed."""
+        arena = self.arena
+        with arena.stall_scope():
+            for p, host in zip(plan, staged):
+                region, rows = p.region, p.rows
+                region._pview()[rows] = host
+                if region.snap or region.jrnl:
+                    arena._account_rows(region.offset, region.rowbytes,
+                                        rows, snap=region.snap,
+                                        jrnl=region.jrnl)
+                    continue
+                before = arena.stats.lines
+                arena._account_rows(region.offset, region.rowbytes, rows)
+                actual = arena.stats.lines - before
+                arena.stats.saved_lines += max(0, p.would_lines - actual)
+                arena.stats.dedup_rows += p.marked_rows - rows.size
+        if plan:
+            arena._fence()      # one ordering point per barrier phase
+        return bool(plan)
+
+    def gather(self, plan) -> List[np.ndarray]:
+        """Rows ``rows`` (host ids) of each ``(region, rows)`` of ``plan``
+        as host arrays, gathered in one grouped gather on the arena's
+        device.  On a card the kernel writes them straight into this
+        write set's pinned staging buffer, and the arrays are views of it,
+        valid until its next gather."""
+        counts = [int(rows.size) for _, rows in plan]
+        n = sum(counts)
+        if n == 0:
+            return [rows.reshape((0,) + region.shape[1:])
+                    .astype(region.dtype) for region, rows in plan]
+        srcs = [region.vol.reshape(region.shape[0], -1)
+                for region, _ in plan]
+        offs, total = group_layout(srcs, counts)
+        dev = self.arena.device
+        if dev.type == "cpu":
+            idx = torch.from_numpy(np.concatenate(
+                [rows for _, rows in plan]).astype(np.int32))
+            buf = pack_rows_grouped(srcs, idx, counts).numpy()
+        else:
+            hidx = self._pinned("_pinned_idx", 4 * n).view(torch.int32)
+            host_idx, pos = hidx.numpy(), 0
+            for (_, rows), m in zip(plan, counts):
+                host_idx[pos:pos + m] = rows
+                pos += m
+            hout = self._pinned("_pinned_out", total)
+            idx = hidx[:n].to(dev, non_blocking=True)
+            pack_rows_grouped(srcs, idx, counts, out=hout)
+            torch.cuda.current_stream(dev).synchronize()
+            buf = hout.numpy()
+        WriteSet.gathers += 1
+        return [buf[off:off + m * region.rowbytes].view(region.dtype)
+                .reshape((m,) + region.shape[1:])
+                for (region, _), m, off in zip(plan, counts, offs)]
+
+    def _pinned(self, attr: str, nbytes: int) -> torch.Tensor:
+        """This write set's pinned host buffer ``attr``, at least
+        ``nbytes`` long (grown to the next power of two)."""
+        buf = getattr(self, attr)
+        if buf is None or buf.shape[0] < nbytes:
+            size = 1 << max(12, (nbytes - 1).bit_length())
+            buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            setattr(self, attr, buf)
+        return buf
 
 
 def gather_rows(region, rows: np.ndarray) -> np.ndarray:
-    """Rows ``rows`` (sorted unique host ids) of ``region``'s volatile
-    tensor as a host array: gathered on the region's device into one
-    staging buffer by ``pack_rows``, then copied to the host once."""
+    """Rows ``rows`` (sorted unique host ids) of one region's volatile
+    tensor as a host array, the way drains gathered before the grouped
+    gather: a pageable index upload, ``pack_rows`` on the region alone and
+    a pageable download.  Kept to time against ``WriteSet.gather``."""
     vol = region.vol.reshape(region.shape[0], -1)
     idx = torch.from_numpy(rows.astype(np.int32)).to(vol.device)
     staged = pack_rows(vol, idx)

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Every kernel wrapper counts its launches in a ``launches`` attribute;
-``launch_counts`` reads them all and ``reset_launch_counts`` zeroes them,
-so a run can show which kernels its main path went through.
+Every kernel wrapper counts its launches in a ``launches`` attribute and
+their sizes in a ``sizes`` histogram (``_build.note_launch``);
+``launch_counts`` and ``launch_sizes`` read them all and
+``reset_launch_counts`` clears both, so a run can show which kernels its
+main path went through, and at what sizes.
 """
 from typing import Dict
 
@@ -27,6 +29,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def launch_sizes() -> Dict[str, Dict[int, int]]:
+    """Launches of each kernel by the power of two its main dimension
+    rounds up to (pack_rows: rows of the launch; the chain kernels, probe:
+    lanes or queries; the quantize kernels: rows; flash: query length)."""
+    return {name: dict(sorted(fn.sizes.items()))
+            for name, fn in WRAPPERS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        fn.sizes = {}

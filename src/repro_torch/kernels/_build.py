@@ -7,6 +7,8 @@ named after a hash of its source and flags, so an edited source rebuilds
 and an unchanged one is built once.  Nothing here runs at import time: the
 first launch builds, and ``build()`` starts every compiler at once when a
 caller wants all kernels ready up front.
+
+``note_launch`` is the one place a wrapper counts a launch of its kernel.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ _F32 = ctypes.c_float
 # ctypes would pass them as 32-bit ints and cut them
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "pack_flush": {
-        "pack_rows_launch": [_P, _P, _P, _I64, _I64, _I64, _INT, _P],
+        "pack_rows_grouped_launch": [_P, _INT, _P, _P, _P],
         "scatter_rows_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
     },
     "chain_order": {
@@ -59,6 +61,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def note_launch(wrapper, size: int) -> None:
+    """Count one launch of ``wrapper``'s kernel: ``wrapper.launches`` and
+    ``wrapper.sizes``, a histogram of the launch's main dimension (rows,
+    lanes, queries) keyed by that size rounded up to a power of two."""
+    wrapper.launches += 1
+    key = 1 << max(0, int(size) - 1).bit_length()
+    wrapper.sizes[key] = wrapper.sizes.get(key, 0) + 1
 
 
 def nvcc() -> str:

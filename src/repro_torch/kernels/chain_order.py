@@ -112,11 +112,12 @@ def jump_double(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None
             jout.data_ptr(), cout.data_ptr() if cout is not None else None,
             n, _stream(jump))
     _raise_on(rc, "jump_double")
-    jump_double.launches += 1
+    _build.note_launch(jump_double, n)
     return jout, cout
 
 
 jump_double.launches = 0
+jump_double.sizes = {}
 
 
 # ---------------------------------------------------------- walk_segments
@@ -197,11 +198,12 @@ def walk_segments(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
             int(k), int(head), int(n_mult), int(promoted), int(budget),
             _stream(nxt))
     _raise_on(rc, "walk_segments")
-    walk_segments.launches += 1
+    _build.note_launch(walk_segments, lanes)
     return cur, sp, w
 
 
 walk_segments.launches = 0
+walk_segments.sizes = {}
 
 
 # -------------------------------------------------------- expand_segments
@@ -252,11 +254,12 @@ def expand_segments(nxt: torch.Tensor, starts: torch.Tensor,
             rem.data_ptr(), out.data_ptr(), nxt.shape[0], lanes,
             _stream(nxt))
     _raise_on(rc, "expand_segments")
-    expand_segments.launches += 1
+    _build.note_launch(expand_segments, lanes)
     return out
 
 
 expand_segments.launches = 0
+expand_segments.sizes = {}
 
 
 # ------------------------------------------------------------ gather_next
@@ -309,11 +312,12 @@ def gather_next(nxt: torch.Tensor, ids: torch.Tensor, *, segments=None,
                                     ids.element_size(), out.data_ptr(),
                                     nxt.shape[0], lanes, _stream(nxt))
     _raise_on(rc, "gather_next")
-    gather_next.launches += 1
+    _build.note_launch(gather_next, lanes)
     return out
 
 
 gather_next.launches = 0
+gather_next.sizes = {}
 
 
 # ---------------------------------------------------------- driver pieces

@@ -119,8 +119,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention: kernel launch failed (error "
                            f"{rc}: a CUDA error, or 10000 + the driver's "
                            f"CUresult when a TMA map cannot be encoded)")
-    flash_attention.launches += 1
+    _build.note_launch(flash_attention, sq)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.sizes = {}

@@ -99,8 +99,9 @@ def probe(keys_table: torch.Tensor, queries: torch.Tensor,
                               keys_table.shape[0], queries.shape[0], stream)
     if rc:
         raise RuntimeError(f"probe: kernel launch failed (CUDA error {rc})")
-    probe.launches += 1
+    _build.note_launch(probe, queries.shape[0])
     return out
 
 
 probe.launches = 0
+probe.sizes = {}

@@ -1,45 +1,92 @@
 """pack_flush: gather dirty rows into one staging buffer, and scatter
 packed rows back.
 
-The device half of the epoch drain (core/writeset.py): the dirty rows of a
-region's volatile tensor are packed into one contiguous (M, ...) buffer on
-the card, which the drain then copies to the host in one transfer and
-writes into the persistent image.  ``csrc/pack_flush.cu`` holds the Hopper
-kernel and its design note.
+The device half of the epoch drain (core/writeset.py): the dirty rows of
+every region a drain writes are packed by ``pack_rows_grouped`` into one
+byte staging buffer, one 16-byte-aligned segment per region, in one
+launch (up to ``MAX_GROUPS`` regions a launch); the drain passes a pinned
+host buffer, which the kernel writes across the bus, and writes each
+segment into the persistent image.  ``pack_rows`` is the one-region
+case, with the reference's signature.  ``csrc/pack_flush.cu`` holds the
+Hopper kernel and its design note.
 
 ``scatter_rows_`` is the inverse, in place: ``dst[idx[i]] = packed[i]``.
 The serving engine seats each re-prefill group's cache rows with it, one
 launch per cache leaf per group (``serve/engine.py``); ``scatter_rows`` is
 the reference's functional form on a copy.
 
-Both dispatch by where their tensors live: CPU tensors take the plain
+All dispatch by where their tensors live: CPU tensors take the plain
 version; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["pack_rows", "pack_rows_plain", "scatter_rows",
+__all__ = ["MAX_GROUPS", "group_layout", "pack_rows", "pack_rows_grouped",
+           "pack_rows_grouped_plain", "pack_rows_plain", "scatter_rows",
            "scatter_rows_", "scatter_rows_plain"]
 
+MAX_GROUPS = 64      # region descriptors in one launch's parameter space
+SEG_ALIGN = 16       # every segment of the staging buffer starts here
 
-def _check(src: torch.Tensor, idx: torch.Tensor) -> None:
-    if src.dim() != 2:
-        raise ValueError(f"pack_rows: src must be 2-D (rows, words), "
-                         f"got shape {tuple(src.shape)}")
+
+def _rowbytes(src: torch.Tensor) -> int:
+    return src.shape[1] * src.element_size()
+
+
+def _check_idx(idx: torch.Tensor) -> None:
     if idx.dim() != 1 or idx.dtype != torch.int32:
         raise TypeError(f"pack_rows: idx must be 1-D int32, got "
                         f"{idx.dtype} shape {tuple(idx.shape)}")
-    if src.device != idx.device:
-        raise ValueError(f"pack_rows: src on {src.device}, idx on "
-                         f"{idx.device}")
-    if not (src.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("pack_rows: src and idx must be contiguous")
-    if (src.shape[1] * src.element_size()) % 4:
-        raise ValueError(f"pack_rows: {src.shape[1] * src.element_size()} B "
-                         f"rows are not a multiple of 4 bytes")
+    if not idx.is_contiguous():
+        raise ValueError("pack_rows: idx must be contiguous")
+
+
+def _check_src(src: torch.Tensor, device: torch.device) -> None:
+    if src.dim() != 2:
+        raise ValueError(f"pack_rows: src must be 2-D (rows, words), "
+                         f"got shape {tuple(src.shape)}")
+    if src.device != device:
+        raise ValueError(f"pack_rows: src on {src.device}, idx on {device}")
+    if not src.is_contiguous():
+        raise ValueError("pack_rows: src must be contiguous")
+    if _rowbytes(src) % 4:
+        raise ValueError(f"pack_rows: {_rowbytes(src)} B rows are not a "
+                         f"multiple of 4 bytes")
+
+
+def _check(src: torch.Tensor, idx: torch.Tensor) -> None:
+    _check_idx(idx)
+    _check_src(src, idx.device)
+
+
+def _check_group(srcs: Sequence[torch.Tensor], idx: torch.Tensor,
+                 counts: Sequence[int]) -> None:
+    if len(srcs) != len(counts):
+        raise ValueError(f"pack_rows_grouped: {len(srcs)} sources, "
+                         f"{len(counts)} counts")
+    if any(m < 0 for m in counts) or sum(counts) != idx.shape[0]:
+        raise ValueError(f"pack_rows_grouped: counts {list(counts)} do not "
+                         f"split {idx.shape[0]} indices")
+    _check_idx(idx)
+    for src in srcs:
+        _check_src(src, idx.device)
+
+
+def group_layout(srcs: Sequence[torch.Tensor], counts: Sequence[int]
+                 ) -> Tuple[List[int], int]:
+    """Byte offset of each region's segment in the staging buffer (each
+    ``SEG_ALIGN``-aligned, in order) and the buffer's size in bytes."""
+    offs, pos = [], 0
+    for src, m in zip(srcs, counts):
+        offs.append(pos)
+        pos += -(-m * _rowbytes(src) // SEG_ALIGN) * SEG_ALIGN
+    return offs, pos
 
 
 def pack_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -54,39 +101,99 @@ def pack_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def pack_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather rows ``idx`` of ``src`` (N, W) into a packed (M, W) buffer of
-    the same dtype; indices outside [0, N) give zero rows.  The row width
-    in bytes must be a multiple of 4; the kernel moves 16-byte chunks when
-    it is a multiple of 16."""
-    _check(src, idx)
-    if src.device.type == "cpu":
-        return pack_rows_plain(src, idx)
-    if src.device.type != "cuda":
-        raise RuntimeError(f"pack_rows: no kernel for device {src.device}")
-    m = idx.shape[0]
-    out = torch.empty((m, src.shape[1]), dtype=src.dtype, device=src.device)
-    rowbytes = src.shape[1] * src.element_size()
-    chunk = next(c for c in (16, 8, 4) if rowbytes % c == 0)
-    if src.data_ptr() % chunk or out.data_ptr() % chunk:
-        raise ValueError(f"pack_rows: {rowbytes} B rows at address "
-                         f"{src.data_ptr():#x} are not {chunk}-byte aligned")
-    if m == 0:
-        return out
-    lib = _build.load("pack_flush")
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = lib.pack_rows_launch(src.data_ptr(), idx.data_ptr(),
-                                  out.data_ptr(), src.shape[0], m, rowbytes,
-                                  chunk, stream)
-    if rc:
-        raise RuntimeError(f"pack_rows: kernel launch failed (CUDA error "
-                           f"{rc})")
-    pack_rows.launches += 1
+def pack_rows_grouped_plain(srcs: Sequence[torch.Tensor], idx: torch.Tensor,
+                            counts: Sequence[int]) -> torch.Tensor:
+    """Plain version of the grouped gather: ``pack_rows_plain`` of each
+    region (``counts[r]`` consecutive indices of ``idx`` each), its bytes
+    written at the region's offset of ``group_layout``; pad bytes zero.
+    Returns the (bytes,) uint8 staging buffer."""
+    _check_group(srcs, idx, counts)
+    offs, total = group_layout(srcs, counts)
+    out = torch.zeros(total, dtype=torch.uint8, device=idx.device)
+    pos = 0
+    for src, m, off in zip(srcs, counts, offs):
+        rows = pack_rows_plain(src, idx[pos:pos + m]).reshape(-1)
+        out[off:off + m * _rowbytes(src)] = rows.view(torch.uint8)
+        pos += m
     return out
 
 
+def pack_rows_grouped(srcs: Sequence[torch.Tensor], idx: torch.Tensor,
+                      counts: Sequence[int],
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gather the rows of several regions into one staging buffer: region
+    r's rows ``srcs[r][idx_r]``, where ``idx_r`` is its ``counts[r]``
+    consecutive int32 indices of ``idx``, land at its byte offset of
+    ``group_layout``; indices outside ``[0, len(srcs[r]))`` give zero rows.
+    Every source is (N, W) with a row width in bytes that is a multiple of
+    4.  Returns the (bytes,) uint8 buffer: a new one on ``idx``'s device,
+    or the first bytes of ``out`` (uint8, 16-byte aligned; on a card it
+    may be pinned host memory, which the kernel then writes directly).
+    One launch for every ``MAX_GROUPS`` regions, each counted in
+    ``pack_rows.launches``."""
+    _check_group(srcs, idx, counts)
+    offs, total = group_layout(srcs, counts)
+    if out is not None:
+        if out.dtype != torch.uint8 or out.dim() != 1 or \
+                out.shape[0] < total or out.data_ptr() % SEG_ALIGN:
+            raise ValueError(f"pack_rows: out must be 1-D uint8 of at least "
+                             f"{total} bytes, 16-byte aligned")
+        host = out.device.type == "cpu"
+        if out.device != idx.device and not (host and out.is_pinned()):
+            raise ValueError(f"pack_rows: out on {out.device} for indices "
+                             f"on {idx.device}")
+        out = out[:total]
+    if idx.device.type == "cpu":
+        plain = pack_rows_grouped_plain(srcs, idx, counts)
+        return plain if out is None else out.copy_(plain)
+    if idx.device.type != "cuda":
+        raise RuntimeError(f"pack_rows: no kernel for device {idx.device}")
+    if out is None:
+        out = torch.empty(total, dtype=torch.uint8, device=idx.device)
+    desc, pos = [], 0
+    for src, m, off in zip(srcs, counts, offs):
+        rowbytes = _rowbytes(src)
+        chunk = 16 if rowbytes % 16 == 0 else 8 if rowbytes % 8 == 0 else 4
+        if src.data_ptr() % chunk:
+            raise ValueError(f"pack_rows: {rowbytes} B rows at address "
+                             f"{src.data_ptr():#x} are not {chunk}-byte "
+                             f"aligned")
+        desc.append((src.data_ptr(), src.shape[0], off, pos, m, rowbytes,
+                     chunk))
+        pos += m
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        for lo in range(0, len(desc), MAX_GROUPS):
+            part = np.array(desc[lo:lo + MAX_GROUPS], np.int64)
+            rows = int(part[:, 4].sum())
+            if rows == 0:
+                continue
+            rc = _build.load("pack_flush").pack_rows_grouped_launch(
+                part.ctypes.data, len(part), idx.data_ptr(), out.data_ptr(),
+                stream)
+            if rc:
+                raise RuntimeError(f"pack_rows: kernel launch failed (CUDA "
+                                   f"error {rc})")
+            _build.note_launch(pack_rows, rows)
+    return out
+
+
+def pack_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather rows ``idx`` of ``src`` (N, W) into a packed (M, W) buffer of
+    the same dtype; indices outside [0, N) give zero rows.  The row width
+    in bytes must be a multiple of 4.  The one-region case of
+    ``pack_rows_grouped``."""
+    _check(src, idx)
+    if src.device.type == "cpu":
+        return pack_rows_plain(src, idx)
+    m = idx.shape[0]
+    staged = pack_rows_grouped([src], idx, [m])
+    return staged[:m * _rowbytes(src)].view(src.dtype).reshape(m,
+                                                               src.shape[1])
+
+
 pack_rows.launches = 0
+pack_rows.sizes = {}
 
 
 # ---------------------------------------------------------------- scatter
@@ -169,11 +276,12 @@ def scatter_rows_(dst: torch.Tensor, packed: torch.Tensor,
     if rc:
         raise RuntimeError(f"scatter_rows: kernel launch failed (CUDA error "
                            f"{rc})")
-    scatter_rows_.launches += 1
+    _build.note_launch(scatter_rows_, m)
     return dst
 
 
 scatter_rows_.launches = 0
+scatter_rows_.sizes = {}
 
 
 def scatter_rows(dst: torch.Tensor, packed: torch.Tensor,

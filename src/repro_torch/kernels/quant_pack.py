@@ -106,7 +106,7 @@ def quantize_blockwise(x: torch.Tensor):
     if rc:
         raise RuntimeError(f"quantize_blockwise: kernel launch failed (CUDA "
                            f"error {rc})")
-    quantize_blockwise.launches += 1
+    _build.note_launch(quantize_blockwise, n)
     return q, s
 
 
@@ -128,9 +128,11 @@ def dequantize_blockwise(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     if rc:
         raise RuntimeError(f"dequantize_blockwise: kernel launch failed "
                            f"(CUDA error {rc})")
-    dequantize_blockwise.launches += 1
+    _build.note_launch(dequantize_blockwise, q.shape[0])
     return x
 
 
 quantize_blockwise.launches = 0
+quantize_blockwise.sizes = {}
 dequantize_blockwise.launches = 0
+dequantize_blockwise.sizes = {}

@@ -74,26 +74,84 @@ def test_scenario_images_and_stats_identical():
         assert gg == wg
 
 
-def test_every_drain_gathers_through_pack_rows(monkeypatch):
-    """The port's drain has no non-kernel gather: every flushed region's
-    rows go through pack_rows, once per region per drain."""
+def _count_gathers(monkeypatch):
+    """Record the per-region row counts of every grouped gather."""
     from repro_torch.core import writeset
     calls = []
-    real = writeset.pack_rows
+    real = writeset.pack_rows_grouped
 
-    def counting(src, idx):
-        calls.append(int(idx.shape[0]))
-        return real(src, idx)
+    def counting(srcs, idx, counts):
+        calls.append(list(counts))
+        return real(srcs, idx, counts)
 
-    monkeypatch.setattr(writeset, "pack_rows", counting)
+    monkeypatch.setattr(writeset, "pack_rows_grouped", counting)
+    return calls
+
+
+def test_every_drain_gathers_through_pack_rows(monkeypatch):
+    """The port's drain has no non-kernel gather: one grouped pack_rows
+    gather per drain holds every region it writes, data and metadata
+    phase alike; persist_rows outside an epoch is a gather of one."""
+    from repro_torch.core.writeset import WriteSet
+    calls = _count_gathers(monkeypatch)
     a = _port()
+    before = WriteSet.gathers
     with a.epoch():
         a.regions["a"].mark_rows(np.array([1, 2, 2]))
         a.regions["w"].mark_rows(np.array([3]))
         a.regions["x.header"].mark_rows(np.array([0]))
-    assert calls == [2, 1, 1]
+    assert calls == [[2, 1, 1]]
+    assert WriteSet.gathers == before + 1
     a.regions["b"].persist_rows(np.array([4, 5]))    # outside any epoch
-    assert calls[-1] == 2
+    assert calls[-1] == [2]
+    assert WriteSet.gathers == before + 2
+
+
+def test_flush_without_meta_gathers_no_metadata_row(monkeypatch):
+    """flush(include_meta=False) gathers and writes only the data phase:
+    the header's persisted bytes stay as the last commit left them, and
+    the image and FlushStats equal the reference's."""
+    calls = _count_gathers(monkeypatch)
+    res = []
+    for a in (_port(), _ref()):
+        rng = np.random.default_rng(8)
+        _scenario(a, rng)
+        hdr = np.array(a.regions["x.header"]._pview())
+        calls.clear()
+        with a.epoch():
+            _put(a, "a", [3, 40], rng.integers(0, 9, (2, 8)))
+            a.regions["a"].mark_rows(np.array([3, 40]))
+            _put(a, "c", [7], rng.integers(0, 9, (1, 5)))
+            a.regions["c"].mark_rows(np.array([7]))
+            _put(a, "x.header", [0], rng.integers(100, 200, (1, 8)))
+            a.regions["x.header"].mark_rows(np.array([0]))
+            a.writeset.flush(include_meta=False)
+            assert not a.writeset
+        np.testing.assert_array_equal(a.regions["x.header"]._pview(), hdr)
+        res.append((np.array(a._mm), _stats(a)))
+        if isinstance(a, TA.Arena):
+            assert calls == [[2, 1]]          # regions a and c, no header
+    np.testing.assert_array_equal(res[0][0], res[1][0])
+    assert res[0][1] == res[1][1]
+
+
+def test_grouped_gather_equals_per_region_gather():
+    """The write set's one gather over several regions returns, per
+    region, what the per-region gather (gather_rows) returns: the same
+    dtype, shape and rows."""
+    from repro_torch.core.writeset import gather_rows
+    a = _port()
+    rng = np.random.default_rng(9)
+    _scenario(a, rng)
+    plan = [(a.regions[name], np.sort(rng.choice(
+        LAYOUT[name][1][0], k, replace=False)))
+        for name, k in (("c", 7), ("a", 0), ("w", 3), ("b", 64),
+                        ("x.header", 1))]
+    for (region, rows), got in zip(plan, a.writeset.gather(plan)):
+        want = gather_rows(region, rows)
+        assert got.dtype == want.dtype == region.dtype
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, np.asarray(region.vol)[rows])
 
 
 def test_torn_epoch_data_before_metadata():

@@ -65,6 +65,150 @@ def test_pack_rows_wrapper_dispatch_and_checks():
         tpf.pack_rows(src.reshape(-1), idx)
 
 
+def _pallas_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """The reference's Pallas pack_rows (interpret mode) on ``src``'s rows
+    as uint32 words, D padded to 128 lanes as its ops wrapper pads.  The
+    reference's contract gives zero rows for -1 only; the port's for every
+    index outside [0, n), so those go in as -1."""
+    n = src.shape[0]
+    words = src.reshape(n, -1).view(np.uint32)
+    pad = np.zeros((n, 128 * -(-words.shape[1] // 128)), np.uint32)
+    pad[:, :words.shape[1]] = words
+    safe = np.where((idx >= 0) & (idx < n), idx, -1).astype(np.int32)
+    if safe.size == 0:
+        return np.zeros((0, words.shape[1]), np.uint32)
+    got = np.asarray(jpf.pack_rows(jnp.asarray(pad), jnp.asarray(safe),
+                                   block_d=128, interpret=True))
+    return got[:, :words.shape[1]]
+
+
+# region kinds: (row bytes, dtype): 64 B nodes and entries, 128 B rows,
+# 8 B snapshot rings and chains, 4 B rows
+_KINDS = {64: np.int64, 128: np.int32, 8: np.int64, 4: np.int32}
+
+
+def _grouped_case(case: str):
+    """(sources, per-region indices) for one grouped-gather case."""
+    rng = np.random.default_rng(len(case))
+    if case == "mixed":
+        widths, ms = [64, 8, 128, 4, 64], [40, 33, 7, 65, 1]
+    elif case == "bad_indices":
+        widths, ms = [64, 8, 4], [37, 50, 20]
+    elif case == "empty_regions":
+        widths, ms = [8, 64, 4, 128, 64], [0, 12, 0, 5, 0]
+    else:                                   # more than MAX_GROUPS regions
+        widths, ms = [64, 8, 4, 128, 8], [3, 0, 17, 32, 1]
+    srcs, idxs = [], []
+    for w, m in zip(widths, ms):
+        dt = np.dtype(_KINDS[w])
+        n = int(rng.integers(20, 90))
+        srcs.append(rng.integers(-(1 << 30), 1 << 30, (n, w // dt.itemsize))
+                    .astype(dt))
+        idx = rng.integers(0, n, m).astype(np.int32)
+        if case == "bad_indices":
+            idx[::5] = -1
+            idx[1::7] = n                   # one past the end
+            idx[2::11] = 2 ** 31 - 1
+            idx[3::13] = -(2 ** 31)
+        idxs.append(idx)
+    if case == "more_than_max_groups":      # five regions, 70 times over
+        pick = [i % 5 for i in range(tpf.MAX_GROUPS + 6)]
+        srcs, idxs = [srcs[i] for i in pick], [idxs[i] for i in pick]
+    return srcs, idxs
+
+
+@pytest.mark.parametrize("case", ["mixed", "bad_indices", "empty_regions",
+                                  "more_than_max_groups"])
+def test_pack_rows_grouped_plain_matches_pallas_per_region(case):
+    """Each region's segment of the grouped staging buffer equals the
+    reference's Pallas kernel run on that region alone (exact); segments
+    sit at group_layout's 16-byte-aligned offsets and the pad between
+    them is zero."""
+    srcs, idxs = _grouped_case(case)
+    tsrcs = [torch.from_numpy(s) for s in srcs]
+    counts = [i.size for i in idxs]
+    idx = torch.from_numpy(np.concatenate(idxs))
+    buf = tpf.pack_rows_grouped_plain(tsrcs, idx, counts).numpy()
+    offs, total = tpf.group_layout(tsrcs, counts)
+    assert buf.dtype == np.uint8 and buf.shape == (total,)
+    assert total % tpf.SEG_ALIGN == 0
+    assert all(o % tpf.SEG_ALIGN == 0 for o in offs)
+    np.testing.assert_array_equal(
+        tpf.pack_rows_grouped(tsrcs, idx, counts).numpy(), buf)
+    covered = np.zeros(total, bool)
+    memo = {}
+    for src, ix, off in zip(srcs, idxs, offs):
+        rowbytes = src.shape[1] * src.itemsize
+        seg = buf[off:off + ix.size * rowbytes].view(np.uint32)
+        key = (id(src), ix.tobytes())
+        if key not in memo:
+            memo[key] = _pallas_rows(src, ix)
+        np.testing.assert_array_equal(seg.reshape(ix.size, rowbytes // 4),
+                                      memo[key])
+        covered[off:off + ix.size * rowbytes] = True
+    assert (buf[~covered] == 0).all()
+
+
+def test_pack_rows_grouped_wrapper_dispatch_and_checks():
+    srcs = [torch.arange(32, dtype=torch.int64).reshape(4, 8),
+            torch.arange(6, dtype=torch.int32).reshape(6, 1)]
+    idx = torch.tensor([3, -1, 0, 5, 9], dtype=torch.int32)
+    before = launch_counts()["pack_rows"]
+    out = tpf.pack_rows_grouped(srcs, idx, [3, 2])
+    # CPU tensors take the plain version: no kernel launch is counted
+    assert launch_counts()["pack_rows"] == before
+    np.testing.assert_array_equal(
+        out.numpy(), tpf.pack_rows_grouped_plain(srcs, idx, [3, 2]).numpy())
+    assert tpf.group_layout(srcs, [3, 2]) == ([0, 192], 208)
+    assert out[192:200].view(torch.int32).tolist() == [5, 0]
+    # a caller's buffer: the same bytes, written into its first 208
+    buf = torch.full((300,), 7, dtype=torch.uint8)
+    got = tpf.pack_rows_grouped(srcs, idx, [3, 2], out=buf)
+    assert got.data_ptr() == buf.data_ptr() and got.shape == (208,)
+    np.testing.assert_array_equal(buf[:208].numpy(), out.numpy())
+    assert (buf[208:] == 7).all()
+    for bad in (torch.zeros(200, dtype=torch.uint8),          # too small
+                torch.zeros(208, dtype=torch.int32),
+                torch.zeros((208, 1), dtype=torch.uint8)):
+        with pytest.raises(ValueError):
+            tpf.pack_rows_grouped(srcs, idx, [3, 2], out=bad)
+    with pytest.raises(ValueError):
+        tpf.pack_rows_grouped(srcs, idx, [3, 1])        # counts != len
+    with pytest.raises(ValueError):
+        tpf.pack_rows_grouped(srcs, idx, [6, -1])
+    with pytest.raises(ValueError):
+        tpf.pack_rows_grouped(srcs[:1], idx, [3, 2])
+    with pytest.raises(TypeError):
+        tpf.pack_rows_grouped(srcs, idx.long(), [3, 2])
+    with pytest.raises(ValueError):                     # 2 B rows
+        tpf.pack_rows_grouped([torch.zeros((4, 1), dtype=torch.int16)],
+                              idx[:2], [2])
+    # a device with no kernel raises instead of taking the plain version
+    meta = [s.to("meta") for s in srcs]
+    with pytest.raises(RuntimeError):
+        tpf.pack_rows_grouped(meta, idx.to("meta"), [3, 2])
+    with pytest.raises(RuntimeError):
+        tpf.pack_rows(meta[0], idx[:3].to("meta"))
+
+
+def test_launch_size_histogram_and_reset():
+    from repro_torch.kernels import _build, launch_sizes, reset_launch_counts
+
+    def fake():
+        pass
+
+    fake.launches, fake.sizes = 0, {}
+    for size in (1, 2, 3, 8192, 8193, 131073, 0):
+        _build.note_launch(fake, size)
+    assert fake.launches == 7
+    assert fake.sizes == {1: 2, 2: 1, 4: 1, 8192: 1, 16384: 1, 262144: 1}
+    sizes = launch_sizes()
+    assert set(sizes) == set(launch_counts())
+    reset_launch_counts()
+    assert all(v == 0 for v in launch_counts().values())
+    assert all(v == {} for v in launch_sizes().values())
+
+
 # ------------------------------------------------------------ doubling
 
 def _chain_with_faults(n, seed):
