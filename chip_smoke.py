@@ -39,14 +39,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    per-region gather drains used before and as ``index_select`` per
    region with one ``torch.cat``, beside the kernel alone and the bound
    (bytes once at 3.35 TB/s or the staging bytes at phase 1's link
-   rate);
+   rate); then ``jump_double(rounds=)`` in its three main-path forms (the
+   tables of ``_contract_tables``, the counted tables of ``chain_order``,
+   ``_absorb``) at 2**16, the contracted 131,073, 2**18 and 2**22 nodes
+   with NULLs, out-of-range values and a cycle, and
+   ``gather_next(hops=)`` at 2, 8 and 16 hops from 8192 lanes over
+   2**22 pointers (unsanitized, int64 ids with 2**32 + 3 and int32 ids,
+   and the hashmap's bucket chains), exact against their plain versions
+   (walk and length); each timed with CUDA events under the L2 eviction
+   as one launch and as one launch per round or per hop, beside its
+   bound for the call and per round or hop; and a delete batch's whole
+   ``chain_walk`` against the per-column walk it replaced, on the host
+   clock;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
    the B+Tree at 2**19, both modes, order snapshots and integrity pinned
    off, every epoch drain through ``pack_rows``; the recovered state is
    checked; ``pack_rows`` launches must equal the write sets' grouped
-   gathers (one per drain); then device syncs per operation, snapshots
-   off and on;
+   gathers (one per drain); ``jump_double`` must launch once per
+   ``chain_tables``/``_absorb`` call and every level-synchronous hashmap
+   ``chain_walk`` within 1 + ceil(log2(columns / 8)) ``gather_next``
+   launches (counted at the call sites); then device syncs per
+   operation, snapshots off and on;
 4. card vs CPU: the same workload at 2**14 on ``cuda`` and on ``cpu``
    must write identical arena images (sha256) and FlushStats; with order
    snapshots on, the DLL and hashmap runs of phase 5 at 2**14 must also
@@ -70,10 +84,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    commit; crash and recover through ``RecoveryManager`` three times
    (clean; newest record torn; whole snapshot ring corrupted), checking
    ``chain``/``replayed`` and the recovered state each time; launches
-   equal to gathers as in phase 3; then ``pack_rows``, ``jump_double``
-   and ``gather_next`` timed at every power-of-two size phases 3 and 5
-   launched them at (and ``jump_double`` at the contracted 131,073), for
-   launches x (time - bound);
+   equal to gathers and the chain calls checked as in phase 3; then
+   ``pack_rows``, ``jump_double`` and ``gather_next`` timed at every
+   power-of-two size, and hop or round count, phases 3 and 5 launched
+   them at (and ``jump_double`` at the contracted 131,073), for
+   launches x (time - bound), beside the same work at one launch per
+   round or per column;
 6. checkpoint: a train state at the full width of llama3.2-3b, cut to 4
    layers (params, mu and nu: 796,683,264 parameters each, 9.56 GB on the
    card), saved by ``CheckpointManager`` under ``PARTLY_Q8`` with
@@ -113,7 +129,8 @@ together, and ``gather_next``'s in phase 5; the quantize kernels' in
 phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7;
 ``probe``'s in phase 8; ``pack_rows``' and ``jump_double``'s in phase 9.
 Each count is zeroed just before its phase and read just after; phases
-3, 5 and 9 also print each kernel's launches by power-of-two size.
+3, 5 and 9 also print each kernel's launches by power-of-two size, and
+phases 3 and 5 the hops and rounds of the two chain kernels' launches.
 
 The line before the last is the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  ``--report`` also writes every phase's
@@ -164,6 +181,7 @@ INDEX_N = 1 << 18
 LINK_BYTES = 256 << 20         # the pinned device-to-host copy of phase 1
 DRAIN_FILL = 64                # batches before the captured drain
 CONTRACTED_N = 131073          # the 2**22-node chain contracted by 32
+ROUND_SIZES = (1 << 16, CONTRACTED_N, 1 << 18, 1 << 22)   # jump_double
 # pack_rows launches on an H100 when drains launched once per region
 PER_REGION_PACK_LAUNCHES = {"main_path": 5568, "snapshot_recovery": 10867,
                             "feature_store": 4616}
@@ -1210,11 +1228,389 @@ def drain_parity(dev, link: float) -> dict:
     return out
 
 
-def size_ranking(dev, launches: dict, sizes: dict) -> dict:
+# ---------------------------------------------------------- chain steps
+
+def faulty_jump(n: int, g, dev):
+    """int32 pointers over n nodes: a random permutation chain with a NULL
+    cut, values out of range at 64 and at 32 bits, and a cycle."""
+    import torch
+    from repro_torch.kernels import chain_order as K
+    perm = torch.randperm(n, device=dev, generator=g)
+    nxt = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    nxt[perm[:-1]] = perm[1:]
+    nxt[perm[n // 3]] = -1
+    nxt[perm[n // 2]] = n + 11
+    nxt[perm[-2]] = perm[-5]                     # cycle
+    jump = K.sanitize32(nxt)
+    jump[perm[n // 4]] = (1 << 31) - 1           # out of range at int32
+    return jump
+
+
+def bucket_chains(dev, g, n: int):
+    """The hashmap's chain table at n entries: every slot hashed to one of
+    2n buckets (load 0.5, as the port's Hashmap sizes it at 2**22), each
+    bucket's chain in ascending slot order.  Returns (chain int64 (n,),
+    the head of every bucket, the bucket of every slot), int64."""
+    import torch
+    buckets = 2 * n
+    b = torch.randint(0, buckets, (n,), device=dev, generator=g)
+    bs, slots = torch.sort(b, stable=True)
+    chain = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    same = bs[1:] == bs[:-1]
+    chain[slots[:-1][same]] = slots[1:][same]
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = ~same
+    heads = torch.full((buckets,), -1, dtype=torch.int64, device=dev)
+    heads[bs[first]] = slots[first]
+    return chain, heads, b
+
+
+def raw_walk(nxt, ids, hops: int):
+    """One launch of gather_next's walk kernel, as the wrapper makes it but
+    without its synchronize: CUDA events then time the kernel alone."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import chain_order as K
+    lib = _build.load("chain_order")
+    out = torch.empty((hops, ids.shape[0]), dtype=torch.int32,
+                      device=nxt.device)
+    walk, host = K._walk_words(nxt.device)
+    stream = torch.cuda.current_stream(nxt.device).cuda_stream
+
+    def launch():
+        rc = lib.gather_next_launch(nxt.data_ptr(), ids.data_ptr(),
+                                    ids.element_size(), out.data_ptr(),
+                                    nxt.shape[0], ids.shape[0], hops,
+                                    walk.data_ptr(), host.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"gather_next walk: CUDA error {rc}")
+    return launch
+
+
+def walk_bytes(nxt, ids, walk) -> dict:
+    """Bytes of a walk: once for the call (ids read, each node it loads
+    read once, the columns written) and once per hop (each hop's ids
+    read, one load per live lane, its column written)."""
+    import torch
+    n, lanes = nxt.shape[0], ids.shape[0]
+    cols = [ids] + list(walk[:-1])
+    live = [((c >= 0) & (c < n)) for c in cols]
+    loaded = torch.cat([c[v].long() for c, v in zip(cols, live)])
+    distinct = int(torch.unique(loaded).numel())
+    per_hop = sum(c.element_size() * lanes + 4 * int(v.sum()) + 4 * lanes
+                  for c, v in zip(cols, live))
+    return {"bound_ms": bound_ms(ids.element_size() * lanes + 4 * distinct
+                                 + 4 * walk.numel()),
+            "round_bound_ms": bound_ms(per_hop), "nodes_read": distinct,
+            "loads": int(loaded.numel())}
+
+
+def walk_per_column(nxt, heads):
+    """chain_walk as the port ran it before the walks were hop-blocked
+    (one one-hop gather_next launch and one blocking read per column): the
+    yardstick of the delete batch's walk."""
+    import torch
+    from repro_torch.kernels import chain_order as K
+    n = nxt.shape[0]
+    cols = []
+    cur = torch.where((heads >= 0) & (heads < n), heads, -1)
+    nxt32 = K.sanitize32(nxt)
+    while bool((cur != -1).any()):
+        cols.append(cur)
+        cur = K.gather_next(nxt32, cur).long()
+        if len(cols) > n:
+            raise RuntimeError("cycle in chain")
+    return torch.stack(cols, dim=1)
+
+
+def rounds_parity(dev, g, flush) -> dict:
+    """jump_double's three forms on the main path (the tables of
+    _contract_tables: bits - 1 rounds kept; chain_order's tables with
+    counts: n.bit_length() rounds kept; _absorb: n.bit_length() rounds,
+    the last level only) at ROUND_SIZES (2**16, the contracted 131,073,
+    2**18 and 2**22 nodes), exact against the plain version; each timed
+    as one launch and as one launch per round."""
+    import torch
+    from repro_torch.kernels import chain_order as K
+    out = {}
+    for n in ROUND_SIZES:
+        jump = faulty_jump(n, g, dev)
+        cnt = torch.randint(1, 9, (n,), dtype=torch.int64, device=dev,
+                            generator=g)
+        bits = max(1, (n - 1).bit_length())
+        forms = {"tables": (None, bits - 1, True),
+                 "tables_cnt": (cnt, n.bit_length(), True),
+                 "absorb": (cnt, n.bit_length(), False)}
+        for form, (c, r, keep) in forms.items():
+            kw = dict(rounds=r, keep=keep)
+            got = K.jump_double(jump, c, **kw)
+            want = K.jump_double_plain(jump, c, **kw)
+            pairs = [(got[0], want[0])]
+            if c is not None:
+                pairs.append((got[1], want[1]))
+            err = require_equal(f"jump_double rounds={r} keep={keep}",
+                                pairs)
+            del got, want
+
+            def per_round(c=c, r=r):
+                j = jump
+                cc = c
+                for _ in range(r):
+                    j, cc = K.jump_double(j, cc)
+            cb = 8 if c is not None else 0
+            out[f"{form}_{n}"] = {
+                "n": n, "rounds": r, "keep": keep, "counts": c is not None,
+                "ms": time_ms(lambda: K.jump_double(jump, c, **kw),
+                              flush=flush),
+                "per_round_launches_ms": time_ms(per_round, flush=flush),
+                "plain_ms": time_ms(lambda: K.jump_double_plain(jump, c,
+                                                                **kw),
+                                    reps=5, flush=flush),
+                "library_ms": None,
+                "bound_ms": bound_ms((4 + cb) * n + (
+                    4 * (r + 1) if keep else 4) * n + cb * n),
+                "round_bound_ms": bound_ms(r * 2 * (4 + cb) * n),
+                "max_abs_err": err}
+        del jump, cnt
+        torch.cuda.empty_cache()
+    return out
+
+
+def hops_parity(dev, g, flush, n: int, lanes: int = BATCH) -> dict:
+    """gather_next(hops=) at a chain_walk's 8192 lanes over 2**22 pointers,
+    exact against the plain version, walk and length: unsanitized pointers
+    (NULL, stored values out of range) and int64 ids with NULL, negatives,
+    n and 2**32 + 3, int32 ids, and the hashmap's bucket chains from the
+    heads of a delete batch's buckets.  Timed at 8 hops (the first launch
+    of every walk); then that batch's whole chain_walk against the
+    per-column walk."""
+    import torch
+    from repro_torch.kernels import chain_order as K
+    nxt = torch.randint(-1, n, (n,), dtype=torch.int32, device=dev,
+                        generator=g)
+    nxt[::101] = n + 9
+    nxt[1::103] = -7
+    ids = torch.randint(0, n, (lanes,), dtype=torch.int64, device=dev,
+                        generator=g)
+    ids[::97] = -1
+    ids[1::89] = -5
+    ids[2::83] = 2 ** 32 + 3
+    ids[3::79] = n
+    # a delete batch's walk: the buckets of 8192 random slots
+    chain, heads, bucket = bucket_chains(dev, g, n)
+    chain32 = K.sanitize32(chain)
+    bids = heads[torch.unique(bucket[torch.randint(
+        0, n, (lanes,), device=dev, generator=g)])].contiguous()
+    cases = {"unsanitized_int64": (nxt, ids), "unsanitized_int32":
+             (nxt, ids.to(torch.int32)), "buckets": (chain32, bids)}
+    out, lengths = {}, {}
+    for name, (table, lane_ids) in cases.items():
+        for hops in (2, 8, 16):
+            got, length = K.gather_next(table, lane_ids, hops=hops)
+            want, want_len = K.gather_next_plain(table, lane_ids, hops=hops)
+            err = require_equal(f"gather_next hops={hops} {name}",
+                                [(got, want)])
+            if length != want_len:
+                raise AssertionError(f"gather_next hops={hops} {name}: "
+                                     f"length {length} != {want_len}")
+            lengths[f"{name}_{hops}"] = length
+    for name, (table, lane_ids) in (("unsanitized_int64", cases[
+            "unsanitized_int64"]), ("buckets", cases["buckets"])):
+        hops = 8
+        walk, _ = K.gather_next(table, lane_ids, hops=hops)
+
+        def per_hop(table=table, lane_ids=lane_ids, hops=hops):
+            cur = lane_ids
+            for _ in range(hops):
+                cur = K.gather_next(table, cur)
+        host = time_host_ms({"call": lambda: K.gather_next(
+            table, lane_ids, hops=hops)}, flush)["call"]
+        out[name] = {
+            "lanes": lane_ids.shape[0], "hops": hops,
+            "ms": time_ms(raw_walk(table, lane_ids, hops), flush=flush),
+            "call_host_ms": host[0],
+            "per_hop_launches_ms": time_ms(per_hop, flush=flush),
+            "plain_ms": time_ms(lambda: K.gather_next_plain(
+                table, lane_ids, hops=hops), reps=5, flush=flush),
+            "library_ms": None, "max_abs_err": err,
+            **walk_bytes(table, lane_ids, walk)}
+    out["lengths"] = lengths
+    # the delete batch's walk: the hop-blocked chain_walk against the
+    # per-column loop, on the host clock, in rotating order
+    from repro_torch.core import recovery as TR
+    want = walk_per_column(chain, bids)
+    got = TR.chain_walk(chain, bids, method="double")
+    if not torch.equal(got, want):
+        raise AssertionError("chain_walk differs from the per-column walk")
+    def synced(fn):
+        def call():
+            fn()
+            torch.cuda.synchronize()
+        return call
+    # the walk's own pieces: the sanitize pass over the whole table, and
+    # the first hop-blocked launch with its synchronize
+    times = time_host_ms({
+        "hop_blocked": synced(lambda: TR.chain_walk(chain, bids,
+                                                    method="double")),
+        "per_column": synced(lambda: walk_per_column(chain, bids)),
+        "sanitize32": synced(lambda: K.sanitize32(chain)),
+        "first_launch": synced(lambda: K.gather_next(chain32, bids,
+                                                     hops=8))}, flush)
+    out["walk"] = {"heads": bids.shape[0], "columns": got.shape[1],
+                   **{f"{k}_host_ms": v[0] for k, v in times.items()},
+                   **{f"{k}_events_ms": v[1] for k, v in times.items()}}
+    del nxt, ids, chain, chain32, heads, bucket
+    torch.cuda.empty_cache()
+    return out
+
+
+def chain_steps_parity(dev) -> dict:
+    """Phase 2's checks of the two multi-step chain kernels; ``rows`` are
+    their lines of the kernels summary at the main path's sizes (the
+    contracted 131,073-node absorb, a walk's first 8-hop launch)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    flush = l2_flusher(dev)
+    rounds = rounds_parity(dev, g, flush)
+    hops = hops_parity(dev, g, flush, SNAP_N)
+    src = {"source": "src/repro_torch/csrc/chain_order.cu"}
+    rows = {
+        "jump_double": dict(
+            rounds[f"absorb_{CONTRACTED_N}"],
+            shape=f"n={CONTRACTED_N} (a 2**22 chain contracted by 32), "
+                  f"{CONTRACTED_N.bit_length()} rounds in one launch, int32 "
+                  f"jump, int64 cnt (_absorb); every form and size in the "
+                  f"report",
+            replaces="src/repro/kernels/chain_order.py:133", **src),
+        "gather_next": dict(
+            hops["buckets"],
+            shape=f"{hops['buckets']['lanes']} int64 bucket heads of a "
+                  f"delete batch, 8 hops over the 2**22-slot chain table (a "
+                  f"walk's first launch); unsanitized pointers and ids in "
+                  f"the report",
+            replaces="src/repro/kernels/chain_order.py:189", **src)}
+    return {"rows": rows, "rounds": rounds, "hops": hops}
+
+
+class ChainCalls:
+    """Calls of the chain primitives at their call sites during a phase:
+    ``tables``/``absorbs`` count the ``chain_tables``/``_absorb`` calls
+    that launch (one ``jump_double`` launch each), ``walks`` holds one
+    record per hashmap ``chain_walk``: lanes, columns, its ``gather_next``
+    launches, whether it escalated or raised."""
+
+    def __init__(self):
+        self.tables = 0
+        self.absorbs = 0
+        self.walks = []
+
+
+@contextlib.contextmanager
+def chain_call_sites():
+    from repro_torch.core import recovery as TR
+    from repro_torch.kernels import chain_order as K
+    from repro_torch.pstruct import hashmap as HM
+    rec = ChainCalls()
+    real = (K.chain_tables, TR._absorb, HM.chain_walk, TR._walk_contract)
+    escalations = []
+
+    def tables(jump0, bits, cnt=None):
+        if jump0.shape[0] and bits - 1 + (cnt is not None) >= 1:
+            rec.tables += 1
+        return real[0](jump0, bits, cnt)
+
+    def absorb(jump, cnt, heads):
+        if jump.shape[0]:
+            rec.absorbs += 1
+        return real[1](jump, cnt, heads)
+
+    def walk_contract(*a, **kw):
+        escalations.append(1)
+        return real[3](*a, **kw)
+
+    def walk(nxt, heads, **kw):
+        before, esc = K.gather_next.launches, len(escalations)
+        row = {"lanes": int(heads.numel())}
+        rec.walks.append(row)
+        try:
+            out = real[2](nxt, heads, **kw)
+        except RuntimeError:
+            row["raised"] = True
+            raise
+        finally:
+            row["launches"] = K.gather_next.launches - before
+            row["escalated"] = len(escalations) > esc
+        row["columns"] = int(out.shape[1])
+        return out
+
+    K.chain_tables, TR._absorb, HM.chain_walk, TR._walk_contract = (
+        tables, absorb, walk, walk_contract)
+    try:
+        yield rec
+    finally:
+        K.chain_tables, TR._absorb, HM.chain_walk, TR._walk_contract = real
+
+
+def walk_launch_cap(columns: int) -> int:
+    """1 + ceil(log2(columns / 8)) launches, at least 1: the most a
+    level-synchronous walk of that many columns may take."""
+    return 1 + (max(1, -(-columns // 8)) - 1).bit_length()
+
+
+def chain_calls_check(phase: str, rec: ChainCalls, launches: dict) -> dict:
+    """jump_double launched once per chain_tables/_absorb call that
+    launches; every level-synchronous chain_walk within its launch cap."""
+    if launches["jump_double"] != rec.tables + rec.absorbs:
+        raise AssertionError(
+            f"{phase}: {launches['jump_double']} jump_double launches for "
+            f"{rec.tables} chain_tables and {rec.absorbs} _absorb calls")
+    level = [w for w in rec.walks
+             if not w["escalated"] and not w.get("raised")]
+    over = [w for w in level if w["launches"] > walk_launch_cap(
+        w["columns"])]
+    if over:
+        raise AssertionError(f"{phase}: chain_walk over its launch cap: "
+                             f"{over[:3]}")
+    return {"phase": f"{phase}_chain_calls", "chain_tables_calls":
+            rec.tables, "absorb_calls": rec.absorbs,
+            "jump_double_launches": launches["jump_double"],
+            "walks": len(level),
+            "walk_gather_launches": sum(w["launches"] for w in level),
+            "walk_columns": sum(w["columns"] for w in level),
+            "longest_walk": max((w["columns"] for w in level), default=0),
+            "escalated": sum(w["escalated"] for w in rec.walks),
+            "raised": sum(bool(w.get("raised")) for w in rec.walks)}
+
+
+def per_column_launches(walks) -> dict:
+    """{lanes rounded up to a power of two: gather_next launches the
+    per-column chain_walk made for these walks} (one per column; 128
+    before an escalation)."""
+    out = {}
+    for w in walks:
+        if w.get("raised"):
+            continue
+        key = 1 << max(0, w["lanes"] - 1).bit_length()
+        cols = 128 if w["escalated"] else w["columns"]
+        out[key] = out.get(key, 0) + cols
+    return out
+
+
+def size_ranking(dev, launches: dict, sizes: dict, steps: dict,
+                 walks: list) -> dict:
     """Each of pack_rows (64 B rows of a 2**22-row source), jump_double
-    and gather_next (over a 2**22-entry table) timed at every power of two
-    its histogram of phases 3 and 5 holds (the bucket's upper end), beside
-    its bound there; gap = launches x (ms - bound), summed per kernel."""
+    and gather_next timed at every power of two its histogram of phases 3
+    and 5 holds (the bucket's upper end) and, for the two chain kernels,
+    at every hop or round count launched there; beside its bound there;
+    gap = launches x (ms - bound), summed per kernel.  jump_double runs the
+    absorb form (counts, the last level kept) over a random chain;
+    gather_next walks from bucket heads over the hashmap's 2**22-slot
+    chain table, one hop from random ids over random pointers.  The
+    chain kernels' ``per_step_gap_ms`` prices the same work at one launch
+    per round or per column, as the kernels ran before they looped: each
+    round of a call, each column of the level-synchronous walks counted
+    at their call sites (``walks``)."""
     import torch
     from repro_torch.kernels import chain_order as K
     from repro_torch.kernels import pack_flush as P
@@ -1225,42 +1621,74 @@ def size_ranking(dev, launches: dict, sizes: dict) -> dict:
     src = torch.randint(0, 1 << 40, (n, 8), generator=g, device=dev)
     nxt = torch.randint(-1, n, (n,), dtype=torch.int32, generator=g,
                         device=dev)
+    chain, heads, _ = bucket_chains(dev, g, n)
+    chain32 = K.sanitize32(chain)
+    heads = heads[heads >= 0]
 
-    def pack(size):
+    def pack(size, _):
         idx = torch.randint(0, n, (size,), dtype=torch.int32, generator=g,
                             device=dev)
         return (lambda: P.pack_rows(src, idx)), bound_ms(size * (2 * 64 + 4))
 
-    def jump(size):
+    def jump(size, rounds):
         perm = torch.randperm(size, device=dev, generator=g)
         j = torch.full((size,), -1, dtype=torch.int32, device=dev)
         j[perm[:-1]] = perm[1:].to(torch.int32)
         cnt = torch.ones(size, dtype=torch.int64, device=dev)
-        return (lambda: K.jump_double(j, cnt)), bound_ms(24 * size)
+        return (lambda: K.jump_double(j, cnt, rounds=rounds)), \
+            bound_ms(24 * size)
 
-    def gather(size):
-        ids = torch.randint(0, n, (size,), dtype=torch.int64, generator=g,
-                            device=dev)
-        distinct = int(torch.unique(ids).numel())
-        return (lambda: K.gather_next(nxt, ids)), \
-            bound_ms(12 * size + 4 * distinct)
+    def gather(size, hops):
+        if hops == 1:
+            ids = torch.randint(0, n, (size,), dtype=torch.int64,
+                                generator=g, device=dev)
+            distinct = int(torch.unique(ids).numel())
+            return (lambda: K.gather_next(nxt, ids)), \
+                bound_ms(12 * size + 4 * distinct)
+        ids = heads[torch.randint(0, heads.shape[0], (size,), generator=g,
+                                  device=dev)].contiguous()
+        walk, _ = K.gather_next(chain32, ids, hops=hops)
+        return raw_walk(chain32, ids, hops), walk_bytes(
+            chain32, ids, walk)["bound_ms"]
 
+    # the launches of the same work at one per round, one per column
+    per_step = {"jump_double": {}, "gather_next": {}}
+    for size, by in steps["jump_double"].items():
+        per_step["jump_double"][size] = sum(r * c for r, c in by.items())
+    for size, by in steps["gather_next"].items():
+        if 1 in by:
+            per_step["gather_next"][size] = by[1]
+    for size, cols in per_column_launches(walks).items():
+        per_step["gather_next"][size] = (
+            per_step["gather_next"].get(size, 0) + cols)
     out = {}
     for name, make in (("pack_rows", pack), ("jump_double", jump),
                        ("gather_next", gather)):
-        rows, gap = [], 0.0
-        points = dict(sizes[name])
-        if name == "jump_double":
-            points.setdefault(CONTRACTED_N, 0)   # the contracted chain
-        for size, count in sorted(points.items()):
-            fn, bnd = make(size)
+        if name == "pack_rows":
+            points = {(size, 1): c for size, c in sizes[name].items()}
+        else:
+            points = {(size, k): c for size, by in steps[name].items()
+                      for k, c in by.items()}
+            for size in per_step[name]:
+                points.setdefault((size, 1), 0)
+        if name == "jump_double":               # the contracted chain
+            points.setdefault((CONTRACTED_N, CONTRACTED_N.bit_length()), 0)
+        rows, gap, one = [], 0.0, {}
+        for (size, k), count in sorted(points.items()):
+            fn, bnd = make(size, k)
             ms = time_ms(fn, flush=flush)
             gap += count * (ms - bnd)
-            rows.append({"size": size, "launches": count, "ms": ms,
-                         "bound_ms": bnd})
+            if k == 1:
+                one[size] = ms - bnd
+            rows.append({"size": size, "steps": k, "launches": count,
+                         "ms": ms, "bound_ms": bnd})
         out[name] = {"launches": launches[name], "gap_ms": gap,
                      "by_size": rows}
-    del src, nxt
+        if name != "pack_rows":
+            out[name]["per_step_launches"] = sum(per_step[name].values())
+            out[name]["per_step_gap_ms"] = sum(
+                c * one[size] for size, c in per_step[name].items())
+    del src, nxt, chain, chain32, heads
     torch.cuda.empty_cache()
     return out
 
@@ -1842,7 +2270,8 @@ def main(argv=None) -> int:
     from repro_torch.interop import image_of
     from repro_torch.core.writeset import WriteSet
     from repro_torch.kernels import (WRAPPERS, _build, launch_counts,
-                                     launch_sizes, reset_launch_counts)
+                                     launch_sizes, launch_steps,
+                                     reset_launch_counts)
 
     report = {}
     dev = torch.device("cuda", 0)
@@ -1876,33 +2305,48 @@ def main(argv=None) -> int:
     drains = drain_parity(dev, report["link"]["bytes_per_s"])
     report["drains"] = drains
     emit({"phase": "drain_parity", **drains})
+    chain_steps = chain_steps_parity(dev)
+    report["chain_steps"] = chain_steps
+    emit({"phase": "chain_steps_parity", "rounds": chain_steps["rounds"],
+          "hops": chain_steps["hops"]})
+    for name, row in chain_steps["rows"].items():
+        # the one-step rows (a round at 2**22, a hop of the verify) stay in
+        # the report
+        chain_steps[f"{name}_one_step"] = parity["rows"][name]
+        parity["rows"][name] = row
     # ---- phase 3: the main path at real size
     reset_launch_counts()
     WriteSet.gathers = 0
     main_runs = []
-    for kind in KINDS:
-        by_mode = {}
-        for mode in ("full", "partly"):
-            r = workload(kind, mode, MAIN_N[kind], dev)
-            r.pop("arena")
-            by_mode[mode] = r
-            torch.cuda.empty_cache()
-        saved = 1 - by_mode["partly"]["lines"] / by_mode["full"]["lines"]
-        row = {"phase": "main_path", "kind": kind, "n": MAIN_N[kind],
-               "lines_full": by_mode["full"]["lines"],
-               "lines_partly": by_mode["partly"]["lines"],
-               "saved": saved,
-               **{f"{m}_{t}": by_mode[m][t] for m in by_mode
-                  for t in ("insert_s", "delete_s", "recover_s")}}
-        main_runs.append(row)
-        emit(row)
+    with chain_call_sites() as calls3:
+        for kind in KINDS:
+            by_mode = {}
+            for mode in ("full", "partly"):
+                r = workload(kind, mode, MAIN_N[kind], dev)
+                r.pop("arena")
+                by_mode[mode] = r
+                torch.cuda.empty_cache()
+            saved = 1 - by_mode["partly"]["lines"] / by_mode["full"]["lines"]
+            row = {"phase": "main_path", "kind": kind, "n": MAIN_N[kind],
+                   "lines_full": by_mode["full"]["lines"],
+                   "lines_partly": by_mode["partly"]["lines"],
+                   "saved": saved,
+                   **{f"{m}_{t}": by_mode[m][t] for m in by_mode
+                      for t in ("insert_s", "delete_s", "recover_s")}}
+            main_runs.append(row)
+            emit(row)
     launches3, sizes3 = launch_counts(), launch_sizes()
+    steps3 = launch_steps()
     gathers3 = gathers_check("main_path", launches3, WriteSet.gathers)
+    chain3 = chain_calls_check("main_path", calls3, launches3)
     report["main_path"] = {"runs": main_runs, "launches": launches3,
-                           "launch_sizes": sizes3, "gathers": gathers3}
+                           "launch_sizes": sizes3, "launch_steps": steps3,
+                           "gathers": gathers3, "chain_calls": chain3}
     emit({"phase": "main_path_launches", **launches3})
     emit(gathers3)
+    emit(chain3)
     emit({"phase": "main_path_launch_sizes", **sizes3})
+    emit({"phase": "main_path_launch_steps", **steps3})
     syncs = {"off": syncs_per_op(dev),
              "on": syncs_per_op(dev, SNAP_KINDS, snapshot=True)}
     report["syncs_per_op"] = syncs
@@ -1987,28 +2431,42 @@ def main(argv=None) -> int:
     reset_launch_counts()
     WriteSet.gathers = 0
     snap_runs = []
-    for kind in SNAP_KINDS:
-        for mode in ("full", "partly"):
-            r = snapshot_workload(kind, mode, SNAP_N, dev)
-            r.pop("arena")
-            r.pop("details")
-            snap_runs.append(r)
-            emit({"phase": "snapshot_recovery", **r})
-            torch.cuda.empty_cache()
+    with chain_call_sites() as calls5:
+        for kind in SNAP_KINDS:
+            for mode in ("full", "partly"):
+                r = snapshot_workload(kind, mode, SNAP_N, dev)
+                r.pop("arena")
+                r.pop("details")
+                snap_runs.append(r)
+                emit({"phase": "snapshot_recovery", **r})
+                torch.cuda.empty_cache()
     launches5, sizes5 = launch_counts(), launch_sizes()
+    steps5 = launch_steps()
     gathers5 = gathers_check("snapshot_recovery", launches5,
                              WriteSet.gathers)
+    chain5 = chain_calls_check("snapshot_recovery", calls5, launches5)
     report["snapshot_recovery"] = {"runs": snap_runs, "launches": launches5,
                                    "launch_sizes": sizes5,
-                                   "gathers": gathers5}
+                                   "launch_steps": steps5,
+                                   "gathers": gathers5,
+                                   "chain_calls": chain5}
     emit({"phase": "snapshot_recovery_launches", **launches5})
     emit(gathers5)
+    emit(chain5)
     emit({"phase": "snapshot_recovery_launch_sizes", **sizes5})
+    emit({"phase": "snapshot_recovery_launch_steps", **steps5})
     # launches x (time - bound) at the sizes phases 3 and 5 launched
     both = {k: {sz: sizes3[k].get(sz, 0) + sizes5[k].get(sz, 0)
                 for sz in set(sizes3[k]) | set(sizes5[k])} for k in sizes3}
+    both_steps = {k: {sz: {st: steps3[k].get(sz, {}).get(st, 0)
+                           + steps5[k].get(sz, {}).get(st, 0)
+                           for st in set(steps3[k].get(sz, {}))
+                           | set(steps5[k].get(sz, {}))}
+                      for sz in set(steps3[k]) | set(steps5[k])}
+                  for k in steps3}
     report["size_ranking"] = size_ranking(
-        dev, {k: launches3[k] + launches5[k] for k in launches3}, both)
+        dev, {k: launches3[k] + launches5[k] for k in launches3}, both,
+        both_steps, calls3.walks + calls5.walks)
     emit({"phase": "size_ranking", **report["size_ranking"]})
     # ---- phase 6: checkpoint save and restore at llama3.2-3b width
     ckpt = checkpoint_phase(dev)

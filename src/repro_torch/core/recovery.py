@@ -16,7 +16,9 @@ Every round runs where the chain lives: on a CUDA tensor the rounds are
 the Hopper kernels of ``kernels/chain_order.py`` (``jump_double``,
 ``walk_segments``, ``expand_segments``, ``gather_next``) with torch ops
 between them; on a CPU tensor the same code runs the kernels' plain
-versions.
+versions.  A table build or an absorb is one ``jump_double`` launch of
+all its rounds; a level-synchronous ``chain_walk`` is one hop-blocked
+``gather_next`` launch per doubling hop budget.
 
 ``chain_order(snapshot=)`` adopts an order-snapshot candidate after one
 verify pass (DESIGN.md §10), with the reference HOST primitive's
@@ -60,6 +62,8 @@ CONTRACT_MIN_COUNT = 32      # auto: explicit counts below stay doubling
 _CONTRACT_WALK_HEADS = 64    # chain_walk: contract only for few heads
 _WALK_ESCALATE_ROUNDS = 128  # chain_walk auto: level-sync rounds before
                              # escalating to contraction
+_WALK_FIRST_HOPS = 8         # chain_walk: hops of its first gather_next
+                             # launch; each further launch doubles them
 
 
 def chain_method(n: int, count: Optional[int] = None,
@@ -125,18 +129,17 @@ def jump_tables(nxt: torch.Tensor, bits: int) -> torch.Tensor:
     """(bits, n) int32 binary-lifting tables: ``jump[b][i]`` = node 2**b
     hops after i along ``nxt`` (NULL-absorbing; a pointer outside [0, n)
     terminates)."""
-    tables, _ = K.chain_tables(K.sanitize32(nxt), bits)
-    return torch.stack(tables)
+    return K.chain_tables(K.sanitize32(nxt), bits)[0]
 
 
 def _absorb(jump: torch.Tensor, cnt: torch.Tensor,
             heads: torch.Tensor) -> torch.Tensor:
-    """Pointer-doubling absorb: after n.bit_length() rounds ``cnt[i]`` is
-    the weight summed over the whole chain from i.  Raises on a cycle
-    reachable from ``heads`` (it never absorbs)."""
+    """Pointer-doubling absorb: after n.bit_length() rounds (one
+    ``jump_double`` launch) ``cnt[i]`` is the weight summed over the whole
+    chain from i.  Raises on a cycle reachable from ``heads`` (it never
+    absorbs)."""
     n = jump.shape[0]
-    for _ in range(max(1, int(n).bit_length())):
-        jump, cnt = K.jump_double(jump, cnt)
+    jump, cnt = K.jump_double(jump, cnt, rounds=max(1, int(n).bit_length()))
     if bool((jump[heads] >= 0).any()):
         raise RuntimeError("cycle in chain")
     return cnt[heads]
@@ -171,15 +174,14 @@ def _contract(nxt32: torch.Tensor, heads: torch.Tensor, k: int
     return spine, head_pos, cnext, w
 
 
-def _contract_tables(cnext: torch.Tensor, cap: int) -> List[torch.Tensor]:
+def _contract_tables(cnext: torch.Tensor, cap: int) -> torch.Tensor:
     """Tables over the contracted chain, deep enough for ``cap``
     contracted positions."""
-    tables, _ = K.chain_tables(cnext, _bits(cap))
-    return tables
+    return K.chain_tables(cnext, _bits(cap))[0]
 
 
 def _rank_expand(nxt32: torch.Tensor, spine: torch.Tensor,
-                 cjump: List[torch.Tensor], w: torch.Tensor, hpos: int,
+                 cjump: torch.Tensor, w: torch.Tensor, hpos: int,
                  count: int) -> torch.Tensor:
     """Rank + expand: ``expand_segments`` writes the segments
     ``_expand_plan`` places inside [0, count)."""
@@ -187,7 +189,7 @@ def _rank_expand(nxt32: torch.Tensor, spine: torch.Tensor,
                                                   count), count)
 
 
-def _expand_plan(spine: torch.Tensor, cjump: List[torch.Tensor],
+def _expand_plan(spine: torch.Tensor, cjump: torch.Tensor,
                  w: torch.Tensor, hpos: int, count: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Rank step: the contracted position walk gives the spine node at
@@ -323,11 +325,16 @@ def _walk_contract(nxt: torch.Tensor, heads: torch.Tensor,
 def chain_walk(nxt: torch.Tensor, heads, *, method: str = "auto",
                k: Optional[int] = None) -> torch.Tensor:
     """(H, Lmax) member matrix: row h = the chain from heads[h] in order,
-    NULL-padded.  Level-synchronous by default (one ``gather_next`` round
-    per chain position, all chains together; one device sync per round to
-    test for the end, rounds = the longest chain); "auto" escalates to the
-    shared contraction only once a few chains over a big table have
-    proven longer than _WALK_ESCALATE_ROUNDS."""
+    NULL-padded.  Level-synchronous by default: all chains advance
+    together, column c holding the node c hops after each head.  The
+    columns come from hop-blocked ``gather_next`` launches, each reporting
+    the walk's length in its one device sync: the first walks 8 hops from
+    the heads, each further one twice as many from the last column.  The
+    hop budgets are capped so that the decisions fall where the reference
+    takes them, one column at a time: "auto" escalates to the shared
+    contraction only once a few chains over a big table have proven
+    longer than _WALK_ESCALATE_ROUNDS (column 128 live), and a live
+    column n is a cycle."""
     dev = nxt.device
     heads = torch.as_tensor(heads, dtype=torch.int64, device=dev)
     n = nxt.shape[0]
@@ -337,22 +344,32 @@ def chain_walk(nxt: torch.Tensor, heads, *, method: str = "auto",
         return _walk_contract(nxt, heads, k or CONTRACT_K)
     escalate = (method == "auto" and n >= CONTRACT_MIN_N
                 and 0 < heads.numel() <= _CONTRACT_WALK_HEADS)
-    cols: List[torch.Tensor] = []
-    cur = torch.where((heads >= 0) & (heads < n), heads, NULL)
-    nxt32 = None
-    while bool((cur != NULL).any()):
-        if escalate and len(cols) >= _WALK_ESCALATE_ROUNDS:
-            return _walk_contract(nxt, heads, k or CONTRACT_K)
-        cols.append(cur)
-        if nxt32 is None:
-            nxt32 = K.sanitize32(nxt)    # gathered values: in range or NULL
-        cur = K.gather_next(nxt32, cur).long()
-        if len(cols) > n:
-            raise RuntimeError("cycle in chain")
-    if not cols:
+    if n == 0 or heads.numel() == 0:
         return torch.empty((heads.shape[0], 0), dtype=torch.int64,
                            device=dev)
-    return torch.stack(cols, dim=1)
+    nxt32 = K.sanitize32(nxt)            # gathered values: in range or NULL
+    col0 = torch.where((heads >= 0) & (heads < n), heads, NULL)
+    # columns to decide on: 0..128 when escalating, else 0..n
+    cap = _WALK_ESCALATE_ROUNDS + 1 if escalate else n + 1
+    parts = [col0.to(torch.int32)[None]]
+    cols, hops, start = 1, _WALK_FIRST_HOPS, col0
+    while True:
+        # two hops at least (gather_next's walk form); a walk past `cap`
+        # changes no decision
+        h = max(2, min(hops, cap - cols))
+        walk, length = K.gather_next(nxt32, start, hops=h)
+        live = cols - 1 + length        # columns known live: 0..live-1
+        if live >= cap:
+            if escalate:
+                return _walk_contract(nxt, heads, k or CONTRACT_K)
+            raise RuntimeError("cycle in chain")
+        if length <= h:                 # the walk ended inside this launch
+            parts.append(walk[:max(0, live - cols)])
+            break
+        parts.append(walk)
+        cols, hops, start = cols + h, 2 * hops, walk[-1]
+    return torch.cat(parts)[:live].t().to(
+        torch.int64, memory_format=torch.contiguous_format)
 
 
 # ======================================================================

@@ -1,10 +1,12 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 Every kernel wrapper counts its launches in a ``launches`` attribute and
-their sizes in a ``sizes`` histogram (``_build.note_launch``);
-``launch_counts`` and ``launch_sizes`` read them all and
-``reset_launch_counts`` clears both, so a run can show which kernels its
-main path went through, and at what sizes.
+their sizes in a ``sizes`` histogram (``_build.note_launch``); the two
+that loop inside a launch (``gather_next``'s hops, ``jump_double``'s
+rounds) also keep ``steps``, a histogram of those by size.
+``launch_counts``, ``launch_sizes`` and ``launch_steps`` read them and
+``reset_launch_counts`` clears them all, so a run can show which kernels
+its main path went through, at what sizes and how deep.
 """
 from typing import Dict
 
@@ -37,7 +39,17 @@ def launch_sizes() -> Dict[str, Dict[int, int]]:
             for name, fn in WRAPPERS.items()}
 
 
+def launch_steps() -> Dict[str, Dict[int, Dict[int, int]]]:
+    """Launches of each looping kernel by size (as ``launch_sizes``), then
+    by the hops or rounds the launch ran."""
+    return {name: {size: dict(sorted(by.items()))
+                   for size, by in sorted(fn.steps.items())}
+            for name, fn in WRAPPERS.items() if hasattr(fn, "steps")}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
         fn.sizes = {}
+        if hasattr(fn, "steps"):
+            fn.steps = {}

@@ -8,7 +8,8 @@ and an unchanged one is built once.  Nothing here runs at import time: the
 first launch builds, and ``build()`` starts every compiler at once when a
 caller wants all kernels ready up front.
 
-``note_launch`` is the one place a wrapper counts a launch of its kernel.
+``note_launch`` is the one place a wrapper counts a launch of its kernel
+(and, for a kernel that loops, the hops or rounds of the launch).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -40,11 +41,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "scatter_rows_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
     },
     "chain_order": {
-        "jump_double_launch": [_P, _P, _P, _P, _I64, _P],
+        "jump_double_launch": [_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
+                               _P],
         "walk_segments_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
                                  _INT, _INT, _INT, _INT, _P],
         "expand_segments_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P],
-        "gather_next_launch": [_P, _P, _INT, _P, _I64, _I64, _P],
+        "gather_next_launch": [_P, _P, _INT, _P, _I64, _I64, _INT, _P, _P,
+                               _P],
     },
     "quant_pack": {
         "quantize_blockwise_launch": [_P, _P, _P, _I64, _P],
@@ -63,13 +66,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def note_launch(wrapper, size: int) -> None:
+def note_launch(wrapper, size: int, steps: Optional[int] = None) -> None:
     """Count one launch of ``wrapper``'s kernel: ``wrapper.launches`` and
     ``wrapper.sizes``, a histogram of the launch's main dimension (rows,
-    lanes, queries) keyed by that size rounded up to a power of two."""
+    lanes, queries) keyed by that size rounded up to a power of two.  A
+    kernel that loops (``gather_next``'s hops, ``jump_double``'s rounds)
+    also counts ``steps`` in ``wrapper.steps[size key][steps]``."""
     wrapper.launches += 1
     key = 1 << max(0, int(size) - 1).bit_length()
     wrapper.sizes[key] = wrapper.sizes.get(key, 0) + 1
+    if steps is not None:
+        by = wrapper.steps.setdefault(key, {})
+        by[steps] = by.get(steps, 0) + 1
 
 
 def nvcc() -> str:

@@ -5,26 +5,33 @@ Four kernels, each a wrapper that dispatches by where its tensors live
 (CPU tensors take the ``*_plain`` version; CUDA tensors launch the kernel
 or raise) and counts its launches:
 
-* ``jump_double`` — one pointer-doubling round (``jump' = jump[jump]``,
-  ``cnt' = cnt + cnt[jump]``, NULL absorbing).  It builds the
-  binary-lifting tables and ranks the contracted chain.
+* ``jump_double`` — pointer-doubling rounds (``jump' = jump[jump]``,
+  ``cnt' = cnt + cnt[jump]``, NULL absorbing), all the rounds of a call in
+  one cooperative launch.  It builds the binary-lifting tables
+  (``rounds=bits - 1``, ``keep=True``) and ranks the contracted chain
+  (``rounds=n.bit_length()``).
 * ``walk_segments`` — the contraction local walk: every lane hops toward
   its next spine node, up to ``budget`` hops per launch.
 * ``expand_segments`` — the contraction expand: every used segment writes
   its run of node ids into the final order.
-* ``gather_next`` — one chain hop per lane (``nxt[ids[i]]``): the
-  level-synchronous rounds of ``chain_walk`` and the link check that
-  verifies an order-snapshot candidate.
+* ``gather_next`` — chain hops per lane (``nxt[ids[i]]``): ``hops=h``
+  walks h hops in one launch and reports the walk's length, so a whole
+  level-synchronous ``chain_walk`` takes one launch and one sync per
+  doubling hop budget; one hop is the link check that verifies an
+  order-snapshot candidate.
 
 ``csrc/chain_order.cu`` holds the Hopper kernels and their design notes.
-The driver pieces below (``sanitize32``, ``chain_tables``,
-``contract_walk``, ``walk_positions``) are torch ops on whatever device
-the chain lives on; ``core/recovery.py`` composes them into the chain
-primitives with the host reference's exact semantics.
+``jump_double`` and ``gather_next`` also keep ``steps``, a histogram of
+the rounds or hops of their launches by launch size.  The driver pieces
+below (``sanitize32``, ``chain_tables``, ``contract_walk``,
+``walk_positions``) are torch ops on whatever device the chain lives on;
+``core/recovery.py`` composes them into the chain primitives with the
+host reference's exact semantics.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -66,6 +73,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return t.data_ptr() if t is not None else None
+
+
 def _raise_on(rc: int, fn: str) -> None:
     if rc:
         raise RuntimeError(f"{fn}: kernel launch failed (CUDA error {rc})")
@@ -73,11 +84,8 @@ def _raise_on(rc: int, fn: str) -> None:
 
 # ------------------------------------------------------------ jump_double
 
-def jump_double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain version of one doubling round.  ``jump`` int32 (n,), ``cnt``
-    int64 (n,) or None.  Values outside [0, n) are NULL on input and
-    output."""
+def _double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     n = jump.shape[0]
     live = (jump >= 0) & (jump < n)
     safe = torch.where(live, jump, 0).long()
@@ -88,36 +96,68 @@ def jump_double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None
     return nj, cnt + torch.where(live, cnt[safe], 0)
 
 
-def jump_double(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None
+def jump_double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None,
+                      *, rounds: int = 1, keep: bool = False
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version: ``rounds`` doubling rounds, one after another.
+    ``jump`` int32 (n,), ``cnt`` int64 (n,) or None.  Values outside
+    [0, n) are NULL on input and output.  Returns (jump, cnt) after the
+    last round, or with ``keep`` (levels, cnt): the (rounds + 1, n) table
+    of every level, level 0 the input."""
+    levels = [jump]
+    for _ in range(rounds):
+        jump, cnt = _double_plain(jump, cnt)
+        levels.append(jump)
+    return (torch.stack(levels) if keep else jump), cnt
+
+
+def jump_double(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None, *,
+                rounds: int = 1, keep: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One pointer-doubling round: ``jump'[i] = jump[jump[i]]`` and, when
-    ``cnt`` is given, ``cnt'[i] = cnt[i] + cnt[jump[i]]`` for live lanes.
-    NULL absorbs; a pointer outside [0, n) terminates like NULL."""
+    """``rounds`` pointer-doubling rounds in one launch.  A round is
+    ``jump'[i] = jump[jump[i]]`` and, when ``cnt`` is given,
+    ``cnt'[i] = cnt[i] + cnt[jump[i]]`` for live lanes; NULL absorbs and
+    a pointer outside [0, n) terminates like NULL.  Returns (jump, cnt)
+    after the last round; with ``keep``, (levels, cnt) where levels is
+    the int32 (rounds + 1, n) table, level s after s rounds (level 0 the
+    input).  On the card the rounds run in one cooperative launch; a
+    launch the card refuses raises."""
     _vec("jump", jump, torch.int32, jump.device)
     if cnt is not None:
         _vec("cnt", cnt, torch.int64, jump.device)
         if cnt.shape != jump.shape:
             raise ValueError("jump_double: jump and cnt differ in shape")
+    if rounds < 1:
+        raise ValueError(f"jump_double: rounds must be >= 1, got {rounds}")
     if not _cuda(jump, "jump_double"):
-        return jump_double_plain(jump, cnt)
+        return jump_double_plain(jump, cnt, rounds=rounds, keep=keep)
     n = jump.shape[0]
-    jout = torch.empty_like(jump)
-    cout = torch.empty_like(cnt) if cnt is not None else None
+    if keep:
+        jout = torch.empty((rounds + 1, n), dtype=torch.int32,
+                           device=jump.device)
+        jtmp = None
+    else:
+        jout = torch.empty_like(jump)
+        jtmp = torch.empty_like(jump) if rounds > 1 else None
+    cout = ctmp = None
+    if cnt is not None:
+        cout = torch.empty_like(cnt)
+        ctmp = torch.empty_like(cnt) if rounds > 1 else None
     if n == 0:
         return jout, cout
     lib = _build.load("chain_order")
     with torch.cuda.device(jump.device):
         rc = lib.jump_double_launch(
-            jump.data_ptr(), cnt.data_ptr() if cnt is not None else None,
-            jout.data_ptr(), cout.data_ptr() if cout is not None else None,
-            n, _stream(jump))
+            jump.data_ptr(), _ptr(cnt), jout.data_ptr(), _ptr(jtmp),
+            _ptr(cout), _ptr(ctmp), n, rounds, int(keep), _stream(jump))
     _raise_on(rc, "jump_double")
-    _build.note_launch(jump_double, n)
+    _build.note_launch(jump_double, n, steps=rounds)
     return jout, cout
 
 
 jump_double.launches = 0
 jump_double.sizes = {}
+jump_double.steps = {}
 
 
 # ---------------------------------------------------------- walk_segments
@@ -274,9 +314,7 @@ def _check_ids(ids: torch.Tensor, device: torch.device) -> None:
         raise ValueError("ids must be contiguous")
 
 
-def gather_next_plain(nxt: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Plain version of one chain hop per lane: ``nxt[ids[i]]`` for ids in
-    [0, n), else NULL; int32 (L,)."""
+def _hop_plain(nxt: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     n = nxt.shape[0]
     ok = (ids >= 0) & (ids < n)
     if n == 0:
@@ -286,13 +324,41 @@ def gather_next_plain(nxt: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, got, NULL).to(torch.int32)
 
 
-def gather_next(nxt: torch.Tensor, ids: torch.Tensor, *, segments=None,
-                seg_rows: int = 0) -> torch.Tensor:
-    """One chain hop for a batch of lanes: ``out[i] = nxt[ids[i]]``, NULL
-    where ``ids[i]`` lies outside [0, n).  ``nxt`` is int32 (n,); ``ids``
-    is int64 or int32 (L,) and is range-checked at its own width before
-    any narrowing, so a torn 2**32 + 3 gives NULL, not node 3.  The
-    gathered value is returned as stored (callers sanitize ``nxt``).  The
+def gather_next_plain(nxt: torch.Tensor, ids: torch.Tensor, *,
+                      hops: int = 1):
+    """Plain version: ``hops`` applications of one chain hop per lane
+    (``nxt[ids[i]]`` for ids in [0, n), else NULL).  One hop returns int32
+    (L,); more return (walk, length) as ``gather_next`` does."""
+    if hops == 1:
+        return _hop_plain(nxt, ids)
+    cols = [ids]
+    for _ in range(hops):
+        cols.append(_hop_plain(nxt, cols[-1]))
+    walk = torch.stack(cols[1:])
+    return walk, _walk_length(cols, nxt.shape[0])
+
+
+def _walk_length(cols, n: int) -> int:
+    """Columns holding an id in [0, n) in some lane.  They lead: a lane
+    that leaves the range gets NULL from then on."""
+    return sum(int(((c >= 0) & (c < n)).any()) for c in cols)
+
+
+def gather_next(nxt: torch.Tensor, ids: torch.Tensor, *, hops: int = 1,
+                segments=None, seg_rows: int = 0):
+    """Chain hops for a batch of lanes.  One hop (the default):
+    ``out[i] = nxt[ids[i]]``, NULL where ``ids[i]`` lies outside [0, n),
+    int32 (L,).  ``nxt`` is int32 (n,); ``ids`` is int64 or int32 (L,)
+    and is range-checked at its own width before any narrowing, so a torn
+    2**32 + 3 gives NULL, not node 3.  The gathered value is returned as
+    stored (callers sanitize ``nxt``).
+
+    ``hops=h`` (h >= 2) walks h hops in one launch and returns
+    ``(walk, length)``: ``walk`` int32 (h, L), row t = t + 1 hops, and
+    ``length`` the number of leading columns of the walk (``ids`` first,
+    then its h rows) that hold an id in [0, n) in some lane: the walk went
+    on past its last row iff ``length == h + 1``.  On the card the length
+    is reduced there and read after one stream synchronize.  The
     shard-major ``segments``/``seg_rows`` layout waits for sharding."""
     if segments is not None or seg_rows:
         from repro_torch.core.arena import not_ported
@@ -300,24 +366,59 @@ def gather_next(nxt: torch.Tensor, ids: torch.Tensor, *, segments=None,
     dev = nxt.device
     _vec("nxt", nxt, torch.int32, dev)
     _check_ids(ids, dev)
+    if hops < 1:
+        raise ValueError(f"gather_next: hops must be >= 1, got {hops}")
     if not _cuda(nxt, "gather_next"):
-        return gather_next_plain(nxt, ids)
+        return gather_next_plain(nxt, ids, hops=hops)
     lanes = ids.shape[0]
-    out = torch.empty(lanes, dtype=torch.int32, device=dev)
+    out = torch.empty((hops, lanes) if hops > 1 else (lanes,),
+                      dtype=torch.int32, device=dev)
     if lanes == 0:
-        return out
+        return out if hops == 1 else (out, 0)
+    walk = length = None
+    if hops > 1:
+        walk, length = _walk_words(dev)
     lib = _build.load("chain_order")
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
         rc = lib.gather_next_launch(nxt.data_ptr(), ids.data_ptr(),
                                     ids.element_size(), out.data_ptr(),
-                                    nxt.shape[0], lanes, _stream(nxt))
-    _raise_on(rc, "gather_next")
-    _build.note_launch(gather_next, lanes)
-    return out
+                                    nxt.shape[0], lanes, hops, _ptr(walk),
+                                    _ptr(length), stream.cuda_stream)
+        _raise_on(rc, "gather_next")
+        _build.note_launch(gather_next, lanes, steps=hops)
+        if hops == 1:
+            return out
+        stream.synchronize()
+    return out, int(length[0])
 
 
 gather_next.launches = 0
 gather_next.sizes = {}
+gather_next.steps = {}
+
+# the walk's device words, per (device, stream): zero between launches, as
+# each launch's last block re-arms them; the pinned length word per thread
+_walk_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+_walk_host = threading.local()
+
+
+def _walk_words(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(dev).cuda_stream)
+    scratch = _walk_scratch.get(key)
+    if scratch is None:
+        scratch = _walk_scratch.setdefault(
+            key, torch.zeros(2, dtype=torch.int32, device=dev))
+    words = getattr(_walk_host, "words", None)
+    if words is None:
+        words = _walk_host.words = {}
+    host = words.get(index)
+    if host is None:
+        host = words[index] = torch.zeros(1, dtype=torch.int32,
+                                          pin_memory=True)
+    return scratch, host
 
 
 # ---------------------------------------------------------- driver pieces
@@ -333,22 +434,21 @@ def sanitize32(nxt: torch.Tensor) -> torch.Tensor:
 
 def chain_tables(jump0: torch.Tensor, bits: int,
                  cnt: Optional[torch.Tensor] = None
-                 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
-    """Binary-lifting tables from ``jump_double`` rounds: ``tables[b][i]``
-    is the node 2**b hops after i (NULL-absorbing), b < bits.  With
-    ``cnt`` (int64 node weights) one more round runs so the returned
-    counts are the weights summed over min(2**bits, chain length) nodes."""
-    tables = [jump0]
-    jump = jump0
-    for _ in range(bits - 1):
-        jump, cnt = jump_double(jump, cnt)
-        tables.append(jump)
-    if cnt is not None:
-        _, cnt = jump_double(jump, cnt)
-    return tables, cnt
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Binary-lifting tables from one ``jump_double`` launch: the int32
+    (bits, n) ``tables[b][i]`` is the node 2**b hops after i
+    (NULL-absorbing), b < bits.  With ``cnt`` (int64 node weights) the
+    launch runs one more round, whose level is dropped, so the returned
+    counts are the weights summed over min(2**bits, chain length)
+    nodes."""
+    rounds = bits - 1 + (cnt is not None)
+    if rounds == 0:
+        return jump0[None], cnt
+    levels, cnt = jump_double(jump0, cnt, rounds=rounds, keep=True)
+    return levels[:bits], cnt
 
 
-def walk_positions(tables: List[torch.Tensor], start: int, count: int
+def walk_positions(tables: torch.Tensor, start: int, count: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Node at each position 0..count-1 of the chain from ``start``, read
     off the tables bit by bit.  Returns (int32 ids, dead) where ``dead``
