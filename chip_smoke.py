@@ -50,7 +50,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    as one launch and as one launch per round or per hop, beside its
    bound for the call and per round or hop; and a delete batch's whole
    ``chain_walk`` against the per-column walk it replaced, on the host
-   clock;
+   clock; then the contraction on a random 2**22-node permutation chain
+   (and, after phase 3, on the DLL chain phase 3 recovered):
+   ``walk_segments`` in its new form (one launch of the whole budget,
+   with checkpoints; checkpoints compared as a set) and its old one (the
+   first round of 64 hops), ``expand_segments`` on the split plan (runs of
+   at most MARK_STRIDE ids) and on the unsplit one, all exact against
+   their plain versions and the chain, timed with CUDA events with the L2
+   evicted and with nxt resident, beside their bytes-once and sector
+   bounds and the round driver's launches back to back; the whole
+   contraction (``contract_walk``, ``_order_contract``) against the round
+   driver and the unsplit plan on the host clock, L2 evicted and warm;
+   the checkpoint stride at 8, 16 and 32; the walk and the expand once
+   at 2**24 nodes (nxt larger than the L2); and the contraction's other
+   paths (several heads through ``spine_pos``, k = 7, torn pointers, and
+   the plan's second walk for merged segments, a spine-free cycle and a
+   cycle under explicit counts) against the same driver on the CPU;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
    the B+Tree at 2**19, both modes, order snapshots and integrity pinned
@@ -59,7 +74,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    gathers (one per drain); ``jump_double`` must launch once per
    ``chain_tables``/``_absorb`` call and every level-synchronous hashmap
    ``chain_walk`` within 1 + ceil(log2(columns / 8)) ``gather_next``
-   launches (counted at the call sites); then device syncs per
+   launches, ``walk_segments`` once per ``contract_walk`` call and
+   ``expand_segments`` once per split plan, no run longer than
+   MARK_STRIDE (counted at the call sites); then device syncs per
    operation, snapshots off and on;
 4. card vs CPU: the same workload at 2**14 on ``cuda`` and on ``cpu``
    must write identical arena images (sha256) and FlushStats; with order
@@ -89,7 +106,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    power-of-two size, and hop or round count, phases 3 and 5 launched
    them at (and ``jump_double`` at the contracted 131,073), for
    launches x (time - bound), beside the same work at one launch per
-   round or per column;
+   round or per column; and ``walk_segments``/``expand_segments`` at
+   every chain size phases 3 and 5 contracted, beside the round driver's
+   launches and the unsplit expand;
 6. checkpoint: a train state at the full width of llama3.2-3b, cut to 4
    layers (params, mu and nu: 796,683,264 parameters each, 9.56 GB on the
    card), saved by ``CheckpointManager`` under ``PARTLY_Q8`` with
@@ -122,7 +141,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    counts, cursor and journal classes equal to an uninterrupted twin's
    (``repro_torch.feature_recover.twin``); then a ``SampleIndex`` of
    2**18 ids, one add, crash, recover, a lookup of every 13th id;
-   launches equal to gathers as in phase 3.
+   launches equal to gathers as in phase 3, and ``walk_segments`` once
+   per ``contract_walk`` call (it contracts no chain).
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
@@ -755,60 +775,41 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
         "max_abs_err": err, "shape": f"n={n}, int32 jump, int64 cnt",
         "source": "src/repro_torch/csrc/chain_order.cu",
         "replaces": "src/repro/kernels/chain_order.py:133"}
-    # ---- contraction of a 2**22-node random-permutation chain
+    # ---- contraction of a 2**22-node random-permutation chain: the walk
+    # and the expand in their new and old forms, the whole contraction on
+    # the host clock, the checkpoint stride, and once at 2**24 nodes
     nxt = torch.full((n,), -1, dtype=torch.int64, device=dev)
     nxt[perm[:-1]] = perm[1:]
-    head, k = int(perm[0]), TR.CONTRACT_K
-    order = TR.chain_order(nxt, head, n, method="contract")
-    if not torch.equal(order, perm):
-        raise AssertionError("contraction order differs from the chain")
-    nxt32 = K.sanitize32(nxt)
-    n_mult = (n + k - 1) // k
-    spine = torch.arange(0, n, k, dtype=torch.int32, device=dev)
-    promoted = head % k != 0
-    if promoted:
-        spine = torch.cat([spine, torch.tensor([head], dtype=torch.int32,
-                                               device=dev)])
-    walk_kw = dict(k=k, head=head, n_mult=n_mult, promoted=promoted,
-                   budget=max(2 * k, 64))
-    got_w = K.walk_segments(nxt32, spine, **walk_kw)
-    err = require_equal("walk_segments", zip(
-        got_w, K.walk_segments_plain(nxt32, spine, **walk_kw)))
-    hops = int(got_w[2].long().sum())
-    lanes = spine.shape[0]
-    rows["walk_segments"] = {
-        "ms": time_ms(lambda: K.walk_segments(nxt32, spine, **walk_kw),
-                      flush=flush),
-        "plain_ms": time_ms(
-            lambda: K.walk_segments_plain(nxt32, spine, **walk_kw), reps=5),
-        "library_ms": None, "bound_ms": bound_ms(4 * hops + 16 * lanes),
-        "sector_bound_ms": bound_ms(SECTOR * hops + 16 * lanes),
-        "max_abs_err": err,
-        "shape": f"first round: {lanes} lanes, budget 64, {hops} hops",
-        "source": "src/repro_torch/csrc/chain_order.cu",
-        "replaces": "src/repro/kernels/chain_order.py:282"}
-    sp, hpos, cnext, w = TR._contract(
-        nxt32, torch.tensor([head], dtype=torch.int64, device=dev), k)
-    cjump = TR._contract_tables(cnext, min(n, sp.shape[0]))
-    starts, posn, rem = TR._expand_plan(sp, cjump, w, int(hpos[0]), n)
-    got_e = K.expand_segments(nxt32, starts, posn, rem, n)
-    err = require_equal("expand_segments", [
-        (got_e, K.expand_segments_plain(nxt32, starts, posn, rem, n)),
-        (got_e, perm)])
-    ehops = n - starts.shape[0]
-    rows["expand_segments"] = {
-        "ms": time_ms(lambda: K.expand_segments(nxt32, starts, posn, rem, n),
-                      flush=flush),
-        "plain_ms": time_ms(lambda: K.expand_segments_plain(
-            nxt32, starts, posn, rem, n), reps=5),
-        "library_ms": None,
-        "bound_ms": bound_ms(4 * ehops + 12 * starts.shape[0] + 8 * n),
-        "sector_bound_ms": bound_ms(SECTOR * ehops + 12 * starts.shape[0]
-                                    + 8 * n),
-        "max_abs_err": err,
-        "shape": f"{starts.shape[0]} segments, count={n}",
-        "source": "src/repro_torch/csrc/chain_order.cu",
-        "replaces": "src/repro/kernels/chain_order.py:357"}
+    contraction = {"random": contraction_case(dev, nxt, int(perm[0]), n, perm,
+                                              flush),
+                   "strides": stride_sweep(dev, nxt, int(perm[0]), perm,
+                                           flush),
+                   "edges": contraction_edges(dev)}
+    src = {"library_ms": None, "source": "src/repro_torch/csrc/chain_order.cu"}
+    case = contraction["random"]
+    rows["walk_segments"] = dict(
+        case["walk"], **src, replaces="src/repro/kernels/chain_order.py:282",
+        shape=f"{case['lanes']} lanes, one launch of the whole budget, "
+              f"{case['walk']['hops']} hops, checkpoints (a random 2**22 "
+              f"chain, k = 32); the first round of 64 hops and the DLL "
+              f"chain in the report")
+    rows["expand_segments"] = dict(
+        case["expand"], **src, replaces="src/repro/kernels/chain_order.py:357",
+        shape=f"{case['expand']['runs']} runs of at most "
+              f"{case['expand']['longest_run']} ids (the split plan), "
+              f"count={n}; the unsplit plan in the report")
+    del nxt
+    torch.cuda.empty_cache()
+    g24 = torch.Generator(device=dev)
+    g24.manual_seed(24)
+    big = 1 << 24
+    perm24 = torch.randperm(big, device=dev, generator=g24)
+    nxt = torch.full((big,), -1, dtype=torch.int64, device=dev)
+    nxt[perm24[:-1]] = perm24[1:]
+    contraction["random_2**24"] = contraction_case(
+        dev, nxt, int(perm24[0]), big, perm24, flush, light=True)
+    del nxt, perm24
+    torch.cuda.empty_cache()
     # ---- gather_next: the DLL snapshot verify (L = the recovered count of
     # phase 5, int64 ids) and a chain_walk round (L = 2**23 bucket heads)
     nxt_g = torch.randint(-1, n, (n,), dtype=torch.int32, device=dev,
@@ -969,7 +970,7 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
     del table, q, bid, bad
     return {"rows": rows, "pack_rowbytes": pack, "gather_next": gather,
             "flash_attention": flash, "flash_widths": flash_widths,
-            "flash_prefill_bf16": flash_prefill}
+            "flash_prefill_bf16": flash_prefill, "contraction": contraction}
 
 
 # ------------------------------------------------------------- drains
@@ -1493,17 +1494,441 @@ def chain_steps_parity(dev) -> dict:
     return {"rows": rows, "rounds": rounds, "hops": hops}
 
 
+def contract_rounds(nxt32, spine, *, k, head, n_mult, promoted,
+                    spine_pos=None):
+    """contract_walk as the port ran it before it was one launch (PRs
+    11-18): walk_segments rounds of budget0 = max(2k, 64) hops, the lanes
+    that arrived or ended retired between rounds (a compaction and a host
+    sync each), until every segment closed or n hops proved a spine-free
+    cycle.  The yardstick of the one-launch walk; it records no
+    checkpoints, so the plan after it is the unsplit one."""
+    import torch
+    from repro_torch.kernels import chain_order as K
+    n = nxt32.shape[0]
+    dev = nxt32.device
+    S = spine.shape[0]
+    cnext = torch.full((S,), -1, dtype=torch.int32, device=dev)
+    w = torch.zeros(S, dtype=torch.int64, device=dev)
+    lanes = torch.arange(S, device=dev)
+    cur = spine.to(torch.int32)
+    budget = max(2 * k, 64)
+    hops = 0
+    while lanes.numel() and hops <= n:
+        c2, sp, wd = K.walk_segments(nxt32, cur.contiguous(), k=k, head=head,
+                                     n_mult=n_mult, promoted=promoted,
+                                     budget=budget, spine_pos=spine_pos)
+        w[lanes] += wd.long()
+        arrived = sp >= 0
+        cnext[lanes[arrived]] = sp[arrived]
+        alive = (c2 >= 0) & ~arrived
+        lanes = lanes[alive]
+        cur = c2[alive]
+        hops += budget
+    if lanes.numel():
+        w[lanes] = n + 1
+    return cnext, torch.clamp(w, min=1), None
+
+
+@contextlib.contextmanager
+def round_driver():
+    """Recovery's contractions as before: the round driver, and so the
+    unsplit expand plan (one run per segment)."""
+    from repro_torch.kernels import chain_order as K
+    real = K.contract_walk
+    K.contract_walk = contract_rounds
+    try:
+        yield
+    finally:
+        K.contract_walk = real
+
+
+def same_records(a, b) -> bool:
+    """Two (3, r) checkpoint record sets (lane, hop, node) are equal, in
+    whatever order each was appended."""
+    import torch
+    if a.shape != b.shape:
+        return False
+    order = [torch.argsort(r[0].long() * (1 << 32) + r[1].long())
+             for r in (a, b)]
+    return torch.equal(a[:, order[0]], b[:, order[1]])
+
+
+def contraction_case(dev, nxt, head: int, count: int, want, flush,
+                     light: bool = False) -> dict:
+    """The contraction kernels on one chain (int64 NEXT ``nxt``, order
+    ``want`` from ``head``): chain_order's order, with and without the
+    round driver; the walk in its new form (one launch of the whole
+    budget, checkpoints) and its old one (the first round of budget0
+    hops, as PR 11 timed it), each exact against its plain version, the
+    checkpoints as a set; the expand on the split plan (runs of at most
+    MARK_STRIDE) and on the unsplit one, exact, equal to ``want``; each
+    timed with CUDA events with the L2 evicted and, the new forms, with
+    nxt resident; the old driver's rounds back to back; and (unless
+    ``light``) the plain versions, contract_walk and _order_contract
+    against the round driver on the host clock, L2 evicted and warm."""
+    import torch
+    from repro_torch.core import recovery as TR
+    from repro_torch.kernels import chain_order as K
+    n, k = nxt.shape[0], TR.CONTRACT_K
+    for label, ctx in (("one launch", contextlib.nullcontext()),
+                       ("round driver", round_driver())):
+        with ctx:
+            order = TR.chain_order(nxt, head, count, method="contract")
+        if not torch.equal(order, want):
+            raise AssertionError(f"contraction ({label}) order differs from "
+                                 f"the chain")
+    nxt32 = K.sanitize32(nxt)
+    heads = torch.tensor([head], dtype=torch.int64, device=dev)
+    spine, hpos, cnext, w, marks = TR._contract(nxt32, heads, k)
+    budget, cap = marks.walk["budget"], marks.rec.shape[1]
+    kw = {key: v for key, v in marks.walk.items()
+          if key not in ("nxt", "budget")}
+    starts = spine.to(torch.int32)
+    b0 = max(2 * k, 64)
+    lanes = starts.shape[0]
+
+    def walk():
+        return K.walk_segments(nxt32, starts, budget=budget, marks=cap, **kw)
+
+    def plain():
+        return K.walk_segments_plain(nxt32, starts, budget=budget,
+                                     marks=cap, **kw)
+    got, ref = walk(), plain()
+    err = require_equal("walk_segments", zip(got[:3], ref[:3]))
+    total = int(got[3][1][0])
+    if total != int(ref[3][1][0]) or total > cap or not same_records(
+            got[3][0][:, :total], ref[3][0][:, :total]):
+        raise AssertionError(f"walk_segments: checkpoints differ from the "
+                             f"plain version ({total} of {cap})")
+    first = K.walk_segments(nxt32, starts, budget=b0, **kw)
+    require_equal("walk_segments budget0", zip(
+        first, K.walk_segments_plain(nxt32, starts, budget=b0, **kw)))
+    hops = int(got[2].long().sum())
+    first_hops = int(first[2].long().sum())
+    # the old driver's rounds: the lanes still walking after each round
+    rounds, cur = [], starts
+    while cur.numel():
+        rounds.append(cur)
+        c2, sp, _ = K.walk_segments(nxt32, cur, budget=b0, **kw)
+        cur = c2[(c2 >= 0) & (sp < 0)].contiguous()
+    cjump = TR._contract_tables(cnext, min(count, spine.shape[0]))
+    hp = int(hpos[0])
+    plans = {"split": TR._expand_plan(spine, cjump, w, hp, count, marks),
+             "whole": TR._expand_plan(spine, cjump, w, hp, count)}
+    longest = int(plans["split"][2].max())
+    if longest > K.MARK_STRIDE:
+        raise AssertionError(f"expand plan: a run of {longest} ids")
+    e_err = 0.0
+    for name, plan in plans.items():
+        got_e = K.expand_segments(nxt32, *plan, count)
+        e_err = max(e_err, require_equal(f"expand_segments {name}", [
+            (got_e, K.expand_segments_plain(nxt32, *plan, count)),
+            (got_e, want)]))
+        del got_e
+
+    def resident():
+        flush()
+        nxt32.sum()                   # nxt32 read once: in the L2
+
+    def expand_bytes(plan, per_hop):
+        runs = int((plan[2] > 0).sum())
+        ehops = int(torch.clamp(plan[2].long() - 1, min=0).sum())
+        return bound_ms(per_hop * ehops + 12 * plan[0].shape[0]
+                        + 8 * count), runs, ehops
+    ws = {"ms": time_ms(walk, flush=flush),
+          "resident_ms": time_ms(walk, flush=resident),
+          "no_checkpoints_ms": time_ms(lambda: K.walk_segments(
+              nxt32, starts, budget=budget, **kw), flush=flush),
+          "first_round_ms": time_ms(lambda: K.walk_segments(
+              nxt32, starts, budget=b0, **kw), flush=flush),
+          "rounds": len(rounds),
+          "rounds_back_to_back_ms": time_ms(lambda: [K.walk_segments(
+              nxt32, c, budget=b0, **kw) for c in rounds], flush=flush),
+          "bound_ms": bound_ms(4 * hops + 16 * lanes + 12 * total),
+          "sector_bound_ms": bound_ms(SECTOR * hops + 16 * lanes
+                                      + 12 * total),
+          "first_round_bound_ms": bound_ms(4 * first_hops + 16 * lanes),
+          "max_abs_err": err, "hops": hops, "first_round_hops": first_hops,
+          "longest_segment": int(got[2].max()), "checkpoints": total,
+          "capacity": cap}
+    split, whole = plans["split"], plans["whole"]
+    b_split, runs, ehops = expand_bytes(split, 4)
+    b_whole, runs_whole, _ = expand_bytes(whole, 4)
+    es = {"ms": time_ms(lambda: K.expand_segments(nxt32, *split, count),
+                        flush=flush),
+          "resident_ms": time_ms(lambda: K.expand_segments(
+              nxt32, *split, count), flush=resident),
+          "unsplit_ms": time_ms(lambda: K.expand_segments(
+              nxt32, *whole, count), flush=flush),
+          "bound_ms": b_split, "sector_bound_ms": expand_bytes(split,
+                                                               SECTOR)[0],
+          "unsplit_bound_ms": b_whole, "max_abs_err": e_err,
+          "runs": runs, "lanes": split[0].shape[0], "hops": ehops,
+          "longest_run": longest, "unsplit_runs": runs_whole,
+          "unsplit_longest_run": int(whole[2].max())}
+    out = {"n": n, "count": count, "lanes": lanes, "walk": ws, "expand": es}
+    if not light:
+        ws["plain_ms"] = time_ms(plain, reps=3)
+        es["plain_ms"] = time_ms(lambda: K.expand_segments_plain(
+            nxt32, *split, count), reps=3)
+
+        def synced(fn):
+            def call():
+                fn()
+                torch.cuda.synchronize()
+            return call
+
+        def order_rounds():
+            with round_driver():
+                TR._order_contract(nxt, head, count, k)
+        fns = {"contract_walk": synced(lambda: K.contract_walk(
+                   nxt32, spine, **kw)),
+               "contract_rounds": synced(lambda: contract_rounds(
+                   nxt32, spine, **kw)),
+               "order_contract": synced(lambda: TR._order_contract(
+                   nxt, head, count, k)),
+               "order_contract_rounds": synced(order_rounds)}
+        for state, fl in (("evicted", flush), ("warm", lambda: None)):
+            times = time_host_ms(fns, fl, reps=15)
+            out[f"host_{state}"] = {
+                **{f"{key}_host_ms": v[0] for key, v in times.items()},
+                **{f"{key}_events_ms": v[1] for key, v in times.items()}}
+        out["stages"] = contraction_stages(dev, nxt, head, count, flush)
+    del nxt32, got, ref, first, plans, rounds
+    torch.cuda.empty_cache()
+    return out
+
+
+def contraction_edges(dev) -> dict:
+    """The contraction's other paths, on the card against the same driver
+    on the CPU (the plain versions), exact, or the same exception: several
+    heads (spine membership through ``spine_pos``: ``chain_lengths`` and
+    ``chain_walk``), a k that is not a power of two, torn 2**32 + 3
+    pointers, and the plan's second walk: segments merged by torn
+    pointers (the checkpoints overflow), a spine-free cycle (POISON) and
+    a cycle through spine nodes under explicit counts (a segment used
+    twice).  Returns {case: outcome}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import recovery as TR
+    rng = np.random.default_rng(19)
+
+    def chain(n, live=None):
+        perm = rng.permutation(n)[:live or n]
+        nxt = np.full(n, -1, np.int64)
+        nxt[perm[:-1]] = perm[1:]
+        return nxt, perm
+
+    cases = {}
+    nxt, perm = chain(50000)
+    heads = [int(seg[0]) for seg in np.split(perm, [7, 8000, 8001, 31000])]
+    hs = np.asarray(heads + [-1, 10 ** 6], np.int64)
+    cases["several_heads_lengths"] = (nxt, lambda t: TR.chain_lengths(
+        t, hs, method="contract"))
+    cases["several_heads_walk"] = (nxt, lambda t: TR.chain_walk(
+        t, hs, method="contract"))
+    for count in (None, 33333):
+        cases[f"k7_{count}"] = (nxt, lambda t, c=count: TR.chain_order(
+            t, int(perm[0]), c, method="contract", k=7))
+    torn = nxt.copy()
+    torn[perm[20000]] = 2 ** 32 + 3
+    cases["torn"] = (torn, lambda t: TR.chain_order(t, int(perm[0]),
+                                                    method="contract"))
+    merged, _ = chain(4096)
+    path = np.array([i for i in range(1, 4096) if i % 32][:300])
+    merged[np.arange(0, 4096, 32)] = path[0]
+    merged[path[:-1]] = path[1:]
+    merged[path[-1]] = -1
+    free = np.full(4096, -1, np.int64)
+    free[0], free[1], free[2], free[3] = 1, 2, 3, 1
+    cyc, cperm = chain(4000, 1000)
+    cyc[cperm[-1]] = cperm[400]
+    for count in (None, 5, 37, 301, 1300):
+        cases[f"merged_{count}"] = (merged, lambda t, c=count: TR.chain_order(
+            t, 0, c, method="contract"))
+        cases[f"spine_free_{count}"] = (free, lambda t, c=count:
+                                        TR.chain_order(t, 0, c,
+                                                       method="contract"))
+        cases[f"cycle_{count}"] = (cyc, lambda t, c=count: TR.chain_order(
+            t, int(cperm[0]), c, method="contract"))
+    out = {}
+    for name, (nx, fn) in cases.items():
+        got = []
+        for d in (dev, torch.device("cpu")):
+            try:
+                got.append(fn(torch.from_numpy(nx).to(d)).cpu())
+            except (RuntimeError, ValueError) as e:
+                got.append(type(e).__name__)
+        if isinstance(got[0], str) or isinstance(got[1], str):
+            same = got[0] == got[1]
+        else:
+            same = torch.equal(got[0], got[1])
+        if not same:
+            raise AssertionError(f"contraction {name}: card and CPU differ")
+        out[name] = got[0] if isinstance(got[0], str) else \
+            f"equal, {tuple(got[0].shape)}"
+    return out
+
+
+def contraction_stages(dev, nxt, head: int, count: int, flush,
+                       reps: int = 10) -> dict:
+    """_order_contract's stages on the host clock, each ended by a
+    synchronize (so their sum exceeds the call, whose host work overlaps
+    the card's): sanitize32, _contract (the walk launch included), the
+    contracted tables, the position walk alone, the plan (the position
+    walk again) and the expand; medians in ms, L2 evicted before each
+    call."""
+    import torch
+    from repro_torch.core import recovery as TR
+    from repro_torch.kernels import chain_order as K
+    n, k = nxt.shape[0], TR.CONTRACT_K
+    hp = head // k if head % k == 0 else (n + k - 1) // k
+    names = ("sanitize32", "contract", "tables", "positions", "plan",
+             "expand")
+    times = {name: [] for name in names}
+    for rep in range(reps + 2):
+        flush()
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+        nxt32 = K.sanitize32(nxt)
+        mark()
+        spine, _, cnext, w, marks = TR._contract(
+            nxt32, torch.tensor([head], device=dev), k)
+        mark()
+        cjump = TR._contract_tables(cnext, min(count, spine.shape[0]))
+        mark()
+        K.walk_positions(cjump, hp, min(count, spine.shape[0]))
+        mark()
+        plan = TR._expand_plan(spine, cjump, w, hp, count, marks)
+        mark()
+        K.expand_segments(nxt32, *plan, count)
+        mark()
+        if rep >= 2:
+            for i, name in enumerate(names):
+                times[name].append((t[i + 1] - t[i]) * 1e3)
+    return {f"{name}_host_ms": statistics.median(v)
+            for name, v in times.items()}
+
+
+def stride_sweep(dev, nxt, head: int, want, flush) -> dict:
+    """The checkpoint stride (MARK_STRIDE) at 8, 16 and 32 on one chain:
+    the order exact, no run longer than the stride, the walk and the
+    split expand with CUDA events (L2 evicted), _order_contract on the
+    host clock; the module's constant is restored after."""
+    import torch
+    from repro_torch.core import recovery as TR
+    from repro_torch.kernels import chain_order as K
+    n, k = nxt.shape[0], TR.CONTRACT_K
+    real = K.MARK_STRIDE
+    out = {}
+    try:
+        for stride in (8, 16, 32):
+            K.MARK_STRIDE = stride
+            if not torch.equal(TR._order_contract(nxt, head, n, k), want):
+                raise AssertionError(f"stride {stride}: order differs")
+            nxt32 = K.sanitize32(nxt)
+            spine, hpos, cnext, w, marks = TR._contract(
+                nxt32, torch.tensor([head], device=dev), k)
+            kw = {key: v for key, v in marks.walk.items() if key != "nxt"}
+            cjump = TR._contract_tables(cnext, min(n, spine.shape[0]))
+            plan = TR._expand_plan(spine, cjump, w, int(hpos[0]), n, marks)
+            if int(plan[2].max()) > stride:
+                raise AssertionError(f"stride {stride}: a run too long")
+            starts = spine.to(torch.int32)
+            cap = marks.rec.shape[1]
+
+            def order():
+                TR._order_contract(nxt, head, n, k)
+                torch.cuda.synchronize()
+            out[stride] = {
+                "walk_ms": time_ms(lambda: K.walk_segments(
+                    nxt32, starts, marks=cap, **kw), flush=flush),
+                "expand_ms": time_ms(lambda: K.expand_segments(
+                    nxt32, *plan, n), flush=flush),
+                "order_contract_host_ms": time_host_ms(
+                    {"o": order}, flush, reps=10)["o"][0],
+                "checkpoints": int(marks.total[0]),
+                "runs": int((plan[2] > 0).sum())}
+            del nxt32, plan, marks, cjump
+    finally:
+        K.MARK_STRIDE = real
+    torch.cuda.empty_cache()
+    return out
+
+
+def contraction_ranking(dev, contractions: list, flush) -> dict:
+    """walk_segments and expand_segments priced at the chain sizes phases
+    3 and 5 contracted (each size's random permutation chain, k = 32):
+    one walk launch and the split plan's expand per contraction, beside
+    the round driver's launches (PRs 11-18: one per round of 64 hops) and
+    the unsplit plan's expand (one lane per segment, PR 11's launch);
+    gap = contractions x (ms - bound)."""
+    import torch
+    sizes = {}
+    for c in contractions:
+        sizes[c["n"]] = sizes.get(c["n"], 0) + 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    rows = []
+    for n, calls in sorted(sizes.items()):
+        perm = torch.randperm(n, device=dev, generator=g)
+        nxt = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        nxt[perm[:-1]] = perm[1:]
+        case = contraction_case(dev, nxt, int(perm[0]), n, perm, flush,
+                                light=True)
+        ws, es = case["walk"], case["expand"]
+        rows.append({"n": n, "contractions": calls, "lanes": case["lanes"],
+                     "walk_ms": ws["ms"], "walk_bound_ms": ws["bound_ms"],
+                     "rounds": ws["rounds"],
+                     "rounds_ms": ws["rounds_back_to_back_ms"],
+                     "expand_ms": es["ms"], "expand_bound_ms": es["bound_ms"],
+                     "expand_unsplit_ms": es["unsplit_ms"]})
+        del nxt, perm
+        torch.cuda.empty_cache()
+    return {
+        "walk_segments": {
+            "launches": sum(r["contractions"] for r in rows),
+            "gap_ms": sum(r["contractions"] * (r["walk_ms"]
+                                               - r["walk_bound_ms"])
+                          for r in rows),
+            "per_step_launches": sum(r["contractions"] * r["rounds"]
+                                     for r in rows),
+            "per_step_gap_ms": sum(r["contractions"] * (r["rounds_ms"]
+                                                        - r["walk_bound_ms"])
+                                   for r in rows),
+            "by_size": rows},
+        "expand_segments": {
+            "launches": sum(r["contractions"] for r in rows),
+            "gap_ms": sum(r["contractions"] * (r["expand_ms"]
+                                               - r["expand_bound_ms"])
+                          for r in rows),
+            "unsplit_gap_ms": sum(r["contractions"] * (
+                r["expand_unsplit_ms"] - r["expand_bound_ms"])
+                for r in rows)}}
+
+
 class ChainCalls:
     """Calls of the chain primitives at their call sites during a phase:
     ``tables``/``absorbs`` count the ``chain_tables``/``_absorb`` calls
     that launch (one ``jump_double`` launch each), ``walks`` holds one
     record per hashmap ``chain_walk``: lanes, columns, its ``gather_next``
-    launches, whether it escalated or raised."""
+    launches, whether it escalated or raised; ``contractions`` one record
+    per ``contract_walk`` that launches (chain size n, lanes), ``runs``
+    the longest run of every split expand plan (device scalars, read at
+    the check), ``chain`` the first ``_order_contract``'s chain (a copy of
+    NEXT, head, count)."""
 
     def __init__(self):
         self.tables = 0
         self.absorbs = 0
         self.walks = []
+        self.contractions = []
+        self.runs = []
+        self.chain = None
 
 
 @contextlib.contextmanager
@@ -1512,7 +1937,8 @@ def chain_call_sites():
     from repro_torch.kernels import chain_order as K
     from repro_torch.pstruct import hashmap as HM
     rec = ChainCalls()
-    real = (K.chain_tables, TR._absorb, HM.chain_walk, TR._walk_contract)
+    real = (K.chain_tables, TR._absorb, HM.chain_walk, TR._walk_contract,
+            K.contract_walk, TR._expand_plan, TR._order_contract)
     escalations = []
 
     def tables(jump0, bits, cnt=None):
@@ -1544,12 +1970,31 @@ def chain_call_sites():
         row["columns"] = int(out.shape[1])
         return out
 
-    K.chain_tables, TR._absorb, HM.chain_walk, TR._walk_contract = (
-        tables, absorb, walk, walk_contract)
+    def contract(nxt32, spine, **kw):
+        if spine.numel():
+            rec.contractions.append({"n": int(nxt32.shape[0]),
+                                     "lanes": int(spine.numel())})
+        return real[4](nxt32, spine, **kw)
+
+    def plan(spine, cjump, w, hpos, count, marks=None):
+        out = real[5](spine, cjump, w, hpos, count, marks)
+        if marks is not None:
+            rec.runs.append(out[2].max())
+        return out
+
+    def order_contract(nxt, head, count, k):
+        if rec.chain is None:
+            rec.chain = (nxt.clone(), head, count)
+        return real[6](nxt, head, count, k)
+
+    (K.chain_tables, TR._absorb, HM.chain_walk, TR._walk_contract,
+     K.contract_walk, TR._expand_plan, TR._order_contract) = (
+        tables, absorb, walk, walk_contract, contract, plan, order_contract)
     try:
         yield rec
     finally:
-        K.chain_tables, TR._absorb, HM.chain_walk, TR._walk_contract = real
+        (K.chain_tables, TR._absorb, HM.chain_walk, TR._walk_contract,
+         K.contract_walk, TR._expand_plan, TR._order_contract) = real
 
 
 def walk_launch_cap(columns: int) -> int:
@@ -1560,7 +2005,10 @@ def walk_launch_cap(columns: int) -> int:
 
 def chain_calls_check(phase: str, rec: ChainCalls, launches: dict) -> dict:
     """jump_double launched once per chain_tables/_absorb call that
-    launches; every level-synchronous chain_walk within its launch cap."""
+    launches; every level-synchronous chain_walk within its launch cap;
+    walk_segments once per contract_walk call; expand_segments once per
+    split plan, none of whose runs is longer than MARK_STRIDE."""
+    from repro_torch.kernels import chain_order as K
     if launches["jump_double"] != rec.tables + rec.absorbs:
         raise AssertionError(
             f"{phase}: {launches['jump_double']} jump_double launches for "
@@ -1572,6 +2020,17 @@ def chain_calls_check(phase: str, rec: ChainCalls, launches: dict) -> dict:
     if over:
         raise AssertionError(f"{phase}: chain_walk over its launch cap: "
                              f"{over[:3]}")
+    if launches["walk_segments"] != len(rec.contractions):
+        raise AssertionError(
+            f"{phase}: {launches['walk_segments']} walk_segments launches "
+            f"for {len(rec.contractions)} contract_walk calls")
+    longest = max((int(r) for r in rec.runs), default=0)
+    if launches["expand_segments"] != len(rec.runs) or \
+            longest > K.MARK_STRIDE:
+        raise AssertionError(
+            f"{phase}: {launches['expand_segments']} expand_segments "
+            f"launches for {len(rec.runs)} split plans, longest run "
+            f"{longest} (stride {K.MARK_STRIDE})")
     return {"phase": f"{phase}_chain_calls", "chain_tables_calls":
             rec.tables, "absorb_calls": rec.absorbs,
             "jump_double_launches": launches["jump_double"],
@@ -1580,7 +2039,13 @@ def chain_calls_check(phase: str, rec: ChainCalls, launches: dict) -> dict:
             "walk_columns": sum(w["columns"] for w in level),
             "longest_walk": max((w["columns"] for w in level), default=0),
             "escalated": sum(w["escalated"] for w in rec.walks),
-            "raised": sum(bool(w.get("raised")) for w in rec.walks)}
+            "raised": sum(bool(w.get("raised")) for w in rec.walks),
+            "contract_walk_calls": len(rec.contractions),
+            "walk_segments_launches": launches["walk_segments"],
+            "split_plans": len(rec.runs),
+            "expand_segments_launches": launches["expand_segments"],
+            "longest_expand_run": longest,
+            "contracted_sizes": sorted({c["n"] for c in rec.contractions})}
 
 
 def per_column_launches(walks) -> dict:
@@ -2288,7 +2753,9 @@ def main(argv=None) -> int:
         ".log").read_text().splitlines() if "registers" in ln]
         for name in _build.SOURCES}
     report["build"] = {"seconds": build_s, "per_source": per_source,
-                       "ptxas": ptxas, "flash_kernels": flash_build_report()}
+                       "ptxas": ptxas, "flash_kernels": flash_build_report(),
+                       "l2_bytes": torch.cuda.get_device_properties(
+                           0).L2_cache_size}
     emit({"phase": "build", **report["build"]})
     report["link"] = pinned_d2h(dev)
     emit({"phase": "pinned_d2h", **report["link"]})
@@ -2299,6 +2766,7 @@ def main(argv=None) -> int:
     parity = kernel_parity(dev, probe_inp)
     report["kernel_parity"] = parity
     emit({"phase": "kernel_parity", "pack_rowbytes": parity["pack_rowbytes"],
+          "contraction": parity["contraction"],
           "flash_attention": parity["flash_attention"],
           "flash_widths": parity["flash_widths"],
           "flash_prefill_bf16": parity["flash_prefill_bf16"]})
@@ -2347,6 +2815,18 @@ def main(argv=None) -> int:
     emit(chain3)
     emit({"phase": "main_path_launch_sizes", **sizes3})
     emit({"phase": "main_path_launch_steps", **steps3})
+    # phase 2's contraction checks on the DLL chain phase 3 recovered
+    from repro_torch.core import recovery as TR
+    if calls3.chain is None:
+        raise AssertionError("phase 3 never contracted a chain")
+    nxt, head, count = calls3.chain
+    want = TR.chain_order(nxt, head, count, method="double")
+    report["contraction_dll"] = contraction_case(dev, nxt, head, count, want,
+                                                 l2_flusher(dev))
+    emit({"phase": "contraction_dll", **report["contraction_dll"]})
+    del nxt, want
+    calls3.chain = None
+    torch.cuda.empty_cache()
     syncs = {"off": syncs_per_op(dev),
              "on": syncs_per_op(dev, SNAP_KINDS, snapshot=True)}
     report["syncs_per_op"] = syncs
@@ -2467,6 +2947,8 @@ def main(argv=None) -> int:
     report["size_ranking"] = size_ranking(
         dev, {k: launches3[k] + launches5[k] for k in launches3}, both,
         both_steps, calls3.walks + calls5.walks)
+    report["size_ranking"].update(contraction_ranking(
+        dev, calls3.contractions + calls5.contractions, l2_flusher(dev)))
     emit({"phase": "size_ranking", **report["size_ranking"]})
     # ---- phase 6: checkpoint save and restore at llama3.2-3b width
     ckpt = checkpoint_phase(dev)
@@ -2506,7 +2988,13 @@ def main(argv=None) -> int:
     emit({"phase": "hash_lookup", **probe})
     launches["probe"] = probe["launches"]["probe"]
     # ---- phase 9: the feature store and the sample index at real size
-    feature = feature_phase(dev)
+    with chain_call_sites() as calls9:
+        feature = feature_phase(dev)
+    if feature["launches"]["walk_segments"] != len(calls9.contractions):
+        raise AssertionError(
+            f"phase 9: {feature['launches']['walk_segments']} walk_segments "
+            f"launches for {len(calls9.contractions)} contract_walk calls")
+    feature["contract_walk_calls"] = len(calls9.contractions)
     report["feature_store"] = feature
     emit({"phase": "feature_store", **{k: v for k, v in feature.items()
                                        if k not in ("stats", "twin_stats",

@@ -18,7 +18,9 @@ the Hopper kernels of ``kernels/chain_order.py`` (``jump_double``,
 between them; on a CPU tensor the same code runs the kernels' plain
 versions.  A table build or an absorb is one ``jump_double`` launch of
 all its rounds; a level-synchronous ``chain_walk`` is one hop-blocked
-``gather_next`` launch per doubling hop budget.
+``gather_next`` launch per doubling hop budget; a contraction's local
+walk is one ``walk_segments`` launch, and its expand one
+``expand_segments`` launch of runs split at the walk's checkpoints.
 
 ``chain_order(snapshot=)`` adopts an order-snapshot candidate after one
 verify pass (DESIGN.md §10), with the reference HOST primitive's
@@ -147,11 +149,12 @@ def _absorb(jump: torch.Tensor, cnt: torch.Tensor,
 
 def _contract(nxt32: torch.Tensor, heads: torch.Tensor, k: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                         torch.Tensor]:
+                         torch.Tensor, K.SegmentMarks]:
     """Sample + local-walk steps of the list ranking.  Spine nodes are
     every id with ``id % k == 0`` plus every head (``heads`` in range);
-    returns ``(spine, head_pos, cnext, w)``: spine ids, the spine index of
-    each head, the contracted next pointer and the segment weights."""
+    returns ``(spine, head_pos, cnext, w, marks)``: spine ids, the spine
+    index of each head, the contracted next pointer, the segment weights
+    and the walk's checkpoints (``K.contract_walk``, one launch)."""
     n = nxt32.shape[0]
     dev = nxt32.device
     n_mult = (n + k - 1) // k
@@ -166,12 +169,13 @@ def _contract(nxt32: torch.Tensor, heads: torch.Tensor, k: int
         spine_pos = torch.full((n,), NULL, dtype=torch.int32, device=dev)
         spine_pos[spine] = torch.arange(S, dtype=torch.int32, device=dev)
     head = int(extra[0]) if extra.numel() == 1 else NULL
-    cnext, w = K.contract_walk(nxt32, spine, k=k, head=head, n_mult=n_mult,
-                               promoted=extra.numel() == 1,
-                               spine_pos=spine_pos)
+    cnext, w, marks = K.contract_walk(nxt32, spine, k=k, head=head,
+                                      n_mult=n_mult,
+                                      promoted=extra.numel() == 1,
+                                      spine_pos=spine_pos)
     head_pos = torch.where(heads % k == 0, heads // k,
                            n_mult + torch.searchsorted(extra, heads))
-    return spine, head_pos, cnext, w
+    return spine, head_pos, cnext, w, marks
 
 
 def _contract_tables(cnext: torch.Tensor, cap: int) -> torch.Tensor:
@@ -182,35 +186,75 @@ def _contract_tables(cnext: torch.Tensor, cap: int) -> torch.Tensor:
 
 def _rank_expand(nxt32: torch.Tensor, spine: torch.Tensor,
                  cjump: torch.Tensor, w: torch.Tensor, hpos: int,
-                 count: int) -> torch.Tensor:
-    """Rank + expand: ``expand_segments`` writes the segments
-    ``_expand_plan`` places inside [0, count)."""
+                 count: int, marks: Optional[K.SegmentMarks] = None
+                 ) -> torch.Tensor:
+    """Rank + expand: ``expand_segments`` writes the runs ``_expand_plan``
+    places inside [0, count)."""
     return K.expand_segments(nxt32, *_expand_plan(spine, cjump, w, hpos,
-                                                  count), count)
+                                                  count, marks), count)
 
 
 def _expand_plan(spine: torch.Tensor, cjump: torch.Tensor,
-                 w: torch.Tensor, hpos: int, count: int
+                 w: torch.Tensor, hpos: int, count: int,
+                 marks: Optional[K.SegmentMarks] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Rank step: the contracted position walk gives the spine node at
     each contracted position; the exclusive cumsum of segment weights
     turns those into global start positions.  Returns int32 (first node,
-    start position, run length) of every segment that starts inside
-    [0, count)."""
+    start position, run length) of the runs that tile [0, count): every
+    segment that starts inside it, the last one cut at count.  With the
+    walk's checkpoints (``marks``) each segment is split at them, so no
+    run is longer than ``K.MARK_STRIDE`` nodes: a segment starting at g
+    with ``take`` nodes becomes the runs (node at hop j * stride,
+    g + j * stride, min(stride, take - j * stride)); runs of length 0
+    (checkpoints of unused segments) write nothing.  One host sync."""
     S = cjump[0].shape[0]
     cap = min(count, S)
     curq, dead = K.walk_positions(cjump, hpos, cap)
     safe = torch.where(dead, 0, curq).long()
     wq = torch.where(dead, 0, w[safe])
     g = torch.cumsum(wq, 0) - wq                 # global start of each q
+    # a prefix of the positions: dead ones follow the chain's end, g grows
     use = ~dead & (g < count)
-    starts = g[use]
-    take = torch.minimum(wq[use], count - starts)
-    if int(take.sum()) != count:
+    take = torch.where(use, torch.minimum(wq, count - g), 0)
+    scalars = [use.sum(), take.sum()]
+    if marks is not None:
+        # start and length of each segment by spine index; a segment used
+        # twice (a cycle, with an explicit count) shows as a lost write
+        slot = torch.where(use, safe, S)
+        g_of = torch.full((S + 1,), NULL, dtype=torch.int64, device=g.device)
+        g_of[slot] = g
+        take_of = torch.zeros(S + 1, dtype=torch.int64, device=g.device)
+        take_of[slot] = take
+        scalars += [marks.total[0], (use & (g_of[safe] != g)).sum()]
+    got = torch.stack(scalars).tolist()
+    m, covered = got[:2]
+    if covered != count:
         # the contracted chain ran out before covering count positions
         raise ValueError("count exceeds chain length")
-    return (spine[safe[use]].to(torch.int32), starts.to(torch.int32),
-            take.to(torch.int32))
+    first, g, take = spine[safe[:m]].to(torch.int32), g[:m], take[:m]
+    if marks is None:
+        return first, g.to(torch.int32), take.to(torch.int32)
+    total, twice = got[2:]
+    rec = marks.rec
+    if total > rec.shape[1] or twice:
+        # checkpoints lost to a full buffer (torn pointers merged
+        # segments) or shared by two uses of one segment: walk the used
+        # segments again, one lane per use, into a buffer of their size
+        w_used = w[safe[:m]]
+        hops = torch.where(w_used > marks.walk["nxt"].shape[0],
+                           marks.walk["budget"], w_used)   # POISON: budget
+        total = int(((hops - 1) // K.MARK_STRIDE).sum())
+        rec = K.walk_segments(starts=first, marks=total, **marks.walk)[3][0]
+        g_of, take_of = g, take
+    lane, hop, node = rec[:, :total].long()
+    t = take_of[lane]
+    stride = K.MARK_STRIDE
+    return (torch.cat([first.long(), node]).to(torch.int32),
+            torch.cat([g, g_of[lane] + hop]).to(torch.int32),
+            torch.cat([torch.clamp(take, max=stride),
+                       torch.where(hop < t, torch.clamp(t - hop, max=stride),
+                                   0)]).to(torch.int32))
 
 
 def _order_contract(nxt: torch.Tensor, head: int, count: Optional[int],
@@ -219,13 +263,15 @@ def _order_contract(nxt: torch.Tensor, head: int, count: Optional[int],
     n = nxt.shape[0]
     nxt32 = K.sanitize32(nxt)
     heads = torch.tensor([head], dtype=torch.int64, device=nxt.device)
-    spine, hpos, cnext, w = _contract(nxt32, heads, k)
+    spine, hpos, cnext, w, marks = _contract(nxt32, heads, k)
     if count is None:
         count = int(_absorb(cnext, w, hpos)[0])
         if count > n:
             raise RuntimeError("cycle in chain")
     cjump = _contract_tables(cnext, min(count, spine.shape[0]))
-    return _rank_expand(nxt32, spine, cjump, w, int(hpos[0]), count)
+    # the head's spine index, known here without reading hpos back
+    hp = head // k if head % k == 0 else (n + k - 1) // k
+    return _rank_expand(nxt32, spine, cjump, w, hp, count, marks)
 
 
 def chain_order(nxt: torch.Tensor, head: int, count: Optional[int] = None,
@@ -284,7 +330,8 @@ def chain_lengths(nxt: torch.Tensor, heads, *, method: str = "auto",
     ok = (heads >= 0) & (heads < n)
     if chain_method(n, None, method) == "contract":
         nxt32 = K.sanitize32(nxt)
-        _, hpos, cnext, w = _contract(nxt32, heads[ok], k or CONTRACT_K)
+        _, hpos, cnext, w, _ = _contract(nxt32, heads[ok],
+                                         k or CONTRACT_K)
         lens = _absorb(cnext, w, hpos)
         if bool((lens > n).any()):
             # a poisoned (spine-free-cycle) segment on some head's chain
@@ -304,7 +351,7 @@ def _walk_contract(nxt: torch.Tensor, heads: torch.Tensor,
     dev = nxt.device
     nxt32 = K.sanitize32(nxt)
     ok = (heads >= 0) & (heads < n)
-    spine, hpos, cnext, w = _contract(nxt32, heads[ok], k)
+    spine, hpos, cnext, w, marks = _contract(nxt32, heads[ok], k)
     lens = torch.zeros(heads.shape, dtype=torch.int64, device=dev)
     pos = torch.zeros(heads.shape, dtype=torch.int64, device=dev)
     lens[ok] = _absorb(cnext, w, hpos)
@@ -318,7 +365,8 @@ def _walk_contract(nxt: torch.Tensor, heads: torch.Tensor,
         cjump = _contract_tables(cnext, min(lmax, spine.shape[0]))
         for h, (ln, hp) in enumerate(zip(lens.tolist(), pos.tolist())):
             if ln:
-                out[h, :ln] = _rank_expand(nxt32, spine, cjump, w, hp, ln)
+                out[h, :ln] = _rank_expand(nxt32, spine, cjump, w, hp, ln,
+                                           marks)
     return out
 
 

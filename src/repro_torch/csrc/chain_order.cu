@@ -37,25 +37,67 @@
 //   address, as random as the chain.
 //
 // walk_segments
-//   Replaces src/repro/kernels/chain_order.py:walk_segments (inner kern),
-//   the fused local walk of contraction.  Per lane, up to `budget` hops
-//   along nxt until a spine node (id % k == 0, or the promoted head, whose
-//   spine index is n_mult; or a spine_pos table lookup when one is given)
-//   or the chain end.  Returns the final id, the spine index it arrived at
-//   (NULL if it did not) and the hops taken.
-//   Bound: latency.  Each hop is a dependent 4 B load; the byte floor of
-//   total hops * 32 B sectors / 3.35 TB/s is a lower bound the walk cannot
-//   approach.  Design: one thread per lane, so the card keeps one load per
-//   lane in flight and hides latency by the ~n/k lanes alone.
+//   Replaces src/repro/kernels/chain_order.py:198 walk_segments (inner
+//   kern, pallas_call at :282), the fused local walk of contraction.  Per
+//   lane, up to `budget` hops along nxt until a spine node (id % k == 0,
+//   or the promoted head, whose spine index is n_mult; or a spine_pos
+//   table lookup when one is given) or the chain end.  Returns the final
+//   id, the spine index it arrived at (NULL if it did not) and the hops
+//   taken; with a checkpoint buffer also every `stride`-th node of each
+//   segment (below).
+//   Bound: latency, and the L2's rate of random sectors.  Each hop is a
+//   dependent 4 B load.  While most lanes walk (the first ~60 hops of a
+//   random chain contracted by 32) the card has ~10**5 loads in flight
+//   and the L2 queues them; then the longest segment (360-450 hops on a
+//   random 2**22-node chain) finishes alone at one L2 hit per hop.  The
+//   byte floor of hops * 4 B (or 32 B sectors) is a lower bound the walk
+//   cannot reach.
+//   Design: one launch walks a contraction to its end (the driver gives
+//   the whole budget at once instead of rounds of 64 hops, each a launch,
+//   a compaction and a sync).  nxt stays in the L2 without being asked:
+//   the busy first hops touch nearly every sector of it (16 MiB at 2**22
+//   nodes), so the long tail hits the 50 MB L2 even when the launch
+//   starts with it evicted (measured equal to a launch that finds nxt
+//   resident, chip_smoke.py phase 2; a pre-read or an evict_last policy
+//   bought nothing, so none is set and nothing outlives the call).  Hops
+//   load through the read-only path; a power-of-two k (CONTRACT_K = 32)
+//   tests the spine with a mask and a shift, not a division.  A warp's
+//   lanes step together (the loop runs while any lane walks), so the
+//   checkpoint test at every `stride`-th hop is uniform across the warp.
+//   Checkpoints: at hop t (t % stride == 0) a lane that walks on past t
+//   records (lane, t, node).  A warp appends its records through one
+//   atomicAdd of their count (a ballot, the first recording thread bumps
+//   the 64-bit counter, a shuffle hands out the base).  The buffer holds
+//   ceil(n / stride) + lanes records: where no node has two predecessors
+//   (every chain the structures persist) the segments are disjoint, a
+//   lane of w hops records floor((w - 1) / stride) nodes of its own, and
+//   all lanes together at most n / stride, so a real chain cannot fill
+//   it.  Torn pointers can merge segments (two nodes pointing at one);
+//   then lanes share nodes and may record more.  The counter counts every
+//   record, only those that fit are stored, and the expand plan walks its
+//   segments again when the count exceeds the buffer.
 //
 // expand_segments
-//   Replaces src/repro/kernels/chain_order.py:expand_segments (inner kern).
-//   Lane i walks rem[i] hops from starts[i] and writes each visited id at
-//   out[posn[i] + t].  The Pallas kernel re-stores retired steps because its
-//   grid steps share one output block; lanes here retire by leaving the
-//   loop, and each output slot is written exactly once.
-//   Bound: latency, as walk_segments; byte floor hops * 32 B plus the 8 B
-//   output per position.
+//   Replaces src/repro/kernels/chain_order.py:293 expand_segments (inner
+//   kern, pallas_call at :357).  Lane i walks rem[i] hops from starts[i]
+//   and writes each visited id at out[posn[i] + t].  The Pallas kernel
+//   re-stores retired steps because its grid steps share one output block;
+//   lanes here retire by leaving the loop, and each output slot is written
+//   exactly once.
+//   Bound: with one lane per segment, latency, as walk_segments: the
+//   longest segment's 360-450 dependent hops.  The driver now splits every
+//   segment at the walk's checkpoints, so no run is longer than `stride`
+//   nodes; then the L2's rate of random sectors (one per hop, nxt
+//   resident as in the walk) and the 8 B per position of the order
+//   (32 MiB at 2**22 positions) are what is left.
+//   Design: a warp takes 32 runs; each thread walks up to `chunk` hops of
+//   its run and stages the ids in shared memory; then the warp stores the
+//   staged runs with consecutive threads at consecutive positions (a run
+//   of 16 ids is one 128 B line), where one thread per run touched 32
+//   lines per store.  Runs longer than `chunk` take more rounds of the
+//   same.  The stores stream (st.global.cs, evicted first), so 32 MiB of
+//   order does not push nxt out of the L2.  Block size and grid come from
+//   the occupancy API, the staging being dynamic shared memory.
 //
 // gather_next
 //   Replaces src/repro/kernels/chain_order.py:152 gather_next
@@ -95,6 +137,11 @@ constexpr int32_t kNull = -1;
 constexpr int kMaxDevices = 64;
 constexpr int kRoundThreads = 1024;  // the fewest blocks meet at a barrier
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSegmentThreads = 256;  // most threads per block of the walk
+                                      // and the expand: small launches
+                                      // still spread over the SMs
+
 // Streaming multiprocessors of the current device, queried once per device.
 int sm_count() {
   static int cached[kMaxDevices] = {};
@@ -109,11 +156,59 @@ int sm_count() {
   return sms;
 }
 
+// One chain hop: NULL for an id outside [0, n) or a stored value outside
+// it.  nxt is read-only for the whole launch: the read-only path (__ldg).
 __device__ __forceinline__ int32_t follow(const int32_t* __restrict__ nxt,
                                           int32_t cur, int64_t n) {
   if (cur < 0 || cur >= n) return kNull;
   const int32_t v = __ldg(nxt + cur);
   return (v >= 0 && v < n) ? v : kNull;
+}
+
+// Threads per block and blocks resident on the device for a kernel, from
+// the occupancy API with `smem_per_thread` bytes of dynamic shared memory
+// per thread; queried once per device into `cache`.
+struct LaunchShape {
+  int block;
+  int64_t resident;
+};
+
+template <typename Kernel>
+cudaError_t launch_shape(Kernel kernel, int smem_per_thread,
+                         LaunchShape* cache, LaunchShape* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cache[dev].block > 0) {
+    *out = cache[dev];
+    return cudaSuccess;
+  }
+  int min_grid = 0, block = 0;
+  err = cudaOccupancyMaxPotentialBlockSizeVariableSMem(
+      &min_grid, &block, kernel,
+      [smem_per_thread](int b) { return (size_t)b * smem_per_thread; },
+      kSegmentThreads);
+  if (err != cudaSuccess) return err;
+  block &= ~31;  // whole warps: the kernels step warp by warp
+  int per_sm = 0;
+  if (block > 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, block, (size_t)block * smem_per_thread);
+    if (err != cudaSuccess) return err;
+  }
+  if (block <= 0 || per_sm <= 0 || sm_count() <= 0)
+    return cudaErrorInvalidConfiguration;
+  out->block = block;
+  out->resident = (int64_t)per_sm * sm_count();
+  if (dev < kMaxDevices) cache[dev] = *out;
+  return cudaSuccess;
+}
+
+// Blocks for `work` threads at the shape's block size, no more than fit.
+unsigned blocks_for(const LaunchShape& s, int64_t work) {
+  int64_t blocks = (work + s.block - 1) / s.block;
+  if (blocks > s.resident) blocks = s.resident;
+  return (unsigned)(blocks > 0 ? blocks : 1);
 }
 
 // Buffers of one jump_double launch.  Round s (1-based) reads level s - 1
@@ -188,57 +283,154 @@ __global__ void __launch_bounds__(kRoundThreads)
   }
 }
 
-__global__ void walk_segments_kernel(
-    const int32_t* __restrict__ nxt, const int32_t* __restrict__ starts,
-    const int32_t* __restrict__ spine_pos, int32_t* __restrict__ cur_out,
-    int32_t* __restrict__ sp_out, int32_t* __restrict__ w_out, int64_t n,
-    int64_t lanes, int32_t k, int32_t head, int32_t n_mult, int promoted,
-    int32_t budget) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes;
-       i += stride) {
-    int32_t cur = starts[i];
+// Arguments of one walk_segments launch.  rec is null without
+// checkpoints; otherwise rows lane, hop, node of `capacity` records and
+// *total the records the walk made (zeroed before the launch).
+struct WalkArgs {
+  const int32_t* nxt;
+  const int32_t* starts;
+  const int32_t* spine_pos;  // null: arithmetic spine test
+  int32_t* cur_out;
+  int32_t* sp_out;
+  int32_t* w_out;
+  int32_t* rec;
+  unsigned long long* total;
+  int64_t n;
+  int64_t lanes;
+  int64_t capacity;
+  int32_t k;
+  int32_t head;
+  int32_t n_mult;
+  int32_t budget;
+  int32_t shift;   // log2(k) when k is a power of two
+  int32_t stride;  // a power of two
+  int promoted;
+};
+
+// kPow2: k is a power of two (CONTRACT_K = 32): a mask and a shift, not a
+// division, on every hop.
+template <bool kTable, bool kPow2>
+__device__ __forceinline__ int32_t spine_index(const WalkArgs& a,
+                                               int32_t id) {
+  if (kTable) return __ldg(a.spine_pos + id);
+  int32_t s;
+  if (kPow2)
+    s = (id & (a.k - 1)) == 0 ? id >> a.shift : kNull;
+  else
+    s = (id % a.k == 0) ? id / a.k : kNull;
+  if (a.promoted && id == a.head) s = a.n_mult;
+  return s;
+}
+
+template <bool kTable, bool kPow2>
+__global__ void __launch_bounds__(kSegmentThreads)
+    walk_segments_kernel(const WalkArgs a) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  // a warp's 32 lanes together: every thread of the warp runs the loops
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + threadIdx.x - lane;
+       base < a.lanes; base += step) {
+    const int64_t i = base + lane;
+    int32_t cur = i < a.lanes ? a.starts[i] : kNull;
     int32_t sp = kNull;
     int32_t w = 0;
-    if (cur >= 0) {
-      for (int32_t t = 0; t < budget; ++t) {
-        cur = follow(nxt, cur, n);
-        ++w;
-        if (cur < 0) break;  // chain end
-        int32_t s;
-        if (spine_pos != nullptr) {
-          s = __ldg(spine_pos + cur);
-        } else {
-          s = (cur % k == 0) ? cur / k : kNull;
-          if (promoted && cur == head) s = n_mult;
+    bool walking = cur >= 0 && a.budget > 0;
+    for (int32_t t = 1; __any_sync(kFull, walking); ++t) {
+      bool mark = false;
+      if (walking) {
+        cur = follow(a.nxt, cur, a.n);
+        w = t;
+        walking = false;
+        if (cur >= 0) {
+          const int32_t s = spine_index<kTable, kPow2>(a, cur);
+          if (s >= 0) {
+            sp = s;
+          } else if (t < a.budget) {  // walks on past hop t
+            walking = true;
+            mark = (t & (a.stride - 1)) == 0;
+          }
         }
-        if (s >= 0) {
-          sp = s;
-          break;
+      }
+      if (a.rec != nullptr && (t & (a.stride - 1)) == 0) {  // warp-uniform
+        const unsigned m = __ballot_sync(kFull, mark);
+        if (m) {
+          const int first = __ffs(m) - 1;
+          unsigned long long slot = 0;
+          if ((int)lane == first)
+            slot = atomicAdd(a.total, (unsigned long long)__popc(m));
+          slot = __shfl_sync(kFull, slot, first) + __popc(m & below);
+          if (mark && slot < (unsigned long long)a.capacity) {
+            a.rec[slot] = (int32_t)i;
+            a.rec[a.capacity + slot] = t;
+            a.rec[2 * a.capacity + slot] = cur;
+          }
         }
       }
     }
-    cur_out[i] = cur;
-    sp_out[i] = sp;
-    w_out[i] = w;
+    if (i < a.lanes) {
+      a.cur_out[i] = cur;
+      a.sp_out[i] = sp;
+      a.w_out[i] = w;
+    }
   }
 }
 
-__global__ void expand_segments_kernel(const int32_t* __restrict__ nxt,
-                                       const int32_t* __restrict__ starts,
-                                       const int32_t* __restrict__ posn,
-                                       const int32_t* __restrict__ rem,
-                                       int64_t* __restrict__ out, int64_t n,
-                                       int64_t lanes) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes;
-       i += stride) {
-    int32_t cur = starts[i];
-    const int64_t p = posn[i];
-    const int32_t r = rem[i];
-    for (int32_t t = 0; t < r; ++t) {
-      out[p + t] = cur;
-      if (t + 1 < r) cur = follow(nxt, cur, n);
+// Arguments of one expand_segments launch.
+struct ExpandArgs {
+  const int32_t* nxt;
+  const int32_t* starts;
+  const int32_t* posn;
+  const int32_t* rem;
+  long long* out;
+  int64_t n;
+  int64_t lanes;
+};
+
+// kChunk: ids a thread stages per round; a warp's staging is 32 runs of
+// kChunk + 1 words (the pad word keeps the threads' writes on 32 banks).
+template <int kChunk>
+__global__ void __launch_bounds__(kSegmentThreads)
+    expand_segments_kernel(const ExpandArgs a) {
+  extern __shared__ int32_t staging[];
+  const unsigned lane = threadIdx.x & 31;
+  int32_t* warp_stage = staging + (threadIdx.x >> 5) * 32 * (kChunk + 1);
+  int32_t* mine = warp_stage + lane * (kChunk + 1);
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + threadIdx.x - lane;
+       base < a.lanes; base += step) {
+    const int64_t i = base + lane;
+    int32_t cur = kNull;
+    long long p = 0;
+    int32_t r = 0;
+    if (i < a.lanes) {
+      cur = a.starts[i];
+      p = a.posn[i];
+      r = max(a.rem[i], 0);
+    }
+    while (__any_sync(kFull, r > 0)) {
+      const int32_t len = min(r, kChunk);
+      for (int32_t t = 0; t < len; ++t) {
+        mine[t] = cur;
+        if (t + 1 < r) cur = follow(a.nxt, cur, a.n);
+      }
+      __syncwarp();
+      // the warp's staged runs, run-major: consecutive threads store
+      // consecutive positions of one run
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const int idx = j * 32 + (int)lane;
+        const int run = idx / kChunk;
+        const int t = idx % kChunk;
+        const int32_t run_len = __shfl_sync(kFull, len, run);
+        const long long run_pos = __shfl_sync(kFull, p, run);
+        if (t < run_len)
+          __stcs(a.out + run_pos + t,
+                 (long long)warp_stage[run * (kChunk + 1) + t]);
+      }
+      __syncwarp();
+      p += len;
+      r -= len;
     }
   }
 }
@@ -294,6 +486,32 @@ unsigned grid_for(int64_t work, int threads) {
   const int64_t resident = (int64_t)sm_count() * 16;  // 16 blocks per SM
   if (resident > 0 && blocks > resident) blocks = resident;
   return (unsigned)(blocks > 0 ? blocks : 1);
+}
+
+template <bool kTable, bool kPow2>
+int launch_walk(const WalkArgs& a, cudaStream_t stream) {
+  static LaunchShape cache[kMaxDevices] = {};
+  LaunchShape shape;
+  const cudaError_t err =
+      launch_shape(walk_segments_kernel<kTable, kPow2>, 0, cache, &shape);
+  if (err != cudaSuccess) return (int)err;
+  walk_segments_kernel<kTable, kPow2>
+      <<<blocks_for(shape, a.lanes), shape.block, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int kChunk>
+int launch_expand(const ExpandArgs& a, cudaStream_t stream) {
+  static LaunchShape cache[kMaxDevices] = {};
+  constexpr int kStageBytes = (kChunk + 1) * 4;  // per thread
+  LaunchShape shape;
+  const cudaError_t err = launch_shape(expand_segments_kernel<kChunk>,
+                                       kStageBytes, cache, &shape);
+  if (err != cudaSuccess) return (int)err;
+  expand_segments_kernel<kChunk>
+      <<<blocks_for(shape, a.lanes), shape.block,
+         (size_t)shape.block * kStageBytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // Blocks of jump_double_kernel<kKeep, kCnt> that fit on the device at once,
@@ -361,33 +579,72 @@ extern "C" int jump_double_launch(const void* jump, const void* cnt,
                 : launch_rounds<false, false>(a, s);
 }
 
+// rec (3 * capacity int32) and total (one uint64, zeroed here) are null
+// for a walk without checkpoints; stride is a power of two.
 extern "C" int walk_segments_launch(const void* nxt, const void* starts,
                                     const void* spine_pos, void* cur_out,
-                                    void* sp_out, void* w_out, int64_t n,
-                                    int64_t lanes, int k, int head,
+                                    void* sp_out, void* w_out, void* rec,
+                                    void* total, int64_t n, int64_t lanes,
+                                    int64_t capacity, int k, int head,
                                     int n_mult, int promoted, int budget,
-                                    void* stream) {
-  const int threads = 128;
-  walk_segments_kernel<<<grid_for(lanes, threads), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(nxt), static_cast<const int32_t*>(starts),
-      static_cast<const int32_t*>(spine_pos), static_cast<int32_t*>(cur_out),
-      static_cast<int32_t*>(sp_out), static_cast<int32_t*>(w_out), n, lanes,
-      k, head, n_mult, promoted, budget);
-  return (int)cudaGetLastError();
+                                    int stride, void* stream) {
+  if (stride < 1 || (stride & (stride - 1)) != 0 || k < 1 ||
+      (rec == nullptr) != (total == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  WalkArgs a;
+  a.nxt = static_cast<const int32_t*>(nxt);
+  a.starts = static_cast<const int32_t*>(starts);
+  a.spine_pos = static_cast<const int32_t*>(spine_pos);
+  a.cur_out = static_cast<int32_t*>(cur_out);
+  a.sp_out = static_cast<int32_t*>(sp_out);
+  a.w_out = static_cast<int32_t*>(w_out);
+  a.rec = static_cast<int32_t*>(rec);
+  a.total = static_cast<unsigned long long*>(total);
+  a.n = n;
+  a.lanes = lanes;
+  a.capacity = capacity;
+  a.k = k;
+  a.head = head;
+  a.n_mult = n_mult;
+  a.budget = budget;
+  a.stride = stride;
+  a.promoted = promoted;
+  a.shift = 0;
+  while ((1 << a.shift) < k) ++a.shift;
+  if (total != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(total, 0, 8, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (spine_pos != nullptr) return launch_walk<true, false>(a, s);
+  return (k & (k - 1)) == 0 ? launch_walk<false, true>(a, s)
+                            : launch_walk<false, false>(a, s);
 }
 
+// chunk: ids a thread stages per round, 8, 16 or 32.
 extern "C" int expand_segments_launch(const void* nxt, const void* starts,
                                       const void* posn, const void* rem,
                                       void* out, int64_t n, int64_t lanes,
-                                      void* stream) {
-  const int threads = 128;
-  expand_segments_kernel<<<grid_for(lanes, threads), threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(nxt), static_cast<const int32_t*>(starts),
-      static_cast<const int32_t*>(posn), static_cast<const int32_t*>(rem),
-      static_cast<int64_t*>(out), n, lanes);
-  return (int)cudaGetLastError();
+                                      int chunk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ExpandArgs a;
+  a.nxt = static_cast<const int32_t*>(nxt);
+  a.starts = static_cast<const int32_t*>(starts);
+  a.posn = static_cast<const int32_t*>(posn);
+  a.rem = static_cast<const int32_t*>(rem);
+  a.out = static_cast<long long*>(out);
+  a.n = n;
+  a.lanes = lanes;
+  switch (chunk) {
+    case 8:
+      return launch_expand<8>(a, s);
+    case 16:
+      return launch_expand<16>(a, s);
+    case 32:
+      return launch_expand<32>(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // id_bytes: 8 for int64 ids, 4 for int32 ids.  out holds hops columns of

@@ -43,9 +43,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "chain_order": {
         "jump_double_launch": [_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
                                _P],
-        "walk_segments_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _INT,
-                                 _INT, _INT, _INT, _INT, _P],
-        "expand_segments_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+        "walk_segments_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                                 _I64, _INT, _INT, _INT, _INT, _INT, _INT,
+                                 _P],
+        "expand_segments_launch": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _P],
         "gather_next_launch": [_P, _P, _INT, _P, _I64, _I64, _INT, _P, _P,
                                _P],
     },

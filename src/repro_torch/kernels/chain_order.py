@@ -11,9 +11,12 @@ or raise) and counts its launches:
   (``rounds=bits - 1``, ``keep=True``) and ranks the contracted chain
   (``rounds=n.bit_length()``).
 * ``walk_segments`` — the contraction local walk: every lane hops toward
-  its next spine node, up to ``budget`` hops per launch.
-* ``expand_segments`` — the contraction expand: every used segment writes
-  its run of node ids into the final order.
+  its next spine node, up to ``budget`` hops.  A contraction walks in one
+  launch (``contract_walk``), which also records every MARK_STRIDE-th
+  node of each segment.
+* ``expand_segments`` — the contraction expand: every run of the plan (a
+  used segment split at those checkpoints, so at most MARK_STRIDE nodes)
+  writes its node ids into the final order.
 * ``gather_next`` — chain hops per lane (``nxt[ids[i]]``): ``hops=h``
   walks h hops in one launch and reports the walk's length, so a whole
   level-synchronous ``chain_walk`` takes one launch and one sync per
@@ -31,7 +34,7 @@ host reference's exact semantics.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,7 +45,7 @@ NULL = -1
 __all__ = ["jump_double", "jump_double_plain", "walk_segments",
            "walk_segments_plain", "expand_segments", "expand_segments_plain",
            "gather_next", "gather_next_plain", "sanitize32", "chain_tables",
-           "contract_walk", "walk_positions"]
+           "contract_walk", "walk_positions", "MARK_STRIDE", "SegmentMarks"]
 
 
 # ----------------------------------------------------------------- checks
@@ -162,6 +165,24 @@ jump_double.steps = {}
 
 # ---------------------------------------------------------- walk_segments
 
+# Hops between the checkpoints a contraction walk records in each segment,
+# and so the most nodes of an expand run (chosen on the card, PERF.md §6).
+MARK_STRIDE = 16
+
+
+class SegmentMarks(NamedTuple):
+    """The checkpoints of one contraction walk.  ``rec`` is int32
+    (3, capacity): the walk lane, the hop t and the node at hop t of every
+    record stored (t a multiple of MARK_STRIDE, 0 < t < the lane's hops);
+    ``total`` is int64 (1,), the records the walk made, on the walk's
+    device: past the capacity only the first capacity are stored, in no
+    set order.  ``walk`` holds the walk's keyword arguments (``nxt``
+    among them), so that chosen segments can be walked again."""
+    rec: torch.Tensor
+    total: torch.Tensor
+    walk: dict
+
+
 def _spine_index(cur: torch.Tensor, k: int, head: int, n_mult: int,
                  promoted: bool, spine_pos: Optional[torch.Tensor]
                  ) -> torch.Tensor:
@@ -177,16 +198,18 @@ def _spine_index(cur: torch.Tensor, k: int, head: int, n_mult: int,
 def walk_segments_plain(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
                         head: int, n_mult: int, promoted: bool,
                         budget: int,
-                        spine_pos: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        spine_pos: Optional[torch.Tensor] = None,
+                        marks: Optional[int] = None):
     """Plain version of the fused local walk: every lane advances one hop
-    per step, freezing when it reaches a spine node or the chain end."""
+    per step, freezing when it reaches a spine node or the chain end; the
+    checkpoints are recorded hop by hop, lane by lane."""
     n = nxt.shape[0]
     cur = starts.clone()
     w = torch.zeros_like(starts)
     sp = torch.full_like(starts, NULL)
     done = cur < 0
-    for _ in range(budget):
+    recs = []
+    for t in range(1, budget + 1):
         live = ~done
         if not bool(live.any()):
             break
@@ -200,46 +223,73 @@ def walk_segments_plain(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
         arrived = live & (cur >= 0) & (spv >= 0)
         sp = torch.where(arrived, spv, sp)
         done = done | (live & ((cur < 0) | arrived))
-    return cur, sp, w
+        if marks is not None and t % MARK_STRIDE == 0 and t < budget:
+            lane = torch.nonzero(live & ~done)[:, 0]
+            hop = torch.full_like(lane, t, dtype=torch.int32)
+            recs.append(torch.stack([lane.to(torch.int32), hop, cur[lane]]))
+    if marks is None:
+        return cur, sp, w
+    made = torch.cat(recs, 1) if recs else torch.empty(
+        (3, 0), dtype=torch.int32, device=nxt.device)
+    rec = torch.full((3, marks), NULL, dtype=torch.int32, device=nxt.device)
+    kept = min(marks, made.shape[1])
+    rec[:, :kept] = made[:, :kept]
+    total = torch.tensor([made.shape[1]], dtype=torch.int64,
+                         device=nxt.device)
+    return cur, sp, w, (rec, total)
 
 
 def walk_segments(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
                   head: int, n_mult: int, promoted: bool, budget: int,
-                  spine_pos: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  spine_pos: Optional[torch.Tensor] = None,
+                  marks: Optional[int] = None):
     """Walk every lane's segment toward its next spine node, up to
     ``budget`` hops.  Spine nodes are ``id % k == 0`` (spine index
     ``id // k``) plus, when ``promoted``, ``head`` (index ``n_mult``) — or,
     when ``spine_pos`` (int32 (n,), NULL off the spine) is given, the ids
     it maps.  Returns int32 ``(cur, sp, w)`` per lane: the final id (NULL
     once the chain ended), the spine index arrived at (NULL if still
-    walking or ended) and the hops taken."""
+    walking or ended) and the hops taken.
+
+    ``marks`` (a capacity) also records checkpoints and returns
+    ``(cur, sp, w, (rec, total))``: for every hop t that is a multiple of
+    MARK_STRIDE and after which the lane walks on (t < its w), the record
+    (lane, t, node at hop t), as int32 (3, marks) ``rec`` and the int64
+    (1,) ``total`` of records made (see ``SegmentMarks``)."""
     dev = nxt.device
     _vec("nxt", nxt, torch.int32, dev)
     _vec("starts", starts, torch.int32, dev)
     if spine_pos is not None:
         _vec("spine_pos", spine_pos, torch.int32, dev)
+    if marks is not None and marks < 0:
+        raise ValueError(f"walk_segments: marks must be >= 0, got {marks}")
     if not _cuda(nxt, "walk_segments"):
         return walk_segments_plain(nxt, starts, k=k, head=head,
                                    n_mult=n_mult, promoted=promoted,
-                                   budget=budget, spine_pos=spine_pos)
+                                   budget=budget, spine_pos=spine_pos,
+                                   marks=marks)
     lanes = starts.shape[0]
-    cur = torch.empty_like(starts)
-    sp = torch.empty_like(starts)
-    w = torch.empty_like(starts)
-    if lanes == 0:
+    cur, sp, w = torch.empty((3, lanes), dtype=torch.int32, device=dev)
+    rec = total = None
+    if marks is not None:
+        rec = torch.empty((3, marks), dtype=torch.int32, device=dev)
+        # the launch zeroes the counter itself
+        total = (torch.empty if lanes else torch.zeros)(
+            1, dtype=torch.int64, device=dev)
+    if lanes:
+        lib = _build.load("chain_order")
+        with torch.cuda.device(dev):
+            rc = lib.walk_segments_launch(
+                nxt.data_ptr(), starts.data_ptr(), _ptr(spine_pos),
+                cur.data_ptr(), sp.data_ptr(), w.data_ptr(), _ptr(rec),
+                _ptr(total), nxt.shape[0], lanes, marks or 0, int(k),
+                int(head), int(n_mult), int(promoted), int(budget),
+                MARK_STRIDE, _stream(nxt))
+        _raise_on(rc, "walk_segments")
+        _build.note_launch(walk_segments, lanes)
+    if marks is None:
         return cur, sp, w
-    lib = _build.load("chain_order")
-    with torch.cuda.device(dev):
-        rc = lib.walk_segments_launch(
-            nxt.data_ptr(), starts.data_ptr(),
-            spine_pos.data_ptr() if spine_pos is not None else None,
-            cur.data_ptr(), sp.data_ptr(), w.data_ptr(), nxt.shape[0], lanes,
-            int(k), int(head), int(n_mult), int(promoted), int(budget),
-            _stream(nxt))
-    _raise_on(rc, "walk_segments")
-    _build.note_launch(walk_segments, lanes)
-    return cur, sp, w
+    return cur, sp, w, (rec, total)
 
 
 walk_segments.launches = 0
@@ -274,7 +324,9 @@ def expand_segments(nxt: torch.Tensor, starts: torch.Tensor,
                     count: int) -> torch.Tensor:
     """Lane i walks ``rem[i]`` hops from ``starts[i]`` and writes each
     visited id at ``out[posn[i] + t]``; returns the int64 (count,) order.
-    The runs must tile [0, count) (the driver guarantees it)."""
+    A lane with ``rem[i] <= 0`` writes nothing.  The runs must tile
+    [0, count) (the driver guarantees it); the driver's runs are at most
+    MARK_STRIDE long, though any length is computed."""
     dev = nxt.device
     for name, t in (("nxt", nxt), ("starts", starts), ("posn", posn),
                     ("rem", rem)):
@@ -292,7 +344,7 @@ def expand_segments(nxt: torch.Tensor, starts: torch.Tensor,
         rc = lib.expand_segments_launch(
             nxt.data_ptr(), starts.data_ptr(), posn.data_ptr(),
             rem.data_ptr(), out.data_ptr(), nxt.shape[0], lanes,
-            _stream(nxt))
+            MARK_STRIDE, _stream(nxt))
     _raise_on(rc, "expand_segments")
     _build.note_launch(expand_segments, lanes)
     return out
@@ -451,51 +503,49 @@ def chain_tables(jump0: torch.Tensor, bits: int,
 def walk_positions(tables: torch.Tensor, start: int, count: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Node at each position 0..count-1 of the chain from ``start``, read
-    off the tables bit by bit.  Returns (int32 ids, dead) where ``dead``
-    marks positions past the chain end (absorbed into NULL)."""
-    dev = tables[0].device
+    off the tables bit by bit: level b moves every position whose bit b
+    is set.  Returns (int32 ids, dead) where ``dead`` marks positions past
+    the chain end (absorbed into NULL).  The levels used are copied once
+    with NULL as an extra id that maps to itself, and the bits of all
+    positions are taken in one pass, so a level costs two torch ops: on
+    the card the host's calls, not the gathers, set the time."""
+    dev = tables.device
+    bits = min(tables.shape[0], int(count - 1).bit_length())
+    n = tables.shape[1]
+    levels = torch.cat([torch.where(tables[:bits] < 0, n, tables[:bits]),
+                        torch.full((bits, 1), n, dtype=tables.dtype,
+                                   device=dev)], 1)
     pos = torch.arange(count, device=dev)
-    cur = torch.full((count,), start, dtype=torch.int32, device=dev)
-    dead = torch.zeros(count, dtype=torch.bool, device=dev)
-    for b in range(min(len(tables), int(count - 1).bit_length())):
-        m = ((pos >> b) & 1).bool() & ~dead
-        nb = tables[b][torch.where(dead, 0, cur).long()]
-        cur = torch.where(m, nb, cur)
-        dead = dead | (cur == NULL)
-    return cur, dead
+    step = ((pos >> torch.arange(bits, device=dev)[:, None]) & 1).bool()
+    cur = torch.full((count,), start, dtype=torch.int64, device=dev)
+    for b in range(bits):
+        cur = torch.where(step[b], levels[b][cur], cur)
+    dead = cur == n
+    return torch.where(dead, NULL, cur).to(torch.int32), dead
 
 
 def contract_walk(nxt32: torch.Tensor, spine: torch.Tensor, *, k: int,
                   head: int, n_mult: int, promoted: bool,
                   spine_pos: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The contraction local walk, fused: ``walk_segments`` rounds of up to
-    ``budget`` hops per lane, lanes that arrive (or end) retired between
-    rounds, until every segment closed or n hops proved a spine-free
-    cycle — whose lanes get the POISON weight n+1, so any length summed
-    through them exceeds n.  Returns (cnext, w): the contracted next
-    pointer (spine-index space, NULL-terminated) and the segment weights
-    (nodes per segment)."""
+                  ) -> Tuple[torch.Tensor, torch.Tensor, SegmentMarks]:
+    """The contraction local walk in ONE ``walk_segments`` launch: every
+    segment walks to its next spine node or the chain end, with a budget
+    of ``b * ceil((n + 1) / b)`` hops (``b = max(2k, 64)``), the hop count
+    at which a driver of ``b``-hop rounds gives up.  A lane that does not
+    cycle visits distinct nodes and ends within n hops; one still walking
+    at the budget is in a spine-free cycle and gets the POISON weight
+    n + 1, so any length summed through it exceeds n.  Returns
+    (cnext, w, marks): the contracted next pointer (spine-index space,
+    NULL-terminated), the segment weights (nodes per segment) and the
+    walk's checkpoints, in a buffer that a chain whose nodes have one
+    predecessor each cannot overflow (``csrc/chain_order.cu``)."""
     n = nxt32.shape[0]
-    dev = nxt32.device
-    S = spine.shape[0]
-    cnext = torch.full((S,), NULL, dtype=torch.int32, device=dev)
-    w = torch.zeros(S, dtype=torch.int64, device=dev)
-    lanes = torch.arange(S, device=dev)
-    cur = spine.to(torch.int32)
-    budget = max(2 * k, 64)
-    hops = 0
-    while lanes.numel() and hops <= n:
-        c2, sp, wd = walk_segments(nxt32, cur.contiguous(), k=k, head=head,
-                                   n_mult=n_mult, promoted=promoted,
-                                   budget=budget, spine_pos=spine_pos)
-        w[lanes] += wd.long()
-        arrived = sp >= 0
-        cnext[lanes[arrived]] = sp[arrived]
-        alive = (c2 >= 0) & ~arrived
-        lanes = lanes[alive]
-        cur = c2[alive]
-        hops += budget
-    if lanes.numel():                  # spine-free cycle: poison
-        w[lanes] = n + 1
-    return cnext, torch.clamp(w, min=1)
+    b = max(2 * k, 64)
+    walk = dict(nxt=nxt32, k=k, head=head, n_mult=n_mult,
+                promoted=promoted, budget=b * -(-(n + 1) // b),
+                spine_pos=spine_pos)
+    capacity = -(-n // MARK_STRIDE) + spine.shape[0]
+    cur, sp, wd, (rec, total) = walk_segments(
+        starts=spine.to(torch.int32), marks=capacity, **walk)
+    w = torch.where((cur >= 0) & (sp < 0), n + 1, wd.long())
+    return sp, torch.clamp(w, min=1), SegmentMarks(rec, total, walk)
