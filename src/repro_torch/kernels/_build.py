@@ -61,6 +61,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "hash_probe": {
         "probe_launch": [_P, _P, _P, _P, _I64, _I64, _P],
+        "probe_grouped_launch": [_P, _P, _P, _P, _P, _I64, _P, _I64, _I64,
+                                 _P],
     },
 }
 

@@ -6,9 +6,10 @@
   is accepted and has no effect: the CUDA kernels do not tile D.
 * ``quantize_leaf``/``dequantize_leaf`` flatten any leaf to rows for the
   quantize kernels (below).
-* ``hash_lookup`` hashes each query to its bucket with ``hash32`` in plain
-  torch ops on the tensors' device, as the reference hashes outside its
-  Pallas kernel, and probes the bucketed table with ``kernels/hash_probe``.
+* ``hash_lookup`` probes the bucketed table at each query's bucket
+  ``hash32(q) % n_buckets`` through ``kernels/hash_probe.probe_hashed``:
+  on the card the kernel hashes (the reference hashes outside its Pallas
+  kernel); on the CPU ``hash32`` runs in torch ops, then ``probe_plain``.
 
 ``_as_rows`` flattens any leaf to (rows, width) with the reference's exact
 geometry, so the int8 payload and the scales land in the same places and
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import hash_probe, pack_flush, quant_pack
+from repro_torch.kernels.hash_probe import hash32
 from repro_torch.kernels.quant_pack import GROUP
 
 __all__ = ["pack_rows", "scatter_rows", "quantize_leaf", "dequantize_leaf",
@@ -91,19 +93,4 @@ def hash_lookup(keys_table: torch.Tensor, queries: torch.Tensor
                 ) -> torch.Tensor:
     """keys_table: (n_buckets, 128) int32; queries (Q,) int32.  Returns
     global slot ids (Q,) int32, -1 where absent."""
-    nb = keys_table.shape[0]
-    bid = (hash32(queries) % nb).to(torch.int32)
-    return hash_probe.probe(keys_table, queries, bid)
-
-
-def hash32(x: torch.Tensor) -> torch.Tensor:
-    """The reference's uint32 xorshift-multiply hash of ``x`` taken as
-    uint32 (a negative int32 as its two's complement), returned as int64
-    values in [0, 2**32).  torch has no unsigned ``>>`` for wide types and
-    ``>>`` on int64 is arithmetic, so the words are kept non-negative in
-    int64: masked to 32 bits after every multiply, whose int64 product
-    wraps mod 2**64 and so keeps its low 32 bits exact."""
-    u = x.to(torch.int64) & 0xFFFFFFFF
-    u = ((u ^ (u >> 16)) * 0x7FEB352D) & 0xFFFFFFFF
-    u = ((u ^ (u >> 15)) * 0x846CA68B) & 0xFFFFFFFF
-    return u ^ (u >> 16)
+    return hash_probe.probe_hashed(keys_table, queries)

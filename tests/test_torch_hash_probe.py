@@ -12,6 +12,17 @@ against the JAX reference.
 * What the port does with bucket ids outside the table (-1, no read
   outside it, where the reference's interpret mode clamps) and the dtype
   and shape errors.
+* A numpy model of the card's grouped kernel (``csrc/hash_probe.cu``):
+  count with ranks, a block-sliced scan, the scatter into bucket order,
+  the probe in windows of 32 and the gather of the answers back, exact
+  against the reference on uniform,
+  one-bucket, Zipf, out-of-range, small, one-bucket-table and edge-lane
+  inputs, with its row reads between the distinct rows and the distinct
+  rows plus one per window, and the same answers whatever order the
+  count's atomics take.
+* ``probe_hashed`` (``hash_lookup``'s form) on the CPU: hash32 and
+  ``probe_plain``, no launch, the reference's ``hash_lookup``; a table
+  of no buckets raises as before.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -189,3 +200,216 @@ def test_probe_rejects_other_dtypes_and_shapes():
     with pytest.raises(ValueError):
         thp.probe(torch.full((BUCKET, 2), -1, dtype=torch.int32).t(), q,
                   b)                                # not contiguous
+
+
+# ------------------------------------------------ the grouped kernel's model
+
+def _grouped_model(table, queries, bids, blocks=4, rng=None):
+    """numpy model of ``csrc/hash_probe.cu``'s grouped kernel, stage by
+    stage.  ``rng`` shuffles the order in which warps take their atomics
+    and, inside a warp, the order of its bucket groups (the card gives no
+    order).  Returns (answers, keys in bucket order as (query, bucket),
+    each query's key position (-1 outside the table), rows read,
+    windows)."""
+    nb, nq = table.shape[0], queries.shape[0]
+    out = np.full(nq, -2, np.int64)            # -2: never answered
+    # 1. count: a warp of 32 queries takes one atomic per bucket it holds;
+    # its lanes of that bucket rank in lane order from the atomic's value
+    count = np.zeros(nb, np.int64)
+    pos = np.full(nq, -1, np.int64)
+    warps = np.arange(-(-nq // 32))
+    if rng is not None:
+        warps = rng.permutation(warps)
+    for w in warps:
+        lanes = np.arange(32 * w, min(32 * w + 32, nq))
+        live = lanes[(bids[lanes] >= 0) & (bids[lanes] < nb)]
+        out[np.setdiff1d(lanes, live)] = -1     # out of range: answered
+        groups = np.unique(bids[live])
+        if rng is not None:
+            groups = rng.permutation(groups)
+        for b in groups:
+            peers = live[bids[live] == b]
+            pos[peers] = count[b] + np.arange(peers.size)
+            count[b] += peers.size
+    # 2. scan: block k scans buckets [k << shift, (k + 1) << shift) in place
+    # and writes its total
+    shift = 0
+    while (blocks << shift) < nb:
+        shift += 1
+    offsets = np.zeros(nb, np.int64)
+    totals = np.zeros(blocks, np.int64)
+    for k in range(blocks):
+        running = 0
+        for b in range(k << shift, min((k + 1) << shift, nb)):
+            offsets[b] = running
+            running += count[b]
+        totals[k] = running
+    # 3. scatter: the block totals scanned, each key placed at its block's
+    # base + its bucket's offset + its rank, which replaces the rank
+    base = np.zeros(blocks + 1, np.int64)
+    for k in range(blocks):
+        base[k + 1] = base[k] + totals[k]
+    n_valid = int(base[blocks])
+    keys = np.full((n_valid, 2), -1, np.int64)  # query, bucket
+    for i in np.flatnonzero(pos >= 0):
+        b = bids[i]
+        pos[i] += base[b >> shift] + offsets[b]
+        assert keys[pos[i], 1] == -1            # each slot written once
+        keys[pos[i]] = (queries[i], b)
+    assert (keys[:, 1] >= 0).all()
+    # 4. probe: a window of 32 keys reads the row of its first pending
+    # key's bucket and answers every key of that bucket in it, in key order
+    answers = np.full(n_valid, -2, np.int64)
+    reads = 0
+    for w0 in range(0, n_valid, 32):
+        win = keys[w0:w0 + 32]
+        pending = np.ones(len(win), bool)
+        while pending.any():
+            b = win[np.argmax(pending), 1]
+            group = pending & (win[:, 1] == b)
+            row = table[b]
+            reads += 1
+            for r in np.flatnonzero(group):
+                hit = np.flatnonzero(row == win[r, 0])
+                answers[w0 + r] = b * BUCKET + hit[0] if hit.size else -1
+            pending &= ~group
+    # 5. gather: each answer back to its query
+    live = pos >= 0
+    out[live] = answers[pos[live]]
+    assert (out >= -1).all()
+    return out.astype(np.int32), keys, pos, reads, -(-n_valid // 32)
+
+
+def _present_table(rng, nb, n_keys):
+    keys = rng.choice(1 << 22, n_keys, replace=False).astype(np.int32)
+    return _table(nb, keys), keys
+
+
+def _case(name):
+    """(table, queries, bucket ids) of one grouped-model case."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "one_bucket":
+        table, keys = _present_table(rng, 16, 600)
+        b = 5
+        row = table[b]
+        pool = np.concatenate([row, np.array([-7, 1 << 23], np.int32)])
+        q = pool[rng.integers(0, pool.size, 1500)]
+        return table, q, np.full(q.size, b, np.int32)
+    if name == "zipf":
+        table, keys = _present_table(rng, 64, 2000)
+        z = rng.zipf(1.1, 3000)
+        q = keys[(z - 1) % keys.size]
+        return table, q, (_hash32_np(q) % 64).astype(np.int32)
+    if name == "nb1":
+        table, keys = _present_table(rng, 1, 90)
+        q = np.concatenate([keys, rng.integers(1 << 22, 1 << 23, 400)
+                            .astype(np.int32), np.full(10, -1, np.int32)])
+        return table, q, np.zeros(q.size, np.int32)
+    if name == "edge_lanes":
+        # -1 queries, a full bucket and a key in several lanes of a row
+        table, keys = _present_table(rng, 8, 300)
+        table[3] = rng.choice(np.arange(1 << 23, 1 << 24), BUCKET,
+                              replace=False).astype(np.int32)
+        table[6, [2, 40, 127]] = 4242
+        q = np.concatenate([table[3, [0, 5, 127]], np.full(8, -1, np.int32),
+                            np.full(5, 4242, np.int32), keys[:40]])
+        b = (_hash32_np(q) % 8).astype(np.int32)
+        b[:3] = 3
+        b[3:7] = 3                               # -1 in the full bucket
+        b[11:16] = 6
+        perm = rng.permutation(q.size)
+        return table, q[perm], b[perm]
+    table, keys = _present_table(rng, 64, 2000)
+    n = {"q0": 0, "q1": 1, "q31": 31, "q33": 33, "q1000": 1000}.get(name,
+                                                                   2000)
+    q = np.concatenate([keys[rng.integers(0, keys.size, n - n // 2)],
+                        rng.integers(1 << 22, 1 << 23, n // 2)
+                        .astype(np.int32)])[rng.permutation(n)]
+    b = (_hash32_np(q) % 64).astype(np.int32)
+    if name in ("out_of_range", "q31", "q33", "q1000"):
+        b[::7] = 64 + 3
+        b[1::11] = -1
+        b[2::13] = -2 ** 31
+    return table, q, b
+
+
+@pytest.mark.parametrize("name", ["uniform", "one_bucket", "zipf",
+                                  "out_of_range", "q0", "q1", "q31", "q33",
+                                  "q1000", "nb1", "edge_lanes"])
+def test_grouped_model_matches_reference(name):
+    table, q, b = _case(name)
+    got, keys, pos, reads, windows = _grouped_model(table, q, b)
+    inr = (b >= 0) & (b < table.shape[0])
+    np.testing.assert_array_equal(got[~inr], -1)
+    # the port's plain version: -1 for an id outside the table
+    np.testing.assert_array_equal(got, thp.probe_plain(
+        torch.from_numpy(table), torch.from_numpy(q),
+        torch.from_numpy(b)).numpy())
+    # the reference on the ids inside it (its interpret mode clamps the
+    # others); Pallas takes no empty grid, so Q = 0 meets probe_ref alone
+    args = (jnp.asarray(table), jnp.asarray(q[inr]), jnp.asarray(b[inr]))
+    np.testing.assert_array_equal(got[inr], np.asarray(jref.probe_ref(*args)))
+    if inr.any():
+        np.testing.assert_array_equal(
+            got[inr], np.asarray(jhp.probe(*args, interpret=True)))
+    # keys in bucket order, each query's key where its position says; one
+    # read per distinct row, plus at most one per window boundary that
+    # splits a bucket
+    assert (np.diff(keys[:, 1]) >= 0).all()
+    np.testing.assert_array_equal(keys[pos[inr]], np.stack([q[inr], b[inr]],
+                                                           1))
+    distinct = np.unique(b[inr]).size
+    assert distinct <= reads <= distinct + max(windows - 1, 0)
+    if name == "one_bucket":
+        assert reads == windows == -(-q.size // 32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_grouped_model_answers_do_not_depend_on_rank_order(seed):
+    table, q, b = _case("zipf")
+    want, keys, pos, _, _ = _grouped_model(table, q, b)
+    got, keys2, pos2, _, _ = _grouped_model(table, q, b, blocks=3,
+                                            rng=np.random.default_rng(seed))
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(pos2, pos)               # another order
+    np.testing.assert_array_equal(keys2[:, 1], keys[:, 1])
+    np.testing.assert_array_equal(got, np.asarray(jref.probe_ref(
+        jnp.asarray(table), jnp.asarray(q), jnp.asarray(b))))
+
+
+@pytest.mark.parametrize("nb", [1, 64])
+def test_hash_lookup_cpu_launches_nothing_and_matches_reference(nb):
+    rng = np.random.default_rng(nb)
+    table, keys = _present_table(rng, nb, 100 if nb == 1 else 2000)
+    z = rng.zipf(1.1, 2500)
+    queries = np.concatenate([keys[(z - 1) % keys.size],
+                              rng.integers(-2 ** 31, 2 ** 31, 500,
+                                           dtype=np.int64).astype(np.int32),
+                              np.array([-1, 0, 2 ** 31 - 1], np.int32)])
+    want = np.asarray(jops.hash_lookup(jnp.asarray(table),
+                                       jnp.asarray(queries)))
+    before = thp.probe.launches, dict(thp.probe.sizes)
+    t, qs = torch.from_numpy(table), torch.from_numpy(queries)
+    got = tops.hash_lookup(t, qs)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(thp.probe_hashed(t, qs).numpy(), want)
+    np.testing.assert_array_equal(thp.probe_hashed_plain(t, qs).numpy(),
+                                  want)
+    assert (thp.probe.launches, thp.probe.sizes) == before
+    assert got.dtype == torch.int32
+
+
+def test_hash_lookup_without_buckets_raises_as_before():
+    """A table of no buckets: the modulo by zero of ``hash32 % 0`` raised
+    on the CPU before the hash moved into ``probe_hashed``; it still does,
+    and an empty batch still answers nothing."""
+    table = torch.empty((0, BUCKET), dtype=torch.int32)
+    q = torch.tensor([1, 2], dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="ZeroDivisionError"):
+        (tops.hash32(q) % table.shape[0])
+    with pytest.raises(RuntimeError, match="ZeroDivisionError"):
+        tops.hash_lookup(table, q)
+    with pytest.raises(RuntimeError, match="ZeroDivisionError"):
+        thp.probe_hashed_plain(table, q)
+    empty = tops.hash_lookup(table, q[:0])
+    assert empty.shape == (0,) and empty.dtype == torch.int32
