@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. card: name and power limit (nvidia-smi), build of every CUDA kernel
    from ``src/repro_torch/csrc`` (all compilers started together), the
-   registers, spills, stack and shared memory of each flash kernel, and
+   registers, spills, stack and shared memory of each flash kernel
+   (forward and backward), and
    the pinned device-to-host rate (256 MB copies), the link bound of the
    drains;
 2. kernels: each kernel against its plain PyTorch version on the card at
@@ -23,7 +24,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (16, 32, 64, 128) in both dtypes, causal and not, 6 heads over 2 at
    S = 1000; a llama3.2-3b bf16 prefill at full width and depth (2 x 1536
    tokens) through the kernel against the same prefill through the plain
-   version, logits within 5e-2 of the largest |logit|; ``probe`` and
+   version, logits within 5e-2 of the largest |logit|;
+   ``flash_attention_bwd`` against its plain version on the
+   forward kernel's o and lse at every head width in both dtypes, causal
+   and not, 6 query heads over 6 and over 2 KV heads, at S = 1000 and at
+   Sq = 77 over Skv = 333: within 1e-4 (f32) and 2e-2 (bf16) of the
+   largest |grad|, two runs equal bit for bit, the forward's lse within
+   1e-5 of the plain one's; flash_attention's autograd on CUDA tensors
+   (one backward launch, non-zero grads equal to torch autograd through
+   the plain forward); the backward timed at phase 10's shape (96 query
+   heads over 32 KV heads, S = 1024, D = 128, causal), f32 and bf16,
+   beside its flop bound and ``scaled_dot_product_attention``'s backward;
+   ``quantize_blockwise`` exact on groups holding NaN, +inf and -inf;
+   ``probe`` and
    ``probe_hashed`` (``hash_lookup``'s form), both kernels (grouped and
    query-major) and the dispatch between them, exact on phase 8's table
    at its uniform queries (also with out-of-range bucket ids), at 2**22
@@ -153,12 +166,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``repro_torch.feature_recover.twin``); then a ``SampleIndex`` of
    2**18 ids, one add, crash, recover, a lookup of every 13th id;
    launches equal to gathers as in phase 3, and ``walk_segments`` once
-   per ``contract_walk`` call (it contracts no chain).
+   per ``contract_walk`` call (it contracts no chain);
+10. training: llama3.2-3b at its published widths, cut to 4
+   layers (796,683,264 parameters; params, grads and moments 12.7 GB),
+   f32, 4 x 1024 tokens a step, PARTLY_PERSISTENT with async checkpoints
+   every 4 steps, a crash after step 10, a resume at 8 and a run to 12,
+   beside an uninterrupted twin of 12 steps, torch's kernels
+   deterministic (``CUBLAS_WORKSPACE_CONFIG`` is set before phase 1):
+   every loss and the final parameters equal the twin's bit for bit
+   (delta 0); flash_attention launched 2 x layers per step (the forward
+   and its recomputation under remat), flash_attention_bwd layers per
+   step; step ms, tokens/s, each save's seconds and bytes, the restore's
+   stages, peak memory and one more step's attention share (CUDA events
+   around the flash launches); then the small checkpoint config trained 3
+   steps on the card and on the CPU from the same parameters (losses
+   within 1e-5 relative), and ``repro_torch.launch.train --arch
+   llama3.2-3b --crash-at-step 6 --steps 10 --device cuda`` (reduced,
+   bf16) in a subprocess, which must return 0.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
 phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7;
-``probe``'s in phase 8; ``pack_rows``' and ``jump_double``'s in phase 9.
+``probe``'s in phase 8; ``pack_rows``' and ``jump_double``'s in phase 9;
+``flash_attention``'s and ``flash_attention_bwd``'s in phase 10.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -197,12 +227,18 @@ KINDS = ("dll", "hashmap", "bptree")
 SNAP_KINDS = ("dll", "hashmap")
 CKPT_ARCH, CKPT_LAYERS = "llama3.2-3b", 4
 CKPT_SEED, CKPT_STEP = 7, 1000
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 12, 4, 10
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 4, 1024, 5
+TRAIN_CPU_STEPS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 3, 2, 128
+TRAIN_LOSS_TOL = 1e-5          # card vs CPU losses, relative
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 SERVE_ARCH = "llama3.2-3b"
 SERVE_PROMPTS = (1536, 1536, 1024, 1024, 512, 512, 128, 128)
 SERVE_S_MAX, SERVE_STEPS, SERVE_SEED = 2048, 8, 7
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_PREFILL_TOL = 5e-2       # bf16 prefill logits, of the largest |logit|
+LSE_TOL = 1e-5                 # the forward's lse against the plain one's
 PROBE_BUCKETS, PROBE_KEYS, PROBE_QUERIES = 1 << 20, 1 << 25, 1 << 22
 PROBE_SEED = 11
 PROBE_ZIPF_A = 1.1             # hot-session lookups: Zipf over present keys
@@ -903,6 +939,7 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
         "source": "src/repro_torch/csrc/quant_pack.cu",
         "replaces": "src/repro/kernels/quant_pack.py:74"}
     del q, s, qg, sg
+    quant_non_finite = quantize_non_finite(dev, g)
     # ---- scatter_rows: one re-prefill group (2 slots) seated into the
     # phase-7 cache leaf viewed as rows: (28 * 8, 2048 * 8 * 128) f32
     cfg = serve_config()
@@ -950,6 +987,17 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
                                          128, flush)
     flash_widths = flash_width_parity(dev, g)
     flash_prefill = flash_prefill_bf16(dev)
+    flash_bwd_widths = flash_bwd_parity(dev, g)
+    flash_grad = flash_grad_on_card(dev, g)
+    flash_bwd = flash_bwd_timing(dev, g, flush)
+    rows["flash_attention_bwd"] = dict(
+        flash_bwd["float32"], bound_by="operations",
+        shape="q, o, dO (96, 1024, 128), k, v (32, 1024, 128) f32, causal "
+              "(phase 10's layer); bf16 in the report",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="none: no Pallas kernel; the reference takes this "
+                 "gradient by XLA autodiff of "
+                 "src/repro/models/layers.py:200")
     rows["flash_attention"] = dict(
         flash["float32"], bound_by="operations",
         shape="q (96, 1024, 128) over k, v (32, 1024, 128) f32, causal; "
@@ -962,8 +1010,11 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
     rows["probe"] = probe.pop("row")
     return {"rows": rows, "pack_rowbytes": pack, "gather_next": gather,
             "flash_attention": flash, "flash_widths": flash_widths,
-            "flash_prefill_bf16": flash_prefill, "contraction": contraction,
-            "probe": probe}
+            "flash_prefill_bf16": flash_prefill,
+            "flash_bwd": flash_bwd, "flash_bwd_widths": flash_bwd_widths,
+            "flash_grad_on_card": flash_grad,
+            "quantize_non_finite": quant_non_finite,
+            "contraction": contraction, "probe": probe}
 
 
 # ------------------------------------------------------------- drains
@@ -2293,35 +2344,209 @@ def flash_prefill_bf16(dev, batch: int = 2, tokens: int = 1536) -> dict:
 
 
 def flash_build_report() -> dict:
-    """Registers, spills and stack of each flash kernel, read from the
-    build's ptxas report, and the dynamic shared memory each launches with
-    (ptxas reports static shared memory only)."""
+    """Registers, spills and stack of each flash kernel, forward and
+    backward, read from the build's ptxas report, and the dynamic shared
+    memory each launches with (ptxas reports static shared memory
+    only)."""
     import re
     from repro_torch.kernels import _build
-    log = _build.library_path("flash_attention").with_suffix(
-        ".log").read_text()
-    lib = _build.load("flash_attention")
-    out, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"entry function '\S*flash_(bf16|f32)ILi(\d+)E", ln)
-        if m:
-            name = f"{m.group(1)} D={m.group(2)}"
-            out[name] = {"smem_bytes": lib.flash_attention_smem_bytes(
-                int(m.group(2)), int(m.group(1) == "bf16"))}
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", ln)
-        if m and name:
-            out[name].update(stack_bytes=int(m.group(1)),
-                             spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and name:
-            out[name]["registers"] = int(m.group(1))
-    if len(out) != 8 or any("registers" not in v for v in out.values()):
-        raise AssertionError(f"ptxas report of flash_attention incomplete: "
-                             f"{out}")
+    fwd, bwd = _build.load("flash_attention"), _build.load(
+        "flash_attention_bwd")
+    kinds = (
+        ("flash_attention", r"flash_(bf16|f32)ILi(\d+)E",
+         lambda m: (f"{m.group(1)} D={m.group(2)}",
+                    fwd.flash_attention_smem_bytes(
+                        int(m.group(2)), int(m.group(1) == "bf16")))),
+        ("flash_attention_bwd",
+         r"flash_bwd_(dkdv|dq)I(f|13__nv_bfloat16)Li(\d+)E",
+         lambda m: (f"bwd_{m.group(1)} "
+                    f"{'f32' if m.group(2) == 'f' else 'bf16'} "
+                    f"D={m.group(3)}",
+                    bwd.flash_attention_bwd_smem_bytes(int(m.group(3))))))
+    out = {}
+    for source, pattern, describe in kinds:
+        name = None
+        for ln in _build.library_path(source).with_suffix(
+                ".log").read_text().splitlines():
+            m = re.search(r"entry function '\S*" + pattern, ln)
+            if m:
+                name, smem = describe(m)
+                out[name] = {"smem_bytes": smem}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m and name:
+                out[name].update(stack_bytes=int(m.group(1)),
+                                 spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and name:
+                out[name]["registers"] = int(m.group(1))
+    if len(out) != 8 + 16 or any("registers" not in v for v in out.values()):
+        raise AssertionError(f"ptxas report of the flash kernels "
+                             f"incomplete: {out}")
     return out
+
+
+def flash_bwd_bound_ms(h: int, hk: int, sq: int, skv: int, d: int,
+                      itemsize: int, causal: bool = True) -> float:
+    """The larger of the backward's flops (10 per causal pair and width:
+    S and dP recomputed, dV, dK and dQ) over the peak for the input type
+    and q, k, v, o, dO and lse read once, dq, dk, dv written once, over the
+    HBM rate."""
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
+    nbytes = itemsize * d * (4 * h * sq + 4 * hk * skv) + 4 * h * sq
+    return max(10 * h * d * pairs / peak * 1e3, bound_ms(nbytes))
+
+
+def flash_bwd_inputs(dev, g, dt, h: int, hk: int, sq: int, skv: int,
+                     d: int):
+    import torch
+    q = torch.randn((h, sq, d), generator=g, device=dev).to(dt)
+    k = torch.randn((hk, skv, d), generator=g, device=dev).to(dt)
+    v = torch.randn((hk, skv, d), generator=g, device=dev).to(dt)
+    do = torch.randn((h, sq, d), generator=g, device=dev).to(dt)
+    return q, k, v, do
+
+
+def flash_bwd_check(q, k, v, do, causal: bool) -> dict:
+    """The forward kernel's lse against the plain forward's (LSE_TOL,
+    absolute: the kernels' exp and sums round differently, lse is O(10)),
+    then the backward kernel on the kernel forward's o and lse against
+    flash_attention_bwd_plain on the same inputs, within FLASH_TOL of the
+    largest |grad| (f32: summation order; bf16: also the rounding of each
+    output to bf16), and a second backward run equal bit for bit (no
+    atomics: the order of every sum is fixed)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    o, lse = FA._forward(q, k, v, causal, None, with_lse=True)
+    _, lse_plain = FA.flash_attention_plain(q, k, v, causal=causal,
+                                            return_lse=True)
+    lse_err = max_abs_err(lse, lse_plain)
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    top = max(float(w.float().abs().max()) for w in want)
+    err = max(max_abs_err(a, b) for a, b in zip(got, want)) / top
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    name = (f"{str(q.dtype).split('.')[-1]} q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} causal={causal}")
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_attention lse {name}: max abs err "
+                             f"{lse_err} above {LSE_TOL}")
+    if not err <= tol:
+        raise AssertionError(f"flash_attention_bwd {name}: max abs err "
+                             f"{err} of the largest |grad| above {tol}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {name}: two runs differ")
+    return {"lse_err": lse_err, "rel_err": err, "max_abs_grad": top}
+
+
+def flash_bwd_parity(dev, g) -> dict:
+    """flash_attention_bwd against its plain version, untimed, at every
+    head width in both dtypes, causal and not, 6 query heads over 6 (G =
+    1) and over 2 (G = 3) KV heads, at a ragged S = 1000 and at Sq = 77
+    over Skv = 333.  Returns {case: errors}."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    out = {}
+    for d in FA.HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            for group in (1, 3):
+                for sq, skv in ((1000, 1000), (77, 333)):
+                    q, k, v, do = flash_bwd_inputs(dev, g, dt, 6, 6 // group,
+                                                   sq, skv, d)
+                    for causal in (True, False):
+                        name = (f"{str(dt).split('.')[-1]} D={d} G={group} "
+                                f"{sq}x{skv} causal={causal}")
+                        out[name] = flash_bwd_check(q, k, v, do, causal)
+    return out
+
+
+def flash_grad_on_card(dev, g) -> dict:
+    """On CUDA tensors that require grad, flash_attention's autograd runs
+    the backward kernel once (its counter moves by one) and gives q, k and
+    v non-zero grads within FLASH_TOL of torch autograd through the plain
+    forward."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, do = flash_bwd_inputs(dev, g, torch.float32, 24, 8, 300, 300,
+                                   128)
+    mine = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = FA.flash_attention_bwd.launches
+    grads = torch.autograd.grad(FA.flash_attention(*mine), mine, do)
+    launched = FA.flash_attention_bwd.launches - before
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(FA.flash_attention_plain(*ref), ref, do)
+    top = max(float(w.abs().max()) for w in want)
+    err = max(max_abs_err(a, b) for a, b in zip(grads, want)) / top
+    smallest = min(float(a.abs().max()) for a in grads)
+    if launched != 1 or not smallest > 0 or not err <= FLASH_TOL["float32"]:
+        raise AssertionError(f"flash_attention autograd on the card: "
+                             f"{launched} backward launches, smallest "
+                             f"max |grad| {smallest}, error {err}")
+    return {"bwd_launches": launched, "rel_err": err,
+            "min_max_abs_grad": smallest}
+
+
+def flash_bwd_timing(dev, g, flush) -> dict:
+    """The backward at phase 10's shape (a train step's layer: 4 sequences
+    of 1024 tokens, 24 query heads over 8 KV heads of width 128, causal)
+    in f32 (phase 10's dtype) and bf16, checked as flash_bwd_check does,
+    timed beside its bound and the backward of
+    scaled_dot_product_attention (grouped, causal) on the same inputs (a
+    yardstick, never on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    h, hk, s, d = 96, 32, 1024, 128
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = flash_bwd_inputs(dev, g, dt, h, hk, s, s, d)
+        errs = flash_bwd_check(q, k, v, do, True)
+        o, lse = FA._forward(q, k, v, True, None, with_lse=True)
+        lib = [t[None].clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*lib, is_causal=True,
+                                             enable_gqa=True)
+        rows[str(dt).split(".")[-1]] = {
+            "ms": time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do,
+                                                         lse), flush=flush),
+            "plain_ms": time_ms(lambda: FA.flash_attention_bwd_plain(
+                q, k, v, o, do, lse), reps=5),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                out, lib, do[None], retain_graph=True), flush=flush),
+            "bound_ms": flash_bwd_bound_ms(h, hk, s, s, d, q.element_size()),
+            "max_abs_err": errs["rel_err"] * errs["max_abs_grad"],
+            "rel_err": errs["rel_err"], "lse_err": errs["lse_err"],
+            "tolerance": FLASH_TOL[str(dt).split(".")[-1]]}
+        del q, k, v, do, o, lse, lib, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def quantize_non_finite(dev, g) -> dict:
+    """quantize_blockwise against its plain version, exactly (scales
+    compared as bits: NaN != NaN), on groups holding NaN, +inf and -inf
+    beside finite groups: the plain version gives the reference's bits
+    (scale NaN or inf, every NaN quotient 0)."""
+    import torch
+    from repro_torch.kernels import quant_pack as Q
+    x = torch.randn((64, 1024), generator=g, device=dev)
+    for row, bad in ((0, float("nan")), (1, float("inf")),
+                     (2, -float("inf")), (3, float("nan"))):
+        x[row, 256 * (row % 4) + 7] = bad
+    x[3, 256 * 3 + 8] = float("inf")    # NaN and inf in one group
+    q, s = Q.quantize_blockwise(x)
+    qp, sp = Q.quantize_blockwise_plain(x)
+    if not (torch.equal(q, qp) and torch.equal(s.view(torch.int32),
+                                               sp.view(torch.int32))):
+        raise AssertionError("quantize_blockwise differs from its plain "
+                             "version on non-finite groups")
+    return {"groups_nan": int(torch.isnan(s).sum()),
+            "groups_inf": int(torch.isinf(s).sum()),
+            "zero_payload_groups": int((q.view(64, 4, 256) == 0).all(-1)
+                                       .sum())}
 
 
 # -------------------------------------------------------------- serving
@@ -2870,6 +3095,202 @@ def feature_phase(dev) -> dict:
     return out
 
 
+# -------------------------------------------------------------- training
+
+class TimedLaunches:
+    """Stands in for a loaded kernel library: every ``*_launch`` call is
+    bracketed by CUDA events on the current stream, so the kernels' device
+    time inside a real step can be summed."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self.events = []
+
+    def __getattr__(self, name):
+        import torch
+        fn = getattr(self._lib, name)
+        if not name.endswith("_launch"):
+            return fn
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = fn(*args)
+            end.record()
+            self.events.append((name, start, end))
+            return rc
+        return timed
+
+
+def attention_share(trainer) -> dict:
+    """One more step of ``trainer`` with the flash libraries' launches
+    timed by CUDA events: the attention kernels' device ms (forward,
+    recomputed forward and backward) against the step's ms on the host
+    clock (the step ends in a synchronize)."""
+    import torch
+    from repro_torch.kernels import _build
+    names = ("flash_attention", "flash_attention_bwd")
+    saved = {n: _build.load(n) for n in names}
+    timed = {n: TimedLaunches(lib) for n, lib in saved.items()}
+    _build._loaded.update(timed)
+    try:
+        trainer.run(1)
+    finally:
+        _build._loaded.update(saved)
+    torch.cuda.synchronize()
+    ms = {n: sum(s.elapsed_time(e) for _, s, e in t.events)
+          for n, t in timed.items()}
+    step_ms = trainer.metrics_log[-1]["sec"] * 1e3
+    return {"step_ms": step_ms, "forward_ms": ms["flash_attention"],
+            "backward_ms": ms["flash_attention_bwd"],
+            "launches": {n: len(t.events) for n, t in timed.items()},
+            "share": (ms["flash_attention"] + ms["flash_attention_bwd"])
+            / step_ms}
+
+
+def train_phase(dev) -> dict:
+    """Phase 10: llama3.2-3b at its published widths, cut to CKPT_LAYERS
+    layers, trained in f32 on TRAIN_BATCH x TRAIN_SEQ tokens under
+    PARTLY_PERSISTENT (async checkpoints every TRAIN_CKPT_EVERY steps), a
+    crash after TRAIN_CRASH_AT steps, a resume and a run to TRAIN_STEPS,
+    beside an uninterrupted twin (``repro_torch.train_resume.twin_run``),
+    with torch's kernels deterministic.  Every loss and the final
+    parameters must equal the twin's bit for bit; the flash counters must
+    move by 2 x layers per step (forward, and again under remat) and by
+    layers per step (backward)."""
+    import torch
+    from repro_torch.core import policy as pol
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models.model import Model
+    from repro_torch.train.trainer import TrainerConfig
+    from repro_torch.train_resume import mismatches, twin_run
+    cfg = ckpt_config()
+    model = Model(cfg, compute_dtype=torch.float32)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    shutil.rmtree(str(TRAIN_DIR) + "_ref", ignore_errors=True)
+    tc = TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                       ckpt_dir=str(TRAIN_DIR),
+                       policy=pol.PARTLY_PERSISTENT, seed=TRAIN_SEED,
+                       global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       async_ckpt=True)
+    deterministic(dev)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = twin_run(model, tc, TRAIN_CRASH_AT, dev)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        bad = mismatches(out)
+        share = attention_share(out["twin_trainer"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    steps_run = len(out["crashed_step_s"]) + len(out["twin_step_s"])
+    final = TRAIN_STEPS - 1
+    delta = abs(out["second"][final] - out["twin"][final])
+    res = {
+        "arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
+        "params": cfg.param_count(), "global_batch": TRAIN_BATCH,
+        "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "crash_after": TRAIN_CRASH_AT, "resumed_at": out["resumed_at"],
+        "steps_run": steps_run, "seconds": seconds, "delta": delta,
+        "mismatches": bad[:8],
+        "losses": {str(k): v for k, v in sorted(out["twin"].items())},
+        "step_ms": statistics.median(out["twin_step_s"][1:]) * 1e3,
+        "first_step_ms": out["twin_step_s"][0] * 1e3,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+        / statistics.median(out["twin_step_s"][1:]),
+        "saves": [{"step": r.step, "seconds": r.seconds,
+                   "bytes_written": r.bytes_written,
+                   "bytes_skipped_derivable": r.bytes_skipped_derivable}
+                  for r in out["saves"]],
+        "restore_s": out["restore_s"],
+        "restore_stages": {st.name: st.seconds
+                           for st in out["restore"].stages},
+        "peak_bytes": peak, "attention": share, "launches": launches}
+    del out
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    shutil.rmtree(str(TRAIN_DIR) + "_ref", ignore_errors=True)
+    if bad or delta != 0.0:
+        raise AssertionError(f"phase 10: the resumed run differs from its "
+                             f"twin (delta {delta}): {bad[:8]}")
+    want_at = TRAIN_CRASH_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    if res["resumed_at"] != want_at:
+        raise AssertionError(f"phase 10 resumed at {res['resumed_at']}, "
+                             f"not {want_at}")
+    want = {"flash_attention": 2 * cfg.n_layers * steps_run,
+            "flash_attention_bwd": cfg.n_layers * steps_run}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"phase 10 launched {got}, not {want}")
+    return res
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """The small checkpoint config trained TRAIN_CPU_STEPS steps in f32 on
+    the card and on the CPU from the same parameters (drawn on the CPU):
+    losses within TRAIN_LOSS_TOL relative (cuBLAS and the CPU's BLAS sum
+    in other orders; the warm-up's learning rates, 0 then 3e-6 and 6e-6,
+    keep the parameters within a few 1e-6 of each other whatever the
+    updates, so the losses can only part by rounding)."""
+    import torch
+    from repro_torch.core import policy as pol
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig, init_moments
+    from repro_torch.train.state import new_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = ckpt_config(small=True)
+    model = Model(cfg, compute_dtype=torch.float32)
+    g = torch.Generator()
+    g.manual_seed(TRAIN_SEED)
+    params = model.init_params(g, "cpu")
+    losses = {}
+    for d in ("cuda", "cpu"):
+        tr = Trainer(model, AdamWConfig(),
+                     TrainerConfig(steps=TRAIN_CPU_STEPS, ckpt_every=0,
+                                   ckpt_dir=str(TRAIN_DIR) + "_" + d,
+                                   seed=TRAIN_SEED,
+                                   global_batch=TRAIN_CPU_BATCH,
+                                   seq_len=TRAIN_CPU_SEQ), device=d)
+        p = pol.tree_map(lambda t: t.to(tr.device), params)
+        tr.state = new_state(p, *init_moments(p, AdamWConfig()), TRAIN_SEED,
+                             tr.device)
+        tr.run()
+        losses[d] = [m["loss"] for m in tr.metrics_log]
+        shutil.rmtree(str(TRAIN_DIR) + "_" + d, ignore_errors=True)
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    if not err <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"training card vs CPU: losses {losses} differ "
+                             f"by {err} relative")
+    return {"losses": losses, "rel_err": err, "tolerance": TRAIN_LOSS_TOL}
+
+
+def launch_train_on_card() -> dict:
+    """``python -m repro_torch.launch.train --arch llama3.2-3b
+    --crash-at-step 6 --steps 10 --device cuda`` (the reduced config, bf16)
+    in a subprocess; it must return 0 after its crash."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "llama3.2-3b", "--crash-at-step", "6", "--steps", "10",
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    res = {"rc": done.returncode, "seconds": time.perf_counter() - t0,
+           "lines": done.stdout.splitlines()[-8:]}
+    if done.returncode != 0 or "CRASH injected at step 6" not in done.stdout:
+        raise AssertionError(f"launch.train on the card: rc "
+                             f"{done.returncode}\n{done.stdout[-2000:]}\n"
+                             f"{done.stderr[-4000:]}")
+    return res
+
+
 # ---------------------------------------------------------------------- main
 
 def main(argv=None) -> int:
@@ -2878,6 +3299,9 @@ def main(argv=None) -> int:
                    "this JSON file")
     args = p.parse_args(argv)
 
+    # cuBLAS reads its workspace setting when it starts, before phase 1's
+    # first product: phase 10 runs with deterministic kernels and needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2931,6 +3355,10 @@ def main(argv=None) -> int:
           "flash_attention": parity["flash_attention"],
           "flash_widths": parity["flash_widths"],
           "flash_prefill_bf16": parity["flash_prefill_bf16"],
+          "flash_bwd": parity["flash_bwd"],
+          "flash_bwd_widths": parity["flash_bwd_widths"],
+          "flash_grad_on_card": parity["flash_grad_on_card"],
+          "quantize_non_finite": parity["quantize_non_finite"],
           "probe": parity["probe"]})
     drains = drain_parity(dev, report["link"]["bytes_per_s"])
     report["drains"] = drains
@@ -3122,8 +3550,9 @@ def main(argv=None) -> int:
     quant = ("quantize_blockwise", "dequantize_blockwise")
     served = ("flash_attention", "scatter_rows")
     probed = ("probe",)
+    trained = ("flash_attention_bwd",)
     launches = {k: launches3[k] + launches5[k] for k in launches3
-                if k not in quant + served + probed}
+                if k not in quant + served + probed + trained}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"phases 3 and 5 never launched {missing}")
@@ -3166,6 +3595,17 @@ def main(argv=None) -> int:
           "twin": feature["twin_stats"]})
     emit(feature["gathers"])
     emit({"phase": "feature_store_launch_sizes", **feature["launch_sizes"]})
+    # ---- phase 10: training at llama3.2-3b's published widths
+    train = train_phase(dev)
+    report["train"] = train
+    emit({"phase": "train", **train})
+    launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
+    train_cpu = train_card_vs_cpu(dev)
+    launcher = launch_train_on_card()
+    report["train_card_vs_cpu"] = train_cpu
+    report["launch_train"] = launcher
+    emit({"phase": "train_card_vs_cpu", **train_cpu})
+    emit({"phase": "launch_train", **launcher})
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.core import policy as pol
 from repro_torch.core import reconstruct as rec
-from repro_torch.core.arena import resolve_device
+from repro_torch.core.arena import not_ported, resolve_device
 from repro_torch.core.recovery import RecoveryReport
 from repro_torch.core.writeset import DigestWriteSet
 from repro_torch.kernels import ops as kops
@@ -217,9 +217,7 @@ class CheckpointManager:
         warmup stage is timed into the report either way (detail
         ``background=True`` marks the off-critical-path variant)."""
         if shardings is not None:
-            raise NotImplementedError(
-                "restore onto a mesh (shardings=) is not ported to "
-                "repro_torch yet (ROADMAP Queue 1, Slice D)")
+            raise not_ported("restore onto a mesh (shardings=)")
         if warmup not in ("inline", "background"):
             raise ValueError(f"warmup must be 'inline' or 'background', "
                              f"got {warmup!r}")

@@ -11,7 +11,11 @@
 //   kpos >= Skv (the ragged tile edge); m_new = max(m, rowmax s);
 //   p = exp(s - m_new) where s > 0.5 * NEG_INF, else 0;
 //   l = l * exp(m - m_new) + rowsum p; acc = acc * exp(m - m_new) + p . v;
-//   out = acc / max(l, 1e-30), in q's dtype; rows >= Sq are not written.
+//   out = acc / max(l, 1e-30), in q's dtype; rows >= Sq are not written;
+//   when an lse pointer is given, also lse = m + log(l) in f32 per row
+//   (natural units of s), +inf for a row whose l is 0, which the backward
+//   (csrc/flash_attention_bwd.cu) reads to rebuild P.  Serving passes null
+//   and gets the kernels as they were.
 // With group == 1 this is exactly the TPU kernel's function.  Both kernels
 // give a masked score -inf and exponentiate a row that has no visible key
 // yet against 0, which excludes it as the s > 0.5 * NEG_INF test does.
@@ -142,8 +146,9 @@ __device__ __forceinline__ void store_vec(float* dst, const float (&src)[N]) {
 template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int sq,
-              int skv, int group, int causal, float scale) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int sq, int skv, int group,
+              int causal, float scale) {
   using S = Shape<D>;
   constexpr int OC = S::NCH * S::VEC;   // o columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -336,12 +341,21 @@ __global__ void __launch_bounds__(THREADS, 2)
       store_vec(oh + (int64_t)qr * D + c * 64 + ocg * S::VEC, out);
     }
   }
+  // every lane of a row's group holds its m and l; one of them writes
+  if (lse != nullptr && kg == 0 && dh == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qr = q0 + rg + 16 * i;
+      if (qr < sq)
+        lse[(int64_t)h * sq + qr] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+    }
+  }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int64_t h, int64_t sq, int64_t skv, int group, int causal,
-                   float scale, cudaStream_t stream) {
+                   float* lse, int64_t h, int64_t sq, int64_t skv, int group,
+                   int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = Shape<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -349,7 +363,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)h, (unsigned)((sq + BQ - 1) / BQ));
   flash_f32<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), (int)sq,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, (int)sq,
       (int)skv, group, causal, scale);
   return cudaGetLastError();
 }
@@ -365,6 +379,7 @@ constexpr int STAGES = 2;
 constexpr int CONSUMERS = 256;
 constexpr int THREADS = CONSUMERS + 32; // and one producer warp
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Shape {
@@ -600,8 +615,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
-               __nv_bfloat16* __restrict__ o, int sq, int skv, int group,
-               int causal, float scale) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int sq,
+               int skv, int group, int causal, float scale) {
   using S = Shape<D>;
   constexpr int ROWB = S::ROWB;
   extern __shared__ uint8_t smem_raw[];
@@ -782,6 +797,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  // m is in log2 units: lse = ln(2^m * l) = (m + log2 l) * ln 2
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lh = lse + (int64_t)h * sq;
+    if (qp0 < sq) lh[qp0] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : INFINITY;
+    if (qp1 < sq) lh[qp1] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : INFINITY;
+  }
   // one reciprocal per row: the output is rounded to bf16 after it
   const float r0 = 1.f / fmaxf(l0, 1e-30f), r1 = 1.f / fmaxf(l1, 1e-30f);
   __nv_bfloat16* oh = o + (int64_t)h * sq * D;
@@ -847,9 +868,9 @@ CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 constexpr int ENCODE_ERROR = 10000;   // + the CUresult of a failed encode
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t h,
-           int64_t sq, int64_t skv, int group, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int64_t h, int64_t sq, int64_t skv, int group, int causal,
+           float scale, cudaStream_t stream) {
   using S = Shape<D>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -866,8 +887,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t h,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)h, (unsigned)((sq + BQ - 1) / BQ));
   flash_bf16<D><<<grid, THREADS, S::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), (int)sq, (int)skv, group,
-      causal, scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, (int)sq, (int)skv,
+      group, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -876,32 +897,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t h,
 }  // namespace
 
 // q, o: (h, sq, d); k, v: (h / group, skv, d); all contiguous, 16-byte
-// aligned, one dtype (f32 when is_bf16 == 0, bf16 otherwise).  Returns 0,
-// a CUDA runtime error code, or 10000 + the driver's CUresult when a
-// tensor map cannot be encoded.
+// aligned, one dtype (f32 when is_bf16 == 0, bf16 otherwise); lse null or
+// (h, sq) f32.  Returns 0, a CUDA runtime error code, or 10000 + the
+// driver's CUresult when a tensor map cannot be encoded.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int64_t h,
-                                      int64_t sq, int64_t skv, int d,
-                                      int group, int causal, float scale,
-                                      int is_bf16, void* stream) {
+                                      const void* v, void* o, void* lse_out,
+                                      int64_t h, int64_t sq, int64_t skv,
+                                      int d, int group, int causal,
+                                      float scale, int is_bf16,
+                                      void* stream) {
   if (h <= 0 || sq <= 0 || skv <= 0 || group <= 0 || h % group ||
       sq > (int64_t)f32p::BQ * 65535 || sq > INT32_MAX || skv > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (is_bf16) {
     switch (d) {
-      case 16: return bf16p::launch<16>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-      case 32: return bf16p::launch<32>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-      case 64: return bf16p::launch<64>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-      case 128: return bf16p::launch<128>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+      case 16: return bf16p::launch<16>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
+      case 32: return bf16p::launch<32>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
+      case 64: return bf16p::launch<64>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
+      case 128: return bf16p::launch<128>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (d) {
-    case 16: return (int)f32p::launch<16>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-    case 32: return (int)f32p::launch<32>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-    case 64: return (int)f32p::launch<64>(q, k, v, o, h, sq, skv, group, causal, scale, s);
-    case 128: return (int)f32p::launch<128>(q, k, v, o, h, sq, skv, group, causal, scale, s);
+    case 16: return (int)f32p::launch<16>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
+    case 32: return (int)f32p::launch<32>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
+    case 64: return (int)f32p::launch<64>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
+    case 128: return (int)f32p::launch<128>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,6 +13,9 @@
 //   q     = clip(rint(x / scale), -127, 127)  (true IEEE division: nvcc's
 //           default -prec-div=true, no fast math; rint rounds half to even
 //           as jnp.round does)
+// A NaN in the group makes absmax and the scale NaN, +-inf makes them inf
+// (the max carries NaN through, as the reference's does), and a NaN
+// quotient quantizes to 0, as XLA's conversion to int8 gives.
 // and back: x' = float(q) * scale.
 //
 // Bound on an H100: bytes.  quantize reads 4 B and writes 1 B per element
@@ -37,9 +40,19 @@ namespace {
 
 constexpr int kGroup = 256;
 
+// a NaN quotient (a NaN element, or inf / inf) quantizes to 0, as XLA
+// converts NaN to int8; fmaxf would have clipped it to -127
 __device__ __forceinline__ uint32_t q8(float x, float scale) {
-  const float v = fminf(fmaxf(rintf(x / scale), -127.f), 127.f);
+  const float r = rintf(x / scale);
+  if (r != r) return 0u;
+  const float v = fminf(fmaxf(r, -127.f), 127.f);
   return (uint32_t)(uint8_t)(int8_t)(int)v;
+}
+
+// max that carries a NaN through, as the reference's max does (fmaxf
+// returns the other operand)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
 }
 
 __global__ void quantize_kernel(const float* __restrict__ x,
@@ -54,14 +67,14 @@ __global__ void quantize_kernel(const float* __restrict__ x,
     const int64_t base = g * kGroup + lane * 8;
     const float4 a = __ldg(reinterpret_cast<const float4*>(x + base));
     const float4 b = __ldg(reinterpret_cast<const float4*>(x + base + 4));
-    float m = fmaxf(fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)),
-                          fmaxf(fabsf(a.z), fabsf(a.w))),
-                    fmaxf(fmaxf(fabsf(b.x), fabsf(b.y)),
-                          fmaxf(fabsf(b.z), fabsf(b.w))));
+    float m = nan_max(nan_max(nan_max(fabsf(a.x), fabsf(a.y)),
+                              nan_max(fabsf(a.z), fabsf(a.w))),
+                      nan_max(nan_max(fabsf(b.x), fabsf(b.y)),
+                              nan_max(fabsf(b.z), fabsf(b.w))));
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    const float scale = fmaxf(m, 1e-12f) * (1.0f / 127.0f);
+      m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    const float scale = nan_max(m, 1e-12f) * (1.0f / 127.0f);
     uint2 out;
     out.x = q8(a.x, scale) | (q8(a.y, scale) << 8) | (q8(a.z, scale) << 16) |
             (q8(a.w, scale) << 24);

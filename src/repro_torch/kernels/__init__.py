@@ -23,6 +23,7 @@ WRAPPERS = {
     "dequantize_blockwise": quant_pack.dequantize_blockwise,
     "scatter_rows": pack_flush.scatter_rows_,
     "flash_attention": flash_attention.flash_attention,
+    "flash_attention_bwd": flash_attention.flash_attention_bwd,
     "probe": hash_probe.probe,
 }
 
@@ -34,7 +35,8 @@ def launch_counts() -> Dict[str, int]:
 def launch_sizes() -> Dict[str, Dict[int, int]]:
     """Launches of each kernel by the power of two its main dimension
     rounds up to (pack_rows: rows of the launch; the chain kernels, probe:
-    lanes or queries; the quantize kernels: rows; flash: query length)."""
+    lanes or queries; the quantize kernels: rows; flash and its backward:
+    query length)."""
     return {name: dict(sorted(fn.sizes.items()))
             for name, fn in WRAPPERS.items()}
 

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("pack_flush", "chain_order", "quant_pack", "flash_attention",
-           "hash_probe")
+           "flash_attention_bwd", "hash_probe")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -55,9 +55,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "dequantize_blockwise_launch": [_P, _P, _P, _I64, _P],
     },
     "flash_attention": {
-        "flash_attention_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT,
-                                   _INT, _INT, _F32, _INT, _P],
+        "flash_attention_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                   _INT, _INT, _INT, _F32, _INT, _P],
         "flash_attention_smem_bytes": [_INT, _INT],
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I64, _I64, _I64, _INT, _INT, _INT,
+                                       _F32, _INT, _P],
+        "flash_attention_bwd_smem_bytes": [_INT],
     },
     "hash_probe": {
         "probe_launch": [_P, _P, _P, _P, _I64, _I64, _P],

@@ -18,8 +18,20 @@ Bound: the larger of 4·H·Sq·Skv·D flops (halved when causal) over the f32
 rate (67 TFLOP/s) or, for bf16, 989 TFLOP/s, and the bytes of q, k, v and
 o once over 3.35 TB/s; operations bound it at every shape the model uses.
 
-``flash_attention`` dispatches by where its tensors live: CPU tensors take
-``flash_attention_plain``; CUDA tensors launch a kernel or raise.
+Training needs the gradient, which the TPU kernel never had (the reference
+differentiates its jnp ``blockwise_attention`` through XLA).  With grad
+enabled and an input that requires it, ``flash_attention`` runs through
+``FlashAttentionFn``: its forward launches the same kernel and also keeps
+the per-row logsumexp ``lse`` (H, Sq) f32, and its backward is
+``flash_attention_bwd``, two hand-written kernels
+(``csrc/flash_attention_bwd.cu``: dK and dV over KV tiles, then dQ over Q
+tiles; f32 sums, no atomics, so the bits repeat).  Bound of the backward:
+10·H·Sq·Skv·D flops (halved when causal) over the same rates.
+
+Every wrapper dispatches by where its tensors live: CPU tensors take the
+plain versions (``flash_attention_plain``, ``flash_attention_bwd_plain``);
+CUDA tensors launch a kernel or raise.  Nothing falls back to autograd
+through torch ops.
 """
 from __future__ import annotations
 
@@ -30,7 +42,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "NEG_INF"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain", "NEG_INF"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -57,27 +70,195 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return h // hk
 
 
+def _masked(s: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scores (H, Sq, Skv) with NEG_INF where causal hides a key (kpos >
+    qpos); the softmax then excludes ``s <= 0.5 * NEG_INF``."""
+    if not causal:
+        return s
+    sq, skv = s.shape[-2:]
+    keep = (torch.arange(sq, device=s.device)[:, None]
+            >= torch.arange(skv, device=s.device)[None, :])
+    return torch.where(keep, s, NEG_INF)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """Plain version: materialized f32 scores per head, masked softmax,
-    product, in q's dtype.  K/V are repeated per query group."""
+    product, in q's dtype.  K/V are repeated per query group.  With
+    ``return_lse``, also the per-row logsumexp of the scaled scores,
+    (H, Sq) f32, +inf for a row with no visible key."""
     g = _check(q, k, v)
-    h, sq, d = q.shape
-    skv = k.shape[1]
+    d = q.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     kk = k.float().repeat_interleave(g, dim=0)
     vv = v.float().repeat_interleave(g, dim=0)
-    s = torch.matmul(q.float() * scale, kk.transpose(1, 2))
-    if causal:
-        keep = (torch.arange(sq, device=q.device)[:, None]
-                >= torch.arange(skv, device=q.device)[None, :])
-        s = torch.where(keep, s, NEG_INF)
+    s = _masked(torch.matmul(q.float() * scale, kk.transpose(1, 2)), causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, vv) / torch.clamp(l, min=1e-30)
-    return out.to(q.dtype)
+    out = (torch.matmul(p, vv) / torch.clamp(l, min=1e-30)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), math.inf)[..., 0]
+    return out, lse
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = True,
+                              scale: Optional[float] = None):
+    """Plain version of the backward: (dq, dk, dv) of the forward's output
+    ``o`` under the incoming gradient ``do``, from the forward's ``lse``,
+    the explicit formula of ``csrc/flash_attention_bwd.cu`` in f32, each
+    in its input's dtype; dk, dv summed over each KV head's query
+    group."""
+    g = _check(q, k, v)
+    _check_bwd(q, k, o, do, lse)
+    h, sq, d = q.shape
+    hk, skv = k.shape[:2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf, dof = q.float(), do.float()
+    kk = k.float().repeat_interleave(g, dim=0)
+    vv = v.float().repeat_interleave(g, dim=0)
+    s = _masked(torch.matmul(qf, kk.transpose(1, 2)) * scale, causal)
+    p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - lse[..., None]), 0.0)
+    di = (dof * o.float()).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.transpose(1, 2), dof)
+    ds = p * (torch.matmul(dof, vv.transpose(1, 2)) - di)
+    dq = torch.matmul(ds, kk) * scale
+    dk = torch.matmul(ds.transpose(1, 2), qf) * scale
+    dk = dk.reshape(hk, g, skv, d).sum(dim=1)
+    dv = dv.reshape(hk, g, skv, d).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q: torch.Tensor, k: torch.Tensor, o: torch.Tensor,
+               do: torch.Tensor, lse: torch.Tensor) -> None:
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o and do must be shaped as "
+                         f"q {tuple(q.shape)}, got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"flash_attention_bwd: o and do must be {q.dtype}, "
+                        f"got {o.dtype}, {do.dtype}")
+    if lse.shape != q.shape[:2] or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be f32 "
+                         f"{tuple(q.shape[:2])}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if not (o.device == do.device == lse.device == q.device == k.device):
+        raise ValueError("flash_attention_bwd: tensors on different devices")
+
+
+def _kernel_ready(name: str, q: torch.Tensor, k: torch.Tensor,
+                  *more: torch.Tensor) -> None:
+    """Raise unless the kernel takes these CUDA tensors: a head width of
+    HEAD_DIMS, at least one key, 16-byte aligned contiguous bases."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {q.device}")
+    if q.shape[2] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head width {q.shape[2]} not in "
+                         f"{HEAD_DIMS}")
+    if k.shape[1] == 0:
+        raise ValueError(f"{name}: no keys (Skv = 0)")
+    # the kernels read 16-byte vectors and the TMA maps need 16-byte-aligned
+    # bases (their strides, multiples of D * itemsize, are)
+    if any(t.data_ptr() % 16 for t in (q, k, *more)):
+        raise ValueError(f"{name}: every tensor must start on a 16-byte "
+                         f"boundary")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, scale: Optional[float], with_lse: bool):
+    """(out, lse or None): the plain version on CPU tensors, else one
+    launch of the forward kernel, which writes lse when asked."""
+    g = _check(q, k, v)
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                         return_lse=True)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     scale=scale), None
+    h, sq, d = q.shape
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((h, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if sq == 0:
+        return out, lse
+    _kernel_ready("flash_attention", q, k, v, out,
+                  *([lse] if with_lse else []))
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    lib = _build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, h, sq, k.shape[1], d, g,
+            int(causal), scale, int(q.dtype == torch.bfloat16), stream)
+    if rc:
+        raise RuntimeError(f"flash_attention: kernel launch failed (error "
+                           f"{rc}: a CUDA error, or 10000 + the driver's "
+                           f"CUresult when a TMA map cannot be encoded)")
+    _build.note_launch(flash_attention, sq)
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention``: CPU tensors take
+    ``flash_attention_bwd_plain``; CUDA tensors launch the two backward
+    kernels (dK/dV, then dQ) of ``csrc/flash_attention_bwd.cu``, counted
+    as one launch of this wrapper, or raise."""
+    g = _check(q, k, v)
+    _check_bwd(q, k, o, do, lse)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         scale=scale)
+    h, sq, d = q.shape
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    _kernel_ready("flash_attention_bwd", q, k, v, o, do, lse, dq, dk, dv)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    lib = _build.load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), h, sq, k.shape[1], d, g, int(causal), scale,
+            int(q.dtype == torch.bfloat16), stream)
+    if rc:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
+                           f"(CUDA error {rc})")
+    _build.note_launch(flash_attention_bwd, sq)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward keeps q, k, v, o
+    and the per-row lse, the backward runs ``flash_attention_bwd`` on
+    them.  On CPU tensors the same wiring runs the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = _forward(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), lse,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -85,43 +266,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q (H, Sq, D) over k, v (H / G, Skv, D), query head h
     reading KV head h // G; causal masks kpos > qpos (positions from 0 on
-    both axes, as the TPU kernel).  Returns (H, Sq, D) in q's dtype."""
-    g = _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device "
-                           f"{q.device}")
-    h, sq, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head width {d} not in "
-                         f"{HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    if sq == 0:
-        return out
-    if k.shape[1] == 0:
-        raise ValueError("flash_attention: no keys (Skv = 0)")
-    # the kernels read 16-byte vectors and the TMA maps need 16-byte-aligned
-    # bases (their strides, multiples of D * itemsize, are)
-    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
-        raise ValueError("flash_attention: q, k, v and the output must start "
-                         "on 16-byte boundaries")
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    lib = _build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), h, sq,
-            k.shape[1], d, g, int(causal), scale,
-            int(q.dtype == torch.bfloat16), stream)
-    if rc:
-        raise RuntimeError(f"flash_attention: kernel launch failed (error "
-                           f"{rc}: a CUDA error, or 10000 + the driver's "
-                           f"CUresult when a TMA map cannot be encoded)")
-    _build.note_launch(flash_attention, sq)
-    return out
+    both axes, as the TPU kernel).  Returns (H, Sq, D) in q's dtype.  With
+    grad enabled and an input that requires it, the call goes through
+    ``FlashAttentionFn``, whose backward is ``flash_attention_bwd``."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, scale)
+    return _forward(q, k, v, causal, scale, with_lse=False)[0]
 
 
 flash_attention.launches = 0
 flash_attention.sizes = {}
+flash_attention_bwd.launches = 0
+flash_attention_bwd.sizes = {}

@@ -10,7 +10,10 @@ holds the Hopper kernels and their design note.
 Both functions give the reference's CPU bits exactly: the scale is
 ``max(absmax, 1e-12) * f32(1/127)`` (a multiply: XLA rewrites the
 reference's division by the constant 127 into one), the payload
-``clip(rint(x / scale), -127, 127)`` with true division.
+``clip(rint(x / scale), -127, 127)`` with true division.  On a group
+holding NaN or +-inf they give the reference's bits too: a NaN absmax
+makes the scale NaN, an infinite one inf, and every NaN quotient
+quantizes to 0.
 
 The wrappers dispatch by where their tensors live: CPU tensors take the
 ``*_plain`` version; CUDA tensors launch the kernel or raise.
@@ -57,8 +60,12 @@ def quantize_blockwise_plain(x: torch.Tensor):
     _check_rows("quantize_blockwise", x, torch.float32)
     n, d = x.shape
     g = x.reshape(n, d // GROUP, GROUP)
+    # amax and clamp carry a NaN through to the scale, as the reference's
+    # max and maximum do; a NaN quotient (a NaN element, or inf / inf)
+    # becomes 0, as XLA converts it to int8
     scale = torch.clamp_min(g.abs().amax(dim=2), 1e-12) * _INV127
     q = torch.clamp(torch.round(g / scale[..., None]), -127, 127)
+    q = torch.nan_to_num(q, nan=0.0)
     return q.to(torch.int8).reshape(n, d), scale
 
 

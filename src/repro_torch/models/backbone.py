@@ -10,16 +10,27 @@ encoder's ``enc_blocks``/``enc_final_norm``.  Decode caches have the same
 tree shape (``cache_specs``).
 
 ``apply_layer`` runs the dense attention layers (base ``dense`` or
-``attn``, full or ``bidir``) in prefill and decode mode.  Every other base
-or variant (``local``, ``cross``, ``moe``, ``hybrid``, ``mlstm``,
-``slstm``) raises ``NotImplementedError`` naming itself, and so does the
-train mode, which waits for the training slice.
+``attn``, full or ``bidir``) in train, prefill and decode mode.  Every
+other base or variant (``local``, ``cross``, ``moe``, ``hybrid``,
+``mlstm``, ``slstm``) raises ``NotImplementedError`` naming itself.
+
+Train mode is a full-sequence forward with no caches.  ``REMAT`` picks
+what a training forward keeps of each superblock for the backward
+(``remat_wrap``), as the reference's ``jax.checkpoint`` policies do:
+"full" keeps only the superblock's input and recomputes the rest
+(``torch.utils.checkpoint``, non-reentrant), "none" keeps everything,
+"dots" keeps the outputs of the 2-D matrix products (the projections and
+MLP products, which carry no batch dimension: the reference's
+``dots_with_no_batch_dims_saveable``) through selective activation
+checkpointing and recomputes the rest, attention included.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.arena import not_ported
@@ -27,6 +38,32 @@ from repro_torch.core.policy import tree_map
 from repro_torch.models import layers as L
 
 PyTree = Any
+
+# Remat policy applied to the superblock body in train mode.  "none" saves
+# everything (no recompute), "full" saves nothing (max recompute, min
+# memory), "dots" saves matmul outputs with no batch dims.
+REMAT = {"policy": "full"}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(fn):
+    """``fn`` under the current ``REMAT`` policy, for a training forward."""
+    pol = REMAT["policy"]
+    if pol == "none":
+        return fn
+    if pol == "dots":
+        def context():
+            return create_selective_checkpoint_contexts(_dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=context)
+    if pol != "full":
+        raise ValueError(f"unknown remat policy {pol!r}")
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
 def parse_tag(tag: str) -> Tuple[str, str]:
@@ -321,15 +358,16 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
                 pos: Optional[int] = None,
                 s_max: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Apply one dense attention layer in ``prefill`` or ``decode`` mode.
-    Returns (x, new_cache).  ``pos`` (decode) is the position written."""
+    """Apply one dense attention layer in ``train``, ``prefill`` or
+    ``decode`` mode.  Returns (x, new_cache), the cache None in train
+    mode.  ``pos`` (decode) is the position written."""
     base, var = parse_tag(tag)
     if base not in ("dense", "attn"):
         raise not_ported(f"layer base {base!r} ({tag})")
     if var not in DENSE_VARIANTS:
         raise not_ported(f"layer variant {var!r} ({tag})")
-    if mode not in ("prefill", "decode"):
-        raise not_ported(f"{mode} mode")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     b, s, d = x.shape
     s_max = s_max or s
     new_cache: Dict[str, torch.Tensor] = {}
@@ -350,10 +388,11 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
         positions = torch.arange(s, device=x.device)
         att, k_all, v_all = _self_attention_seq(
             cfg, p["attn"], y, positions, causal=var != "bidir", window=0)
-        new_cache["k"] = _seat_cache(k_all, s_max)
-        new_cache["v"] = _seat_cache(v_all, s_max)
+        if mode == "prefill":
+            new_cache["k"] = _seat_cache(k_all, s_max)
+            new_cache["v"] = _seat_cache(v_all, s_max)
     x = x + L.attn_out(att, p["attn"]["wo"])
     y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + L.gated_mlp(y, p["mlp"]["w_gate"], p["mlp"]["w_up"],
                         p["mlp"]["w_down"], cfg.act)
-    return x, new_cache
+    return x, (new_cache or None)

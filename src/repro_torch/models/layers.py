@@ -8,8 +8,12 @@ input's dtype; matrix products run in the compute dtype (a bf16 product on
 the card accumulates in f32 and rounds its output to bf16, where the
 reference asks XLA for an f32 output and rounds after the activation).
 
-Prefill attention, ``blockwise_attention``, is the ``flash_attention``
-kernel on a CUDA tensor and its plain version on the CPU.  The kernel
+Prefill and training attention, ``blockwise_attention``, is the
+``flash_attention`` kernel on a CUDA tensor and its plain version on the
+CPU; when its inputs require grad (train mode) the call goes through
+``FlashAttentionFn``, whose backward is the hand-written
+``flash_attention_bwd`` (the reference differentiates its jnp layer with
+XLA; the gradient is the same function).  The kernel
 scales q in f32 before the product, as the TPU kernel does; the
 reference's layer rounds ``q * scale`` to q's dtype first.  In f32 the two
 agree to rounding; in bf16 they differ by one bf16 rounding of q, which is

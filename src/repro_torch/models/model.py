@@ -1,5 +1,5 @@
-"""Model: config -> prefill and decode programs over a parameter tree, the
-port of ``repro.models.model``.
+"""Model: config -> train, prefill and decode programs over a parameter
+tree, the port of ``repro.models.model``.
 
 Plain functions over the reference's parameter dictionary tree (the tree
 ``CheckpointManager`` and ``interop`` already carry), not ``nn.Module``s.
@@ -7,18 +7,27 @@ The superblock ``lax.scan`` of the reference is a Python loop over the
 stacked leading dim: superblock j's parameters and caches are views
 ``leaf[j]``, and the per-layer caches of a prefill or decode are stacked
 back on that dim.  Programs run on the device their parameters live on.
-``compute_dtype`` defaults to bf16 as in the reference.  The loss and the
-train mode wait for the training slice.
+``compute_dtype`` defaults to bf16 as in the reference.
+
+``loss`` is the training program: a full-sequence forward with no caches,
+each superblock under the backbone's ``REMAT`` policy (its superblock
+parameters unbound once, so their gradient is one stack, not one
+full-size scatter per superblock), then the LM loss in sequence chunks of
+``loss_chunk`` so that the (B, chunk, V) logits, not (B, S, V), are the
+live working set; each chunk is recomputed in the backward
+(``torch.utils.checkpoint``), as the reference remats it.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.arena import not_ported
-from repro_torch.core.policy import tree_map
+from repro_torch.core.policy import (tree_flatten_with_path, tree_map,
+                                     tree_unflatten)
 from repro_torch.models import backbone as B
 from repro_torch.models.layers import rms_norm
 
@@ -32,6 +41,14 @@ def _mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     ids = torch.arange(vp, device=logits.device)
     return torch.where(ids < vocab, logits,
                        torch.finfo(logits.dtype).min)
+
+
+def _unbind_blocks(blocks: PyTree, n_super: int):
+    """The superblock parameter tree (leaves stacked on dim 0) as a list
+    of ``n_super`` trees of views, one ``unbind`` per leaf."""
+    flat = [leaf.unbind(0) for _, leaf in tree_flatten_with_path(blocks)]
+    return [tree_unflatten(blocks, [views[j] for views in flat])
+            for j in range(n_super)]
 
 
 def _stack_caches(per_super) -> PyTree:
@@ -77,6 +94,8 @@ class Model:
                cache: Optional[PyTree] = None, pos: Optional[int] = None,
                s_max: Optional[int] = None
                ) -> Tuple[torch.Tensor, Optional[PyTree]]:
+        if mode == "train":
+            return self._stack_train(params, x), None
         cfg = self.cfg
         pattern, n_super, rem = cfg.pattern_plan()
         new_cache: Dict[str, Any] = {}
@@ -104,6 +123,23 @@ class Model:
             new_cache["rem"] = rem_caches
         return x, (new_cache or None)
 
+    def _stack_train(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        pattern, n_super, rem = cfg.pattern_plan()
+        if n_super:
+            def body(y, bp):
+                for i, tag in enumerate(pattern):
+                    y, _ = B.apply_layer(cfg, tag, bp[f"pos{i}"], y,
+                                         mode="train")
+                return y
+            body = B.remat_wrap(body)
+            for bp in _unbind_blocks(params["blocks"], n_super):
+                x = body(x, bp)
+        for i, tag in enumerate(rem):
+            x, _ = B.apply_layer(cfg, tag, params["rem"][f"rem{i}"], x,
+                                 mode="train")
+        return x
+
     def _head(self, params: PyTree, x: torch.Tensor) -> torch.Tensor:
         """x: (..., d) -> logits (..., Vp) f32."""
         cfg = self.cfg
@@ -118,6 +154,42 @@ class Model:
         return logits
 
     # ---------------- public programs ----------------
+    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """Mean next-token cross entropy of batch["tokens"] (B, S) against
+        batch["labels"] (B, S): the sum over all positions, in chunks of
+        ``loss_chunk`` (the whole sequence when that does not divide S),
+        divided by B * S.  A 0-d f32 tensor on the parameters' device."""
+        cfg = self.cfg
+        self._context(batch)
+        x = self._embed(params, batch["tokens"])
+        labels = batch["labels"].to(x.device, torch.int64)
+        x, _ = self._stack(params, x, "train")
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        b, s, _ = x.shape
+        chunk = min(self.loss_chunk, s)
+        if s % chunk:
+            chunk = s
+        n_chunks = s // chunk
+
+        def ce_chunk(x_c, y_c):
+            logits = _mask_padded_vocab(self._head(params, x_c), cfg.vocab)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, y_c[..., None])[..., 0]
+            return torch.sum(lse - gold)
+
+        if n_chunks == 1:
+            total = ce_chunk(x, labels)
+        else:
+            # recompute each chunk's (B, chunk, V) logits in the backward
+            # from x_c instead of keeping them (one matmul)
+            total = torch.zeros((), dtype=torch.float32, device=x.device)
+            for c in range(n_chunks):
+                sl = slice(c * chunk, (c + 1) * chunk)
+                total = total + checkpoint(ce_chunk, x[:, sl], labels[:, sl],
+                                           use_reentrant=False)
+        return total / (b * s)
+
     def prefill(self, params: PyTree, batch: Dict[str, torch.Tensor],
                 s_max: Optional[int] = None
                 ) -> Tuple[torch.Tensor, PyTree]:

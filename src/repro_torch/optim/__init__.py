@@ -1,2 +1,1 @@
-"""Optimizer configuration and state.  The update step waits for the
-train slice."""
+"""Optimizer (AdamW) and learning-rate schedules."""

@@ -1,1 +1,1 @@
-"""Training state.  The step and the trainer wait for the train slice."""
+"""Training: the train state, the step and the trainer."""

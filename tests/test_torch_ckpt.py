@@ -365,6 +365,17 @@ def test_restore_refuses_shardings(tmp_path):
         mgr.restore(st, device="cpu", warmup="later")
 
 
+def test_restore_shardings_names_the_queue_only(tmp_path):
+    st = tiny_state()
+    mgr = TM.CheckpointManager(str(tmp_path), tpol.PARTLY_PERSISTENT)
+    mgr.save(st)
+    with pytest.raises(NotImplementedError) as err:
+        mgr.restore(st, shardings={}, device="cpu")
+    msg = str(err.value)
+    assert "shardings=" in msg and "ROADMAP Queue 1" in msg
+    assert "Slice" not in msg and "item" not in msg
+
+
 # ---------------------------------------- background warmup (async tests)
 
 def _drop_ckpt(tmp_path):

@@ -15,12 +15,14 @@ import torch
 
 from repro.core import recovery as R
 from repro.kernels import chain_order as jco
+from repro.kernels import ops as jops
 from repro.kernels import pack_flush as jpf
 from repro.kernels import quant_pack as jqp
 from repro.kernels import ref
 from repro_torch.core import recovery as TR
 from repro_torch.kernels import chain_order as tco
 from repro_torch.kernels import launch_counts, pack_flush as tpf
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant_pack as tqp
 
 
@@ -63,6 +65,22 @@ def test_pack_rows_wrapper_dispatch_and_checks():
         tpf.pack_rows(src, idx.long())
     with pytest.raises(ValueError):
         tpf.pack_rows(src.reshape(-1), idx)
+
+
+def test_pack_rows_index_past_end_departs_from_reference():
+    # A recorded departure (no write set produces such an index): for an
+    # index >= n the reference's interpret mode clamps to the last row, the
+    # port gives a zero row, on the CPU and on the card alike.
+    src = np.arange(4 * 128, dtype=np.float32).reshape(4, 128)
+    idx = np.array([0, 4, 1], np.int32)
+    got = tops.pack_rows(torch.from_numpy(src), torch.from_numpy(idx))
+    want = np.asarray(jops.pack_rows(jnp.asarray(src), jnp.asarray(idx)))
+    np.testing.assert_array_equal(want[0], src[0])
+    np.testing.assert_array_equal(want[1], src[3])
+    np.testing.assert_array_equal(want[2], src[1])
+    np.testing.assert_array_equal(got.numpy()[0], src[0])
+    np.testing.assert_array_equal(got.numpy()[1], np.zeros(128, np.float32))
+    np.testing.assert_array_equal(got.numpy()[2], src[1])
 
 
 def _pallas_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
@@ -447,6 +465,34 @@ def test_quantize_zero_group_scale_is_the_floor():
     assert (q[:, :256] == 0).all() and (q[:, 256:] == 127).all()
     _, sj = jqp.quantize_blockwise(jnp.asarray(x), interpret=True)
     np.testing.assert_array_equal(_bits(s.numpy()), _bits(np.asarray(sj)))
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_quantize_non_finite_group_matches_reference(bad):
+    # x[0] non-finite, x[1] = 0.5, the rest 0 in the first group; the
+    # second group finite.  Reference (interpret mode): scale NaN (NaN) or
+    # inf (+-inf) and q all 0 in that group.  Tolerance 0.
+    x = np.zeros((8, 512), np.float32)
+    x[:, 0] = bad
+    x[:, 1] = 0.5
+    x[:, 256:] = np.linspace(-3, 3, 256, dtype=np.float32)
+    qt, st = tqp.quantize_blockwise(torch.from_numpy(x))
+    qj, sj = jqp.quantize_blockwise(jnp.asarray(x), interpret=True)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(_bits(st.numpy()), _bits(np.asarray(sj)))
+    want_scale = np.nan if np.isnan(bad) else np.inf
+    np.testing.assert_array_equal(st[:, 0].numpy(),
+                                  np.full(8, want_scale, np.float32))
+    assert (qt[:, :256] == 0).all()
+    assert int(qt[:, 256:].abs().max()) == 127
+    # and through the leaf wrapper the checkpoint calls
+    leaf = np.zeros(256, np.float32)
+    leaf[0], leaf[1] = bad, 0.5
+    ql, sl = tops.quantize_leaf(torch.from_numpy(leaf))
+    qr, sr = jops.quantize_leaf(jnp.asarray(leaf))
+    np.testing.assert_array_equal(ql.numpy(), np.asarray(qr))
+    np.testing.assert_array_equal(_bits(sl.numpy()), _bits(np.asarray(sr)))
+    assert (ql.numpy() == 0).all()
 
 
 def test_quant_wrappers_dispatch_and_checks():

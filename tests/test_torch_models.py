@@ -26,6 +26,7 @@ from repro.models import layers as JL
 from repro.models.model import build as jbuild
 from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
+from repro_torch.core.policy import tree_map
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -340,10 +341,25 @@ def test_non_dense_layer_tags_raise(tag):
 
 
 def test_train_mode_and_context_families_raise(reduced_llama):
-    _, _, tm, tp = reduced_llama
-    with pytest.raises(NotImplementedError):
-        TB.apply_layer(tm.cfg, "dense", tp["blocks"]["pos0"],
-                       torch.zeros(1, 4, tm.cfg.d_model), mode="train")
+    # train mode is ported now: one dense layer's full-sequence forward,
+    # no cache, against the reference's (1e-5, f32 sums in another order);
+    # the vlm/audio context families still raise
+    jm, jp, tm, tp = reduced_llama
+    x = np.random.default_rng(9).standard_normal(
+        (2, 7, tm.cfg.d_model)).astype(np.float32)
+    jy, jc = JB.apply_layer(jm.cfg, "dense",
+                            jax.tree.map(lambda a: a[0],
+                                         jp["blocks"]["pos0"]),
+                            jnp.asarray(x), mode="train")
+    ty, tc = TB.apply_layer(tm.cfg, "dense",
+                            tree_map(lambda t: t[0], tp["blocks"]["pos0"]),
+                            torch.from_numpy(x), mode="train")
+    assert jc is None and tc is None
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0,
+                               atol=1e-5)
+    with pytest.raises(ValueError):
+        TB.apply_layer(tm.cfg, "dense", {}, torch.from_numpy(x),
+                       mode="serve")
     vlm = tbuild(dataclasses.replace(tm.cfg, family="vlm"),
                  compute_dtype=torch.float32)
     with pytest.raises(NotImplementedError):
