@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. card: name and power limit (nvidia-smi), build of every CUDA kernel
    from ``src/repro_torch/csrc`` (all compilers started together), the
    registers, spills, stack and shared memory of each flash kernel
-   (forward and backward), and
+   (forward; backward: the dK/dV and dQ kernels and the Di pass, each in
+   both dtypes at every head width), and
    the pinned device-to-host rate (256 MB copies), the link bound of the
    drains;
 2. kernels: each kernel against its plain PyTorch version on the card at
@@ -30,11 +31,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and not, 6 query heads over 6 and over 2 KV heads, at S = 1000 and at
    Sq = 77 over Skv = 333: within 1e-4 (f32) and 2e-2 (bf16) of the
    largest |grad|, two runs equal bit for bit, the forward's lse within
-   1e-5 of the plain one's; flash_attention's autograd on CUDA tensors
-   (one backward launch, non-zero grads equal to torch autograd through
-   the plain forward); the backward timed at phase 10's shape (96 query
-   heads over 32 KV heads, S = 1024, D = 128, causal), f32 and bf16,
-   beside its flop bound and ``scaled_dot_product_attention``'s backward;
+   1e-5 of the plain one's, the Di pass within 1e-5 of the largest |Di|;
+   flash_attention's autograd on CUDA tensors (one backward launch,
+   non-zero grads equal to torch autograd through the plain forward); the
+   backward timed at phase 10's shape (96 query heads over 32 KV heads,
+   S = 1024, D = 128, causal), f32 and bf16, beside its flop bound (10
+   flops per causal pair and width), its design's floor (14) and
+   ``scaled_dot_product_attention``'s backward, and each of its kernels
+   alone (the Di pass beside its bytes);
    ``quantize_blockwise`` exact on groups holding NaN, +inf and -inf;
    ``probe`` and
    ``probe_hashed`` (``hash_lookup``'s form), both kernels (grouped and
@@ -178,9 +182,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and its recomputation under remat), flash_attention_bwd layers per
    step; step ms, tokens/s, each save's seconds and bytes, the restore's
    stages, peak memory and one more step's attention share (CUDA events
-   around the flash launches); then the small checkpoint config trained 3
-   steps on the card and on the CPU from the same parameters (losses
-   within 1e-5 relative), and ``repro_torch.launch.train --arch
+   around the flash launches); then the same step in bf16 (``Model(cfg,
+   compute_dtype=torch.bfloat16)``, as the launcher trains on a card), no
+   checkpoint inside the steps, run twice for 6 steps from the same
+   parameters: losses and final parameters equal bit for bit, flash
+   launches 2 x layers and layers a step, step ms, tokens/s and one more
+   step's attention share; the small checkpoint config trained 3 steps on
+   the card and on the CPU from the same parameters (losses within 1e-5
+   relative); and ``repro_torch.launch.train --arch
    llama3.2-3b --crash-at-step 6 --steps 10 --device cuda`` (reduced,
    bf16) in a subprocess, which must return 0.
 
@@ -205,6 +214,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -230,6 +240,7 @@ CKPT_SEED, CKPT_STEP = 7, 1000
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 12, 4, 10
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 4, 1024, 5
+TRAIN_BF16_STEPS = 6           # each of the bf16 step's two runs
 TRAIN_CPU_STEPS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 3, 2, 128
 TRAIN_LOSS_TOL = 1e-5          # card vs CPU losses, relative
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
@@ -239,6 +250,7 @@ SERVE_S_MAX, SERVE_STEPS, SERVE_SEED = 2048, 8, 7
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 FLASH_PREFILL_TOL = 5e-2       # bf16 prefill logits, of the largest |logit|
 LSE_TOL = 1e-5                 # the forward's lse against the plain one's
+DI_TOL = 1e-5                  # the backward's Di, of the largest |Di|
 PROBE_BUCKETS, PROBE_KEYS, PROBE_QUERIES = 1 << 20, 1 << 25, 1 << 22
 PROBE_SEED = 11
 PROBE_ZIPF_A = 1.1             # hot-session lookups: Zipf over present keys
@@ -2345,33 +2357,42 @@ def flash_prefill_bf16(dev, batch: int = 2, tokens: int = 1536) -> dict:
 
 def flash_build_report() -> dict:
     """Registers, spills and stack of each flash kernel, forward and
-    backward, read from the build's ptxas report, and the dynamic shared
-    memory each launches with (ptxas reports static shared memory
-    only)."""
+    backward (the dK/dV and dQ kernels and the Di pass), read from the
+    build's ptxas report, and the dynamic shared memory each launches with
+    (ptxas reports static shared memory only; the Di pass has none).  A
+    kernel with setmaxnreg reports its registers at entry: the bf16
+    backward's consumers run with 240, its producer with 24."""
     import re
     from repro_torch.kernels import _build
     fwd, bwd = _build.load("flash_attention"), _build.load(
         "flash_attention_bwd")
-    kinds = (
-        ("flash_attention", r"flash_(bf16|f32)ILi(\d+)E",
-         lambda m: (f"{m.group(1)} D={m.group(2)}",
-                    fwd.flash_attention_smem_bytes(
-                        int(m.group(2)), int(m.group(1) == "bf16")))),
-        ("flash_attention_bwd",
-         r"flash_bwd_(dkdv|dq)I(f|13__nv_bfloat16)Li(\d+)E",
-         lambda m: (f"bwd_{m.group(1)} "
-                    f"{'f32' if m.group(2) == 'f' else 'bf16'} "
-                    f"D={m.group(3)}",
-                    bwd.flash_attention_bwd_smem_bytes(int(m.group(3))))))
+    kinds = {
+        "flash_attention": [(
+            r"flash_(bf16|f32)ILi(\d+)E",
+            lambda m: (f"{m.group(1)} D={m.group(2)}",
+                       fwd.flash_attention_smem_bytes(
+                           int(m.group(2)), int(m.group(1) == "bf16"))))],
+        "flash_attention_bwd": [(
+            r"flash_bwd_(dkdv|dq)_(f32|bf16)ILi(\d+)E",
+            lambda m: (f"bwd_{m.group(1)} {m.group(2)} D={m.group(3)}",
+                       bwd.flash_attention_bwd_smem_bytes(
+                           int(m.group(3)), int(m.group(2) == "bf16"),
+                           int(m.group(1) == "dq")))), (
+            r"flash_bwd_deltaI(f|13__nv_bfloat16)Li(\d+)E",
+            lambda m: (f"bwd_delta {'f32' if m.group(1) == 'f' else 'bf16'} "
+                       f"D={m.group(2)}", 0))]}
     out = {}
-    for source, pattern, describe in kinds:
+    for source, forms in kinds.items():
         name = None
         for ln in _build.library_path(source).with_suffix(
                 ".log").read_text().splitlines():
-            m = re.search(r"entry function '\S*" + pattern, ln)
-            if m:
-                name, smem = describe(m)
-                out[name] = {"smem_bytes": smem}
+            if "entry function" in ln:
+                name = None
+                for pattern, describe in forms:
+                    m = re.search(r"entry function '\S*" + pattern, ln)
+                    if m:
+                        name, smem = describe(m)
+                        out[name] = {"smem_bytes": smem}
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", ln)
@@ -2382,22 +2403,48 @@ def flash_build_report() -> dict:
             m = re.search(r"Used (\d+) registers", ln)
             if m and name:
                 out[name]["registers"] = int(m.group(1))
-    if len(out) != 8 + 16 or any("registers" not in v for v in out.values()):
+    # forward: 2 types x 4 widths; backward: the dK/dV and dQ kernels and
+    # the Di pass, each 2 types x 4 widths
+    if len(out) != 8 + 24 or any("registers" not in v for v in out.values()):
         raise AssertionError(f"ptxas report of the flash kernels "
                              f"incomplete: {out}")
     return out
 
 
 def flash_bwd_bound_ms(h: int, hk: int, sq: int, skv: int, d: int,
-                      itemsize: int, causal: bool = True) -> float:
+                      itemsize: int, causal: bool = True,
+                      flops_per_pair: int = 10) -> float:
     """The larger of the backward's flops (10 per causal pair and width:
-    S and dP recomputed, dV, dK and dQ) over the peak for the input type
-    and q, k, v, o, dO and lse read once, dq, dk, dv written once, over the
-    HBM rate."""
+    S and dP, dV, dK and dQ; the kernels' two-launch design does 14, S and
+    dP twice) over the peak for the input type and q, k, v, o, dO and lse
+    read once, dq, dk, dv written once, over the HBM rate."""
     pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
     peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
     nbytes = itemsize * d * (4 * h * sq + 4 * hk * skv) + 4 * h * sq
-    return max(10 * h * d * pairs / peak * 1e3, bound_ms(nbytes))
+    return max(flops_per_pair * h * d * pairs / peak * 1e3, bound_ms(nbytes))
+
+
+def bwd_launch(q, k, v, o, do, lse, causal: bool, parts: int, out=None):
+    """One direct call of ``flash_attention_bwd_launch`` running the
+    kernels in ``parts`` (``FA.BWD_DELTA | BWD_DKDV | BWD_DQ``), outside the
+    wrapper, whose count does not move: Di's check and each kernel's time.
+    Returns the buffers (di, dq, dk, dv), ``out`` when given."""
+    import torch
+    from repro_torch.kernels import _build
+    h, sq, d = q.shape
+    di, dq, dk, dv = out or (
+        torch.empty((h, sq), dtype=torch.float32, device=q.device),
+        torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    rc = _build.load("flash_attention_bwd").flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), h, sq, k.shape[1], d, h // k.shape[0], int(causal),
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), parts,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise AssertionError(f"flash_attention_bwd_launch parts={parts}: "
+                             f"error {rc}")
+    return di, dq, dk, dv
 
 
 def flash_bwd_inputs(dev, g, dt, h: int, hk: int, sq: int, skv: int,
@@ -2413,17 +2460,22 @@ def flash_bwd_inputs(dev, g, dt, h: int, hk: int, sq: int, skv: int,
 def flash_bwd_check(q, k, v, do, causal: bool) -> dict:
     """The forward kernel's lse against the plain forward's (LSE_TOL,
     absolute: the kernels' exp and sums round differently, lse is O(10)),
-    then the backward kernel on the kernel forward's o and lse against
-    flash_attention_bwd_plain on the same inputs, within FLASH_TOL of the
-    largest |grad| (f32: summation order; bf16: also the rounding of each
-    output to bf16), and a second backward run equal bit for bit (no
-    atomics: the order of every sum is fixed)."""
+    the backward's Di pass against its plain version (DI_TOL of the largest
+    |Di|: f32 sums in another order), then the backward kernels on the
+    kernel forward's o and lse against flash_attention_bwd_plain on the
+    same inputs, within FLASH_TOL of the largest |grad| (f32: summation
+    order; bf16: also the rounding of P, dS and each output to bf16), and
+    a second backward run equal bit for bit (no atomics: the order of
+    every sum is fixed)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     o, lse = FA._forward(q, k, v, causal, None, with_lse=True)
     _, lse_plain = FA.flash_attention_plain(q, k, v, causal=causal,
                                             return_lse=True)
     lse_err = max_abs_err(lse, lse_plain)
+    di = bwd_launch(q, k, v, o, do, lse, causal, FA.BWD_DELTA)[0]
+    di_plain = FA.flash_attention_bwd_delta_plain(o, do)
+    di_err = max_abs_err(di, di_plain) / float(di_plain.abs().max())
     got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     want = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
@@ -2435,12 +2487,16 @@ def flash_bwd_check(q, k, v, do, causal: bool) -> dict:
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"flash_attention lse {name}: max abs err "
                              f"{lse_err} above {LSE_TOL}")
+    if not di_err <= DI_TOL:
+        raise AssertionError(f"flash_attention_bwd Di {name}: max abs err "
+                             f"{di_err} of the largest |Di| above {DI_TOL}")
     if not err <= tol:
         raise AssertionError(f"flash_attention_bwd {name}: max abs err "
                              f"{err} of the largest |grad| above {tol}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash_attention_bwd {name}: two runs differ")
-    return {"lse_err": lse_err, "rel_err": err, "max_abs_grad": top}
+    return {"lse_err": lse_err, "di_rel_err": di_err, "rel_err": err,
+            "max_abs_grad": top}
 
 
 def flash_bwd_parity(dev, g) -> dict:
@@ -2494,9 +2550,11 @@ def flash_bwd_timing(dev, g, flush) -> dict:
     """The backward at phase 10's shape (a train step's layer: 4 sequences
     of 1024 tokens, 24 query heads over 8 KV heads of width 128, causal)
     in f32 (phase 10's dtype) and bf16, checked as flash_bwd_check does,
-    timed beside its bound and the backward of
-    scaled_dot_product_attention (grouped, causal) on the same inputs (a
-    yardstick, never on the path)."""
+    timed beside its bound, its design's floor (14 flops per pair and
+    width) and the backward of scaled_dot_product_attention (grouped,
+    causal) on the same inputs (a yardstick, never on the path); then each
+    of its three kernels alone: the Di pass beside its bytes (o and dO read
+    once, Di written once), the dK/dV and dQ kernels."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -2509,6 +2567,8 @@ def flash_bwd_timing(dev, g, flush) -> dict:
         lib = [t[None].clone().requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*lib, is_causal=True,
                                              enable_gqa=True)
+        bufs = bwd_launch(q, k, v, o, do, lse, True, FA.BWD_DELTA)
+        size = q.element_size()
         rows[str(dt).split(".")[-1]] = {
             "ms": time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do,
                                                          lse), flush=flush),
@@ -2516,11 +2576,21 @@ def flash_bwd_timing(dev, g, flush) -> dict:
                 q, k, v, o, do, lse), reps=5),
             "library_ms": time_ms(lambda: torch.autograd.grad(
                 out, lib, do[None], retain_graph=True), flush=flush),
-            "bound_ms": flash_bwd_bound_ms(h, hk, s, s, d, q.element_size()),
+            "bound_ms": flash_bwd_bound_ms(h, hk, s, s, d, size),
+            "floor_ms": flash_bwd_bound_ms(h, hk, s, s, d, size,
+                                           flops_per_pair=14),
+            "di_ms": time_ms(lambda: bwd_launch(
+                q, k, v, o, do, lse, True, FA.BWD_DELTA, bufs), flush=flush),
+            "di_bound_ms": bound_ms(2 * h * s * d * size + 4 * h * s),
+            "dkdv_ms": time_ms(lambda: bwd_launch(
+                q, k, v, o, do, lse, True, FA.BWD_DKDV, bufs), flush=flush),
+            "dq_ms": time_ms(lambda: bwd_launch(
+                q, k, v, o, do, lse, True, FA.BWD_DQ, bufs), flush=flush),
             "max_abs_err": errs["rel_err"] * errs["max_abs_grad"],
             "rel_err": errs["rel_err"], "lse_err": errs["lse_err"],
+            "di_rel_err": errs["di_rel_err"],
             "tolerance": FLASH_TOL[str(dt).split(".")[-1]]}
-        del q, k, v, do, o, lse, lib, out
+        del q, k, v, do, o, lse, lib, out, bufs
     torch.cuda.empty_cache()
     return rows
 
@@ -3231,6 +3301,82 @@ def train_phase(dev) -> dict:
     return res
 
 
+def train_bf16(dev) -> dict:
+    """Phase 10's step in bf16, as the launcher trains on a card: the same
+    layers, widths and TRAIN_BATCH x TRAIN_SEQ tokens through
+    ``Model(cfg, compute_dtype=torch.bfloat16)``, no checkpoint inside the
+    steps, torch's kernels deterministic.  Two runs of TRAIN_BF16_STEPS
+    steps from the same parameters (the same seed) must give the same
+    losses and final parameters bit for bit, and each must launch
+    flash_attention 2 x layers and flash_attention_bwd layers times a
+    step.  Returns the step ms (median past the first), tokens/s and one
+    more step's attention share."""
+    import torch
+    from repro_torch.core import policy as pol
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = ckpt_config()
+    model = Model(cfg, compute_dtype=torch.bfloat16)
+    tc = TrainerConfig(steps=TRAIN_BF16_STEPS, ckpt_every=0,
+                       ckpt_dir=str(TRAIN_DIR) + "_bf16", seed=TRAIN_SEED,
+                       global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    deterministic(dev)
+    runs, counts = [], []
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(2):
+            tr = Trainer(model, AdamWConfig(), tc, device=dev)
+            tr.init()
+            reset_launch_counts()
+            tr.run()
+            counts.append(launch_counts())
+            runs.append(tr)
+        peak = torch.cuda.max_memory_allocated(dev)
+        theirs = dict(pol.tree_flatten_with_path(runs[1].state.params))
+        differ = [pol.path_str(p) for p, t in
+                  pol.tree_flatten_with_path(runs[0].state.params)
+                  if not torch.equal(t, theirs[p])]
+        del theirs
+        share = attention_share(runs[-1])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = [[m["loss"] for m in tr.metrics_log[:TRAIN_BF16_STEPS]]
+              for tr in runs]
+    step_s = [[m["sec"] for m in tr.metrics_log[:TRAIN_BF16_STEPS]]
+              for tr in runs]
+    del runs, tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(str(TRAIN_DIR) + "_bf16", ignore_errors=True)
+    med = statistics.median(step_s[0][1:] + step_s[1][1:])
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16",
+           "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "steps": TRAIN_BF16_STEPS, "losses": losses[0],
+           "step_ms": med * 1e3, "first_step_ms": step_s[0][0] * 1e3,
+           "step_ms_each": [[s * 1e3 for s in run] for run in step_s],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+           "peak_bytes": peak, "attention": share,
+           "launches": {k: counts[0][k] for k in ("flash_attention",
+                                                   "flash_attention_bwd")}}
+    if losses[0] != losses[1] or differ:
+        raise AssertionError(f"bf16 training: two runs from the same "
+                             f"parameters differ: losses {losses}, params "
+                             f"{differ[:8]}")
+    if not all(math.isfinite(x) for x in losses[0]):
+        raise AssertionError(f"bf16 training: losses not finite: {losses}")
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_BF16_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_BF16_STEPS}
+    for c in counts:
+        got = {k: c[k] for k in want}
+        if got != want:
+            raise AssertionError(f"bf16 training launched {got}, not "
+                                 f"{want}")
+    return res
+
+
 def train_card_vs_cpu(dev) -> dict:
     """The small checkpoint config trained TRAIN_CPU_STEPS steps in f32 on
     the card and on the CPU from the same parameters (drawn on the CPU):
@@ -3600,6 +3746,8 @@ def main(argv=None) -> int:
     report["train"] = train
     emit({"phase": "train", **train})
     launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
+    report["train_bf16"] = train_bf16(dev)
+    emit({"phase": "train_bf16", **report["train_bf16"]})
     train_cpu = train_card_vs_cpu(dev)
     launcher = launch_train_on_card()
     report["train_card_vs_cpu"] = train_cpu

@@ -14,31 +14,86 @@
 //        qpos: the forward's mask
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Di)
 //   dK = scale * dS^T Q,  dQ = scale * dS K
-// with every product and sum in f32, whatever the input type (f32 or
-// bf16); the outputs are rounded to the input type.
+// with every product and sum in f32 (bf16 inputs: bf16 operands, f32
+// accumulation, P and dS rounded to bf16 before the products they feed);
+// the outputs are rounded to the input type.
 //
 // Bound on an H100: operations, 10 * H * Sq * Skv * D flops (about halved
 // when causal) at 67 TFLOP/s f32 or 989 TFLOP/s bf16; the bytes are far
-// below.
+// below.  This design recomputes S and dP in both of its main kernels, 14
+// flops per pair and width: its own floor is 1.4x the bound.
 //
-// Design: two launches, no float atomics, so two runs give the same bits
-// (a resumed run's losses equal an uninterrupted one's only so).
-//   dkdv: one block per (KV head, tile of 64 keys) holds K and V in shared
-//         memory and dK, dV in registers, and walks, in a fixed order, the
-//         group's query heads and, for each, the 64-row query tiles that
-//         can see its keys (causal: from the tile of its first key on).
-//   dq:   one block per (query head, tile of 64 rows) holds Q, dO and dQ
-//         and walks the key tiles up to its diagonal (causal: the longest
-//         rows first, as the forward does).
-// Both recompute S and dP for a 64 x 64 tile in one pass over D (each
-// thread 4 x 4 of each, rows ty + 16 i and keys tx + 16 j, float4 reads),
-// then P and dS go through shared memory (rows padded to 65 floats) to the
-// accumulating product, where 4 threads share a key (dkdv) or a row (dq),
-// each owning every fourth float4 of D.  Di is a dot of dO and o per row
-// (4 threads a row, two shuffles).  Tiles are widened to f32 on load
-// (rows padded to D + 4 floats); rows past Sq and keys past Skv load as 0
-// and are masked, so any Sq and Skv work.  This is a SIMT kernel, simple
-// and right first: the tensor cores (wgmma on TMA tiles) are later work.
+// Three launches a call, no float atomics, every sum in an order fixed by
+// the shapes, so two runs give the same bits (a resumed run's losses equal
+// an uninterrupted one's only so):
+//   delta: Di once, into an (H, Sq) f32 scratch the wrapper allocates: a
+//          group of lanes a row, each summing one 16-byte chunk of dO * o,
+//          then a butterfly of shuffles.  Both main kernels read Di as they
+//          read lse.
+//   dkdv:  one block per (KV head, tile of keys) holds K and V and owns dK
+//          and dV, walking its group's query heads and, for each, the query
+//          tiles that can see its keys (causal: from the tile of its first
+//          key on), in that fixed order.
+//   dq:    one block per (query head, tile of rows) holds Q and dO and owns
+//          dQ, walking the key tiles up to its diagonal (causal: the longest
+//          rows first, as the forward does).
+// The other deterministic dQ, the dK/dV block adding its dS K partial to an
+// f32 workspace in key-tile order behind a turn counter per (head, query
+// tile), would save the recompute (10 flops a pair instead of 14), but its
+// waiting blocks depend on the order the card schedules blocks in; it is
+// not taken.
+//
+// bf16, on the tensor cores (989 TFLOP/s).  Each main kernel is one
+// producer warpgroup and two consumer warpgroups (setmaxnreg moves the
+// producer's registers to the consumers: 24 and 240 a thread).  One
+// producer warp keeps a three-stage TMA ring full, an mbarrier per stage for
+// "loaded" and one for "released"; tiles are the forward's 3-D (D, S,
+// heads) tensor maps with its 32/64/128 B swizzles (csrc/hopper.cuh), so
+// rows past S are zero filled and never the next head's.  Nothing is
+// transposed in memory:
+//   dkdv: 128 keys a block, 64 a consumer warpgroup, K and V resident; the
+//         ring streams 64-query tiles of Q and dO, and the producer warp
+//         stores each tile's lse (in log2 units) and Di beside them.  A
+//         warpgroup computes S^T = K.Q^T and dP^T = V.dO^T (wgmma m64n64k16,
+//         both operands K-major), then P^T = 2^(S^T scale log2e - lse log2e)
+//         and dS^T = P^T (dP^T - Di) on the accumulator fragments, masked
+//         only on tiles that cross the diagonal, rounds both to bf16 in
+//         registers as wgmma's A operand, and accumulates dV += P^T.dO and
+//         dK += dS^T.Q in f32 registers, B read MN-major with the transpose
+//         bit, as the forward reads V.  A tile wholly above a warpgroup's
+//         keys is only waited for and released.
+//   dq:   128 rows a block, 64 a consumer warpgroup, Q and dO resident; the
+//         ring streams 64-key tiles of K and V up to the diagonal.  S = Q.K^T
+//         and dP = dO.V^T, dS on the fragments (a row's lse and Di sit in
+//         the thread's registers), rounded to bf16, dQ += dS.K with K read
+//         MN-major.  Tiles past a warpgroup's rows are skipped; only tiles
+//         crossing the diagonal or the ragged key edge are masked.
+// dK and dQ are scaled in f32 at the end, so the scale adds no rounding.
+// A barrier wait that never ends traps instead of hanging the card.
+//
+// f32, on the FMA units (67 TFLOP/s; the reference's 1e-4 tolerance rules
+// out TF32).  256 threads, tiles of 64 keys by 64 queries, each row padded
+// to D + 8 floats in shared memory.  A plain loop is bound by
+// shared-memory reads (a warp's float4 read is 512 B at the SM's 128 B a
+// clock), so both kinds of product are register-blocked like a SIMT SGEMM,
+// each float4 read feeding 16 FMAs at D = 128:
+//   scores: threads 0-127 compute one 64 x 64 score tile (S^T = K.Q^T in
+//           dkdv, S = Q.K^T in dq), threads 128-255 the dP tile, a pair of
+//           lanes sharing 8 x 8 outputs, each summing every other float4 of
+//           D (16 reads for 256 FMAs), then swapping halves with one
+//           shuffle each.  P, then dS, go to shared memory (rows of 68
+//           floats) in the layout the next product reads.
+//   products: a thread accumulates 8 rows by D / 16 columns from two
+//           float4 reads of P or dS and D / 64 reads of the other operand a
+//           step (4 reads for 64 FMAs).  In dkdv threads 0-127 own dV and
+//           128-255 dK; in dq the two halves sum the tile's two 32-key
+//           halves of dQ, added in a fixed order at the end.
+// Row strides of D + 8 floats put the reads of a warp in distinct 16-byte
+// bank groups.  Shared memory would hold two blocks an SM at D <= 64, but
+// registers do not (two blocks of 256 threads leave 128 a thread; the
+// kernels need 200-254 at D >= 64 and spill at 128 at D <= 32): one block
+// of 8 warps an SM.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,406 +101,983 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 64;          // query rows of a tile
-constexpr int BN = 64;          // keys of a tile (== BM: a key tile's first
-                                // query tile is the one of the same index)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ------------------------------------------------------------- Di pass
+constexpr int DELTA_THREADS = 256;
+
+template <typename T>
+__device__ __forceinline__ float dot16(uint4 a, uint4 b) {
+  if constexpr (std::is_same<T, float>::value) {
+    float acc = __uint_as_float(a.x) * __uint_as_float(b.x);
+    acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
+    acc = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc);
+    return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc);
+  } else {
+    const uint32_t wa[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t wb[4] = {b.x, b.y, b.z, b.w};
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wa[i]));
+      const float2 y =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wb[i]));
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+    return acc;
+  }
+}
+
+// Di[row] = sum of dO[row] * o[row] over D, rows = H * Sq: D * sizeof(T) /
+// 16 lanes a row, each one 16-byte chunk, then a butterfly of shuffles
+template <typename T, int D>
+__global__ void __launch_bounds__(DELTA_THREADS)
+    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ di, int64_t rows) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int LANES = D / VEC;
+  const int64_t g = (int64_t)blockIdx.x * DELTA_THREADS + threadIdx.x;
+  const int64_t row = g / LANES;
+  const int part = (int)(g % LANES);
+  float acc = 0.f;
+  if (row < rows) {
+    const int64_t at = row * D + part * VEC;
+    acc = dot16<T>(*reinterpret_cast<const uint4*>(o + at),
+                   *reinterpret_cast<const uint4*>(dout + at));
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && part == 0) di[row] = acc;
+}
+
+template <typename T, int D>
+int launch_delta(const void* o, const void* dout, float* di, int64_t rows,
+                 cudaStream_t stream) {
+  constexpr int LANES = D * (int)sizeof(T) / 16;
+  const int64_t blocks = (rows * LANES + DELTA_THREADS - 1) / DELTA_THREADS;
+  flash_bwd_delta<T, D><<<(unsigned)blocks, DELTA_THREADS, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), di, rows);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- f32 path
+namespace f32p {
+
+constexpr int BT = 64;          // keys (dkdv) or rows (dq) a block, and the
+                                // streamed tile's rows
 constexpr int THREADS = 256;
-constexpr int PS = BN + 1;      // row stride of the P and dS tiles
+constexpr int CS = BT + 4;      // row stride of the P and dS tiles
 
 template <int D>
 struct Shape {
-  static constexpr int RS = D + 4;     // row stride of the q, dO, k, v tiles
-  static constexpr int CH = D / 16;    // float4s of a row each thread owns
+  static constexpr int RS = D + 8;                  // q, dO, k, v row stride
+  static constexpr int VEC = D >= 64 ? 4 : D / 16;  // columns per read
+  static constexpr int NCH = D / 16 / VEC;          // reads per step
+  static constexpr int OC = D / 16;                 // columns per thread
   static constexpr size_t SMEM =
-      sizeof(float) * (2 * BM * RS + 2 * BN * RS + 2 * BM * PS + 2 * BM);
+      sizeof(float) * (4 * BT * RS + 2 * BT * CS + 2 * BT);
 };
 
-__device__ __forceinline__ float4 zero4() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
+template <int N>
+__device__ __forceinline__ void load_vec(float (&dst)[N], const float* src) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+  else if constexpr (N == 2)
+    *reinterpret_cast<float2*>(dst) = *reinterpret_cast<const float2*>(src);
+  else
+    dst[0] = *src;
 }
 
-// four consecutive elements of T as floats (16-byte or 8-byte aligned)
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p) {
-  if constexpr (std::is_same<T, float>::value) {
-    return *reinterpret_cast<const float4*>(p);
-  } else {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float4 v) {
-  if constexpr (std::is_same<T, float>::value) {
-    *reinterpret_cast<float4*>(p) = v;
-  } else {
-    __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-    uint2 w;
-    w.x = *reinterpret_cast<uint32_t*>(&a);
-    w.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = w;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float4 axpy4(float a, float4 x, float4 y) {
-  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
-                     fmaf(a, x.w, y.w));
-}
-
-// rows [r0, r0 + 64) of a (n, D) matrix of T into a float tile of stride
-// RS; rows at or past n are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int n, int tid) {
+// rows [r0, r0 + 64) of a (n, D) f32 matrix into a tile of stride RS; rows
+// at or past n are zero
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int n, int tid) {
   constexpr int C4 = D / 4;
-  for (int i = tid; i < 64 * C4; i += THREADS) {
+#pragma unroll 4
+  for (int i = tid; i < BT * C4; i += THREADS) {
     const int r = i / C4, c = (i - r * C4) * 4;
-    float4 x = zero4();
-    if (r0 + r < n) x = load4<T>(src + (int64_t)(r0 + r) * D + c);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n)
+      x = *reinterpret_cast<const float4*>(src + (int64_t)(r0 + r) * D + c);
     *reinterpret_cast<float4*>(dst + r * Shape<D>::RS + c) = x;
   }
 }
 
-// Di = rowsum(dO * o) of the tile's rows: row tid / 4, the four threads of
-// a row summing every fourth float4 and then each other's sums
-template <typename T, int D>
-__device__ __forceinline__ void row_delta(float* di_s, const float* dos,
-                                          const T* oh, int m0, int sq,
-                                          int tid) {
-  const int row = tid >> 2, part = tid & 3;
-  float acc = 0.f;
-  if (m0 + row < sq) {
-#pragma unroll
-    for (int c = 0; c < Shape<D>::CH; ++c) {
-      const int col = 4 * (part + 4 * c);
-      const float4 ov = load4<T>(oh + (int64_t)(m0 + row) * D + col);
-      const float4 dv =
-          *reinterpret_cast<const float4*>(dos + row * Shape<D>::RS + col);
-      acc = dot4(ov, dv, acc);
-    }
+// The score layout of thread t (0..127) of a half: the lane pair (lane,
+// lane ^ 16) shares a-rows a + 4 i and b-rows b + 4 j, i, j < 8, each lane
+// summing the float4s of D with index parity dh; after the swap a lane
+// keeps b-rows b + 4 (j + 4 dh), j < 4
+struct ScoreAt {
+  int a, b, dh;
+  __device__ ScoreAt(int t) {
+    const int lane = t & 31, w = t >> 5;
+    a = (w & 1) * 32 + ((lane >> 2) & 3);
+    b = (w >> 1) * 32 + (lane & 3);
+    dh = lane >> 4;
   }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (part == 0) di_s[row] = acc;
-}
+  __device__ int kept_b(int j) const { return b + 4 * (j + 4 * dh); }
+};
 
-// S = Q K^T and dP = dO V^T for the thread's 4 x 4 of the 64 x 64 tile:
-// rows ty + 16 i, keys tx + 16 j
+// out[i][j] = a[at.a + 4 i] . b[at.kept_b(j)] over D
 template <int D>
-__device__ __forceinline__ void scores(float (&s)[4][4], float (&dp)[4][4],
-                                       const float* qs, const float* dos,
-                                       const float* ks, const float* vs,
-                                       int tx, int ty) {
+__device__ __forceinline__ void score_tile(float (&out)[8][4], const float* a,
+                                           const float* b, const ScoreAt& at) {
   constexpr int RS = Shape<D>::RS;
+  float sp[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) sp[i][j] = 0.f;
 #pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 qv[4], dv[4], kv[4], vv[4];
+  for (int d = 4 * at.dh; d < D; d += 8) {
+    float4 bv[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * RS + d);
-      dv[i] = *reinterpret_cast<const float4*>(dos + (ty + 16 * i) * RS + d);
-    }
+    for (int j = 0; j < 8; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(b + (at.b + 4 * j) * RS + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * RS + d);
-      vv[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * RS + d);
-    }
+    for (int i = 0; i < 8; ++i) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(a + (at.a + 4 * i) * RS + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = dot4(qv[i], kv[j], s[i][j]);
-        dp[i][j] = dot4(dv[i], vv[j], dp[i][j]);
+      for (int j = 0; j < 8; ++j) {
+        sp[i][j] = fmaf(av.x, bv[j].x, sp[i][j]);
+        sp[i][j] = fmaf(av.y, bv[j].y, sp[i][j]);
+        sp[i][j] = fmaf(av.z, bv[j].z, sp[i][j]);
+        sp[i][j] = fmaf(av.w, bv[j].w, sp[i][j]);
       }
+    }
   }
-}
-
-// P and dS of the tile into shared memory (ps may be null: dq needs dS
-// only)
-__device__ __forceinline__ void probs(float* ps, float* dss,
-                                      const float (&s)[4][4],
-                                      const float (&dp)[4][4],
-                                      const float* lse_s, const float* di_s,
-                                      int m0, int n0, int sq, int skv,
-                                      int causal, float scale, int tx,
-                                      int ty) {
+  // each of the pair keeps four b-rows and hands its partner the other four
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i, qp = m0 + row;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int key = tx + 16 * j, kp = n0 + key;
-      const bool valid = qp < sq && kp < skv && !(causal && kp > qp);
-      const float p = valid ? expf(fmaf(s[i][j], scale, -lse_s[row])) : 0.f;
-      if (ps != nullptr) ps[row * PS + key] = p;
-      dss[row * PS + key] = p * (dp[i][j] - di_s[row]);
+      const float mine = at.dh ? sp[i][j + 4] : sp[i][j];
+      const float theirs = at.dh ? sp[i][j] : sp[i][j + 4];
+      out[i][j] = mine + __shfl_xor_sync(0xffffffffu, theirs, 16);
+    }
+}
+
+// acc[r][c] += sum over k in [k0, k1) of ct[k][i0 + r] * b[k][col c], the
+// columns c * 64 + cg * VEC + e
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[8][Shape<D>::OC],
+                                           const float* ct, const float* b,
+                                           int i0, int cg, int k0, int k1) {
+  using S = Shape<D>;
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
+    float cv[8];
+    *reinterpret_cast<float4*>(cv) =
+        *reinterpret_cast<const float4*>(ct + k * CS + i0);
+    *reinterpret_cast<float4*>(cv + 4) =
+        *reinterpret_cast<const float4*>(ct + k * CS + i0 + 4);
+#pragma unroll
+    for (int c = 0; c < S::NCH; ++c) {
+      float bv[S::VEC];
+      load_vec(bv, b + k * S::RS + c * 64 + cg * S::VEC);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int e = 0; e < S::VEC; ++e)
+          acc[r][c * S::VEC + e] =
+              fmaf(cv[r], bv[e], acc[r][c * S::VEC + e]);
     }
   }
 }
 
-template <typename T, int D>
+// rows i0 + r (< n, scaled) of acc into a (n, D) f32 matrix
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[8][Shape<D>::OC],
+                                           int row0, int n, int cg,
+                                           float scale) {
+  using S = Shape<D>;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if (row0 + r >= n) break;
+#pragma unroll
+    for (int c = 0; c < S::NCH; ++c) {
+      float out[S::VEC];
+#pragma unroll
+      for (int e = 0; e < S::VEC; ++e) out[e] = acc[r][c * S::VEC + e] * scale;
+      float* p = dst + (int64_t)(row0 + r) * D + c * 64 + cg * S::VEC;
+      if constexpr (S::VEC == 4)
+        *reinterpret_cast<float4*>(p) = *reinterpret_cast<float4*>(out);
+      else if constexpr (S::VEC == 2)
+        *reinterpret_cast<float2*>(p) = *reinterpret_cast<float2*>(out);
+      else
+        *p = out[0];
+    }
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ o,
-                   const T* __restrict__ dout, const float* __restrict__ lse,
-                   T* __restrict__ dk, T* __restrict__ dv, int sq, int skv,
-                   int group, int causal, float scale) {
+    flash_bwd_dkdv_f32(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ di, float* __restrict__ dk,
+                       float* __restrict__ dv, int sq, int skv, int group,
+                       int causal, float scale) {
   using S = Shape<D>;
   constexpr int RS = S::RS;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // BM x RS
-  float* dos = qs + BM * RS;        // BM x RS
-  float* ks = dos + BM * RS;        // BN x RS
-  float* vs = ks + BN * RS;         // BN x RS
-  float* ps = vs + BN * RS;         // BM x PS
-  float* dss = ps + BM * PS;        // BM x PS
-  float* lse_s = dss + BM * PS;     // BM
-  float* di_s = lse_s + BM;         // BM
+  float* ks = smem;                 // BT x RS
+  float* vs = ks + BT * RS;         // BT x RS
+  float* qs = vs + BT * RS;         // BT x RS
+  float* dos = qs + BT * RS;        // BT x RS
+  float* pt = dos + BT * RS;        // P^T as [query][key], BT x CS
+  float* dst = pt + BT * CS;        // dP^T, then dS^T, [query][key]
+  float* lse_s = dst + BT * CS;     // BT
+  float* di_s = lse_s + BT;         // BT
 
   const int hk = blockIdx.x;
-  const int n0 = blockIdx.y * BN;
+  const int n0 = blockIdx.y * BT;
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int key = tid >> 2, part = tid & 3;   // accumulate: key, float4s
+  const int half = tid >> 7, t = tid & 127;
+  const ScoreAt at(t);
+  // products: keys i0 .. i0 + 7, column group cg
+  const int i0 = ((t >> 5) * 2 + ((t & 31) >> 4)) * 8, cg = t & 15;
   const int64_t kvoff = (int64_t)hk * skv * D;
 
-  load_tile<T, D>(ks, k + kvoff, n0, skv, tid);
-  load_tile<T, D>(vs, v + kvoff, n0, skv, tid);
-  float4 dk_acc[S::CH], dv_acc[S::CH];
+  load_tile<D>(ks, k + kvoff, n0, skv, tid);
+  load_tile<D>(vs, v + kvoff, n0, skv, tid);
+  float acc[8][S::OC];
 #pragma unroll
-  for (int c = 0; c < S::CH; ++c) dk_acc[c] = dv_acc[c] = zero4();
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < S::OC; ++c) acc[r][c] = 0.f;
 
-  const int m_first = causal ? n0 / BM : 0;
-  const int n_mt = (sq + BM - 1) / BM;
+  const int m_first = causal ? n0 / BT : 0;
+  const int n_mt = (sq + BT - 1) / BT;
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     const int64_t qoff = (int64_t)h * sq * D;
     for (int mt = m_first; mt < n_mt; ++mt) {
-      const int m0 = mt * BM;
+      const int m0 = mt * BT;
       __syncthreads();   // the previous tile's readers are done
-      load_tile<T, D>(qs, q + qoff, m0, sq, tid);
-      load_tile<T, D>(dos, dout + qoff, m0, sq, tid);
-      if (tid < BM)
-        lse_s[tid] = m0 + tid < sq ? lse[(int64_t)h * sq + m0 + tid]
-                                   : INFINITY;
-      __syncthreads();
-      row_delta<T, D>(di_s, dos, o + qoff, m0, sq, tid);
-      float s[4][4], dp[4][4];
-      scores<D>(s, dp, qs, dos, ks, vs, tx, ty);
-      __syncthreads();   // Di and lse of every row are in
-      probs(ps, dss, s, dp, lse_s, di_s, m0, n0, sq, skv, causal, scale, tx,
-            ty);
-      __syncthreads();
-      // dV[key] += sum_m P[m][key] dO[m];  dK[key] += sum_m dS[m][key] Q[m]
-#pragma unroll 4
-      for (int m = 0; m < BM; ++m) {
-        const float p = ps[m * PS + key], ds = dss[m * PS + key];
-#pragma unroll
-        for (int c = 0; c < S::CH; ++c) {
-          const int col = 4 * (part + 4 * c);
-          dv_acc[c] = axpy4(
-              p, *reinterpret_cast<const float4*>(dos + m * RS + col),
-              dv_acc[c]);
-          dk_acc[c] = axpy4(
-              ds, *reinterpret_cast<const float4*>(qs + m * RS + col),
-              dk_acc[c]);
-        }
+      load_tile<D>(qs, q + qoff, m0, sq, tid);
+      load_tile<D>(dos, dout + qoff, m0, sq, tid);
+      if (tid < BT) {
+        const bool in = m0 + tid < sq;
+        lse_s[tid] = in ? lse[(int64_t)h * sq + m0 + tid] : INFINITY;
+        di_s[tid] = in ? di[(int64_t)h * sq + m0 + tid] : 0.f;
       }
-    }
-  }
-  if (n0 + key < skv) {
-    T* dkh = dk + kvoff + (int64_t)(n0 + key) * D;
-    T* dvh = dv + kvoff + (int64_t)(n0 + key) * D;
+      __syncthreads();
+      // S^T (keys x queries) in half 0, dP^T in half 1; a query past Sq has
+      // lse +inf, so its P is 0
+      float sc[8][4];
+      score_tile<D>(sc, half ? vs : ks, half ? dos : qs, at);
+      const bool edge = causal && n0 + BT - 1 > m0;
 #pragma unroll
-    for (int c = 0; c < S::CH; ++c) {
-      const int col = 4 * (part + 4 * c);
-      float4 a = dk_acc[c];
-      a.x *= scale;
-      a.y *= scale;
-      a.z *= scale;
-      a.w *= scale;
-      store4<T>(dkh + col, a);
-      store4<T>(dvh + col, dv_acc[c]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = at.a + 4 * i, qr = at.kept_b(j);
+          if (half == 0) {
+            float p = expf(fmaf(sc[i][j], scale, -lse_s[qr]));
+            if (edge && n0 + key > m0 + qr) p = 0.f;
+            sc[i][j] = p;
+            pt[qr * CS + key] = p;
+          } else {
+            dst[qr * CS + key] = sc[i][j];
+          }
+        }
+      __syncthreads();
+      if (half == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = at.a + 4 * i, qr = at.kept_b(j);
+            dst[qr * CS + key] = sc[i][j] * (dst[qr * CS + key] - di_s[qr]);
+          }
+      }
+      __syncthreads();
+      // dV[key] += sum_q P^T[key][q] dO[q] (half 0); dK likewise from dS^T
+      // and Q (half 1)
+      accumulate<D>(acc, half ? dst : pt, half ? qs : dos, i0, cg, 0, BT);
     }
   }
+  store_rows<D>(half ? dk + kvoff : dv + kvoff, acc, n0 + i0, skv, cg,
+                half ? scale : 1.f);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ o,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 T* __restrict__ dq, int sq, int skv, int group, int causal,
-                 float scale) {
+    flash_bwd_dq_f32(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ di, float* __restrict__ dq,
+                     int sq, int skv, int group, int causal, float scale) {
   using S = Shape<D>;
   constexpr int RS = S::RS;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* dos = qs + BM * RS;
-  float* ks = dos + BM * RS;
-  float* vs = ks + BN * RS;
-  float* dss = vs + BN * RS + BM * PS;   // the P tile is not needed here
-  float* lse_s = dss + BM * PS;
-  float* di_s = lse_s + BM;
+  float* qs = smem;                 // BT x RS
+  float* dos = qs + BT * RS;        // BT x RS
+  float* ks = dos + BT * RS;        // BT x RS
+  float* vs = ks + BT * RS;         // BT x RS
+  float* dst = vs + BT * RS + BT * CS;   // dP, then dS, as [key][row]
+  float* lse_s = dst + BT * CS;     // BT
+  float* di_s = lse_s + BT;         // BT
 
   const int h = blockIdx.x;
   // causal: the longest rows first, so the short ones fill the tail
   const int qb = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
                         : (int)blockIdx.y;
-  const int m0 = qb * BM;
+  const int m0 = qb * BT;
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int row = tid >> 2, part = tid & 3;   // accumulate: row, float4s
+  const int half = tid >> 7, t = tid & 127;
+  const ScoreAt at(t);
+  const int i0 = ((t >> 5) * 2 + ((t & 31) >> 4)) * 8, cg = t & 15;
   const int64_t qoff = (int64_t)h * sq * D;
   const int64_t kvoff = (int64_t)(h / group) * skv * D;
 
-  load_tile<T, D>(qs, q + qoff, m0, sq, tid);
-  load_tile<T, D>(dos, dout + qoff, m0, sq, tid);
-  if (tid < BM)
-    lse_s[tid] = m0 + tid < sq ? lse[(int64_t)h * sq + m0 + tid] : INFINITY;
-  __syncthreads();
-  row_delta<T, D>(di_s, dos, o + qoff, m0, sq, tid);
-
-  float4 dq_acc[S::CH];
+  load_tile<D>(qs, q + qoff, m0, sq, tid);
+  load_tile<D>(dos, dout + qoff, m0, sq, tid);
+  if (tid < BT) {
+    const bool in = m0 + tid < sq;
+    lse_s[tid] = in ? lse[(int64_t)h * sq + m0 + tid] : INFINITY;
+    di_s[tid] = in ? di[(int64_t)h * sq + m0 + tid] : 0.f;
+  }
+  float acc[8][S::OC];
 #pragma unroll
-  for (int c = 0; c < S::CH; ++c) dq_acc[c] = zero4();
-  const int kv_end = causal ? min(skv, m0 + BM) : skv;
-  const int n_nt = (kv_end + BN - 1) / BN;
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < S::OC; ++c) acc[r][c] = 0.f;
+
+  const int kv_end = causal ? min(skv, m0 + BT) : skv;
+  const int n_nt = (kv_end + BT - 1) / BT;
   for (int nt = 0; nt < n_nt; ++nt) {
-    const int n0 = nt * BN;
-    __syncthreads();   // the previous tile's readers are done, Di is in
-    load_tile<T, D>(ks, k + kvoff, n0, skv, tid);
-    load_tile<T, D>(vs, v + kvoff, n0, skv, tid);
+    const int k0 = nt * BT;
+    __syncthreads();   // the previous tile's readers are done
+    load_tile<D>(ks, k + kvoff, k0, skv, tid);
+    load_tile<D>(vs, v + kvoff, k0, skv, tid);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    scores<D>(s, dp, qs, dos, ks, vs, tx, ty);
-    probs(nullptr, dss, s, dp, lse_s, di_s, m0, n0, sq, skv, causal, scale,
-          tx, ty);
-    __syncthreads();
-    // dQ[row] += sum_n dS[row][n] K[n]
-#pragma unroll 4
-    for (int n = 0; n < BN; ++n) {
-      const float ds = dss[row * PS + n];
+    // S (rows x keys) in half 0, dP in half 1
+    float sc[8][4];
+    score_tile<D>(sc, half ? dos : qs, half ? vs : ks, at);
+    const bool edge = k0 + BT > skv || (causal && k0 + BT - 1 > m0);
 #pragma unroll
-      for (int c = 0; c < S::CH; ++c)
-        dq_acc[c] = axpy4(
-            ds,
-            *reinterpret_cast<const float4*>(ks + n * RS +
-                                             4 * (part + 4 * c)),
-            dq_acc[c]);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int row = at.a + 4 * i, key = at.kept_b(j);
+        if (half == 0) {
+          float p = expf(fmaf(sc[i][j], scale, -lse_s[row]));
+          if (edge && (k0 + key >= skv || (causal && k0 + key > m0 + row)))
+            p = 0.f;
+          sc[i][j] = p;
+        } else {
+          dst[key * CS + row] = sc[i][j];
+        }
+      }
+    __syncthreads();
+    if (half == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = at.a + 4 * i, key = at.kept_b(j);
+          dst[key * CS + row] = sc[i][j] * (dst[key * CS + row] - di_s[row]);
+        }
     }
+    __syncthreads();
+    // dQ[row] += sum_key dS[row][key] K[key]: half 0 the tile's first 32
+    // keys, half 1 the last 32
+    accumulate<D>(acc, dst, ks, i0, cg, half * (BT / 2),
+                  half * (BT / 2) + BT / 2);
   }
-  if (m0 + row < sq) {
-    T* dqh = dq + qoff + (int64_t)(m0 + row) * D;
+  // the two halves' sums, added in a fixed order through shared memory
+  __syncthreads();
+  float* part = ks;   // BT x RS, free now
+  if (half == 1) {
 #pragma unroll
-    for (int c = 0; c < S::CH; ++c) {
-      float4 a = dq_acc[c];
-      a.x *= scale;
-      a.y *= scale;
-      a.z *= scale;
-      a.w *= scale;
-      store4<T>(dqh + 4 * (part + 4 * c), a);
-    }
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < S::OC; ++c)
+        part[(i0 + r) * RS + (c / S::VEC) * 64 + cg * S::VEC + c % S::VEC] =
+            acc[r][c];
+  }
+  __syncthreads();
+  if (half == 0) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < S::OC; ++c)
+        acc[r][c] +=
+            part[(i0 + r) * RS + (c / S::VEC) * 64 + cg * S::VEC + c % S::VEC];
+    store_rows<D>(dq + qoff, acc, m0 + i0, sq, cg, scale);
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* dq, void* dk, void* dv,
-           int64_t h, int64_t sq, int64_t skv, int group, int causal,
-           float scale, cudaStream_t stream) {
+           const void* dout, const float* lse, float* di, void* dq, void* dk,
+           void* dv, int64_t h, int64_t sq, int64_t skv, int group,
+           int causal, float scale, int parts, cudaStream_t stream) {
   constexpr size_t smem = Shape<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 g1((unsigned)(h / group), (unsigned)((skv + BN - 1) / BN));
-  flash_bwd_dkdv<T, D><<<g1, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dk), static_cast<T*>(dv), (int)sq, (int)skv, group,
-      causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 g2((unsigned)h, (unsigned)((sq + BM - 1) / BM));
-  flash_bwd_dq<T, D><<<g2, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), (int)sq, (int)skv, group, causal, scale);
-  return (int)cudaGetLastError();
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fdo = static_cast<const float*>(dout);
+  int rc = 0;
+  if (parts & 1) rc = launch_delta<float, D>(o, dout, di, h * sq, stream);
+  if (rc == 0 && (parts & 2)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)(h / group), (unsigned)((skv + BT - 1) / BT));
+    flash_bwd_dkdv_f32<D><<<grid, THREADS, smem, stream>>>(
+        fq, fk, fv, fdo, lse, di, static_cast<float*>(dk),
+        static_cast<float*>(dv), (int)sq, (int)skv, group, causal, scale);
+    rc = (int)cudaGetLastError();
+  }
+  if (rc == 0 && (parts & 4)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)h, (unsigned)((sq + BT - 1) / BT));
+    flash_bwd_dq_f32<D><<<grid, THREADS, smem, stream>>>(
+        fq, fk, fv, fdo, lse, di, static_cast<float*>(dq), (int)sq,
+        (int)skv, group, causal, scale);
+    rc = (int)cudaGetLastError();
+  }
+  return rc;
 }
 
-template <typename T>
-int launch_width(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const void* lse, void* dq, void* dk,
-                 void* dv, int64_t h, int64_t sq, int64_t skv, int d,
-                 int group, int causal, float scale, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, lse, dq, dk, dv, h, sq, skv, group, causal, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, dq, dk, dv, h, sq, skv, group, causal, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, h, sq, skv, group, causal, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, h, sq, skv, group, causal, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+}  // namespace f32p
+
+// ------------------------------------------------------------ bf16 path
+namespace bf16p {
+
+constexpr int BN = 128;         // keys of a dkdv block (2 x 64)
+constexpr int QR = 128;         // rows of a dq block (2 x 64)
+constexpr int BT = 64;          // rows of a streamed tile (queries or keys)
+constexpr int STAGES = 3;
+constexpr int CONSUMERS = 256;
+constexpr int THREADS = CONSUMERS + 128;   // and a producer warpgroup
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+
+template <int D>
+struct Shape {
+  static constexpr int ROWB = (D < 64 ? D : 64) * 2;  // bytes of a swizzled row
+  static constexpr int SLABS = D * 2 / ROWB;          // 64-column slabs
+  static constexpr int KPS = ROWB / 32;               // k16 steps per slab
+  // wgmma layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
+  static constexpr uint64_t SWZ = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
+  static constexpr int TBYTES = BT * D * 2;           // a streamed tile
+  static constexpr int RBYTES = 128 * D * 2;          // a resident tile
+  // + 1024 to align the tiles to the swizzle period, + the barriers
+  static constexpr size_t SMEM_DKDV = 2 * RBYTES + 2 * STAGES * TBYTES +
+                                      2 * STAGES * BT * 4 + 1024 +
+                                      8 * (1 + 2 * STAGES);
+  static constexpr size_t SMEM_DQ =
+      2 * RBYTES + 2 * STAGES * TBYTES + 1024 + 8 * (1 + 2 * STAGES);
+};
+
+// K-major operand descriptor of k16 step kk over a tile of `rows` rows
+template <int D>
+__device__ __forceinline__ uint64_t kdesc(uint32_t base, int rows, int kk) {
+  using S = Shape<D>;
+  return smem_desc(base + (kk / S::KPS) * rows * S::ROWB + (kk % S::KPS) * 32,
+                   16, 8 * S::ROWB, S::SWZ);
+}
+
+// MN-major B descriptor of rows 16 kt .. 16 kt + 15 of a tile of `rows`
+// rows (N = D across the slabs)
+template <int D>
+__device__ __forceinline__ uint64_t ndesc(uint32_t base, int rows, int kt) {
+  using S = Shape<D>;
+  return smem_desc(base + kt * 16 * S::ROWB, rows * S::ROWB, 8 * S::ROWB,
+                   S::SWZ);
+}
+
+template <int D>
+__device__ __forceinline__ void store_frag(__nv_bfloat16* base, int64_t r0,
+                                           int64_t r1, bool ok0, bool ok1,
+                                           const float (&acc)[D / 2],
+                                           float scale, int lane) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    if (ok0)
+      *reinterpret_cast<uint32_t*>(base + r0 * D + col) =
+          pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    if (ok1)
+      *reinterpret_cast<uint32_t*>(base + r1 * D + col) =
+          pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ di,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int sq, int skv,
+                        int group, int causal, float scale) {
+  using S = Shape<D>;
+  constexpr int ROWB = S::ROWB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* vs = ks + S::RBYTES;                 // BN keys, resident
+  uint8_t* qs = vs + S::RBYTES;                 // STAGES x TBYTES
+  uint8_t* dos = qs + STAGES * S::TBYTES;       // STAGES x TBYTES
+  float* lse_s = reinterpret_cast<float*>(dos + STAGES * S::TBYTES);
+  float* di_s = lse_s + STAGES * BT;            // STAGES x BT each
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(di_s + STAGES * BT);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int hk = blockIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int m_first = causal ? n0 / BT : 0;
+  const int per_head = max(0, (sq + BT - 1) / BT - m_first);
+  const int n_tiles = group * per_head;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 32);   // the producer warp's lanes
+      mbar_init(empty + s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- producer: one warp keeps the ring full, lane 0 issues the TMA
+    regs_dec<PRODUCER_REGS>();
+    const int lane = tid - CONSUMERS;
+    if (lane < 32) {
+      if (lane == 0) {
+        mbar_expect_tx(kvfull, 2 * S::RBYTES);
+        for (int c = 0; c < S::SLABS; ++c) {
+          tma_load(ks + c * BN * ROWB, &tk, kvfull, c * 64, n0, hk);
+          tma_load(vs + c * BN * ROWB, &tv, kvfull, c * 64, n0, hk);
+        }
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int h = hk * group + t / per_head;
+        const int m0 = (m_first + t % per_head) * BT;
+        const int st = t % STAGES;
+        if (t >= STAGES) mbar_wait(empty + st, (t / STAGES - 1) & 1);
+        // this tile's lse (log2 units: +inf past Sq, so P is 0 there) and Di
+        for (int r = lane; r < BT; r += 32) {
+          const bool in = m0 + r < sq;
+          const int64_t at = (int64_t)h * sq + m0 + r;
+          lse_s[st * BT + r] = in ? lse[at] * LOG2E : INFINITY;
+          di_s[st * BT + r] = in ? di[at] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full + st, 2 * S::TBYTES);
+          uint8_t* qd = qs + st * S::TBYTES;
+          uint8_t* dd = dos + st * S::TBYTES;
+          for (int c = 0; c < S::SLABS; ++c) {
+            tma_load(qd + c * BT * ROWB, &tq, full + st, c * 64, m0, h);
+            tma_load(dd + c * BT * ROWB, &tdo, full + st, c * 64, m0, h);
+          }
+        } else {
+          mbar_arrive(full + st);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns keys kb .. kb + 63
+    regs_inc<CONSUMER_REGS>();
+    const int wg = tid >> 7;
+    const int lane = tid & 31;
+    const int kb = n0 + wg * 64;
+    const int kp0 = kb + ((tid & 127) >> 5) * 16 + (lane >> 2);
+    const int kp1 = kp0 + 8;   // this thread's two keys
+    const uint32_t kaddr = smem_u32(ks) + wg * 64 * ROWB;
+    const uint32_t vaddr = smem_u32(vs) + wg * 64 * ROWB;
+    const float c = scale * LOG2E;
+
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(kvfull, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int m0 = (m_first + t % per_head) * BT;
+      const int st = t % STAGES;
+      mbar_wait(full + st, (t / STAGES) & 1);
+      // a tile wholly above this warpgroup's keys is only released
+      if (!(causal && kb > m0 + BT - 1)) {
+        const uint32_t qa = smem_u32(qs + st * S::TBYTES);
+        const uint32_t da = smem_u32(dos + st * S::TBYTES);
+        // S^T = K.Q^T and dP^T = V.dO^T, 64 keys x 64 queries, f32
+        float sacc[32], pacc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+        fence_regs(sacc);
+        fence_regs(pacc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sacc, kdesc<D>(kaddr, BN, kk), kdesc<D>(qa, BT, kk),
+                       1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(pacc, kdesc<D>(vaddr, BN, kk), kdesc<D>(da, BT, kk),
+                       1);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(sacc);
+        fence_regs(pacc);
+
+        // sacc[i] is key kp0 (i & 2: kp1), query m0 + 8 (i / 4) + 2 (lane &
+        // 3) + (i & 1); P^T and dS^T rounded to bf16 as wgmma A fragments
+        const bool edge = causal && kb + 63 > m0;
+        const float* ls = lse_s + st * BT;
+        const float* ds = di_s + st * BT;
+        uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * (lane & 3);
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+          const float2 d2 = *reinterpret_cast<const float2*>(ds + col);
+          float p[4], s[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float x = ex2(fmaf(sacc[i], c, -((e & 1) ? l2.y : l2.x)));
+            if (edge && ((e & 2) ? kp1 : kp0) > m0 + col + (e & 1)) x = 0.f;
+            p[e] = x;
+            s[e] = x * (pacc[i] - ((e & 1) ? d2.y : d2.x));
+          }
+          pa[j / 2][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+          pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+          sa[j / 2][(j & 1) * 2] = pack_bf16(s[0], s[1]);
+          sa[j / 2][(j & 1) * 2 + 1] = pack_bf16(s[2], s[3]);
+        }
+
+        // dV += P^T.dO, dK += dS^T.Q: B (queries x D) MN-major
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < BT / 16; ++kt)
+          wgmma_pv<D>(dv_acc, pa[kt], ndesc<D>(da, BT, kt));
+#pragma unroll
+        for (int kt = 0; kt < BT / 16; ++kt)
+          wgmma_pv<D>(dk_acc, sa[kt], ndesc<D>(qa, BT, kt));
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+      }
+      mbar_arrive(empty + st);
+    }
+    const int64_t off = (int64_t)hk * skv;
+    store_frag<D>(dk, off + kp0, off + kp1, kp0 < skv, kp1 < skv, dk_acc,
+                  scale, lane);
+    store_frag<D>(dv, off + kp0, off + kp1, kp0 < skv, kp1 < skv, dv_acc,
+                  1.f, lane);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ di,
+                      __nv_bfloat16* __restrict__ dq, int sq, int skv,
+                      int group, int causal, float scale) {
+  using S = Shape<D>;
+  constexpr int ROWB = S::ROWB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* dos = qs + S::RBYTES;                // QR rows, resident
+  uint8_t* ks = dos + S::RBYTES;                // STAGES x TBYTES
+  uint8_t* vs = ks + STAGES * S::TBYTES;        // STAGES x TBYTES
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(vs + STAGES * S::TBYTES);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int h = blockIdx.x;
+  // causal: the longest rows first, so the short ones fill the tail
+  const int qb = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                        : (int)blockIdx.y;
+  const int q0 = qb * QR;
+  const int kv_end = causal ? min(skv, q0 + QR) : skv;
+  const int n_tiles = (kv_end + BT - 1) / BT;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- producer: one thread keeps the ring full
+    regs_dec<PRODUCER_REGS>();
+    if (tid == CONSUMERS) {
+      const int hk = h / group;
+      mbar_expect_tx(qfull, 2 * S::RBYTES);
+      for (int c = 0; c < S::SLABS; ++c) {
+        tma_load(qs + c * QR * ROWB, &tq, qfull, c * 64, q0, h);
+        tma_load(dos + c * QR * ROWB, &tdo, qfull, c * 64, q0, h);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % STAGES;
+        if (t >= STAGES) mbar_wait(empty + st, (t / STAGES - 1) & 1);
+        mbar_expect_tx(full + st, 2 * S::TBYTES);
+        uint8_t* kd = ks + st * S::TBYTES;
+        uint8_t* vd = vs + st * S::TBYTES;
+        for (int c = 0; c < S::SLABS; ++c) {
+          tma_load(kd + c * BT * ROWB, &tk, full + st, c * 64, t * BT, hk);
+          tma_load(vd + c * BT * ROWB, &tv, full + st, c * 64, t * BT, hk);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows q0 + wg * 64 .. + 63
+    regs_inc<CONSUMER_REGS>();
+    const int wg = tid >> 7;
+    const int lane = tid & 31;
+    const int wg_first = q0 + wg * 64;
+    const int qp0 = wg_first + ((tid & 127) >> 5) * 16 + (lane >> 2);
+    const int qp1 = qp0 + 8;   // this thread's two rows
+    const bool rows_dead = wg_first >= sq;
+    const uint32_t qaddr = smem_u32(qs) + wg * 64 * ROWB;
+    const uint32_t daddr = smem_u32(dos) + wg * 64 * ROWB;
+    const float c = scale * LOG2E;
+    const int64_t hrow = (int64_t)h * sq;
+    // lse in log2 units (+inf past Sq: P is 0 there) and Di of the two rows
+    const float l0 = qp0 < sq ? lse[hrow + qp0] * LOG2E : INFINITY;
+    const float l1 = qp1 < sq ? lse[hrow + qp1] * LOG2E : INFINITY;
+    const float d0 = qp0 < sq ? di[hrow + qp0] : 0.f;
+    const float d1 = qp1 < sq ? di[hrow + qp1] : 0.f;
+
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+    mbar_wait(qfull, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % STAGES;
+      const int k0 = t * BT;
+      mbar_wait(full + st, (t / STAGES) & 1);
+      // a tile wholly above this warpgroup's rows (or rows past Sq) is only
+      // released
+      if (!(rows_dead || (causal && k0 > wg_first + 63))) {
+        const uint32_t ka = smem_u32(ks + st * S::TBYTES);
+        const uint32_t va = smem_u32(vs + st * S::TBYTES);
+        // S = Q.K^T and dP = dO.V^T, 64 rows x 64 keys, f32
+        float sacc[32], pacc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+        fence_regs(sacc);
+        fence_regs(pacc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sacc, kdesc<D>(qaddr, QR, kk), kdesc<D>(ka, BT, kk),
+                       1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(pacc, kdesc<D>(daddr, QR, kk), kdesc<D>(va, BT, kk),
+                       1);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(sacc);
+        fence_regs(pacc);
+
+        // sacc[i] is row qp0 (i & 2: qp1), key k0 + 8 (i / 4) + 2 (lane &
+        // 3) + (i & 1); dS rounded to bf16 as wgmma A fragments
+        const bool edge = k0 + BT > skv || (causal && k0 + BT - 1 > wg_first);
+        uint32_t sa[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float s[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float x = ex2(fmaf(sacc[i], c, -((e & 2) ? l1 : l0)));
+            if (edge) {
+              const int kp = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+              if (kp >= skv || (causal && kp > ((e & 2) ? qp1 : qp0)))
+                x = 0.f;
+            }
+            s[e] = x * (pacc[i] - ((e & 2) ? d1 : d0));
+          }
+          sa[j / 2][(j & 1) * 2] = pack_bf16(s[0], s[1]);
+          sa[j / 2][(j & 1) * 2 + 1] = pack_bf16(s[2], s[3]);
+        }
+
+        // dQ += dS.K: B (keys x D) MN-major
+        fence_regs(dq_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < BT / 16; ++kt)
+          wgmma_pv<D>(dq_acc, sa[kt], ndesc<D>(ka, BT, kt));
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dq_acc);
+      }
+      mbar_arrive(empty + st);
+    }
+    if (!rows_dead)
+      store_frag<D>(dq, hrow + qp0, hrow + qp1, qp0 < sq, qp1 < sq, dq_acc,
+                    scale, lane);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* di, void* dq, void* dk,
+           void* dv, int64_t h, int64_t sq, int64_t skv, int group,
+           int causal, float scale, int parts, cudaStream_t stream) {
+  using S = Shape<D>;
+  const int64_t hk = h / group;
+  int rc = 0;
+  if (parts & 1)
+    rc = launch_delta<__nv_bfloat16, D>(o, dout, di, h * sq, stream);
+  if (rc != 0 || !(parts & 6)) return rc;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  // Q and dO in tiles of BT rows (dkdv) and QR rows (dq), K and V in tiles
+  // of BN rows (dkdv) and BT rows (dq)
+  CUtensorMap q_t, do_t, k_r, v_r, q_r, do_r, k_t, v_t;
+  CUresult res = make_map(encode, &q_t, q, D, sq, h, BT, S::ROWB);
+  if (res == CUDA_SUCCESS)
+    res = make_map(encode, &do_t, dout, D, sq, h, BT, S::ROWB);
+  if (res == CUDA_SUCCESS)
+    res = make_map(encode, &k_r, k, D, skv, hk, BN, S::ROWB);
+  if (res == CUDA_SUCCESS)
+    res = make_map(encode, &v_r, v, D, skv, hk, BN, S::ROWB);
+  if (res == CUDA_SUCCESS)
+    res = make_map(encode, &q_r, q, D, sq, h, QR, S::ROWB);
+  if (res == CUDA_SUCCESS)
+    res = make_map(encode, &do_r, dout, D, sq, h, QR, S::ROWB);
+  if (res == CUDA_SUCCESS)
+    res = make_map(encode, &k_t, k, D, skv, hk, BT, S::ROWB);
+  if (res == CUDA_SUCCESS)
+    res = make_map(encode, &v_t, v, D, skv, hk, BT, S::ROWB);
+  if (res != CUDA_SUCCESS) return ENCODE_ERROR + (int)res;
+  if (parts & 2) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)S::SMEM_DKDV);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)hk, (unsigned)((skv + BN - 1) / BN));
+    flash_bwd_dkdv_bf16<D><<<grid, THREADS, S::SMEM_DKDV, stream>>>(
+        q_t, k_r, v_r, do_t, lse, di, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), (int)sq, (int)skv, group, causal,
+        scale);
+    rc = (int)cudaGetLastError();
+  }
+  if (rc == 0 && (parts & 4)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)S::SMEM_DQ);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)h, (unsigned)((sq + QR - 1) / QR));
+    flash_bwd_dq_bf16<D><<<grid, THREADS, S::SMEM_DQ, stream>>>(
+        q_r, k_t, v_t, do_r, lse, di, static_cast<__nv_bfloat16*>(dq),
+        (int)sq, (int)skv, group, causal, scale);
+    rc = (int)cudaGetLastError();
+  }
+  return rc;
+}
+
+}  // namespace bf16p
+
+template <int D>
+int launch_width(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* di, void* dq,
+                 void* dk, void* dv, int64_t h, int64_t sq, int64_t skv,
+                 int group, int causal, float scale, int is_bf16, int parts,
+                 cudaStream_t s) {
+  if (is_bf16)
+    return bf16p::launch<D>(q, k, v, o, dout, lse, di, dq, dk, dv, h, sq, skv,
+                            group, causal, scale, parts, s);
+  return f32p::launch<D>(q, k, v, o, dout, lse, di, dq, dk, dv, h, sq, skv,
+                         group, causal, scale, parts, s);
 }
 
 }  // namespace
 
-// q, o, dout, dq: (h, sq, d); k, v, dk, dv: (h / group, skv, d); lse: (h,
-// sq) f32; all contiguous and 16-byte aligned, the tensors other than lse
-// of one dtype (f32 when is_bf16 == 0, bf16 otherwise).  Launches the dK/dV
-// kernel, then the dQ kernel, on the stream; returns 0 or a CUDA runtime
-// error code.
+// q, o, dout, dq: (h, sq, d); k, v, dk, dv: (h / group, skv, d); lse, di:
+// (h, sq) f32, di a scratch the Di pass writes and the other two kernels
+// read; all contiguous and 16-byte aligned, the tensors other than lse and
+// di of one dtype (f32 when is_bf16 == 0, bf16 otherwise).  parts selects
+// the kernels launched, in this order on the stream: 1 the Di pass, 2 the
+// dK/dV kernel, 4 the dQ kernel (7 for the gradient).  Returns 0, a CUDA
+// runtime error code, or 10000 + the driver's CUresult when a tensor map
+// cannot be encoded.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    int64_t h, int64_t sq, int64_t skv, int d, int group, int causal,
-    float scale, int is_bf16, void* stream) {
+    const void* dout, const void* lse, void* di, void* dq, void* dk,
+    void* dv, int64_t h, int64_t sq, int64_t skv, int d, int group,
+    int causal, float scale, int is_bf16, int parts, void* stream) {
   if (h <= 0 || sq <= 0 || skv <= 0 || group <= 0 || h % group ||
-      (sq + BM - 1) / BM > 65535 || (skv + BN - 1) / BN > 65535 ||
-      sq > INT32_MAX || skv > INT32_MAX)
+      (sq + 63) / 64 > 65535 || (skv + 63) / 64 > 65535 ||
+      sq > INT32_MAX || skv > INT32_MAX || (parts & ~7))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_width<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, h,
-                                       sq, skv, d, group, causal, scale, s);
-  return launch_width<float>(q, k, v, o, dout, lse, dq, dk, dv, h, sq, skv,
-                             d, group, causal, scale, s);
+  const float* l = static_cast<const float*>(lse);
+  float* dd = static_cast<float*>(di);
+  switch (d) {
+    case 16: return launch_width<16>(q, k, v, o, dout, l, dd, dq, dk, dv, h, sq, skv, group, causal, scale, is_bf16, parts, s);
+    case 32: return launch_width<32>(q, k, v, o, dout, l, dd, dq, dk, dv, h, sq, skv, group, causal, scale, is_bf16, parts, s);
+    case 64: return launch_width<64>(q, k, v, o, dout, l, dd, dq, dk, dv, h, sq, skv, group, causal, scale, is_bf16, parts, s);
+    case 128: return launch_width<128>(q, k, v, o, dout, l, dd, dq, dk, dv, h, sq, skv, group, causal, scale, is_bf16, parts, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// dynamic shared memory of the kernels of head width d (ptxas reports
-// static shared memory only); -1 for a width they lack
-extern "C" int flash_attention_bwd_smem_bytes(int d) {
+// dynamic shared memory of the dK/dV kernel (kernel 0) or the dQ kernel
+// (kernel 1) of head width d in the given type (ptxas reports static
+// shared memory only; the Di pass has none); -1 for a width they lack
+extern "C" int flash_attention_bwd_smem_bytes(int d, int is_bf16,
+                                              int kernel) {
+  if (is_bf16) {
+    switch (d) {
+      case 16: return (int)(kernel ? bf16p::Shape<16>::SMEM_DQ : bf16p::Shape<16>::SMEM_DKDV);
+      case 32: return (int)(kernel ? bf16p::Shape<32>::SMEM_DQ : bf16p::Shape<32>::SMEM_DKDV);
+      case 64: return (int)(kernel ? bf16p::Shape<64>::SMEM_DQ : bf16p::Shape<64>::SMEM_DKDV);
+      case 128: return (int)(kernel ? bf16p::Shape<128>::SMEM_DQ : bf16p::Shape<128>::SMEM_DKDV);
+      default: return -1;
+    }
+  }
   switch (d) {
-    case 16: return (int)Shape<16>::SMEM;
-    case 32: return (int)Shape<32>::SMEM;
-    case 64: return (int)Shape<64>::SMEM;
-    case 128: return (int)Shape<128>::SMEM;
+    case 16: return (int)f32p::Shape<16>::SMEM;
+    case 32: return (int)f32p::Shape<32>::SMEM;
+    case 64: return (int)f32p::Shape<64>::SMEM;
+    case 128: return (int)f32p::Shape<128>::SMEM;
     default: return -1;
   }
 }

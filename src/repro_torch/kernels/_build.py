@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, which ``ctypes`` loads.  The library lands in
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
-named after a hash of its source and flags, so an edited source rebuilds
-and an unchanged one is built once.  Nothing here runs at import time: the
-first launch builds, and ``build()`` starts every compiler at once when a
-caller wants all kernels ready up front.
+named after a hash of its source, the headers it includes and the flags,
+so an edited source or header rebuilds and an unchanged one is built
+once.  Nothing here runs at import time: the first launch builds, and
+``build()`` starts every compiler at once when a caller wants all kernels
+ready up front.
 
 ``note_launch`` is the one place a wrapper counts a launch of its kernel
 (and, for a kernel that loops, the hops or rounds of the launch).
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("pack_flush", "chain_order", "quant_pack", "flash_attention",
            "flash_attention_bwd", "hash_probe")
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -61,9 +64,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _I64, _I64, _I64, _INT, _INT, _INT,
-                                       _F32, _INT, _P],
-        "flash_attention_bwd_smem_bytes": [_INT],
+                                       _P, _I64, _I64, _I64, _INT, _INT,
+                                       _INT, _F32, _INT, _INT, _P],
+        "flash_attention_bwd_smem_bytes": [_INT, _INT, _INT],
     },
     "hash_probe": {
         "probe_launch": [_P, _P, _P, _P, _I64, _I64, _P],
@@ -102,9 +105,26 @@ def nvcc() -> str:
     return found
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes,
+    directly or through another header, each once."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, the headers it
+    includes and the flags: an edit to any of them builds anew."""
+    data = b"".join(p.read_bytes() for p in sources(name))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -23,9 +23,11 @@ differentiates its jnp ``blockwise_attention`` through XLA).  With grad
 enabled and an input that requires it, ``flash_attention`` runs through
 ``FlashAttentionFn``: its forward launches the same kernel and also keeps
 the per-row logsumexp ``lse`` (H, Sq) f32, and its backward is
-``flash_attention_bwd``, two hand-written kernels
-(``csrc/flash_attention_bwd.cu``: dK and dV over KV tiles, then dQ over Q
-tiles; f32 sums, no atomics, so the bits repeat).  Bound of the backward:
+``flash_attention_bwd``, three hand-written kernels
+(``csrc/flash_attention_bwd.cu``: Di = rowsum(dO·o) once into a scratch,
+then dK and dV over KV tiles, then dQ over Q tiles; bf16 on the tensor
+cores with P and dS rounded to bf16, f32 register-blocked on the FMA
+units; f32 sums, no atomics, so the bits repeat).  Bound of the backward:
 10·H·Sq·Skv·D flops (halved when causal) over the same rates.
 
 Every wrapper dispatches by where its tensors live: CPU tensors take the
@@ -43,10 +45,14 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_plain", "NEG_INF"]
+           "flash_attention_bwd_delta_plain", "flash_attention_bwd_plain",
+           "flash_attention_plain", "NEG_INF"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+# the kernels flash_attention_bwd_launch runs, by bit: the Di pass, dK/dV, dQ
+BWD_DELTA, BWD_DKDV, BWD_DQ = 1, 2, 4
+BWD_ALL = BWD_DELTA | BWD_DKDV | BWD_DQ
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -105,6 +111,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def flash_attention_bwd_delta_plain(o: torch.Tensor,
+                                    do: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward's Di pass: Di = rowsum(dO · o) in f32,
+    (H, Sq)."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               do: torch.Tensor, lse: torch.Tensor, *,
@@ -125,7 +138,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     vv = v.float().repeat_interleave(g, dim=0)
     s = _masked(torch.matmul(qf, kk.transpose(1, 2)) * scale, causal)
     p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - lse[..., None]), 0.0)
-    di = (dof * o.float()).sum(dim=-1, keepdim=True)
+    di = flash_attention_bwd_delta_plain(o, do)[..., None]
     dv = torch.matmul(p.transpose(1, 2), dof)
     ds = p * (torch.matmul(dof, vv.transpose(1, 2)) - di)
     dq = torch.matmul(ds, kk) * scale
@@ -211,9 +224,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         scale: Optional[float] = None):
     """(dq, dk, dv) of ``flash_attention``: CPU tensors take
-    ``flash_attention_bwd_plain``; CUDA tensors launch the two backward
-    kernels (dK/dV, then dQ) of ``csrc/flash_attention_bwd.cu``, counted
-    as one launch of this wrapper, or raise."""
+    ``flash_attention_bwd_plain``; CUDA tensors launch the three backward
+    kernels (the Di pass, dK/dV, then dQ) of
+    ``csrc/flash_attention_bwd.cu``, counted as one launch of this
+    wrapper, or raise."""
     g = _check(q, k, v)
     _check_bwd(q, k, o, do, lse)
     if q.device.type == "cpu":
@@ -224,19 +238,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    _kernel_ready("flash_attention_bwd", q, k, v, o, do, lse, dq, dk, dv)
+    di = torch.empty((h, sq), dtype=torch.float32, device=q.device)
+    _kernel_ready("flash_attention_bwd", q, k, v, o, do, lse, di, dq, dk,
+                  dv)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), h, sq, k.shape[1], d, g, int(causal), scale,
-            int(q.dtype == torch.bfloat16), stream)
+            do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), h, sq, k.shape[1], d, g,
+            int(causal), scale, int(q.dtype == torch.bfloat16),
+            BWD_ALL, stream)
     if rc:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
-                           f"(CUDA error {rc})")
+                           f"(error {rc}: a CUDA error, or 10000 + the "
+                           f"driver's CUresult when a TMA map cannot be "
+                           f"encoded)")
     _build.note_launch(flash_attention_bwd, sq)
     return dq, dk, dv
 
