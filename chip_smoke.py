@@ -117,7 +117,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    feature store (both modes, journal on and off: 48 requests, a torn
    crash, recovery, a replay of 64), a sample index (3000 ids, crash,
    recover) and ``ops.pack_rows``/``scatter_rows`` at D = 100 and 256,
-   with identical images, FlushStats and answers; then the serving
+   with identical images, FlushStats and answers; with integrity on (the
+   only arenas of phases 1-10 that have it), the quickstart workload at
+   2**14 for each structure in both modes and a mixed DLL + B+Tree +
+   hashmap arena (2**14, 2**12, 2**14; snapshots on) in both modes, then
+   a crash, the same flipped rows, scrub and a salvage recovery: identical
+   images (``.integ`` sidecars included), FlushStats (``integrity_lines``
+   included), scrub results, salvage reports (timing aside) and recovered
+   states; then the serving
    launcher ``repro_torch.launch.serve --arch llama3.2-3b --crash`` on
    the card, which must return 0 after recovering;
 5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
@@ -191,7 +198,39 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the card and on the CPU from the same parameters (losses within 1e-5
    relative); and ``repro_torch.launch.train --arch
    llama3.2-3b --crash-at-step 6 --steps 10 --device cuda`` (reduced,
-   bf16) in a subprocess, which must return 0.
+   bf16) in a subprocess, which must return 0;
+11. integrity and salvage (DESIGN.md §13), with ``REPRO_INTEGRITY``
+   unset so integrity resolves on: phase 3's workload with integrity on
+   and snapshots off (DLL and hashmap 2**22, the B+Tree 2**17), both
+   modes, whose lines, bytes and calls must equal phase 3's (for the
+   B+Tree, an integrity-off run here) with integrity_lines > 0, insert
+   and delete seconds beside the integrity-off run's and the
+   persisted-line throughput (data + snapshot + journal + sidecar lines
+   per second of drain) on over off beside the reference's 0.95 gate; a
+   clean scrub of each committed image must return {} (seconds printed);
+   the reference's gate itself (30,000 hashmap inserts in epochs of
+   1024, on and off interleaved, best of 7); then a mixed arena (DLL and
+   hashmap 2**22, B+Tree 2**17, partly, snapshots on), ``pack_rows``
+   launches equal to gathers, crashed and recovered with salvage three
+   times: no fault (every structure exact); a flip in the B+Tree's second
+   leaf (the DLL and hashmap exact, the B+Tree's survivors a subset of
+   its keys disjoint from its quarantined ones); flips in the DLL node at
+   chain position 2**21, one hashmap entry and that leaf and a stuck line
+   in a later DLL row (the DLL its pre-crash order cut at 2**21, the
+   hashmap missing and quarantining exactly the flipped entry's key);
+   scrub must name exactly the faulted rows, and ``jump_double``,
+   ``gather_next``, ``walk_segments`` and ``expand_segments`` must launch
+   over the two faulted recoveries; a full-mode B+Tree quarantines
+   wholesale and its dependent stage reports ``skipped``; a corrupt
+   header is ``ManifestError`` under salvage, a truncated backing file
+   ``ShardLossError`` at open; the feature store at phase 9's config
+   (64 requests): one key's table row flipped, exactly that key refused
+   until ``readmit``, every other key's effects equal to an uninterrupted
+   twin's; phase 4's engine at full width, 2 layers: rid 0's token-log
+   row flipped, that rid refused until ``readmit``, the others' logits
+   within 1e-4 of a twin's; ``CheckpointCatalog`` at its default
+   capacity, 4096 steps recorded, crash, reopen, ``steps()`` and
+   ``latest()`` unchanged.  The phase's seconds are printed.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
@@ -281,7 +320,7 @@ def emit(obj) -> None:
 # ------------------------------------------------------------------ workload
 
 def build_structure(kind: str, mode: str, n: int, device,
-                    snapshot: bool = False):
+                    snapshot: bool = False, integrity: bool = False):
     """One structure on its own arena, every feature axis pinned."""
     from repro_torch.core.arena import open_arena
     from repro_torch.pstruct.bptree import BPTree
@@ -290,14 +329,14 @@ def build_structure(kind: str, mode: str, n: int, device,
     if kind == "dll":
         a = open_arena(None, DoublyLinkedList.layout(n, mode,
                                                      snapshot=snapshot),
-                       device=device, integrity=False)
+                       device=device, integrity=integrity)
         return a, DoublyLinkedList(a, n, mode, snapshot=snapshot)
     if kind == "hashmap":
         a = open_arena(None, Hashmap.layout(n, mode, snapshot=snapshot),
-                       device=device, integrity=False)
+                       device=device, integrity=integrity)
         return a, Hashmap(a, n, mode, snapshot=snapshot)
     a = open_arena(None, BPTree.layout(n, 2 * n, mode), device=device,
-                   integrity=False)
+                   integrity=integrity)
     return a, BPTree(a, n, 2 * n, mode)
 
 
@@ -362,7 +401,8 @@ def _check(kind: str, label: str, s, want_order=None, live_keys=None,
         raise AssertionError(f"{label}: deleted keys recovered")
 
 
-def workload(kind: str, mode: str, n: int, device, seed: int = 0) -> dict:
+def workload(kind: str, mode: str, n: int, device, seed: int = 0,
+             integrity: bool = False) -> dict:
     """Insert n entries in batches of 8192, delete (and, for the DLL, pop)
     1/8 of them, commit, crash, reopen, reconstruct, then check the
     recovered state against what the workload expects."""
@@ -370,7 +410,7 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0) -> dict:
     import torch
 
     _, keys, vals, gone = _inputs(kind, n, seed)
-    a, s = build_structure(kind, mode, n, device)
+    a, s = build_structure(kind, mode, n, device, integrity=integrity)
     sync = torch.cuda.synchronize if a.device.type == "cuda" else (
         lambda: None)
     t0 = time.perf_counter()
@@ -393,8 +433,8 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0) -> dict:
     live[gone] = False
     _check(kind, f"{kind} {mode}", s, np.flatnonzero(live)[pops:],
            keys[live], vals[live], keys[gone])
-    return {"kind": kind, "mode": mode, "n": n, "arena": a, "lines": lines,
-            "insert_s": t_insert, "delete_s": t_delete,
+    return {"kind": kind, "mode": mode, "n": n, "arena": a, "structure": s,
+            "lines": lines, "insert_s": t_insert, "delete_s": t_delete,
             "recover_s": t_recover, "stats": dataclasses.asdict(a.stats)}
 
 
@@ -2223,7 +2263,7 @@ def gathers_check(phase: str, launches: dict, gathers: int) -> dict:
     return {"phase": f"{phase}_gathers", "pack_rows_launches": gathers,
             "grouped_gathers": gathers,
             "per_region_pack_rows_launches":
-                PER_REGION_PACK_LAUNCHES[phase]}
+                PER_REGION_PACK_LAUNCHES.get(phase)}
 
 
 def flash_bound_ms(h: int, hk: int, sq: int, skv: int, d: int, itemsize: int,
@@ -3165,6 +3205,705 @@ def feature_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------- integrity
+
+INTEG_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 17}
+MIXED_NAMES = {"dll": "dll", "bptree": "bt", "hashmap": "hm"}  # layout order
+MIXED_REGION = {"dll": "dll.nodes", "bptree": "bt.nodes",
+                "hashmap": "hm.entries"}
+INTEG_GATE = 0.95              # the reference's integrity-overhead gate
+GATE_OPS, GATE_EPOCH, GATE_REPEATS = 30000, 1024, 7
+FS11_REQUESTS = 64             # phase 11's feature-store requests
+CATALOG_STEPS = 4096           # CheckpointCatalog's default capacity
+CHAIN_KERNELS = ("jump_double", "gather_next", "walk_segments",
+                 "expand_segments")
+
+
+@contextlib.contextmanager
+def integrity_default():
+    """Inside the block ``REPRO_INTEGRITY`` is unset, so integrity resolves
+    on, the default of both packages; the pin the other phases keep comes
+    back after it."""
+    saved = os.environ.pop("REPRO_INTEGRITY", None)
+    try:
+        yield
+    finally:
+        if saved is not None:
+            os.environ["REPRO_INTEGRITY"] = saved
+
+
+def no_timing(report) -> dict:
+    """A RecoveryReport as a dict without its timing fields."""
+    d = report.as_dict()
+    return {**{k: v for k, v in d.items() if k not in TIMING},
+            "stages": [{k: v for k, v in st.items() if k not in TIMING
+                        and not k.endswith("admission_s")}
+                       for st in d["stages"]]}
+
+
+def scrub_rows(a) -> dict:
+    return {k: v.tolist() for k, v in a.scrub().items()}
+
+
+def build_mixed(mode: str, sizes: dict, device, integrity=None):
+    """The reference's mixed arena (``examples/salvage_recovery.py``): a DLL,
+    a B+Tree and a hashmap on ONE arena, order snapshots and integrity at
+    their defaults unless ``integrity`` pins it."""
+    from repro_torch.core.arena import open_arena
+    from repro_torch.pstruct.bptree import BPTree
+    from repro_torch.pstruct.dll import DoublyLinkedList
+    from repro_torch.pstruct.hashmap import Hashmap
+    n_d, n_b, n_h = sizes["dll"], sizes["bptree"], sizes["hashmap"]
+    layout = {}
+    layout.update(DoublyLinkedList.layout(n_d, mode, name="dll"))
+    layout.update(BPTree.layout(n_b, 2 * n_b, mode, name="bt"))
+    layout.update(Hashmap.layout(n_h, mode, name="hm"))
+    a = open_arena(None, layout, device=device, integrity=integrity)
+    return a, {"dll": DoublyLinkedList(a, n_d, mode, name="dll"),
+               "bptree": BPTree(a, n_b, 2 * n_b, mode, name="bt"),
+               "hashmap": Hashmap(a, n_h, mode, name="hm")}
+
+
+def mixed_workload(mode: str, sizes: dict, device, integrity=None,
+                   seed: int = 0) -> dict:
+    """Phase 3's operations for each structure of a mixed arena in turn
+    (insert in batches of 8192, delete 1/8, the DLL also pops), each
+    structure's seconds and FlushStats delta apart, then one commit.
+    Returns the arena, the structures and what each must recover to."""
+    import numpy as np
+    import torch
+    a, structs = build_mixed(mode, sizes, device, integrity)
+    sync = torch.cuda.synchronize if a.device.type == "cuda" else (
+        lambda: None)
+    runs, want = {}, {}
+    for kind in KINDS:
+        n, s = sizes[kind], structs[kind]
+        _, keys, vals, gone = _inputs(kind, n, seed)
+        s0 = a.stats.snapshot()
+        t0 = time.perf_counter()
+        _fill(kind, a, s, keys, vals)
+        sync()
+        t_insert = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pops = _thin(kind, s, keys, gone)
+        sync()
+        runs[kind] = {"insert_s": t_insert,
+                      "delete_s": time.perf_counter() - t0,
+                      "stats": dataclasses.asdict(a.stats.delta(s0))}
+        live = np.ones(n, bool)
+        live[gone] = False
+        want[kind] = {"order": np.flatnonzero(live)[pops:],
+                      "keys": keys[live], "vals": vals[live],
+                      "gone": keys[gone]}
+    a.commit()
+    return {"arena": a, "structs": structs, "runs": runs, "want": want}
+
+
+def fault_rows(structs, want: dict, pos: int, stuck_pos: int) -> dict:
+    """The committed rows phase 11 (and phase 4's mixed case) corrupt: the
+    DLL node at chain position ``pos`` (flip) and at ``stuck_pos`` (stuck
+    line), the hashmap entry of one live key, the B+Tree's second leaf."""
+    import torch
+    order = want["dll"]["order"]
+    h = structs["hashmap"]
+    key = int(want["hashmap"]["keys"][len(want["hashmap"]["keys"]) // 3])
+    slot = int(h._find_slots(torch.tensor([key], device=h.arena.device))[0])
+    return {"dll": int(order[pos]), "dll_stuck": int(order[stuck_pos]),
+            "hashmap": slot, "hm_key": key,
+            "bptree": int(structs["bptree"].leaves()[1])}
+
+
+def inject(a, rows: dict, which=("dll", "hashmap", "bptree")) -> dict:
+    """Flip one bit in each chosen row (stuck line on ``dll_stuck``);
+    returns the scrub the faults must give."""
+    from repro_torch.core import faultinject as fi
+    bad = {}
+    for kind in which:
+        fi.flip_bits(a, MIXED_REGION[kind], rows[kind], byte=8, mask=0x40)
+        bad.setdefault(MIXED_REGION[kind], set()).add(rows[kind])
+    if "dll" in which:
+        fi.stuck_line(a, MIXED_REGION["dll"], rows["dll_stuck"], line=0,
+                      value=0xA5)
+        bad[MIXED_REGION["dll"]].add(rows["dll_stuck"])
+    return {r: sorted(v) for r, v in sorted(
+        bad.items(), key=lambda kv: a.regions[kv[0]].offset)}
+
+
+def salvage_recover(a, structs):
+    from repro_torch.core.recovery import RecoveryManager
+    mgr = RecoveryManager(a)
+    for kind in ("dll", "bptree", "hashmap"):
+        mgr.add(MIXED_NAMES[kind], f"pstruct.{kind}", structs[kind])
+    t0 = time.perf_counter()
+    rep = mgr.recover(salvage=True)
+    if a.device.type == "cuda":
+        import torch
+        torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0
+
+
+def check_exact(kind: str, s, want: dict, label: str) -> None:
+    _check(kind, label, s, want["order"], want["keys"], want["vals"],
+           want["gone"])
+
+
+def check_salvaged(structs, want: dict, rows: dict, pos: int,
+                   bt_keys, label: str, faulted=("dll", "hashmap",
+                                                  "bptree")) -> dict:
+    """What a salvage recovery must give: the DLL's pre-crash order cut at
+    the first bad node, the hashmap missing exactly the flipped entry's
+    key (named in ``quarantined``), the B+Tree's survivors a subset of its
+    pre-crash keys disjoint from its quarantined keys; an unfaulted
+    structure recovers exactly."""
+    import numpy as np
+    for kind in ("dll", "hashmap", "bptree"):
+        if kind not in faulted:
+            check_exact(kind, structs[kind], want[kind], label)
+    out = {}
+    if "dll" in faulted:
+        d = structs["dll"]
+        got = d.to_list().cpu().numpy()
+        if d.count != pos or not np.array_equal(got,
+                                                want["dll"]["order"][:pos]):
+            raise AssertionError(f"{label}: the DLL is not its pre-crash "
+                                 f"order cut at position {pos}")
+        out["dll_count"] = d.count
+    if "hashmap" in faulted:
+        h = structs["hashmap"]
+        key = rows["hm_key"]
+        if h.quarantined != {key}:
+            raise AssertionError(f"{label}: hashmap quarantined "
+                                 f"{sorted(h.quarantined)[:8]}, not {key}")
+        keys, vals = want["hashmap"]["keys"], want["hashmap"]["vals"]
+        other = keys != key
+        ok, got = h.find_batch(keys[other])
+        if not bool(ok.all()) or not np.array_equal(got.cpu().numpy(),
+                                                    vals[other]):
+            raise AssertionError(f"{label}: hashmap lost other keys")
+        ok, _ = h.find_batch(np.array([key], np.int64))
+        if bool(ok.any()):
+            raise AssertionError(f"{label}: the quarantined key is found")
+        out["hm_quarantined"] = sorted(h.quarantined)
+    if "bptree" in faulted:
+        t = structs["bptree"]
+        got = set(t.keys_in_order().cpu().numpy().tolist())
+        if not got <= set(bt_keys) or not got.isdisjoint(t.quarantined):
+            raise AssertionError(f"{label}: B+Tree survivors are not a "
+                                 f"subset disjoint from quarantined")
+        if not t.quarantined:
+            raise AssertionError(f"{label}: the B+Tree named no keys")
+        out.update(bt_survivors=len(got), bt_quarantined=len(t.quarantined))
+    return out
+
+
+def integrity_small(kind: str, mode: str, device) -> tuple:
+    """Phase 4's integrity case for one structure: the quickstart workload
+    at PARITY_N with integrity on; then a crash, one flipped committed row
+    (DLL: position n/4; hashmap: slab row 7; B+Tree: the second leaf),
+    scrub and a salvage recovery.  Returns the image's sha256, the
+    FlushStats, the scrub, the salvage report without timing and the
+    recovered state's digest."""
+    from repro_torch.core import faultinject as fi
+    from repro_torch.core.recovery import RecoveryManager
+    from repro_torch.interop import image_of
+    r = workload(kind, mode, PARITY_N, device, seed=3, integrity=True)
+    a, s = r["arena"], r["structure"]
+    image = hashlib.sha256(image_of(a)).hexdigest()
+    if kind == "dll":
+        region, row = s.nodes, int(s.to_list()[PARITY_N // 4])
+    elif kind == "hashmap":
+        region, row = s.entries, 7
+    else:
+        region, row = s.nodes, int(s.leaves()[1])
+    a.crash()
+    fi.flip_bits(a, region, row, byte=8, mask=0x40)
+    bad = scrub_rows(a)
+    rep = RecoveryManager(a).add(kind, f"pstruct.{kind}", s).recover(
+        salvage=True)
+    return (image, r["stats"], bad, no_timing(rep), state_digest(kind, s))
+
+
+def state_digest(kind: str, s) -> str:
+    """sha256 of a structure's recovered logical state (and quarantine)."""
+    import numpy as np
+    h = hashlib.sha256()
+    if kind == "dll":
+        h.update(s.to_list().cpu().numpy().tobytes())
+    elif kind == "bptree":
+        h.update(s.keys_in_order().cpu().numpy().tobytes())
+    else:
+        keys = s.keys.cpu().numpy()
+        h.update(np.sort(keys).tobytes())
+        h.update(s.values.cpu().numpy()[np.argsort(keys)].tobytes())
+    h.update(repr(sorted(getattr(s, "quarantined", ()))).encode())
+    return h.hexdigest()
+
+
+def mixed_small(mode: str, device) -> tuple:
+    """Phase 4's mixed case: the three structures on one arena at PARITY_N
+    (B+Tree PARITY_N / 4), integrity and snapshots on; crash, faults in
+    each (as phase 11), scrub, salvage recovery.  Returns the image's
+    sha256, FlushStats, scrub, report without timing and state digests."""
+    from repro_torch.interop import image_of
+    sizes = {"dll": PARITY_N, "hashmap": PARITY_N, "bptree": PARITY_N >> 2}
+    w = mixed_workload(mode, sizes, device, integrity=True, seed=3)
+    a, structs = w["arena"], w["structs"]
+    image = hashlib.sha256(image_of(a)).hexdigest()
+    rows = fault_rows(structs, w["want"], PARITY_N // 4, PARITY_N // 2)
+    a.crash()
+    inject(a, rows)
+    bad = scrub_rows(a)
+    rep, _ = salvage_recover(a, structs)
+    return (image, dataclasses.asdict(a.stats), bad, no_timing(rep),
+            [state_digest(k, structs[k]) for k in KINDS])
+
+
+def drain_gate(dev) -> dict:
+    """The reference's integrity-overhead gate on the card
+    (``benchmarks/recovery_bench.py`` ``integrity_overhead_report``):
+    GATE_OPS hashmap inserts, partly, in epochs of GATE_EPOCH rows, then a
+    commit, integrity off and on interleaved, best of GATE_REPEATS; the
+    persisted-line throughput (data + snapshot + journal + sidecar lines
+    per second of drain) on over off, beside INTEG_GATE.  No synthetic
+    line latency: the card's own drain."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arena import open_arena
+    from repro_torch.pstruct.hashmap import Hashmap
+    rng = np.random.default_rng(0)
+    vals = rng.integers(0, 1 << 40, (4096, 7)).astype(np.int64)
+    keys = rng.permutation(2 * GATE_OPS).astype(np.int64)
+
+    def one_pass(integ: bool) -> dict:
+        a = open_arena(None, Hashmap.layout(GATE_OPS + 1024, "partly"),
+                       device=dev, integrity=integ)
+        s = Hashmap(a, GATE_OPS + 1024, "partly")
+        s0 = a.stats.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, GATE_OPS, GATE_EPOCH):
+            m = min(GATE_EPOCH, GATE_OPS - i)
+            s.insert_batch(keys[i:i + m], vals[:m])
+        a.commit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = a.stats.delta(s0)
+        t0 = time.perf_counter()
+        if a.scrub():
+            raise AssertionError("gate: a clean arena failed its scrub")
+        persisted = (d.lines + d.snapshot_lines + d.journal_lines
+                     + d.integrity_lines)
+        return {"integrity": integ, "flush_wall_s": wall,
+                "lines": d.lines, "bytes": d.bytes,
+                "integrity_lines": d.integrity_lines,
+                "persisted_lines": persisted,
+                "lines_per_s": persisted / wall,
+                "data_lines_per_s": d.lines / wall,
+                "scrub_s": time.perf_counter() - t0}
+
+    best = {}
+    for _ in range(GATE_REPEATS):
+        for integ in (False, True):
+            r = one_pass(integ)
+            if integ not in best or \
+                    r["flush_wall_s"] < best[integ]["flush_wall_s"]:
+                best[integ] = r
+    on, off = best[True], best[False]
+    if (on["lines"], on["bytes"]) != (off["lines"], off["bytes"]) or \
+            not on["integrity_lines"] > 0 == off["integrity_lines"]:
+        raise AssertionError(f"gate: data ledgers differ: {on} {off}")
+    return {"on": on, "off": off, "gate": INTEG_GATE,
+            "lines_per_s_ratio": on["lines_per_s"] / off["lines_per_s"],
+            "data_lines_per_s_ratio":
+                on["data_lines_per_s"] / off["data_lines_per_s"]}
+
+
+def integrity_drains(dev, phase3: dict) -> dict:
+    """Phase 11's drains: phase 3's workload (DLL and hashmap at 2**22, the
+    B+Tree at 2**17), both modes, integrity on and snapshots off, each on
+    its own arena.  lines, bytes and calls must equal the integrity-off run
+    of the same operations (phase 3's for the DLL and the hashmap; for the
+    B+Tree an integrity-off run here), integrity_lines be > 0, and a clean
+    scrub of each committed image return {}.  Returns each run's numbers
+    beside its integrity-off twin's, and the persisted-line throughput
+    ratio, on over off; and ``keep``: the full-mode B+Tree's arena and
+    tree, for ``full_mode_and_fatal``."""
+    import torch
+    rows, keep = [], None
+    for kind in KINDS:
+        for mode in ("full", "partly"):
+            n = INTEG_N[kind]
+            r = workload(kind, mode, n, dev, integrity=True)
+            a = r.pop("arena")
+            t = r.pop("structure")
+            if (kind, mode) == ("bptree", "full"):
+                keep = (a, t)
+            t0 = time.perf_counter()
+            bad = a.scrub()
+            scrub_s = time.perf_counter() - t0
+            if bad:
+                raise AssertionError(f"{kind} {mode}: a clean scrub named "
+                                     f"{ {k: v[:4] for k, v in bad.items()} }")
+            del a, t
+            torch.cuda.empty_cache()
+            off = phase3.get((kind, mode))
+            if off is None or off["n"] != n:
+                off = workload(kind, mode, n, dev, integrity=False)
+                del off["arena"], off["structure"]
+                torch.cuda.empty_cache()
+            on_st, off_st = r["stats"], off["stats"]
+            if any(on_st[k] != off_st[k] for k in ("lines", "bytes",
+                                                   "calls")) or \
+                    on_st["integrity_lines"] <= 0:
+                raise AssertionError(f"{kind} {mode}: integrity-on ledgers "
+                                     f"{on_st} against off {off_st}")
+            drain_on = r["insert_s"] + r["delete_s"]
+            drain_off = off["insert_s"] + off["delete_s"]
+            on_lines = sum(on_st[k] for k in ("lines", "snapshot_lines",
+                                              "journal_lines",
+                                              "integrity_lines"))
+            rows.append({
+                "kind": kind, "mode": mode, "n": n,
+                "lines": on_st["lines"], "bytes": on_st["bytes"],
+                "calls": on_st["calls"],
+                "integrity_lines": on_st["integrity_lines"],
+                "insert_s": r["insert_s"], "delete_s": r["delete_s"],
+                "recover_s": r["recover_s"],
+                "off_insert_s": off["insert_s"],
+                "off_delete_s": off["delete_s"],
+                "off_from": "phase 3" if (kind, mode) in phase3
+                and phase3[kind, mode]["n"] == n else "phase 11",
+                "scrub_s": scrub_s,
+                "lines_per_s_ratio": (on_lines / drain_on)
+                / (off_st["lines"] / drain_off),
+                "gate": INTEG_GATE})
+    return {"rows": rows, "keep": keep}
+
+
+def full_mode_and_fatal(dev, a, t) -> dict:
+    """The full-mode B+Tree of phase 11's drains (arena ``a``, tree ``t``,
+    committed) quarantines wholesale, and a stage that depends on it
+    reports ``skipped``; then the fatal cases: a corrupt header is
+    ``ManifestError`` even under salvage, and a truncated backing file is
+    ``ShardLossError`` at open."""
+    import numpy as np
+    from repro_torch.core import faultinject as fi
+    from repro_torch.core.arena import (ManifestError, ShardLossError,
+                                        open_arena)
+    from repro_torch.core.recovery import RecoveryManager
+    from repro_torch.pstruct.dll import DoublyLinkedList
+    da, d = build_structure("dll", "full", 4096, dev, integrity=True)
+    d.append_batch(np.ones((64, 7), np.int64))
+    da.commit()
+    leaf = int(t.leaves()[0])
+    a.crash()
+    da.crash()
+    fi.flip_bits(a, t.nodes, leaf, byte=8, mask=0x40)
+    mgr = RecoveryManager(a, da)
+    mgr.add("bt", "pstruct.bptree", t)
+    mgr.add("dll", "pstruct.dll", d, depends=("bt",))
+    rep = mgr.recover(salvage=True)
+    st = {s.name: s for s in rep.stages}
+    if rep.quarantined != ["bt"] or rep.degraded != ["dll"] or \
+            st["dll"].detail.get("skipped") != "quarantined dependency" or \
+            st["bt"].detail.get("error") != "CorruptLineError":
+        raise AssertionError(f"full mode: {no_timing(rep)}")
+    out = {"quarantined": rep.quarantined, "degraded": rep.degraded,
+           "bt_error": st["bt"].detail["error"],
+           "dll_detail": st["dll"].detail}
+    fi.corrupt_header(a)
+    try:
+        RecoveryManager(a).add("bt", "pstruct.bptree", t).recover(
+            salvage=True)
+        raise AssertionError("a corrupt header recovered")
+    except ManifestError as e:
+        out["manifest_error"] = str(e)
+    path = ROOT / "build" / "chip_smoke_integrity" / "lost.arena"
+    shutil.rmtree(path.parent, ignore_errors=True)
+    path.parent.mkdir(parents=True)
+    layout = DoublyLinkedList.layout(4096, "partly", snapshot=False)
+    b = open_arena(str(path), layout, device=dev)
+    DoublyLinkedList(b, 4096, "partly", snapshot=False).append_batch(
+        np.ones((64, 7), np.int64))
+    b.commit()
+    b.close()
+    fi.truncate_shard(b, 0, 4096)
+    try:
+        open_arena(str(path), layout, device=dev)
+        raise AssertionError("a truncated arena opened")
+    except ShardLossError as e:
+        out["shard_loss_error"] = str(e)
+    shutil.rmtree(path.parent)
+    return out
+
+
+def feature_salvage(dev) -> dict:
+    """Phase 9's FeatureConfig (n_keys 2**22), integrity on: FS11_REQUESTS
+    requests beside an uninterrupted twin; crash, flip a VALUE word of one
+    key's table row, salvage recovery: exactly that key is refused
+    (``QuarantinedError``) until ``readmit``, then applies; every other
+    key's effects equal the twin's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import faultinject as fi
+    from repro_torch.core.arena import QuarantinedError
+    from repro_torch.feature_recover import requests, run_twin
+    from repro_torch.serve.feature_store import FeatureConfig, FeatureStore
+    cfg = FeatureConfig(**FS_CONFIG, mode="partly", journal=True)
+    ops = requests(FS11_REQUESTS, FS_KEYS_PER_REQUEST, FS_KEY_SPACE,
+                   cfg.dim, seed=FS_SEED)
+    want = run_twin(cfg, ops, dev)
+    fs = FeatureStore(cfg, device=dev)
+    for op in ops:
+        fs.apply(*op)
+    key = int(ops[0][1][0])
+    slot = int(fs.table._find_slots(torch.tensor([key], device=dev))[0])
+    fs.crash()
+    fi.flip_bits(fs.arena, fs.arena.regions["emb.entries"], slot,
+                 byte=16, mask=0x20)          # a VALUE word: key readable
+    t0 = time.perf_counter()
+    rep = fs.recover(salvage=True)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    if fs.quarantined_keys != {key}:
+        raise AssertionError(f"feature store quarantined "
+                             f"{sorted(fs.quarantined_keys)[:8]}, not {key}")
+    for call in (lambda: fs.lookup(np.array([key], np.int64)),
+                 lambda: fs.apply(10 ** 6, np.array([key], np.int64),
+                                  np.ones((1, cfg.dim), np.int64))):
+        try:
+            call()
+            raise AssertionError("a quarantined key was served")
+        except QuarantinedError:
+            pass
+    others = np.setdiff1d(np.arange(cfg.n_keys), [key])
+    got = fs.lookup(others).cpu().numpy()
+    if not np.array_equal(got, want["effects"]["vectors"][others]):
+        raise AssertionError("feature store: other keys' vectors differ "
+                             "from the twin's")
+    counts = fs.counts.cpu().numpy()
+    tw = want["effects"]["counts"]
+    keep = np.ones(cfg.n_keys, bool)
+    keep[slot] = False
+    if not np.array_equal(counts[keep], tw[keep]) or \
+            fs.next_sample != want["effects"]["next_sample"] or \
+            fs.journal.classify() != want["effects"]["classify"]:
+        raise AssertionError("feature store: counts, cursor or journal "
+                             "differ from the twin's")
+    fs.readmit([key])
+    if not fs.apply(10 ** 6, np.array([key], np.int64),
+                    np.ones((1, cfg.dim), np.int64)):
+        raise AssertionError("a readmitted key did not apply")
+    return {"key": key, "recover_s": recover_s,
+            "stages": {s.name: s.seconds for s in rep.stages},
+            "degraded": rep.degraded, "quarantined": rep.quarantined,
+            "requests": FS11_REQUESTS,
+            "store_detail": {k: v for k, v in rep.stage("store").detail
+                             .items() if k != "quarantined_keys"}}
+
+
+def engine_salvage(dev) -> dict:
+    """Phase 4's engine (llama3.2-3b at full width, 2 layers, f32) on the
+    card beside an uninterrupted twin, three requests, 4 steps; the
+    crashed engine's token-log row of request 0 flipped, salvage recovery:
+    rid 0 is refused (``QuarantinedError``) until ``readmit``, the other
+    requests' logits stay within 1e-4 of the twin's for 4 more steps."""
+    import torch
+    from repro_torch.core import faultinject as fi
+    from repro_torch.core.arena import QuarantinedError
+    from repro_torch.core.policy import tree_map
+    from repro_torch.models.backbone import init_params
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+    from repro_torch.serve_recover import LOGIT_TOL, prompts_for
+    cfg = serve_config(layers=2)
+    gen = torch.Generator()
+    gen.manual_seed(SERVE_SEED)
+    params = tree_map(lambda t: t.to(dev), init_params(cfg, gen, "cpu"))
+    model = Model(cfg, compute_dtype=torch.float32)
+    base = ROOT / "build" / "chip_smoke_engine_salvage"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    prompts = prompts_for((12, 7, 9), cfg.vocab, SERVE_SEED)
+    engs = [ServingEngine(model, params, EngineConfig(max_batch=3, s_max=64),
+                          arena_path=str(base / name), device=dev)
+            for name in ("crashed", "twin")]
+    for e in engs:
+        for rid, p in enumerate(prompts):
+            e.add_request(rid, p)
+        for _ in range(4):
+            e.step()
+    eng, twin = engs
+    eng.crash()
+    slot = int(list(twin.slot_rid).index(0))   # the twins seat alike
+    fi.flip_bits(eng.arena, eng.arena.regions["tokens"], slot, byte=4,
+                 mask=0x10)
+    t0 = time.perf_counter()
+    eng.recover(salvage=True)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    if eng.quarantined_rids != {0}:
+        raise AssertionError(f"engine quarantined {eng.quarantined_rids}")
+    try:
+        eng.add_request(0, prompts[0])
+        raise AssertionError("a quarantined rid was admitted")
+    except QuarantinedError:
+        pass
+    worst = 0.0
+    for _ in range(4):
+        got, want = eng.step(), twin.step()
+        if set(got) != {1, 2} or any(got[r] != want[r] for r in got):
+            raise AssertionError(f"engine after salvage served {got}, the "
+                                 f"twin {want}")
+        for r in got:
+            a, b = eng.step_logits[r].cpu(), twin.step_logits[r].cpu()
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+    if worst > LOGIT_TOL:
+        raise AssertionError(f"engine after salvage: logits {worst} from "
+                             f"the twin's")
+    eng.readmit([0])
+    if eng.quarantined_rids or eng.journal.state_of(0) != "completed":
+        raise AssertionError("readmit left rid 0 open")
+    st = eng.last_recovery.stage("engine")
+    shutil.rmtree(base)
+    return {"recover_s": recover_s, "logit_rel_err": worst,
+            "engine_detail": {k: v for k, v in st.detail.items()
+                              if not k.endswith("admission_s")},
+            "stages": {s.name: s.seconds for s in eng.last_recovery.stages}}
+
+
+def catalog_phase(dev) -> dict:
+    """``CheckpointCatalog`` at its default capacity (4096) with its
+    default integrity: record CATALOG_STEPS steps, crash, reopen;
+    ``steps()`` and ``latest()`` must equal the pre-crash values."""
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import CheckpointCatalog
+    path = ROOT / "build" / "chip_smoke_catalog" / "cat.arena"
+    shutil.rmtree(path.parent, ignore_errors=True)
+    path.parent.mkdir(parents=True)
+    cat = CheckpointCatalog(str(path), device=dev)
+    if not cat.arena.integrity:
+        raise AssertionError("the catalog opened without integrity")
+    steps = np.arange(1, CATALOG_STEPS + 1) * 10
+    t0 = time.perf_counter()
+    for s in steps.tolist():
+        cat.record(s, s // 10, 1000 * s, 5)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    before = (cat.steps().tolist(), cat.latest())
+    cat.arena.crash()
+    t0 = time.perf_counter()
+    cat2 = CheckpointCatalog(str(path), device=dev)
+    reopen_s = time.perf_counter() - t0
+    after = (cat2.steps().tolist(), cat2.latest())
+    if after != before or before[0] != steps.tolist():
+        raise AssertionError("catalog: steps()/latest() differ after the "
+                             "crash")
+    out = {"steps": CATALOG_STEPS, "record_s": record_s,
+           "reopen_s": reopen_s, "latest": list(after[1]),
+           "integrity_lines": cat.arena.stats.integrity_lines,
+           "scrub": scrub_rows(cat2.arena)}
+    shutil.rmtree(path.parent)
+    if out["scrub"]:
+        raise AssertionError(f"catalog: scrub named {out['scrub']}")
+    return out
+
+
+def integrity_phase(dev, phase3: dict) -> dict:
+    """Phase 11: integrity and salvage at the main path's size, with
+    integrity resolved on by default.  The drains against phase 3's
+    ledgers, the reference's gate, clean scrubs, then on a mixed arena
+    (DLL and hashmap 2**22, B+Tree 2**17, partly, snapshots on) a clean
+    recovery, a B+Tree-only fault and faults in all three, each named
+    exactly by scrub and salvaged; full mode and the fatal cases; the
+    feature store, the engine and the catalog."""
+    import torch
+    from repro_torch.core import faultinject as fi
+    from repro_torch.core.writeset import WriteSet
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    out = {}
+    t_phase = time.perf_counter()
+    with integrity_default():
+        reset_launch_counts()
+        WriteSet.gathers = 0
+        out["drains"] = integrity_drains(dev, phase3)
+        bt_full = out["drains"].pop("keep")
+        out["gate"] = drain_gate(dev)
+        # ---- the mixed arena: faults, scrub, salvage
+        w = mixed_workload("partly", INTEG_N, dev)
+        a, structs, want = w["arena"], w["structs"], w["want"]
+        out["mixed_runs"] = {k: {"insert_s": v["insert_s"],
+                                 "delete_s": v["delete_s"],
+                                 "lines": v["stats"]["lines"],
+                                 "integrity_lines":
+                                     v["stats"]["integrity_lines"]}
+                             for k, v in w["runs"].items()}
+        pos = INTEG_N["dll"] >> 1            # chain position 2**21
+        rows = fault_rows(structs, want, pos, pos + (pos >> 1))
+        bt_keys = structs["bptree"].keys_in_order().cpu().numpy().tolist()
+        out["gathers"] = gathers_check("integrity", launch_counts(),
+                                       WriteSet.gathers)
+        a.crash()
+        t0 = time.perf_counter()
+        bad = a.scrub()
+        out["mixed_scrub_s"] = time.perf_counter() - t0
+        if bad:
+            raise AssertionError("mixed arena: a clean scrub named rows")
+        recoveries = {}
+        rep, secs = salvage_recover(a, structs)
+        for kind in KINDS:
+            check_exact(kind, structs[kind], want[kind], "clean salvage")
+        recoveries["clean"] = (rep, secs, {})
+        for name, which in (("bptree_only", ("bptree",)),
+                            ("all", ("dll", "hashmap", "bptree"))):
+            a.crash()
+            expect = inject(a, rows, which)
+            got = scrub_rows(a)
+            if got != expect:
+                raise AssertionError(f"{name}: scrub named {got}, the "
+                                     f"faults were {expect}")
+            reset_launch_counts()
+            rep, secs = salvage_recover(a, structs)
+            launched = launch_counts()
+            res = check_salvaged(structs, want, rows, pos, bt_keys, name,
+                                 which)
+            recoveries[name] = (rep, secs, {"scrub": got,
+                                            "launches": launched, **res})
+            if name == "bptree_only":
+                # undo the B+Tree flip (an involution) for the next case
+                fi.flip_bits(a, MIXED_REGION["bptree"], rows["bptree"],
+                             byte=8, mask=0x40)
+        moved = {k: sum(recoveries[n][2]["launches"][k]
+                        for n in ("bptree_only", "all"))
+                 for k in CHAIN_KERNELS}
+        if not all(moved.values()):
+            raise AssertionError(f"salvage recoveries launched {moved}")
+        out["salvage"] = {
+            name: {"seconds": secs, "quarantined": rep.quarantined,
+                   "degraded": rep.degraded,
+                   "stages": {s.name: s.seconds for s in rep.stages},
+                   "details": {s.name: {k: v for k, v in s.detail.items()
+                                        if k != "quarantined_keys"}
+                               for s in rep.stages if s.name != "reopen"},
+                   **extra}
+            for name, (rep, secs, extra) in recoveries.items()}
+        out["salvage_chain_launches"] = moved
+        out["fault_rows"] = rows
+        del a, structs, w, want
+        torch.cuda.empty_cache()
+        out["full_mode"] = full_mode_and_fatal(dev, *bt_full)
+        del bt_full
+        torch.cuda.empty_cache()
+        out["feature_store"] = feature_salvage(dev)
+        torch.cuda.empty_cache()
+        out["engine"] = engine_salvage(dev)
+        torch.cuda.empty_cache()
+        out["catalog"] = catalog_phase(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # -------------------------------------------------------------- training
 
 class TimedLaunches:
@@ -3458,8 +4197,10 @@ def main(argv=None) -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    # the port has no integrity sidecars; every arena here runs without
-    # them (phases 3-6 also pin integrity=False explicitly)
+    # phases 1-10 run without integrity sidecars, as they did before the
+    # port had them, so their numbers stay comparable (phases 3-6 also pin
+    # integrity=False); phase 4's integrity case pins it on, and phase 11
+    # clears this pin for its own scope
     os.environ["REPRO_INTEGRITY"] = "0"
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -3521,14 +4262,14 @@ def main(argv=None) -> int:
     # ---- phase 3: the main path at real size
     reset_launch_counts()
     WriteSet.gathers = 0
-    main_runs = []
+    main_runs, phase3 = [], {}
     with chain_call_sites() as calls3:
         for kind in KINDS:
             by_mode = {}
             for mode in ("full", "partly"):
                 r = workload(kind, mode, MAIN_N[kind], dev)
-                r.pop("arena")
-                by_mode[mode] = r
+                del r["arena"], r["structure"]
+                by_mode[mode] = phase3[kind, mode] = r
                 torch.cuda.empty_cache()
             saved = 1 - by_mode["partly"]["lines"] / by_mode["full"]["lines"]
             row = {"phase": "main_path", "kind": kind, "n": MAIN_N[kind],
@@ -3627,6 +4368,27 @@ def main(argv=None) -> int:
             raise AssertionError("ops.pack_rows/scatter_rows: card and CPU "
                                  "differ")
     same.append("ops.pack_rows+scatter_rows:D=100,256")
+    # integrity on: images with their sidecars, FlushStats, the scrub after
+    # the same fault and the salvage report, per structure and mixed
+    for kind in KINDS:
+        for mode in ("partly", "full"):
+            out = {d: integrity_small(kind, mode, d) for d in ("cuda",
+                                                               "cpu")}
+            if out["cuda"] != out["cpu"]:
+                raise AssertionError(f"{kind} {mode} integrity: card and CPU "
+                                     f"images, FlushStats, scrub or salvage "
+                                     f"reports differ")
+            same.append(f"{kind}.{mode}.integrity:{out['cuda'][0][:12]}")
+    for mode in ("partly", "full"):
+        out = {d: mixed_small(mode, d) for d in ("cuda", "cpu")}
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"mixed {mode} integrity: card and CPU "
+                                 f"images, FlushStats, scrub or salvage "
+                                 f"reports differ")
+        same.append(f"mixed.{mode}.integrity:{out['cuda'][0][:12]}:"
+                    f"quarantined={out['cuda'][3]['quarantined']}:"
+                    f"degraded={out['cuda'][3]['degraded']}")
+    torch.cuda.empty_cache()
     serve = serve_card_vs_cpu(dev)
     same.append(f"serve:{serve['file_sha256']}")
     # the serving launcher's entry point, on the card (its default device)
@@ -3754,6 +4516,23 @@ def main(argv=None) -> int:
     report["launch_train"] = launcher
     emit({"phase": "train_card_vs_cpu", **train_cpu})
     emit({"phase": "launch_train", **launcher})
+    torch.cuda.empty_cache()
+    # ---- phase 11: integrity and salvage at the main path's size
+    integ = integrity_phase(dev, phase3)
+    report["integrity"] = integ
+    for row in integ["drains"]["rows"]:
+        emit({"phase": "integrity_drain", **row})
+    emit({"phase": "integrity_gate", **integ["gate"]})
+    emit(integ["gathers"])
+    emit({"phase": "integrity_mixed", "runs": integ["mixed_runs"],
+          "scrub_s": integ["mixed_scrub_s"],
+          "fault_rows": integ["fault_rows"],
+          "salvage_chain_launches": integ["salvage_chain_launches"]})
+    for name, rec_ in integ["salvage"].items():
+        emit({"phase": "integrity_salvage", "case": name, **rec_})
+    for name in ("full_mode", "feature_store", "engine", "catalog"):
+        emit({"phase": f"integrity_{name}", **integ[name]})
+    emit({"phase": "integrity", "phase_s": integ["phase_s"]})
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():

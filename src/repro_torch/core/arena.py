@@ -24,15 +24,26 @@ single-arena barrier core of ``repro.core.arena``.
   The structures register snapshot providers that every drain asks for
   their dirty rows; the one-line record format is at the end of this
   module (the reference's, byte for byte).
+* Integrity sidecars (DESIGN.md §13, on unless ``integrity=False`` or
+  ``REPRO_INTEGRITY=0``): ``finalize`` appends one ``<region>.integ``
+  region of per-line checksums after every declared region, for each
+  data region with 8-byte-divisible rows, so an integrity-off layout is a
+  prefix of the integrity-on one.  The epoch drain computes the checksums
+  from the same staged host rows it writes, in the same phase, and their
+  lines land in ``FlushStats.integrity_lines``.  ``scrub`` /
+  ``verify_region`` recompute them over the persistent image (host numpy,
+  as the reference) and name the rows that fail; ``verify_header`` raises
+  ``ManifestError`` on a scribbled header magic, and a backing file
+  shorter than the layout raises ``ShardLossError`` before it is mapped.
+  ``_salvage`` is set by a salvage recovery for its duration.
 
 The arena runs on ``cuda`` unless the caller passes ``device="cpu"``.  With
 no device given and no GPU present it raises: it never falls back to the
 CPU silently.  ``integrity=None`` and ``snapshot=None`` resolve through the
 reference's env axes (``integrity_enabled``, ``snapshot_enabled``), both
 on by default.  The reference's other feature axes (shadow commit,
-sharding, paging, integrity sidecars) are not ported yet; asking for one,
-or leaving ``integrity`` to resolve on, raises ``NotImplementedError``
-naming its ROADMAP item.
+sharding, paging) are not ported yet; asking for one raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -63,11 +74,38 @@ _TORCH_DTYPES = {np.dtype(d): t for d, t in (
     (np.bool_, torch.bool))}
 
 
+class IntegrityError(RuntimeError):
+    """Base of the media-fault taxonomy: persistent bytes failed a trust
+    check that power loss alone cannot produce (a checksum mismatch, a
+    lost or short backing file, a garbage header magic)."""
+
+
+class CorruptLineError(IntegrityError):
+    """Committed persistent line(s) fail their sidecar checksum."""
+
+    def __init__(self, region: str, rows, detail: str = ""):
+        self.region = region
+        self.rows = np.atleast_1d(np.asarray(rows, np.int64))
+        msg = (f"corrupt line(s) in region {region!r}, "
+               f"rows {self.rows[:8].tolist()}"
+               + (f" (+{self.rows.size - 8} more)"
+                  if self.rows.size > 8 else ""))
+        super().__init__(msg + (f": {detail}" if detail else ""))
+
+
+class ShardLossError(IntegrityError):
+    """A backing file is missing or truncated: media loss, not a torn
+    commit."""
+
+
+class ManifestError(IntegrityError):
+    """The arena's commit header, the trust anchor everything else hangs
+    off, carries a garbage magic."""
+
+
 class QuarantinedError(RuntimeError):
-    """An operation touched state that a salvage recovery quarantined (the
-    reference's error of that name; the port's structures keep the
-    quarantine sets and ``readmit``, which salvage fills once it is
-    ported)."""
+    """A request touched keys a salvage recovery quarantined: refusing is
+    the contract, serving reconstructed garbage is not."""
 
 
 def not_ported(feature: str) -> NotImplementedError:
@@ -143,8 +181,8 @@ class FlushStats:
     # order-snapshot lines, kept out of lines/bytes/calls/saved_lines so
     # the data accounting stays equal to a snapshot-off run
     snapshot_lines: int = 0
-    # request-journal ring lines, kept out of the data counters the same
-    # way; integrity-sidecar lines stay zero until integrity is ported
+    # request-journal ring lines and checksum-sidecar lines, kept out of
+    # the data counters the same way
     journal_lines: int = 0
     integrity_lines: int = 0
 
@@ -177,6 +215,11 @@ class Region:
         # visible through the committed head on a metadata line), accounted
         # in FlushStats.journal_lines
         self.jrnl = ".jrnl" in name
+        # integrity sidecars: per-line checksums of a data region, written
+        # by the drain that moves the data rows (never marked), accounted
+        # in FlushStats.integrity_lines
+        self.integ = name.endswith(".integ")
+        self._integ: Optional["Region"] = None   # my sidecar, if covered
         # Metadata regions (structure headers, order snapshots) flush
         # AFTER data regions within an epoch — data-before-metadata
         # ordering; a torn data phase never leaves half a snapshot behind
@@ -247,9 +290,13 @@ class Region:
         rows = np.unique(host_rows(rows))
         if rows.size == 0:
             return
-        self._pview()[rows] = self.arena.writeset.gather([(self, rows)])[0]
+        ws = self.arena.writeset
+        host = ws.gather([(self, rows)])[0]
+        self._pview()[rows] = host
         self.arena._account_rows(self.offset, self.rowbytes, rows,
-                                 snap=self.snap, jrnl=self.jrnl)
+                                 snap=self.snap, jrnl=self.jrnl,
+                                 integ=self.integ)
+        ws.seat_sidecars([self.arena._integrity_home(self, rows, host)])
 
     def mark_rows(self, rows, fresh: bool = False) -> None:
         """Add rows to the arena's write set (flushed once, deduplicated,
@@ -288,12 +335,14 @@ class Arena:
             raise ValueError(f"unknown commit_mode {commit_mode!r}")
         if paged_enabled(paged):
             raise not_ported("paging")
-        if integrity_enabled(integrity):
-            raise not_ported("integrity sidecars")
         self.device = resolve_device(device)
         self.path = path
         self.regions: Dict[str, Region] = {}
         self.stats = FlushStats()
+        self.integrity = integrity_enabled(integrity)
+        # set by a salvage recovery for its duration: reconstructors may
+        # verify their regions and drop the rows that fail
+        self._salvage = False
         self.synth_line_ns = synth_line_ns
         self.synth_fence_ns = synth_fence_ns
         self.commit_mode = commit_mode
@@ -344,6 +393,8 @@ class Arena:
     def finalize(self) -> None:
         if self._layout_final:
             raise RuntimeError("layout already finalized")
+        if self.integrity:
+            self._integrity_layout()
         self._layout_final = True
         total = _align(self._cursor, 4096)
         if self.path is None:
@@ -354,13 +405,20 @@ class Arena:
                 with open(self.path, "wb") as f:
                     f.truncate(total)
             elif os.path.getsize(self.path) < total:
-                # np.memmap in r+ mode would silently re-extend a short
-                # file with zeros
-                raise OSError(f"backing file {self.path!r} truncated: "
-                              f"{os.path.getsize(self.path)} < {total} "
-                              f"bytes")
-            self._mm = np.memmap(self.path, dtype=np.uint8, mode="r+",
-                                 shape=(total,))
+                # media loss, checked BEFORE mapping: np.memmap in r+ mode
+                # would re-extend a short file with zeros, which also wipe
+                # the sidecars back to the never-written sentinel and hide
+                # the loss from scrub
+                raise ShardLossError(
+                    f"backing file {self.path!r} truncated: "
+                    f"{os.path.getsize(self.path)} < {total} bytes")
+            try:
+                self._mm = np.memmap(self.path, dtype=np.uint8, mode="r+",
+                                     shape=(total,))
+            except (ValueError, OSError) as e:
+                raise ShardLossError(
+                    f"backing file {self.path!r} unmappable at {total} "
+                    f"bytes: {e}") from e
             if create:
                 self._write_header(valid=False)
             with open(self.path + ".layout", "w") as f:
@@ -376,6 +434,86 @@ class Arena:
         ``[(region, rows), ...]`` of snapshot-region rows to persist,
         asked by the write set at every drain."""
         self._snap_providers.append(fn)
+
+    # -- integrity sidecars (DESIGN.md §13) --------------------------------
+    def _integrity_layout(self) -> None:
+        """Append one checksum sidecar per covered data region: int64 rows
+        of shape (rows, chunks), a word per 64 B line of the source row (a
+        word per row for sub-line rows).  Appended after every declared
+        region, so no region's offset moves."""
+        for name, r in list(self.regions.items()):
+            if r.meta or r.snap or r.jrnl or r.integ or r.rowbytes % 8:
+                continue
+            r._integ = self.region(name + ".integ", np.int64,
+                                   (r.shape[0], _integ_chunks(r.rowbytes)),
+                                   meta=False)
+
+    def _integrity_home(self, region: Region, rows: np.ndarray,
+                        data: np.ndarray):
+        """Checksum ``data`` (the host copy of ``rows`` just written home),
+        persist the checksums into the sidecar's image and account their
+        lines: the data and its checksums move in one flush phase, so a
+        torn crash never splits them.  Returns ``(sidecar, rows,
+        checksums)`` for the write set to seat in the sidecar's volatile
+        tensor (one upload per drain), or None for an uncovered region."""
+        sc = region._integ
+        if sc is None or rows.size == 0:
+            return None
+        ck = sidecar_checksums(data, sc.shape[1])
+        sc._pview()[rows] = ck
+        self._account_rows(sc.offset, sc.rowbytes, rows, integ=True)
+        return sc, rows, ck
+
+    def verify_header(self) -> None:
+        """Raise ManifestError when the commit header's magic is neither
+        ours nor the all-zero never-committed state: field corruption that
+        power loss cannot produce (the header is one atomic line)."""
+        raw = bytes(self._mm[:4])
+        if raw not in (_MAGIC, b"\x00\x00\x00\x00"):
+            raise ManifestError(
+                f"arena {self.path!r} header magic {raw!r} corrupt")
+
+    def _pimage(self, region: Region) -> np.ndarray:
+        """A copy of the region's committed persistent image (barrier mode:
+        its home bytes).  Scrub and salvage never write persistent
+        state."""
+        return np.array(region._pview())
+
+    def verify_region(self, region) -> np.ndarray:
+        """Row indices of ``region`` whose persistent bytes fail their
+        sidecar checksums (empty = clean).  Reads the persistent image
+        only, so in-flight volatile writes and pending marks are invisible
+        to it, and rows never flushed carry the 0 "no checksum" sentinel
+        and are skipped: scrub under traffic cannot false-positive."""
+        if isinstance(region, str):
+            region = self.regions[region]
+        sc = region._integ
+        if sc is None:
+            return np.empty(0, np.int64)
+        # the read-only views stand in for the reference's copies
+        ck = sidecar_checksums(region._pview(), sc.shape[1])
+        ref = sc._pview()
+        bad = (ref != 0) & (ck != ref)
+        self.synth_read(region.nbytes + sc.nbytes)
+        return np.nonzero(bad.any(axis=1))[0]
+
+    def scrub(self, raise_on_error: bool = False
+              ) -> Dict[str, np.ndarray]:
+        """Verify every covered region against its sidecar; returns
+        ``{region name: bad rows}`` for the regions that fail (empty dict =
+        media clean).  Read-only and crash-safe at any instant."""
+        bad: Dict[str, np.ndarray] = {}
+        for name, r in self.regions.items():
+            if r._integ is None:
+                continue
+            rows = self.verify_region(r)
+            if rows.size:
+                bad[name] = rows
+        if bad and raise_on_error:
+            name, rows = next(iter(bad.items()))
+            raise CorruptLineError(name, rows,
+                                   detail=f"scrub: {len(bad)} region(s)")
+        return bad
 
     # -- header / commit protocol -----------------------------------------
     def _write_header(self, valid: bool) -> None:
@@ -407,6 +545,10 @@ class Arena:
         if isinstance(self._mm, np.memmap):
             self._mm.flush()
         self.stats.calls += 1
+
+    def invalidate(self) -> None:
+        """Clear the header's valid flag (the generation stays)."""
+        self._write_header(valid=False)
 
     def _fence(self) -> None:
         """One ordering point, counted and paid synthetically when
@@ -452,15 +594,19 @@ class Arena:
         return int(np.sum(np.maximum(0, ends - starts + 1)))
 
     def _account_rows(self, base: int, rowbytes: int, rows: np.ndarray,
-                      snap: bool = False, jrnl: bool = False) -> None:
+                      snap: bool = False, jrnl: bool = False,
+                      integ: bool = False) -> None:
         lines = self._rows_line_count(base, rowbytes, rows)
-        if snap or jrnl:
-            # snapshot and journal lines are real media traffic (they pay
-            # the synthetic stall) but stay out of the data counters
+        if snap or jrnl or integ:
+            # snapshot, journal and sidecar lines are real media traffic
+            # (they pay the synthetic stall) but stay out of the data
+            # counters
             if snap:
                 self.stats.snapshot_lines += lines
-            else:
+            elif jrnl:
                 self.stats.journal_lines += lines
+            else:
+                self.stats.integrity_lines += lines
             self._synth(lines)
             return
         self.stats.lines += lines
@@ -566,6 +712,23 @@ def mix_checksums(words: np.ndarray) -> np.ndarray:
     for j in range(1, w.shape[-1]):
         acc = acc ^ (w[..., j] * k[j])
     return _splitmix64(acc).astype(np.int64).reshape(shape)
+
+
+def _integ_chunks(rowbytes: int) -> int:
+    """Checksum words per sidecar row: one per 64 B line of the source
+    row, or one for the whole row when rows are sub-line."""
+    return rowbytes // LINE if rowbytes % LINE == 0 and rowbytes else 1
+
+
+def sidecar_checksums(arr: np.ndarray, chunks: int) -> np.ndarray:
+    """Per-line checksums of gathered rows: ``(m, ...)`` rows of any
+    8-byte-divisible dtype -> ``(m, chunks)`` int64.  0 is the sidecar's
+    "never checksummed" sentinel, so a computed 0 nudges to 1."""
+    m = arr.shape[0]
+    w = np.ascontiguousarray(arr).reshape(m, -1).view(np.uint64)
+    ck = mix_checksums(w.reshape(m, chunks, -1))
+    ck[ck == 0] = 1
+    return ck
 
 
 def snap_checksum(rec: np.ndarray) -> int:

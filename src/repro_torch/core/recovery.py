@@ -31,8 +31,12 @@ checks validity once, and runs the registered pure reconstructors in
 dependency order, serially or by dependency counters in a thread pool,
 timing each stage into a ``RecoveryReport``.  The stages' threads share
 the current CUDA stream: results are right, but stages do not overlap on
-the card.  The sharded region-load split, salvage and the paged
-block-fault counters wait for their slices (ROADMAP Queue 1).
+the card.  ``recover(salvage=True)`` (DESIGN.md §13) quarantines a stage
+that trips on an ``IntegrityError`` instead of raising, skips its
+transitive dependents as degraded, and lets reconstructors drop the rows
+that fail their checksums (``salvage_prefix`` walks what is left of a
+chain with the same kernels).  The sharded region-load split and the
+paged block-fault counters wait for their slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -45,13 +49,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import reconstruct
-from repro_torch.core.arena import not_ported
+from repro_torch.core.arena import IntegrityError
 from repro_torch.kernels import chain_order as K
 
 NULL = -1
 
 __all__ = [
     "NULL", "chain_order", "chain_lengths", "chain_walk", "jump_tables",
+    "salvage_prefix",
     "chain_method", "ChainSnapshot", "CONTRACT_K", "CONTRACT_MIN_N",
     "CONTRACT_MIN_COUNT",
     "StageReport", "RecoveryReport", "Recoverable", "RecoveryManager",
@@ -317,6 +322,45 @@ def chain_order(nxt: torch.Tensor, head: int, count: Optional[int] = None,
     return cur.long()
 
 
+def salvage_prefix(nxt: torch.Tensor, head: int, count: Optional[int],
+                   bad: torch.Tensor, *, method: str = "auto"
+                   ) -> torch.Tensor:
+    """The reference's salvage walk (``repro.pstruct.dll``), on the chain
+    kernels: the longest prefix of the chain from ``head`` that holds no
+    row of ``bad``, no repeated row and at most ``count`` rows (None: no
+    bound), stopping at a pointer outside [0, n).  The reference walks it
+    one ``int(nxt[cur])`` at a time; here the bad rows' NEXT becomes NULL,
+    so the chain ends ON the first bad row it reaches, ``chain_order``
+    ranks it and that row is dropped.  A cycle among verified rows makes
+    ``chain_order`` raise; the walk is then ranked to ``min(count, n)``
+    positions by pointer doubling (a contraction cannot rank past a cycle
+    shorter than the count), which must repeat a row if the cycle comes
+    first, and cut at the first repeat, where the reference stops."""
+    n = nxt.shape[0]
+    dev = nxt.device
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    if not 0 <= head < n or count == 0:
+        return empty
+    is_bad = torch.zeros(n, dtype=torch.bool, device=dev)
+    bad = bad.to(dev, torch.int64)
+    is_bad[bad[(bad >= 0) & (bad < n)]] = True
+    cut = torch.where(is_bad, NULL, nxt.to(torch.int64))
+    try:
+        order = chain_order(cut, head, None, method=method)
+        # the first bad row reached ends the chain; it is not kept
+        keep = order.shape[0] - int(is_bad[order[-1]])
+    except RuntimeError:                  # a cycle among verified rows
+        span = n if count is None else min(count, n)
+        order = chain_order(cut, head, span, method="double")
+        srt, perm = torch.sort(order, stable=True)
+        later = torch.zeros_like(srt, dtype=torch.bool)
+        later[1:] = srt[1:] == srt[:-1]   # a repeat's later occurrences
+        keep = int(torch.where(later, perm, span).min()) if span else 0
+    if count is not None:
+        keep = min(keep, count)
+    return order[:keep]
+
+
 def chain_lengths(nxt: torch.Tensor, heads, *, method: str = "auto",
                   k: Optional[int] = None) -> torch.Tensor:
     """Length of the NULL-terminated chain starting at each head (0 for a
@@ -429,9 +473,10 @@ class StageReport:
     """One timed rebuild stage.  ``t_start`` / ``t_end`` are offsets
     (seconds) from the start of the recovery pass; ``ready_at`` is the
     offset at which the stage's dependencies were all satisfied, so
-    ``t_start - ready_at`` is queue wait.  ``quarantined`` / ``degraded``
-    are the reference's salvage outcomes, always False until salvage is
-    ported."""
+    ``t_start - ready_at`` is queue wait.  ``quarantined`` (the stage
+    tripped on corruption, or its reconstructor kept nothing) and
+    ``degraded`` (it dropped rows, or was skipped behind a quarantined
+    dependency) are the salvage outcomes."""
     name: str
     seconds: float
     detail: Dict[str, Any] = field(default_factory=dict)
@@ -597,8 +642,16 @@ class RecoveryManager:
     def recover(self, reopen: bool = True, concurrency: int = 1,
                 on_stage: Optional[Callable[[StageReport], None]] = None,
                 salvage: bool = False) -> RecoveryReport:
-        if salvage:
-            raise not_ported("salvage recovery")
+        """``salvage=True`` turns media corruption from a recovery abort
+        into degraded-mode recovery: a stage that trips on an
+        ``IntegrityError`` is QUARANTINED (reported, not raised), its
+        transitive dependents are skipped as DEGRADED, and every structure
+        off the corrupt dependency chain still rebuilds.  Reconstructors
+        see ``arena._salvage == True`` for the duration and report what
+        they dropped through ``degraded`` / ``quarantined`` in their
+        detail dict.  A garbage header magic (``ManifestError``) is fatal
+        either way: with no trustworthy generation there is no committed
+        prefix to salvage toward."""
         t_all = time.perf_counter()
         report = RecoveryReport(concurrency=max(1, int(concurrency)))
         lock = threading.Lock()
@@ -622,9 +675,10 @@ class RecoveryManager:
                 a.reopen()
                 if a.device.type == "cuda":
                     torch.cuda.synchronize(a.device)
-                # the reference also checks the header magic here
-                # (verify_header, a typed integrity error): that waits for
-                # the integrity slice
+                # garbage header magic is media corruption no power loss
+                # can produce: fail typed before trusting the generation
+                # it claims, salvage or not
+                a.verify_header()
                 valids.append(bool(a.header_valid()))
             reopen_secs = time.perf_counter() - t0
             st = report.add("reopen", reopen_secs,
@@ -644,33 +698,85 @@ class RecoveryManager:
         # ready when the reopen is done
         ready_at: Dict[str, float] = {}
 
+        # salvage bookkeeping: stages whose output is untrusted (they
+        # tripped on corruption, or ran downstream of one that did),
+        # updated inside run_stage before its future resolves, so both
+        # schedulers see a dependency's taint before any dependent runs
+        tainted: set = set()
+        if salvage:
+            for a in self.arenas:
+                a._salvage = True
+
         def run_stage(name: str) -> StageReport:
             t0 = time.perf_counter()
+            bad_deps = sorted(d for d in depends_of[name] if d in tainted)
+            if salvage and bad_deps:
+                # skipped, not failed: running it would serve garbage
+                tainted.add(name)
+                st = StageReport(name, 0.0,
+                                 {"skipped": "quarantined dependency",
+                                  "tainted_deps": bad_deps},
+                                 t_start=t0 - t_all,
+                                 t_end=time.perf_counter() - t_all,
+                                 ready_at=ready_at.get(name, reopen_secs),
+                                 degraded=True)
+                emit(st)
+                return st
             it = items[name]
-            out, secs = reconstruct.run(it.reconstructor, it.target)
+            try:
+                out, secs = reconstruct.run(it.reconstructor, it.target)
+            except IntegrityError as e:
+                if not salvage:
+                    raise
+                tainted.add(name)
+                t1 = time.perf_counter()
+                st = StageReport(name, t1 - t0,
+                                 {"error": type(e).__name__,
+                                  "message": str(e)},
+                                 t_start=t0 - t_all, t_end=t1 - t_all,
+                                 ready_at=ready_at.get(name, reopen_secs),
+                                 quarantined=True)
+                emit(st)
+                return st
             detail = dict(out) if isinstance(out, dict) else {}
             detail.setdefault("reconstructor", it.reconstructor)
+            # a reconstructor may salvage on its own: it drops corrupt
+            # rows, keeps the rest and says so in its detail
+            quarantined = bool(detail.pop("quarantined", False))
+            degraded = bool(detail.pop("degraded", False))
+            if quarantined:
+                tainted.add(name)
             t1 = time.perf_counter()
             st = StageReport(name, secs, detail,
                              t_start=t0 - t_all, t_end=t1 - t_all,
-                             ready_at=ready_at.get(name, reopen_secs))
+                             ready_at=ready_at.get(name, reopen_secs),
+                             quarantined=quarantined, degraded=degraded)
             emit(st)
             return st
 
         depends_of = {n: list(items[n].depends) for n in order}
-        if report.concurrency == 1:
-            # serial: topological order; a stage is "ready" the moment its
-            # last dependency finished
-            for name in order:
-                st = run_stage(name)
-                results[name] = st
-                for m in order:
-                    if name in depends_of[m]:
-                        ready_at[m] = max(ready_at.get(m, 0.0), st.t_end)
-        else:
-            self._run_counters(order, depends_of, run_stage, results,
-                               ready_at, report.concurrency, t_all)
+        try:
+            if report.concurrency == 1:
+                # serial: topological order; a stage is "ready" the moment
+                # its last dependency finished
+                for name in order:
+                    st = run_stage(name)
+                    results[name] = st
+                    for m in order:
+                        if name in depends_of[m]:
+                            ready_at[m] = max(ready_at.get(m, 0.0),
+                                              st.t_end)
+            else:
+                self._run_counters(order, depends_of, run_stage, results,
+                                   ready_at, report.concurrency, t_all)
+        finally:
+            if salvage:
+                for a in self.arenas:
+                    a._salvage = False
         report.stages.extend(results[n] for n in order if n in results)
+        report.quarantined = [s.name for s in report.stages
+                              if s.quarantined]
+        report.degraded = [s.name for s in report.stages if s.degraded]
         report.total_seconds = time.perf_counter() - t_all
         report.critical_path_seconds = reopen_secs + self._critical_path(
             order, depends_of, {s.name: s.seconds for s in report.stages})

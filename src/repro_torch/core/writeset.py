@@ -35,6 +35,14 @@ the metadata phase, and stay out of the ``marks`` / ``dedup_rows`` /
 ``saved_lines`` ledger: their lines land in
 ``FlushStats.snapshot_lines``.  Request-journal rings (``.jrnl``) stay
 off that ledger too; their lines land in ``FlushStats.journal_lines``.
+
+Integrity sidecars ride the drain (DESIGN.md §13): as a phase writes a
+covered region's rows home, it checksums the same staged host rows
+(``Arena._integrity_home``), before the next gather reuses the staging
+buffer, and writes the checksums into the sidecar's image in the same
+phase, under the same fence.  The sidecars' volatile tensors are brought
+up to date once per drain, by one host-to-device copy of every sidecar
+row the drain wrote (``seat_sidecars``); sidecar rows are never marked.
 """
 from __future__ import annotations
 
@@ -119,9 +127,10 @@ class WriteSet:
             self._pending.clear()   # crash point: metadata marks are lost
         staged = iter(self.gather([(p.region, p.rows)
                                    for plan in plans for p in plan]))
-        flushed = False
+        flushed, sidecars = False, []
         for plan in plans:
-            flushed = self._write_phase(plan, staged) or flushed
+            flushed = self._write_phase(plan, staged, sidecars) or flushed
+        self.seat_sidecars(sidecars)
         if flushed:
             self.arena.stats.epochs += 1
 
@@ -140,8 +149,11 @@ class WriteSet:
         half (``meta=True``) of the pending marks, with a gather of its
         own; returns whether anything flushed."""
         plan = self._plan(meta)
-        return self._write_phase(plan, iter(self.gather(
-            [(p.region, p.rows) for p in plan])))
+        sidecars = []
+        flushed = self._write_phase(plan, iter(self.gather(
+            [(p.region, p.rows) for p in plan])), sidecars)
+        self.seat_sidecars(sidecars)
+        return flushed
 
     def _plan(self, meta: bool) -> List[_Planned]:
         """Pop the pending marks of one phase's regions, in offset order."""
@@ -157,15 +169,21 @@ class WriteSet:
                 sum(w for _, w in marks), sum(r.size for r, _ in marks)))
         return plan
 
-    def _write_phase(self, plan: List[_Planned], staged) -> bool:
+    def _write_phase(self, plan: List[_Planned], staged,
+                     sidecars: list) -> bool:
         """Write one phase's gathered rows (the next ``len(plan)`` arrays
-        of ``staged``) into the persistent image, account them, and fence
-        once; returns whether anything flushed."""
+        of ``staged``) into the persistent image with their sidecar
+        checksums, account them, and fence once; returns whether anything
+        flushed.  The sidecar rows written are appended to ``sidecars``
+        for ``seat_sidecars``."""
         arena = self.arena
         with arena.stall_scope():
             for p, host in zip(plan, staged):
                 region, rows = p.region, p.rows
                 region._pview()[rows] = host
+                # checksummed from the staged rows now: the next gather
+                # reuses the staging buffer
+                sidecars.append(arena._integrity_home(region, rows, host))
                 if region.snap or region.jrnl:
                     arena._account_rows(region.offset, region.rowbytes,
                                         rows, snap=region.snap,
@@ -179,6 +197,31 @@ class WriteSet:
         if plan:
             arena._fence()      # one ordering point per barrier phase
         return bool(plan)
+
+    def seat_sidecars(self, sidecars: list) -> None:
+        """Write the checksums ``_integrity_home`` persisted (``(sidecar,
+        rows, checksums)`` entries; None for uncovered regions) into the
+        sidecars' volatile tensors.  On a card every entry's rows and
+        checksums travel in ONE host-to-device copy (from a pinned copy of
+        them, which the copy keeps alive until it lands), then one indexed
+        write per sidecar."""
+        sidecars = [u for u in sidecars if u is not None]
+        if not sidecars:
+            return
+        if self.arena.device.type == "cpu":
+            for sc, rows, ck in sidecars:
+                sc.vol[torch.from_numpy(rows)] = torch.from_numpy(ck)
+            return
+        buf = np.concatenate([part.reshape(-1) for _, rows, ck in sidecars
+                              for part in (rows, ck)])
+        dbuf = torch.from_numpy(buf).pin_memory().to(self.arena.device,
+                                                     non_blocking=True)
+        pos = 0
+        for sc, rows, ck in sidecars:
+            m = rows.size
+            sc.vol[dbuf[pos:pos + m]] = dbuf[pos + m:pos + m + ck.size] \
+                .view(ck.shape)
+            pos += m + ck.size
 
     def gather(self, plan) -> List[np.ndarray]:
         """Rows ``rows`` (host ids) of each ``(region, rows)`` of ``plan``

@@ -7,8 +7,7 @@ reach storage; inner levels are rebuilt on recovery.  The tree's rows live
 on the arena's device, so ``lookup`` returns tensors there.
 
 The index does not pin ``integrity``: it resolves through
-``REPRO_INTEGRITY`` (on by default), and the port raises for it, so run
-with ``REPRO_INTEGRITY=0``.
+``REPRO_INTEGRITY`` (on by default), as in the reference.
 """
 from __future__ import annotations
 

@@ -15,9 +15,7 @@ cost and the twin protocol.
   refused, and the effects (every key's vector and count, the cursor, the
   journal's classes) must equal an uninterrupted twin's.
 
-The command runs both on the card; ``--device cpu`` runs them on the CPU.
-Integrity sidecars are not ported, so it sets ``REPRO_INTEGRITY=0``
-unless the environment already names it:
+The command runs both on the card; ``--device cpu`` runs them on the CPU:
 
     PYTHONPATH=src python -m repro_torch.feature_recover [--device cpu]
 """
@@ -26,7 +24,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -66,7 +63,7 @@ def arena_fields(a) -> Dict:
     return {"commit_mode": a.commit_mode, "n_shards": 1,
             "arena_bytes": int(sum(r.nbytes for r in a.regions.values())),
             "block_bytes": 0, "cache_blocks": 0, "peak_resident_bytes": 0,
-            "integrity": False,
+            "integrity": bool(a.integrity),
             "integrity_lines": int(a.stats.integrity_lines)}
 
 
@@ -240,7 +237,6 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU)")
     args = p.parse_args(argv)
-    os.environ.setdefault("REPRO_INTEGRITY", "0")
     device = resolve_device(args.device)
     print(json.dumps({"device": str(device),
                       "kind": (torch.cuda.get_device_name(device)

@@ -5,7 +5,9 @@ image moves between them as it is: a path-backed arena file opens in
 either package with ``open_arena(path, layout)``.  For in-memory images,
 ``arena_from_image`` builds a port arena from a reference arena's raw
 persistent bytes and its layout (the reference's ``Arena._mm`` and
-``Arena._meta``), and ``image_of`` returns a port arena's bytes.
+``Arena._meta``), and ``image_of`` returns a port arena's bytes.  An
+image with integrity sidecars (``.integ`` regions) builds an arena with
+integrity on, whose sidecars land where the layout puts them.
 
 A train state moves as numpy leaves: ``state_from_numpy`` carries a
 TrainState whose leaves are numpy arrays (the reference's, through
@@ -20,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.arena import Arena, not_ported, resolve_device
+from repro_torch.core.arena import Arena, resolve_device
 from repro_torch.core.policy import tree_map
 from repro_torch.train.state import TrainState
 
@@ -34,18 +36,25 @@ def arena_from_image(image: np.ndarray, layout: dict, device) -> Arena:
     reference's ``_meta`` and ``.layout`` sidecar), reopened: its volatile
     regions are loaded onto ``device`` and its generation is the committed
     one.  Raises ValueError if the layout does not place the regions
-    where the port would, and NotImplementedError for an image that
-    carries integrity sidecars."""
-    if any(name.endswith(".integ") for name in layout):
-        raise not_ported("integrity sidecars")
-    # the layout lists every region the image holds, sidecars excluded
-    a = Arena(None, device=device, integrity=False)
+    where the port would."""
+    sidecars = [n for n in layout if n.endswith(".integ")]
+    # finalize() appends the sidecars itself, after the declared regions
+    a = Arena(None, device=device, integrity=bool(sidecars))
     for name, spec in layout.items():
-        r = a.region(name, np.dtype(spec["dtype"]), tuple(spec["shape"]))
-        if r.offset != int(spec["offset"]):
-            raise ValueError(f"region {name!r}: image offset "
-                             f"{spec['offset']} != port offset {r.offset}")
+        if name not in sidecars:
+            a.region(name, np.dtype(spec["dtype"]), tuple(spec["shape"]))
     a.finalize()
+    if sorted(a.regions) != sorted(layout):
+        raise ValueError(f"layout names {sorted(layout)}, the port builds "
+                         f"{sorted(a.regions)}")
+    for name, spec in layout.items():
+        r = a.regions[name]
+        if r.offset != int(spec["offset"]) or \
+                list(r.shape) != list(spec["shape"]):
+            raise ValueError(
+                f"region {name!r}: the image has shape {spec['shape']} at "
+                f"offset {spec['offset']}, the port {list(r.shape)} at "
+                f"{r.offset}")
     image = np.asarray(image, np.uint8).reshape(-1)
     if image.size != a._mm.size:
         raise ValueError(f"image holds {image.size} bytes, layout needs "

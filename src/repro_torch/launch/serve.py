@@ -11,8 +11,7 @@ on the card unless ``--device`` names another device.  Parameters come
 from a seeded ``torch.Generator``, not the reference's JAX init; the
 launcher compares nothing.  Dense-attention archs run; every other arch
 raises the ``NotImplementedError`` that ``models/`` raises for its layer
-kind.  Integrity sidecars are not ported, so it sets
-``REPRO_INTEGRITY=0`` unless the environment already names it.
+kind.
 """
 from __future__ import annotations
 
@@ -43,7 +42,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
-    os.environ.setdefault("REPRO_INTEGRITY", "0")
     device = resolve_device(args.device)
 
     cfg = base.reduced(registry.get(args.arch))

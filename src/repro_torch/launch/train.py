@@ -21,8 +21,7 @@ temporary directory unless ``--ckpt-dir`` names one.
 On a card the launcher makes torch's kernels deterministic
 (``torch.use_deterministic_algorithms``, with ``CUBLAS_WORKSPACE_CONFIG``
 set before the first product), so a resumed run repeats an uninterrupted
-one's bits.  Integrity sidecars are not ported, so it sets
-``REPRO_INTEGRITY=0`` unless the environment already names it.
+one's bits.
 """
 from __future__ import annotations
 
@@ -80,7 +79,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
-    os.environ.setdefault("REPRO_INTEGRITY", "0")
     device = resolve_device(args.device)
     deterministic(device)
 

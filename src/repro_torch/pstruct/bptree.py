@@ -25,17 +25,28 @@ Reconstruction (paper §IV-D3): rank the persistent leaf chain with the
 shared ``chain_order`` primitive (pointer doubling at this size, on the
 card's kernels), then bulk-load the inner levels bucketing ORDER children
 per parent, one vectorized pass per level.
+
+Salvage (DESIGN.md §13): a fully persistent tree has pointers woven
+through every row, so any corrupt row quarantines it wholesale
+(``CorruptLineError``).  A partly persistent tree keeps the longest prefix
+of its leaf chain free of bad rows (``salvage_prefix``, on the chain
+kernels), cuts the volatile chain there, names the keys of the intact
+leaves it can no longer reach (read from the persistent image in one
+vectorized pass), and drops the leaf slots whose record row is corrupt,
+naming their keys.  Survivors are never quarantined.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import reconstruct as rec
-from repro_torch.core.arena import Arena
-from repro_torch.core.recovery import chain_method, chain_order
+from repro_torch.core.arena import Arena, CorruptLineError, FlushStats
+from repro_torch.core.recovery import chain_method, chain_order, \
+    salvage_prefix
+from repro_torch.pstruct.dll import _image_col, _salvage_bad_rows
 
 ORDER = 19
 MAX_KEYS = ORDER - 1           # 18
@@ -156,6 +167,9 @@ class BPTree:
                                     device=arena.device)
         self._hvc = None     # host header row while an operation runs
         self._st = None      # the operation's _Stage
+        # keys lost to media corruption in the last salvage recovery (best
+        # effort: readable from intact but unreachable leaf rows)
+        self.quarantined: set = set()
 
     @staticmethod
     def layout(cap_nodes: int, cap_records: int, mode: str = "partly",
@@ -566,6 +580,39 @@ class BPTree:
         return chain_order(self.nodes.vol[:fresh, C_NEXT].long(), first,
                            method=self.chain_method)
 
+    def _leaf_keys(self, leaves: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(keys (L, 18) int64, valid (L, 18)) of the given leaf rows."""
+        rows = self.nodes.vol[leaves]
+        valid = torch.arange(MAX_KEYS, device=rows.device)[None, :] \
+            < rows[:, C_NK:C_NK + 1]
+        return rows[:, K0:K1].long(), valid
+
+    def keys_in_order(self) -> torch.Tensor:
+        """All keys in sorted (leaf-chain) order, one masked gather over
+        the leaf rows."""
+        leaves = self.leaves()
+        if leaves.numel() == 0:
+            return torch.empty(0, dtype=torch.int64,
+                               device=self.arena.device)
+        keymat, valid = self._leaf_keys(leaves)
+        return keymat[valid]
+
+    def max_key(self) -> Optional[int]:
+        """Largest key, read off the last non-empty leaf of the chain."""
+        leaves = self.leaves()
+        if leaves.numel() == 0:
+            return None
+        nks = self.nodes.vol[leaves, C_NK]
+        ne = torch.nonzero(nks > 0).squeeze(1)
+        if ne.numel() == 0:
+            return None
+        last = int(ne[-1])
+        return int(self.nodes.vol[leaves[last], K0 + int(nks[last]) - 1])
+
+    def flush_stats(self) -> FlushStats:
+        return self.arena.stats
+
     # ---------------- crash / reconstruction ----------------
     def reconstruct(self) -> None:
         """Reload the regions and rebuild the volatile redundancy."""
@@ -694,9 +741,11 @@ class BPTree:
 def _reconstruct_bptree(t: BPTree) -> dict:
     """Pure rebuild (paper §IV-D3): enumerate leaves via the persistent
     NEXT chain (count derived and cycle-checked), then bulk-load the inner
-    levels bucketing ORDER children per parent."""
+    levels bucketing ORDER children per parent.  Under salvage, the rows
+    failing their checksums are dropped as the module docstring says."""
     hv = t.header.read_row(0)
     dev = t.arena.device
+    t.quarantined = set()
     if hv[H_FLAG] != 1:
         # uninitialized image recovers as an empty tree
         hv[:] = 0
@@ -707,18 +756,81 @@ def _reconstruct_bptree(t: BPTree) -> dict:
         t._free_recs = []
         t.header.write_row(0, hv)
         return {"mode": t.mode, "count": 0}
+    salvage = t.arena._salvage
+    empty = np.empty(0, np.int64)
+    bad_nodes = _salvage_bad_rows(t.arena, t.nodes) if salvage else empty
+    bad_recs = _salvage_bad_rows(t.arena, t.records) if salvage else empty
+    bad_nodes = bad_nodes[bad_nodes < t.cap_nodes]
+    bad_recs = bad_recs[bad_recs < t.cap_records]
+    corrupt = int(bad_nodes.size + bad_recs.size)
     if t.mode == "full":
+        if corrupt:
+            # pointers woven through every row: no committed-prefix
+            # remainder to keep, so the whole stage quarantines
+            raise CorruptLineError(
+                t.nodes.name if bad_nodes.size else t.records.name,
+                bad_nodes if bad_nodes.size else bad_recs,
+                detail="fully-persistent tree: no salvageable remainder")
         t._rebuild_volatile_only(hv)
         return {"mode": "full", "count": int(hv[H_COUNT])}
+    detail = {"mode": "partly"}
+    bad_nodes_t = torch.from_numpy(bad_nodes).to(dev)
+    bad_recs_t = torch.from_numpy(bad_recs).to(dev)
     # 1. enumerate leaves via the persistent next chain
-    leaves = t.leaves()
+    if bad_nodes.size:
+        # salvage: keep the longest leaf-chain prefix that never touches a
+        # corrupt row; everything after it is unreachable without trusting
+        # rotten bytes
+        fresh_n = int(hv[H_FRESH_NODES])
+        nxt = _image_col(t.nodes, C_NEXT, dev)[:fresh_n]
+        leaves = salvage_prefix(nxt, int(hv[H_FIRST_LEAF]), None,
+                                bad_nodes_t, method=t.chain_method)
+        if leaves.numel():
+            t.nodes.vol[leaves[-1], C_NEXT] = NULL   # volatile chain cut
+        _quarantine_unreachable(t, leaves, bad_nodes, fresh_n)
+    else:
+        try:
+            leaves = t.leaves()
+        except (RuntimeError, ValueError) as e:
+            if not salvage:
+                raise
+            raise CorruptLineError(t.nodes.name, empty,
+                                   detail=f"leaf chain rebuild: {e}") from e
     if leaves.numel() == 0:
         hv[H_ROOT] = NULL
+        if corrupt:
+            hv[H_FIRST_LEAF] = NULL
+            hv[H_COUNT] = 0
+            t.leaf_prev[:] = NULL
+            live = torch.zeros(t.cap_nodes, dtype=torch.bool, device=dev)
+            live[bad_nodes_t] = True   # corrupt rows are never reusable
+            t._free_nodes = torch.nonzero(
+                ~live[:int(hv[H_FRESH_NODES])]).squeeze(1).tolist()
+            rec_live = torch.zeros(t.cap_records, dtype=torch.bool,
+                                   device=dev)
+            rec_live[bad_recs_t] = True
+            t._free_recs = torch.nonzero(
+                ~rec_live[:int(hv[H_FRESH_RECS])]).squeeze(1).tolist()
+            t.header.write_row(0, hv)
+            detail.update(count=0, quarantined=True, degraded=True,
+                          quarantined_rows=corrupt,
+                          quarantined_keys=sorted(t.quarantined))
+            return detail
         t.header.write_row(0, hv)
         return {"mode": "partly", "count": 0}
     # 2. leaf prev (volatile redundancy)
     t.leaf_prev[:] = NULL
     t.leaf_prev[leaves[1:]] = leaves[:-1].to(torch.int32)
+    # 2b. salvage: drop leaf slots whose record row is corrupt; the key is
+    #     readable from the intact leaf, so it quarantines by name
+    if bad_recs.size:
+        _drop_bad_records(t, leaves, bad_recs_t)
+    if corrupt:
+        keymat, valid = t._leaf_keys(leaves)
+        t.quarantined -= set(keymat[valid].tolist())  # survivors are kept
+        hv[H_COUNT] = int(valid.sum())
+        detail.update(degraded=True, quarantined_rows=corrupt,
+                      quarantined_keys=sorted(t.quarantined))
     # 3. bulk-load inner levels, bucket size = ORDER; subtree minima are
     #    the separators, tracked per level
     level = leaves
@@ -726,6 +838,7 @@ def _reconstruct_bptree(t: BPTree) -> dict:
     # everything not a live leaf is free
     live = torch.zeros(t.cap_nodes, dtype=torch.bool, device=dev)
     live[level] = True
+    live[bad_nodes_t] = True   # corrupt rows are never reusable
     while level.shape[0] > 1:
         n_parents = (level.shape[0] + ORDER - 1) // ORDER
         parents = t._alloc_nodes_reconstruct(n_parents, live, hv)
@@ -737,10 +850,62 @@ def _reconstruct_bptree(t: BPTree) -> dict:
     t._free_nodes = torch.nonzero(
         ~live[:int(hv[H_FRESH_NODES])]).squeeze(1).tolist()
     rec_live = t._live_record_mask(leaves)
+    rec_live[bad_recs_t] = True   # corrupt rows are never reusable
     t._free_recs = torch.nonzero(
         ~rec_live[:int(hv[H_FRESH_RECS])]).squeeze(1).tolist()
     t.header.write_row(0, hv)
-    return {"mode": "partly", "count": int(hv[H_COUNT]),
-            "leaves": int(leaves.numel()),
-            "chain": chain_method(int(hv[H_FRESH_NODES]), None,
-                                  t.chain_method)}
+    detail.update(count=int(hv[H_COUNT]), leaves=int(leaves.numel()),
+                  chain=chain_method(int(hv[H_FRESH_NODES]), None,
+                                     t.chain_method))
+    return detail
+
+
+def _quarantine_unreachable(t: BPTree, leaves: torch.Tensor,
+                            bad_nodes: np.ndarray, fresh_n: int) -> None:
+    """Name the keys of the intact leaf rows below ``fresh_n`` that the
+    salvaged chain no longer reaches, read from the persistent image (the
+    reference's per-row loop, in one masked pass).  Stale freed leaves
+    over-quarantine only keys that are absent anyway; the keys inside the
+    corrupt rows are unreadable and stay anonymous."""
+    img = t.nodes._pview()[:fresh_n]
+    skip = np.zeros(fresh_n, bool)
+    skip[leaves.cpu().numpy()] = True
+    skip[bad_nodes[bad_nodes < fresh_n]] = True
+    rows = img[~skip & (img[:, C_LEAF] == 1)]
+    nk = np.clip(rows[:, C_NK], 0, MAX_KEYS)
+    valid = np.arange(MAX_KEYS)[None, :] < nk[:, None]
+    t.quarantined.update(rows[:, K0:K1][valid].astype(np.int64).tolist())
+
+
+def _drop_bad_records(t: BPTree, leaves: torch.Tensor,
+                      bad_recs: torch.Tensor) -> None:
+    """Remove from each leaf the slots whose record row is corrupt,
+    compacting the kept keys and pointers to the front of the row and
+    zeroing the slots freed (the reference's per-leaf loop, in one
+    vectorized pass over every leaf); the dropped keys are quarantined."""
+    dev = leaves.device
+    badrec = torch.zeros(t.cap_records, dtype=torch.bool, device=dev)
+    badrec[bad_recs] = True
+    rows = t.nodes.vol[leaves]
+    nk = rows[:, C_NK].long()
+    slot = torch.arange(MAX_KEYS, device=dev)[None, :]
+    valid = slot < nk[:, None]
+    ptrs = rows[:, P0:P0 + MAX_KEYS].long()
+    hit = valid & badrec[torch.where(valid, ptrs, 0)]
+    if not bool(hit.any()):
+        return
+    keys = rows[:, K0:K1]
+    t.quarantined.update(keys[hit].long().tolist())
+    keep = valid & ~hit
+    kept = keep.sum(1)
+    # kept slot j of a row moves to position (kept slots before j)
+    dest = torch.cumsum(keep.long(), 1) - 1
+    new_k = torch.where(valid, 0, keys)
+    new_p = torch.where(valid, 0, rows[:, P0:P0 + MAX_KEYS])
+    r, j = torch.nonzero(keep, as_tuple=True)
+    new_k[r, dest[r, j]] = keys[r, j]
+    new_p[r, dest[r, j]] = rows[r, P0 + j]
+    rows[:, K0:K1] = new_k
+    rows[:, P0:P0 + MAX_KEYS] = new_p
+    rows[:, C_NK] = kept.to(torch.int32)
+    t.nodes.vol[leaves] = rows

@@ -32,6 +32,14 @@ adopts it only when ``chain_order``'s verify pass proves it IS the chain.
 The dirty-slot mask is a bool tensor on the arena's device, so marking a
 slot costs no sync; each emit finds the dirty slots with one
 ``nonzero``.
+
+Salvage (DESIGN.md §13, ``recover(salvage=True)`` on an integrity arena):
+the node rows failing their checksums terminate the chain, and the list
+recovers as the longest committed prefix whose every node verifies.  The
+reference walks that prefix one pointer at a time on the host; here the
+committed NEXT column goes to the device once and ``salvage_prefix``
+ranks it with the chain kernels.  Quarantined rows stay out of the free
+list, so no later append resurrects them.
 """
 from __future__ import annotations
 
@@ -42,10 +50,11 @@ import torch
 
 from repro_torch.core import reconstruct as rec
 from repro_torch.core.arena import (SNAP_SLOTS, SNAP_WORDS, Arena,
+                                    CorruptLineError, FlushStats,
                                     newest_committed, snap_record_pack,
                                     snap_records, snapshot_enabled)
 from repro_torch.core.recovery import (ChainSnapshot, chain_method,
-                                       chain_order)
+                                       chain_order, salvage_prefix)
 from repro_torch.core.writeset import host_rows
 
 NULL = -1
@@ -111,6 +120,17 @@ class DoublyLinkedList:
         return out
 
     # ------------- views -------------
+    @property
+    def data(self) -> torch.Tensor:
+        """DATA words of every node row, a (capacity, 7) view of the
+        volatile tensor."""
+        return self.nodes.vol[:, :DATA_WORDS]
+
+    @property
+    def next(self) -> torch.Tensor:
+        """The NEXT column, a (capacity,) view of the volatile tensor."""
+        return self.nodes.vol[:, DATA_WORDS]
+
     def data_rows(self, ids) -> torch.Tensor:
         """DATA words of the given node ids, (len(ids), 7) on the arena's
         device."""
@@ -122,6 +142,10 @@ class DoublyLinkedList:
     @property
     def head(self) -> int:
         return int(self.header.vol[0, H_HEAD])
+
+    @property
+    def tail(self) -> int:
+        return int(self.header.vol[0, H_TAIL])
 
     @property
     def count(self) -> int:
@@ -354,6 +378,9 @@ class DoublyLinkedList:
             self.snaprec.load()
         rec.get("pstruct.dll")(self)
 
+    def flush_stats(self) -> FlushStats:
+        return self.arena.stats
+
 
 def _snap_resume(d: DoublyLinkedList) -> None:
     """Provider state after recovery: resume the record sequence past
@@ -403,6 +430,22 @@ def _snap_candidate(d: DoublyLinkedList, count: int
     return ChainSnapshot(cand[cand.numel() - count:], replayed=len(suffix))
 
 
+def _salvage_bad_rows(arena, region) -> np.ndarray:
+    """Rows of a structure's primary region failing their sidecar
+    checksums (empty when the arena carries no integrity layer): the
+    salvage probe every reconstructor shares."""
+    if not arena.integrity:
+        return np.empty(0, np.int64)
+    return arena.verify_region(region)
+
+
+def _image_col(region, col: int, dev) -> torch.Tensor:
+    """Column ``col`` of a region's committed persistent image as an int64
+    tensor on ``dev`` (one host-to-device copy)."""
+    return torch.from_numpy(np.ascontiguousarray(
+        region._pview()[:, col]).astype(np.int64)).to(dev)
+
+
 @rec.register("pstruct.dll")
 def _reconstruct_dll(d: DoublyLinkedList) -> dict:
     """Pure rebuild of the DLL's volatile redundancy from its (loaded)
@@ -432,13 +475,54 @@ def _reconstruct_dll(d: DoublyLinkedList) -> dict:
     # snapshot verify (the host primitive's semantics), so a torn epoch
     # that linked the last committed node onward still adopts.
     method = d.chain_method
-    snap = _snap_candidate(d, count) if d.snapshot else None
-    order = chain_order(d._next_col(), head, count, method=method,
-                        snapshot=snap)
+    salvage = d.arena._salvage
+    bad = _salvage_bad_rows(d.arena, d.nodes) if salvage \
+        else np.empty(0, np.int64)
+    dropped = 0
+    snap = None
+    if bad.size:
+        # salvage: corrupt rows terminate the chain; the list is the
+        # longest committed prefix whose every node verifies, ranked over
+        # the committed image's NEXT column
+        bad_t = torch.from_numpy(bad).to(dev)
+        order = salvage_prefix(_image_col(d.nodes, DATA_WORDS, dev), head,
+                               count, bad_t, method=method)
+        dropped = count - int(order.shape[0])
+        if order.numel() == 0:
+            hv[:] = 0
+            hv[H_HEAD] = NULL
+            hv[H_TAIL] = NULL
+            d._free = []
+            d._r0 = d._r1 = 0
+            d.header.write_row(0, hv)
+            if d.snapshot:
+                _snap_resume(d)
+            return {"mode": d.mode, "count": 0, "quarantined": True,
+                    "quarantined_rows": dropped}
+        count = int(order.shape[0])
+        hv[H_COUNT] = count
+    else:
+        snap = _snap_candidate(d, count) if d.snapshot else None
+        try:
+            order = chain_order(d._next_col(), head, count, method=method,
+                                snapshot=snap)
+        except (RuntimeError, ValueError) as e:
+            if salvage:
+                # a structurally impossible chain (cycle, short walk) with
+                # no sidecar to localize it: the whole structure is
+                # untrusted
+                raise CorruptLineError(
+                    d.nodes.name, np.empty(0, np.int64),
+                    detail=f"chain rebuild: {e}") from e
+            raise
     d.prev[order[1:]] = order[:-1]
     hv[H_TAIL] = int(order[-1])
     live = torch.zeros(d.capacity, dtype=torch.bool, device=dev)
     live[order] = True
+    # quarantined rows are neither live nor reusable: kept out of the free
+    # list, no later insert resurrects the rot
+    if bad.size:
+        live[torch.from_numpy(bad[bad < d.capacity]).to(dev)] = True
     # fresh-water mark: everything at/above the max live id is fresh
     fresh = int(order.max()) + 1
     hv[H_FRESH] = fresh
@@ -453,6 +537,9 @@ def _reconstruct_dll(d: DoublyLinkedList) -> dict:
     d.header.write_row(0, hv)
     detail = {"mode": d.mode, "count": count,
               "chain": chain_method(d.capacity, count, method)}
+    if dropped:
+        detail.update(degraded=True, quarantined_rows=dropped,
+                      chain="salvage")
     if d.snapshot:
         # "snapshot" (seeded, suffix-only walk) or the fallback rank the
         # verify pass forced; replayed = rows walked
@@ -462,3 +549,8 @@ def _reconstruct_dll(d: DoublyLinkedList) -> dict:
             and snap.outcome == "snapshot" else count
         _snap_resume(d)
     return detail
+
+
+def order_from_next(nxt, head: int, count: int) -> torch.Tensor:
+    """The reference's alias for the shared primitive (core.recovery)."""
+    return chain_order(torch.as_tensor(nxt, dtype=torch.int64), head, count)

@@ -26,6 +26,12 @@ appended after it, verifies the result is the canonical chain assembly
 and adopts it (restoring the record's bucket count), else rebuilds.  The
 dirty masks are bool tensors on the arena's device, so marking costs no
 sync; each emit finds the dirty rows with one ``nonzero`` per mask.
+
+Salvage (DESIGN.md §13): entry rows below the fresh-water mark that fail
+their checksums become tombstones on the device; their keys, read from
+the persistent image, go into ``quarantined``, SIZE drops by the live rows
+lost, and the chains are rebuilt (a salvaged map never adopts a
+snapshot, whose mirrors may name the dropped rows).
 """
 from __future__ import annotations
 
@@ -36,9 +42,11 @@ import torch
 
 from repro_torch.core import reconstruct as rec
 from repro_torch.core.arena import (SNAP_SLOTS, SNAP_WORDS, Arena,
-                                    newest_committed, snap_record_pack,
-                                    snap_records, snapshot_enabled)
+                                    FlushStats, newest_committed,
+                                    snap_record_pack, snap_records,
+                                    snapshot_enabled)
 from repro_torch.core.recovery import chain_walk
+from repro_torch.pstruct.dll import _salvage_bad_rows
 
 NULL = -1
 KEY_NULL = -(2 ** 62)  # tombstone / empty key sentinel
@@ -115,6 +123,8 @@ class Hashmap:
                                 device=dev)
         # cached hashes: uint64 values held as int64 bit patterns
         self.hashes = torch.zeros(capacity, dtype=torch.int64, device=dev)
+        # keys lost to media corruption in the last salvage recovery
+        self.quarantined: set = set()
         # order snapshots; OFF when the layout was finalized without the
         # snapshot regions, as in the reference
         snap_on = snapshot_enabled(snapshot)
@@ -441,6 +451,20 @@ class Hashmap:
             self.snaprec.load()
         rec.get("pstruct.hashmap")(self)
 
+    def check_against(self, ref: dict) -> bool:
+        """Whether the map holds exactly ``ref`` ({key: 7 value words})."""
+        ks = np.fromiter(ref.keys(), np.int64, len(ref))
+        ok, vals = self.find_batch(ks)
+        if not bool(ok.all()) or self.size != len(ref):
+            return False
+        if not len(ref):
+            return True
+        want = np.stack([np.asarray(ref[int(k)], np.int64) for k in ks])
+        return bool(np.array_equal(vals.cpu().numpy(), want))
+
+    def flush_stats(self) -> FlushStats:
+        return self.arena.stats
+
 
 def _hm_snap_resume(h: Hashmap) -> None:
     recs = snap_records(h.snaprec)
@@ -552,6 +576,24 @@ def _reconstruct_hashmap(h: Hashmap) -> dict:
         hv[:] = 0
         h.header.write_row(0, hv)
     fresh = int(hv[H_FRESH])
+    # salvage: entry rows failing their sidecar become tombstones; the map
+    # recovers every verifiable entry and refuses the rest by key.  A
+    # corrupt VALUE word leaves the key word intact, so the quarantine
+    # names the real key; a corrupt KEY word is recorded as read.
+    h.quarantined = set()
+    dropped = 0
+    if h.arena._salvage:
+        bad = _salvage_bad_rows(h.arena, h.entries)
+        bad = bad[bad < fresh]
+        if bad.size:
+            keys = h.entries._pview()[bad, 0]
+            h.quarantined.update(int(k) for k in keys[keys != KEY_NULL])
+            bad_t = torch.from_numpy(bad).to(h.arena.device)
+            was_live = int((h.keys[bad_t] != KEY_NULL).sum())
+            h.entries.vol[bad_t, 0] = KEY_NULL
+            hv[H_SIZE] = max(0, int(hv[H_SIZE]) - was_live)
+            h.header.write_row(0, hv)
+            dropped = int(bad.size)
     size = int(hv[H_SIZE])
     h.n_buckets = _next_pow2(max(16, int(size / h.load_factor) + 1))
     h.hashes = torch.zeros(h.capacity, dtype=torch.int64,
@@ -559,7 +601,13 @@ def _reconstruct_hashmap(h: Hashmap) -> dict:
     idx = torch.nonzero(h.keys[:fresh] != KEY_NULL).squeeze(1)
     h.hashes[idx] = hash64(h.keys[idx])
     detail = {"mode": h.mode, "size": size, "live": int(idx.numel())}
-    replayed = _hm_snap_adopt(h, fresh, idx) if h.snapshot else None
+    if dropped:
+        detail.update(degraded=True, quarantined_rows=dropped,
+                      quarantined_keys=sorted(h.quarantined))
+    # a salvaged map never adopts a snapshot: its mirrors may name the
+    # quarantined rows
+    replayed = _hm_snap_adopt(h, fresh, idx) \
+        if h.snapshot and not dropped else None
     if replayed is None:
         h._rebuild_chains(fresh)
     if h.snapshot:

@@ -3,9 +3,10 @@
 
 Builds each of the three partly-persistent structures, runs a workload,
 crashes, reconstructs, and prints the flush savings vs fully-persistent.
-It runs on the GPU; ``--device cpu`` runs it on the CPU.  The arenas pin
-``integrity=False`` (integrity sidecars are not ported); order snapshots
-follow ``REPRO_SNAPSHOT`` as in the reference example.
+It runs on the GPU; ``--device cpu`` runs it on the CPU.  Integrity
+sidecars and order snapshots follow ``REPRO_INTEGRITY`` and
+``REPRO_SNAPSHOT`` as in the reference example (their lines are counted
+apart from the ``lines`` printed).
 
     PYTHONPATH=src python -m repro_torch.quickstart [--n 20000] [--device cpu]
 """
@@ -29,15 +30,14 @@ def demo(kind: str, n: int, rng: np.random.Generator, device) -> str:
     for mode in ("full", "partly"):
         if kind == "dll":
             a = open_arena(None, DoublyLinkedList.layout(n + 64, mode),
-                           device=device, integrity=False)
+                           device=device)
             s = DoublyLinkedList(a, n + 64, mode)
         elif kind == "bptree":
             a = open_arena(None, BPTree.layout(n, n * 2, mode),
-                           device=device, integrity=False)
+                           device=device)
             s = BPTree(a, n, n * 2, mode)
         else:
-            a = open_arena(None, Hashmap.layout(n + 64, mode), device=device,
-                           integrity=False)
+            a = open_arena(None, Hashmap.layout(n + 64, mode), device=device)
             s = Hashmap(a, n + 64, mode)
 
         keys = rng.permutation(n).astype(np.int64)

@@ -36,13 +36,18 @@ cache tree is never copied.  Under ``recover(concurrency>1)`` the groups
 run in a thread pool, but they share the card's one stream: the host work
 overlaps, the kernels do not.
 
+``recover(salvage=True)`` rides the manager's salvage mode (DESIGN.md
+§13): a token-log row that fails its checksum loses its request's prompt,
+so that rid (its table entry intact) lands in ``quarantined_rids`` and its
+slot frees; a rid whose table row rotted is quarantined by the table.
+Admission refuses a quarantined rid with ``QuarantinedError`` until
+``readmit``.
+
 The engine runs on the card unless the caller passes ``device="cpu"``;
 its parameters must live there.  Not ported (raise
-``NotImplementedError``): ``recover(salvage=True)``, ``n_shards > 1``,
-``commit_mode="shadow"`` and paging (``paged=True``, or ``None`` under
-``REPRO_PAGED=1``), as the port's arena.  Since salvage is the only
-source of quarantined rids, ``quarantined_rids`` stays empty and
-admission has no quarantine gate.
+``NotImplementedError``): ``n_shards > 1``, ``commit_mode="shadow"`` and
+paging (``paged=True``, or ``None`` under ``REPRO_PAGED=1``), as the
+port's arena.
 """
 from __future__ import annotations
 
@@ -56,11 +61,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import reconstruct as rec
-from repro_torch.core.arena import (journal_enabled, not_ported, open_arena,
+from repro_torch.core.arena import (CorruptLineError, QuarantinedError,
+                                    journal_enabled, open_arena,
                                     resolve_device)
 from repro_torch.core.recovery import RecoveryManager, RecoveryReport
 from repro_torch.kernels.pack_flush import scatter_rows_
 from repro_torch.models.model import Model
+from repro_torch.pstruct.dll import _salvage_bad_rows
 from repro_torch.pstruct.hashmap import H_FRESH as HM_FRESH
 from repro_torch.pstruct.hashmap import Hashmap
 from repro_torch.serve.journal import (OP_ADMIT, OP_COMPLETE, ST_NEVER,
@@ -149,6 +156,8 @@ class ServingEngine:
         self._admit_lock = threading.Lock()
         self._recover_concurrency = 1
         self.last_recovery: Optional[RecoveryReport] = None
+        # rids lost to media corruption in the last salvage recovery:
+        # admission refuses them (QuarantinedError) until readmit()
         self.quarantined_rids: set = set()
         # {rid: (vocab_padded,) f32 logits} of the last step
         self.step_logits: Dict[int, torch.Tensor] = {}
@@ -161,6 +170,10 @@ class ServingEngine:
         raise RuntimeError("no free slots")
 
     def add_request(self, rid: int, prompt: np.ndarray) -> int:
+        if int(rid) in self.quarantined_rids:
+            raise QuarantinedError(
+                f"request {rid} was lost to media corruption in the last "
+                "salvage recovery; readmit() it explicitly to resubmit")
         if self.journal is not None:
             st = self.journal.state_of(rid)
             if st != ST_NEVER:
@@ -305,14 +318,17 @@ class ServingEngine:
         request hashmap + LRU chain, page tables, journal, engine slots
         (slab scan + grouped re-prefill).  ``concurrency>1`` runs
         independent stages and the engine's prefill groups in thread
-        pools.  Returns seconds; the RecoveryReport lands in
-        ``last_recovery``."""
-        if salvage:
-            raise not_ported("salvage recovery")
+        pools.  ``salvage=True``: corrupted stages quarantine instead of
+        aborting, and the rids whose table entry or token-log row was lost
+        land in ``quarantined_rids``.  Returns seconds; the RecoveryReport
+        lands in ``last_recovery``."""
         self._recover_concurrency = max(1, int(concurrency))
+        # journal rings load with the journal stage, sidecars with the
+        # verify paths: neither belongs to the table's own load stage
         req_regions = tuple(n for n in self.arena.regions
                             if n.startswith("req.")
-                            and not n.endswith(".jrnl"))
+                            and not n.endswith(".jrnl")
+                            and not n.endswith(".integ"))
         mgr = RecoveryManager(self.arena, self.paging.arena)
         mgr.add("req_table", "pstruct.hashmap", self.table,
                 regions=req_regions)
@@ -329,8 +345,10 @@ class ServingEngine:
             eng_deps += ("journal",)
         mgr.add("engine", "serve.engine", self, depends=eng_deps,
                 regions=req_regions + ("tokens",))
-        report = mgr.recover(concurrency=concurrency, on_stage=on_stage)
+        report = mgr.recover(concurrency=concurrency, on_stage=on_stage,
+                             salvage=salvage)
         self.last_recovery = report
+        self.quarantined_rids = {int(k) for k in self.table.quarantined}
         return report.total_seconds
 
 
@@ -353,17 +371,40 @@ def _reconstruct_engine(eng: ServingEngine) -> dict:
     vals = eng.table.values[:fresh].cpu().numpy()
     # valid rids are non-negative; KEY_NULL tombstones are negative too
     live = (keys >= 0) & (vals[:, V_ACTIVE] == 1)
+    salvage = eng.arena._salvage
+    lost_tok = 0
+    if salvage:
+        # token-log salvage: a corrupt slot row loses its request's
+        # prompt; the table entry is intact, so the rid quarantines by
+        # name and its slot frees for new work
+        bad_slots = _salvage_bad_rows(eng.arena, eng.tok_region)
+        if bad_slots.size:
+            hit = live & np.isin(vals[:, V_SLOT], bad_slots)
+            eng.table.quarantined.update(int(k) for k in keys[hit])
+            live = live & ~hit
+            lost_tok = int(hit.sum())
+    lost = set(eng.table.quarantined)
     if eng.journal is not None:
         # two independent persisted records of the same fact; the shared
         # req.header flush line makes divergence impossible in any
         # committed image, so a mismatch is corruption
         retry = eng.journal.must_retry()
         table_live = {int(k) for k in keys[live]}
+        if salvage and lost:
+            # rids cut out by salvage are EXPECTED to diverge: the journal
+            # still remembers admissions the table lost
+            retry = retry - lost
+            table_live = table_live - lost
         if retry != table_live:
-            raise RuntimeError(
-                "journal/table divergence after recovery: journal "
-                f"must-retry={sorted(retry)} vs table live="
-                f"{sorted(table_live)}")
+            msg = ("journal/table divergence after recovery: journal "
+                   f"must-retry={sorted(retry)} vs table live="
+                   f"{sorted(table_live)}")
+            if salvage:
+                # residual divergence IS corruption: quarantine the engine
+                # stage rather than abort the whole recovery
+                raise CorruptLineError("req.jrnl", np.empty(0, np.int64),
+                                       detail=msg)
+            raise RuntimeError(msg)
     slots = vals[live, V_SLOT]
     tlens = vals[live, V_TLEN]
     eng.slot_rid[slots] = keys[live]
@@ -394,14 +435,18 @@ def _reconstruct_engine(eng: ServingEngine) -> dict:
             admissions = list(ex.map(prefill_group, groups))
     else:
         admissions = [prefill_group(g) for g in groups]
-    return {"requests": int(live.sum()),
-            "prefill_groups": len(groups),
-            "shard_groups": int(np.unique(shards).size) if slots.size
-            else 0,
-            "first_admission_s": round(min(admissions), 6)
-            if admissions else 0.0,
-            "last_admission_s": round(max(admissions), 6)
-            if admissions else 0.0}
+    out = {"requests": int(live.sum()),
+           "prefill_groups": len(groups),
+           "shard_groups": int(np.unique(shards).size) if slots.size
+           else 0,
+           "first_admission_s": round(min(admissions), 6)
+           if admissions else 0.0,
+           "last_admission_s": round(max(admissions), 6)
+           if admissions else 0.0}
+    if lost:
+        out.update(degraded=True, quarantined_rids=sorted(lost),
+                   lost_token_rows=lost_tok)
+    return out
 
 
 def _scatter_batch(full: torch.Tensor, grp: torch.Tensor, slots, ax: int

@@ -21,10 +21,14 @@ classifies each request from the committed journal window: a retry of a
 completed request is refused (``apply`` returns False); a request whose
 epoch never committed left no trace anywhere and retries cleanly.
 
-The store does not pin ``integrity``, so it resolves through
-``REPRO_INTEGRITY`` (on by default) and the port raises for it: run with
-``REPRO_INTEGRITY=0``.  ``n_shards > 1``, ``commit_mode="shadow"`` and
-``recover(salvage=True)`` raise ``NotImplementedError`` naming themselves.
+The store does not pin ``integrity``: it resolves through
+``REPRO_INTEGRITY`` (on by default), as in the reference.
+``recover(salvage=True)`` (DESIGN.md §13) keeps what verifies: keys the
+table lost are refused (``QuarantinedError``) until ``readmit``,
+quarantined or lost log records replay as holes, and a key whose replayed
+apply count falls short of the table's counter is quarantined by name.
+``n_shards > 1`` and ``commit_mode="shadow"`` raise
+``NotImplementedError`` naming themselves.
 """
 from __future__ import annotations
 
@@ -35,11 +39,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import reconstruct as rec
-from repro_torch.core.arena import (QuarantinedError, journal_enabled,
-                                    not_ported, open_arena)
+from repro_torch.core.arena import (CorruptLineError, QuarantinedError,
+                                    journal_enabled, open_arena)
 from repro_torch.core.recovery import RecoveryManager
 from repro_torch.pstruct.bptree import BPTree
-from repro_torch.pstruct.hashmap import Hashmap
+from repro_torch.pstruct.hashmap import H_FRESH as HM_FRESH
+from repro_torch.pstruct.hashmap import KEY_NULL, Hashmap
 from repro_torch.serve.journal import (OP_APPLY, ST_DONE, ST_NEVER,
                                        RequestJournal, args_digest)
 
@@ -216,15 +221,16 @@ class FeatureStore:
                 salvage: bool = False):
         """Reopen the arena, then rebuild table, sample log, journal and
         the store's hot rows in dependency order.  Returns the
-        RecoveryReport (also in ``last_recovery``)."""
-        if salvage:
-            raise not_ported("salvage recovery")
+        RecoveryReport (also in ``last_recovery``).  ``salvage=True``
+        quarantines instead of aborting (module docstring)."""
         mgr = RecoveryManager(self.arena)
         emb_regions = tuple(n for n in self.arena.regions
                             if n.startswith("emb.")
-                            and not n.endswith(".jrnl"))
+                            and not n.endswith(".jrnl")
+                            and not n.endswith(".integ"))
         sx_regions = tuple(n for n in self.arena.regions
-                           if n.startswith("sx."))
+                           if n.startswith("sx.")
+                           and not n.endswith(".integ"))
         mgr.add("emb", "pstruct.hashmap", self.table, regions=emb_regions)
         mgr.add("samples", "pstruct.bptree", self.tree, regions=sx_regions)
         deps = ("emb", "samples")
@@ -234,8 +240,13 @@ class FeatureStore:
             deps += ("journal",)
         mgr.add("store", "serve.feature_store", self, depends=deps,
                 regions=())
-        report = mgr.recover(concurrency=concurrency, on_stage=on_stage)
+        report = mgr.recover(concurrency=concurrency, on_stage=on_stage,
+                             salvage=salvage)
         self.last_recovery = report
+        if salvage:
+            # even if the store stage was skipped (a quarantined
+            # dependency), the table's losses still gate
+            self.quarantined_keys |= {int(k) for k in self.table.quarantined}
         return report
 
 
@@ -252,30 +263,61 @@ def _reconstruct_feature_store(fs: FeatureStore) -> dict:
     committed prefix, holes or unknown keys are corruption: fail
     loudly."""
     cfg = fs.cfg
-    fs.quarantined_keys = set()
+    salvage = fs.arena._salvage
+    fs.quarantined_keys = {int(k) for k in fs.table.quarantined} \
+        if salvage else set()
     fs.vectors = fs._zeros(cfg.n_keys, cfg.dim)
     fs.counts = fs._zeros(cfg.n_keys)
     fs.next_sample = fs.table.header.read_one(0, FS_CURSOR)
     if not 0 <= fs.next_sample <= cfg.n_samples:
-        raise RuntimeError(
-            f"committed sample cursor {fs.next_sample} out of range")
-    replayed = 0
+        msg = f"committed sample cursor {fs.next_sample} out of range"
+        if salvage:
+            raise CorruptLineError("emb.header", np.array([0], np.int64),
+                                   detail=msg)
+        raise RuntimeError(msg)
+    replayed = missing = 0
     if fs.next_sample:
         sids = torch.arange(fs.next_sample, dtype=torch.int64,
                             device=fs.device)
         ok, recs = fs.tree.find_batch(sids)
         if not bool(ok.all()):
-            raise RuntimeError(
-                f"sample log has holes: {int((~ok).sum())} missing ids")
+            if not salvage:
+                raise RuntimeError(
+                    f"sample log has holes: {int((~ok).sum())} missing "
+                    f"ids")
+            # salvage: quarantined or lost log records replay as holes;
+            # the per-key count cross-check below names the losers
+            missing = int((~ok).sum())
+            recs = recs[ok]
         slots = fs.table._find_slots(recs[:, 0])
-        if bool((slots < 0).any()):
-            raise RuntimeError(
-                "sample log names keys absent from the committed table")
+        absent = slots < 0
+        if bool(absent.any()):
+            if not salvage:
+                raise RuntimeError(
+                    "sample log names keys absent from the committed "
+                    "table")
+            # the table lost these keys (row quarantined): their log
+            # records survive and name them precisely
+            fs.quarantined_keys.update(recs[absent, 0].tolist())
+            recs, slots = recs[~absent], slots[~absent]
         fs.vectors.index_add_(0, slots, recs[:, 1:1 + cfg.dim])
         fs.counts.index_add_(0, slots, torch.ones_like(slots))
-        replayed = fs.next_sample
+        replayed = int(slots.shape[0]) if salvage else fs.next_sample
+    if salvage:
+        # the table's committed per-key apply counters against the
+        # replayed ones: a key whose samples were lost (its log record
+        # was corrupt, so the key inside it is unreadable) falls short
+        # and is quarantined BY NAME here
+        fresh = int(fs.table.header.read_row(0)[HM_FRESH])
+        tk = fs.table.keys[:fresh]
+        short = (tk != KEY_NULL) & (fs.table.values[:fresh, 0]
+                                    != fs.counts[:fresh])
+        fs.quarantined_keys.update(tk[short].tolist())
     detail = {"samples": replayed, "keys": fs.table.size}
     if fs.journal is not None:
         detail["journal_completed"] = sum(
             1 for s in fs.journal.classify().values() if s == ST_DONE)
+    if salvage and (fs.quarantined_keys or missing):
+        detail.update(degraded=True, missing_samples=missing,
+                      quarantined_keys=sorted(fs.quarantined_keys))
     return detail

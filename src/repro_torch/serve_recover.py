@@ -24,8 +24,7 @@ engine feeds it at p - 1, see ``serve/engine.py``.)
 
 It runs llama3.2-3b at full width on the card; ``--device cpu`` runs on
 the CPU, ``--layers`` cuts the depth, ``--reduced`` takes the reduced
-smoke config.  Integrity sidecars are not ported, so the command sets
-``REPRO_INTEGRITY=0`` unless the environment already names it:
+smoke config:
 
     PYTHONPATH=src python -m repro_torch.serve_recover [--device cpu] [--layers N]
 """
@@ -216,7 +215,6 @@ def main(argv=None) -> None:
     p.add_argument("--reduced", action="store_true",
                    help="the reduced smoke config instead of full width")
     args = p.parse_args(argv)
-    os.environ.setdefault("REPRO_INTEGRITY", "0")
     cfg = registry.get(ARCH)
     if args.reduced:
         cfg = base.reduced(cfg)

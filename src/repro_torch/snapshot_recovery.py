@@ -76,8 +76,7 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as td:
         cap = base + SUFFIX + 64
         layout = DoublyLinkedList.layout(cap, name="lru", snapshot=True)
-        a = open_arena(os.path.join(td, "arena"), layout, device=args.device,
-                       integrity=False)
+        a = open_arena(os.path.join(td, "arena"), layout, device=args.device)
         d = DoublyLinkedList(a, cap, name="lru", snapshot=True)
 
         rng = np.random.default_rng(0)

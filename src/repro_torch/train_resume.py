@@ -16,9 +16,7 @@ otherwise.  ``--crash-at`` must lie above a multiple of 40 and below
 
 It runs on the card unless ``--device`` names another device; on a card
 it makes torch's kernels deterministic first (``launch.train``).  Both
-runs start from the port's seeded init.  Integrity sidecars are not
-ported, so the command sets ``REPRO_INTEGRITY=0`` unless the environment
-already names it:
+runs start from the port's seeded init:
 
     PYTHONPATH=src python -m repro_torch.train_resume [--device cpu] [--steps 200] [--crash-at 120] [--global-batch 8] [--seq-len 128]
 """
@@ -26,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import shutil
 import tempfile
 import time
@@ -120,7 +117,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     args = ap.parse_args(argv)
-    os.environ.setdefault("REPRO_INTEGRITY", "0")
     device = resolve_device(args.device)
     deterministic(device)
 

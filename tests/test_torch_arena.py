@@ -214,10 +214,16 @@ def test_device_and_feature_axes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TA.Arena(None, integrity=False)   # no silent CPU fallback
-    for kw in ({"commit_mode": "shadow"}, {"paged": True},
-               {"integrity": True}):
+    for kw in ({"commit_mode": "shadow"}, {"paged": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TA.Arena(None, device="cpu", **kw)
+    # integrity is ported: the port builds the reference's sidecar layout
+    port = TA.open_arena(None, LAYOUT, device="cpu", integrity=True)
+    ref = RA.open_arena(None, LAYOUT, integrity=True)
+    assert port.integrity and ref.integrity
+    assert port._meta == ref._meta
+    assert any(n.endswith(".integ") for n in port.regions)
+    assert np.array_equal(np.asarray(port._mm), np.asarray(ref._mm))
     with pytest.raises(NotImplementedError, match="sharding"):
         TA.open_arena(None, LAYOUT, n_shards=2, device="cpu",
                       integrity=False)

@@ -43,7 +43,8 @@ TIMING = {"seconds", "t_start", "t_end", "ready_at"}
 
 @pytest.fixture(autouse=True)
 def _no_integrity(monkeypatch):
-    # the port has no integrity sidecars; both packages honour the env
+    # integrity pinned off in both packages: these tests hold the
+    # integrity-free bytes (tests/test_torch_integrity.py holds the rest)
     monkeypatch.setenv("REPRO_INTEGRITY", "0")
 
 
@@ -197,8 +198,11 @@ def test_store_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="shadow"):
         TStore(TConfig(commit_mode="shadow"), device="cpu")
     fs = TStore(TConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="salvage"):
-        fs.recover(salvage=True)
+    # salvage is ported: a store that never committed salvages to the
+    # reference's report
+    got = _details(fs.recover(salvage=True))
+    assert got == _details(JStore(JConfig()).recover(salvage=True))
+    assert not fs.quarantined_keys
     with pytest.raises(ValueError):
         fs.apply(0, [3, 3], np.zeros((2, 4), np.int64))
 

@@ -30,7 +30,8 @@ PORT = SimpleNamespace(open_arena=TA.open_arena, Manager=TR.RecoveryManager,
 
 @pytest.fixture(autouse=True)
 def _no_integrity(monkeypatch):
-    # the port has no integrity sidecars; both packages honour the env
+    # integrity pinned off in both packages: these tests hold the
+    # integrity-free bytes (tests/test_torch_integrity.py holds the rest)
     monkeypatch.setenv("REPRO_INTEGRITY", "0")
 
 

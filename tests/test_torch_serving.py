@@ -51,7 +51,8 @@ TIMING = {"first_admission_s", "last_admission_s"}
 
 @pytest.fixture(autouse=True)
 def _no_integrity(monkeypatch):
-    # the port has no integrity sidecars; both packages honour the env
+    # integrity pinned off in both packages: these tests hold the
+    # integrity-free bytes (tests/test_torch_integrity.py holds the rest)
     monkeypatch.setenv("REPRO_INTEGRITY", "0")
 
 
@@ -330,10 +331,18 @@ def test_engine_unported_axes_raise(models, kw):
 
 
 def test_engine_salvage_and_device_checks(models, tmp_path):
-    _, port = _engines(models, tmp_path)
-    port.crash()
-    with pytest.raises(NotImplementedError):
-        port.recover(salvage=True)
+    ref, port = _engines(models, tmp_path)
+    # salvage is ported: with nothing corrupt it recovers as the reference
+    for e in (ref, port):
+        e.add_request(5, np.array([1, 2, 3], np.int64))
+        e.crash()
+        e.recover(salvage=True)
+        assert e.quarantined_rids == set()
+    for rs, ps in zip(ref.last_recovery.stages, port.last_recovery.stages):
+        assert (ps.name, ps.quarantined, ps.degraded) == \
+            (rs.name, rs.quarantined, rs.degraded)
+        assert {k: v for k, v in ps.detail.items() if k not in TIMING} \
+            == {k: v for k, v in rs.detail.items() if k not in TIMING}
     _, _, tm, tp = models
     with pytest.raises(ValueError):
         TE.ServingEngine(tm, tp, TE.EngineConfig(), device="meta")

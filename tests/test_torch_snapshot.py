@@ -194,9 +194,10 @@ def test_snapshot_none_resolves_like_reference(monkeypatch, env, mode):
 
 @pytest.mark.parametrize("env", [None, "0"])
 def test_integrity_none_never_builds_another_layout(monkeypatch, env):
-    """Where the reference resolves ``integrity=None`` on and builds a
-    checksum sidecar, the port refuses (integrity is not ported); where it
-    resolves off, both build the same layout."""
+    """``integrity=None`` resolves as in the reference: where the reference
+    resolves it on and builds a checksum sidecar, the port builds the same
+    sidecar layout; where it resolves off, both build the same layout
+    without one."""
     if env is None:
         monkeypatch.delenv("REPRO_INTEGRITY", raising=False)
     else:
@@ -205,19 +206,13 @@ def test_integrity_none_never_builds_another_layout(monkeypatch, env):
     ref = RA.open_arena(None, layout)
     sidecars = [n for n in ref.regions if n.endswith(".integ")]
     assert TA.integrity_enabled(None) == RA.integrity_enabled(None)
-    if sidecars:
-        assert env is None
-        with pytest.raises(NotImplementedError, match="integrity"):
-            TA.open_arena(None, layout, device="cpu")
-        with pytest.raises(NotImplementedError, match="integrity"):
-            TA.Arena(None, device="cpu")
-    else:
-        assert env == "0"
-        port = TA.open_arena(None, layout, device="cpu")
-        assert list(port.regions) == list(ref.regions)
-        assert port._meta == ref._meta
-    with pytest.raises(NotImplementedError, match="integrity"):
-        TA.Arena(None, device="cpu", integrity=True)
+    port = TA.open_arena(None, layout, device="cpu")
+    assert list(port.regions) == list(ref.regions)
+    assert port._meta == ref._meta
+    assert port.integrity == ref.integrity == bool(sidecars)
+    assert bool(sidecars) == (env is None)
+    assert TA.Arena(None, device="cpu").integrity == (env is None)
+    assert TA.Arena(None, device="cpu", integrity=True).integrity
 
 
 # ------------------------------------------------------------- records
@@ -614,8 +609,10 @@ def test_manager_rejects_unknown_and_cyclic_dependencies():
             mgr.order()
         with pytest.raises(ValueError, match="already"):
             mgr.add("a", "schedule", 0)
-    with pytest.raises(NotImplementedError, match="salvage"):
-        TR.RecoveryManager().recover(salvage=True)
+    # salvage is ported: an empty manager salvages to the same empty report
+    got, want = (M.RecoveryManager().recover(salvage=True) for M in (TR, R))
+    assert (got.stages, got.quarantined, got.degraded) == \
+        (want.stages, want.quarantined, want.degraded) == ([], [], [])
 
 
 @pytest.mark.parametrize("concurrency", [1, 4])
