@@ -90,7 +90,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    at 2**24 nodes (nxt larger than the L2); and the contraction's other
    paths (several heads through ``spine_pos``, k = 7, torn pointers, and
    the plan's second walk for merged segments, a spine-free cycle and a
-   cycle under explicit counts) against the same driver on the CPU;
+   cycle under explicit counts), card against CPU; and
+   the four chain kernels on the shard-major packed layout
+   (``segments=``/``seg_rows=``) of a random 2**22 chain packed by
+   ("seg", 64) over 4 and over 3 shards: a counted ``jump_double`` round
+   and chain_order's doubling tables (21 rounds), a ``gather_next`` hop
+   of 7n/8 int64 ids, the contraction's ``walk_segments`` (checkpoints
+   as a set) and ``expand_segments`` on its split plan, each exact
+   against its plain version with the same segments and against the
+   same kernel on the global layout, timed with CUDA events, L2 evicted,
+   beside that global launch and its bound;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
    the B+Tree at 2**19, both modes, order snapshots and integrity pinned
@@ -124,7 +133,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    a crash, the same flipped rows, scrub and a salvage recovery: identical
    images (``.integ`` sidecars included), FlushStats (``integrity_lines``
    included), scrub results, salvage reports (timing aside) and recovered
-   states; then the serving
+   states; the quickstart workload at 2**14 for each structure in both
+   modes on four-shard arenas, integrity off and on: identical shard
+   images, manifests and FlushStats (aggregate and per shard); then the
+   serving
    launcher ``repro_torch.launch.serve --arch llama3.2-3b --crash`` on
    the card, which must return 0 after recovering;
 5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
@@ -230,13 +242,48 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    row flipped, that rid refused until ``readmit``, the others' logits
    within 1e-4 of a twin's; ``CheckpointCatalog`` at its default
    capacity, 4096 steps recorded, crash, reopen, ``steps()`` and
-   ``latest()`` unchanged.  The phase's seconds are printed.
+   ``latest()`` unchanged.  The phase's seconds are printed;
+12. sharded arenas (DESIGN.md §7, barrier commit), four shards: phase
+   3's workload (DLL and hashmap 2**22, the B+Tree 2**17 as phase 11
+   cuts it), both modes, integrity off, recovered through
+   ``RecoveryManager(concurrency=4)`` with per-region load stages: the
+   recovered state checked, the DLL's and hashmap's aggregate
+   FlushStats equal to phase 3's in every field but ``calls`` (one flush
+   call per shard file written), the shards' lines and bytes summing to
+   the aggregate, ``pack_rows`` launches equal to the grouped gathers and
+   no more gathers than phase 3's, reopen and stage seconds beside phase
+   3's recovery and, for the DLL and hashmap, insert, delete and
+   recovery seconds beside a one-shard run of the same just before it;
+   the packed API on the committed partly DLL: its shards'
+   persistent NEXT views concatenated, ``chain_order(segments=,
+   seg_rows=64)`` by doubling, by contraction and through the snapshot
+   verify equal to the DLL's order, the four chain kernels launched,
+   each call timed beside the same call on the global column; a mixed
+   four-shard arena (DLL and hashmap 2**20, B+Tree 2**17, integrity and
+   snapshots on) whose commit crashes after shard k for k = 0..3, each
+   recovered to the manifest's generation with the flushed append and
+   the next commit sealing the next one, then a clean scrub, a clean
+   salvage, and faults in all three structures named exactly by scrub
+   and salvaged as phase 11's; a truncated and a removed shard file
+   (``ShardLossError``) and a scribbled manifest (``ManifestError``,
+   under salvage too); phase 4's 2-layer full-width engine on four
+   shards through the twin protocol (one re-prefill group per
+   (token-log shard, prompt length), none spanning shards, logits within
+   1e-4 of the twin's) and the feature store at phase 9's config on four
+   shards, 64 requests, a torn crash at 48, replaying exactly once beside
+   its twin; and the reference's flush gate (``benchmarks/
+   flush_batching.py`` ``sharded_sweep``, its quick shape: a B+Tree,
+   mixed 1:1, 4000-ns line stalls, 1, 2 and 4 shards, best of 3): equal
+   line, saved and dedup counts, the 4-shard flush wall at least 1.3x
+   faster than one shard's.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
 phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7;
 ``probe``'s in phase 8; ``pack_rows``' and ``jump_double``'s in phase 9;
-``flash_attention``'s and ``flash_attention_bwd``'s in phase 10.
+``flash_attention``'s and ``flash_attention_bwd``'s in phase 10; the
+four chain kernels', ``pack_rows``', ``scatter_rows``' (a shard's
+reload) and ``flash_attention``'s in phase 12.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -320,23 +367,25 @@ def emit(obj) -> None:
 # ------------------------------------------------------------------ workload
 
 def build_structure(kind: str, mode: str, n: int, device,
-                    snapshot: bool = False, integrity: bool = False):
-    """One structure on its own arena, every feature axis pinned."""
+                    snapshot: bool = False, integrity: bool = False,
+                    n_shards: int = 1):
+    """One structure on its own arena (``n_shards`` of them: sharded),
+    every feature axis pinned."""
     from repro_torch.core.arena import open_arena
     from repro_torch.pstruct.bptree import BPTree
     from repro_torch.pstruct.dll import DoublyLinkedList
     from repro_torch.pstruct.hashmap import Hashmap
+    kw = dict(device=device, integrity=integrity, n_shards=n_shards)
     if kind == "dll":
         a = open_arena(None, DoublyLinkedList.layout(n, mode,
                                                      snapshot=snapshot),
-                       device=device, integrity=integrity)
+                       **kw)
         return a, DoublyLinkedList(a, n, mode, snapshot=snapshot)
     if kind == "hashmap":
         a = open_arena(None, Hashmap.layout(n, mode, snapshot=snapshot),
-                       device=device, integrity=integrity)
+                       **kw)
         return a, Hashmap(a, n, mode, snapshot=snapshot)
-    a = open_arena(None, BPTree.layout(n, 2 * n, mode), device=device,
-                   integrity=integrity)
+    a = open_arena(None, BPTree.layout(n, 2 * n, mode), **kw)
     return a, BPTree(a, n, 2 * n, mode)
 
 
@@ -402,15 +451,24 @@ def _check(kind: str, label: str, s, want_order=None, live_keys=None,
 
 
 def workload(kind: str, mode: str, n: int, device, seed: int = 0,
-             integrity: bool = False) -> dict:
+             integrity: bool = False, n_shards: int = 1,
+             concurrency: int = 0) -> dict:
     """Insert n entries in batches of 8192, delete (and, for the DLL, pop)
     1/8 of them, commit, crash, reopen, reconstruct, then check the
-    recovered state against what the workload expects."""
+    recovered state against what the workload expects.  ``concurrency``
+    > 0 recovers through ``RecoveryManager`` at that concurrency, every
+    region declared (on a sharded arena: per-region load stages); its
+    report is returned under ``recovery``.  ``gathers`` counts the write
+    set's grouped gathers."""
     import numpy as np
     import torch
+    from repro_torch.core.recovery import RecoveryManager
+    from repro_torch.core.writeset import WriteSet
 
     _, keys, vals, gone = _inputs(kind, n, seed)
-    a, s = build_structure(kind, mode, n, device, integrity=integrity)
+    a, s = build_structure(kind, mode, n, device, integrity=integrity,
+                           n_shards=n_shards)
+    gathers0 = WriteSet.gathers
     sync = torch.cuda.synchronize if a.device.type == "cuda" else (
         lambda: None)
     t0 = time.perf_counter()
@@ -423,10 +481,17 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0,
     t_delete = time.perf_counter() - t0
     a.commit()
     lines = a.stats.lines
+    gathers = WriteSet.gathers - gathers0
     a.crash()
+    report = None
     t0 = time.perf_counter()
-    a.reopen()
-    s.reconstruct()
+    if concurrency:
+        report = RecoveryManager(a).add(
+            kind, f"pstruct.{kind}", s, regions=tuple(a.regions)).recover(
+                concurrency=concurrency)
+    else:
+        a.reopen()
+        s.reconstruct()
     sync()
     t_recover = time.perf_counter() - t0
     live = np.ones(n, bool)
@@ -435,7 +500,8 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0,
            keys[live], vals[live], keys[gone])
     return {"kind": kind, "mode": mode, "n": n, "arena": a, "structure": s,
             "lines": lines, "insert_s": t_insert, "delete_s": t_delete,
-            "recover_s": t_recover, "stats": dataclasses.asdict(a.stats)}
+            "recover_s": t_recover, "stats": dataclasses.asdict(a.stats),
+            "gathers": gathers, "recovery": report}
 
 
 def snapshot_workload(kind: str, mode: str, n: int, device,
@@ -1378,7 +1444,8 @@ def raw_walk(nxt, ids, hops: int):
         rc = lib.gather_next_launch(nxt.data_ptr(), ids.data_ptr(),
                                     ids.element_size(), out.data_ptr(),
                                     nxt.shape[0], ids.shape[0], hops,
-                                    walk.data_ptr(), host.data_ptr(), stream)
+                                    walk.data_ptr(), host.data_ptr(), 0, 0,
+                                    stream)
         if rc:
             raise RuntimeError(f"gather_next walk: CUDA error {rc}")
     return launch
@@ -3245,10 +3312,12 @@ def scrub_rows(a) -> dict:
     return {k: v.tolist() for k, v in a.scrub().items()}
 
 
-def build_mixed(mode: str, sizes: dict, device, integrity=None):
+def build_mixed(mode: str, sizes: dict, device, integrity=None,
+                n_shards: int = 1):
     """The reference's mixed arena (``examples/salvage_recovery.py``): a DLL,
-    a B+Tree and a hashmap on ONE arena, order snapshots and integrity at
-    their defaults unless ``integrity`` pins it."""
+    a B+Tree and a hashmap on ONE arena (of ``n_shards`` shards), order
+    snapshots and integrity at their defaults unless ``integrity`` pins
+    it."""
     from repro_torch.core.arena import open_arena
     from repro_torch.pstruct.bptree import BPTree
     from repro_torch.pstruct.dll import DoublyLinkedList
@@ -3258,21 +3327,22 @@ def build_mixed(mode: str, sizes: dict, device, integrity=None):
     layout.update(DoublyLinkedList.layout(n_d, mode, name="dll"))
     layout.update(BPTree.layout(n_b, 2 * n_b, mode, name="bt"))
     layout.update(Hashmap.layout(n_h, mode, name="hm"))
-    a = open_arena(None, layout, device=device, integrity=integrity)
+    a = open_arena(None, layout, device=device, integrity=integrity,
+                   n_shards=n_shards)
     return a, {"dll": DoublyLinkedList(a, n_d, mode, name="dll"),
                "bptree": BPTree(a, n_b, 2 * n_b, mode, name="bt"),
                "hashmap": Hashmap(a, n_h, mode, name="hm")}
 
 
 def mixed_workload(mode: str, sizes: dict, device, integrity=None,
-                   seed: int = 0) -> dict:
+                   seed: int = 0, n_shards: int = 1) -> dict:
     """Phase 3's operations for each structure of a mixed arena in turn
     (insert in batches of 8192, delete 1/8, the DLL also pops), each
     structure's seconds and FlushStats delta apart, then one commit.
     Returns the arena, the structures and what each must recover to."""
     import numpy as np
     import torch
-    a, structs = build_mixed(mode, sizes, device, integrity)
+    a, structs = build_mixed(mode, sizes, device, integrity, n_shards)
     sync = torch.cuda.synchronize if a.device.type == "cuda" else (
         lambda: None)
     runs, want = {}, {}
@@ -3325,8 +3395,9 @@ def inject(a, rows: dict, which=("dll", "hashmap", "bptree")) -> dict:
         fi.stuck_line(a, MIXED_REGION["dll"], rows["dll_stuck"], line=0,
                       value=0xA5)
         bad[MIXED_REGION["dll"]].add(rows["dll_stuck"])
+    order = list(a.regions)             # scrub's order: the declaration
     return {r: sorted(v) for r, v in sorted(
-        bad.items(), key=lambda kv: a.regions[kv[0]].offset)}
+        bad.items(), key=lambda kv: order.index(kv[0]))}
 
 
 def salvage_recover(a, structs):
@@ -3904,6 +3975,622 @@ def integrity_phase(dev, phase3: dict) -> dict:
     return out
 
 
+# -------------------------------------------------------- sharded arenas
+
+SHARDS = 4
+PACK_SEG = 64                  # the DLL's SHARD_SEG: ("seg", 64)
+PACK_SHARDS = (4, 3)           # phase 2's packed layouts
+SHARDED_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 17}
+WINDOW_N = {"dll": 1 << 20, "hashmap": 1 << 20, "bptree": 1 << 17}
+# benchmarks/flush_batching.py's sharded_sweep, its quick shape: B+Tree
+# mixed 1:1, barrier, the per-line stall that makes the flush wall
+# stall-dominated
+SWEEP = {"n_init": 4000, "n_ops": 8192, "batch": 256, "group": 16,
+         "synth_ns": 4000.0, "repeats": 3}
+SWEEP_SHARDS = (1, 2, 4)
+FLUSH_GATE = 1.3               # the reference's gate at 4 shards
+
+
+def pack_chain(nxt, seg_rows: int, n_shards: int):
+    """A global NEXT column packed shard-major under ("seg", seg_rows):
+    (packed column, segments, packed position of each global id)."""
+    import torch
+    n = nxt.shape[0]
+    g = torch.arange(n, device=nxt.device)
+    shard = g // seg_rows % n_shards
+    order = torch.argsort(shard, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = g
+    segments = [0] + torch.cumsum(torch.bincount(
+        shard, minlength=n_shards), 0).tolist()
+    return nxt[order].contiguous(), segments, pos
+
+
+def packed_case(dev, perm, n_shards: int, flush) -> dict:
+    """The four chain kernels on the random chain ``perm`` packed over
+    ``n_shards`` shards by ("seg", 64): each exact against its plain
+    version with the same segments and against its launch on the global
+    layout of the same chain; timed with CUDA events, L2 evicted, beside
+    that global launch and the bound."""
+    import torch
+    from repro_torch.core import recovery as TR
+    from repro_torch.kernels import chain_order as K
+    n = perm.numel()
+    head = int(perm[0])
+    nxt = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    nxt[perm[:-1]] = perm[1:]
+    packed, segs, pos = pack_chain(nxt, PACK_SEG, n_shards)
+    if not torch.equal(K.packed_positions(torch.arange(n, device=dev),
+                                          PACK_SEG, segs), pos):
+        raise AssertionError("packed_positions is not the packing")
+    pk = {"segments": segs, "seg_rows": PACK_SEG}
+    g32, p32 = K.sanitize32(nxt), K.sanitize32(packed)
+    del nxt, packed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n_shards)
+    out = {"n": n, "n_shards": n_shards, "segments": segs}
+
+    def timed(name, packed_fn, global_fn, bound, err, **extra):
+        out[name] = {"ms": time_ms(packed_fn, flush=flush),
+                     "global_ms": time_ms(global_fn, flush=flush),
+                     "bound_ms": bound, "max_abs_err": err, **extra}
+    # ---- jump_double: a counted round, and chain_order's doubling tables
+    cnt = torch.randint(1, 9, (n,), dtype=torch.int64, device=dev,
+                        generator=gen)
+    cnt_p = torch.empty_like(cnt)
+    cnt_p[pos] = cnt
+    got = K.jump_double(p32, cnt_p, **pk)
+    err = require_equal("jump_double packed", zip(
+        got, K.jump_double_plain(p32, cnt_p, **pk)))
+    glob = K.jump_double(g32, cnt)
+    require_equal("jump_double packed vs global",
+                  [(got[0][pos], glob[0]), (got[1][pos], glob[1])])
+    rounds = n.bit_length() - 1
+    lv = K.jump_double(p32, rounds=rounds, keep=True, **pk)[0]
+    require_equal("jump_double packed tables", [
+        (lv, K.jump_double_plain(p32, rounds=rounds, keep=True, **pk)[0]),
+        (lv[:, pos], K.jump_double(g32, rounds=rounds, keep=True)[0])])
+    del got, glob, lv
+    timed("jump_double", lambda: K.jump_double(p32, cnt_p, **pk),
+          lambda: K.jump_double(g32, cnt), bound_ms(24 * n), err,
+          tables_ms=time_ms(lambda: K.jump_double(
+              p32, rounds=rounds, keep=True, **pk), flush=flush, reps=5),
+          tables_global_ms=time_ms(lambda: K.jump_double(
+              g32, rounds=rounds, keep=True), flush=flush, reps=5),
+          tables_bound_ms=bound_ms(12 * n * rounds), tables_rounds=rounds)
+    del cnt, cnt_p
+    # ---- gather_next: one hop of L = 7n/8 int64 ids (NULL, negatives,
+    # 2**32 + 3, n), the snapshot verify's shape
+    lanes = n - n // 8
+    ids = torch.randint(0, n, (lanes,), dtype=torch.int64, device=dev,
+                        generator=gen)
+    ids[::97] = -1
+    ids[1::89] = -5
+    ids[2::83] = 2 ** 32 + 3
+    ids[3::79] = n
+    got = K.gather_next(p32, ids, **pk)
+    err = require_equal("gather_next packed", [
+        (got, K.gather_next_plain(p32, ids, **pk)),
+        (got, K.gather_next(g32, ids))])
+    valid = (ids >= 0) & (ids < n)
+    distinct = int(torch.unique(ids[valid]).numel())
+    timed("gather_next", lambda: K.gather_next(p32, ids, **pk),
+          lambda: K.gather_next(g32, ids),
+          bound_ms(12 * lanes + 4 * distinct), err, lanes=lanes)
+    del ids, got, valid
+    # ---- walk_segments: the contraction's one walk, checkpoints on
+    heads = torch.tensor([head], dtype=torch.int64, device=dev)
+    spine, hpos, cnext, w, marks = TR._contract(g32, heads, TR.CONTRACT_K)
+    budget, cap = marks.walk["budget"], marks.rec.shape[1]
+    kw = {key: v for key, v in marks.walk.items()
+          if key not in ("nxt", "budget", "segments", "seg_rows")}
+    starts = spine.to(torch.int32)
+
+    def walk_p():
+        return K.walk_segments(p32, starts, budget=budget, marks=cap, **kw,
+                               **pk)
+
+    def walk_g():
+        return K.walk_segments(g32, starts, budget=budget, marks=cap, **kw)
+    got, glob = walk_p(), walk_g()
+    ref = K.walk_segments_plain(p32, starts, budget=budget, marks=cap, **kw,
+                                **pk)
+    err = require_equal("walk_segments packed", list(zip(got[:3], ref[:3]))
+                        + list(zip(got[:3], glob[:3])))
+    total = int(got[3][1][0])
+    recs = [r[3][0][:, :total] for r in (got, ref, glob)]
+    if total > cap or {int(r[3][1][0]) for r in (ref, glob)} != {total} or \
+            not same_records(recs[0], recs[1]) or \
+            not same_records(recs[0], recs[2]):
+        raise AssertionError("walk_segments packed: checkpoints differ")
+    hops = int(got[2].long().sum())
+    lanes = starts.shape[0]
+    del got, glob, ref, recs
+    timed("walk_segments", walk_p, walk_g,
+          bound_ms(4 * hops + 16 * lanes + 12 * total), err, lanes=lanes,
+          hops=hops, checkpoints=total)
+    # ---- expand_segments: the split plan of that walk, count = n
+    cjump = TR._contract_tables(cnext, min(n, spine.shape[0]))
+    plan = TR._expand_plan(spine, cjump, w, int(hpos[0]), n, marks)
+    got = K.expand_segments(p32, *plan, n, **pk)
+    err = require_equal("expand_segments packed", [
+        (got, K.expand_segments_plain(p32, *plan, n, **pk)),
+        (got, K.expand_segments(g32, *plan, n)), (got, perm)])
+    ehops = int(torch.clamp(plan[2].long() - 1, min=0).sum())
+    del got
+    timed("expand_segments", lambda: K.expand_segments(p32, *plan, n, **pk),
+          lambda: K.expand_segments(g32, *plan, n),
+          bound_ms(4 * ehops + 12 * plan[0].shape[0] + 8 * n), err,
+          runs=int(plan[0].shape[0]), hops=ehops)
+    for row in out.values():
+        if isinstance(row, dict):
+            row["ratio"] = row["ms"] / row["global_ms"]
+    del p32, g32, plan, marks, spine, cjump
+    torch.cuda.empty_cache()
+    return out
+
+
+def packed_parity(dev) -> dict:
+    """Phase 2's packed layouts: a random 2**22 chain over 4 and over 3
+    shards (``packed_case``)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    perm = torch.randperm(1 << 22, device=dev, generator=g)
+    flush = l2_flusher(dev)
+    out = {f"shards_{ns}": packed_case(dev, perm, ns, flush)
+           for ns in PACK_SHARDS}
+    del perm
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_small(kind: str, mode: str, integrity: bool, device) -> tuple:
+    """Phase 4's sharded case: the quickstart workload at PARITY_N on a
+    four-shard arena.  Returns the sha256 of every shard image and the
+    manifest, and the FlushStats, aggregate and per shard."""
+    from repro_torch.interop import image_of
+    r = workload(kind, mode, PARITY_N, device, seed=3, integrity=integrity,
+                 n_shards=SHARDS)
+    a = r["arena"]
+    return (hashlib.sha256(image_of(a)).hexdigest(), r["stats"],
+            [dataclasses.asdict(st) for st in a.shard_stats()])
+
+
+def packed_api(dev, d) -> dict:
+    """The packed API on a committed sharded DLL ``d``: its shards'
+    persistent NEXT views concatenated (no gather by global id), ranked
+    by ``chain_order(segments=, seg_rows=64)`` by doubling, by
+    contraction and through the snapshot verify, each equal to the
+    DLL's order; the four chain kernels' launches over those calls, and
+    each call's seconds beside the same call on the global volatile
+    column."""
+    import numpy as np
+    import torch
+    from repro_torch.core.recovery import ChainSnapshot, chain_order
+    from repro_torch.kernels import launch_counts
+    from repro_torch.pstruct.dll import DATA_WORDS, SHARD_SEG
+    region = d.nodes
+    t0 = time.perf_counter()
+    views = [sl._pview()[:, DATA_WORDS] for sl in region.slices
+             if sl is not None]
+    segments = np.cumsum([0] + [v.shape[0] for v in views]).tolist()
+    packed = torch.from_numpy(np.concatenate(views)).to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    want = d.to_list()
+    glob = d.nodes.vol[:, DATA_WORDS].contiguous()
+    out = {"n": int(packed.shape[0]), "count": d.count,
+           "segments": segments, "upload_s": upload_s}
+    before = launch_counts()
+    for method in ("double", "contract"):
+        for label, col, kw in (("packed", packed, {"segments": segments,
+                                                   "seg_rows": SHARD_SEG}),
+                               ("global", glob, {})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = chain_order(col, d.head, d.count, method=method, **kw)
+            torch.cuda.synchronize()
+            out[f"{method}_{label}_s"] = time.perf_counter() - t0
+            if not torch.equal(got, want):
+                raise AssertionError(f"packed API: {method} ({label}) "
+                                     f"differs from the DLL's order")
+    snap = ChainSnapshot(want)
+    got = chain_order(packed, d.head, d.count, snapshot=snap,
+                      segments=segments, seg_rows=SHARD_SEG)
+    if snap.outcome != "snapshot" or not torch.equal(got, want):
+        raise AssertionError("packed API: the snapshot verify refused the "
+                             "DLL's own order")
+    after = launch_counts()
+    out["launches"] = {k: after[k] - before[k] for k in CHAIN_KERNELS}
+    if not all(out["launches"].values()):
+        raise AssertionError(f"packed API launched {out['launches']}")
+    return out
+
+
+def sharded_structures(dev, phase3: dict) -> dict:
+    """Phase 12's structures: phase 3's workload on four-shard arenas,
+    both modes, integrity off, recovered through RecoveryManager
+    (concurrency 4, per-region load stages).  The aggregate FlushStats of
+    the DLL and the hashmap must equal phase 3's in every field but
+    ``calls`` (a flush call per shard file), the shards' lines and bytes
+    must sum to the aggregate, pack_rows launches must equal the grouped
+    gathers and no more gathers than phase 3's (one per drain); the
+    packed API runs on the partly DLL.  The DLL and hashmap also run at
+    one shard just before, recovered the same way: the host-clock
+    seconds compare within one stretch of the process, where phase 3's
+    ran minutes earlier (and recovered by ``reopen`` plus
+    ``reconstruct``, which loads the regions twice)."""
+    import torch
+    from repro_torch.core.writeset import WriteSet
+    from repro_torch.kernels import launch_counts
+    rows, packed = [], None
+    for kind in KINDS:
+        for mode in ("full", "partly"):
+            one = None
+            if kind != "bptree":
+                o = workload(kind, mode, SHARDED_N[kind], dev,
+                             concurrency=SHARDS)
+                one = {"insert_s": o["insert_s"], "delete_s": o["delete_s"],
+                       "recover_s": o["recover_s"],
+                       "stages": {st.name: st.seconds
+                                  for st in o["recovery"].stages}}
+                del o
+                torch.cuda.empty_cache()
+            before = launch_counts()
+            WriteSet.gathers = 0
+            r = workload(kind, mode, SHARDED_N[kind], dev, n_shards=SHARDS,
+                         concurrency=SHARDS)
+            label = f"sharded {kind} {mode}"
+            after = launch_counts()
+            gathers = gathers_check(label, {k: after[k] - before[k]
+                                            for k in after},
+                                    WriteSet.gathers)
+            a, rep = r["arena"], r["recovery"]
+            agg, per = r["stats"], [dataclasses.asdict(st)
+                                    for st in a.shard_stats()]
+            for f in ("lines", "bytes", "snapshot_lines", "journal_lines",
+                      "integrity_lines"):
+                if agg[f] != sum(p[f] for p in per):
+                    raise AssertionError(f"{label}: shard {f} do not sum "
+                                         f"to the aggregate")
+            row = {"kind": kind, "mode": mode, "n": SHARDED_N[kind],
+                   "lines": agg["lines"], "calls": agg["calls"],
+                   "shard_lines": [p["lines"] for p in per],
+                   "gathers": r["gathers"], "epochs": agg["epochs"],
+                   "insert_s": r["insert_s"], "delete_s": r["delete_s"],
+                   "recover_s": r["recover_s"],
+                   "stages": {st.name: st.seconds for st in rep.stages},
+                   "reopen_detail": rep.stage("reopen").detail,
+                   "launches": gathers, "one_shard": one}
+            p3 = phase3.get((kind, mode))
+            if p3 is not None and p3["n"] == SHARDED_N[kind]:
+                differ = {f: (agg[f], p3["stats"][f]) for f in agg
+                          if f != "calls" and agg[f] != p3["stats"][f]}
+                if differ:
+                    raise AssertionError(f"{label}: FlushStats differ from "
+                                         f"phase 3's: {differ}")
+                if r["gathers"] > p3["gathers"]:
+                    raise AssertionError(f"{label}: {r['gathers']} gathers, "
+                                         f"phase 3 {p3['gathers']}")
+                row.update(phase3_calls=p3["stats"]["calls"],
+                           phase3_gathers=p3["gathers"],
+                           phase3_insert_s=p3["insert_s"],
+                           phase3_delete_s=p3["delete_s"],
+                           phase3_recover_s=p3["recover_s"])
+            elif r["gathers"] > agg["epochs"]:
+                raise AssertionError(f"{label}: {r['gathers']} gathers "
+                                     f"over {agg['epochs']} drains")
+            if kind == "dll" and mode == "partly":
+                packed = packed_api(dev, r["structure"])
+            rows.append(row)
+            del r, a
+            torch.cuda.empty_cache()
+    return {"rows": rows, "packed_api": packed}
+
+
+def commit_window(dev) -> dict:
+    """Phase 12's commit window and integrity cells on one mixed four-shard
+    arena (DLL and hashmap 2**20, B+Tree 2**17, partly, snapshots and
+    integrity on): for each k of 0..3 an append whose commit crashes
+    after shard k, recovered through RecoveryManager (concurrency 4,
+    per-region load stages) to the manifest's generation with the append
+    (its epoch was flushed) and the other structures exact, then a commit
+    that seals the next generation; then a clean scrub, a clean salvage
+    recovery, and flips in all three structures (and a stuck line) that
+    scrub must name exactly and salvage must cut as phase 11's do."""
+    import numpy as np
+    import torch
+    from repro_torch.core.recovery import RecoveryManager
+    with integrity_default():
+        t0 = time.perf_counter()
+        w = mixed_workload("partly", WINDOW_N, dev, n_shards=SHARDS)
+        fill_s = time.perf_counter() - t0
+        a, structs, want = w["arena"], w["structs"], w["want"]
+        if not a.integrity or a.n_shards != SHARDS:
+            raise AssertionError("commit window: not a sharded integrity "
+                                 "arena")
+        d = structs["dll"]
+        windows = []
+        for k in range(SHARDS):
+            gen0 = a.header_generation()
+            ids = d.append_batch(np.full((64, 7), k + 1, np.int64))
+            order = d.to_list().clone()
+            want["dll"]["order"] = order.cpu().numpy()
+            a.commit(_crash_after_shard=k)
+            mgr = RecoveryManager(a)
+            for kind in KINDS:
+                s = structs[kind]
+                mgr.add(MIXED_NAMES[kind], f"pstruct.{kind}", s,
+                        regions=tuple(n for n in a.regions
+                                      if n.startswith(MIXED_NAMES[kind]
+                                                      + ".")))
+            t0 = time.perf_counter()
+            rep = mgr.recover(concurrency=SHARDS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if not rep.valid or rep.generation != gen0:
+                raise AssertionError(f"commit window k={k}: generation "
+                                     f"{rep.generation}, valid {rep.valid}; "
+                                     f"the manifest sealed {gen0}")
+            for kind in KINDS:
+                check_exact(kind, structs[kind], want[kind],
+                            f"commit window k={k}")
+            a.commit()
+            if a.header_generation() != gen0 + 1 or not a.header_valid():
+                raise AssertionError(f"commit window k={k}: the next commit "
+                                     f"did not seal {gen0 + 1}")
+            windows.append({"k": k, "generation": gen0, "appended":
+                            int(ids.numel()), "recover_s": secs,
+                            "stages": {st.name: st.seconds
+                                       for st in rep.stages}})
+        # ---- the ("barrier", 4) integrity cells
+        a.crash()
+        t0 = time.perf_counter()
+        bad = a.scrub()
+        scrub_s = time.perf_counter() - t0
+        if bad:
+            raise AssertionError("sharded mixed arena: a clean scrub named "
+                                 "rows")
+        rep, clean_s = salvage_recover(a, structs)
+        for kind in KINDS:
+            check_exact(kind, structs[kind], want[kind], "sharded salvage")
+        pos = int(d.count) // 2
+        rows = fault_rows(structs, want, pos, pos + pos // 2)
+        bt_keys = structs["bptree"].keys_in_order().cpu().numpy().tolist()
+        a.crash()
+        expect = inject(a, rows)
+        got = scrub_rows(a)
+        if got != expect:
+            raise AssertionError(f"sharded faults: scrub named {got}, the "
+                                 f"faults were {expect}")
+        rep, faulted_s = salvage_recover(a, structs)
+        res = check_salvaged(structs, want, rows, pos, bt_keys,
+                             "sharded faults")
+    out = {"sizes": WINDOW_N, "fill_s": fill_s, "windows": windows,
+           "scrub_s": scrub_s, "clean_salvage_s": clean_s,
+           "faulted_salvage_s": faulted_s, "scrub": got,
+           "quarantined": rep.quarantined, "degraded": rep.degraded,
+           "shard_of_faults": {r: [int(a.regions[r].shard_of[x]) for x in v]
+                               for r, v in got.items()}, **res}
+    del a, structs, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_fatal(dev) -> dict:
+    """A file-backed four-shard arena: a truncated and a removed shard file
+    raise ShardLossError at open; a scribbled manifest raises
+    ManifestError from verify_header and from a salvage recovery."""
+    import numpy as np
+    from repro_torch.core import faultinject as fi
+    from repro_torch.core.arena import (ManifestError, ShardLossError,
+                                        open_arena)
+    from repro_torch.core.recovery import RecoveryManager
+    from repro_torch.pstruct.dll import DoublyLinkedList
+    base = ROOT / "build" / "chip_smoke_sharded"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    path = str(base / "arena")
+    layout = DoublyLinkedList.layout(4096, "partly", snapshot=False)
+    out = {}
+
+    def committed():
+        a = open_arena(path, layout, n_shards=SHARDS, device=dev,
+                       integrity=True)
+        d = DoublyLinkedList(a, 4096, "partly", snapshot=False)
+        d.append_batch(np.ones((300, 7), np.int64))
+        a.commit()
+        return a, d
+    for name, fault in (("truncate", lambda a: fi.truncate_shard(a, 2, 64)),
+                        ("remove", lambda a: fi.remove_shard(a, 1))):
+        a, _ = committed()
+        a.close()
+        fault(a)
+        try:
+            open_arena(path, layout, n_shards=SHARDS, device=dev)
+            raise AssertionError(f"{name}: a lost shard opened")
+        except ShardLossError as e:
+            out[f"{name}_error"] = str(e)
+        shutil.rmtree(base)
+        base.mkdir(parents=True)
+    a, d = committed()
+    a.crash()
+    fi.corrupt_manifest(a)
+    for label, call in (("verify_header", a.verify_header),
+                        ("salvage", lambda: RecoveryManager(a).add(
+                            "dll", "pstruct.dll", d).recover(salvage=True))):
+        try:
+            call()
+            raise AssertionError(f"a scribbled manifest passed {label}")
+        except ManifestError as e:
+            out[f"manifest_{label}"] = str(e)
+    a.close()
+    shutil.rmtree(base)
+    return out
+
+
+def sharded_serving(dev) -> dict:
+    """Phase 4's engine (llama3.2-3b full width, 2 layers) on four-shard
+    arenas through the twin protocol: the token log stripes slot-per-shard,
+    re-prefill runs one group per (shard, prompt length); then the
+    feature store at phase 9's config on four shards, FS11_REQUESTS
+    requests, a torn crash, replay exactly once beside its twin."""
+    import numpy as np
+    import torch
+    from repro_torch.feature_recover import requests, twin
+    from repro_torch.models.backbone import init_params
+    from repro_torch.serve.feature_store import FeatureConfig
+    from repro_torch.serve_recover import run
+    cfg = serve_config(layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    params = init_params(cfg, gen, dev)
+    t0 = time.perf_counter()
+    eng = run(cfg, dev, prompt_lens=SERVE_PROMPTS, max_batch=8,
+              s_max=SERVE_S_MAX, steps=SERVE_STEPS, max_requests=64,
+              seed=SERVE_SEED, params=params, workdir=str(ROOT / "build"),
+              n_shards=SHARDS, concurrency=SHARDS)
+    eng["run_s"] = time.perf_counter() - t0
+    det = eng["engine_detail"]
+    live = [g for grp in eng["groups"] for g in grp["slots"]]
+    lens = {g: grp["tokens"] for grp in eng["groups"] for g in grp["slots"]}
+    pairs = {(g % SHARDS, lens[g]) for g in live}
+    if det["prefill_groups"] != len(pairs) or \
+            det["shard_groups"] != len({g % SHARDS for g in live}):
+        raise AssertionError(f"sharded engine: {det['prefill_groups']} "
+                             f"groups over {det['shard_groups']} shards, "
+                             f"the slots give {len(pairs)}")
+    for grp in eng["groups"]:
+        if len({g % SHARDS for g in grp["slots"]}) != 1:
+            raise AssertionError(f"a re-prefill group spans shards: {grp}")
+    del params
+    torch.cuda.empty_cache()
+    fcfg = FeatureConfig(**FS_CONFIG, mode="partly", journal=True,
+                         n_shards=SHARDS)
+    ops = requests(FS11_REQUESTS, FS_KEYS_PER_REQUEST, FS_KEY_SPACE,
+                   fcfg.dim, seed=FS_SEED)
+    boundary = FS11_REQUESTS * 3 // 4
+    t0 = time.perf_counter()
+    fs = twin(fcfg, ops, boundary, torn=True, device=dev,
+              concurrency=SHARDS)
+    fs["twin_protocol_s"] = time.perf_counter() - t0
+    if fs["refused"] != boundary:
+        raise AssertionError(f"sharded feature store refused "
+                             f"{fs['refused']}, not {boundary}")
+    torch.cuda.empty_cache()
+    return {"engine": {k: v for k, v in eng.items()
+                       if k not in ("stats", "paging_stats")},
+            "engine_stats": eng["stats"],
+            "feature_store": {k: v for k, v in fs.items()
+                              if k not in ("stats", "twin_stats")},
+            "feature_stats": fs["stats"], "requests": FS11_REQUESTS,
+            "boundary": boundary}
+
+
+def sweep_point(n_shards: int, dev, seed: int = 0) -> dict:
+    """One point of the reference's sharded_sweep
+    (``benchmarks/flush_batching.py`` ``_sharded_flush``): a B+Tree,
+    mixed 1:1 inserts and deletes in epochs of SWEEP["group"] batches,
+    barrier, synthetic per-line stalls; the flush wall is the epoch
+    drains and commits only.  ``n_shards=1`` is the plain arena."""
+    import numpy as np
+    from repro_torch.core.arena import open_arena
+    from repro_torch.pstruct.bptree import BPTree
+    n_init, n_ops, batch = SWEEP["n_init"], SWEEP["n_ops"], SWEEP["batch"]
+    rng = np.random.default_rng(seed)
+    capacity = n_init + n_ops + 1024
+    nodes = max(64, capacity // 4)
+    a = open_arena(None, BPTree.layout(nodes, capacity, "partly"),
+                   n_shards=n_shards, synth_line_ns=SWEEP["synth_ns"],
+                   device=dev, integrity=False)
+    t = BPTree(a, nodes, capacity, "partly")
+    keyspace = rng.permutation(capacity * 2).astype(np.int64)
+    init_keys = keyspace[:n_init]
+    new_keys = keyspace[n_init:n_init + n_ops]
+    vals = rng.integers(0, 1 << 40, (max(n_init, n_ops), 7)).astype(np.int64)
+    for i in range(0, n_init, 4096):
+        t.insert_batch(init_keys[i:i + 4096], vals[i:i + 4096])
+    a.commit()
+    base = a.stats.snapshot()
+    ops, done, ins, rm = [], 0, 0, 0
+    while done < n_ops:
+        m = min(batch, n_ops - done)
+        ops.append(("ins", new_keys[ins:ins + m], vals[:m]))
+        ins += m
+        done += m
+        if done >= n_ops:
+            break
+        m = min(batch, n_ops - done)
+        ops.append(("del", init_keys[rm:rm + m], None))
+        rm += m
+        done += m
+    wall = 0.0
+    for g in range(0, len(ops), SWEEP["group"]):
+        a._epoch_depth += 1        # marks accumulate untimed
+        for op, ks, vs in ops[g:g + SWEEP["group"]]:
+            if op == "ins":
+                t.insert_batch(ks, vs)
+            else:
+                t.delete_batch(ks)
+        a._epoch_depth -= 1
+        t0 = time.perf_counter()
+        a.writeset.flush()
+        a.commit()
+        wall += time.perf_counter() - t0
+    d = a.stats.delta(base)
+    a.close()
+    return {"n_shards": n_shards, "flush_wall_s": wall, "lines": d.lines,
+            "saved_lines": d.saved_lines, "dedup_rows": d.dedup_rows,
+            "epochs": d.epochs, "fences": d.fences,
+            "lines_per_s": d.lines / max(wall, 1e-9)}
+
+
+def flush_gate(dev) -> dict:
+    """The reference's sharded flush gate: sweep points interleaved, best
+    of SWEEP["repeats"]; equal line, saved-line and dedup counts at every
+    shard count, and the 4-shard flush wall at least FLUSH_GATE times
+    faster than one shard's."""
+    best = {}
+    for _ in range(SWEEP["repeats"]):
+        for ns in SWEEP_SHARDS:
+            r = sweep_point(ns, dev)
+            if ns not in best or r["flush_wall_s"] < best[ns]["flush_wall_s"]:
+                best[ns] = r
+    rows = [best[ns] for ns in SWEEP_SHARDS]
+    one = rows[0]
+    for r in rows:
+        r["x_vs_1shard"] = one["flush_wall_s"] / max(r["flush_wall_s"], 1e-9)
+        if (r["lines"], r["saved_lines"], r["dedup_rows"]) != \
+                (one["lines"], one["saved_lines"], one["dedup_rows"]):
+            raise AssertionError(f"flush gate: {r['n_shards']} shards "
+                                 f"account differently: {rows}")
+    x4 = best[SHARDS]["x_vs_1shard"]
+    if x4 < FLUSH_GATE:
+        raise AssertionError(f"flush gate: 4 shards {x4:.2f}x one shard, "
+                             f"below {FLUSH_GATE}")
+    return {"shape": SWEEP, "rows": rows, "x4": x4, "gate": FLUSH_GATE}
+
+
+def sharded_phase(dev, phase3: dict) -> dict:
+    """Phase 12: sharded arenas (barrier commit) at the main path's size;
+    the structures and the packed API, the commit window and the
+    integrity cells, the fatal cases, serving and the flush gate."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name, fn in (("structures", lambda: sharded_structures(dev,
+                                                              phase3)),
+                     ("commit_window", lambda: commit_window(dev)),
+                     ("fatal", lambda: sharded_fatal(dev)),
+                     ("serving", lambda: sharded_serving(dev)),
+                     ("flush_gate", lambda: flush_gate(dev))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[f"{name}_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # -------------------------------------------------------------- training
 
 class TimedLaunches:
@@ -4259,6 +4946,15 @@ def main(argv=None) -> int:
         # the report
         chain_steps[f"{name}_one_step"] = parity["rows"][name]
         parity["rows"][name] = row
+    # the chain kernels on the shard-major packed layout, named under their
+    # kernels in the kernels line
+    packed = packed_parity(dev)
+    report["packed"] = packed
+    emit({"phase": "packed_parity", **packed})
+    for name in CHAIN_KERNELS:
+        parity["rows"][name]["packed"] = {
+            key: {k: v for k, v in case[name].items()}
+            for key, case in packed.items()}
     # ---- phase 3: the main path at real size
     reset_launch_counts()
     WriteSet.gathers = 0
@@ -4368,6 +5064,20 @@ def main(argv=None) -> int:
             raise AssertionError("ops.pack_rows/scatter_rows: card and CPU "
                                  "differ")
     same.append("ops.pack_rows+scatter_rows:D=100,256")
+    # four-shard arenas: every shard image and the manifest, FlushStats
+    # aggregate and per shard, integrity off and on
+    for kind in KINDS:
+        for mode in ("partly", "full"):
+            for integ in (False, True):
+                out = {d: sharded_small(kind, mode, integ, d)
+                       for d in ("cuda", "cpu")}
+                if out["cuda"] != out["cpu"]:
+                    raise AssertionError(f"{kind} {mode} sharded integrity="
+                                         f"{integ}: card and CPU shard "
+                                         f"images, manifest or FlushStats "
+                                         f"differ")
+                same.append(f"{kind}.{mode}.shards_{SHARDS}.integrity_"
+                            f"{integ}:{out['cuda'][0][:12]}")
     # integrity on: images with their sidecars, FlushStats, the scrub after
     # the same fault and the salvage report, per structure and mixed
     for kind in KINDS:
@@ -4533,6 +5243,27 @@ def main(argv=None) -> int:
     for name in ("full_mode", "feature_store", "engine", "catalog"):
         emit({"phase": f"integrity_{name}", **integ[name]})
     emit({"phase": "integrity", "phase_s": integ["phase_s"]})
+    torch.cuda.empty_cache()
+    # ---- phase 12: sharded arenas at the main path's size
+    reset_launch_counts()
+    sharded = sharded_phase(dev, phase3)
+    launches12 = launch_counts()
+    report["sharded"] = sharded
+    for row in sharded["structures"]["rows"]:
+        emit({"phase": "sharded_structure", **row})
+    emit({"phase": "sharded_packed_api",
+          **sharded["structures"]["packed_api"]})
+    emit({"phase": "sharded_commit_window", **sharded["commit_window"]})
+    emit({"phase": "sharded_fatal", **sharded["fatal"]})
+    emit({"phase": "sharded_serving", **sharded["serving"]})
+    emit({"phase": "sharded_flush_gate", **sharded["flush_gate"]})
+    emit({"phase": "sharded", "launches": launches12,
+          **{k: v for k, v in sharded.items() if k.endswith("_s")}})
+    missing = [k for k in CHAIN_KERNELS + ("pack_rows", "scatter_rows",
+                                           "flash_attention")
+               if launches12[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 12 never launched {missing}")
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():

@@ -1,5 +1,5 @@
 """Persistent arena: the framework's "persistent memory", the port of the
-single-arena barrier core of ``repro.core.arena``.
+barrier core of ``repro.core.arena``, single and sharded.
 
 * Every region's VOLATILE copy (``Region.vol``) is a torch tensor on the
   arena's device — the working copy the structures mutate.
@@ -36,14 +36,24 @@ single-arena barrier core of ``repro.core.arena``.
   ``ManifestError`` on a scribbled header magic, and a backing file
   shorter than the layout raises ``ShardLossError`` before it is mapped.
   ``_salvage`` is set by a salvage recovery for its duration.
+* ``ShardedArena`` (DESIGN.md §7, ``open_arena(n_shards > 1)``) splits the
+  persistent bytes across N backing files ``{path}.s{k}``, each a plain
+  ``Arena`` with its own commit header, plus a manifest ``{path}.manifest``
+  written LAST: the cross-shard generation is the one every shard has
+  reached.  A ``ShardedRegion`` keeps ONE full-shape volatile tensor on
+  the device, indexed by global row; its rows route to shards by a pure
+  function of the row index (``route_rows``; the layouts' third entry).
+  The epoch drain gathers every shard's rows in one grouped gather and
+  keeps the data-before-metadata barrier global across the shards; a
+  shard's reload is one upload of its slice, seated by ``scatter_rows_``.
+  The files are the reference's, byte for byte.
 
 The arena runs on ``cuda`` unless the caller passes ``device="cpu"``.  With
 no device given and no GPU present it raises: it never falls back to the
 CPU silently.  ``integrity=None`` and ``snapshot=None`` resolve through the
 reference's env axes (``integrity_enabled``, ``snapshot_enabled``), both
-on by default.  The reference's other feature axes (shadow commit,
-sharding, paging) are not ported yet; asking for one raises
-``NotImplementedError`` naming its ROADMAP item.
+on by default.  Shadow commit (at any shard count) and paging are not
+ported yet; asking for one raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -52,13 +62,16 @@ import dataclasses
 import json
 import os
 import struct
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.writeset import WriteSet, host_rows
+from repro_torch.core.writeset import ShardedWriteSet, WriteSet, host_rows
+from repro_torch.kernels.pack_flush import scatter_rows_
 
 LINE = 64                 # flush granularity (bytes) — paper's cache line
 MEDIA_GRAIN = 256         # DCPMM internal granularity (§IV-D bucket sizing)
@@ -194,13 +207,14 @@ class FlushStats:
                             for f in dataclasses.fields(self)))
 
 
-class Region:
-    """A named, row-structured persistent region."""
+class _RowAccess:
+    """What ``Region`` and ``ShardedRegion`` share: the region's kind and
+    sizes, range forms of marking and persisting, and the row accessors,
+    views and copies of the volatile tensor ``vol`` on the arena's device
+    (only ``read_one`` and ``read_row`` bring a value to the host)."""
 
-    def __init__(self, arena: "Arena", name: str, dtype,
-                 shape: Tuple[int, ...], offset: int,
-                 meta: Optional[bool] = None):
-        self.arena = arena
+    def _declare(self, name: str, dtype, shape: Tuple[int, ...],
+                 meta: Optional[bool]) -> None:
         self.name = name
         self.dtype = np.dtype(dtype)
         if self.dtype not in _TORCH_DTYPES:
@@ -208,7 +222,6 @@ class Region:
                             f"{self.dtype}")
         self.tdtype = _TORCH_DTYPES[self.dtype]
         self.shape = tuple(int(s) for s in shape)
-        self.offset = offset
         # order-snapshot regions: derivable mirrors, accounted apart
         self.snap = ".snap" in name
         # request-journal rings: data-phase regions (an entry becomes
@@ -230,18 +243,13 @@ class Region:
                             * np.prod(self.shape[1:], dtype=np.int64)) \
             if len(self.shape) > 1 else self.dtype.itemsize
         self.nbytes = self.rowbytes * self.shape[0]
-        self._crash_reset()
 
-    def _crash_reset(self) -> None:
-        """Volatile copy zeroed: creation, and a simulated power loss."""
-        self.vol = torch.zeros(self.shape, dtype=self.tdtype,
-                               device=self.arena.device)
+    def mark_range(self, lo: int, hi: int, fresh: bool = False) -> None:
+        if hi > lo:
+            self.mark_rows(np.arange(lo, hi, dtype=np.int64), fresh=fresh)
 
-    # -- persistence ------------------------------------------------------
-    def _pview(self) -> np.ndarray:
-        flat = np.frombuffer(self.arena._mm, dtype=np.uint8,
-                             count=self.nbytes, offset=self.offset)
-        return flat.view(self.dtype).reshape(self.shape)
+    def persist_all(self) -> None:
+        self.persist_range(0, self.shape[0])
 
     def read_row(self, i: int) -> np.ndarray:
         """Host copy of volatile row i (one device sync on a card)."""
@@ -250,9 +258,6 @@ class Region:
     def write_row(self, i: int, row: np.ndarray) -> None:
         self.vol[i] = torch.from_numpy(row).to(self.vol.device)
 
-    # -- row accessors (the reference's ``_RowAccess``) --------------------
-    # Views and copies of the volatile tensor, on the arena's device; only
-    # ``read_one`` brings a value to the host.
     def read_rows(self, rows) -> torch.Tensor:
         return self.vol[self._idx(rows)]
 
@@ -284,6 +289,29 @@ class Region:
         return torch.as_tensor(np.asarray(vals), dtype=self.tdtype,
                                device=self.vol.device)
 
+
+class Region(_RowAccess):
+    """A named, row-structured persistent region."""
+
+    def __init__(self, arena: "Arena", name: str, dtype,
+                 shape: Tuple[int, ...], offset: int,
+                 meta: Optional[bool] = None):
+        self.arena = arena
+        self.offset = offset
+        self._declare(name, dtype, shape, meta)
+        self._crash_reset()
+
+    def _crash_reset(self) -> None:
+        """Volatile copy zeroed: creation, and a simulated power loss."""
+        self.vol = torch.zeros(self.shape, dtype=self.tdtype,
+                               device=self.arena.device)
+
+    # -- persistence ------------------------------------------------------
+    def _pview(self) -> np.ndarray:
+        flat = np.frombuffer(self.arena._mm, dtype=np.uint8,
+                             count=self.nbytes, offset=self.offset)
+        return flat.view(self.dtype).reshape(self.shape)
+
     def persist_rows(self, rows) -> None:
         """Flush the given row indices (volatile -> persistent) NOW, with
         per-call line accounting.  Structures prefer ``mark_rows``."""
@@ -308,9 +336,18 @@ class Region:
         else:
             self.persist_rows(rows)
 
-    def mark_range(self, lo: int, hi: int, fresh: bool = False) -> None:
-        if hi > lo:
-            self.mark_rows(np.arange(lo, hi, dtype=np.int64), fresh=fresh)
+    def persist_range(self, lo: int, hi: int) -> None:
+        """Flush rows [lo, hi) NOW: one download of the slice, accounted as
+        one contiguous byte range (the reference's ``_account_range``)."""
+        if hi <= lo:
+            return
+        host = self.vol[lo:hi].cpu().numpy()
+        self._pview()[lo:hi] = host
+        self.arena._account_range(self.offset + lo * self.rowbytes,
+                                  (hi - lo) * self.rowbytes, snap=self.snap,
+                                  jrnl=self.jrnl, integ=self.integ)
+        self.arena.writeset.seat_sidecars([self.arena._integrity_home(
+            self, np.arange(lo, hi, dtype=np.int64), host)])
 
     def load(self) -> None:
         """Reload the volatile copy from persistent memory (post-crash),
@@ -346,6 +383,11 @@ class Arena:
         self.synth_line_ns = synth_line_ns
         self.synth_fence_ns = synth_fence_ns
         self.commit_mode = commit_mode
+        # a sharded parent sets this: its shards' big stalls then sleep, so
+        # the stalls of shards flushing or loading in the pool overlap
+        self.synth_sleep = False
+        # per-region load stages may stall one shard from several threads
+        self._fence_lock = threading.Lock()
         self._defer = False
         self._defer_ns = 0
         self.writeset = WriteSet(self)
@@ -375,7 +417,11 @@ class Arena:
 
     # -- layout -----------------------------------------------------------
     def region(self, name: str, dtype, shape: Tuple[int, ...],
-               meta: Optional[bool] = None) -> Region:
+               meta: Optional[bool] = None, router=None, _cls=None,
+               **slice_kw) -> Region:
+        """Declare a region.  ``router`` (a row-to-shard spec of the
+        layouts) is accepted for ``ShardedArena``'s sake and ignored: a
+        single arena is one shard."""
         if self._layout_final:
             raise RuntimeError("layout already finalized")
         if name in self.regions:
@@ -383,7 +429,8 @@ class Arena:
         # Row-align every region to LINE so a row flush never straddles an
         # unrelated region (paper: __attribute__((aligned(64)))).
         self._cursor = _align(self._cursor, LINE)
-        r = Region(self, name, dtype, shape, self._cursor, meta=meta)
+        r = (_cls or Region)(self, name, dtype, shape, self._cursor,
+                             meta=meta, **slice_kw)
         self._cursor += _align(r.nbytes, LINE)
         self.regions[name] = r
         self._meta[name] = {"dtype": np.dtype(dtype).str,
@@ -573,6 +620,13 @@ class Arena:
         self.generation = max(self.generation, self.header_generation())
 
     # -- accounting ---------------------------------------------------------
+    def _account_range(self, byte_off: int, nbytes: int, snap: bool = False,
+                       jrnl: bool = False, integ: bool = False) -> None:
+        """Account one contiguous byte range: the lines it touches."""
+        lines = (_align(byte_off + nbytes, LINE)
+                 - (byte_off // LINE) * LINE) // LINE
+        self._account_lines(lines, nbytes, snap, jrnl, integ)
+
     @staticmethod
     def _rows_line_count(base: int, rowbytes: int, rows: np.ndarray) -> int:
         """Distinct 64 B lines touched by flushing `rows` (sorted unique)."""
@@ -596,7 +650,11 @@ class Arena:
     def _account_rows(self, base: int, rowbytes: int, rows: np.ndarray,
                       snap: bool = False, jrnl: bool = False,
                       integ: bool = False) -> None:
-        lines = self._rows_line_count(base, rowbytes, rows)
+        self._account_lines(self._rows_line_count(base, rowbytes, rows),
+                            int(rows.size) * rowbytes, snap, jrnl, integ)
+
+    def _account_lines(self, lines: int, nbytes: int, snap: bool,
+                       jrnl: bool, integ: bool) -> None:
         if snap or jrnl or integ:
             # snapshot, journal and sidecar lines are real media traffic
             # (they pay the synthetic stall) but stay out of the data
@@ -610,7 +668,7 @@ class Arena:
             self._synth(lines)
             return
         self.stats.lines += lines
-        self.stats.bytes += int(rows.size) * rowbytes
+        self.stats.bytes += nbytes
         self.stats.calls += 1
         self._synth(lines)
 
@@ -640,14 +698,20 @@ class Arena:
                 self._pay(ns)
 
     def _stall(self, ns: int) -> None:
-        self.stats.fence_ns += ns
+        with self._fence_lock:
+            self.stats.fence_ns += ns
         if self._defer:
             self._defer_ns += ns
             return
         self._pay(ns)
 
-    @staticmethod
-    def _pay(ns: int) -> None:
+    def _pay(self, ns: int) -> None:
+        if self.synth_sleep and ns >= 200_000:
+            # a shard's big stalls sleep so that shards stalling in the
+            # pool overlap; short ones spin (the timer's wake-up slack
+            # would swamp them)
+            time.sleep(ns * 1e-9)
+            return
         t0 = time.perf_counter_ns()
         while time.perf_counter_ns() - t0 < ns:
             pass
@@ -776,16 +840,553 @@ def newest_committed(snaprec: Region) -> Optional[Tuple[int, ...]]:
     return best
 
 
+# ----------------------------------------------------------------------
+# Sharded arenas (DESIGN.md §7), barrier commit: one arena's persistent
+# bytes split across N backing files behind the single-arena API.
+# ----------------------------------------------------------------------
+
+_MAN_MAGIC = b"RPRM"
+_MAN_FMT = "<4sQQ?7x"     # magic, n_shards, generation, valid flag
+
+
+def route_rows(router, n_rows: int, n_shards: int, rr_hint: int = 0
+               ) -> np.ndarray:
+    """Shard of every row of a region: a pure function of the row INDEX,
+    never of the row's contents, so a row read back after a crash needs
+    no knowledge of where it lives.
+
+    * ``("seg", B)``: block-cyclic, segment ``row // B`` on shard
+      ``(row // B) % n_shards``;
+    * ``("hash", B)``: ``splitmix64(row // B) % n_shards`` (B defaults to
+      64 rows);
+    * ``("range",)``: a contiguous equal split;
+    * ``("shard", k)``: the whole region on shard k;
+    * ``None``: a small region (a header) on shard ``rr_hint %
+      n_shards``, round-robin by creation order; a larger one in 64-row
+      segments (``normalize_router``)."""
+    rows = np.arange(n_rows, dtype=np.int64)
+    if n_shards == 1:
+        return np.zeros(n_rows, np.int32)
+    router = normalize_router(router, n_rows, n_shards, rr_hint)
+    kind = router[0]
+    if kind == "seg":
+        return ((rows // int(router[1])) % n_shards).astype(np.int32)
+    if kind == "hash":
+        blk = int(router[1]) if len(router) > 1 else 64
+        return (_splitmix64(rows // blk) %
+                np.uint64(n_shards)).astype(np.int32)
+    if kind == "range":
+        return np.minimum(rows * n_shards // max(n_rows, 1),
+                          n_shards - 1).astype(np.int32)
+    if kind == "shard":
+        return np.full(n_rows, int(router[1]) % n_shards, np.int32)
+    raise ValueError(f"unknown router {router!r}")
+
+
+def normalize_router(router, n_rows: int, n_shards: int,
+                     rr_hint: int = 0):
+    """The concrete router of a ``None`` default: a region of at most
+    4 rows per shard is pinned to shard ``rr_hint``, a larger one routed
+    in 64-row segments."""
+    if router is not None:
+        return router
+    if n_rows <= 4 * n_shards:
+        return ("shard", rr_hint)
+    return ("seg", 64)
+
+
+def router_block(router) -> int:
+    """Segment size of a block-granular router (seg or hash), else 0."""
+    if router is None:
+        return 0
+    if router[0] == "seg":
+        return int(router[1])
+    if router[0] == "hash":
+        return int(router[1]) if len(router) > 1 else 64
+    return 0
+
+
+class _ShardSlice(Region):
+    """One shard's persistent slice of a ``ShardedRegion``: its local rows
+    are the parent's rows routed to this shard, in ascending global order
+    (``_gidx``: local row -> global row).  A slice holds no volatile copy:
+    the parent's one tensor is the region's volatile state."""
+
+    def __init__(self, arena, name, dtype, shape, offset, meta=None,
+                 parent=None, gidx=None, arena_index=0):
+        self._parent = parent
+        self._gidx = gidx
+        self.arena_index = arena_index
+        super().__init__(arena, name, dtype, shape, offset, meta=meta)
+
+    def _crash_reset(self) -> None:
+        self.vol = None
+
+
+class ShardedRegion(_RowAccess):
+    """The Region API over per-shard slices.  ``vol`` is ONE full-shape
+    tensor on the arena's device, indexed by global row as on a single
+    arena; its persistent bytes are split across the shards by the
+    router.  Marks buffer globally and split per shard once per drain
+    (``ShardedWriteSet``); line accounting lands in each shard's
+    ``FlushStats``."""
+
+    def __init__(self, arena: "ShardedArena", name: str, dtype,
+                 shape: Tuple[int, ...], meta: Optional[bool] = None,
+                 router=None, rr_hint: int = 0):
+        self.arena = arena
+        self._declare(name, dtype, shape, meta)
+        self.vol = torch.zeros(self.shape, dtype=self.tdtype,
+                               device=arena.device)
+        n = self.shape[0]
+        self.router = router = normalize_router(router, n, arena.n_shards,
+                                                rr_hint)
+        self.shard_of = route_rows(router, n, arena.n_shards, rr_hint)
+        self.local_of = np.zeros(n, np.int64)
+        # block-granular routers (seg, hash) load whole segments: each
+        # shard's FULL blocks of the (nb, B, ...) view
+        self._blk = router_block(router)
+        nb = n // self._blk if self._blk else 0
+        self._blocks: List[Optional[np.ndarray]] = []
+        self.slices: List[Optional[_ShardSlice]] = []
+        for s, shard in enumerate(arena.shards):
+            gidx = np.nonzero(self.shard_of == s)[0]
+            self.local_of[gidx] = np.arange(gidx.size)
+            self._blocks.append(
+                np.nonzero(self.shard_of[:nb * self._blk:self._blk] == s)[0]
+                if self._blk else None)
+            self.slices.append(None if gidx.size == 0 else shard.region(
+                name, dtype, (int(gidx.size),) + self.shape[1:],
+                meta=self.meta, _cls=_ShardSlice, parent=self, gidx=gidx,
+                arena_index=s))
+        # per shard, the device ids its load seats (blocks, or rows)
+        self._seat_ids: List[Optional[torch.Tensor]] = \
+            [None] * arena.n_shards
+
+    def _crash_reset(self) -> None:
+        # zeroed in place: the reload writes into the same allocation
+        self.vol.zero_()
+
+    def _pview(self) -> np.ndarray:
+        """The committed persistent image assembled across the shards (a
+        copy: writes to it reach no shard)."""
+        return self.arena._pimage(self)
+
+    def _split(self, rows: np.ndarray):
+        """``(shard, local rows, mask of rows)`` for each shard holding any
+        of the sorted global ``rows``; the mask is None when one shard
+        holds them all."""
+        shards = self.shard_of[rows]
+        held = np.flatnonzero(np.bincount(shards,
+                                          minlength=self.arena.n_shards))
+        if held.size == 1:
+            yield int(held[0]), self.local_of[rows], None
+            return
+        for s in held:
+            sel = shards == s
+            yield int(s), self.local_of[rows[sel]], sel
+
+    # -- Region API --------------------------------------------------------
+    def mark_rows(self, rows, fresh: bool = False) -> None:
+        """Buffered globally inside an epoch (the per-shard split happens
+        once per drain); outside one, an immediate ``persist_rows``."""
+        rows = host_rows(rows)
+        if rows.size == 0:
+            return
+        if self.arena._epoch_depth > 0:
+            self.arena.writeset.mark(self, rows)
+        else:
+            self.persist_rows(rows)
+
+    def persist_rows(self, rows) -> None:
+        rows = np.unique(host_rows(rows))
+        if rows.size:
+            self.arena.writeset.persist(self, rows)
+
+    def persist_range(self, lo: int, hi: int) -> None:
+        if hi > lo:
+            self.persist_rows(np.arange(lo, hi, dtype=np.int64))
+
+    def load(self, concurrency: int = 1) -> None:
+        """Reload every shard's rows; ``concurrency > 1`` runs the shards
+        in the arena's pool."""
+        if concurrency > 1 and self.arena.n_shards > 1:
+            list(self.arena.pool().map(self.load_shard,
+                                       range(self.arena.n_shards)))
+        else:
+            for s in range(self.arena.n_shards):
+                self.load_shard(s)
+
+    def load_shard(self, s: int) -> None:
+        """Reload this region's shard-s rows into the volatile tensor: the
+        shard's persistent slice goes to the device in ONE upload (from
+        pinned memory on a card) and is seated by one ``scatter_rows_``
+        over the tensor's bytes: whole segments of the ``(blocks, B *
+        rowbytes)`` view for a block router (plus the region's partial
+        tail block, which is one shard's), rows otherwise."""
+        sl = self.slices[s]
+        if sl is None:
+            return
+        dev = self.arena.device
+        m, rb = sl.shape[0], self.rowbytes
+        pv = sl._pview().reshape(-1).view(np.uint8)
+        if dev.type == "cpu":
+            staged = torch.from_numpy(pv.copy())
+        else:
+            pinned = torch.empty(m * rb, dtype=torch.uint8, pin_memory=True)
+            pinned.numpy()[:] = pv
+            staged = pinned.to(dev, non_blocking=True)
+        flat = self.vol.view(-1).view(torch.uint8).view(self.shape[0], rb)
+        ids = self._seat_ids[s]
+        if self._blk:
+            B = self._blk
+            nb = self.shape[0] // B
+            bs = self._blocks[s]
+            if ids is None:
+                ids = self._seat_ids[s] = torch.from_numpy(
+                    bs.astype(np.int32)).to(dev)
+            if bs.size:
+                scatter_rows_(flat[:nb * B].view(nb, B * rb),
+                              staged[:bs.size * B * rb].view(bs.size,
+                                                             B * rb), ids)
+            if m > bs.size * B:        # the region's tail block is ours
+                flat[nb * B:] = staged[bs.size * B * rb:].view(-1, rb)
+        else:
+            if ids is None:
+                ids = self._seat_ids[s] = torch.from_numpy(
+                    sl._gidx.astype(np.int32)).to(dev)
+            scatter_rows_(flat, staged.view(m, rb), ids)
+        sl.arena.synth_read(sl.nbytes)
+
+
+class ShardedArena:
+    """N arena shards behind the single-arena API, plus a manifest that
+    makes the cross-shard generation atomic (barrier commit).
+
+    Commit, manifest last: (1) drain the write set, every shard's data
+    regions, then every shard's metadata regions (the data-before-metadata
+    barrier is global); (2) commit each shard (flush its file, bump its
+    header generation, set its valid flag); (3) write the manifest.  A
+    crash between shard commits leaves the manifest at the previous
+    generation, the one every shard has reached, which is what recovery
+    reports.  Each shard is a plain ``Arena`` over ``{path}.s{k}``, the
+    manifest ``{path}.manifest``; the files are the reference's, byte for
+    byte.  Synthetic stalls: a shard's sleep (so that shards stalling in
+    the pool overlap), the global fence spins."""
+
+    def __init__(self, path: Optional[str], n_shards: int = 2,
+                 synth_line_ns: float = 0.0, commit_mode: str = "barrier",
+                 synth_fence_ns: float = 0.0, paged: Optional[bool] = None,
+                 integrity: Optional[bool] = None, device=None):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if commit_mode != "barrier":
+            if commit_mode == "shadow":
+                raise not_ported("shadow commit")
+            raise ValueError(f"unknown commit_mode {commit_mode!r}")
+        if paged_enabled(paged):
+            raise not_ported("paging")
+        self.device = resolve_device(device)
+        self.path = path
+        self.n_shards = int(n_shards)
+        # sidecars are declared at the sharded level, each with its source
+        # region's router, so a row's checksum lives on the row's shard
+        self.integrity = integrity_enabled(integrity)
+        self.shards = [Arena(f"{path}.s{k}" if path else None, synth_line_ns,
+                             commit_mode=commit_mode, integrity=False,
+                             device=self.device)
+                       for k in range(self.n_shards)]
+        for sh in self.shards:
+            sh.synth_sleep = True
+        self.synth_line_ns = synth_line_ns
+        self.commit_mode = commit_mode
+        # the fence is a global ordering point: its stall lives here
+        self.synth_fence_ns = synth_fence_ns
+        self.regions: Dict[str, ShardedRegion] = {}
+        self.writeset = ShardedWriteSet(self)
+        self.generation = 0
+        self._salvage = False
+        self._epoch_depth = 0
+        self._layout_final = False
+        self._snap_providers: List = []
+        self._local_stats = FlushStats()
+        self._man: Optional[np.ndarray] = None
+        self._rr = 0
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    # -- stats -------------------------------------------------------------
+    @property
+    def stats(self) -> FlushStats:
+        """Every shard's accounting summed, plus the sharded level's own
+        (marks, epochs, dedup and saved lines, fences, commit calls)."""
+        out = self._local_stats.snapshot()
+        for sh in self.shards:
+            for f in dataclasses.fields(FlushStats):
+                setattr(out, f.name,
+                        getattr(out, f.name) + getattr(sh.stats, f.name))
+        return out
+
+    def shard_stats(self) -> List[FlushStats]:
+        return [sh.stats.snapshot() for sh in self.shards]
+
+    # -- epochs ------------------------------------------------------------
+    @contextlib.contextmanager
+    def epoch(self):
+        self._epoch_depth += 1
+        try:
+            yield self
+        finally:
+            self._epoch_depth -= 1
+            if self._epoch_depth == 0:
+                self.writeset.flush()
+
+    # -- layout ------------------------------------------------------------
+    def region(self, name: str, dtype, shape: Tuple[int, ...],
+               meta: Optional[bool] = None, router=None) -> ShardedRegion:
+        """Declare a region routed by ``router`` (``route_rows``).  The
+        creation order matters: a small region's default router pins it
+        round-robin by it."""
+        if self._layout_final:
+            raise RuntimeError("layout already finalized")
+        if name in self.regions:
+            raise ValueError(f"region {name!r} already declared")
+        r = ShardedRegion(self, name, dtype, shape, meta=meta,
+                          router=router, rr_hint=self._rr)
+        self._rr += 1
+        self.regions[name] = r
+        return r
+
+    def region_shards(self, name: str, rows) -> np.ndarray:
+        """Shard id of each row of region ``name``."""
+        return self.regions[name].shard_of[
+            np.asarray(np.atleast_1d(rows), np.int64)].astype(np.int64)
+
+    def finalize(self) -> None:
+        if self._layout_final:
+            raise RuntimeError("layout already finalized")
+        if self.integrity:
+            self._integrity_layout()
+        self._layout_final = True
+        for sh in self.shards:
+            sh.finalize()
+        if self.path is None:
+            self._man = np.zeros(64, np.uint8)
+            return
+        mp = self.path + ".manifest"
+        create = not os.path.exists(mp)
+        if create:
+            with open(mp, "wb") as f:
+                f.truncate(64)
+        self._man = np.memmap(mp, dtype=np.uint8, mode="r+", shape=(64,))
+        if create:
+            self._write_manifest(valid=False)
+            return
+        magic, man_shards, man_gen, man_valid = struct.unpack(
+            _MAN_FMT, bytes(self._man[: struct.calcsize(_MAN_FMT)]))
+        # the manifest records the shard count so that a wrong one fails
+        # loudly instead of mapping the wrong files
+        if magic == _MAN_MAGIC and man_shards != self.n_shards:
+            raise ValueError(
+                f"arena at {self.path!r} was committed with {man_shards} "
+                f"shards, opened with {self.n_shards}")
+        if magic == _MAN_MAGIC and man_valid and man_gen > 0:
+            # a valid manifest promises every shard reached its
+            # generation (a torn commit leaves shards AHEAD); a shard
+            # behind it, or recreated empty because its file vanished, is
+            # media loss
+            for k, sh in enumerate(self.shards):
+                if not (sh.header_valid()
+                        and sh.header_generation() >= man_gen):
+                    raise ShardLossError(
+                        f"shard {k} ({sh.path!r}) lost or behind manifest "
+                        f"generation {man_gen}")
+
+    def add_snapshot_provider(self, fn) -> None:
+        self._snap_providers.append(fn)
+
+    # -- integrity sidecars ------------------------------------------------
+    def _integrity_layout(self) -> None:
+        """One sidecar per covered region, with the source's router: a row
+        and its checksum commit through the same shard's header."""
+        for name, r in list(self.regions.items()):
+            if r.meta or r.snap or r.jrnl or r.integ or r.rowbytes % 8:
+                continue
+            sc = self.region(name + ".integ", np.int64,
+                             (r.shape[0], _integ_chunks(r.rowbytes)),
+                             meta=False, router=r.router)
+            r._integ = sc
+            for s in range(self.n_shards):
+                if r.slices[s] is not None:
+                    r.slices[s]._integ = sc.slices[s]
+
+    def verify_header(self) -> None:
+        """ManifestError on a garbage manifest magic, then each shard's
+        header check."""
+        raw = bytes(self._man[:4])
+        if raw not in (_MAN_MAGIC, b"\x00\x00\x00\x00"):
+            raise ManifestError(
+                f"arena {self.path!r} manifest magic {raw!r} corrupt")
+        for sh in self.shards:
+            sh.verify_header()
+
+    def _pimage(self, region: ShardedRegion) -> np.ndarray:
+        """The region's committed persistent image, assembled across the
+        shards (a copy; scrub and salvage never write persistent
+        state)."""
+        img = np.zeros(region.shape, region.dtype)
+        for sl in region.slices:
+            if sl is not None:
+                img[sl._gidx] = sl._pview()
+        return img
+
+    def verify_region(self, region) -> np.ndarray:
+        if isinstance(region, str):
+            region = self.regions[region]
+        sc = region._integ
+        if sc is None:
+            return np.empty(0, np.int64)
+        ck = sidecar_checksums(self._pimage(region), sc.shape[1])
+        ref = self._pimage(sc)
+        bad = (ref != 0) & (ck != ref)
+        for sh in self.shards:
+            sh.synth_read((region.nbytes + sc.nbytes) // self.n_shards)
+        return np.nonzero(bad.any(axis=1))[0]
+
+    def scrub(self, raise_on_error: bool = False
+              ) -> Dict[str, np.ndarray]:
+        bad: Dict[str, np.ndarray] = {}
+        for name, r in self.regions.items():
+            if r._integ is None:
+                continue
+            rows = self.verify_region(r)
+            if rows.size:
+                bad[name] = rows
+        if bad and raise_on_error:
+            name, rows = next(iter(bad.items()))
+            raise CorruptLineError(name, rows,
+                                   detail=f"scrub: {len(bad)} region(s)")
+        return bad
+
+    # -- manifest / commit protocol ----------------------------------------
+    def _write_manifest(self, valid: bool) -> None:
+        man = struct.pack(_MAN_FMT, _MAN_MAGIC, self.n_shards,
+                          self.generation, valid)
+        self._man[: len(man)] = np.frombuffer(man, np.uint8)
+        if isinstance(self._man, np.memmap):
+            self._man.flush()
+
+    def header_generation(self) -> int:
+        magic, _, gen, _ = struct.unpack(
+            _MAN_FMT, bytes(self._man[: struct.calcsize(_MAN_FMT)]))
+        return int(gen) if magic == _MAN_MAGIC else 0
+
+    def header_valid(self) -> bool:
+        """The manifest is valid and every shard has reached its
+        generation (shards ahead of it are a torn commit's, which the
+        structures' count-bounded recovery handles)."""
+        magic, _, gen, valid = struct.unpack(
+            _MAN_FMT, bytes(self._man[: struct.calcsize(_MAN_FMT)]))
+        if magic != _MAN_MAGIC or not valid:
+            return False
+        return all(sh.header_valid() and sh.header_generation() >= gen
+                   for sh in self.shards)
+
+    def _fence(self) -> None:
+        """The global ordering point: one per barrier phase, one per
+        commit seal."""
+        self._local_stats.fences += 1
+        if self.synth_fence_ns:
+            ns = int(self.synth_fence_ns)
+            self._local_stats.fence_ns += ns
+            t0 = time.perf_counter_ns()
+            while time.perf_counter_ns() - t0 < ns:
+                pass
+
+    def commit(self, _crash_after_shard: Optional[int] = None) -> None:
+        """Drain the write set (global data-before-metadata), commit each
+        shard, write the manifest LAST.  ``_crash_after_shard=k`` injects
+        a power loss in the commit window: shards 0..k commit, then the
+        arena crashes before the manifest."""
+        self.writeset.flush()
+        self._fence()
+        tgt = self.generation + 1
+        for k, sh in enumerate(self.shards):
+            if isinstance(sh._mm, np.memmap):
+                sh._mm.flush()
+            sh.generation = tgt
+            sh._write_header(valid=True)
+            if isinstance(sh._mm, np.memmap):
+                sh._mm.flush()
+            if _crash_after_shard is not None and k == _crash_after_shard:
+                self.crash()
+                return
+        self.generation = tgt
+        self._write_manifest(valid=True)
+        self._local_stats.calls += 1
+
+    def invalidate(self) -> None:
+        self._write_manifest(valid=False)
+
+    # -- crash simulation ---------------------------------------------------
+    def crash(self) -> None:
+        """Drop the pending marks and zero every region's one volatile
+        tensor (slices hold none)."""
+        self.writeset.discard()
+        for r in self.regions.values():
+            r._crash_reset()
+
+    def reopen(self, concurrency: int = 1,
+               exclude: Tuple[str, ...] = ()) -> None:
+        """Reload every region not in ``exclude`` (regions the caller
+        loads itself: the recovery manager's per-region load stages), shard
+        by shard, in the pool when ``concurrency > 1``; then re-anchor the
+        generation to the manifest's."""
+        regions = [r for n, r in self.regions.items() if n not in exclude]
+
+        def load_shard(s: int) -> None:
+            # one aggregated media stall per shard, not one per region
+            with self.shards[s].stall_scope():
+                for r in regions:
+                    r.load_shard(s)
+
+        if concurrency > 1 and self.n_shards > 1:
+            list(self.pool().map(load_shard, range(self.n_shards)))
+        else:
+            for s in range(self.n_shards):
+                load_shard(s)
+        self.generation = max(self.generation, self.header_generation())
+
+    # -- pool ---------------------------------------------------------------
+    def pool(self) -> ThreadPoolExecutor:
+        """The shard pool, one worker per shard: stalls sleep, so more
+        waiters than cores still overlap."""
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.n_shards, thread_name_prefix="arena-shard")
+        return self._pool
+
+    def close(self) -> None:
+        for sh in self.shards:
+            sh.close()
+        if isinstance(self._man, np.memmap):
+            self._man.flush()
+        self._man = None
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+
 def open_arena(path: Optional[str], layout: Dict[str, Tuple],
-               n_shards: int = 1, **kw) -> Arena:
+               n_shards: int = 1, **kw):
     """Create/open an arena with the given layout: ``{name: (dtype,
-    shape)}`` (a third router entry, as the reference's layouts carry, is
-    ignored).  Keyword arguments go to ``Arena``; ``device`` picks where
-    the volatile regions live."""
-    if n_shards != 1:
-        raise not_ported("sharding")
-    a = Arena(path, **kw)
+    shape)}`` or ``{name: (dtype, shape, router)}``; the router steers rows
+    across shards when ``n_shards > 1`` (``route_rows``).  ``n_shards=1``
+    is the plain ``Arena``.  Keyword arguments go to the arena; ``device``
+    picks where the volatile regions live."""
+    a = Arena(path, **kw) if n_shards == 1 else \
+        ShardedArena(path, n_shards=n_shards, **kw)
     for name, spec in layout.items():
-        a.region(name, spec[0], spec[1])
+        a.region(name, spec[0], spec[1],
+                 router=spec[2] if len(spec) > 2 else None)
     a.finalize()
     return a

@@ -1,23 +1,27 @@
 """Media-fault injection (DESIGN.md §13), the port of
-``repro.core.faultinject`` for the plain barrier arena.
+``repro.core.faultinject`` for barrier arenas, plain and sharded.
 
 The helpers corrupt the COMMITTED image of a row, the bytes recovery will
 read.  On a barrier arena that is the row's home slot in the persistent
 image, which the port keeps in host memory (a numpy buffer or the memmap
-of the backing file), so every fault is a host write.  Faults by taxonomy
+of the backing file), so every fault is a host write; on a sharded arena
+it is the home slot in the shard that holds the row.  Faults by taxonomy
 (``core.arena`` error types):
 
 * ``flip_bits`` / ``stuck_line``: ``CorruptLineError`` territory, in-place
-  rot inside a committed row's line(s), visible to ``Arena.scrub()``;
+  rot inside a committed row's line(s), visible to ``scrub()``;
 * ``truncate_shard`` / ``remove_shard``: ``ShardLossError`` territory,
-  whole-file media loss, detected when the arena is next opened (use them
-  between arena generations: they work on the backing file, never through
-  a live mapping);
-* ``corrupt_header``: ``ManifestError`` territory, a scribbled commit
-  magic, detected by ``verify_header()`` in the recovery prologue.
+  whole-file media loss of one shard (a plain arena is its own only
+  shard), detected when the arena is next opened (use them between arena
+  generations: they work on the backing file, never through a live
+  mapping; a sharded arena's path prefix may stand for the arena);
+* ``corrupt_header`` (a plain arena's, or one shard's) and
+  ``corrupt_manifest`` (a sharded arena's): ``ManifestError`` territory, a
+  scribbled commit magic, detected by ``verify_header()`` in the recovery
+  prologue.
 
-``flip_bits`` is an involution: inject twice to undo.  Shadow-commit
-remap banks and sharded arenas (``corrupt_manifest``) are not ported.
+``flip_bits`` is an involution: inject twice to undo.  Shadow-commit remap
+banks wait for shadow commit (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from typing import Tuple
 
 import numpy as np
 
-from repro_torch.core.arena import LINE, Arena, not_ported
+from repro_torch.core.arena import LINE, Arena, ShardedArena
 
 __all__ = [
     "flip_bits", "stuck_line", "truncate_shard", "remove_shard",
@@ -34,22 +38,18 @@ __all__ = [
 ]
 
 
-def _plain(arena) -> Arena:
-    if getattr(arena, "n_shards", 1) != 1:
-        raise not_ported("sharding")
-    if arena.commit_mode != "barrier":
-        raise not_ported("shadow commit")
-    return arena
-
-
 def committed_row_offset(arena, region, row: int
                          ) -> Tuple[Arena, int, int]:
-    """(owning arena, byte offset of the row's committed image in its
-    persistent buffer, rowbytes).  On a barrier arena the committed image
-    is the home slot, before or after a crash."""
-    arena = _plain(arena)
+    """(owning plain arena, byte offset of the row's committed image in its
+    persistent buffer, rowbytes).  A sharded region's row resolves to the
+    shard that holds it and its local row there.  On a barrier arena the
+    committed image is the home slot, before or after a crash."""
     if isinstance(region, str):
         region = arena.regions[region]
+    if isinstance(arena, ShardedArena):
+        s = int(region.shard_of[row])
+        return committed_row_offset(arena.shards[s], region.slices[s],
+                                    int(region.local_of[row]))
     return arena, region.offset + row * region.rowbytes, region.rowbytes
 
 
@@ -86,39 +86,50 @@ def stuck_line(arena, region, row: int, line: int = 0,
     return lo, hi
 
 
-def _backing_path(arena) -> str:
-    arena = _plain(arena)
+def _shard_path(arena, shard: int) -> str:
+    """Backing file of one shard: ``{path}.s{shard}`` of a sharded arena
+    (or of its path prefix, given as a string), a plain arena's own
+    file."""
+    if isinstance(arena, str):
+        return f"{arena}.s{shard}"
     if arena.path is None:
         raise ValueError("file faults need a file-backed arena")
+    if isinstance(arena, ShardedArena):
+        return arena.shards[shard].path
     return arena.path
 
 
 def truncate_shard(arena, shard: int = 0, nbytes: int = 0) -> str:
-    """Truncate the arena's backing file to ``nbytes``: partial media
-    loss, raised as ``ShardLossError`` by the next open.  A plain arena is
-    its own only shard, so ``shard`` names nothing more."""
-    path = _backing_path(arena)
+    """Truncate a shard's backing file to ``nbytes``: partial media loss,
+    raised as ``ShardLossError`` by the next open."""
+    path = _shard_path(arena, shard)
     with open(path, "r+b") as f:
         f.truncate(nbytes)
     return path
 
 
 def remove_shard(arena, shard: int = 0) -> str:
-    """Delete the arena's backing file outright."""
-    path = _backing_path(arena)
+    """Delete a shard's backing file outright: total media loss of one
+    shard."""
+    path = _shard_path(arena, shard)
     os.remove(path)
     return path
 
 
 def corrupt_header(arena, shard: int = 0) -> None:
-    """Scribble the commit header's magic word; ``verify_header()`` then
-    raises ``ManifestError``."""
-    a = _plain(arena)
+    """Scribble a commit header's magic word (a plain arena's, or one
+    shard's of a sharded one); ``verify_header()`` then raises
+    ``ManifestError``."""
+    a = arena.shards[shard] if isinstance(arena, ShardedArena) else arena
     a._mm[:4] = np.frombuffer(b"ROT!", np.uint8)
     _flush(a)
 
 
 def corrupt_manifest(arena) -> None:
-    """The reference scribbles a sharded arena's manifest magic; the
-    port has no sharded arena yet."""
-    raise not_ported("sharding")
+    """Scribble a sharded arena's manifest magic: the cross-shard commit
+    pointer itself is the corrupted medium."""
+    if not isinstance(arena, ShardedArena):
+        raise ValueError("corrupt_manifest needs a sharded arena")
+    arena._man[:4] = np.frombuffer(b"ROT!", np.uint8)
+    if isinstance(arena._man, np.memmap):
+        arena._man.flush()

@@ -35,8 +35,10 @@ the card.  ``recover(salvage=True)`` (DESIGN.md §13) quarantines a stage
 that trips on an ``IntegrityError`` instead of raising, skips its
 transitive dependents as degraded, and lets reconstructors drop the rows
 that fail their checksums (``salvage_prefix`` walks what is left of a
-chain with the same kernels).  The sharded region-load split and the
-paged block-fault counters wait for their slices (ROADMAP Queue 1).
+chain with the same kernels).  On a sharded arena the declared regions of
+64 KiB or more load in stages of their own (``load:<region>``, biggest
+first), each pooled across the shards, and the reopen excludes them.  The
+paged block-fault counters wait for paging (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import reconstruct
@@ -101,7 +104,7 @@ class ChainSnapshot:
 
 
 def _snapshot_verify(nxt: torch.Tensor, head: int, count: Optional[int],
-                     cand: torch.Tensor) -> bool:
+                     cand: torch.Tensor, **packed) -> bool:
     """True iff ``cand`` IS chain_order(nxt, head, count).
 
     Two verify semantics exist in the reference; this is the HOST one
@@ -121,7 +124,7 @@ def _snapshot_verify(nxt: torch.Tensor, head: int, count: Optional[int],
     if count > 1:
         # sanitize first: an out-of-range stored NEXT becomes NULL, which
         # differs from the in-range cand[i+1] exactly as the raw value does
-        succ = K.gather_next(K.sanitize32(nxt), cand[:-1])
+        succ = K.gather_next(K.sanitize32(nxt), cand[:-1], **packed)
         ok = ok & (succ.long() == cand[1:]).all()
     return bool(ok)
 
@@ -152,14 +155,16 @@ def _absorb(jump: torch.Tensor, cnt: torch.Tensor,
     return cnt[heads]
 
 
-def _contract(nxt32: torch.Tensor, heads: torch.Tensor, k: int
+def _contract(nxt32: torch.Tensor, heads: torch.Tensor, k: int, **packed
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                          torch.Tensor, K.SegmentMarks]:
     """Sample + local-walk steps of the list ranking.  Spine nodes are
     every id with ``id % k == 0`` plus every head (``heads`` in range);
     returns ``(spine, head_pos, cnext, w, marks)``: spine ids, the spine
     index of each head, the contracted next pointer, the segment weights
-    and the walk's checkpoints (``K.contract_walk``, one launch)."""
+    and the walk's checkpoints (``K.contract_walk``, one launch).  Spine
+    membership is on global ids, so a packed ``nxt32`` (``packed``: its
+    ``segments``/``seg_rows``) contracts to the same spine space."""
     n = nxt32.shape[0]
     dev = nxt32.device
     n_mult = (n + k - 1) // k
@@ -177,7 +182,7 @@ def _contract(nxt32: torch.Tensor, heads: torch.Tensor, k: int
     cnext, w, marks = K.contract_walk(nxt32, spine, k=k, head=head,
                                       n_mult=n_mult,
                                       promoted=extra.numel() == 1,
-                                      spine_pos=spine_pos)
+                                      spine_pos=spine_pos, **packed)
     head_pos = torch.where(heads % k == 0, heads // k,
                            n_mult + torch.searchsorted(extra, heads))
     return spine, head_pos, cnext, w, marks
@@ -191,12 +196,13 @@ def _contract_tables(cnext: torch.Tensor, cap: int) -> torch.Tensor:
 
 def _rank_expand(nxt32: torch.Tensor, spine: torch.Tensor,
                  cjump: torch.Tensor, w: torch.Tensor, hpos: int,
-                 count: int, marks: Optional[K.SegmentMarks] = None
-                 ) -> torch.Tensor:
+                 count: int, marks: Optional[K.SegmentMarks] = None,
+                 **packed) -> torch.Tensor:
     """Rank + expand: ``expand_segments`` writes the runs ``_expand_plan``
     places inside [0, count)."""
     return K.expand_segments(nxt32, *_expand_plan(spine, cjump, w, hpos,
-                                                  count, marks), count)
+                                                  count, marks), count,
+                             **packed)
 
 
 def _expand_plan(spine: torch.Tensor, cjump: torch.Tensor,
@@ -263,12 +269,13 @@ def _expand_plan(spine: torch.Tensor, cjump: torch.Tensor,
 
 
 def _order_contract(nxt: torch.Tensor, head: int, count: Optional[int],
-                    k: int) -> torch.Tensor:
-    """chain_order via contraction (head already validated in range)."""
+                    k: int, **packed) -> torch.Tensor:
+    """chain_order via contraction (head already validated in range); the
+    rank runs in spine-index space, which no layout touches."""
     n = nxt.shape[0]
     nxt32 = K.sanitize32(nxt)
     heads = torch.tensor([head], dtype=torch.int64, device=nxt.device)
-    spine, hpos, cnext, w, marks = _contract(nxt32, heads, k)
+    spine, hpos, cnext, w, marks = _contract(nxt32, heads, k, **packed)
     if count is None:
         count = int(_absorb(cnext, w, hpos)[0])
         if count > n:
@@ -276,12 +283,13 @@ def _order_contract(nxt: torch.Tensor, head: int, count: Optional[int],
     cjump = _contract_tables(cnext, min(count, spine.shape[0]))
     # the head's spine index, known here without reading hpos back
     hp = head // k if head % k == 0 else (n + k - 1) // k
-    return _rank_expand(nxt32, spine, cjump, w, hp, count, marks)
+    return _rank_expand(nxt32, spine, cjump, w, hp, count, marks, **packed)
 
 
 def chain_order(nxt: torch.Tensor, head: int, count: Optional[int] = None,
                 *, method: str = "auto", k: Optional[int] = None,
-                snapshot: Optional[ChainSnapshot] = None) -> torch.Tensor:
+                snapshot: Optional[ChainSnapshot] = None,
+                segments=None, seg_rows: int = 0) -> torch.Tensor:
     """Node at each position 0..count-1 of the chain from ``head``, int64
     on ``nxt``'s device.
 
@@ -290,33 +298,50 @@ def chain_order(nxt: torch.Tensor, head: int, count: Optional[int] = None,
     and a count past the chain end raises ``ValueError``.  A head outside
     [0, n) is a terminated chain: empty order.  ``snapshot`` is adopted
     when it verifies (``snapshot.outcome = "snapshot"``); otherwise the
-    full rank runs and ``outcome`` names its method."""
+    full rank runs and ``outcome`` names its method.
+
+    ``segments``/``seg_rows`` take a shard-major packed NEXT column (a
+    sharded region's per-shard persistent views, concatenated, no host
+    re-gather; ``segments`` the (n_shards + 1,) row offsets, ``seg_rows``
+    the block-cyclic router's segment): ``head`` and the returned order
+    are global ids either way, by both methods and through the snapshot
+    verify, as the reference's ``chain_order_device``."""
     n = nxt.shape[0]
     dev = nxt.device
+    packed = {}
+    if segments is not None:
+        segments = [int(x) for x in (segments.tolist()
+                                     if hasattr(segments, "tolist")
+                                     else segments)]
+        packed = {"segments": segments, "seg_rows": seg_rows}
     if head < 0 or head >= n or count == 0:
         return torch.empty(0, dtype=torch.int64, device=dev)
     if snapshot is not None:
         cand = snapshot.candidate.to(dev).contiguous()
-        if _snapshot_verify(nxt, head, count, cand):
+        if _snapshot_verify(nxt, head, count, cand, **packed):
             snapshot.outcome = "snapshot"
             return cand.clone()
         # the snapshot lied about the committed chain: full rank
         snapshot.outcome = chain_method(n, count, method)
         snapshot.replayed = int(count or 0)
     if chain_method(n, count, method) == "contract":
-        return _order_contract(nxt, head, count, k or CONTRACT_K)
+        return _order_contract(nxt, head, count, k or CONTRACT_K, **packed)
     jump0 = K.sanitize32(nxt)
     if count is None:
         bits = max(1, int(n).bit_length())           # 2**bits > n
         tables, cnt = K.chain_tables(
-            jump0, bits, torch.ones(n, dtype=torch.int64, device=dev))
-        # counts after `bits` rounds: min(2**bits, chain length)
-        count = int(cnt[head])
+            jump0, bits, torch.ones(n, dtype=torch.int64, device=dev),
+            **packed)
+        # counts after `bits` rounds: min(2**bits, chain length), at the
+        # head's position
+        at = head if segments is None else int(
+            K.packed_positions(np.array([head]), seg_rows, segments)[0])
+        count = int(cnt[at])
         if count > n:
             raise RuntimeError("cycle in chain")
     else:
-        tables, _ = K.chain_tables(jump0, _bits(count))
-    cur, dead = K.walk_positions(tables, head, count)
+        tables, _ = K.chain_tables(jump0, _bits(count), **packed)
+    cur, dead = K.walk_positions(tables, head, count, **packed)
     if bool(dead.any()):
         raise ValueError("count exceeds chain length")
     return cur.long()
@@ -560,9 +585,8 @@ class Recoverable:
     reconstructor: str          # name in the core.reconstruct registry
     target: Any                 # object handed to the reconstructor
     depends: Tuple[str, ...] = ()
-    # regions the reconstructor reads; the reference turns them into
-    # per-region load stages on a SHARDED arena, which waits for the
-    # sharding slice — on one arena they are recorded and change nothing
+    # regions the reconstructor reads: on a SHARDED arena the big ones
+    # become per-region load stages; on one arena they change nothing
     regions: Optional[Tuple[str, ...]] = None
 
 
@@ -667,12 +691,36 @@ class RecoveryManager:
         order = self.order()            # validates deps / detects cycles
         items = self._items
 
+        # Sharded arenas: the declared regions of >= 64 KiB become
+        # per-region load stages, so a stage's rebuild starts when its own
+        # regions land, not after the whole reopen (DESIGN.md §7).  Two
+        # arenas may hold same-named regions: the stage loads them all, and
+        # each arena's reopen excludes the names it contributed.  Smaller
+        # regions (headers) load in the reopen.
+        split: Dict[str, List[Any]] = {}
+        if reopen and any(it.regions for it in items.values()):
+            declared = {r for it in items.values() for r in it.regions or ()}
+            for a in self.arenas:
+                if getattr(a, "n_shards", 1) > 1:
+                    for rname, r in a.regions.items():
+                        if rname in declared and r.nbytes >= 1 << 16:
+                            split.setdefault(rname, []).append(r)
+        # biggest loads first: a large region usually feeds the longest
+        # rebuild
+        load_names = [f"load:{r}" for r in sorted(
+            split, key=lambda r: (-max(x.nbytes for x in split[r]), r))]
+
         reopen_secs = 0.0
         if reopen and self.arenas:
             t0 = time.perf_counter()
             valids = []
             for a in self.arenas:
-                a.reopen()
+                if getattr(a, "n_shards", 1) > 1:
+                    a.reopen(concurrency=report.concurrency, exclude=tuple(
+                        n for n, rs in split.items()
+                        if any(r.arena is a for r in rs)))
+                else:
+                    a.reopen()
                 if a.device.type == "cuda":
                     torch.cuda.synchronize(a.device)
                 # garbage header magic is media corruption no power loss
@@ -683,7 +731,8 @@ class RecoveryManager:
             reopen_secs = time.perf_counter() - t0
             st = report.add("reopen", reopen_secs,
                             arenas=len(self.arenas), valid=valids,
-                            shards=[1 for _ in self.arenas],
+                            shards=[getattr(a, "n_shards", 1)
+                                    for a in self.arenas],
                             modes=[a.commit_mode for a in self.arenas])
             st.t_start, st.t_end = 0.0, reopen_secs
             report.valid = all(valids)
@@ -696,7 +745,16 @@ class RecoveryManager:
         results: Dict[str, StageReport] = {}
         # when each stage's dependencies landed; stages without any are
         # ready when the reopen is done
-        ready_at: Dict[str, float] = {}
+        ready_at: Dict[str, float] = {n: reopen_secs for n in load_names}
+        # a stage's load prerequisites: its declared regions' load stages;
+        # an undeclared (regions=None) stage waits for every load
+        load_deps = {
+            n: (load_names if items[n].regions is None
+                else [f"load:{r}" for r in items[n].regions if r in split])
+            for n in order}
+        for n in order:
+            if not items[n].depends and not load_deps[n]:
+                ready_at[n] = reopen_secs
 
         # salvage bookkeeping: stages whose output is untrusted (they
         # tripped on corruption, or ran downstream of one that did),
@@ -722,9 +780,21 @@ class RecoveryManager:
                                  degraded=True)
                 emit(st)
                 return st
-            it = items[name]
             try:
-                out, secs = reconstruct.run(it.reconstructor, it.target)
+                if name.startswith("load:"):
+                    regions = split[name[5:]]
+                    for region in regions:
+                        region.load(concurrency=report.concurrency)
+                        if region.arena.device.type == "cuda":
+                            torch.cuda.synchronize(region.arena.device)
+                    secs = time.perf_counter() - t0
+                    out = {"rows": sum(int(r.shape[0]) for r in regions),
+                           "shards": int(regions[0].arena.n_shards)}
+                else:
+                    it = items[name]
+                    out, secs = reconstruct.run(it.reconstructor, it.target)
+                    out = dict(out) if isinstance(out, dict) else {}
+                    out.setdefault("reconstructor", it.reconstructor)
             except IntegrityError as e:
                 if not salvage:
                     raise
@@ -738,8 +808,7 @@ class RecoveryManager:
                                  quarantined=True)
                 emit(st)
                 return st
-            detail = dict(out) if isinstance(out, dict) else {}
-            detail.setdefault("reconstructor", it.reconstructor)
+            detail = out
             # a reconstructor may salvage on its own: it drops corrupt
             # rows, keeps the rest and says so in its detail
             quarantined = bool(detail.pop("quarantined", False))
@@ -754,32 +823,39 @@ class RecoveryManager:
             emit(st)
             return st
 
-        depends_of = {n: list(items[n].depends) for n in order}
+        full_order = load_names + order
+        depends_of = {n: [] for n in load_names}
+        depends_of.update({n: list(items[n].depends) + load_deps[n]
+                           for n in order})
         try:
             if report.concurrency == 1:
                 # serial: topological order; a stage is "ready" the moment
                 # its last dependency finished
-                for name in order:
+                for name in full_order:
                     st = run_stage(name)
                     results[name] = st
-                    for m in order:
+                    for m in full_order:
                         if name in depends_of[m]:
                             ready_at[m] = max(ready_at.get(m, 0.0),
                                               st.t_end)
             else:
-                self._run_counters(order, depends_of, run_stage, results,
-                                   ready_at, report.concurrency, t_all)
+                self._run_counters(full_order, depends_of, run_stage,
+                                   results, ready_at, report.concurrency,
+                                   t_all)
         finally:
             if salvage:
                 for a in self.arenas:
                     a._salvage = False
-        report.stages.extend(results[n] for n in order if n in results)
+        # loads first, then the stages level by level, whatever the
+        # completion order was
+        report.stages.extend(results[n] for n in full_order if n in results)
         report.quarantined = [s.name for s in report.stages
                               if s.quarantined]
         report.degraded = [s.name for s in report.stages if s.degraded]
         report.total_seconds = time.perf_counter() - t_all
         report.critical_path_seconds = reopen_secs + self._critical_path(
-            order, depends_of, {s.name: s.seconds for s in report.stages})
+            full_order, depends_of,
+            {s.name: s.seconds for s in report.stages})
         return report
 
     def _run_counters(self, order: List[str],

@@ -54,7 +54,8 @@ import torch
 from repro_torch.kernels.pack_flush import (group_layout, pack_rows,
                                             pack_rows_grouped)
 
-__all__ = ["DigestWriteSet", "WriteSet", "gather_rows", "host_rows"]
+__all__ = ["DigestWriteSet", "ShardedWriteSet", "WriteSet", "gather_rows",
+           "host_rows"]
 
 
 def host_rows(rows) -> np.ndarray:
@@ -100,10 +101,23 @@ class WriteSet:
             # ledger
             self._pending.setdefault(region.name, []).append((rows, 0))
             return
-        would = self.arena._rows_line_count(region.offset, region.rowbytes,
-                                            rows)
-        self._pending.setdefault(region.name, []).append((rows, would))
-        self.arena.stats.marks += 1
+        self._pending.setdefault(region.name, []).append(
+            (rows, self._would(region, rows)))
+        self._ledger().marks += 1
+
+    def _ledger(self):
+        """The FlushStats that marks, epochs, dedup and saved lines land
+        in."""
+        return self.arena.stats
+
+    def _would(self, region, rows: np.ndarray) -> int:
+        """Lines one accounting call for these rows would charge."""
+        return self.arena._rows_line_count(region.offset, region.rowbytes,
+                                           rows)
+
+    def _order(self, names) -> List[str]:
+        """A phase's regions in flush order: by offset."""
+        return sorted(names, key=lambda n: self.arena.regions[n].offset)
 
     def __bool__(self) -> bool:
         return bool(self._pending)
@@ -132,7 +146,7 @@ class WriteSet:
             flushed = self._write_phase(plan, staged, sidecars) or flushed
         self.seat_sidecars(sidecars)
         if flushed:
-            self.arena.stats.epochs += 1
+            self._ledger().epochs += 1
 
     def _drain_snapshots(self) -> None:
         """Mark each registered provider's dirty snapshot rows.  Providers
@@ -156,10 +170,10 @@ class WriteSet:
         return flushed
 
     def _plan(self, meta: bool) -> List[_Planned]:
-        """Pop the pending marks of one phase's regions, in offset order."""
+        """Pop the pending marks of one phase's regions, in flush order."""
         arena = self.arena
-        names = [n for n in self._pending if arena.regions[n].meta == meta]
-        names.sort(key=lambda n: arena.regions[n].offset)
+        names = self._order(n for n in self._pending
+                            if arena.regions[n].meta == meta)
         plan = []
         for name in names:
             marks = self._pending.pop(name)
@@ -267,6 +281,110 @@ class WriteSet:
             buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
             setattr(self, attr, buf)
         return buf
+
+
+class ShardedWriteSet(WriteSet):
+    """The cross-shard write set of a ``ShardedArena`` (barrier commit).
+
+    Marks are buffered GLOBALLY per region, one append per ``mark_rows``
+    as on a single arena, and split per shard once per drain.  A drain
+    plans both barrier phases, then gathers every row it writes, of every
+    shard and both phases, from the regions' global volatile tensors in
+    ONE grouped gather (``WriteSet.gather``), so the launches per drain do
+    not grow with the shard count.  Then, phase by phase, each shard's
+    slices take their rows: the persistent writes, the per-shard line
+    accounting and the sidecar checksums go shard by shard, and one
+    global fence closes the phase: every shard's data regions land
+    before any shard's metadata.  Per-shard accounting stays in each
+    shard's ``FlushStats``; marks, dedup, saved lines and epochs are
+    counted at the sharded level, against the per-call line counts of the
+    GLOBAL rows (``Arena._rows_line_count`` at base 0), so they equal a
+    single arena's for line-aligned rows.  The pool runs only where the
+    arena models media stalls (``synth_line_ns``): without them the
+    shards are written one after another on the calling thread."""
+
+    def _ledger(self):
+        return self.arena._local_stats
+
+    def _would(self, region, rows: np.ndarray) -> int:
+        # the GLOBAL rows' count, as the reference's (base 0)
+        return self.arena.shards[0]._rows_line_count(0, region.rowbytes,
+                                                     rows)
+
+    def _order(self, names) -> List[str]:
+        return sorted(names)
+
+    def _write_phase(self, plan: List[_Planned], staged,
+                     sidecars: list) -> bool:
+        """Write one phase's gathered rows into their shards' images (in
+        the pool where stalls are modeled), then pay the one global
+        fence."""
+        if not plan:
+            return False
+        arena = self.arena
+        work: Dict[int, list] = {}          # shard -> [(slice, local, rows)]
+        for p, host in zip(plan, staged):
+            for s, local, sel in p.region._split(p.rows):
+                work.setdefault(s, []).append(
+                    (p.region.slices[s], local,
+                     host if sel is None else host[sel]))
+        actual, seats = {}, {}
+
+        def flush_shard(s: int) -> None:
+            shard = arena.shards[s]
+            before = shard.stats.lines
+            seats[s] = []
+            with shard.stall_scope():
+                for sl, local, host in work[s]:
+                    sl._pview()[local] = host
+                    shard._account_rows(sl.offset, sl.rowbytes, local,
+                                        snap=sl.snap, jrnl=sl.jrnl)
+                    seats[s].append(shard._integrity_home(sl, local, host))
+            actual[s] = shard.stats.lines - before
+
+        shards = sorted(work)
+        if len(shards) > 1 and arena.synth_line_ns:
+            # the pool overlaps the shards' synthetic media stalls (each
+            # shard sleeps its own); without them a shard's share is a few
+            # host copies, cheaper on this thread than a hand-off
+            list(arena.pool().map(flush_shard, shards))
+        else:
+            for s in shards:
+                flush_shard(s)
+        for s in shards:
+            sidecars.extend(_global_seat(u) for u in seats[s])
+        ledger = [p for p in plan if not (p.region.snap or p.region.jrnl)]
+        arena._local_stats.saved_lines += max(
+            0, sum(p.would_lines for p in ledger) - sum(actual.values()))
+        arena._local_stats.dedup_rows += sum(
+            p.marked_rows - p.rows.size for p in ledger)
+        arena._fence()              # the global cross-shard ordering point
+        return True
+
+    def persist(self, region, rows: np.ndarray) -> None:
+        """A direct (epoch-less) flush of one region's sorted unique global
+        ``rows``: one gather, then each shard's slice written home,
+        accounted per call and checksummed, shard by shard."""
+        host = self.gather([(region, rows)])[0]
+        sidecars = []
+        for s, local, sel in region._split(rows):
+            shard, sl = self.arena.shards[s], region.slices[s]
+            g = host if sel is None else host[sel]
+            sl._pview()[local] = g
+            shard._account_rows(sl.offset, sl.rowbytes, local, snap=sl.snap,
+                                jrnl=sl.jrnl, integ=sl.integ)
+            sidecars.append(_global_seat(shard._integrity_home(sl, local,
+                                                               g)))
+        self.seat_sidecars(sidecars)
+
+
+def _global_seat(seat):
+    """A shard's ``(sidecar slice, local rows, checksums)`` as the sharded
+    sidecar region and its global rows, for ``seat_sidecars``."""
+    if seat is None:
+        return None
+    sl, local, ck = seat
+    return sl._parent, sl._gidx[local], ck
 
 
 def gather_rows(region, rows: np.ndarray) -> np.ndarray:

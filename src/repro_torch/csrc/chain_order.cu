@@ -125,6 +125,43 @@
 //   The snapshot verify (one hop, up to 2**23 lanes) is bound by bytes:
 //   the ids read and the 4 B store stream, the nxt load is one 32 B
 //   sector per lane while nxt misses the 50 MB L2.
+// The shard-major packed layout (segments=, seg_rows=)
+//   Replaces the `segments`/`seg_rows` form of the four Pallas kernels
+//   above (src/repro/kernels/chain_order.py:94, :152, :198, :293) and
+//   their closed-form translate packed_positions (:58).  A sharded
+//   region's NEXT column arrives as the shards' persistent views
+//   concatenated shard-major, while the pointer VALUES stay global ids.
+//   Under the block-cyclic router of B rows over N shards, global id c
+//   sits at packed position
+//     segments[(c / B) % N] + (c / (B * N)) * B + c % B,
+//   exact even when the last block is partial, because a shard's earlier
+//   blocks are always full.  Every array these kernels index by a node id
+//   (nxt; jump and cnt) is indexed through that translate, evaluated in
+//   the kernel; ids, the values loaded and the values stored stay global,
+//   and arrays indexed by lane or by position (jump's rows, the outputs)
+//   stay as they are.  jump_double keeps the same translate across all
+//   the rounds of its cooperative launch: its table rows sit at packed
+//   positions and hold global ids.  The range checks stay on the global
+//   id (0 <= c < n, n the total rows), so the torn-pointer contract is
+//   the global layout's.
+//   Design: a template case (kLayout: global, packed with B and N powers
+//   of two, packed in general), as kTable and kPow2 are, so that an
+//   unpacked launch compiles to the code it was.  The translate sits on
+//   the dependent path of every hop, so it is kept to a few integer
+//   operations and no memory access.  The offsets are the router's
+//   partition of the n rows (the wrapper checks it), so they are closed
+//   form too: with R = n / (B * N) full rounds and T = n - R * B * N rows
+//   in the partial one, segments[s] = s * R * B + min(s * B, T); no table
+//   is read (an offset table in device memory cost an L1 round trip a
+//   hop, and a kernel parameter indexed at run time would be copied to
+//   the stack).  B = 64 and N = 4 on the main path: powers of two, a
+//   case of its own of shifts and masks in 32-bit arithmetic (positions
+//   are below 2^31, and B * N below 2^31 is checked); N = 3 occurs: the
+//   general case divides by a multiply-high by ceil(2^32 / N), used only
+//   where it is exact for every segment index of the launch (else a
+//   division).  A first design with two run-time divisions and the
+//   offsets read from device memory ran the walk at 1.38-1.41x the
+//   global layout's time on an H100 (chip_smoke phase 2).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -156,12 +193,67 @@ int sm_count() {
   return sms;
 }
 
+// The layouts (kLayout): global, packed with B and N powers of two (the
+// main path's), packed in general.
+constexpr int kGlobal = 0;
+constexpr int kPackedPow2 = 1;
+constexpr int kPackedAny = 2;
+
+// The shard-major packing of a launch over n rows (make_packing): B rows a
+// segment, N shards, and what the translate needs precomputed.  Every
+// position and B * N are below 2^31, so 32-bit arithmetic is exact.
+struct Packing {
+  uint32_t seg_rows;     // B
+  uint32_t n_shards;     // N
+  uint32_t seg_shift;    // log2(B) for a power of two, else 32
+  uint32_t shard_shift;  // log2(N) for a power of two, else 32
+  uint32_t magic;        // ceil(2^32 / N) where exact, else 0
+  uint32_t round_rows;   // R * B: a shard's rows in the full rounds
+  uint32_t tail;         // T: the rows of the partial round
+  int layout;            // kGlobal, kPackedPow2 or kPackedAny
+};
+
+// Array position of global id c (0 <= c < n): c itself, or the packed
+// position of the block-cyclic router.
+template <int kLayout>
+__device__ __forceinline__ int64_t at(const Packing& p, int32_t c) {
+  if (kLayout == kGlobal) return c;
+  const uint32_t u = (uint32_t)c;
+  uint32_t seg, off, round, shard;
+  if (kLayout == kPackedPow2) {
+    seg = u >> p.seg_shift;
+    off = u & (p.seg_rows - 1);
+    round = seg >> p.shard_shift;
+    shard = seg & (p.n_shards - 1);
+    return (int64_t)(shard * p.round_rows + min(shard << p.seg_shift, p.tail) +
+                     (round << p.seg_shift) + off);
+  }
+  if (p.seg_shift < 32) {
+    seg = u >> p.seg_shift;
+    off = u & (p.seg_rows - 1);
+  } else {
+    seg = u / p.seg_rows;
+    off = u - seg * p.seg_rows;
+  }
+  if (p.shard_shift < 32)
+    round = seg >> p.shard_shift;
+  else if (p.magic != 0)
+    round = __umulhi(seg, p.magic);
+  else
+    round = seg / p.n_shards;
+  shard = seg - round * p.n_shards;
+  return (int64_t)(shard * p.round_rows + min(shard * p.seg_rows, p.tail) +
+                   round * p.seg_rows + off);
+}
+
 // One chain hop: NULL for an id outside [0, n) or a stored value outside
 // it.  nxt is read-only for the whole launch: the read-only path (__ldg).
+template <int kLayout>
 __device__ __forceinline__ int32_t follow(const int32_t* __restrict__ nxt,
-                                          int32_t cur, int64_t n) {
+                                          int32_t cur, int64_t n,
+                                          const Packing& p) {
   if (cur < 0 || cur >= n) return kNull;
-  const int32_t v = __ldg(nxt + cur);
+  const int32_t v = __ldg(nxt + at<kLayout>(p, cur));
   return (v >= 0 && v < n) ? v : kNull;
 }
 
@@ -223,6 +315,7 @@ struct JumpRounds {
   int64_t* cbuf[2];
   int64_t n;
   int rounds;
+  Packing pack;
 };
 
 // kInput: the round reads the caller's arrays, which no block writes, so
@@ -239,7 +332,7 @@ __device__ __forceinline__ int64_t load(const int64_t* p) {
   return (int64_t)(kInput ? __ldg(q) : __ldcg(q));
 }
 
-template <bool kInput, bool kKeep, bool kCnt>
+template <bool kInput, bool kKeep, bool kCnt, int kLayout>
 __device__ __forceinline__ void jump_round(const JumpRounds& a,
                                            const int32_t* __restrict__ js,
                                            const int64_t* __restrict__ cs,
@@ -253,16 +346,19 @@ __device__ __forceinline__ void jump_round(const JumpRounds& a,
     if (kKeep && kInput) a.jbuf[0][i] = j;  // level 0: the input as given
     const bool live = j >= 0 && j < n;
     int32_t nj = kNull;
+    int64_t pj = 0;
     if (live) {
-      const int32_t v = load<kInput>(js + j);
+      pj = at<kLayout>(a.pack, j);
+      const int32_t v = load<kInput>(js + pj);
       if (v >= 0 && v < n) nj = v;
     }
     jd[i] = nj;
-    if (kCnt) cd[i] = load<kInput>(cs + i) + (live ? load<kInput>(cs + j) : 0);
+    if (kCnt)
+      cd[i] = load<kInput>(cs + i) + (live ? load<kInput>(cs + pj) : 0);
   }
 }
 
-template <bool kKeep, bool kCnt>
+template <bool kKeep, bool kCnt, int kLayout>
 __global__ void __launch_bounds__(kRoundThreads)
     jump_double_kernel(const JumpRounds a) {
   const int r = a.rounds;
@@ -275,11 +371,12 @@ __global__ void __launch_bounds__(kRoundThreads)
   auto counts = [&](int s) -> int64_t* {
     return ((r - s) & 1) ? a.cbuf[1] : a.cbuf[0];
   };
-  jump_round<true, kKeep, kCnt>(a, a.jump, a.cnt, level(1), counts(1));
+  jump_round<true, kKeep, kCnt, kLayout>(a, a.jump, a.cnt, level(1),
+                                         counts(1));
   for (int s = 2; s <= r; ++s) {
     cg::this_grid().sync();
-    jump_round<false, kKeep, kCnt>(a, level(s - 1), counts(s - 1), level(s),
-                                   counts(s));
+    jump_round<false, kKeep, kCnt, kLayout>(a, level(s - 1), counts(s - 1),
+                                            level(s), counts(s));
   }
 }
 
@@ -305,6 +402,7 @@ struct WalkArgs {
   int32_t shift;   // log2(k) when k is a power of two
   int32_t stride;  // a power of two
   int promoted;
+  Packing pack;
 };
 
 // kPow2: k is a power of two (CONTRACT_K = 32): a mask and a shift, not a
@@ -322,7 +420,7 @@ __device__ __forceinline__ int32_t spine_index(const WalkArgs& a,
   return s;
 }
 
-template <bool kTable, bool kPow2>
+template <bool kTable, bool kPow2, int kLayout>
 __global__ void __launch_bounds__(kSegmentThreads)
     walk_segments_kernel(const WalkArgs a) {
   const unsigned lane = threadIdx.x & 31;
@@ -339,7 +437,7 @@ __global__ void __launch_bounds__(kSegmentThreads)
     for (int32_t t = 1; __any_sync(kFull, walking); ++t) {
       bool mark = false;
       if (walking) {
-        cur = follow(a.nxt, cur, a.n);
+        cur = follow<kLayout>(a.nxt, cur, a.n, a.pack);
         w = t;
         walking = false;
         if (cur >= 0) {
@@ -385,11 +483,12 @@ struct ExpandArgs {
   long long* out;
   int64_t n;
   int64_t lanes;
+  Packing pack;
 };
 
 // kChunk: ids a thread stages per round; a warp's staging is 32 runs of
 // kChunk + 1 words (the pad word keeps the threads' writes on 32 banks).
-template <int kChunk>
+template <int kChunk, int kLayout>
 __global__ void __launch_bounds__(kSegmentThreads)
     expand_segments_kernel(const ExpandArgs a) {
   extern __shared__ int32_t staging[];
@@ -412,7 +511,7 @@ __global__ void __launch_bounds__(kSegmentThreads)
       const int32_t len = min(r, kChunk);
       for (int32_t t = 0; t < len; ++t) {
         mine[t] = cur;
-        if (t + 1 < r) cur = follow(a.nxt, cur, a.n);
+        if (t + 1 < r) cur = follow<kLayout>(a.nxt, cur, a.n, a.pack);
       }
       __syncwarp();
       // the warp's staged runs, run-major: consecutive threads store
@@ -442,12 +541,12 @@ struct WalkScratch {
   unsigned done;
 };
 
-template <typename Id>
+template <typename Id, int kLayout>
 __global__ void gather_next_kernel(const int32_t* __restrict__ nxt,
                                    const Id* __restrict__ ids,
                                    int32_t* __restrict__ out, int64_t n,
                                    int64_t lanes, int hops, WalkScratch* walk,
-                                   int* len_host) {
+                                   int* len_host, const Packing pack) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   int best = 0;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes;
@@ -455,7 +554,7 @@ __global__ void gather_next_kernel(const int32_t* __restrict__ nxt,
     int64_t cur = (int64_t)ids[i];
     int t = 0;
     for (; t < hops && cur >= 0 && cur < n; ++t) {
-      const int32_t v = __ldg(nxt + cur);
+      const int32_t v = __ldg(nxt + at<kLayout>(pack, (int32_t)cur));
       out[(int64_t)t * lanes + i] = v;
       cur = v;
     }
@@ -488,35 +587,58 @@ unsigned grid_for(int64_t work, int threads) {
   return (unsigned)(blocks > 0 ? blocks : 1);
 }
 
-template <bool kTable, bool kPow2>
+template <bool kTable, bool kPow2, int kLayout>
 int launch_walk(const WalkArgs& a, cudaStream_t stream) {
   static LaunchShape cache[kMaxDevices] = {};
   LaunchShape shape;
-  const cudaError_t err =
-      launch_shape(walk_segments_kernel<kTable, kPow2>, 0, cache, &shape);
+  const cudaError_t err = launch_shape(
+      walk_segments_kernel<kTable, kPow2, kLayout>, 0, cache, &shape);
   if (err != cudaSuccess) return (int)err;
-  walk_segments_kernel<kTable, kPow2>
+  walk_segments_kernel<kTable, kPow2, kLayout>
       <<<blocks_for(shape, a.lanes), shape.block, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int kChunk>
+template <int kLayout>
+int launch_walk_spine(const WalkArgs& a, cudaStream_t stream) {
+  if (a.spine_pos != nullptr)
+    return launch_walk<true, false, kLayout>(a, stream);
+  if ((a.k & (a.k - 1)) == 0)
+    return launch_walk<false, true, kLayout>(a, stream);
+  return launch_walk<false, false, kLayout>(a, stream);
+}
+
+template <int kChunk, int kLayout>
 int launch_expand(const ExpandArgs& a, cudaStream_t stream) {
   static LaunchShape cache[kMaxDevices] = {};
   constexpr int kStageBytes = (kChunk + 1) * 4;  // per thread
   LaunchShape shape;
-  const cudaError_t err = launch_shape(expand_segments_kernel<kChunk>,
+  const cudaError_t err = launch_shape(expand_segments_kernel<kChunk, kLayout>,
                                        kStageBytes, cache, &shape);
   if (err != cudaSuccess) return (int)err;
-  expand_segments_kernel<kChunk>
+  expand_segments_kernel<kChunk, kLayout>
       <<<blocks_for(shape, a.lanes), shape.block,
          (size_t)shape.block * kStageBytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Blocks of jump_double_kernel<kKeep, kCnt> that fit on the device at once,
-// the most a cooperative launch may have; queried once per device.
-template <bool kKeep, bool kCnt>
+template <int kLayout>
+int launch_expand_chunk(const ExpandArgs& a, int chunk, cudaStream_t stream) {
+  switch (chunk) {
+    case 8:
+      return launch_expand<8, kLayout>(a, stream);
+    case 16:
+      return launch_expand<16, kLayout>(a, stream);
+    case 32:
+      return launch_expand<32, kLayout>(a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of jump_double_kernel<kKeep, kCnt, kLayout> that fit on the device
+// at once, the most a cooperative launch may have; queried once per device.
+template <bool kKeep, bool kCnt, int kLayout>
 cudaError_t cooperative_blocks(int* blocks) {
   static int cached[kMaxDevices] = {};
   int dev = 0;
@@ -528,7 +650,7 @@ cudaError_t cooperative_blocks(int* blocks) {
   }
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, jump_double_kernel<kKeep, kCnt>, kRoundThreads, 0);
+      &per_sm, jump_double_kernel<kKeep, kCnt, kLayout>, kRoundThreads, 0);
   if (err != cudaSuccess) return err;
   *blocks = per_sm * sm_count();
   if (*blocks <= 0) return cudaErrorCooperativeLaunchTooLarge;
@@ -536,21 +658,73 @@ cudaError_t cooperative_blocks(int* blocks) {
   return cudaSuccess;
 }
 
-template <bool kKeep, bool kCnt>
+template <bool kKeep, bool kCnt, int kLayout>
 int launch_rounds(const JumpRounds& a, cudaStream_t stream) {
   int most = 0;
-  const cudaError_t err = cooperative_blocks<kKeep, kCnt>(&most);
+  const cudaError_t err = cooperative_blocks<kKeep, kCnt, kLayout>(&most);
   if (err != cudaSuccess) return (int)err;
   int64_t blocks = (a.n + kRoundThreads - 1) / kRoundThreads;
   if (blocks > most) blocks = most;
   void* args[] = {const_cast<JumpRounds*>(&a)};
   return (int)cudaLaunchCooperativeKernel(
-      (const void*)jump_double_kernel<kKeep, kCnt>, dim3((unsigned)blocks),
+      (const void*)jump_double_kernel<kKeep, kCnt, kLayout>,
+      dim3((unsigned)blocks),
       dim3(kRoundThreads), args, 0, stream);
+}
+
+template <int kLayout>
+int launch_rounds_for(const JumpRounds& a, bool keep, bool counts,
+                      cudaStream_t s) {
+  if (keep) {
+    return counts ? launch_rounds<true, true, kLayout>(a, s)
+                  : launch_rounds<true, false, kLayout>(a, s);
+  }
+  return counts ? launch_rounds<false, true, kLayout>(a, s)
+                : launch_rounds<false, false, kLayout>(a, s);
+}
+
+uint32_t log2_exact(uint32_t x) {  // log2(x) for a power of two, else 32
+  if (x == 0 || (x & (x - 1)) != 0) return 32;
+  uint32_t k = 0;
+  while ((1u << k) < x) ++k;
+  return k;
+}
+
+// The packing of a launch over n rows from the C arguments: n_shards 0 is
+// the global layout; otherwise n_shards >= 1, seg_rows >= 1, B * N and n
+// below 2^31.
+bool make_packing(int n_shards, int seg_rows, int64_t n, Packing* p) {
+  *p = Packing{};
+  if (n_shards == 0) return true;
+  const uint64_t B = (uint64_t)seg_rows, N = (uint64_t)n_shards;
+  if (n_shards < 1 || seg_rows < 1 || n < 0 || n >= (1ll << 31) ||
+      B * N >= (1ull << 31))
+    return false;
+  p->seg_rows = (uint32_t)B;
+  p->n_shards = (uint32_t)N;
+  p->seg_shift = log2_exact((uint32_t)B);
+  p->shard_shift = log2_exact((uint32_t)N);
+  p->layout = p->seg_shift < 32 && p->shard_shift < 32 ? kPackedPow2
+                                                       : kPackedAny;
+  const uint64_t full = (uint64_t)n / (B * N);
+  p->round_rows = (uint32_t)(full * B);
+  p->tail = (uint32_t)((uint64_t)n - full * B * N);
+  if (p->shard_shift == 32) {
+    // seg * m / 2^32 floors to seg / N while seg * e < 2^32, e = m*N - 2^32
+    const uint64_t m = ((1ull << 32) + N - 1) / N;
+    const uint64_t e = m * N - (1ull << 32);
+    const uint64_t max_seg = n > 0 ? (uint64_t)(n - 1) / B : 0;
+    if (max_seg * e < (1ull << 32)) p->magic = (uint32_t)m;
+  }
+  return true;
 }
 
 }  // namespace
 
+// Every entry point takes the packed layout last but for the stream:
+// n_shards (0 for the global layout) and seg_rows, the offsets being the
+// ("seg", seg_rows) router's partition of the n rows.
+//
 // jump_out: the returned jump, or with keep the (rounds + 1, n) table;
 // jump_tmp and cnt_tmp: the second ping-pong buffers (null when rounds is 1
 // or, for jump_tmp, with keep); cnt, cnt_out, cnt_tmp null without counts.
@@ -558,9 +732,11 @@ int launch_rounds(const JumpRounds& a, cudaStream_t stream) {
 extern "C" int jump_double_launch(const void* jump, const void* cnt,
                                   void* jump_out, void* jump_tmp,
                                   void* cnt_out, void* cnt_tmp, int64_t n,
-                                  int rounds, int keep, void* stream) {
-  if (rounds < 1) return (int)cudaErrorInvalidValue;
+                                  int rounds, int keep, int n_shards,
+                                  int seg_rows, void* stream) {
   JumpRounds a;
+  if (rounds < 1 || !make_packing(n_shards, seg_rows, n, &a.pack))
+    return (int)cudaErrorInvalidValue;
   a.jump = static_cast<const int32_t*>(jump);
   a.cnt = static_cast<const int64_t*>(cnt);
   a.jbuf[0] = static_cast<int32_t*>(jump_out);
@@ -571,12 +747,14 @@ extern "C" int jump_double_launch(const void* jump, const void* cnt,
   a.rounds = rounds;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool counts = cnt != nullptr;
-  if (keep) {
-    return counts ? launch_rounds<true, true>(a, s)
-                  : launch_rounds<true, false>(a, s);
+  switch (a.pack.layout) {
+    case kPackedPow2:
+      return launch_rounds_for<kPackedPow2>(a, keep, counts, s);
+    case kPackedAny:
+      return launch_rounds_for<kPackedAny>(a, keep, counts, s);
+    default:
+      return launch_rounds_for<kGlobal>(a, keep, counts, s);
   }
-  return counts ? launch_rounds<false, true>(a, s)
-                : launch_rounds<false, false>(a, s);
 }
 
 // rec (3 * capacity int32) and total (one uint64, zeroed here) are null
@@ -587,12 +765,14 @@ extern "C" int walk_segments_launch(const void* nxt, const void* starts,
                                     void* total, int64_t n, int64_t lanes,
                                     int64_t capacity, int k, int head,
                                     int n_mult, int promoted, int budget,
-                                    int stride, void* stream) {
+                                    int stride, int n_shards, int seg_rows,
+                                    void* stream) {
+  WalkArgs a;
   if (stride < 1 || (stride & (stride - 1)) != 0 || k < 1 ||
-      (rec == nullptr) != (total == nullptr))
+      (rec == nullptr) != (total == nullptr) ||
+      !make_packing(n_shards, seg_rows, n, &a.pack))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  WalkArgs a;
   a.nxt = static_cast<const int32_t*>(nxt);
   a.starts = static_cast<const int32_t*>(starts);
   a.spine_pos = static_cast<const int32_t*>(spine_pos);
@@ -616,18 +796,26 @@ extern "C" int walk_segments_launch(const void* nxt, const void* starts,
     const cudaError_t err = cudaMemsetAsync(total, 0, 8, s);
     if (err != cudaSuccess) return (int)err;
   }
-  if (spine_pos != nullptr) return launch_walk<true, false>(a, s);
-  return (k & (k - 1)) == 0 ? launch_walk<false, true>(a, s)
-                            : launch_walk<false, false>(a, s);
+  switch (a.pack.layout) {
+    case kPackedPow2:
+      return launch_walk_spine<kPackedPow2>(a, s);
+    case kPackedAny:
+      return launch_walk_spine<kPackedAny>(a, s);
+    default:
+      return launch_walk_spine<kGlobal>(a, s);
+  }
 }
 
 // chunk: ids a thread stages per round, 8, 16 or 32.
 extern "C" int expand_segments_launch(const void* nxt, const void* starts,
                                       const void* posn, const void* rem,
                                       void* out, int64_t n, int64_t lanes,
-                                      int chunk, void* stream) {
+                                      int chunk, int n_shards, int seg_rows,
+                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ExpandArgs a;
+  if (!make_packing(n_shards, seg_rows, n, &a.pack))
+    return (int)cudaErrorInvalidValue;
   a.nxt = static_cast<const int32_t*>(nxt);
   a.starts = static_cast<const int32_t*>(starts);
   a.posn = static_cast<const int32_t*>(posn);
@@ -635,15 +823,13 @@ extern "C" int expand_segments_launch(const void* nxt, const void* starts,
   a.out = static_cast<long long*>(out);
   a.n = n;
   a.lanes = lanes;
-  switch (chunk) {
-    case 8:
-      return launch_expand<8>(a, s);
-    case 16:
-      return launch_expand<16>(a, s);
-    case 32:
-      return launch_expand<32>(a, s);
+  switch (a.pack.layout) {
+    case kPackedPow2:
+      return launch_expand_chunk<kPackedPow2>(a, chunk, s);
+    case kPackedAny:
+      return launch_expand_chunk<kPackedAny>(a, chunk, s);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch_expand_chunk<kGlobal>(a, chunk, s);
   }
 }
 
@@ -651,26 +837,53 @@ extern "C" int expand_segments_launch(const void* nxt, const void* starts,
 // `lanes`.  With walk (two zeroed device words, kept zero between launches
 // on one stream) and len_host (mapped pinned host memory) the walk's length
 // is stored at *len_host when the kernel ends; both null for no length.
+namespace {
+
+template <typename Id, int kLayout>
+void launch_gather(const void* nxt, const void* ids, void* out, int64_t n,
+                   int64_t lanes, int hops, WalkScratch* w, int* h,
+                   const Packing& p, cudaStream_t s) {
+  const int threads = 256;
+  gather_next_kernel<Id, kLayout><<<grid_for(lanes, threads), threads, 0, s>>>(
+      static_cast<const int32_t*>(nxt), static_cast<const Id*>(ids),
+      static_cast<int32_t*>(out), n, lanes, hops, w, h, p);
+}
+
+template <typename Id>
+void launch_gather_ids(const void* nxt, const void* ids, void* out, int64_t n,
+                       int64_t lanes, int hops, WalkScratch* w, int* h,
+                       const Packing& p, cudaStream_t s) {
+  switch (p.layout) {
+    case kPackedPow2:
+      return launch_gather<Id, kPackedPow2>(nxt, ids, out, n, lanes, hops, w,
+                                            h, p, s);
+    case kPackedAny:
+      return launch_gather<Id, kPackedAny>(nxt, ids, out, n, lanes, hops, w,
+                                           h, p, s);
+    default:
+      return launch_gather<Id, kGlobal>(nxt, ids, out, n, lanes, hops, w, h,
+                                        p, s);
+  }
+}
+
+}  // namespace
+
 extern "C" int gather_next_launch(const void* nxt, const void* ids,
                                   int id_bytes, void* out, int64_t n,
                                   int64_t lanes, int hops, void* walk,
-                                  void* len_host, void* stream) {
-  const int threads = 256;
+                                  void* len_host, int n_shards, int seg_rows,
+                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hops < 1 || (walk == nullptr) != (len_host == nullptr))
+  Packing p;
+  if (hops < 1 || (walk == nullptr) != (len_host == nullptr) ||
+      !make_packing(n_shards, seg_rows, n, &p) ||
+      (id_bytes != 8 && id_bytes != 4))
     return (int)cudaErrorInvalidValue;
   WalkScratch* w = static_cast<WalkScratch*>(walk);
   int* h = static_cast<int*>(len_host);
-  if (id_bytes == 8) {
-    gather_next_kernel<int64_t><<<grid_for(lanes, threads), threads, 0, s>>>(
-        static_cast<const int32_t*>(nxt), static_cast<const int64_t*>(ids),
-        static_cast<int32_t*>(out), n, lanes, hops, w, h);
-  } else if (id_bytes == 4) {
-    gather_next_kernel<int32_t><<<grid_for(lanes, threads), threads, 0, s>>>(
-        static_cast<const int32_t*>(nxt), static_cast<const int32_t*>(ids),
-        static_cast<int32_t*>(out), n, lanes, hops, w, h);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (id_bytes == 8)
+    launch_gather_ids<int64_t>(nxt, ids, out, n, lanes, hops, w, h, p, s);
+  else
+    launch_gather_ids<int32_t>(nxt, ids, out, n, lanes, hops, w, h, p, s);
   return (int)cudaGetLastError();
 }

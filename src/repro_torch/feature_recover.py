@@ -60,7 +60,8 @@ def requests(n_ops: int, keys_per_op: int, key_space: int, dim: int,
 def arena_fields(a) -> Dict:
     """The substrate fields the reference stamps on every bench row
     (``benchmarks/common.arena_fields``) for a single unpaged arena."""
-    return {"commit_mode": a.commit_mode, "n_shards": 1,
+    return {"commit_mode": a.commit_mode,
+            "n_shards": getattr(a, "n_shards", 1),
             "arena_bytes": int(sum(r.nbytes for r in a.regions.values())),
             "block_bytes": 0, "cache_blocks": 0, "peak_resident_bytes": 0,
             "integrity": bool(a.integrity),

@@ -7,7 +7,10 @@ either package with ``open_arena(path, layout)``.  For in-memory images,
 persistent bytes and its layout (the reference's ``Arena._mm`` and
 ``Arena._meta``), and ``image_of`` returns a port arena's bytes.  An
 image with integrity sidecars (``.integ`` regions) builds an arena with
-integrity on, whose sidecars land where the layout puts them.
+integrity on, whose sidecars land where the layout puts them.  A sharded
+arena moves by its files (``{path}.s{k}``, their ``.layout`` sidecars and
+``{path}.manifest``): either package opens the other's with
+``open_arena(path, layout, n_shards=N)``.
 
 A train state moves as numpy leaves: ``state_from_numpy`` carries a
 TrainState whose leaves are numpy arrays (the reference's, through
@@ -64,8 +67,14 @@ def arena_from_image(image: np.ndarray, layout: dict, device) -> Arena:
     return a
 
 
-def image_of(arena: Arena) -> np.ndarray:
-    """A copy of the arena's persistent bytes."""
+def image_of(arena) -> np.ndarray:
+    """A copy of the arena's persistent bytes: a sharded arena's are its
+    shards' images in shard order, then the manifest, the bytes of its
+    ``{path}.s{k}`` files and ``{path}.manifest``."""
+    if hasattr(arena, "shards"):
+        return np.concatenate([np.asarray(sh._mm, np.uint8)
+                               for sh in arena.shards]
+                              + [np.asarray(arena._man, np.uint8)])
     return np.array(arena._mm, np.uint8)
 
 

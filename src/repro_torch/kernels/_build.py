@@ -43,15 +43,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "pack_rows_grouped_launch": [_P, _INT, _P, _P, _P],
         "scatter_rows_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
     },
+    # the chain kernels' last arguments but the stream: the packed
+    # layout's n_shards (0: the global layout) and seg_rows
     "chain_order": {
         "jump_double_launch": [_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
-                               _P],
+                               _INT, _INT, _P],
         "walk_segments_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                  _I64, _INT, _INT, _INT, _INT, _INT, _INT,
-                                 _P],
-        "expand_segments_launch": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _P],
+                                 _INT, _INT, _P],
+        "expand_segments_launch": [_P, _P, _P, _P, _P, _I64, _I64, _INT,
+                                   _INT, _INT, _P],
         "gather_next_launch": [_P, _P, _INT, _P, _I64, _I64, _INT, _P, _P,
-                               _P],
+                               _INT, _INT, _P],
     },
     "quant_pack": {
         "quantize_blockwise_launch": [_P, _P, _P, _I64, _P],

@@ -23,6 +23,15 @@ or raise) and counts its launches:
   doubling hop budget; one hop is the link check that verifies an
   order-snapshot candidate.
 
+Sharded arenas (DESIGN.md §7): every kernel also takes the shard-major
+packed layout, ``segments=`` (the (n_shards + 1,) row offsets of each
+shard's span) and ``seg_rows=`` (the block-cyclic router's segment): a
+sharded region's NEXT column arrives as the shards' persistent views
+concatenated, while pointer values stay global ids.  Every array indexed
+by a node id is indexed through ``packed_positions``' closed form; ids,
+loaded values and outputs stay global.  Without ``segments`` the layout
+is global and the launches are the ones they were.
+
 ``csrc/chain_order.cu`` holds the Hopper kernels and their design notes.
 ``jump_double`` and ``gather_next`` also keep ``steps``, a histogram of
 the rounds or hops of their launches by launch size.  The driver pieces
@@ -34,8 +43,9 @@ host reference's exact semantics.
 from __future__ import annotations
 
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -45,7 +55,8 @@ NULL = -1
 __all__ = ["jump_double", "jump_double_plain", "walk_segments",
            "walk_segments_plain", "expand_segments", "expand_segments_plain",
            "gather_next", "gather_next_plain", "sanitize32", "chain_tables",
-           "contract_walk", "walk_positions", "MARK_STRIDE", "SegmentMarks"]
+           "contract_walk", "walk_positions", "packed_positions",
+           "router_segments", "MARK_STRIDE", "SegmentMarks"]
 
 
 # ----------------------------------------------------------------- checks
@@ -85,13 +96,96 @@ def _raise_on(rc: int, fn: str) -> None:
         raise RuntimeError(f"{fn}: kernel launch failed (CUDA error {rc})")
 
 
+# ---------------------------------------------------------- packed layout
+
+def packed_positions(ids, seg_rows: int, segments):
+    """Position of each global row id in a shard-major packed array (the
+    reference's closed form): ``segments[(id // B) % N] + (id // (B * N))
+    * B + id % B`` with B = ``seg_rows`` and N = ``len(segments) - 1``;
+    exact when the last block is partial, as a shard's earlier blocks are
+    full.  A negative id (NULL) maps to NULL.  ``ids`` a numpy array or a
+    torch tensor; the result is of its kind (int64)."""
+    n_shards = len(segments) - 1
+    if isinstance(ids, torch.Tensor):
+        ids = ids.long()
+        segs = segments.to(ids.device, torch.int64) \
+            if isinstance(segments, torch.Tensor) else torch.as_tensor(
+                np.asarray(segments, np.int64), device=ids.device)
+        base = segs[torch.clamp(ids // seg_rows % n_shards, min=0)]
+        local = ids // (seg_rows * n_shards) * seg_rows + ids % seg_rows
+        return torch.where(ids >= 0, base + local, NULL)
+    ids = np.asarray(ids, np.int64)
+    base = np.asarray(segments, np.int64)[
+        np.maximum(ids // seg_rows % n_shards, 0)]
+    local = ids // (seg_rows * n_shards) * seg_rows + ids % seg_rows
+    return np.where(ids >= 0, base + local, NULL)
+
+
+def router_segments(n: int, seg_rows: int, n_shards: int) -> List[int]:
+    """The offsets of a shard-major packing of n rows under the
+    ("seg", seg_rows) router: shard s holds s * R * B + min(s * B, T) rows
+    before it, with R = n // (B * N) full rounds and T the rows of the
+    partial one (a shard's earlier blocks are full)."""
+    full = n // (seg_rows * n_shards)
+    tail = n - full * seg_rows * n_shards
+    return [s * full * seg_rows + min(s * seg_rows, tail)
+            for s in range(n_shards + 1)]
+
+
+class _Packing(NamedTuple):
+    """A launch's packed layout: the offsets and the segment size."""
+    segments: Tuple[int, ...]
+    seg_rows: int
+
+    def at(self, ids: torch.Tensor) -> torch.Tensor:
+        """Array positions of in-range global ids (the plain versions)."""
+        return packed_positions(ids, self.seg_rows, self.segments)
+
+
+def _packing(segments, seg_rows: int, n: int, device: torch.device
+             ) -> Optional[_Packing]:
+    """Check and resolve ``segments=``/``seg_rows=`` for an n-row array;
+    None for the global layout.  The offsets must be the router's
+    partition of the n rows (``router_segments``): the one packing whose
+    positions are a bijection onto [0, n), and what the kernels compute
+    in closed form."""
+    if segments is None:
+        if seg_rows:
+            raise ValueError("seg_rows without segments")
+        return None
+    segs = tuple(int(x) for x in (segments.tolist()
+                                  if hasattr(segments, "tolist")
+                                  else segments))
+    if seg_rows < 1 or seg_rows * (len(segs) - 1) >= 2 ** 31:
+        raise ValueError(f"seg_rows must be >= 1 with segments, and a round "
+                         f"of segments below 2**31 rows, got {seg_rows}")
+    if len(segs) < 2 or list(segs) != router_segments(n, seg_rows,
+                                                      len(segs) - 1):
+        raise ValueError(f"segments must be the ('seg', {seg_rows}) "
+                         f"router's partition of the {n} rows, got "
+                         f"{list(segs)}")
+    return _Packing(segs, int(seg_rows))
+
+
+def _pack_args(pk: Optional[_Packing]):
+    """The C arguments of a packing: n_shards (0: global) and seg_rows."""
+    if pk is None:
+        return 0, 0
+    return len(pk.segments) - 1, pk.seg_rows
+
+
+def _at(pk: Optional[_Packing], ids: torch.Tensor) -> torch.Tensor:
+    return ids.long() if pk is None else pk.at(ids)
+
+
 # ------------------------------------------------------------ jump_double
 
-def _double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor]
+def _double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor],
+                  pk: Optional[_Packing] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     n = jump.shape[0]
     live = (jump >= 0) & (jump < n)
-    safe = torch.where(live, jump, 0).long()
+    safe = _at(pk, torch.where(live, jump, 0))
     nj = jump[safe]
     nj = torch.where(live & (nj >= 0) & (nj < n), nj, NULL).to(torch.int32)
     if cnt is None:
@@ -100,22 +194,25 @@ def _double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor]
 
 
 def jump_double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None,
-                      *, rounds: int = 1, keep: bool = False
+                      *, rounds: int = 1, keep: bool = False,
+                      segments=None, seg_rows: int = 0
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain version: ``rounds`` doubling rounds, one after another.
     ``jump`` int32 (n,), ``cnt`` int64 (n,) or None.  Values outside
     [0, n) are NULL on input and output.  Returns (jump, cnt) after the
     last round, or with ``keep`` (levels, cnt): the (rounds + 1, n) table
     of every level, level 0 the input."""
+    pk = _packing(segments, seg_rows, jump.shape[0], jump.device)
     levels = [jump]
     for _ in range(rounds):
-        jump, cnt = _double_plain(jump, cnt)
+        jump, cnt = _double_plain(jump, cnt, pk)
         levels.append(jump)
     return (torch.stack(levels) if keep else jump), cnt
 
 
 def jump_double(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None, *,
-                rounds: int = 1, keep: bool = False
+                rounds: int = 1, keep: bool = False, segments=None,
+                seg_rows: int = 0
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``rounds`` pointer-doubling rounds in one launch.  A round is
     ``jump'[i] = jump[jump[i]]`` and, when ``cnt`` is given,
@@ -124,7 +221,10 @@ def jump_double(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None, *,
     after the last round; with ``keep``, (levels, cnt) where levels is
     the int32 (rounds + 1, n) table, level s after s rounds (level 0 the
     input).  On the card the rounds run in one cooperative launch; a
-    launch the card refuses raises."""
+    launch the card refuses raises.  With ``segments``/``seg_rows`` the
+    arrays are shard-major packed: ``jump[jump[i]]`` reads the packed
+    position of the global id ``jump[i]``, and the levels hold global ids
+    at packed positions."""
     _vec("jump", jump, torch.int32, jump.device)
     if cnt is not None:
         _vec("cnt", cnt, torch.int64, jump.device)
@@ -132,8 +232,10 @@ def jump_double(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None, *,
             raise ValueError("jump_double: jump and cnt differ in shape")
     if rounds < 1:
         raise ValueError(f"jump_double: rounds must be >= 1, got {rounds}")
+    pk = _packing(segments, seg_rows, jump.shape[0], jump.device)
     if not _cuda(jump, "jump_double"):
-        return jump_double_plain(jump, cnt, rounds=rounds, keep=keep)
+        return jump_double_plain(jump, cnt, rounds=rounds, keep=keep,
+                                 segments=segments, seg_rows=seg_rows)
     n = jump.shape[0]
     if keep:
         jout = torch.empty((rounds + 1, n), dtype=torch.int32,
@@ -152,7 +254,8 @@ def jump_double(jump: torch.Tensor, cnt: Optional[torch.Tensor] = None, *,
     with torch.cuda.device(jump.device):
         rc = lib.jump_double_launch(
             jump.data_ptr(), _ptr(cnt), jout.data_ptr(), _ptr(jtmp),
-            _ptr(cout), _ptr(ctmp), n, rounds, int(keep), _stream(jump))
+            _ptr(cout), _ptr(ctmp), n, rounds, int(keep), *_pack_args(pk),
+            _stream(jump))
     _raise_on(rc, "jump_double")
     _build.note_launch(jump_double, n, steps=rounds)
     return jout, cout
@@ -199,11 +302,13 @@ def walk_segments_plain(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
                         head: int, n_mult: int, promoted: bool,
                         budget: int,
                         spine_pos: Optional[torch.Tensor] = None,
-                        marks: Optional[int] = None):
+                        marks: Optional[int] = None, segments=None,
+                        seg_rows: int = 0):
     """Plain version of the fused local walk: every lane advances one hop
     per step, freezing when it reaches a spine node or the chain end; the
     checkpoints are recorded hop by hop, lane by lane."""
     n = nxt.shape[0]
+    pk = _packing(segments, seg_rows, n, nxt.device)
     cur = starts.clone()
     w = torch.zeros_like(starts)
     sp = torch.full_like(starts, NULL)
@@ -214,7 +319,7 @@ def walk_segments_plain(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
         if not bool(live.any()):
             break
         inr = (cur >= 0) & (cur < n)
-        nv = torch.where(inr, nxt[torch.where(inr, cur, 0).long()], NULL)
+        nv = torch.where(inr, nxt[_at(pk, torch.where(inr, cur, 0))], NULL)
         nv = torch.where((nv >= 0) & (nv < n), nv, NULL)
         cur = torch.where(live, nv, cur)
         w = torch.where(live, w + 1, w)
@@ -242,7 +347,8 @@ def walk_segments_plain(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
 def walk_segments(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
                   head: int, n_mult: int, promoted: bool, budget: int,
                   spine_pos: Optional[torch.Tensor] = None,
-                  marks: Optional[int] = None):
+                  marks: Optional[int] = None, segments=None,
+                  seg_rows: int = 0):
     """Walk every lane's segment toward its next spine node, up to
     ``budget`` hops.  Spine nodes are ``id % k == 0`` (spine index
     ``id // k``) plus, when ``promoted``, ``head`` (index ``n_mult``) — or,
@@ -255,7 +361,9 @@ def walk_segments(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
     ``(cur, sp, w, (rec, total))``: for every hop t that is a multiple of
     MARK_STRIDE and after which the lane walks on (t < its w), the record
     (lane, t, node at hop t), as int32 (3, marks) ``rec`` and the int64
-    (1,) ``total`` of records made (see ``SegmentMarks``)."""
+    (1,) ``total`` of records made (see ``SegmentMarks``).  With
+    ``segments``/``seg_rows``, ``nxt`` is shard-major packed; ``starts``,
+    the ids walked, spine tests and records stay global."""
     dev = nxt.device
     _vec("nxt", nxt, torch.int32, dev)
     _vec("starts", starts, torch.int32, dev)
@@ -263,11 +371,13 @@ def walk_segments(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
         _vec("spine_pos", spine_pos, torch.int32, dev)
     if marks is not None and marks < 0:
         raise ValueError(f"walk_segments: marks must be >= 0, got {marks}")
+    pk = _packing(segments, seg_rows, nxt.shape[0], dev)
     if not _cuda(nxt, "walk_segments"):
         return walk_segments_plain(nxt, starts, k=k, head=head,
                                    n_mult=n_mult, promoted=promoted,
                                    budget=budget, spine_pos=spine_pos,
-                                   marks=marks)
+                                   marks=marks, segments=segments,
+                                   seg_rows=seg_rows)
     lanes = starts.shape[0]
     cur, sp, w = torch.empty((3, lanes), dtype=torch.int32, device=dev)
     rec = total = None
@@ -284,7 +394,7 @@ def walk_segments(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
                 cur.data_ptr(), sp.data_ptr(), w.data_ptr(), _ptr(rec),
                 _ptr(total), nxt.shape[0], lanes, marks or 0, int(k),
                 int(head), int(n_mult), int(promoted), int(budget),
-                MARK_STRIDE, _stream(nxt))
+                MARK_STRIDE, *_pack_args(pk), _stream(nxt))
         _raise_on(rc, "walk_segments")
         _build.note_launch(walk_segments, lanes)
     if marks is None:
@@ -300,10 +410,12 @@ walk_segments.sizes = {}
 
 def expand_segments_plain(nxt: torch.Tensor, starts: torch.Tensor,
                           posn: torch.Tensor, rem: torch.Tensor,
-                          count: int) -> torch.Tensor:
+                          count: int, *, segments=None,
+                          seg_rows: int = 0) -> torch.Tensor:
     """Plain version of the expand: all lanes advance together, each
     retiring when its run is written."""
     n = nxt.shape[0]
+    pk = _packing(segments, seg_rows, n, nxt.device)
     out = torch.empty(count, dtype=torch.int64, device=nxt.device)
     keep = rem > 0
     cur, p, r = starts[keep].long(), posn[keep].long(), rem[keep].long()
@@ -313,7 +425,8 @@ def expand_segments_plain(nxt: torch.Tensor, starts: torch.Tensor,
         kp = r > 0
         cur = cur[kp]
         inr = (cur >= 0) & (cur < n)
-        cur = torch.where(inr, nxt[torch.where(inr, cur, 0)].long(), NULL)
+        cur = torch.where(inr, nxt[_at(pk, torch.where(inr, cur, 0))].long(),
+                          NULL)
         cur = torch.where((cur >= 0) & (cur < n), cur, NULL)
         p, r = p[kp] + 1, r[kp]
     return out
@@ -321,20 +434,25 @@ def expand_segments_plain(nxt: torch.Tensor, starts: torch.Tensor,
 
 def expand_segments(nxt: torch.Tensor, starts: torch.Tensor,
                     posn: torch.Tensor, rem: torch.Tensor,
-                    count: int) -> torch.Tensor:
+                    count: int, *, segments=None,
+                    seg_rows: int = 0) -> torch.Tensor:
     """Lane i walks ``rem[i]`` hops from ``starts[i]`` and writes each
     visited id at ``out[posn[i] + t]``; returns the int64 (count,) order.
     A lane with ``rem[i] <= 0`` writes nothing.  The runs must tile
     [0, count) (the driver guarantees it); the driver's runs are at most
-    MARK_STRIDE long, though any length is computed."""
+    MARK_STRIDE long, though any length is computed.  With
+    ``segments``/``seg_rows``, ``nxt`` is shard-major packed; the ids
+    walked and written stay global."""
     dev = nxt.device
     for name, t in (("nxt", nxt), ("starts", starts), ("posn", posn),
                     ("rem", rem)):
         _vec(name, t, torch.int32, dev)
     if not (starts.shape == posn.shape == rem.shape):
         raise ValueError("expand_segments: starts, posn and rem differ")
+    pk = _packing(segments, seg_rows, nxt.shape[0], dev)
     if not _cuda(nxt, "expand_segments"):
-        return expand_segments_plain(nxt, starts, posn, rem, count)
+        return expand_segments_plain(nxt, starts, posn, rem, count,
+                                     segments=segments, seg_rows=seg_rows)
     out = torch.empty(count, dtype=torch.int64, device=dev)
     lanes = starts.shape[0]
     if lanes == 0 or count == 0:
@@ -344,7 +462,7 @@ def expand_segments(nxt: torch.Tensor, starts: torch.Tensor,
         rc = lib.expand_segments_launch(
             nxt.data_ptr(), starts.data_ptr(), posn.data_ptr(),
             rem.data_ptr(), out.data_ptr(), nxt.shape[0], lanes,
-            MARK_STRIDE, _stream(nxt))
+            MARK_STRIDE, *_pack_args(pk), _stream(nxt))
     _raise_on(rc, "expand_segments")
     _build.note_launch(expand_segments, lanes)
     return out
@@ -366,26 +484,28 @@ def _check_ids(ids: torch.Tensor, device: torch.device) -> None:
         raise ValueError("ids must be contiguous")
 
 
-def _hop_plain(nxt: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def _hop_plain(nxt: torch.Tensor, ids: torch.Tensor,
+               pk: Optional[_Packing] = None) -> torch.Tensor:
     n = nxt.shape[0]
     ok = (ids >= 0) & (ids < n)
     if n == 0:
         return torch.full(ids.shape, NULL, dtype=torch.int32,
                           device=ids.device)
-    got = nxt[torch.where(ok, ids, 0).long()]
+    got = nxt[_at(pk, torch.where(ok, ids, 0))]
     return torch.where(ok, got, NULL).to(torch.int32)
 
 
 def gather_next_plain(nxt: torch.Tensor, ids: torch.Tensor, *,
-                      hops: int = 1):
+                      hops: int = 1, segments=None, seg_rows: int = 0):
     """Plain version: ``hops`` applications of one chain hop per lane
     (``nxt[ids[i]]`` for ids in [0, n), else NULL).  One hop returns int32
     (L,); more return (walk, length) as ``gather_next`` does."""
+    pk = _packing(segments, seg_rows, nxt.shape[0], nxt.device)
     if hops == 1:
-        return _hop_plain(nxt, ids)
+        return _hop_plain(nxt, ids, pk)
     cols = [ids]
     for _ in range(hops):
-        cols.append(_hop_plain(nxt, cols[-1]))
+        cols.append(_hop_plain(nxt, cols[-1], pk))
     walk = torch.stack(cols[1:])
     return walk, _walk_length(cols, nxt.shape[0])
 
@@ -410,18 +530,19 @@ def gather_next(nxt: torch.Tensor, ids: torch.Tensor, *, hops: int = 1,
     ``length`` the number of leading columns of the walk (``ids`` first,
     then its h rows) that hold an id in [0, n) in some lane: the walk went
     on past its last row iff ``length == h + 1``.  On the card the length
-    is reduced there and read after one stream synchronize.  The
-    shard-major ``segments``/``seg_rows`` layout waits for sharding."""
-    if segments is not None or seg_rows:
-        from repro_torch.core.arena import not_ported
-        raise not_ported("sharding")
+    is reduced there and read after one stream synchronize.  With
+    ``segments``/``seg_rows``, ``nxt`` is shard-major packed: a hop reads
+    the packed position of the global id, and ids and the values returned
+    stay global."""
     dev = nxt.device
     _vec("nxt", nxt, torch.int32, dev)
     _check_ids(ids, dev)
     if hops < 1:
         raise ValueError(f"gather_next: hops must be >= 1, got {hops}")
+    pk = _packing(segments, seg_rows, nxt.shape[0], dev)
     if not _cuda(nxt, "gather_next"):
-        return gather_next_plain(nxt, ids, hops=hops)
+        return gather_next_plain(nxt, ids, hops=hops, segments=segments,
+                                 seg_rows=seg_rows)
     lanes = ids.shape[0]
     out = torch.empty((hops, lanes) if hops > 1 else (lanes,),
                       dtype=torch.int32, device=dev)
@@ -436,7 +557,8 @@ def gather_next(nxt: torch.Tensor, ids: torch.Tensor, *, hops: int = 1,
         rc = lib.gather_next_launch(nxt.data_ptr(), ids.data_ptr(),
                                     ids.element_size(), out.data_ptr(),
                                     nxt.shape[0], lanes, hops, _ptr(walk),
-                                    _ptr(length), stream.cuda_stream)
+                                    _ptr(length), *_pack_args(pk),
+                                    stream.cuda_stream)
         _raise_on(rc, "gather_next")
         _build.note_launch(gather_next, lanes, steps=hops)
         if hops == 1:
@@ -485,22 +607,26 @@ def sanitize32(nxt: torch.Tensor) -> torch.Tensor:
 
 
 def chain_tables(jump0: torch.Tensor, bits: int,
-                 cnt: Optional[torch.Tensor] = None
+                 cnt: Optional[torch.Tensor] = None, *, segments=None,
+                 seg_rows: int = 0
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Binary-lifting tables from one ``jump_double`` launch: the int32
     (bits, n) ``tables[b][i]`` is the node 2**b hops after i
     (NULL-absorbing), b < bits.  With ``cnt`` (int64 node weights) the
     launch runs one more round, whose level is dropped, so the returned
     counts are the weights summed over min(2**bits, chain length)
-    nodes."""
+    nodes.  With ``segments``/``seg_rows`` the tables are packed: global
+    ids at packed positions."""
     rounds = bits - 1 + (cnt is not None)
     if rounds == 0:
         return jump0[None], cnt
-    levels, cnt = jump_double(jump0, cnt, rounds=rounds, keep=True)
+    levels, cnt = jump_double(jump0, cnt, rounds=rounds, keep=True,
+                              segments=segments, seg_rows=seg_rows)
     return levels[:bits], cnt
 
 
-def walk_positions(tables: torch.Tensor, start: int, count: int
+def walk_positions(tables: torch.Tensor, start: int, count: int, *,
+                   segments=None, seg_rows: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Node at each position 0..count-1 of the chain from ``start``, read
     off the tables bit by bit: level b moves every position whose bit b
@@ -508,10 +634,17 @@ def walk_positions(tables: torch.Tensor, start: int, count: int
     the chain end (absorbed into NULL).  The levels used are copied once
     with NULL as an extra id that maps to itself, and the bits of all
     positions are taken in one pass, so a level costs two torch ops: on
-    the card the host's calls, not the gathers, set the time."""
+    the card the host's calls, not the gathers, set the time.  Packed
+    tables (``segments``/``seg_rows``: global ids at packed positions) are
+    first gathered back into global order, the levels used in one
+    gather."""
     dev = tables.device
     bits = min(tables.shape[0], int(count - 1).bit_length())
     n = tables.shape[1]
+    pk = _packing(segments, seg_rows, n, dev)
+    if pk is not None:
+        # the levels used, back in global order: one gather
+        tables = tables[:bits][:, pk.at(torch.arange(n, device=dev))]
     levels = torch.cat([torch.where(tables[:bits] < 0, n, tables[:bits]),
                         torch.full((bits, 1), n, dtype=tables.dtype,
                                    device=dev)], 1)
@@ -526,7 +659,8 @@ def walk_positions(tables: torch.Tensor, start: int, count: int
 
 def contract_walk(nxt32: torch.Tensor, spine: torch.Tensor, *, k: int,
                   head: int, n_mult: int, promoted: bool,
-                  spine_pos: Optional[torch.Tensor] = None
+                  spine_pos: Optional[torch.Tensor] = None,
+                  segments=None, seg_rows: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor, SegmentMarks]:
     """The contraction local walk in ONE ``walk_segments`` launch: every
     segment walks to its next spine node or the chain end, with a budget
@@ -538,12 +672,15 @@ def contract_walk(nxt32: torch.Tensor, spine: torch.Tensor, *, k: int,
     (cnext, w, marks): the contracted next pointer (spine-index space,
     NULL-terminated), the segment weights (nodes per segment) and the
     walk's checkpoints, in a buffer that a chain whose nodes have one
-    predecessor each cannot overflow (``csrc/chain_order.cu``)."""
+    predecessor each cannot overflow (``csrc/chain_order.cu``).  A packed
+    ``nxt32`` (``segments``/``seg_rows``) is walked in place."""
     n = nxt32.shape[0]
     b = max(2 * k, 64)
     walk = dict(nxt=nxt32, k=k, head=head, n_mult=n_mult,
                 promoted=promoted, budget=b * -(-(n + 1) // b),
                 spine_pos=spine_pos)
+    if segments is not None:
+        walk.update(segments=segments, seg_rows=seg_rows)
     capacity = -(-n // MARK_STRIDE) + spine.shape[0]
     cur, sp, wd, (rec, total) = walk_segments(
         starts=spine.to(torch.int32), marks=capacity, **walk)

@@ -54,6 +54,12 @@ SPLIT_FILL = ORDER // 2        # 9..10 keys per split target
 NULL = -1
 VALUE_WORDS = 7
 
+# Sharded-arena routing (DESIGN.md §7): node rows route by leaf range,
+# block-cyclic runs of 16 node ids (sequentially allocated leaves land in
+# runs), records in 64-row ranges.
+LEAF_RANGE = 16
+REC_RANGE = 64
+
 H_FLAG, H_ROOT, H_FIRST_LEAF, H_COUNT, H_FRESH_NODES, H_FRESH_RECS = range(6)
 
 C_NK, C_LEAF = 0, 1
@@ -156,9 +162,11 @@ class BPTree:
         self.cap_records = cap_records
         self.chain_method = chain_method
         self.nodes = arena.regions.get(f"{name}.nodes") or arena.region(
-            f"{name}.nodes", np.int32, (cap_nodes, 64))
+            f"{name}.nodes", np.int32, (cap_nodes, 64),
+            router=("seg", LEAF_RANGE))
         self.records = arena.regions.get(f"{name}.records") or arena.region(
-            f"{name}.records", np.int64, (cap_records, 8))
+            f"{name}.records", np.int64, (cap_records, 8),
+            router=("seg", REC_RANGE))
         self.header = arena.regions.get(f"{name}.header") or arena.region(
             f"{name}.header", np.int64, (1, 8))
         self._free_nodes: List[int] = []
@@ -174,8 +182,10 @@ class BPTree:
     @staticmethod
     def layout(cap_nodes: int, cap_records: int, mode: str = "partly",
                name: str = "bt"):
-        return {f"{name}.nodes": (np.int32, (cap_nodes, 64)),
-                f"{name}.records": (np.int64, (cap_records, 8)),
+        return {f"{name}.nodes": (np.int32, (cap_nodes, 64),
+                                  ("seg", LEAF_RANGE)),
+                f"{name}.records": (np.int64, (cap_records, 8),
+                                    ("seg", REC_RANGE)),
                 f"{name}.header": (np.int64, (1, 8))}
 
     def _begin(self) -> Tuple[np.ndarray, _Stage]:

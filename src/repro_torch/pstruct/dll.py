@@ -60,6 +60,11 @@ from repro_torch.core.writeset import host_rows
 NULL = -1
 DATA_WORDS = 7
 
+# Sharded-arena routing (DESIGN.md §7): node rows stripe block-cyclically in
+# segments of 64, so a batch's flush fans out across the shard files while
+# rows within a segment still coalesce lines.
+SHARD_SEG = 64
+
 # header slots
 H_FLAG, H_HEAD, H_COUNT, H_TAIL, H_FREE_HEAD, H_FRESH = range(6)
 
@@ -78,7 +83,8 @@ class DoublyLinkedList:
         self.arena = arena
         row = 8 if mode == "partly" else 16
         self.nodes = arena.regions.get(f"{name}.nodes") or arena.region(
-            f"{name}.nodes", np.int64, (capacity, row))
+            f"{name}.nodes", np.int64, (capacity, row),
+            router=("seg", SHARD_SEG))
         self.header = arena.regions.get(f"{name}.header") or arena.region(
             f"{name}.header", np.int64, (1, 8))
         dev = arena.device
@@ -96,7 +102,8 @@ class DoublyLinkedList:
         self.snaprec = arena.regions.get(f"{name}.snaprec")
         if snap_on and self.snapring is None and not arena._layout_final:
             self.snapring = arena.region(f"{name}.snapring", np.int64,
-                                         (capacity * 2,))
+                                         (capacity * 2,),
+                                         router=("seg", SHARD_SEG))
             self.snaprec = arena.region(f"{name}.snaprec", np.int64,
                                         (SNAP_SLOTS, SNAP_WORDS))
         self.snapshot = snap_on and self.snapring is not None
@@ -112,10 +119,12 @@ class DoublyLinkedList:
     def layout(capacity: int, mode: str = "partly", name: str = "dll",
                snapshot: Optional[bool] = None):
         row = 8 if mode == "partly" else 16
-        out = {f"{name}.nodes": (np.int64, (capacity, row)),
+        out = {f"{name}.nodes": (np.int64, (capacity, row),
+                                 ("seg", SHARD_SEG)),
                f"{name}.header": (np.int64, (1, 8))}
         if snapshot_enabled(snapshot):
-            out[f"{name}.snapring"] = (np.int64, (capacity * 2,))
+            out[f"{name}.snapring"] = (np.int64, (capacity * 2,),
+                                       ("seg", SHARD_SEG))
             out[f"{name}.snaprec"] = (np.int64, (SNAP_SLOTS, SNAP_WORDS))
         return out
 

@@ -105,7 +105,7 @@ class Hashmap:
         self.arena = arena
         row = 8 if mode == "partly" else 16
         self.entries = arena.regions.get(f"{name}.entries") or arena.region(
-            f"{name}.entries", np.int64, (capacity, row))
+            f"{name}.entries", np.int64, (capacity, row), router=("hash",))
         self.header = arena.regions.get(f"{name}.header") or arena.region(
             f"{name}.header", np.int64, (1, 8))
         n_max = _next_pow2(max(16, int(capacity / load_factor)))
@@ -114,7 +114,8 @@ class Hashmap:
         self._pbuckets = None
         if mode == "full":
             self._pbuckets = arena.regions.get(f"{name}.buckets") or \
-                arena.region(f"{name}.buckets", np.int64, (n_max, 1))
+                arena.region(f"{name}.buckets", np.int64, (n_max, 1),
+                             router=("seg", 64))
         dev = arena.device
         self.n_buckets = n_max
         self.buckets = torch.full((self.n_buckets,), NULL,
@@ -132,9 +133,10 @@ class Hashmap:
         self.snapchain = arena.regions.get(f"{name}.snapchain")
         self.snaprec = arena.regions.get(f"{name}.snaprec")
         if snap_on and self.snapbkt is None and not arena._layout_final:
-            self.snapbkt = arena.region(f"{name}.snapbkt", np.int64, (n_max,))
+            self.snapbkt = arena.region(f"{name}.snapbkt", np.int64,
+                                        (n_max,), router=("seg", 64))
             self.snapchain = arena.region(f"{name}.snapchain", np.int64,
-                                          (capacity,))
+                                          (capacity,), router=("hash",))
             self.snaprec = arena.region(f"{name}.snaprec", np.int64,
                                         (SNAP_SLOTS, SNAP_WORDS))
         self.snapshot = snap_on and self.snapbkt is not None
@@ -152,14 +154,14 @@ class Hashmap:
     def layout(capacity: int, mode: str = "partly", name: str = "hm",
                load_factor: float = 0.75, snapshot: Optional[bool] = None):
         row = 8 if mode == "partly" else 16
-        out = {f"{name}.entries": (np.int64, (capacity, row)),
+        out = {f"{name}.entries": (np.int64, (capacity, row), ("hash",)),
                f"{name}.header": (np.int64, (1, 8))}
         n_max = _next_pow2(max(16, int(capacity / load_factor)))
         if mode == "full":
-            out[f"{name}.buckets"] = (np.int64, (n_max, 1))
+            out[f"{name}.buckets"] = (np.int64, (n_max, 1), ("seg", 64))
         if snapshot_enabled(snapshot):
-            out[f"{name}.snapbkt"] = (np.int64, (n_max,))
-            out[f"{name}.snapchain"] = (np.int64, (capacity,))
+            out[f"{name}.snapbkt"] = (np.int64, (n_max,), ("seg", 64))
+            out[f"{name}.snapchain"] = (np.int64, (capacity,), ("hash",))
             out[f"{name}.snaprec"] = (np.int64, (SNAP_SLOTS, SNAP_WORDS))
         return out
 

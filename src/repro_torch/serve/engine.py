@@ -44,10 +44,13 @@ Admission refuses a quarantined rid with ``QuarantinedError`` until
 ``readmit``.
 
 The engine runs on the card unless the caller passes ``device="cpu"``;
-its parameters must live there.  Not ported (raise
-``NotImplementedError``): ``n_shards > 1``, ``commit_mode="shadow"`` and
-paging (``paged=True``, or ``None`` under ``REPRO_PAGED=1``), as the
-port's arena.
+its parameters must live there.  ``n_shards > 1`` puts the engine's
+arena and its page pool's arena on sharded arenas (barrier commit): the
+token log stripes slot-per-shard, and re-prefill groups by (token-log
+shard, prompt length), which at one shard is the per-length grouping.  Not
+ported (raise ``NotImplementedError``, see ROADMAP Queue 1):
+``commit_mode="shadow"`` and paging (``paged=True``, or ``None`` under
+``REPRO_PAGED=1``), as the port's arena.
 """
 from __future__ import annotations
 
@@ -117,7 +120,10 @@ class ServingEngine:
         self.cfg = cfg
         layout = dict(Hashmap.layout(cfg.max_requests, cfg.mode, name="req",
                                      snapshot=cfg.snapshot))
-        layout["tokens"] = (np.int32, (cfg.max_batch, cfg.s_max))
+        # token-log rows stripe slot-per-shard: re-prefill after a crash
+        # reads each slot's prompt from its own shard file
+        layout["tokens"] = (np.int32, (cfg.max_batch, cfg.s_max),
+                            ("seg", 1))
         # journal ring appended LAST: journal-off layouts keep every
         # shared region at its offset
         jr_cap = 4 * cfg.max_requests

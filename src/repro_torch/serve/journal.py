@@ -90,7 +90,8 @@ class RequestJournal:
         self.capacity = int(capacity)
         self.name = name
         self.ring = arena.regions.get(f"{name}.jrnl") or arena.region(
-            f"{name}.jrnl", np.int64, (self.capacity, JR_WORDS))
+            f"{name}.jrnl", np.int64, (self.capacity, JR_WORDS),
+            router=("seg", 8))
         if header is None:
             header = arena.regions.get(f"{name}.jrnlheader") or arena.region(
                 f"{name}.jrnlheader", np.int64, (1, 8))
@@ -110,7 +111,8 @@ class RequestJournal:
         """Arena layout fragment.  Hosted journals (header piggyback) need
         only the ring; ``standalone=True`` adds the dedicated header
         line."""
-        out = {f"{name}.jrnl": (np.int64, (int(capacity), JR_WORDS))}
+        out = {f"{name}.jrnl": (np.int64, (int(capacity), JR_WORDS),
+                                ("seg", 8))}
         if standalone:
             out[f"{name}.jrnlheader"] = (np.int64, (1, 8))
         return out

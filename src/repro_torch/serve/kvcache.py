@@ -49,7 +49,11 @@ class PagedConfig:
 
 class PagedAllocator:
     """LRU page pool.  Data row of the DLL node = (page_id, owner_request,
-    first_token, n_tokens, 0, 0, 0)."""
+    first_token, n_tokens, 0, 0, 0).
+
+    With ``n_shards > 1`` the LRU's node slab stripes across the arena's
+    shards (the DLL's segment router), so the page-metadata flushes of an
+    allocation burst fan out over the shard files (DESIGN.md §7)."""
 
     def __init__(self, cfg: PagedConfig, path: Optional[str] = None,
                  device=None):

@@ -224,9 +224,13 @@ def test_device_and_feature_axes():
     assert port._meta == ref._meta
     assert any(n.endswith(".integ") for n in port.regions)
     assert np.array_equal(np.asarray(port._mm), np.asarray(ref._mm))
-    with pytest.raises(NotImplementedError, match="sharding"):
+    # sharding is ported (barrier commit); shadow commit on a sharded arena
+    # is not
+    assert TA.open_arena(None, LAYOUT, n_shards=2, device="cpu",
+                         integrity=False).n_shards == 2
+    with pytest.raises(NotImplementedError, match="shadow"):
         TA.open_arena(None, LAYOUT, n_shards=2, device="cpu",
-                      integrity=False)
+                      integrity=False, commit_mode="shadow")
 
 
 def test_paged_none_resolves_like_reference(monkeypatch):
@@ -251,3 +255,8 @@ def test_not_ported_names_the_queue_only():
     msg = str(TA.not_ported("x"))
     assert "x" in msg and "ROADMAP Queue 1" in msg
     assert "Slice A" not in msg and "item" not in msg
+    with pytest.raises(NotImplementedError) as err:
+        TA.ShardedArena(None, n_shards=4, commit_mode="shadow",
+                        device="cpu")
+    msg = str(err.value)
+    assert "shadow" in msg and "ROADMAP Queue 1" in msg and "item" not in msg

@@ -193,8 +193,8 @@ def test_store_quarantine_gate():
 
 
 def test_store_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TStore(TConfig(n_shards=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="shadow"):
+        TStore(TConfig(n_shards=2, commit_mode="shadow"), device="cpu")
     with pytest.raises(NotImplementedError, match="shadow"):
         TStore(TConfig(commit_mode="shadow"), device="cpu")
     fs = TStore(TConfig(), device="cpu")

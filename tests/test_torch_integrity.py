@@ -144,6 +144,11 @@ def _scrub(a):
 
 
 def _image(a):
+    """Every persistent byte: a plain arena's image, or each shard's image
+    and the manifest of a sharded one."""
+    if hasattr(a, "shards"):
+        return b"".join([bytes(np.asarray(sh._mm)) for sh in a.shards]
+                        + [bytes(np.asarray(a._man))])
     return bytes(np.asarray(a._mm))
 
 
@@ -288,10 +293,24 @@ def test_sidecar_volatile_copy_tracks_each_drain():
                                     ("hm.entries", 3, None),
                                     ("bt.records", 4, None)])
 def test_scrub_names_flip_and_stuck_line(tmp_path, target):
+    _scrub_names(tmp_path, target, n_shards=1)
+
+
+@pytest.mark.parametrize("target", [("dll.nodes", 2, "order"),
+                                    ("bt.nodes", 0, "leaves"),
+                                    ("hm.entries", 3, None),
+                                    ("bt.records", 4, None)])
+def test_scrub_names_flip_and_stuck_line_sharded(tmp_path, target):
+    """The ("barrier", 4) cell: a row's fault lands in its own shard."""
+    _scrub_names(tmp_path, target, n_shards=4)
+
+
+def _scrub_names(tmp_path, target, n_shards):
     reg, idx, how = target
     out = {}
     for pkg in PKG:
-        a, d, t, h = _mixed(pkg, str(tmp_path / f"{pkg}.pm"))
+        a, d, t, h = _mixed(pkg, str(tmp_path / f"{pkg}.pm"),
+                            n_shards=n_shards)
         _run(a, d, t, h, _script(12, seed=1))
         row = idx if how is None else int(_host(
             d.order() if how == "order" else t.leaves())[idx])
@@ -316,7 +335,15 @@ def test_scrub_names_flip_and_stuck_line(tmp_path, target):
 def test_scrub_under_traffic_no_false_positives(tmp_path):
     """Data and sidecar move in the same flush phase, so a scrub between
     any two commits, and after a crash, comes back clean."""
-    a, d, t, h = _mixed("port", str(tmp_path / "a.pm"))
+    _scrub_under_traffic(tmp_path, n_shards=1)
+
+
+def test_scrub_under_traffic_no_false_positives_sharded(tmp_path):
+    _scrub_under_traffic(tmp_path, n_shards=4)
+
+
+def _scrub_under_traffic(tmp_path, n_shards):
+    a, d, t, h = _mixed("port", str(tmp_path / "a.pm"), n_shards=n_shards)
     for i, op in enumerate(_script(10, seed=4)):
         with a.epoch():
             _apply(d, t, h, op)
@@ -354,6 +381,16 @@ def test_corruption_crash_double_failure(tmp_path, torn, boundary):
     """A crash (power loss or torn data phase) composed with a one-byte
     fault: the port must be detected-or-harmless as the reference is, and
     give the reference's reports and state for every target."""
+    _double_failure(tmp_path, torn, boundary, n_shards=1)
+
+
+@pytest.mark.parametrize("torn", [False, True])
+@pytest.mark.parametrize("boundary", [3, 7])
+def test_corruption_crash_double_failure_sharded(tmp_path, torn, boundary):
+    _double_failure(tmp_path, torn, boundary, n_shards=4)
+
+
+def _double_failure(tmp_path, torn, boundary, n_shards):
     ops = _script(8, seed=6)
     stage_of = {"dll.nodes": "dll", "bt.nodes": "bt", "hm.entries": "hm"}
 
@@ -370,7 +407,8 @@ def test_corruption_crash_double_failure(tmp_path, torn, boundary):
 
     twin = {}
     for pkg in PKG:
-        a, d, t, h = _mixed(pkg, str(tmp_path / f"tw{pkg}.pm"))
+        a, d, t, h = _mixed(pkg, str(tmp_path / f"tw{pkg}.pm"),
+                            n_shards=n_shards)
         crash(a, d, t, h)
         _manager(pkg, a, d, t, h).recover()
         twin[pkg] = _fingerprint(d, t, h)
@@ -378,7 +416,8 @@ def test_corruption_crash_double_failure(tmp_path, torn, boundary):
     for j, (reg, row) in enumerate(TARGETS):
         got = {}
         for pkg in PKG:
-            b, d2, t2, h2 = _mixed(pkg, str(tmp_path / f"b{pkg}{j}.pm"))
+            b, d2, t2, h2 = _mixed(pkg, str(tmp_path / f"b{pkg}{j}.pm"),
+                                   n_shards=n_shards)
             crash(b, d2, t2, h2)
             PKG[pkg][1].flip_bits(b, b.regions[reg], row, byte=3, mask=0x80)
             rep = _manager(pkg, b, d2, t2, h2).recover(salvage=True)
@@ -437,8 +476,47 @@ def test_manifest_error_on_corrupt_header(tmp_path, salvage):
         assert not getattr(a, "_salvage", False)
         for cls in (A.ManifestError, A.CorruptLineError, A.ShardLossError):
             assert issubclass(cls, A.IntegrityError)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TF.corrupt_manifest(a)
+    with pytest.raises(ValueError, match="sharded"):
+        TF.corrupt_manifest(a)        # a plain arena has no manifest
+
+
+def test_shard_loss_errors(tmp_path):
+    """A four-shard arena: a truncated or removed shard file raises
+    ShardLossError from the manifest's check, in both packages."""
+    for pkg, (A, F, *_) in PKG.items():
+        path = str(tmp_path / f"{pkg}.pm")
+        a, d, t, h = _mixed(pkg, path, n_shards=4)
+        _run(a, d, t, h, _script(8, seed=7))
+        a.close()
+        kw = {"device": "cpu"} if pkg == "port" else {}
+        assert F.truncate_shard(path, shard=2, nbytes=64) == path + ".s2"
+        with pytest.raises(A.ShardLossError):
+            A.open_arena(path, _layout(pkg), n_shards=4, **kw)
+        assert F.remove_shard(path, shard=2) == path + ".s2"
+        with pytest.raises(A.ShardLossError, match="shard 2"):
+            A.open_arena(path, _layout(pkg), n_shards=4, **kw)
+
+
+@pytest.mark.parametrize("salvage", [False, True])
+def test_manifest_errors_sharded(tmp_path, salvage):
+    """The reference's ``test_manifest_errors[4]``: a scribbled manifest
+    magic is fatal, salvage or not; so is one shard's scribbled header."""
+    for pkg in PKG:
+        A, F = PKG[pkg][:2]
+        a, d, t, h = _mixed(pkg, str(tmp_path / f"{pkg}.pm"), n_shards=4)
+        _run(a, d, t, h, _script(6, seed=8))
+        a.crash()
+        F.corrupt_manifest(a)
+        with pytest.raises(A.ManifestError, match="manifest"):
+            a.verify_header()
+        with pytest.raises(A.ManifestError):
+            _manager(pkg, a, d, t, h).recover(salvage=salvage)
+        assert not getattr(a, "_salvage", False)
+        b, *rest = _mixed(pkg, str(tmp_path / f"{pkg}2.pm"), n_shards=4)
+        _run(b, *rest, _script(6, seed=8))
+        F.corrupt_header(b, shard=3)
+        with pytest.raises(A.ManifestError, match="header"):
+            b.verify_header()
 
 
 # ----------------------------------------------------------------- salvage
@@ -449,9 +527,20 @@ def test_mixed_salvage_matches_reference(tmp_path, mode, victim):
     """One corrupted slab of a mixed arena: the port quarantines or
     degrades exactly what the reference does, recovers the same state and
     names the same keys; the other structures recover exactly."""
+    _mixed_salvage(tmp_path, mode, victim, n_shards=1)
+
+
+@pytest.mark.parametrize("mode", ["partly", "full"])
+@pytest.mark.parametrize("victim", ["dll", "bt", "hm"])
+def test_mixed_salvage_matches_reference_sharded(tmp_path, mode, victim):
+    _mixed_salvage(tmp_path, mode, victim, n_shards=4)
+
+
+def _mixed_salvage(tmp_path, mode, victim, n_shards):
     out = {}
     for pkg in PKG:
-        a, d, t, h = _mixed(pkg, str(tmp_path / f"{pkg}.pm"), mode)
+        a, d, t, h = _mixed(pkg, str(tmp_path / f"{pkg}.pm"), mode,
+                            n_shards=n_shards)
         _run(a, d, t, h, _script(30, seed=9))
         before = _fingerprint(d, t, h)
         leaves = _host(t.leaves())
@@ -771,6 +860,11 @@ def test_public_methods_match_reference(tmp_path):
         order = D.order_from_next(
             torch.from_numpy(nxt) if pkg == "port" else nxt, d.head,
             d.count)
+        # direct range flushes write home with their sidecar checksums
+        d.nodes.write_rows([4], np.full((1, d.nodes.shape[1]), 77))
+        d.nodes.persist_range(2, 9)
+        t.records.persist_all()
+        persisted = (_image(a), _stats(a))
         a.invalidate()
         valid_after = a.header_valid()
         out[pkg] = {
@@ -783,6 +877,7 @@ def test_public_methods_match_reference(tmp_path):
             "keys_in_order": _host(t.keys_in_order()).tolist(),
             "max_key": t.max_key(),
             "bt.flush_stats": dataclasses.asdict(t.flush_stats()),
+            "persist_range_all": persisted,
             "valid_after_invalidate": valid_after,
             "generation": a.header_generation()}
         assert out[pkg]["check"][:2] == (True, False)

@@ -395,8 +395,12 @@ def test_gather_next_wrapper_dispatch_and_checks():
         tco.gather_next(nxt, torch.tensor([0.0]))
     with pytest.raises(ValueError):
         tco.gather_next(nxt, torch.tensor([0, 1, 0, 1])[::2])
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tco.gather_next(nxt, torch.tensor([0]), segments=[0, 2], seg_rows=64)
+    # the packed layout is ported: one shard is the global layout, and
+    # offsets that do not span the column raise
+    assert tco.gather_next(nxt, torch.tensor([0]), segments=[0, 2],
+                           seg_rows=64).tolist() == [1]
+    with pytest.raises(ValueError, match="segments"):
+        tco.gather_next(nxt, torch.tensor([0]), segments=[0, 3], seg_rows=64)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
