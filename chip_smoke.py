@@ -93,13 +93,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    cycle under explicit counts), card against CPU; and
    the four chain kernels on the shard-major packed layout
    (``segments=``/``seg_rows=``) of a random 2**22 chain packed by
-   ("seg", 64) over 4 and over 3 shards: a counted ``jump_double`` round
-   and chain_order's doubling tables (21 rounds), a ``gather_next`` hop
-   of 7n/8 int64 ids, the contraction's ``walk_segments`` (checkpoints
-   as a set) and ``expand_segments`` on its split plan, each exact
-   against its plain version with the same segments and against the
-   same kernel on the global layout, timed with CUDA events, L2 evicted,
-   beside that global launch and its bound;
+   ("seg", 64) over 4 and over 3 shards, and over 4 shards with one
+   padding row after each shard's rows but the last's (offsets with
+   gaps, launched with the offsets in the kernel parameters): a counted
+   ``jump_double`` round and chain_order's doubling tables (21 rounds),
+   a ``gather_next`` hop of 7n/8 int64 ids, the contraction's
+   ``walk_segments`` (checkpoints as a set) and ``expand_segments`` on
+   its split plan, each exact against its plain version with the same
+   segments and against the same kernel on the global layout, timed with
+   CUDA events, L2 evicted, beside that global launch, its bound and
+   (gapped) the closed-form launch over the router's partition; and the
+   smallest gapped input (a 6-node chain at offsets [0, 5, 7]), where
+   ``gather_next`` must answer [1, 2, 3, 4, 5, -1] and ``chain_order``
+   rank both ways;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
    the B+Tree at 2**19, both modes, order snapshots and integrity pinned
@@ -135,8 +141,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    included), scrub results, salvage reports (timing aside) and recovered
    states; the quickstart workload at 2**14 for each structure in both
    modes on four-shard arenas, integrity off and on: identical shard
-   images, manifests and FlushStats (aggregate and per shard); then the
-   serving
+   images, manifests and FlushStats (aggregate and per shard); on shadow
+   arenas (one arena, DESIGN.md §9), the quickstart workload at 2**14 for
+   each structure in both modes (committed after the inserts and after
+   the deletes, integrity off), then the mixed arena with integrity on in
+   both modes, faulted in one row of each structure that the
+   authoritative bank remaps: identical images (both remap banks, the
+   mirrors and the meta line included), FlushStats, recovered states,
+   scrub results and salvage reports; then the serving
    launcher ``repro_torch.launch.serve --arch llama3.2-3b --crash`` on
    the card, which must return 0 after recovering;
 5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
@@ -275,7 +287,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    flush_batching.py`` ``sharded_sweep``, its quick shape: a B+Tree,
    mixed 1:1, 4000-ns line stalls, 1, 2 and 4 shards, best of 3): equal
    line, saved and dedup counts, the 4-shard flush wall at least 1.3x
-   faster than one shard's.
+   faster than one shard's;
+13. shadow commit on one arena (DESIGN.md §9): phase 3's workload,
+   committed after the inserts as well (DLL and hashmap 2**22, the
+   B+Tree 2**15), both modes, integrity off, each
+   beside a barrier twin of the same run just before it: the recovered
+   state checked as in phase 3, ``pack_rows`` launches equal to the
+   grouped gathers, one fence a commit, every chain kernel that phase 3
+   launched launched here; lines, the lines and rows the rewrites put
+   into the remap bank, the entries sealed and the lines the deferred
+   folds wrote home, and insert, delete and recover seconds beside the
+   twin's; a mixed shadow arena (DLL and hashmap 2**20, B+Tree 2**15,
+   partly, integrity and snapshots on): an append torn after its drain,
+   one crashed after the seal and before the flip, and a fold of the
+   committed bank cut after one region (twice), each recovered to the
+   committed generation with every structure exact; then a clean scrub,
+   a flip in a DLL row the authoritative bank remaps (the fault's offset
+   in that bank's mirror), scrub naming exactly that row, and a salvage
+   cutting the DLL there with the others exact; phase 4's 2-layer
+   full-width engine through the twin protocol and the feature store at
+   phase 9's config, 64 requests, a torn crash at 48 replaying exactly
+   once, both on shadow arenas; and the reference's ``shadow_crossover``
+   shape (``benchmarks/flush_batching.py``) at one shard: a B+Tree, mixed
+   1:1, epochs of 4 x 64, 250 ns a line and 1 ms a fence, barrier and
+   shadow interleaved, best of 2, fences three an epoch against one, the
+   speedup printed (the reference gates it only at 4 shards).
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
@@ -283,7 +319,8 @@ phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7;
 ``probe``'s in phase 8; ``pack_rows``' and ``jump_double``'s in phase 9;
 ``flash_attention``'s and ``flash_attention_bwd``'s in phase 10; the
 four chain kernels', ``pack_rows``', ``scatter_rows``' (a shard's
-reload) and ``flash_attention``'s in phase 12.
+reload) and ``flash_attention``'s in phase 12, and again in phase 13
+(``scatter_rows``: the engine's re-prefill).
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -368,14 +405,15 @@ def emit(obj) -> None:
 
 def build_structure(kind: str, mode: str, n: int, device,
                     snapshot: bool = False, integrity: bool = False,
-                    n_shards: int = 1):
+                    n_shards: int = 1, commit_mode: str = "barrier"):
     """One structure on its own arena (``n_shards`` of them: sharded),
     every feature axis pinned."""
     from repro_torch.core.arena import open_arena
     from repro_torch.pstruct.bptree import BPTree
     from repro_torch.pstruct.dll import DoublyLinkedList
     from repro_torch.pstruct.hashmap import Hashmap
-    kw = dict(device=device, integrity=integrity, n_shards=n_shards)
+    kw = dict(device=device, integrity=integrity, n_shards=n_shards,
+              commit_mode=commit_mode)
     if kind == "dll":
         a = open_arena(None, DoublyLinkedList.layout(n, mode,
                                                      snapshot=snapshot),
@@ -452,14 +490,17 @@ def _check(kind: str, label: str, s, want_order=None, live_keys=None,
 
 def workload(kind: str, mode: str, n: int, device, seed: int = 0,
              integrity: bool = False, n_shards: int = 1,
-             concurrency: int = 0) -> dict:
+             concurrency: int = 0, commit_mode: str = "barrier",
+             commit_after_fill: bool = False, on_arena=None) -> dict:
     """Insert n entries in batches of 8192, delete (and, for the DLL, pop)
     1/8 of them, commit, crash, reopen, reconstruct, then check the
     recovered state against what the workload expects.  ``concurrency``
     > 0 recovers through ``RecoveryManager`` at that concurrency, every
     region declared (on a sharded arena: per-region load stages); its
     report is returned under ``recovery``.  ``gathers`` counts the write
-    set's grouped gathers."""
+    set's grouped gathers, ``commits`` the commits (one more after the
+    inserts with ``commit_after_fill``).  ``on_arena(arena)`` runs once
+    the arena is built."""
     import numpy as np
     import torch
     from repro_torch.core.recovery import RecoveryManager
@@ -467,12 +508,16 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0,
 
     _, keys, vals, gone = _inputs(kind, n, seed)
     a, s = build_structure(kind, mode, n, device, integrity=integrity,
-                           n_shards=n_shards)
+                           n_shards=n_shards, commit_mode=commit_mode)
+    if on_arena is not None:
+        on_arena(a)
     gathers0 = WriteSet.gathers
     sync = torch.cuda.synchronize if a.device.type == "cuda" else (
         lambda: None)
     t0 = time.perf_counter()
     _fill(kind, a, s, keys, vals)
+    if commit_after_fill:
+        a.commit()
     sync()
     t_insert = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -501,7 +546,8 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0,
     return {"kind": kind, "mode": mode, "n": n, "arena": a, "structure": s,
             "lines": lines, "insert_s": t_insert, "delete_s": t_delete,
             "recover_s": t_recover, "stats": dataclasses.asdict(a.stats),
-            "gathers": gathers, "recovery": report}
+            "gathers": gathers, "commits": 1 + commit_after_fill,
+            "recovery": report}
 
 
 def snapshot_workload(kind: str, mode: str, n: int, device,
@@ -1445,7 +1491,7 @@ def raw_walk(nxt, ids, hops: int):
                                     ids.element_size(), out.data_ptr(),
                                     nxt.shape[0], ids.shape[0], hops,
                                     walk.data_ptr(), host.data_ptr(), 0, 0,
-                                    stream)
+                                    None, stream)
         if rc:
             raise RuntimeError(f"gather_next walk: CUDA error {rc}")
     return launch
@@ -3313,7 +3359,7 @@ def scrub_rows(a) -> dict:
 
 
 def build_mixed(mode: str, sizes: dict, device, integrity=None,
-                n_shards: int = 1):
+                n_shards: int = 1, commit_mode: str = "barrier"):
     """The reference's mixed arena (``examples/salvage_recovery.py``): a DLL,
     a B+Tree and a hashmap on ONE arena (of ``n_shards`` shards), order
     snapshots and integrity at their defaults unless ``integrity`` pins
@@ -3328,21 +3374,23 @@ def build_mixed(mode: str, sizes: dict, device, integrity=None,
     layout.update(BPTree.layout(n_b, 2 * n_b, mode, name="bt"))
     layout.update(Hashmap.layout(n_h, mode, name="hm"))
     a = open_arena(None, layout, device=device, integrity=integrity,
-                   n_shards=n_shards)
+                   n_shards=n_shards, commit_mode=commit_mode)
     return a, {"dll": DoublyLinkedList(a, n_d, mode, name="dll"),
                "bptree": BPTree(a, n_b, 2 * n_b, mode, name="bt"),
                "hashmap": Hashmap(a, n_h, mode, name="hm")}
 
 
 def mixed_workload(mode: str, sizes: dict, device, integrity=None,
-                   seed: int = 0, n_shards: int = 1) -> dict:
+                   seed: int = 0, n_shards: int = 1,
+                   commit_mode: str = "barrier") -> dict:
     """Phase 3's operations for each structure of a mixed arena in turn
     (insert in batches of 8192, delete 1/8, the DLL also pops), each
     structure's seconds and FlushStats delta apart, then one commit.
     Returns the arena, the structures and what each must recover to."""
     import numpy as np
     import torch
-    a, structs = build_mixed(mode, sizes, device, integrity, n_shards)
+    a, structs = build_mixed(mode, sizes, device, integrity, n_shards,
+                             commit_mode)
     sync = torch.cuda.synchronize if a.device.type == "cuda" else (
         lambda: None)
     runs, want = {}, {}
@@ -3991,9 +4039,11 @@ SWEEP_SHARDS = (1, 2, 4)
 FLUSH_GATE = 1.3               # the reference's gate at 4 shards
 
 
-def pack_chain(nxt, seg_rows: int, n_shards: int):
+def pack_chain(nxt, seg_rows: int, n_shards: int, gap: int = 0):
     """A global NEXT column packed shard-major under ("seg", seg_rows):
-    (packed column, segments, packed position of each global id)."""
+    (packed column, segments, packed position of each global id).  With
+    ``gap``, that many NULL padding rows follow each shard's rows but the
+    last's (offsets with gaps, as the reference accepts)."""
     import torch
     n = nxt.shape[0]
     g = torch.arange(n, device=nxt.device)
@@ -4003,15 +4053,26 @@ def pack_chain(nxt, seg_rows: int, n_shards: int):
     pos[order] = g
     segments = [0] + torch.cumsum(torch.bincount(
         shard, minlength=n_shards), 0).tolist()
-    return nxt[order].contiguous(), segments, pos
+    if not gap:
+        return nxt[order].contiguous(), segments, pos
+    pos += gap * shard
+    segments = [x + gap * s for s, x in enumerate(segments[:-1])] + \
+        [n + gap * (n_shards - 1)]
+    packed = torch.full((segments[-1],), -1, dtype=nxt.dtype,
+                        device=nxt.device)
+    packed[pos] = nxt
+    return packed, segments, pos
 
 
-def packed_case(dev, perm, n_shards: int, flush) -> dict:
+def packed_case(dev, perm, n_shards: int, flush, gap: int = 0) -> dict:
     """The four chain kernels on the random chain ``perm`` packed over
-    ``n_shards`` shards by ("seg", 64): each exact against its plain
-    version with the same segments and against its launch on the global
-    layout of the same chain; timed with CUDA events, L2 evicted, beside
-    that global launch and the bound."""
+    ``n_shards`` shards by ("seg", 64), with ``gap`` padding rows after
+    each shard's rows but the last's (the gapped launches, whose offsets
+    ride in the launch's parameters): each exact against its plain version
+    with the same segments and against its launch on the global layout of
+    the same chain; timed with CUDA events, L2 evicted, beside that global
+    launch, the bound and, for a gapped packing, the closed-form launch
+    over the router's partition of the same chain."""
     import torch
     from repro_torch.core import recovery as TR
     from repro_torch.kernels import chain_order as K
@@ -4019,26 +4080,37 @@ def packed_case(dev, perm, n_shards: int, flush) -> dict:
     head = int(perm[0])
     nxt = torch.full((n,), -1, dtype=torch.int64, device=dev)
     nxt[perm[:-1]] = perm[1:]
-    packed, segs, pos = pack_chain(nxt, PACK_SEG, n_shards)
+    packed, segs, pos = pack_chain(nxt, PACK_SEG, n_shards, gap)
     if not torch.equal(K.packed_positions(torch.arange(n, device=dev),
                                           PACK_SEG, segs), pos):
         raise AssertionError("packed_positions is not the packing")
     pk = {"segments": segs, "seg_rows": PACK_SEG}
     g32, p32 = K.sanitize32(nxt), K.sanitize32(packed)
+    if gap:
+        closed, segs_c, pos_c = pack_chain(nxt, PACK_SEG, n_shards)
+        c32, pkc = K.sanitize32(closed), {"segments": segs_c,
+                                          "seg_rows": PACK_SEG}
+        del closed
     del nxt, packed
     gen = torch.Generator(device=dev)
     gen.manual_seed(n_shards)
-    out = {"n": n, "n_shards": n_shards, "segments": segs}
+    out = {"n": n, "n_shards": n_shards, "gap": gap, "segments": segs}
 
-    def timed(name, packed_fn, global_fn, bound, err, **extra):
+    def timed(name, packed_fn, global_fn, bound, err, closed_fn=None,
+              **extra):
         out[name] = {"ms": time_ms(packed_fn, flush=flush),
                      "global_ms": time_ms(global_fn, flush=flush),
                      "bound_ms": bound, "max_abs_err": err, **extra}
+        if closed_fn is not None:
+            out[name]["closed_ms"] = time_ms(closed_fn, flush=flush)
     # ---- jump_double: a counted round, and chain_order's doubling tables
     cnt = torch.randint(1, 9, (n,), dtype=torch.int64, device=dev,
                         generator=gen)
-    cnt_p = torch.empty_like(cnt)
+    cnt_p = torch.zeros(p32.shape[0], dtype=torch.int64, device=dev)
     cnt_p[pos] = cnt
+    if gap:
+        cnt_c = torch.empty_like(cnt)
+        cnt_c[pos_c] = cnt
     got = K.jump_double(p32, cnt_p, **pk)
     err = require_equal("jump_double packed", zip(
         got, K.jump_double_plain(p32, cnt_p, **pk)))
@@ -4051,14 +4123,24 @@ def packed_case(dev, perm, n_shards: int, flush) -> dict:
         (lv, K.jump_double_plain(p32, rounds=rounds, keep=True, **pk)[0]),
         (lv[:, pos], K.jump_double(g32, rounds=rounds, keep=True)[0])])
     del got, glob, lv
+    if gap:
+        extra = {"closed_fn": lambda: K.jump_double(c32, cnt_c, **pkc),
+                 "tables_closed_ms": time_ms(lambda: K.jump_double(
+                     c32, rounds=rounds, keep=True, **pkc), flush=flush,
+                     reps=5)}
+    else:
+        extra = {}
     timed("jump_double", lambda: K.jump_double(p32, cnt_p, **pk),
           lambda: K.jump_double(g32, cnt), bound_ms(24 * n), err,
           tables_ms=time_ms(lambda: K.jump_double(
               p32, rounds=rounds, keep=True, **pk), flush=flush, reps=5),
           tables_global_ms=time_ms(lambda: K.jump_double(
               g32, rounds=rounds, keep=True), flush=flush, reps=5),
-          tables_bound_ms=bound_ms(12 * n * rounds), tables_rounds=rounds)
-    del cnt, cnt_p
+          tables_bound_ms=bound_ms(12 * n * rounds), tables_rounds=rounds,
+          **extra)
+    del cnt, cnt_p, extra
+    if gap:
+        del cnt_c
     # ---- gather_next: one hop of L = 7n/8 int64 ids (NULL, negatives,
     # 2**32 + 3, n), the snapshot verify's shape
     lanes = n - n // 8
@@ -4076,7 +4158,9 @@ def packed_case(dev, perm, n_shards: int, flush) -> dict:
     distinct = int(torch.unique(ids[valid]).numel())
     timed("gather_next", lambda: K.gather_next(p32, ids, **pk),
           lambda: K.gather_next(g32, ids),
-          bound_ms(12 * lanes + 4 * distinct), err, lanes=lanes)
+          bound_ms(12 * lanes + 4 * distinct), err, lanes=lanes,
+          closed_fn=(lambda: K.gather_next(c32, ids, **pkc)) if gap
+          else None)
     del ids, got, valid
     # ---- walk_segments: the contraction's one walk, checkpoints on
     heads = torch.tensor([head], dtype=torch.int64, device=dev)
@@ -4108,7 +4192,10 @@ def packed_case(dev, perm, n_shards: int, flush) -> dict:
     del got, glob, ref, recs
     timed("walk_segments", walk_p, walk_g,
           bound_ms(4 * hops + 16 * lanes + 12 * total), err, lanes=lanes,
-          hops=hops, checkpoints=total)
+          hops=hops, checkpoints=total,
+          closed_fn=(lambda: K.walk_segments(
+              c32, starts, budget=budget, marks=cap, **kw, **pkc)) if gap
+          else None)
     # ---- expand_segments: the split plan of that walk, count = n
     cjump = TR._contract_tables(cnext, min(n, spine.shape[0]))
     plan = TR._expand_plan(spine, cjump, w, int(hpos[0]), n, marks)
@@ -4121,18 +4208,51 @@ def packed_case(dev, perm, n_shards: int, flush) -> dict:
     timed("expand_segments", lambda: K.expand_segments(p32, *plan, n, **pk),
           lambda: K.expand_segments(g32, *plan, n),
           bound_ms(4 * ehops + 12 * plan[0].shape[0] + 8 * n), err,
-          runs=int(plan[0].shape[0]), hops=ehops)
+          runs=int(plan[0].shape[0]), hops=ehops,
+          closed_fn=(lambda: K.expand_segments(c32, *plan, n, **pkc))
+          if gap else None)
     for row in out.values():
         if isinstance(row, dict):
             row["ratio"] = row["ms"] / row["global_ms"]
+            if "closed_ms" in row:
+                row["ratio_closed"] = row["ms"] / row["closed_ms"]
+    if gap:
+        del c32
     del p32, g32, plan, marks, spine, cjump
     torch.cuda.empty_cache()
     return out
 
 
+def smallest_gapped(dev) -> dict:
+    """The smallest gapped input: the chain 0 -> ... -> 5 over seg_rows 2
+    and two shards, packed at [0, 5, 7] (one padding row after shard 0).
+    ``gather_next`` must answer the reference's [1, 2, 3, 4, 5, -1], and
+    ``chain_order`` rank 0..5 by both methods, on the card."""
+    import torch
+    from repro_torch.core.recovery import chain_order
+    from repro_torch.kernels import chain_order as K
+    segs = [0, 5, 7]
+    packed = torch.full((7,), -1, dtype=torch.int32, device=dev)
+    pos = K.packed_positions(torch.arange(6, device=dev), 2, segs)
+    packed[pos] = torch.tensor([1, 2, 3, 4, 5, -1], dtype=torch.int32,
+                               device=dev)
+    got = K.gather_next(packed, torch.arange(6, device=dev), segments=segs,
+                        seg_rows=2).tolist()
+    if got != [1, 2, 3, 4, 5, -1]:
+        raise AssertionError(f"smallest gapped input: gather_next {got}")
+    orders = {m: chain_order(packed.long(), 0, method=m, segments=segs,
+                             seg_rows=2).tolist()
+              for m in ("double", "contract")}
+    if any(o != list(range(6)) for o in orders.values()):
+        raise AssertionError(f"smallest gapped input: chain_order {orders}")
+    return {"segments": segs, "gather_next": got, "orders": orders}
+
+
 def packed_parity(dev) -> dict:
     """Phase 2's packed layouts: a random 2**22 chain over 4 and over 3
-    shards (``packed_case``)."""
+    shards (``packed_case``), and over 4 shards with one padding row after
+    each shard's rows but the last's (the gapped launches, beside the
+    closed-form ones)."""
     import torch
     g = torch.Generator(device=dev)
     g.manual_seed(12)
@@ -4140,6 +4260,8 @@ def packed_parity(dev) -> dict:
     flush = l2_flusher(dev)
     out = {f"shards_{ns}": packed_case(dev, perm, ns, flush)
            for ns in PACK_SHARDS}
+    out[f"shards_{SHARDS}_gapped"] = packed_case(dev, perm, SHARDS, flush,
+                                                 gap=1)
     del perm
     torch.cuda.empty_cache()
     return out
@@ -4488,22 +4610,27 @@ def sharded_serving(dev) -> dict:
             "boundary": boundary}
 
 
-def sweep_point(n_shards: int, dev, seed: int = 0) -> dict:
+def sweep_point(n_shards: int, dev, seed: int = 0, shape=None,
+                commit_mode: str = "barrier") -> dict:
     """One point of the reference's sharded_sweep
     (``benchmarks/flush_batching.py`` ``_sharded_flush``): a B+Tree,
-    mixed 1:1 inserts and deletes in epochs of SWEEP["group"] batches,
-    barrier, synthetic per-line stalls; the flush wall is the epoch
-    drains and commits only.  ``n_shards=1`` is the plain arena."""
+    mixed 1:1 inserts and deletes in epochs of ``shape["group"]``
+    batches, synthetic per-line (and, with ``shape["synth_fence_ns"]``,
+    per-fence) stalls; the flush wall is the epoch drains and commits
+    only.  ``n_shards=1`` is the plain arena.  ``shape`` defaults to
+    SWEEP."""
     import numpy as np
     from repro_torch.core.arena import open_arena
     from repro_torch.pstruct.bptree import BPTree
-    n_init, n_ops, batch = SWEEP["n_init"], SWEEP["n_ops"], SWEEP["batch"]
+    shape = shape or SWEEP
+    n_init, n_ops, batch = shape["n_init"], shape["n_ops"], shape["batch"]
     rng = np.random.default_rng(seed)
     capacity = n_init + n_ops + 1024
     nodes = max(64, capacity // 4)
     a = open_arena(None, BPTree.layout(nodes, capacity, "partly"),
-                   n_shards=n_shards, synth_line_ns=SWEEP["synth_ns"],
-                   device=dev, integrity=False)
+                   n_shards=n_shards, synth_line_ns=shape["synth_ns"],
+                   synth_fence_ns=shape.get("synth_fence_ns", 0.0),
+                   commit_mode=commit_mode, device=dev, integrity=False)
     t = BPTree(a, nodes, capacity, "partly")
     keyspace = rng.permutation(capacity * 2).astype(np.int64)
     init_keys = keyspace[:n_init]
@@ -4526,9 +4653,9 @@ def sweep_point(n_shards: int, dev, seed: int = 0) -> dict:
         rm += m
         done += m
     wall = 0.0
-    for g in range(0, len(ops), SWEEP["group"]):
+    for g in range(0, len(ops), shape["group"]):
         a._epoch_depth += 1        # marks accumulate untimed
-        for op, ks, vs in ops[g:g + SWEEP["group"]]:
+        for op, ks, vs in ops[g:g + shape["group"]]:
             if op == "ins":
                 t.insert_batch(ks, vs)
             else:
@@ -4540,7 +4667,8 @@ def sweep_point(n_shards: int, dev, seed: int = 0) -> dict:
         wall += time.perf_counter() - t0
     d = a.stats.delta(base)
     a.close()
-    return {"n_shards": n_shards, "flush_wall_s": wall, "lines": d.lines,
+    return {"n_shards": n_shards, "commit_mode": commit_mode,
+            "flush_wall_s": wall, "lines": d.lines,
             "saved_lines": d.saved_lines, "dedup_rows": d.dedup_rows,
             "epochs": d.epochs, "fences": d.fences,
             "lines_per_s": d.lines / max(wall, 1e-9)}
@@ -4584,6 +4712,342 @@ def sharded_phase(dev, phase3: dict) -> dict:
                      ("fatal", lambda: sharded_fatal(dev)),
                      ("serving", lambda: sharded_serving(dev)),
                      ("flush_gate", lambda: flush_gate(dev))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[f"{name}_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------- shadow commit, one arena
+
+# phase 13: phase 3's workload (the B+Tree cut to 2**15 for time: each
+# run has a barrier twin, and the B+Tree's host per-leaf logic took 29 of
+# the phase's 120 s at 2**17), the torn flips on a mixed arena at phase
+# 12's window size (its B+Tree cut alike), and the reference's
+# shadow_crossover shape (benchmarks/flush_batching.py:218-250) at one
+# shard: B+Tree mixed 1:1, epochs of 4 x 64, 250 ns a line, 1 ms a fence
+SHADOW_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 15}
+TORN_N = {"dll": 1 << 20, "hashmap": 1 << 20, "bptree": 1 << 15}
+CROSSOVER = {"n_init": 4000, "n_ops": 8192, "batch": 64, "group": 4,
+             "synth_ns": 250.0, "synth_fence_ns": 1_000_000.0,
+             "repeats": 2}
+
+
+def remapped_rows(a, regions) -> dict:
+    """For each region, the middle row of those the authoritative shadow
+    bank remaps (the same on every device for the same operations)."""
+    import numpy as np
+    bank = a._shadow_masks[a._shadow_auth_bank]
+    out = {}
+    for name in regions:
+        rows = np.flatnonzero(bank.get(name, np.zeros(0, bool)))
+        if rows.size == 0:
+            raise AssertionError(f"no {name} row in the authoritative bank")
+        out[name] = int(rows[rows.size // 2])
+    return out
+
+
+def shadow_small(kind: str, mode: str, device) -> tuple:
+    """Phase 4's shadow case for one structure: the quickstart workload at
+    PARITY_N on a shadow arena (integrity off), committed after the
+    inserts and after the deletes, then a crash and recovery.  Returns the
+    image's sha256 (banks and meta line included), the FlushStats and the
+    recovered state's digest."""
+    from repro_torch.interop import image_of
+    r = workload(kind, mode, PARITY_N, device, seed=3,
+                 commit_mode="shadow", commit_after_fill=True)
+    return (hashlib.sha256(image_of(r["arena"])).hexdigest(), r["stats"],
+            state_digest(kind, r["structure"]))
+
+
+def shadow_mixed_small(mode: str, device) -> tuple:
+    """Phase 4's mixed shadow case: the three structures on one shadow
+    arena at PARITY_N (B+Tree PARITY_N / 4), integrity and snapshots on;
+    crash, a flipped bit in a row of each structure that the
+    authoritative bank remaps, reopen, scrub (which must name exactly
+    those rows), salvage.  Returns the image's sha256, FlushStats, the
+    rows, scrub, report without timing and state digests."""
+    from repro_torch.core import faultinject as fi
+    from repro_torch.interop import image_of
+    sizes = {"dll": PARITY_N, "hashmap": PARITY_N, "bptree": PARITY_N >> 2}
+    w = mixed_workload(mode, sizes, device, integrity=True, seed=3,
+                       commit_mode="shadow")
+    a, structs = w["arena"], w["structs"]
+    image = hashlib.sha256(image_of(a)).hexdigest()
+    rows = remapped_rows(a, MIXED_REGION.values())
+    a.crash()
+    for name, row in rows.items():
+        fi.flip_bits(a, name, row, byte=8, mask=0x40)
+    a.reopen()
+    bad = scrub_rows(a)
+    if bad != {n: [r] for n, r in sorted(
+            rows.items(), key=lambda kv: list(a.regions).index(kv[0]))}:
+        raise AssertionError(f"shadow mixed {mode}: scrub named {bad}, the "
+                             f"faults were {rows}")
+    rep, _ = salvage_recover(a, structs)
+    return (image, dataclasses.asdict(a.stats), rows, bad, no_timing(rep),
+            [state_digest(k, structs[k]) for k in KINDS])
+
+
+def remap_meter(meter: dict):
+    """An ``on_arena`` hook: counts, on a shadow arena, the lines its
+    rewrites put into the target bank (mirror rows and remap entries),
+    the entries each seal persists, and the lines its folds write home."""
+    for k in ("remap_lines", "remap_rows", "entries", "collapse_lines"):
+        meter[k] = 0
+
+    def hook(a):
+        write, fold, seal = a._shadow_write, a._shadow_collapse, \
+            a._shadow_seal
+
+        def metered_write(region, rows, data):
+            before = a.stats.lines
+            out = write(region, rows, data)
+            meter["remap_lines"] += a.stats.lines - before
+            meter["remap_rows"] += int(rows.size)
+            return out
+
+        def metered_fold(limit=None):
+            before = a.stats.lines
+            out = fold(limit)
+            meter["collapse_lines"] += a.stats.lines - before
+            return out
+
+        def metered_seal():
+            meter["entries"] += a._shadow_counts[a._shadow_target_bank()]
+            seal()
+        a._shadow_write = metered_write
+        a._shadow_collapse = metered_fold
+        a._shadow_seal = metered_seal
+    return hook
+
+
+def shadow_structures(dev, launches3: dict) -> dict:
+    """Phase 13's structures: phase 3's workload (committed after the
+    inserts too) on shadow arenas, both modes, integrity off, each beside
+    a barrier twin run just before it: the recovered state checked as
+    phase 3 checks it, pack_rows launches = grouped gathers, one fence a
+    commit, and every chain kernel that phase 3 launched launched here."""
+    import torch
+    from repro_torch.core.writeset import WriteSet
+    from repro_torch.kernels import launch_counts
+    rows, chain = [], {k: 0 for k in CHAIN_KERNELS}
+    for kind in KINDS:
+        for mode in ("full", "partly"):
+            n = SHADOW_N[kind]
+            tw = workload(kind, mode, n, dev, commit_after_fill=True)
+            twin = {k: tw[k] for k in ("insert_s", "delete_s", "recover_s",
+                                       "lines", "gathers")}
+            twin["fences"] = tw["stats"]["fences"]
+            del tw
+            torch.cuda.empty_cache()
+            meter, label = {}, f"shadow {kind} {mode}"
+            before, g0 = launch_counts(), WriteSet.gathers
+            r = workload(kind, mode, n, dev, commit_mode="shadow",
+                         commit_after_fill=True, on_arena=remap_meter(meter))
+            after = launch_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            gathers = gathers_check(label, delta, WriteSet.gathers - g0)
+            for k in CHAIN_KERNELS:
+                chain[k] += delta[k]
+            st = r["stats"]
+            if st["fences"] != r["commits"]:
+                raise AssertionError(f"{label}: {st['fences']} fences for "
+                                     f"{r['commits']} commits")
+            rows.append({"kind": kind, "mode": mode, "n": n,
+                         "lines": r["lines"], "epochs": st["epochs"],
+                         "fences": st["fences"], "commits": r["commits"],
+                         "gathers": r["gathers"], **meter,
+                         "insert_s": r["insert_s"],
+                         "delete_s": r["delete_s"],
+                         "recover_s": r["recover_s"], "twin": twin,
+                         "insert_x": r["insert_s"] / twin["insert_s"],
+                         "delete_x": r["delete_s"] / twin["delete_s"],
+                         "recover_x": r["recover_s"] / twin["recover_s"],
+                         "launches": gathers})
+            del r
+            torch.cuda.empty_cache()
+    missing = [k for k in CHAIN_KERNELS if launches3[k] and not chain[k]]
+    if missing:
+        raise AssertionError(f"phase 13 never launched {missing}, which "
+                             f"phase 3 launched")
+    return {"rows": rows, "chain_launches": chain}
+
+
+def shadow_torn(dev) -> dict:
+    """Phase 13's torn flips on a mixed shadow arena (TORN_N, partly,
+    snapshots and integrity on): an append torn after its drain, an append
+    crashed after the seal and before the flip, and a fold of the
+    committed bank cut after one region (twice), each recovered through
+    RecoveryManager to the committed generation with every structure
+    exact; then a clean scrub, a flip on a DLL row the authoritative bank
+    remaps (its fault offset in the bank's mirror, scrub naming exactly
+    it) and a salvage recovery cutting the DLL there."""
+    import numpy as np
+    import torch
+    from repro_torch.core import faultinject as fi
+    from repro_torch.core.recovery import RecoveryManager
+    t0 = time.perf_counter()
+    w = mixed_workload("partly", TORN_N, dev, integrity=True,
+                       commit_mode="shadow")
+    fill_s = time.perf_counter() - t0
+    a, structs, want = w["arena"], w["structs"], w["want"]
+    d = structs["dll"]
+    cases = []
+
+    def recover(label, gen0):
+        mgr = RecoveryManager(a)
+        for kind in KINDS:
+            mgr.add(MIXED_NAMES[kind], f"pstruct.{kind}", structs[kind])
+        t0 = time.perf_counter()
+        rep = mgr.recover()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not rep.valid or rep.generation != gen0 or \
+                a.generation != gen0:
+            raise AssertionError(f"{label}: recovered generation "
+                                 f"{rep.generation}, committed {gen0}")
+        for kind in KINDS:
+            check_exact(kind, structs[kind], want[kind], label)
+        return secs
+    for case in ("torn_drain", "sealed_unflipped", "fold_cut"):
+        gen0 = a.header_generation()
+        secs = []
+        if case == "torn_drain":
+            with a.epoch():
+                d.append_batch(np.full((64, 7), 5, np.int64))
+                a.writeset.flush(include_meta=False)
+                a.crash()
+            secs.append(recover(case, gen0))
+        elif case == "sealed_unflipped":
+            d.append_batch(np.full((64, 7), 6, np.int64))
+            a._shadow_collapse()
+            a.writeset.flush()
+            a._shadow_seal()
+            a.crash()
+            secs.append(recover(case, gen0))
+        else:
+            for _ in range(2):
+                if a._shadow_collapse(limit=1):
+                    raise AssertionError("fold_cut: the committed bank "
+                                         "folded whole")
+                a.crash()
+                secs.append(recover(case, gen0))
+        cases.append({"case": case, "generation": gen0, "recover_s": secs})
+    t0 = time.perf_counter()
+    clean = a.scrub()
+    scrub_s = time.perf_counter() - t0
+    if clean:
+        raise AssertionError("shadow torn: a clean scrub named rows")
+    order = want["dll"]["order"]
+    mask = a._shadow_masks[a._shadow_auth_bank]["dll.nodes"]
+    cand = np.flatnonzero(mask[order])
+    pos = int(cand[cand.size // 2])
+    row = int(order[pos])
+    a.crash()
+    owner, off, rb = fi.committed_row_offset(a, "dll.nodes", row)
+    bank = a.header_generation() % 2
+    if off != a.regions["dll.nodes"]._shadow_off[bank] + row * rb:
+        raise AssertionError("committed_row_offset missed the bank mirror")
+    fi.flip_bits(a, "dll.nodes", row, byte=8, mask=0x40)
+    a.reopen()
+    got = scrub_rows(a)
+    if got != {"dll.nodes": [row]}:
+        raise AssertionError(f"shadow torn: scrub named {got}, the fault "
+                             f"was dll.nodes row {row}")
+    rep, salvage_s = salvage_recover(a, structs)
+    res = check_salvaged(structs, want, {"dll": row}, pos, None,
+                         "shadow salvage", faulted=("dll",))
+    out = {"sizes": TORN_N, "fill_s": fill_s, "cases": cases,
+           "scrub_s": scrub_s, "fault_row": row, "fault_pos": pos,
+           "remapped_dll_rows": int(mask.sum()), "bank": bank,
+           "salvage_s": salvage_s, "quarantined": rep.quarantined,
+           "degraded": rep.degraded, **res}
+    del a, structs, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def shadow_serving(dev) -> dict:
+    """Phase 13's serving: the 2-layer full-width engine through the twin
+    protocol, then the feature store at phase 9's config and
+    FS11_REQUESTS requests with a torn crash and the exactly-once replay
+    beside its twin, both on shadow arenas."""
+    import torch
+    from repro_torch.feature_recover import requests, twin
+    from repro_torch.models.backbone import init_params
+    from repro_torch.serve.feature_store import FeatureConfig
+    from repro_torch.serve_recover import run
+    cfg = serve_config(layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    params = init_params(cfg, gen, dev)
+    t0 = time.perf_counter()
+    eng = run(cfg, dev, prompt_lens=SERVE_PROMPTS, max_batch=8,
+              s_max=SERVE_S_MAX, steps=SERVE_STEPS, max_requests=64,
+              seed=SERVE_SEED, params=params, workdir=str(ROOT / "build"),
+              commit_mode="shadow")
+    eng["run_s"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    fcfg = FeatureConfig(**FS_CONFIG, mode="partly", journal=True,
+                         commit_mode="shadow")
+    ops = requests(FS11_REQUESTS, FS_KEYS_PER_REQUEST, FS_KEY_SPACE,
+                   fcfg.dim, seed=FS_SEED)
+    boundary = FS11_REQUESTS * 3 // 4
+    t0 = time.perf_counter()
+    fs = twin(fcfg, ops, boundary, torn=True, device=dev)
+    fs["twin_protocol_s"] = time.perf_counter() - t0
+    if fs["refused"] != boundary:
+        raise AssertionError(f"shadow feature store refused "
+                             f"{fs['refused']}, not {boundary}")
+    if fs["stats"]["fences"] > fs["stats"]["calls"]:
+        raise AssertionError("shadow feature store: more fences than "
+                             "commit calls")
+    torch.cuda.empty_cache()
+    return {"engine": {k: v for k, v in eng.items()
+                       if k not in ("stats", "paging_stats")},
+            "engine_stats": eng["stats"],
+            "feature_store": {k: v for k, v in fs.items()
+                              if k not in ("stats", "twin_stats")},
+            "feature_stats": fs["stats"], "requests": FS11_REQUESTS,
+            "boundary": boundary}
+
+
+def shadow_crossover(dev) -> dict:
+    """The reference's shadow_crossover shape at one shard, barrier and
+    shadow interleaved, best of CROSSOVER["repeats"]: the flush wall, the
+    fences (three an epoch against one), and the rate charging both modes
+    the barrier row's lines, as the reference does.  No gate: the
+    reference gates it at four shards."""
+    best = {}
+    for _ in range(CROSSOVER["repeats"]):
+        for mode in ("barrier", "shadow"):
+            r = sweep_point(1, dev, shape=CROSSOVER, commit_mode=mode)
+            if mode not in best or \
+                    r["flush_wall_s"] < best[mode]["flush_wall_s"]:
+                best[mode] = r
+    bar, sh = best["barrier"], best["shadow"]
+    for r in (bar, sh):
+        r["flush_lines_per_s"] = bar["lines"] / max(r["flush_wall_s"], 1e-9)
+    if bar["fences"] != 3 * bar["epochs"] or sh["fences"] != sh["epochs"]:
+        raise AssertionError(f"crossover fences: barrier {bar['fences']} "
+                             f"over {bar['epochs']} epochs, shadow "
+                             f"{sh['fences']} over {sh['epochs']}")
+    return {"shape": CROSSOVER, "rows": [bar, sh],
+            "speedup": bar["flush_wall_s"] / max(sh["flush_wall_s"], 1e-9)}
+
+
+def shadow_phase(dev, launches3: dict) -> dict:
+    """Phase 13: shadow commit on one arena at the main path's size."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name, fn in (("structures", lambda: shadow_structures(dev,
+                                                             launches3)),
+                     ("torn", lambda: shadow_torn(dev)),
+                     ("serving", lambda: shadow_serving(dev)),
+                     ("crossover", lambda: shadow_crossover(dev))):
         t0 = time.perf_counter()
         out[name] = fn()
         out[f"{name}_s"] = time.perf_counter() - t0
@@ -4951,6 +5415,8 @@ def main(argv=None) -> int:
     packed = packed_parity(dev)
     report["packed"] = packed
     emit({"phase": "packed_parity", **packed})
+    report["smallest_gapped"] = smallest_gapped(dev)
+    emit({"phase": "smallest_gapped", **report["smallest_gapped"]})
     for name in CHAIN_KERNELS:
         parity["rows"][name]["packed"] = {
             key: {k: v for k, v in case[name].items()}
@@ -5098,6 +5564,27 @@ def main(argv=None) -> int:
         same.append(f"mixed.{mode}.integrity:{out['cuda'][0][:12]}:"
                     f"quarantined={out['cuda'][3]['quarantined']}:"
                     f"degraded={out['cuda'][3]['degraded']}")
+    # shadow commit on one arena: images with both banks and the meta
+    # line, FlushStats and recovered state per structure; the mixed arena
+    # with integrity on, faulted in remapped rows, scrubbed and salvaged
+    for kind in KINDS:
+        for mode in ("partly", "full"):
+            out = {d: shadow_small(kind, mode, d) for d in ("cuda", "cpu")}
+            if out["cuda"] != out["cpu"]:
+                raise AssertionError(f"{kind} {mode} shadow: card and CPU "
+                                     f"images, FlushStats or recovered "
+                                     f"state differ")
+            same.append(f"{kind}.{mode}.shadow:{out['cuda'][0][:12]}")
+    for mode in ("partly", "full"):
+        out = {d: shadow_mixed_small(mode, d) for d in ("cuda", "cpu")}
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"mixed {mode} shadow integrity: card and "
+                                 f"CPU images, FlushStats, scrub or salvage "
+                                 f"reports differ")
+        same.append(f"mixed.{mode}.shadow.integrity:{out['cuda'][0][:12]}:"
+                    f"faulted={out['cuda'][2]}:"
+                    f"quarantined={out['cuda'][4]['quarantined']}:"
+                    f"degraded={out['cuda'][4]['degraded']}")
     torch.cuda.empty_cache()
     serve = serve_card_vs_cpu(dev)
     same.append(f"serve:{serve['file_sha256']}")
@@ -5264,6 +5751,25 @@ def main(argv=None) -> int:
                if launches12[k] == 0]
     if missing:
         raise AssertionError(f"phase 12 never launched {missing}")
+    torch.cuda.empty_cache()
+    # ---- phase 13: shadow commit on one arena at the main path's size
+    reset_launch_counts()
+    shadow = shadow_phase(dev, launches3)
+    launches13 = launch_counts()
+    report["shadow"] = shadow
+    for row in shadow["structures"]["rows"]:
+        emit({"phase": "shadow_structure", **row})
+    emit({"phase": "shadow_torn", **shadow["torn"]})
+    emit({"phase": "shadow_serving", **shadow["serving"]})
+    emit({"phase": "shadow_crossover", **shadow["crossover"]})
+    emit({"phase": "shadow", "launches": launches13,
+          "chain_launches": shadow["structures"]["chain_launches"],
+          **{k: v for k, v in shadow.items() if k.endswith("_s")}})
+    missing = [k for k in CHAIN_KERNELS + ("pack_rows", "scatter_rows",
+                                           "flash_attention")
+               if launches13[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 13 never launched {missing}")
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():

@@ -48,12 +48,30 @@ barrier core of ``repro.core.arena``, single and sharded.
   shard's reload is one upload of its slice, seated by ``scatter_rows_``.
   The files are the reference's, byte for byte.
 
+* Shadow commit (DESIGN.md §9, ``Arena(commit_mode="shadow")``): the
+  epoch drain is ONE unordered phase.  Rows marked ``fresh`` (never
+  reachable from a committed generation) go home in place; every other row
+  goes into the mirror of the target remap bank (bank ``(generation + 1) %
+  2``, slot = row), and a row's first rewrite appends a ``(region id,
+  row)`` entry to the bank.  A covered row's checksums follow it into the
+  sidecar's own mirror in the same bank.  ``commit()`` folds the committed
+  bank home, drains, seals the target bank's entry count on the meta line,
+  pays ONE fence and flips the header's generation: the flip makes the
+  target bank authoritative, and a crash before it leaves the committed
+  bank as it was.  The fold of a committed bank into its home rows is
+  deferred to the start of the next drain.  ``reopen()`` parses the bank
+  the committed generation selects from the persistent image alone, and
+  every load, ``scrub`` and salvage read the home rows with that bank's
+  rows over them (``_pimage``).  The layout (meta line, two entry banks,
+  a mirror per region per bank, after the last region) and every byte
+  are the reference's.  Recovery writes nothing.
+
 The arena runs on ``cuda`` unless the caller passes ``device="cpu"``.  With
 no device given and no GPU present it raises: it never falls back to the
 CPU silently.  ``integrity=None`` and ``snapshot=None`` resolve through the
 reference's env axes (``integrity_enabled``, ``snapshot_enabled``), both
-on by default.  Shadow commit (at any shard count) and paging are not
-ported yet; asking for one raises ``NotImplementedError`` naming it.
+on by default.  Shadow commit on a sharded arena and paging are not ported
+yet; asking for one raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -329,10 +347,12 @@ class Region(_RowAccess):
     def mark_rows(self, rows, fresh: bool = False) -> None:
         """Add rows to the arena's write set (flushed once, deduplicated,
         when the enclosing epoch closes); outside any epoch this is an
-        immediate ``persist_rows``.  ``fresh`` is the reference's shadow
-        commit hint, which barrier mode ignores."""
+        immediate ``persist_rows``, which writes home in either mode.
+        ``fresh`` asserts the rows were never reachable from a committed
+        generation, so a shadow drain writes them home in place instead of
+        through the remap; barrier mode ignores it."""
         if self.arena._epoch_depth > 0:
-            self.arena.writeset.mark(self, rows)
+            self.arena.writeset.mark(self, rows, fresh=fresh)
         else:
             self.persist_rows(rows)
 
@@ -350,11 +370,13 @@ class Region(_RowAccess):
             self, np.arange(lo, hi, dtype=np.int64), host)])
 
     def load(self) -> None:
-        """Reload the volatile copy from persistent memory (post-crash),
-        paying the synthetic media read latency when the arena models
-        one."""
-        self.vol = torch.from_numpy(np.array(self._pview())).to(
-            self.arena.device)
+        """Reload the volatile copy from persistent memory (post-crash):
+        the home rows, with the authoritative shadow bank's rows laid over
+        them on the host copy before its upload, paying the synthetic
+        media read latency when the arena models one."""
+        img = np.array(self._pview())
+        self.arena._shadow_overlay(self, img)
+        self.vol = torch.from_numpy(img).to(self.arena.device)
         self.arena.synth_read(self.nbytes)
 
 
@@ -366,9 +388,7 @@ class Arena:
                  commit_mode: str = "barrier",
                  synth_fence_ns: float = 0.0, paged: Optional[bool] = None,
                  integrity: Optional[bool] = None, device=None):
-        if commit_mode != "barrier":
-            if commit_mode == "shadow":
-                raise not_ported("shadow commit")
+        if commit_mode not in ("barrier", "shadow"):
             raise ValueError(f"unknown commit_mode {commit_mode!r}")
         if paged_enabled(paged):
             raise not_ported("paging")
@@ -400,6 +420,19 @@ class Arena:
         # order-snapshot providers: callables returning [(region, rows)]
         # of snapshot rows to persist, asked at every write-set drain
         self._snap_providers: List = []
+        # shadow-commit state, all volatile: region ids in declaration
+        # order (the remap entries name them), the persistent areas'
+        # offsets (laid out by finalize), and per bank the rows it remaps
+        # ({region name: bool mask}), its entry count and whether it has
+        # been folded home
+        self._region_ids: Dict[str, int] = {}
+        self._shadow_meta_off = 0
+        self._shadow_ent_off = [0, 0]
+        self._shadow_cap = 0
+        self._shadow_masks: Tuple[Dict[str, np.ndarray], ...] = ({}, {})
+        self._shadow_counts = [0, 0]
+        self._shadow_collapsed = [True, True]
+        self._shadow_auth_bank = 0
 
     # -- epochs -----------------------------------------------------------
     @contextlib.contextmanager
@@ -433,6 +466,7 @@ class Arena:
                              meta=meta, **slice_kw)
         self._cursor += _align(r.nbytes, LINE)
         self.regions[name] = r
+        self._region_ids[name] = len(self._region_ids)
         self._meta[name] = {"dtype": np.dtype(dtype).str,
                             "shape": list(shape), "offset": r.offset}
         return r
@@ -443,6 +477,8 @@ class Arena:
         if self.integrity:
             self._integrity_layout()
         self._layout_final = True
+        if self.commit_mode == "shadow":
+            self._shadow_layout()
         total = _align(self._cursor, 4096)
         if self.path is None:
             self._mm = np.zeros(total, np.uint8)  # in-memory image
@@ -520,11 +556,18 @@ class Arena:
             raise ManifestError(
                 f"arena {self.path!r} header magic {raw!r} corrupt")
 
-    def _pimage(self, region: Region) -> np.ndarray:
-        """A copy of the region's committed persistent image (barrier mode:
-        its home bytes).  Scrub and salvage never write persistent
-        state."""
-        return np.array(region._pview())
+    def _pimage(self, region: Region, copy: bool = True) -> np.ndarray:
+        """The region's COMMITTED persistent image: its home bytes, with
+        the authoritative shadow bank's rows over them in shadow mode.  A
+        copy, or with ``copy=False`` the home view itself when no bank row
+        overlays it (for readers only).  Scrub and salvage read through
+        it and never write persistent state."""
+        rows = self._shadow_rows(region)
+        if rows is None:
+            return np.array(region._pview()) if copy else region._pview()
+        img = np.array(region._pview())
+        img[rows] = self._shadow_mirror(region, self._shadow_auth_bank)[rows]
+        return img
 
     def verify_region(self, region) -> np.ndarray:
         """Row indices of ``region`` whose persistent bytes fail their
@@ -537,9 +580,10 @@ class Arena:
         sc = region._integ
         if sc is None:
             return np.empty(0, np.int64)
-        # the read-only views stand in for the reference's copies
-        ck = sidecar_checksums(region._pview(), sc.shape[1])
-        ref = sc._pview()
+        # read-only views stand in for the reference's copies where no
+        # shadow bank row overlays the home rows
+        ck = sidecar_checksums(self._pimage(region, copy=False), sc.shape[1])
+        ref = self._pimage(sc, copy=False)
         bad = (ref != 0) & (ck != ref)
         self.synth_read(region.nbytes + sc.nbytes)
         return np.nonzero(bad.any(axis=1))[0]
@@ -582,7 +626,11 @@ class Arena:
 
     def commit(self) -> None:
         """Data-before-metadata ordering: drain the write set, flush file
-        contents, fence, then set the valid flag."""
+        contents, fence, then set the valid flag.  In shadow mode the
+        protocol is ONE ordering point (``_commit_shadow``)."""
+        if self.commit_mode == "shadow":
+            self._commit_shadow()
+            return
         self.writeset.flush()
         if isinstance(self._mm, np.memmap):
             self._mm.flush()
@@ -604,17 +652,223 @@ class Arena:
         if self.synth_fence_ns:
             self._stall(int(self.synth_fence_ns))
 
+    # -- shadow commit protocol (DESIGN.md §9) ------------------------------
+    def _shadow_layout(self) -> None:
+        """The persistent shadow areas, after the last region: one meta
+        line holding each bank's sealed entry count, two remap-entry banks
+        of 16 B entries (the epoch targeting generation T writes bank
+        T % 2, so a torn flip never touches the committed bank), and a
+        mirror of every region, sidecars included, per bank, whose slot
+        index is the row index."""
+        cur = _align(self._cursor, LINE)
+        self._shadow_meta_off = cur
+        cur += LINE
+        self._shadow_cap = max(1, sum(r.shape[0]
+                                      for r in self.regions.values()))
+        for b in (0, 1):
+            self._shadow_ent_off[b] = cur
+            cur += _align(self._shadow_cap * 16, LINE)
+        for r in self.regions.values():
+            r._shadow_off = {}
+            for b in (0, 1):
+                r._shadow_off[b] = cur
+                cur += _align(r.nbytes, LINE)
+        self._cursor = cur
+
+    def _shadow_target_bank(self) -> int:
+        return (self.generation + 1) % 2
+
+    def _shadow_mirror(self, region: Region, bank: int) -> np.ndarray:
+        flat = np.frombuffer(self._mm, dtype=np.uint8, count=region.nbytes,
+                             offset=region._shadow_off[bank])
+        return flat.view(region.dtype).reshape(region.shape)
+
+    def _shadow_entries(self, bank: int) -> np.ndarray:
+        flat = np.frombuffer(self._mm, dtype=np.uint8,
+                             count=self._shadow_cap * 16,
+                             offset=self._shadow_ent_off[bank])
+        return flat.view(np.int64).reshape(self._shadow_cap, 2)
+
+    def _shadow_meta_view(self) -> np.ndarray:
+        flat = np.frombuffer(self._mm, dtype=np.uint8, count=LINE,
+                             offset=self._shadow_meta_off)
+        return flat.view(np.int64)
+
+    def _shadow_rows(self, region: Region) -> Optional[np.ndarray]:
+        """Rows of ``region`` the authoritative bank remaps, or None (none,
+        or a barrier arena)."""
+        if self.commit_mode != "shadow":
+            return None
+        mask = self._shadow_masks[self._shadow_auth_bank].get(region.name)
+        if mask is None:
+            return None
+        rows = np.nonzero(mask)[0]
+        return rows if rows.size else None
+
+    def _shadow_write(self, region: Region, rows: np.ndarray,
+                      data: np.ndarray):
+        """Route a rewrite through the remap: ``data`` (the host copy of
+        the sorted unique ``rows``) lands in the target bank's mirror, and
+        rows the bank does not remap yet append ``(region id, row)``
+        entries.  Committed home rows are never written before the flip.
+        A covered region's checksums of ``data`` cascade into its sidecar's
+        mirror in the same bank, so a discarded bank drops data and
+        checksums together.  Returns the sidecar's ``(sidecar, rows,
+        checksums)`` for the write set to seat in its volatile tensor, or
+        None."""
+        b = self._shadow_target_bank()
+        mask = self._shadow_masks[b].get(region.name)
+        if mask is None:
+            mask = self._shadow_masks[b][region.name] = \
+                np.zeros(region.shape[0], bool)
+        new = rows[~mask[rows]]
+        mask[rows] = True
+        self._shadow_mirror(region, b)[rows] = data
+        self._account_rows(region._shadow_off[b], region.rowbytes, rows,
+                           snap=region.snap, jrnl=region.jrnl,
+                           integ=region.integ)
+        if new.size:
+            cnt = self._shadow_counts[b]
+            ents = self._shadow_entries(b)
+            ents[cnt:cnt + new.size, 0] = self._region_ids[region.name]
+            ents[cnt:cnt + new.size, 1] = new
+            self._account_range(self._shadow_ent_off[b] + cnt * 16,
+                                int(new.size) * 16, snap=region.snap,
+                                jrnl=region.jrnl, integ=region.integ)
+            self._shadow_counts[b] = cnt + int(new.size)
+        sc = region._integ
+        if sc is None:
+            return None
+        ck = sidecar_checksums(data, sc.shape[1])
+        self._shadow_write(sc, rows, ck)
+        return sc, rows, ck
+
+    def _shadow_collapse(self, limit: Optional[int] = None) -> bool:
+        """Fold the committed bank's rows into their home slots: the
+        reclamation deferred from the commit that made them into the next
+        drain.  The copy is value-identical to what recovery would overlay,
+        so a crash at any instant during it changes nothing the committed
+        generation shows.  ``limit`` bounds the regions folded (the crash
+        hook); returns whether the bank fully collapsed."""
+        b = self.generation % 2
+        if self._shadow_collapsed[b]:
+            return True
+        done = True
+        for i, name in enumerate(sorted(self._shadow_masks[b])):
+            if limit is not None and i >= limit:
+                done = False
+                break
+            rows = np.nonzero(self._shadow_masks[b][name])[0]
+            if rows.size == 0:
+                continue
+            region = self.regions[name]
+            region._pview()[rows] = self._shadow_mirror(region, b)[rows]
+            self._account_rows(region.offset, region.rowbytes, rows,
+                               snap=region.snap, jrnl=region.jrnl,
+                               integ=region.integ)
+        if done:
+            self._shadow_collapsed[b] = True
+        return done
+
+    def _shadow_seal(self) -> None:
+        """Persist the target bank's entry count.  Safe before the flip:
+        the bank is dead until the generation selects it, and the
+        committed bank's count is untouched."""
+        b = self._shadow_target_bank()
+        self._shadow_meta_view()[b] = self._shadow_counts[b]
+        self._account_range(self._shadow_meta_off + b * 8, 8)
+
+    def _shadow_retire(self) -> None:
+        """After the flip: the previous bank's entries are dead (folded
+        home before it); the newly committed bank waits for its fold at
+        the next drain."""
+        live = self.generation % 2
+        dead = 1 - live
+        self._shadow_masks[dead].clear()
+        self._shadow_counts[dead] = 0
+        self._shadow_collapsed[dead] = True
+        self._shadow_collapsed[live] = self._shadow_counts[live] == 0
+        self._shadow_auth_bank = live
+
+    def _commit_shadow(self) -> None:
+        """Shadow commit: fold the committed bank home, drain (fresh rows
+        home, rewrites into the target bank), seal the target bank's
+        count, then the ONE fence and the generation flip, which makes the
+        target bank authoritative.  A torn flip leaves the committed bank
+        authoritative; the orphaned target bank is never selected."""
+        self._shadow_collapse()
+        self.writeset.flush()
+        self._shadow_seal()
+        if isinstance(self._mm, np.memmap):
+            self._mm.flush()
+        self._fence()                      # the single ordering point
+        self.generation += 1
+        self._write_header(valid=True)
+        if isinstance(self._mm, np.memmap):
+            self._mm.flush()
+        self.stats.calls += 1
+        self._shadow_retire()
+
+    def _shadow_discard(self) -> None:
+        """The volatile shadow bookkeeping dies with a crash; ``reopen``
+        parses it again from the committed bank."""
+        for m in self._shadow_masks:
+            m.clear()
+        self._shadow_counts = [0, 0]
+        self._shadow_collapsed = [True, True]
+
+    def _shadow_parse(self) -> None:
+        """After a crash: rebuild the masks from the bank the COMMITTED
+        generation selects, reading the persistent image only, and
+        re-anchor ``generation`` to it, so the next drain targets bank
+        ``(gen + 1) % 2``.  The other bank's entries (a torn flip's
+        orphans) are never selected, and are overwritten when that bank is
+        next targeted."""
+        if self.commit_mode != "shadow":
+            return
+        gen = self.header_generation()
+        b = gen % 2
+        cnt = int(self._shadow_meta_view()[b])
+        ents = np.array(self._shadow_entries(b)[:cnt])
+        masks: Dict[str, np.ndarray] = {}
+        names = list(self.regions)
+        for rid in (np.unique(ents[:, 0]) if cnt else ()):
+            name = names[int(rid)]
+            mask = np.zeros(self.regions[name].shape[0], bool)
+            mask[ents[ents[:, 0] == rid, 1]] = True
+            masks[name] = mask
+        self._shadow_masks = (masks, {}) if b == 0 else ({}, masks)
+        self._shadow_counts = [cnt, 0] if b == 0 else [0, cnt]
+        self._shadow_collapsed = [True, True]
+        self._shadow_collapsed[b] = cnt == 0
+        self._shadow_auth_bank = b
+        self.generation = gen
+
+    def _shadow_overlay(self, region: Region, img: np.ndarray) -> None:
+        """Lay the authoritative bank's rows of ``region`` over ``img``, a
+        host copy of its home rows being loaded: recovery-side and
+        volatile-only (the fold waits for the next drain)."""
+        rows = self._shadow_rows(region)
+        if rows is None:
+            return
+        img[rows] = self._shadow_mirror(region, self._shadow_auth_bank)[rows]
+        self.synth_read(int(rows.size) * region.rowbytes)
+
     # -- crash simulation ---------------------------------------------------
     def crash(self) -> None:
         """Discard all volatile state (keep the persistent image); pending
-        write-set marks die with it."""
+        write-set marks and the shadow bookkeeping die with it."""
         self.writeset.discard()
+        self._shadow_discard()
         for r in self.regions.values():
             r._crash_reset()
 
     def reopen(self) -> None:
         """Copy every region back to the device from the persistent image,
-        and re-anchor the in-memory generation to the committed one."""
+        and re-anchor the in-memory generation to the committed one.  A
+        shadow arena first parses the committed bank, so each load lays
+        its rows over the home rows."""
+        self._shadow_parse()
         for r in self.regions.values():
             r.load()
         self.generation = max(self.generation, self.header_generation())
@@ -1229,10 +1483,11 @@ class ShardedArena:
         for sh in self.shards:
             sh.verify_header()
 
-    def _pimage(self, region: ShardedRegion) -> np.ndarray:
+    def _pimage(self, region: ShardedRegion, copy: bool = True
+                ) -> np.ndarray:
         """The region's committed persistent image, assembled across the
-        shards (a copy; scrub and salvage never write persistent
-        state)."""
+        shards (always a copy, whatever ``copy`` says; scrub and salvage
+        never write persistent state)."""
         img = np.zeros(region.shape, region.dtype)
         for sl in region.slices:
             if sl is not None:

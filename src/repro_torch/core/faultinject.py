@@ -1,11 +1,16 @@
 """Media-fault injection (DESIGN.md §13), the port of
-``repro.core.faultinject`` for barrier arenas, plain and sharded.
+``repro.core.faultinject``.
 
 The helpers corrupt the COMMITTED image of a row, the bytes recovery will
 read.  On a barrier arena that is the row's home slot in the persistent
 image, which the port keeps in host memory (a numpy buffer or the memmap
 of the backing file), so every fault is a host write; on a sharded arena
-it is the home slot in the shard that holds the row.  Faults by taxonomy
+it is the home slot in the shard that holds the row.  On a shadow arena
+(``commit_mode="shadow"``) a committed row may live in the authoritative
+remap bank's mirror instead: the helpers parse the persistent bank state
+(the header's generation parity, the sealed entry count, the entries) as
+recovery does, and land the fault where recovery and scrub will read.
+Faults by taxonomy
 (``core.arena`` error types):
 
 * ``flip_bits`` / ``stuck_line``: ``CorruptLineError`` territory, in-place
@@ -20,8 +25,7 @@ it is the home slot in the shard that holds the row.  Faults by taxonomy
   scribbled commit magic, detected by ``verify_header()`` in the recovery
   prologue.
 
-``flip_bits`` is an involution: inject twice to undo.  Shadow-commit remap
-banks wait for shadow commit (ROADMAP Queue 1).
+``flip_bits`` is an involution: inject twice to undo.
 """
 from __future__ import annotations
 
@@ -42,15 +46,25 @@ def committed_row_offset(arena, region, row: int
                          ) -> Tuple[Arena, int, int]:
     """(owning plain arena, byte offset of the row's committed image in its
     persistent buffer, rowbytes).  A sharded region's row resolves to the
-    shard that holds it and its local row there.  On a barrier arena the
-    committed image is the home slot, before or after a crash."""
+    shard that holds it and its local row there; a row the authoritative
+    shadow bank remaps, to its mirror slot in that bank.  Persistent state
+    only, so valid before or after a crash, in either commit mode."""
     if isinstance(region, str):
         region = arena.regions[region]
     if isinstance(arena, ShardedArena):
         s = int(region.shard_of[row])
         return committed_row_offset(arena.shards[s], region.slices[s],
                                     int(region.local_of[row]))
-    return arena, region.offset + row * region.rowbytes, region.rowbytes
+    base = region.offset
+    if arena.commit_mode == "shadow":
+        bank = arena.header_generation() % 2
+        cnt = int(arena._shadow_meta_view()[bank])
+        if cnt:
+            ents = np.array(arena._shadow_entries(bank)[:cnt])
+            rid = arena._region_ids[region.name]
+            if bool(((ents[:, 0] == rid) & (ents[:, 1] == row)).any()):
+                base = region._shadow_off[bank]
+    return arena, base + row * region.rowbytes, region.rowbytes
 
 
 def _flush(a: Arena) -> None:

@@ -120,7 +120,7 @@ def _snapshot_verify(nxt: torch.Tensor, head: int, count: Optional[int],
     if count is None or cand.numel() != count:
         return False
     n = nxt.shape[0]
-    ok = (cand[0] == head) & ((cand >= 0) & (cand < n)).all()
+    ok = (cand[0] == head) & K.addressable(cand, n, **packed).all()
     if count > 1:
         # sanitize first: an out-of-range stored NEXT becomes NULL, which
         # differs from the in-range cand[i+1] exactly as the raw value does
@@ -314,7 +314,8 @@ def chain_order(nxt: torch.Tensor, head: int, count: Optional[int] = None,
                                      if hasattr(segments, "tolist")
                                      else segments)]
         packed = {"segments": segments, "seg_rows": seg_rows}
-    if head < 0 or head >= n or count == 0:
+    if count == 0 or not K.addressable(np.array([head]), n, **packed)[0]:
+        # a head outside the rows (or past its shard's span) ends at once
         return torch.empty(0, dtype=torch.int64, device=dev)
     if snapshot is not None:
         cand = snapshot.candidate.to(dev).contiguous()

@@ -43,6 +43,15 @@ buffer, and writes the checksums into the sidecar's image in the same
 phase, under the same fence.  The sidecars' volatile tensors are brought
 up to date once per drain, by one host-to-device copy of every sidecar
 row the drain wrote (``seat_sidecars``); sidecar rows are never marked.
+
+On a shadow arena (DESIGN.md §9) a drain is ONE unordered phase
+(``_flush_shadow``): the committed bank folds home first, then the same
+one grouped gather stages every region's rows, fresh and rewritten
+alike, and the host writes the fresh rows (``mark(fresh=True)``, and a
+row marked both ways counts as rewritten) home with their checksums and
+the rest into the target bank's mirrors (``Arena._shadow_write``), their
+checksums into the sidecars' mirrors of the same bank.  No fence: the
+commit's flip is the one ordering point.
 """
 from __future__ import annotations
 
@@ -68,11 +77,14 @@ def host_rows(rows) -> np.ndarray:
 
 class _Planned(NamedTuple):
     """One region of a drain: its sorted unique rows, the line cost its
-    marks claimed, and how many rows they named."""
+    marks claimed, and how many rows they named.  A shadow drain's rows
+    are the fresh rows, then the rewritten ones (``fresh`` of them
+    fresh)."""
     region: object
     rows: np.ndarray
     would_lines: int
     marked_rows: int
+    fresh: int = 0
 
 
 class WriteSet:
@@ -84,25 +96,29 @@ class WriteSet:
 
     def __init__(self, arena):
         self.arena = arena
-        # region name -> list of (unique rows, per-call line cost)
-        self._pending: Dict[str, List[Tuple[np.ndarray, int]]] = {}
+        # region name -> list of (unique rows, per-call line cost, fresh)
+        self._pending: Dict[str, List[Tuple[np.ndarray, int, bool]]] = {}
         # pinned host indices and staging, card arenas only: grown on
         # demand, reused by every drain (each ends in a stream synchronize)
         self._pinned_idx: Optional[torch.Tensor] = None
         self._pinned_out: Optional[torch.Tensor] = None
 
-    def mark(self, region, rows: np.ndarray) -> None:
-        """Record dirty rows of `region`; flushed at epoch close."""
+    def mark(self, region, rows: np.ndarray, fresh: bool = False) -> None:
+        """Record dirty rows of `region`; flushed at epoch close.
+        ``fresh`` rows were never reachable from a committed generation,
+        so a shadow drain writes them home in place (barrier mode ignores
+        it)."""
         rows = np.unique(host_rows(rows))
         if rows.size == 0:
             return
         if region.snap or region.jrnl:
             # snapshot and journal rows stay off the marks/dedup/saved
             # ledger
-            self._pending.setdefault(region.name, []).append((rows, 0))
+            self._pending.setdefault(region.name, []).append(
+                (rows, 0, fresh))
             return
         self._pending.setdefault(region.name, []).append(
-            (rows, self._would(region, rows)))
+            (rows, self._would(region, rows), fresh))
         self._ledger().marks += 1
 
     def _ledger(self):
@@ -133,6 +149,12 @@ class WriteSet:
         flush writes."""
         self._drain_snapshots()
         if not self._pending:
+            return
+        if self.arena.commit_mode == "shadow":
+            # one phase; include_meta=False is a crash before the flip,
+            # which nothing drained here can reach anyway
+            if self._flush_shadow():
+                self._ledger().epochs += 1
             return
         plans = [self._plan(meta=False)]
         if include_meta:
@@ -179,9 +201,59 @@ class WriteSet:
             marks = self._pending.pop(name)
             plan.append(_Planned(
                 arena.regions[name],
-                np.unique(np.concatenate([r for r, _ in marks])),
-                sum(w for _, w in marks), sum(r.size for r, _ in marks)))
+                np.unique(np.concatenate([r for r, _, _ in marks])),
+                sum(w for _, w, _ in marks),
+                sum(r.size for r, _, _ in marks)))
         return plan
+
+    def _flush_shadow(self) -> bool:
+        """The single-phase shadow drain, every region by offset: fold the
+        committed bank home, gather every region's fresh and rewritten
+        rows in ONE grouped gather, then write the fresh rows home (with
+        their checksums) and route the rewrites through the arena's remap
+        (``Arena._shadow_write``, checksums cascading into the same bank).
+        Returns whether anything flushed."""
+        arena = self.arena
+        plan = []
+        for name in self._order(self._pending):
+            marks = self._pending.pop(name)
+            rew = [r for r, _, f in marks if not f]
+            frs = [r for r, _, f in marks if f]
+            rew = np.unique(np.concatenate(rew)) if rew \
+                else np.empty(0, np.int64)
+            fr = np.unique(np.concatenate(frs)) if frs \
+                else np.empty(0, np.int64)
+            # a row marked both ways is conservatively a rewrite
+            fr = np.setdiff1d(fr, rew, assume_unique=True)
+            plan.append(_Planned(arena.regions[name],
+                                 np.concatenate([fr, rew]),
+                                 sum(w for _, w, _ in marks),
+                                 sum(r.size for r, _, _ in marks),
+                                 int(fr.size)))
+        sidecars = []
+        with arena.stall_scope():
+            arena._shadow_collapse()
+            staged = self.gather([(p.region, p.rows) for p in plan])
+            for p, host in zip(plan, staged):
+                region, k = p.region, p.fresh
+                before = arena.stats.lines
+                if k:
+                    fr = p.rows[:k]
+                    region._pview()[fr] = host[:k]
+                    arena._account_rows(region.offset, region.rowbytes, fr,
+                                        snap=region.snap, jrnl=region.jrnl)
+                    sidecars.append(arena._integrity_home(region, fr,
+                                                          host[:k]))
+                if p.rows.size > k:
+                    sidecars.append(arena._shadow_write(region, p.rows[k:],
+                                                        host[k:]))
+                if region.snap or region.jrnl:
+                    continue
+                actual = arena.stats.lines - before
+                arena.stats.saved_lines += max(0, p.would_lines - actual)
+                arena.stats.dedup_rows += p.marked_rows - p.rows.size
+        self.seat_sidecars(sidecars)
+        return bool(plan)
 
     def _write_phase(self, plan: List[_Planned], staged,
                      sidecars: list) -> bool:

@@ -162,6 +162,23 @@
 //   division).  A first design with two run-time divisions and the
 //   offsets read from device memory ran the walk at 1.38-1.41x the
 //   global layout's time on an H100 (chip_smoke phase 2).
+// Offsets with gaps (kPackedGapped)
+//   The reference's contract is any N + 1 non-decreasing offsets: a
+//   shard's span may end in padding rows.  Such offsets are not closed
+//   form, so they ride by value in a kernel parameter of their own
+//   (Offsets, up to kMaxGappedShards + 1 of them), never in device
+//   memory.  It is a __grid_constant__ parameter: indexed at run time, it
+//   is read in place through the constant cache instead of being copied
+//   to the stack.  For the other layouts that parameter is one unused
+//   word and Packing is unchanged: giving every layout the offsets (in
+//   Packing, then staged in shared memory) ran the partition's walk 8 %
+//   and the global expand 11 % slower on an H100 (chip_smoke's packed
+//   cases against the same cases before the gapped layout, in turns).
+//   An id whose position falls past its shard's span addresses no row and
+//   reads as NULL, like an id outside [0, n), wherever it appears: as an
+//   input and as a value loaded.  So a gapped hop translates both the id
+//   it follows and the value it loads.  The wrapper picks the layout once
+//   per call.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -194,10 +211,12 @@ int sm_count() {
 }
 
 // The layouts (kLayout): global, packed with B and N powers of two (the
-// main path's), packed in general.
+// main path's), packed in general, packed at offsets with gaps.
 constexpr int kGlobal = 0;
 constexpr int kPackedPow2 = 1;
 constexpr int kPackedAny = 2;
+constexpr int kPackedGapped = 3;
+constexpr int kMaxGappedShards = 64;  // MAX_GAPPED_SHARDS of the wrapper
 
 // The shard-major packing of a launch over n rows (make_packing): B rows a
 // segment, N shards, and what the translate needs precomputed.  Every
@@ -210,13 +229,22 @@ struct Packing {
   uint32_t magic;        // ceil(2^32 / N) where exact, else 0
   uint32_t round_rows;   // R * B: a shard's rows in the full rounds
   uint32_t tail;         // T: the rows of the partial round
-  int layout;            // kGlobal, kPackedPow2 or kPackedAny
+  int layout;            // kGlobal, kPackedPow2, kPackedAny or kPackedGapped
+};
+
+// A launch's offsets with gaps: the N + 1 for kPackedGapped, one unused
+// word for the other layouts.
+template <int kLayout>
+struct Offsets {
+  uint32_t v[kLayout == kPackedGapped ? kMaxGappedShards + 1 : 1];
 };
 
 // Array position of global id c (0 <= c < n): c itself, or the packed
-// position of the block-cyclic router.
+// position of the block-cyclic router.  At offsets with gaps (`gaps`, the
+// launch's Offsets) a position past the shard's span gives -1.
 template <int kLayout>
-__device__ __forceinline__ int64_t at(const Packing& p, int32_t c) {
+__device__ __forceinline__ int64_t at(const Packing& p, int32_t c,
+                                      const uint32_t* gaps) {
   if (kLayout == kGlobal) return c;
   const uint32_t u = (uint32_t)c;
   uint32_t seg, off, round, shard;
@@ -242,19 +270,31 @@ __device__ __forceinline__ int64_t at(const Packing& p, int32_t c) {
   else
     round = seg / p.n_shards;
   shard = seg - round * p.n_shards;
+  if (kLayout == kPackedGapped) {
+    // below 2^32: the offsets are at most n and the local row at most c
+    const uint32_t pos = gaps[shard] + round * p.seg_rows + off;
+    return pos < gaps[shard + 1] ? (int64_t)pos : -1;
+  }
   return (int64_t)(shard * p.round_rows + min(shard * p.seg_rows, p.tail) +
                    round * p.seg_rows + off);
 }
 
-// One chain hop: NULL for an id outside [0, n) or a stored value outside
-// it.  nxt is read-only for the whole launch: the read-only path (__ldg).
+// One chain hop: NULL for an id that addresses no row (outside [0, n), or
+// past its shard's span at offsets with gaps) or a stored value that
+// addresses none.  nxt is read-only for the whole launch: the read-only
+// path (__ldg).
 template <int kLayout>
 __device__ __forceinline__ int32_t follow(const int32_t* __restrict__ nxt,
                                           int32_t cur, int64_t n,
-                                          const Packing& p) {
+                                          const Packing& p,
+                                          const uint32_t* gaps) {
   if (cur < 0 || cur >= n) return kNull;
-  const int32_t v = __ldg(nxt + at<kLayout>(p, cur));
-  return (v >= 0 && v < n) ? v : kNull;
+  const int64_t pc = at<kLayout>(p, cur, gaps);
+  if (kLayout == kPackedGapped && pc < 0) return kNull;
+  const int32_t v = __ldg(nxt + pc);
+  if (v < 0 || v >= n) return kNull;
+  if (kLayout == kPackedGapped && at<kLayout>(p, v, gaps) < 0) return kNull;
+  return v;
 }
 
 // Threads per block and blocks resident on the device for a kernel, from
@@ -337,20 +377,26 @@ __device__ __forceinline__ void jump_round(const JumpRounds& a,
                                            const int32_t* __restrict__ js,
                                            const int64_t* __restrict__ cs,
                                            int32_t* __restrict__ jd,
-                                           int64_t* __restrict__ cd) {
+                                           int64_t* __restrict__ cd,
+                                           const uint32_t* gaps) {
   const int64_t n = a.n;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const int32_t j = load<kInput>(js + i);
     if (kKeep && kInput) a.jbuf[0][i] = j;  // level 0: the input as given
-    const bool live = j >= 0 && j < n;
+    bool live = j >= 0 && j < n;
     int32_t nj = kNull;
     int64_t pj = 0;
     if (live) {
-      pj = at<kLayout>(a.pack, j);
+      pj = at<kLayout>(a.pack, j, gaps);
+      if (kLayout == kPackedGapped) live = pj >= 0;
+    }
+    if (live) {
       const int32_t v = load<kInput>(js + pj);
-      if (v >= 0 && v < n) nj = v;
+      if (v >= 0 && v < n &&
+          (kLayout != kPackedGapped || at<kLayout>(a.pack, v, gaps) >= 0))
+        nj = v;
     }
     jd[i] = nj;
     if (kCnt)
@@ -360,7 +406,8 @@ __device__ __forceinline__ void jump_round(const JumpRounds& a,
 
 template <bool kKeep, bool kCnt, int kLayout>
 __global__ void __launch_bounds__(kRoundThreads)
-    jump_double_kernel(const JumpRounds a) {
+    jump_double_kernel(const JumpRounds a,
+                       const __grid_constant__ Offsets<kLayout> gaps) {
   const int r = a.rounds;
   // selected by a branch, not an index: a kernel parameter indexed at run
   // time is copied to the stack
@@ -372,11 +419,11 @@ __global__ void __launch_bounds__(kRoundThreads)
     return ((r - s) & 1) ? a.cbuf[1] : a.cbuf[0];
   };
   jump_round<true, kKeep, kCnt, kLayout>(a, a.jump, a.cnt, level(1),
-                                         counts(1));
+                                         counts(1), gaps.v);
   for (int s = 2; s <= r; ++s) {
     cg::this_grid().sync();
     jump_round<false, kKeep, kCnt, kLayout>(a, level(s - 1), counts(s - 1),
-                                            level(s), counts(s));
+                                            level(s), counts(s), gaps.v);
   }
 }
 
@@ -422,7 +469,8 @@ __device__ __forceinline__ int32_t spine_index(const WalkArgs& a,
 
 template <bool kTable, bool kPow2, int kLayout>
 __global__ void __launch_bounds__(kSegmentThreads)
-    walk_segments_kernel(const WalkArgs a) {
+    walk_segments_kernel(const WalkArgs a,
+                         const __grid_constant__ Offsets<kLayout> gaps) {
   const unsigned lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1;
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
@@ -437,7 +485,7 @@ __global__ void __launch_bounds__(kSegmentThreads)
     for (int32_t t = 1; __any_sync(kFull, walking); ++t) {
       bool mark = false;
       if (walking) {
-        cur = follow<kLayout>(a.nxt, cur, a.n, a.pack);
+        cur = follow<kLayout>(a.nxt, cur, a.n, a.pack, gaps.v);
         w = t;
         walking = false;
         if (cur >= 0) {
@@ -490,7 +538,8 @@ struct ExpandArgs {
 // kChunk + 1 words (the pad word keeps the threads' writes on 32 banks).
 template <int kChunk, int kLayout>
 __global__ void __launch_bounds__(kSegmentThreads)
-    expand_segments_kernel(const ExpandArgs a) {
+    expand_segments_kernel(const ExpandArgs a,
+                           const __grid_constant__ Offsets<kLayout> gaps) {
   extern __shared__ int32_t staging[];
   const unsigned lane = threadIdx.x & 31;
   int32_t* warp_stage = staging + (threadIdx.x >> 5) * 32 * (kChunk + 1);
@@ -511,7 +560,8 @@ __global__ void __launch_bounds__(kSegmentThreads)
       const int32_t len = min(r, kChunk);
       for (int32_t t = 0; t < len; ++t) {
         mine[t] = cur;
-        if (t + 1 < r) cur = follow<kLayout>(a.nxt, cur, a.n, a.pack);
+        if (t + 1 < r)
+          cur = follow<kLayout>(a.nxt, cur, a.n, a.pack, gaps.v);
       }
       __syncwarp();
       // the warp's staged runs, run-major: consecutive threads store
@@ -546,7 +596,9 @@ __global__ void gather_next_kernel(const int32_t* __restrict__ nxt,
                                    const Id* __restrict__ ids,
                                    int32_t* __restrict__ out, int64_t n,
                                    int64_t lanes, int hops, WalkScratch* walk,
-                                   int* len_host, const Packing pack) {
+                                   int* len_host, const Packing pack,
+                                   const __grid_constant__ Offsets<kLayout>
+                                       gaps) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   int best = 0;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < lanes;
@@ -554,13 +606,19 @@ __global__ void gather_next_kernel(const int32_t* __restrict__ nxt,
     int64_t cur = (int64_t)ids[i];
     int t = 0;
     for (; t < hops && cur >= 0 && cur < n; ++t) {
-      const int32_t v = __ldg(nxt + at<kLayout>(pack, (int32_t)cur));
+      const int64_t pc = at<kLayout>(pack, (int32_t)cur, gaps.v);
+      if (kLayout == kPackedGapped && pc < 0) break;  // past its span
+      const int32_t v = __ldg(nxt + pc);
       out[(int64_t)t * lanes + i] = v;
       cur = v;
     }
-    // leading in-range ids of (ids[i], out[0][i], ...): t, plus the last
-    // column when the lane was still live after `hops` hops
-    const int len = t + (cur >= 0 && cur < n);
+    // leading ids of (ids[i], out[0][i], ...) that address a row: t, plus
+    // the last column when the lane was still live after `hops` hops
+    const bool live =
+        cur >= 0 && cur < n &&
+        (kLayout != kPackedGapped ||
+         at<kLayout>(pack, (int32_t)cur, gaps.v) >= 0);
+    const int len = t + live;
     for (; t < hops; ++t) out[(int64_t)t * lanes + i] = kNull;
     best = max(best, len);
   }
@@ -580,6 +638,17 @@ __global__ void gather_next_kernel(const int32_t* __restrict__ nxt,
   }
 }
 
+// The kernel parameter of a launch's offsets: the host's N + 1 offsets for
+// the gapped layout (checked by make_packing), one zero word otherwise.
+template <int kLayout>
+Offsets<kLayout> offsets_of(const Packing& p, const int64_t* host) {
+  Offsets<kLayout> o = {};
+  if constexpr (kLayout == kPackedGapped) {
+    for (uint32_t s = 0; s <= p.n_shards; ++s) o.v[s] = (uint32_t)host[s];
+  }
+  return o;
+}
+
 unsigned grid_for(int64_t work, int threads) {
   int64_t blocks = (work + threads - 1) / threads;
   const int64_t resident = (int64_t)sm_count() * 16;  // 16 blocks per SM
@@ -588,28 +657,32 @@ unsigned grid_for(int64_t work, int threads) {
 }
 
 template <bool kTable, bool kPow2, int kLayout>
-int launch_walk(const WalkArgs& a, cudaStream_t stream) {
+int launch_walk(const WalkArgs& a, const int64_t* offsets,
+                cudaStream_t stream) {
   static LaunchShape cache[kMaxDevices] = {};
   LaunchShape shape;
   const cudaError_t err = launch_shape(
       walk_segments_kernel<kTable, kPow2, kLayout>, 0, cache, &shape);
   if (err != cudaSuccess) return (int)err;
   walk_segments_kernel<kTable, kPow2, kLayout>
-      <<<blocks_for(shape, a.lanes), shape.block, 0, stream>>>(a);
+      <<<blocks_for(shape, a.lanes), shape.block, 0, stream>>>(
+          a, offsets_of<kLayout>(a.pack, offsets));
   return (int)cudaGetLastError();
 }
 
 template <int kLayout>
-int launch_walk_spine(const WalkArgs& a, cudaStream_t stream) {
+int launch_walk_spine(const WalkArgs& a, const int64_t* offsets,
+                      cudaStream_t stream) {
   if (a.spine_pos != nullptr)
-    return launch_walk<true, false, kLayout>(a, stream);
+    return launch_walk<true, false, kLayout>(a, offsets, stream);
   if ((a.k & (a.k - 1)) == 0)
-    return launch_walk<false, true, kLayout>(a, stream);
-  return launch_walk<false, false, kLayout>(a, stream);
+    return launch_walk<false, true, kLayout>(a, offsets, stream);
+  return launch_walk<false, false, kLayout>(a, offsets, stream);
 }
 
 template <int kChunk, int kLayout>
-int launch_expand(const ExpandArgs& a, cudaStream_t stream) {
+int launch_expand(const ExpandArgs& a, const int64_t* offsets,
+                  cudaStream_t stream) {
   static LaunchShape cache[kMaxDevices] = {};
   constexpr int kStageBytes = (kChunk + 1) * 4;  // per thread
   LaunchShape shape;
@@ -618,19 +691,21 @@ int launch_expand(const ExpandArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   expand_segments_kernel<kChunk, kLayout>
       <<<blocks_for(shape, a.lanes), shape.block,
-         (size_t)shape.block * kStageBytes, stream>>>(a);
+         (size_t)shape.block * kStageBytes, stream>>>(
+          a, offsets_of<kLayout>(a.pack, offsets));
   return (int)cudaGetLastError();
 }
 
 template <int kLayout>
-int launch_expand_chunk(const ExpandArgs& a, int chunk, cudaStream_t stream) {
+int launch_expand_chunk(const ExpandArgs& a, int chunk,
+                        const int64_t* offsets, cudaStream_t stream) {
   switch (chunk) {
     case 8:
-      return launch_expand<8, kLayout>(a, stream);
+      return launch_expand<8, kLayout>(a, offsets, stream);
     case 16:
-      return launch_expand<16, kLayout>(a, stream);
+      return launch_expand<16, kLayout>(a, offsets, stream);
     case 32:
-      return launch_expand<32, kLayout>(a, stream);
+      return launch_expand<32, kLayout>(a, offsets, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -659,13 +734,15 @@ cudaError_t cooperative_blocks(int* blocks) {
 }
 
 template <bool kKeep, bool kCnt, int kLayout>
-int launch_rounds(const JumpRounds& a, cudaStream_t stream) {
+int launch_rounds(const JumpRounds& a, const int64_t* offsets,
+                  cudaStream_t stream) {
   int most = 0;
   const cudaError_t err = cooperative_blocks<kKeep, kCnt, kLayout>(&most);
   if (err != cudaSuccess) return (int)err;
   int64_t blocks = (a.n + kRoundThreads - 1) / kRoundThreads;
   if (blocks > most) blocks = most;
-  void* args[] = {const_cast<JumpRounds*>(&a)};
+  Offsets<kLayout> gaps = offsets_of<kLayout>(a.pack, offsets);
+  void* args[] = {const_cast<JumpRounds*>(&a), &gaps};
   return (int)cudaLaunchCooperativeKernel(
       (const void*)jump_double_kernel<kKeep, kCnt, kLayout>,
       dim3((unsigned)blocks),
@@ -674,13 +751,13 @@ int launch_rounds(const JumpRounds& a, cudaStream_t stream) {
 
 template <int kLayout>
 int launch_rounds_for(const JumpRounds& a, bool keep, bool counts,
-                      cudaStream_t s) {
+                      const int64_t* offsets, cudaStream_t s) {
   if (keep) {
-    return counts ? launch_rounds<true, true, kLayout>(a, s)
-                  : launch_rounds<true, false, kLayout>(a, s);
+    return counts ? launch_rounds<true, true, kLayout>(a, offsets, s)
+                  : launch_rounds<true, false, kLayout>(a, offsets, s);
   }
-  return counts ? launch_rounds<false, true, kLayout>(a, s)
-                : launch_rounds<false, false, kLayout>(a, s);
+  return counts ? launch_rounds<false, true, kLayout>(a, offsets, s)
+                : launch_rounds<false, false, kLayout>(a, offsets, s);
 }
 
 uint32_t log2_exact(uint32_t x) {  // log2(x) for a power of two, else 32
@@ -692,10 +769,14 @@ uint32_t log2_exact(uint32_t x) {  // log2(x) for a power of two, else 32
 
 // The packing of a launch over n rows from the C arguments: n_shards 0 is
 // the global layout; otherwise n_shards >= 1, seg_rows >= 1, B * N and n
-// below 2^31.
-bool make_packing(int n_shards, int seg_rows, int64_t n, Packing* p) {
+// below 2^31.  `offsets` (host memory, n_shards + 1 of them) is null for
+// the router's partition of the n rows; otherwise they must be
+// non-decreasing from 0 to at most n, for at most kMaxGappedShards shards,
+// and the layout is kPackedGapped.
+bool make_packing(int n_shards, int seg_rows, const int64_t* offsets,
+                  int64_t n, Packing* p) {
   *p = Packing{};
-  if (n_shards == 0) return true;
+  if (n_shards == 0) return offsets == nullptr;
   const uint64_t B = (uint64_t)seg_rows, N = (uint64_t)n_shards;
   if (n_shards < 1 || seg_rows < 1 || n < 0 || n >= (1ll << 31) ||
       B * N >= (1ull << 31))
@@ -706,6 +787,13 @@ bool make_packing(int n_shards, int seg_rows, int64_t n, Packing* p) {
   p->shard_shift = log2_exact((uint32_t)N);
   p->layout = p->seg_shift < 32 && p->shard_shift < 32 ? kPackedPow2
                                                        : kPackedAny;
+  if (offsets != nullptr) {
+    if (n_shards > kMaxGappedShards || offsets[0] != 0 || offsets[N] > n)
+      return false;
+    for (int s = 1; s <= n_shards; ++s)
+      if (offsets[s] < offsets[s - 1]) return false;
+    p->layout = kPackedGapped;
+  }
   const uint64_t full = (uint64_t)n / (B * N);
   p->round_rows = (uint32_t)(full * B);
   p->tail = (uint32_t)((uint64_t)n - full * B * N);
@@ -722,8 +810,8 @@ bool make_packing(int n_shards, int seg_rows, int64_t n, Packing* p) {
 }  // namespace
 
 // Every entry point takes the packed layout last but for the stream:
-// n_shards (0 for the global layout) and seg_rows, the offsets being the
-// ("seg", seg_rows) router's partition of the n rows.
+// n_shards (0 for the global layout), seg_rows and the host offsets, null
+// when they are the ("seg", seg_rows) router's partition of the n rows.
 //
 // jump_out: the returned jump, or with keep the (rounds + 1, n) table;
 // jump_tmp and cnt_tmp: the second ping-pong buffers (null when rounds is 1
@@ -733,9 +821,10 @@ extern "C" int jump_double_launch(const void* jump, const void* cnt,
                                   void* jump_out, void* jump_tmp,
                                   void* cnt_out, void* cnt_tmp, int64_t n,
                                   int rounds, int keep, int n_shards,
-                                  int seg_rows, void* stream) {
+                                  int seg_rows, const int64_t* offsets,
+                                  void* stream) {
   JumpRounds a;
-  if (rounds < 1 || !make_packing(n_shards, seg_rows, n, &a.pack))
+  if (rounds < 1 || !make_packing(n_shards, seg_rows, offsets, n, &a.pack))
     return (int)cudaErrorInvalidValue;
   a.jump = static_cast<const int32_t*>(jump);
   a.cnt = static_cast<const int64_t*>(cnt);
@@ -749,11 +838,13 @@ extern "C" int jump_double_launch(const void* jump, const void* cnt,
   const bool counts = cnt != nullptr;
   switch (a.pack.layout) {
     case kPackedPow2:
-      return launch_rounds_for<kPackedPow2>(a, keep, counts, s);
+      return launch_rounds_for<kPackedPow2>(a, keep, counts, offsets, s);
     case kPackedAny:
-      return launch_rounds_for<kPackedAny>(a, keep, counts, s);
+      return launch_rounds_for<kPackedAny>(a, keep, counts, offsets, s);
+    case kPackedGapped:
+      return launch_rounds_for<kPackedGapped>(a, keep, counts, offsets, s);
     default:
-      return launch_rounds_for<kGlobal>(a, keep, counts, s);
+      return launch_rounds_for<kGlobal>(a, keep, counts, offsets, s);
   }
 }
 
@@ -766,11 +857,11 @@ extern "C" int walk_segments_launch(const void* nxt, const void* starts,
                                     int64_t capacity, int k, int head,
                                     int n_mult, int promoted, int budget,
                                     int stride, int n_shards, int seg_rows,
-                                    void* stream) {
+                                    const int64_t* offsets, void* stream) {
   WalkArgs a;
   if (stride < 1 || (stride & (stride - 1)) != 0 || k < 1 ||
       (rec == nullptr) != (total == nullptr) ||
-      !make_packing(n_shards, seg_rows, n, &a.pack))
+      !make_packing(n_shards, seg_rows, offsets, n, &a.pack))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   a.nxt = static_cast<const int32_t*>(nxt);
@@ -798,11 +889,13 @@ extern "C" int walk_segments_launch(const void* nxt, const void* starts,
   }
   switch (a.pack.layout) {
     case kPackedPow2:
-      return launch_walk_spine<kPackedPow2>(a, s);
+      return launch_walk_spine<kPackedPow2>(a, offsets, s);
     case kPackedAny:
-      return launch_walk_spine<kPackedAny>(a, s);
+      return launch_walk_spine<kPackedAny>(a, offsets, s);
+    case kPackedGapped:
+      return launch_walk_spine<kPackedGapped>(a, offsets, s);
     default:
-      return launch_walk_spine<kGlobal>(a, s);
+      return launch_walk_spine<kGlobal>(a, offsets, s);
   }
 }
 
@@ -811,10 +904,10 @@ extern "C" int expand_segments_launch(const void* nxt, const void* starts,
                                       const void* posn, const void* rem,
                                       void* out, int64_t n, int64_t lanes,
                                       int chunk, int n_shards, int seg_rows,
-                                      void* stream) {
+                                      const int64_t* offsets, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ExpandArgs a;
-  if (!make_packing(n_shards, seg_rows, n, &a.pack))
+  if (!make_packing(n_shards, seg_rows, offsets, n, &a.pack))
     return (int)cudaErrorInvalidValue;
   a.nxt = static_cast<const int32_t*>(nxt);
   a.starts = static_cast<const int32_t*>(starts);
@@ -825,11 +918,13 @@ extern "C" int expand_segments_launch(const void* nxt, const void* starts,
   a.lanes = lanes;
   switch (a.pack.layout) {
     case kPackedPow2:
-      return launch_expand_chunk<kPackedPow2>(a, chunk, s);
+      return launch_expand_chunk<kPackedPow2>(a, chunk, offsets, s);
     case kPackedAny:
-      return launch_expand_chunk<kPackedAny>(a, chunk, s);
+      return launch_expand_chunk<kPackedAny>(a, chunk, offsets, s);
+    case kPackedGapped:
+      return launch_expand_chunk<kPackedGapped>(a, chunk, offsets, s);
     default:
-      return launch_expand_chunk<kGlobal>(a, chunk, s);
+      return launch_expand_chunk<kGlobal>(a, chunk, offsets, s);
   }
 }
 
@@ -842,27 +937,32 @@ namespace {
 template <typename Id, int kLayout>
 void launch_gather(const void* nxt, const void* ids, void* out, int64_t n,
                    int64_t lanes, int hops, WalkScratch* w, int* h,
-                   const Packing& p, cudaStream_t s) {
+                   const Packing& p, const int64_t* offsets, cudaStream_t s) {
   const int threads = 256;
   gather_next_kernel<Id, kLayout><<<grid_for(lanes, threads), threads, 0, s>>>(
       static_cast<const int32_t*>(nxt), static_cast<const Id*>(ids),
-      static_cast<int32_t*>(out), n, lanes, hops, w, h, p);
+      static_cast<int32_t*>(out), n, lanes, hops, w, h, p,
+      offsets_of<kLayout>(p, offsets));
 }
 
 template <typename Id>
 void launch_gather_ids(const void* nxt, const void* ids, void* out, int64_t n,
                        int64_t lanes, int hops, WalkScratch* w, int* h,
-                       const Packing& p, cudaStream_t s) {
+                       const Packing& p, const int64_t* offsets,
+                       cudaStream_t s) {
   switch (p.layout) {
     case kPackedPow2:
       return launch_gather<Id, kPackedPow2>(nxt, ids, out, n, lanes, hops, w,
-                                            h, p, s);
+                                            h, p, offsets, s);
     case kPackedAny:
       return launch_gather<Id, kPackedAny>(nxt, ids, out, n, lanes, hops, w,
-                                           h, p, s);
+                                           h, p, offsets, s);
+    case kPackedGapped:
+      return launch_gather<Id, kPackedGapped>(nxt, ids, out, n, lanes, hops,
+                                              w, h, p, offsets, s);
     default:
       return launch_gather<Id, kGlobal>(nxt, ids, out, n, lanes, hops, w, h,
-                                        p, s);
+                                        p, offsets, s);
   }
 }
 
@@ -872,18 +972,20 @@ extern "C" int gather_next_launch(const void* nxt, const void* ids,
                                   int id_bytes, void* out, int64_t n,
                                   int64_t lanes, int hops, void* walk,
                                   void* len_host, int n_shards, int seg_rows,
-                                  void* stream) {
+                                  const int64_t* offsets, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   Packing p;
   if (hops < 1 || (walk == nullptr) != (len_host == nullptr) ||
-      !make_packing(n_shards, seg_rows, n, &p) ||
+      !make_packing(n_shards, seg_rows, offsets, n, &p) ||
       (id_bytes != 8 && id_bytes != 4))
     return (int)cudaErrorInvalidValue;
   WalkScratch* w = static_cast<WalkScratch*>(walk);
   int* h = static_cast<int*>(len_host);
   if (id_bytes == 8)
-    launch_gather_ids<int64_t>(nxt, ids, out, n, lanes, hops, w, h, p, s);
+    launch_gather_ids<int64_t>(nxt, ids, out, n, lanes, hops, w, h, p,
+                               offsets, s);
   else
-    launch_gather_ids<int32_t>(nxt, ids, out, n, lanes, hops, w, h, p, s);
+    launch_gather_ids<int32_t>(nxt, ids, out, n, lanes, hops, w, h, p,
+                               offsets, s);
   return (int)cudaGetLastError();
 }

@@ -33,16 +33,19 @@ __all__ = ["arena_from_image", "image_of", "params_from_numpy",
            "params_to_numpy", "state_from_numpy", "state_to_numpy"]
 
 
-def arena_from_image(image: np.ndarray, layout: dict, device) -> Arena:
-    """A port arena holding ``image`` (uint8 bytes of a reference arena)
-    laid out as ``layout`` (``{name: {"dtype", "shape", "offset"}}``, the
-    reference's ``_meta`` and ``.layout`` sidecar), reopened: its volatile
-    regions are loaded onto ``device`` and its generation is the committed
-    one.  Raises ValueError if the layout does not place the regions
-    where the port would."""
+def arena_from_image(image: np.ndarray, layout: dict, device,
+                     commit_mode: str = "barrier") -> Arena:
+    """A port arena holding ``image`` (uint8 bytes of a reference arena
+    committed by ``commit_mode``) laid out as ``layout`` (``{name:
+    {"dtype", "shape", "offset"}}``, the reference's ``_meta`` and
+    ``.layout`` sidecar), reopened: its volatile regions are loaded onto
+    ``device`` (through the committed shadow bank, for a shadow image) and
+    its generation is the committed one.  Raises ValueError if the layout
+    does not place the regions where the port would."""
     sidecars = [n for n in layout if n.endswith(".integ")]
     # finalize() appends the sidecars itself, after the declared regions
-    a = Arena(None, device=device, integrity=bool(sidecars))
+    a = Arena(None, device=device, integrity=bool(sidecars),
+              commit_mode=commit_mode)
     for name, spec in layout.items():
         if name not in sidecars:
             a.region(name, np.dtype(spec["dtype"]), tuple(spec["shape"]))

@@ -44,17 +44,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "scatter_rows_launch": [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _P],
     },
     # the chain kernels' last arguments but the stream: the packed
-    # layout's n_shards (0: the global layout) and seg_rows
+    # layout's n_shards (0: the global layout), seg_rows and its host
+    # offsets (null for the router's partition)
     "chain_order": {
         "jump_double_launch": [_P, _P, _P, _P, _P, _P, _I64, _INT, _INT,
-                               _INT, _INT, _P],
+                               _INT, _INT, _P, _P],
         "walk_segments_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                  _I64, _INT, _INT, _INT, _INT, _INT, _INT,
-                                 _INT, _INT, _P],
+                                 _INT, _INT, _P, _P],
         "expand_segments_launch": [_P, _P, _P, _P, _P, _I64, _I64, _INT,
-                                   _INT, _INT, _P],
+                                   _INT, _INT, _P, _P],
         "gather_next_launch": [_P, _P, _INT, _P, _I64, _I64, _INT, _P, _P,
-                               _INT, _INT, _P],
+                               _INT, _INT, _P, _P],
     },
     "quant_pack": {
         "quantize_blockwise_launch": [_P, _P, _P, _I64, _P],

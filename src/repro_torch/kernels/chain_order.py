@@ -29,8 +29,13 @@ shard's span) and ``seg_rows=`` (the block-cyclic router's segment): a
 sharded region's NEXT column arrives as the shards' persistent views
 concatenated, while pointer values stay global ids.  Every array indexed
 by a node id is indexed through ``packed_positions``' closed form; ids,
-loaded values and outputs stay global.  Without ``segments`` the layout
-is global and the launches are the ones they were.
+loaded values and outputs stay global.  A shard's span may end in padding
+rows (offsets with gaps, as the reference accepts); an id whose position
+falls past its shard's span addresses no row and reads as NULL, as an id
+outside [0, n) does (``addressable``).  The router's exact partition of
+the rows keeps its closed-form launches; other offsets ride in the
+launch's parameters.  Without ``segments`` the layout is global and the
+launches are the ones they were.
 
 ``csrc/chain_order.cu`` holds the Hopper kernels and their design notes.
 ``jump_double`` and ``gather_next`` also keep ``steps``, a histogram of
@@ -56,7 +61,8 @@ __all__ = ["jump_double", "jump_double_plain", "walk_segments",
            "walk_segments_plain", "expand_segments", "expand_segments_plain",
            "gather_next", "gather_next_plain", "sanitize32", "chain_tables",
            "contract_walk", "walk_positions", "packed_positions",
-           "router_segments", "MARK_STRIDE", "SegmentMarks"]
+           "router_segments", "addressable", "MARK_STRIDE",
+           "MAX_GAPPED_SHARDS", "SegmentMarks"]
 
 
 # ----------------------------------------------------------------- checks
@@ -132,10 +138,20 @@ def router_segments(n: int, seg_rows: int, n_shards: int) -> List[int]:
             for s in range(n_shards + 1)]
 
 
+# shards a gapped packing may have: its offsets ride in the launch's
+# parameters (csrc/chain_order.cu kMaxGappedShards)
+MAX_GAPPED_SHARDS = 64
+
+
 class _Packing(NamedTuple):
-    """A launch's packed layout: the offsets and the segment size."""
+    """A launch's packed layout: the offsets, the segment size, whether
+    the offsets are the router's partition of the rows (the closed form
+    every id addresses), and the offsets as a host int64 array for the
+    C arguments of a gapped packing."""
     segments: Tuple[int, ...]
     seg_rows: int
+    partition: bool
+    host: np.ndarray
 
     def at(self, ids: torch.Tensor) -> torch.Tensor:
         """Array positions of in-range global ids (the plain versions)."""
@@ -145,10 +161,11 @@ class _Packing(NamedTuple):
 def _packing(segments, seg_rows: int, n: int, device: torch.device
              ) -> Optional[_Packing]:
     """Check and resolve ``segments=``/``seg_rows=`` for an n-row array;
-    None for the global layout.  The offsets must be the router's
-    partition of the n rows (``router_segments``): the one packing whose
-    positions are a bijection onto [0, n), and what the kernels compute
-    in closed form."""
+    None for the global layout.  The offsets are the reference's: N + 1
+    non-decreasing row offsets from 0, the last at most n; a shard's span
+    may hold padding rows after its own.  The router's partition of the n
+    rows (``router_segments``) is told apart here, once per call: the
+    kernels compute its offsets in closed form."""
     if segments is None:
         if seg_rows:
             raise ValueError("seg_rows without segments")
@@ -159,23 +176,57 @@ def _packing(segments, seg_rows: int, n: int, device: torch.device
     if seg_rows < 1 or seg_rows * (len(segs) - 1) >= 2 ** 31:
         raise ValueError(f"seg_rows must be >= 1 with segments, and a round "
                          f"of segments below 2**31 rows, got {seg_rows}")
-    if len(segs) < 2 or list(segs) != router_segments(n, seg_rows,
-                                                      len(segs) - 1):
-        raise ValueError(f"segments must be the ('seg', {seg_rows}) "
-                         f"router's partition of the {n} rows, got "
+    if len(segs) < 2 or segs[0] != 0 or segs[-1] > n or any(
+            b < a for a, b in zip(segs, segs[1:])):
+        raise ValueError(f"segments must be n_shards + 1 non-decreasing row "
+                         f"offsets from 0 to at most the {n} rows, got "
                          f"{list(segs)}")
-    return _Packing(segs, int(seg_rows))
+    partition = list(segs) == router_segments(n, seg_rows, len(segs) - 1)
+    if not partition and len(segs) - 1 > MAX_GAPPED_SHARDS:
+        raise ValueError(f"a packing other than the router's partition "
+                         f"holds at most {MAX_GAPPED_SHARDS} shards, got "
+                         f"{len(segs) - 1}")
+    return _Packing(segs, int(seg_rows), partition,
+                    np.asarray(segs, np.int64))
 
 
 def _pack_args(pk: Optional[_Packing]):
-    """The C arguments of a packing: n_shards (0: global) and seg_rows."""
+    """The C arguments of a packing: n_shards (0: global), seg_rows and
+    the host offsets (null for the router's partition)."""
     if pk is None:
-        return 0, 0
-    return len(pk.segments) - 1, pk.seg_rows
+        return 0, 0, None
+    return (len(pk.segments) - 1, pk.seg_rows,
+            None if pk.partition else pk.host.ctypes.data)
 
 
-def _at(pk: Optional[_Packing], ids: torch.Tensor) -> torch.Tensor:
-    return ids.long() if pk is None else pk.at(ids)
+def _addressed(pk: Optional[_Packing], ids: torch.Tensor, n: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ok, pos): whether each global id addresses a row of the n-row
+    array, and its array position (0 where it does not).  An id
+    addresses a row when it lies in [0, n) and, on a gapped packing, its
+    position lies inside its shard's span; any other id reads as NULL."""
+    ok = (ids >= 0) & (ids < n)
+    safe = torch.where(ok, ids, 0).long()
+    if pk is None:
+        return ok, safe
+    pos = pk.at(safe)
+    if not pk.partition:
+        ends = torch.as_tensor(pk.host[1:], device=ids.device)
+        ok = ok & (pos < ends[safe // pk.seg_rows % (len(pk.segments) - 1)])
+        pos = torch.where(ok, pos, 0)
+    return ok, pos
+
+
+def addressable(ids, n: int, segments=None, seg_rows: int = 0):
+    """Whether each global id (a numpy array or a tensor) addresses a
+    row of an n-row array in the given layout: in [0, n) and, on a
+    gapped packing, inside its shard's span.  The chain kernels read any
+    other id as NULL."""
+    if isinstance(ids, torch.Tensor):
+        pk = _packing(segments, seg_rows, n, ids.device)
+        return _addressed(pk, ids, n)[0]
+    return addressable(torch.from_numpy(np.asarray(ids, np.int64)), n,
+                       segments, seg_rows).numpy()
 
 
 # ------------------------------------------------------------ jump_double
@@ -184,10 +235,10 @@ def _double_plain(jump: torch.Tensor, cnt: Optional[torch.Tensor],
                   pk: Optional[_Packing] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     n = jump.shape[0]
-    live = (jump >= 0) & (jump < n)
-    safe = _at(pk, torch.where(live, jump, 0))
+    live, safe = _addressed(pk, jump, n)
     nj = jump[safe]
-    nj = torch.where(live & (nj >= 0) & (nj < n), nj, NULL).to(torch.int32)
+    nj = torch.where(live & _addressed(pk, nj, n)[0], nj,
+                     NULL).to(torch.int32)
     if cnt is None:
         return nj, None
     return nj, cnt + torch.where(live, cnt[safe], 0)
@@ -318,9 +369,9 @@ def walk_segments_plain(nxt: torch.Tensor, starts: torch.Tensor, *, k: int,
         live = ~done
         if not bool(live.any()):
             break
-        inr = (cur >= 0) & (cur < n)
-        nv = torch.where(inr, nxt[_at(pk, torch.where(inr, cur, 0))], NULL)
-        nv = torch.where((nv >= 0) & (nv < n), nv, NULL)
+        inr, at = _addressed(pk, cur, n)
+        nv = torch.where(inr, nxt[at], NULL)
+        nv = torch.where(_addressed(pk, nv, n)[0], nv, NULL)
         cur = torch.where(live, nv, cur)
         w = torch.where(live, w + 1, w)
         spv = _spine_index(torch.where(cur >= 0, cur, 0), k, head, n_mult,
@@ -424,10 +475,9 @@ def expand_segments_plain(nxt: torch.Tensor, starts: torch.Tensor,
         r = r - 1
         kp = r > 0
         cur = cur[kp]
-        inr = (cur >= 0) & (cur < n)
-        cur = torch.where(inr, nxt[_at(pk, torch.where(inr, cur, 0))].long(),
-                          NULL)
-        cur = torch.where((cur >= 0) & (cur < n), cur, NULL)
+        inr, at = _addressed(pk, cur, n)
+        cur = torch.where(inr, nxt[at].long(), NULL)
+        cur = torch.where(_addressed(pk, cur, n)[0], cur, NULL)
         p, r = p[kp] + 1, r[kp]
     return out
 
@@ -487,12 +537,11 @@ def _check_ids(ids: torch.Tensor, device: torch.device) -> None:
 def _hop_plain(nxt: torch.Tensor, ids: torch.Tensor,
                pk: Optional[_Packing] = None) -> torch.Tensor:
     n = nxt.shape[0]
-    ok = (ids >= 0) & (ids < n)
     if n == 0:
         return torch.full(ids.shape, NULL, dtype=torch.int32,
                           device=ids.device)
-    got = nxt[_at(pk, torch.where(ok, ids, 0))]
-    return torch.where(ok, got, NULL).to(torch.int32)
+    ok, at = _addressed(pk, ids, n)
+    return torch.where(ok, nxt[at], NULL).to(torch.int32)
 
 
 def gather_next_plain(nxt: torch.Tensor, ids: torch.Tensor, *,
@@ -507,13 +556,13 @@ def gather_next_plain(nxt: torch.Tensor, ids: torch.Tensor, *,
     for _ in range(hops):
         cols.append(_hop_plain(nxt, cols[-1], pk))
     walk = torch.stack(cols[1:])
-    return walk, _walk_length(cols, nxt.shape[0])
+    return walk, _walk_length(cols, nxt.shape[0], pk)
 
 
-def _walk_length(cols, n: int) -> int:
-    """Columns holding an id in [0, n) in some lane.  They lead: a lane
-    that leaves the range gets NULL from then on."""
-    return sum(int(((c >= 0) & (c < n)).any()) for c in cols)
+def _walk_length(cols, n: int, pk: Optional[_Packing] = None) -> int:
+    """Columns holding an id that addresses a row in some lane.  They
+    lead: a lane that leaves the rows gets NULL from then on."""
+    return sum(int(_addressed(pk, c, n)[0].any()) for c in cols)
 
 
 def gather_next(nxt: torch.Tensor, ids: torch.Tensor, *, hops: int = 1,
@@ -643,8 +692,10 @@ def walk_positions(tables: torch.Tensor, start: int, count: int, *,
     n = tables.shape[1]
     pk = _packing(segments, seg_rows, n, dev)
     if pk is not None:
-        # the levels used, back in global order: one gather
-        tables = tables[:bits][:, pk.at(torch.arange(n, device=dev))]
+        # the levels used, back in global order: one gather (an id that
+        # addresses no row of a gapped packing is NULL)
+        ok, pos = _addressed(pk, torch.arange(n, device=dev), n)
+        tables = torch.where(ok, tables[:bits][:, pos], NULL)
     levels = torch.cat([torch.where(tables[:bits] < 0, n, tables[:bits]),
                         torch.full((bits, 1), n, dtype=tables.dtype,
                                    device=dev)], 1)

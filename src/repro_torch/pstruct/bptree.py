@@ -877,7 +877,7 @@ def _quarantine_unreachable(t: BPTree, leaves: torch.Tensor,
     reference's per-row loop, in one masked pass).  Stale freed leaves
     over-quarantine only keys that are absent anyway; the keys inside the
     corrupt rows are unreadable and stay anonymous."""
-    img = t.nodes._pview()[:fresh_n]
+    img = t.arena._pimage(t.nodes, copy=False)[:fresh_n]
     skip = np.zeros(fresh_n, bool)
     skip[leaves.cpu().numpy()] = True
     skip[bad_nodes[bad_nodes < fresh_n]] = True

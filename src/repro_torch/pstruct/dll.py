@@ -449,10 +449,12 @@ def _salvage_bad_rows(arena, region) -> np.ndarray:
 
 
 def _image_col(region, col: int, dev) -> torch.Tensor:
-    """Column ``col`` of a region's committed persistent image as an int64
-    tensor on ``dev`` (one host-to-device copy)."""
+    """Column ``col`` of a region's committed persistent image (with the
+    authoritative shadow bank's rows) as an int64 tensor on ``dev`` (one
+    host-to-device copy)."""
     return torch.from_numpy(np.ascontiguousarray(
-        region._pview()[:, col]).astype(np.int64)).to(dev)
+        region.arena._pimage(region, copy=False)[:, col]).astype(
+            np.int64)).to(dev)
 
 
 @rec.register("pstruct.dll")

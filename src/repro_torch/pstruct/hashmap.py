@@ -588,7 +588,7 @@ def _reconstruct_hashmap(h: Hashmap) -> dict:
         bad = _salvage_bad_rows(h.arena, h.entries)
         bad = bad[bad < fresh]
         if bad.size:
-            keys = h.entries._pview()[bad, 0]
+            keys = h.arena._pimage(h.entries, copy=False)[bad, 0]
             h.quarantined.update(int(k) for k in keys[keys != KEY_NULL])
             bad_t = torch.from_numpy(bad).to(h.arena.device)
             was_live = int((h.keys[bad_t] != KEY_NULL).sum())

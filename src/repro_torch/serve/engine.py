@@ -47,10 +47,11 @@ The engine runs on the card unless the caller passes ``device="cpu"``;
 its parameters must live there.  ``n_shards > 1`` puts the engine's
 arena and its page pool's arena on sharded arenas (barrier commit): the
 token log stripes slot-per-shard, and re-prefill groups by (token-log
-shard, prompt length), which at one shard is the per-length grouping.  Not
-ported (raise ``NotImplementedError``, see ROADMAP Queue 1):
-``commit_mode="shadow"`` and paging (``paged=True``, or ``None`` under
-``REPRO_PAGED=1``), as the port's arena.
+shard, prompt length), which at one shard is the per-length grouping.
+``commit_mode="shadow"`` (DESIGN.md §9) commits both arenas by the shadow
+protocol at one shard.  Not ported (raise ``NotImplementedError``, see
+ROADMAP Queue 1), as the port's arena: shadow commit with ``n_shards >
+1``, and paging (``paged=True``, or ``None`` under ``REPRO_PAGED=1``).
 """
 from __future__ import annotations
 

@@ -17,8 +17,9 @@ Partly-persistent split:
 
 The journal adds no ordering point of its own.  Entries are marked into
 the enclosing epoch's write set (every append targets a slot outside the
-committed live window, the sealing rule), and the persisted HEAD/TAIL ride
-a metadata line.  Hosted by the request hashmap, HEAD/TAIL take words 4-5
+committed live window, the sealing rule, so they are marked ``fresh``: a
+shadow drain writes them home in place, a barrier drain in its data
+phase), and the persisted HEAD/TAIL ride a metadata line.  Hosted by the request hashmap, HEAD/TAIL take words 4-5
 of its header row, which every insert/remove already marks, so the table's
 committed size and the journal's committed head share one line and the
 journal's flush overhead is the one ring line per epoch counted in

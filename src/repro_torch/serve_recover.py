@@ -108,13 +108,15 @@ def _step_both(eng: ServingEngine, twin: ServingEngine, log: Dict,
 def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         s_max: int, steps: int = 8, max_requests: int = 64, seed: int = 0,
         concurrency: int = 1, params=None,
-        workdir: Optional[str] = None, n_shards: int = 1) -> Dict:
+        workdir: Optional[str] = None, n_shards: int = 1,
+        commit_mode: str = "barrier") -> Dict:
     """The twin protocol at ``cfg``: admit one request per prompt length to
     both engines, serve ``steps``, finish the first request, serve
     ``steps`` more, crash and recover one engine, compare caches, check
     the finished rid, admit a new request on its slot and serve ``steps``
-    further, all in f32.  ``n_shards`` shards both engines' arenas.
-    Returns the run's numbers; raises on any mismatch."""
+    further, all in f32.  ``n_shards`` shards both engines' arenas;
+    ``commit_mode`` is their commit protocol.  Returns the run's numbers;
+    raises on any mismatch."""
     device = resolve_device(device)
     model = Model(cfg, compute_dtype=torch.float32)
     if params is None:
@@ -122,7 +124,8 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         g.manual_seed(seed)
         params = model.init_params(g, device)
     ec = EngineConfig(max_batch=max_batch, s_max=s_max,
-                      max_requests=max_requests, n_shards=n_shards)
+                      max_requests=max_requests, n_shards=n_shards,
+                      commit_mode=commit_mode)
     prompts = prompts_for(list(prompt_lens) + [prompt_lens[-1]], cfg.vocab,
                           seed)
     rids = [1000 + i for i in range(len(prompt_lens))]

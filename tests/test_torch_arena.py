@@ -214,9 +214,21 @@ def test_device_and_feature_axes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TA.Arena(None, integrity=False)   # no silent CPU fallback
-    for kw in ({"commit_mode": "shadow"}, {"paged": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TA.Arena(None, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TA.Arena(None, device="cpu", paged=True)
+    # shadow commit on one arena is ported: the reference's layout (meta
+    # line, two entry banks, a mirror per region per bank) and bytes
+    port = TA.open_arena(None, LAYOUT, device="cpu", integrity=False,
+                         commit_mode="shadow")
+    ref = RA.open_arena(None, LAYOUT, integrity=False, commit_mode="shadow")
+    assert port.commit_mode == ref.commit_mode == "shadow"
+    assert (port._shadow_meta_off, port._shadow_ent_off,
+            port._shadow_cap) == (ref._shadow_meta_off,
+                                  ref._shadow_ent_off, ref._shadow_cap)
+    assert {n: r._shadow_off for n, r in port.regions.items()} == \
+        {n: r._shadow_off for n, r in ref.regions.items()}
+    assert port._region_ids == ref._region_ids
+    assert np.array_equal(np.asarray(port._mm), np.asarray(ref._mm))
     # integrity is ported: the port builds the reference's sidecar layout
     port = TA.open_arena(None, LAYOUT, device="cpu", integrity=True)
     ref = RA.open_arena(None, LAYOUT, integrity=True)

@@ -192,11 +192,16 @@ def test_store_quarantine_gate():
                                   ref.lookup([1, 5]))
 
 
-def test_store_rejects_what_is_not_ported():
+def test_store_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="shadow"):
         TStore(TConfig(n_shards=2, commit_mode="shadow"), device="cpu")
-    with pytest.raises(NotImplementedError, match="shadow"):
-        TStore(TConfig(commit_mode="shadow"), device="cpu")
+    # shadow commit on one arena is ported: the store's file and
+    # FlushStats are the reference's, request by request
+    ref, port = _stores(tmp_path, commit_mode="shadow")
+    assert port.arena.commit_mode == "shadow"
+    for op in FR.oracle_script(8, seed=5):
+        assert ref.apply(*op) == port.apply(*op) is True
+        _same(ref, port, tmp_path)
     fs = TStore(TConfig(), device="cpu")
     # salvage is ported: a store that never committed salvages to the
     # reference's report

@@ -305,12 +305,11 @@ def test_scrub_names_flip_and_stuck_line_sharded(tmp_path, target):
     _scrub_names(tmp_path, target, n_shards=4)
 
 
-def _scrub_names(tmp_path, target, n_shards):
+def _scrub_names(tmp_path, target, **kw):
     reg, idx, how = target
     out = {}
     for pkg in PKG:
-        a, d, t, h = _mixed(pkg, str(tmp_path / f"{pkg}.pm"),
-                            n_shards=n_shards)
+        a, d, t, h = _mixed(pkg, str(tmp_path / f"{pkg}.pm"), **kw)
         _run(a, d, t, h, _script(12, seed=1))
         row = idx if how is None else int(_host(
             d.order() if how == "order" else t.leaves())[idx])
@@ -342,8 +341,8 @@ def test_scrub_under_traffic_no_false_positives_sharded(tmp_path):
     _scrub_under_traffic(tmp_path, n_shards=4)
 
 
-def _scrub_under_traffic(tmp_path, n_shards):
-    a, d, t, h = _mixed("port", str(tmp_path / "a.pm"), n_shards=n_shards)
+def _scrub_under_traffic(tmp_path, **kw):
+    a, d, t, h = _mixed("port", str(tmp_path / "a.pm"), **kw)
     for i, op in enumerate(_script(10, seed=4)):
         with a.epoch():
             _apply(d, t, h, op)
@@ -390,7 +389,7 @@ def test_corruption_crash_double_failure_sharded(tmp_path, torn, boundary):
     _double_failure(tmp_path, torn, boundary, n_shards=4)
 
 
-def _double_failure(tmp_path, torn, boundary, n_shards):
+def _double_failure(tmp_path, torn, boundary, **kw):
     ops = _script(8, seed=6)
     stage_of = {"dll.nodes": "dll", "bt.nodes": "bt", "hm.entries": "hm"}
 
@@ -407,8 +406,7 @@ def _double_failure(tmp_path, torn, boundary, n_shards):
 
     twin = {}
     for pkg in PKG:
-        a, d, t, h = _mixed(pkg, str(tmp_path / f"tw{pkg}.pm"),
-                            n_shards=n_shards)
+        a, d, t, h = _mixed(pkg, str(tmp_path / f"tw{pkg}.pm"), **kw)
         crash(a, d, t, h)
         _manager(pkg, a, d, t, h).recover()
         twin[pkg] = _fingerprint(d, t, h)
@@ -417,7 +415,7 @@ def _double_failure(tmp_path, torn, boundary, n_shards):
         got = {}
         for pkg in PKG:
             b, d2, t2, h2 = _mixed(pkg, str(tmp_path / f"b{pkg}{j}.pm"),
-                                   n_shards=n_shards)
+                                   **kw)
             crash(b, d2, t2, h2)
             PKG[pkg][1].flip_bits(b, b.regions[reg], row, byte=3, mask=0x80)
             rep = _manager(pkg, b, d2, t2, h2).recover(salvage=True)
@@ -536,11 +534,10 @@ def test_mixed_salvage_matches_reference_sharded(tmp_path, mode, victim):
     _mixed_salvage(tmp_path, mode, victim, n_shards=4)
 
 
-def _mixed_salvage(tmp_path, mode, victim, n_shards):
+def _mixed_salvage(tmp_path, mode, victim, **kw):
     out = {}
     for pkg in PKG:
-        a, d, t, h = _mixed(pkg, str(tmp_path / f"{pkg}.pm"), mode,
-                            n_shards=n_shards)
+        a, d, t, h = _mixed(pkg, str(tmp_path / f"{pkg}.pm"), mode, **kw)
         _run(a, d, t, h, _script(30, seed=9))
         before = _fingerprint(d, t, h)
         leaves = _host(t.leaves())

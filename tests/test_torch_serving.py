@@ -326,8 +326,15 @@ def test_paged_allocator_matches_reference_and_recovers(tmp_path):
     pytest.param({"n_shards": 2, "commit_mode": "shadow"},
                  id="{'n_shards': 2}"),
     {"commit_mode": "shadow"}, {"paged": True}], ids=str)
-def test_engine_unported_axes_raise(models, kw):
+def test_engine_unported_axes_raise(models, kw, tmp_path):
     _, _, tm, tp = models
+    if kw == {"commit_mode": "shadow"}:
+        # shadow commit on one arena is ported: the engine serves, crashes
+        # and recovers as the reference's, with its files and FlushStats
+        ref, port = _engines(models, tmp_path, **kw)
+        assert port.arena.commit_mode == "shadow"
+        assert all(r == p for r, p in _drive(ref, port, tmp_path))
+        return
     with pytest.raises(NotImplementedError):
         TE.ServingEngine(tm, tp, TE.EngineConfig(max_batch=2, s_max=8, **kw),
                          device="cpu")

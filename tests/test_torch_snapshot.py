@@ -42,7 +42,7 @@ def _np(x):
 
 
 def _build(pkg, mode="partly", snapshot=True, path=None, dll_cap=64,
-           hm_cap=1024):
+           hm_cap=1024, **arena_kw):
     A, D, H, _ = PKG[pkg]
     layout = {}
     layout.update(D.DoublyLinkedList.layout(dll_cap, mode, name="dll",
@@ -50,7 +50,7 @@ def _build(pkg, mode="partly", snapshot=True, path=None, dll_cap=64,
     layout.update(H.Hashmap.layout(hm_cap, mode, name="hm",
                                    snapshot=snapshot))
     kw = {"device": "cpu"} if pkg == "port" else {}
-    a = A.open_arena(path, layout, integrity=False, **kw)
+    a = A.open_arena(path, layout, integrity=False, **kw, **arena_kw)
     return (a, D.DoublyLinkedList(a, dll_cap, mode, name="dll",
                                   snapshot=snapshot),
             H.Hashmap(a, hm_cap, mode, name="hm", snapshot=snapshot))
