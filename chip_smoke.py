@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, with one CUDA card visible:
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--crossover-study]
 
 Phases (any failure exits non-zero; no phase catches its own failure):
 
@@ -141,7 +141,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    included), scrub results, salvage reports (timing aside) and recovered
    states; the quickstart workload at 2**14 for each structure in both
    modes on four-shard arenas, integrity off and on: identical shard
-   images, manifests and FlushStats (aggregate and per shard); on shadow
+   images, manifests and FlushStats (aggregate and per shard), and on
+   four-shard shadow arenas (committed after the inserts too, recovered
+   through the per-region load stages) identical shard images, manifests,
+   FlushStats and recovered states; on shadow
    arenas (one arena, DESIGN.md §9), the quickstart workload at 2**14 for
    each structure in both modes (committed after the inserts and after
    the deletes, integrity off), then the mixed arena with integrity on in
@@ -205,8 +208,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 10. training: llama3.2-3b at its published widths, cut to 4
    layers (796,683,264 parameters; params, grads and moments 12.7 GB),
    f32, 4 x 1024 tokens a step, PARTLY_PERSISTENT with async checkpoints
-   every 4 steps, a crash after step 10, a resume at 8 and a run to 12,
-   beside an uninterrupted twin of 12 steps, torch's kernels
+   every 4 steps, a crash after step 6, a resume at 4 and a run to 8,
+   beside an uninterrupted twin of 8 steps (cut from 12 steps and a
+   crash after 10 for the time phase 13's four-shard half takes: one
+   9.56 GB save fewer), torch's kernels
    deterministic (``CUBLAS_WORKSPACE_CONFIG`` is set before phase 1):
    every loss and the final parameters equal the twin's bit for bit
    (delta 0); flash_attention launched 2 x layers per step (the forward
@@ -256,22 +261,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    capacity, 4096 steps recorded, crash, reopen, ``steps()`` and
    ``latest()`` unchanged.  The phase's seconds are printed;
 12. sharded arenas (DESIGN.md §7, barrier commit), four shards: phase
-   3's workload (DLL and hashmap 2**22, the B+Tree 2**17 as phase 11
-   cuts it), both modes, integrity off, recovered through
+   3's workload (DLL and hashmap 2**19, the B+Tree 2**15: cut from 2**22
+   and 2**17 for the time phase 13's four-shard half takes), both modes,
+   integrity off, recovered through
    ``RecoveryManager(concurrency=4)`` with per-region load stages: the
    recovered state checked, the DLL's and hashmap's aggregate
-   FlushStats equal to phase 3's in every field but ``calls`` (one flush
-   call per shard file written), the shards' lines and bytes summing to
-   the aggregate, ``pack_rows`` launches equal to the grouped gathers and
-   no more gathers than phase 3's, reopen and stage seconds beside phase
-   3's recovery and, for the DLL and hashmap, insert, delete and
-   recovery seconds beside a one-shard run of the same just before it;
+   FlushStats equal in every field but ``calls`` (one flush call per
+   shard file written) to a one-shard run of the same just before it
+   (phase 3's, at phase 3's sizes), the shards' lines and bytes summing
+   to the aggregate, ``pack_rows`` launches equal to the grouped gathers
+   and no more gathers than the one-shard run's, and insert, delete and
+   recovery seconds beside it;
    the packed API on the committed partly DLL: its shards'
    persistent NEXT views concatenated, ``chain_order(segments=,
    seg_rows=64)`` by doubling, by contraction and through the snapshot
    verify equal to the DLL's order, the four chain kernels launched,
    each call timed beside the same call on the global column; a mixed
-   four-shard arena (DLL and hashmap 2**20, B+Tree 2**17, integrity and
+   four-shard arena (DLL and hashmap 2**20, B+Tree 2**15, integrity and
    snapshots on) whose commit crashes after shard k for k = 0..3, each
    recovered to the manifest's generation with the flushed append and
    the next commit sealing the next one, then a clean scrub, a clean
@@ -288,9 +294,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    mixed 1:1, 4000-ns line stalls, 1, 2 and 4 shards, best of 3): equal
    line, saved and dedup counts, the 4-shard flush wall at least 1.3x
    faster than one shard's;
-13. shadow commit on one arena (DESIGN.md §9): phase 3's workload,
-   committed after the inserts as well (DLL and hashmap 2**22, the
-   B+Tree 2**15), both modes, integrity off, each
+13. shadow commit (DESIGN.md §9), on one arena and at four shards.  One
+   arena: phase 3's workload,
+   committed after the inserts as well (DLL and hashmap 2**19, cut from
+   2**22 for time; the B+Tree 2**15), both modes, integrity off, each
    beside a barrier twin of the same run just before it: the recovered
    state checked as in phase 3, ``pack_rows`` launches equal to the
    grouped gathers, one fence a commit, every chain kernel that phase 3
@@ -308,10 +315,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    full-width engine through the twin protocol and the feature store at
    phase 9's config, 64 requests, a torn crash at 48 replaying exactly
    once, both on shadow arenas; and the reference's ``shadow_crossover``
-   shape (``benchmarks/flush_batching.py``) at one shard: a B+Tree, mixed
-   1:1, epochs of 4 x 64, 250 ns a line and 1 ms a fence, barrier and
-   shadow interleaved, best of 2, fences three an epoch against one, the
-   speedup printed (the reference gates it only at 4 shards).
+   shape (``benchmarks/flush_batching.py``) at one and at four shards: a
+   B+Tree, mixed 1:1, epochs of 4 x 64, 250 ns a line and 1 ms a fence,
+   barrier and shadow interleaved, best of 2, fences three an epoch
+   against one, the four-shard shadow flush wall at least 1.3x faster
+   than barrier's (the reference's gate; the one-shard point ungated),
+   first in the phase; the four-shard point again at the phase's end
+   (after the four-shard serving), reported against the gate; each
+   run's epochs profiled on the host clock.  ``--crossover-study`` adds,
+   before each, the shard pool's two rules timed against each other
+   (``pool_study``).
+   Four shards: phase 3's workload (DLL and hashmap 2**22, B+Tree
+   2**15), both modes, integrity off, recovered through RecoveryManager
+   (concurrency 4, per-region load stages), each beside a four-shard
+   barrier twin just before it: recovered state as in phase 3, one fence
+   a commit (none on a shard), ``pack_rows`` launches equal to the
+   gathers, one ``scatter_rows`` launch per loaded (region, shard), every
+   chain kernel phase 3 launched; a mixed four-shard arena (DLL and
+   hashmap 2**20, B+Tree 2**15, integrity on): an append whose commit
+   crashes at k = -1 (after the seals), 0, 1, 2, 3 (after shard k's
+   flip), each recovered to the manifest's generation without the append,
+   every shard re-anchored to it, then a commit sealing the next
+   generation on every shard; a clean scrub, a flip in a DLL row shard
+   3's authoritative bank remaps, scrub naming exactly it, and a salvage
+   cutting only the DLL; the 2-layer engine and the feature store (64
+   requests) on four-shard shadow arenas beside twins, one fence a
+   commit on every arena.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
@@ -319,8 +348,7 @@ phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7;
 ``probe``'s in phase 8; ``pack_rows``' and ``jump_double``'s in phase 9;
 ``flash_attention``'s and ``flash_attention_bwd``'s in phase 10; the
 four chain kernels', ``pack_rows``', ``scatter_rows``' (a shard's
-reload) and ``flash_attention``'s in phase 12, and again in phase 13
-(``scatter_rows``: the engine's re-prefill).
+reload) and ``flash_attention``'s in phase 12, and again in phase 13.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -361,7 +389,8 @@ SNAP_KINDS = ("dll", "hashmap")
 CKPT_ARCH, CKPT_LAYERS = "llama3.2-3b", 4
 CKPT_SEED, CKPT_STEP = 7, 1000
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 12, 4, 10
+# cut from 12 steps and a crash after 10 (three saves) to two saves
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 8, 4, 6
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 4, 1024, 5
 TRAIN_BF16_STEPS = 6           # each of the bf16 step's two runs
 TRAIN_CPU_STEPS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 3, 2, 128
@@ -4028,8 +4057,11 @@ def integrity_phase(dev, phase3: dict) -> dict:
 SHARDS = 4
 PACK_SEG = 64                  # the DLL's SHARD_SEG: ("seg", 64)
 PACK_SHARDS = (4, 3)           # phase 2's packed layouts
-SHARDED_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 17}
-WINDOW_N = {"dll": 1 << 20, "hashmap": 1 << 20, "bptree": 1 << 17}
+# phase 12's structures, cut from 2**22 (DLL, hashmap) and 2**17 (B+Tree)
+# for the time phase 13's four-shard half and its second crossover take
+SHARDED_N = {"dll": 1 << 19, "hashmap": 1 << 19, "bptree": 1 << 15}
+# the commit window's mixed arena, its B+Tree cut from 2**17 for time
+WINDOW_N = {"dll": 1 << 20, "hashmap": 1 << 20, "bptree": 1 << 15}
 # benchmarks/flush_batching.py's sharded_sweep, its quick shape: B+Tree
 # mixed 1:1, barrier, the per-line stall that makes the flush wall
 # stall-dominated
@@ -4331,18 +4363,18 @@ def packed_api(dev, d) -> dict:
 
 
 def sharded_structures(dev, phase3: dict) -> dict:
-    """Phase 12's structures: phase 3's workload on four-shard arenas,
-    both modes, integrity off, recovered through RecoveryManager
-    (concurrency 4, per-region load stages).  The aggregate FlushStats of
-    the DLL and the hashmap must equal phase 3's in every field but
-    ``calls`` (a flush call per shard file), the shards' lines and bytes
-    must sum to the aggregate, pack_rows launches must equal the grouped
-    gathers and no more gathers than phase 3's (one per drain); the
-    packed API runs on the partly DLL.  The DLL and hashmap also run at
-    one shard just before, recovered the same way: the host-clock
-    seconds compare within one stretch of the process, where phase 3's
-    ran minutes earlier (and recovered by ``reopen`` plus
-    ``reconstruct``, which loads the regions twice)."""
+    """Phase 12's structures: phase 3's workload on four-shard arenas
+    (SHARDED_N), both modes, integrity off, recovered through
+    RecoveryManager (concurrency 4, per-region load stages).  The DLL and
+    hashmap also run at one shard just before, recovered the same way:
+    the aggregate FlushStats at four shards must equal that one-shard
+    run's in every field but ``calls`` (a flush call per shard file), with
+    no more gathers (phase 3's, where the sizes are phase 3's); the
+    shards' lines and bytes must sum to the aggregate, pack_rows launches
+    must equal the grouped gathers (one per drain); the packed API runs
+    on the partly DLL.  The host-clock seconds compare within one stretch
+    of the process, where phase 3's ran minutes earlier (and recovered by
+    ``reopen`` plus ``reconstruct``, which loads the regions twice)."""
     import torch
     from repro_torch.core.writeset import WriteSet
     from repro_torch.kernels import launch_counts
@@ -4354,7 +4386,8 @@ def sharded_structures(dev, phase3: dict) -> dict:
                 o = workload(kind, mode, SHARDED_N[kind], dev,
                              concurrency=SHARDS)
                 one = {"insert_s": o["insert_s"], "delete_s": o["delete_s"],
-                       "recover_s": o["recover_s"],
+                       "recover_s": o["recover_s"], "stats": o["stats"],
+                       "gathers": o["gathers"],
                        "stages": {st.name: st.seconds
                                   for st in o["recovery"].stages}}
                 del o
@@ -4385,21 +4418,26 @@ def sharded_structures(dev, phase3: dict) -> dict:
                    "stages": {st.name: st.seconds for st in rep.stages},
                    "reopen_detail": rep.stage("reopen").detail,
                    "launches": gathers, "one_shard": one}
-            p3 = phase3.get((kind, mode))
-            if p3 is not None and p3["n"] == SHARDED_N[kind]:
-                differ = {f: (agg[f], p3["stats"][f]) for f in agg
-                          if f != "calls" and agg[f] != p3["stats"][f]}
+            # the same workload on one arena: phase 3's run where the sizes
+            # are phase 3's, else the one-shard run just before
+            base, flat = "phase3", phase3.get((kind, mode))
+            if flat is None or flat["n"] != SHARDED_N[kind]:
+                base, flat = "one_shard", one
+            if flat is not None:
+                differ = {f: (agg[f], flat["stats"][f]) for f in agg
+                          if f != "calls" and agg[f] != flat["stats"][f]}
                 if differ:
                     raise AssertionError(f"{label}: FlushStats differ from "
-                                         f"phase 3's: {differ}")
-                if r["gathers"] > p3["gathers"]:
+                                         f"{base}'s: {differ}")
+                if r["gathers"] > flat["gathers"]:
                     raise AssertionError(f"{label}: {r['gathers']} gathers, "
-                                         f"phase 3 {p3['gathers']}")
-                row.update(phase3_calls=p3["stats"]["calls"],
-                           phase3_gathers=p3["gathers"],
-                           phase3_insert_s=p3["insert_s"],
-                           phase3_delete_s=p3["delete_s"],
-                           phase3_recover_s=p3["recover_s"])
+                                         f"{base} {flat['gathers']}")
+                row.update({f"{base}_calls": flat["stats"]["calls"],
+                            f"{base}_gathers": flat["gathers"]})
+                if base == "phase3":
+                    row.update(phase3_insert_s=flat["insert_s"],
+                               phase3_delete_s=flat["delete_s"],
+                               phase3_recover_s=flat["recover_s"])
             elif r["gathers"] > agg["epochs"]:
                 raise AssertionError(f"{label}: {r['gathers']} gathers "
                                      f"over {agg['epochs']} drains")
@@ -4413,7 +4451,7 @@ def sharded_structures(dev, phase3: dict) -> dict:
 
 def commit_window(dev) -> dict:
     """Phase 12's commit window and integrity cells on one mixed four-shard
-    arena (DLL and hashmap 2**20, B+Tree 2**17, partly, snapshots and
+    arena (DLL and hashmap 2**20, B+Tree 2**15, partly, snapshots and
     integrity on): for each k of 0..3 an append whose commit crashes
     after shard k, recovered through RecoveryManager (concurrency 4,
     per-region load stages) to the manifest's generation with the append
@@ -4611,14 +4649,16 @@ def sharded_serving(dev) -> dict:
 
 
 def sweep_point(n_shards: int, dev, seed: int = 0, shape=None,
-                commit_mode: str = "barrier") -> dict:
+                commit_mode: str = "barrier", spans=None) -> dict:
     """One point of the reference's sharded_sweep
     (``benchmarks/flush_batching.py`` ``_sharded_flush``): a B+Tree,
     mixed 1:1 inserts and deletes in epochs of ``shape["group"]``
     batches, synthetic per-line (and, with ``shape["synth_fence_ns"]``,
     per-fence) stalls; the flush wall is the epoch drains and commits
     only.  ``n_shards=1`` is the plain arena.  ``shape`` defaults to
-    SWEEP."""
+    SWEEP.  Each epoch's drain and commit are profiled on the host clock
+    (``EpochClock``); ``spans``, a ``HostSpans``, closes an epoch after
+    each commit."""
     import numpy as np
     from repro_torch.core.arena import open_arena
     from repro_torch.pstruct.bptree import BPTree
@@ -4653,25 +4693,85 @@ def sweep_point(n_shards: int, dev, seed: int = 0, shape=None,
         rm += m
         done += m
     wall = 0.0
-    for g in range(0, len(ops), shape["group"]):
-        a._epoch_depth += 1        # marks accumulate untimed
-        for op, ks, vs in ops[g:g + shape["group"]]:
-            if op == "ins":
-                t.insert_batch(ks, vs)
-            else:
-                t.delete_batch(ks)
-        a._epoch_depth -= 1
-        t0 = time.perf_counter()
-        a.writeset.flush()
-        a.commit()
-        wall += time.perf_counter() - t0
+    if spans is not None:
+        spans.reset()              # the fill's drains are not an epoch
+    with EpochClock() as clock:
+        for g in range(0, len(ops), shape["group"]):
+            a._epoch_depth += 1        # marks accumulate untimed
+            for op, ks, vs in ops[g:g + shape["group"]]:
+                if op == "ins":
+                    t.insert_batch(ks, vs)
+                else:
+                    t.delete_batch(ks)
+            a._epoch_depth -= 1
+            wall += clock.epoch(a)
+            if spans is not None:
+                spans.epoch()
     d = a.stats.delta(base)
     a.close()
     return {"n_shards": n_shards, "commit_mode": commit_mode,
             "flush_wall_s": wall, "lines": d.lines,
             "saved_lines": d.saved_lines, "dedup_rows": d.dedup_rows,
             "epochs": d.epochs, "fences": d.fences,
-            "lines_per_s": d.lines / max(wall, 1e-9)}
+            "lines_per_s": d.lines / max(wall, 1e-9),
+            "host_profile": clock.profile()}
+
+
+class EpochClock:
+    """Times a sweep point's epochs: each epoch's drain and commit walls,
+    and what else the process did inside them: its minor page faults
+    (first touches of the arena's in-memory image) and the collector's
+    passes with their wall (``gc.callbacks``)."""
+
+    def __init__(self):
+        self.drain_ms, self.commit_ms = [], []
+        self.faults = self.gc_passes = 0
+        self.gc_ms, self._timing, self._gc_t0 = 0.0, False, 0
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if not self._timing:
+            return
+        if phase == "start":
+            self._gc_t0 = time.perf_counter_ns()
+        else:
+            self.gc_ms += (time.perf_counter_ns() - self._gc_t0) / 1e6
+            self.gc_passes += 1
+
+    def __enter__(self):
+        import gc
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._on_gc)
+
+    def epoch(self, a) -> float:
+        """Drain and commit ``a``'s epoch; returns their wall in s."""
+        import resource
+        f0 = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+        self._timing = True
+        t0 = time.perf_counter()
+        a.writeset.flush()
+        t1 = time.perf_counter()
+        a.commit()
+        t2 = time.perf_counter()
+        self._timing = False
+        self.faults += resource.getrusage(resource.RUSAGE_SELF).ru_minflt \
+            - f0
+        self.drain_ms.append((t1 - t0) * 1e3)
+        self.commit_ms.append((t2 - t1) * 1e3)
+        return t2 - t0
+
+    def profile(self) -> dict:
+        """The epochs' walls (ms), their medians and largest, the faults
+        and the collector's passes and wall inside them."""
+        epoch = [x + y for x, y in zip(self.drain_ms, self.commit_ms)]
+        return {"drain_ms": self.drain_ms, "commit_ms": self.commit_ms,
+                "drain_median_ms": statistics.median(self.drain_ms),
+                "commit_median_ms": statistics.median(self.commit_ms),
+                "epoch_max_ms": max(epoch), "minor_faults": self.faults,
+                "gc_passes": self.gc_passes, "gc_ms": self.gc_ms}
 
 
 def flush_gate(dev) -> dict:
@@ -4723,11 +4823,17 @@ def sharded_phase(dev, phase3: dict) -> dict:
 
 # phase 13: phase 3's workload (the B+Tree cut to 2**15 for time: each
 # run has a barrier twin, and the B+Tree's host per-leaf logic took 29 of
-# the phase's 120 s at 2**17), the torn flips on a mixed arena at phase
-# 12's window size (its B+Tree cut alike), and the reference's
-# shadow_crossover shape (benchmarks/flush_batching.py:218-250) at one
-# shard: B+Tree mixed 1:1, epochs of 4 x 64, 250 ns a line, 1 ms a fence
-SHADOW_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 15}
+# the phase's 120 s at 2**17; the one-arena DLL and hashmap cut to 2**19
+# to make room for the four-shard half at 2**22 and the four-shard
+# crossover's second run, after the four-shard serving), the torn flips
+# and the commit window on a mixed arena at phase 12's window size (its
+# B+Tree cut alike), and the reference's shadow_crossover shape
+# (benchmarks/flush_batching.py:218-250) at one and four shards: B+Tree
+# mixed 1:1, epochs of 4 x 64, 250 ns a line, 1 ms a fence
+SHADOW_N = {"dll": 1 << 19, "hashmap": 1 << 19, "bptree": 1 << 15}
+# phase 13's four-shard half: phase 3's widths (the B+Tree as above)
+SHADOW4_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 15}
+CROSSOVER_GATE = 1.3           # the reference's gate, at 4 shards
 TORN_N = {"dll": 1 << 20, "hashmap": 1 << 20, "bptree": 1 << 15}
 CROSSOVER = {"n_init": 4000, "n_ops": 8192, "batch": 64, "group": 4,
              "synth_ns": 250.0, "synth_fence_ns": 1_000_000.0,
@@ -4758,6 +4864,24 @@ def shadow_small(kind: str, mode: str, device) -> tuple:
     r = workload(kind, mode, PARITY_N, device, seed=3,
                  commit_mode="shadow", commit_after_fill=True)
     return (hashlib.sha256(image_of(r["arena"])).hexdigest(), r["stats"],
+            state_digest(kind, r["structure"]))
+
+
+def sharded_shadow_small(kind: str, mode: str, integrity: bool,
+                         device) -> tuple:
+    """Phase 4's four-shard shadow case: the quickstart workload at
+    PARITY_N on a four-shard shadow arena, committed after the inserts and
+    after the deletes, then a crash and recovery through the per-region
+    load stages.  Returns the sha256 of every shard image and the
+    manifest, the FlushStats, aggregate and per shard, and the recovered
+    state's digest."""
+    from repro_torch.interop import image_of
+    r = workload(kind, mode, PARITY_N, device, seed=3, integrity=integrity,
+                 n_shards=SHARDS, concurrency=SHARDS, commit_mode="shadow",
+                 commit_after_fill=True)
+    a = r["arena"]
+    return (hashlib.sha256(image_of(a)).hexdigest(), r["stats"],
+            [dataclasses.asdict(st) for st in a.shard_stats()],
             state_digest(kind, r["structure"]))
 
 
@@ -5015,41 +5139,513 @@ def shadow_serving(dev) -> dict:
             "boundary": boundary}
 
 
-def shadow_crossover(dev) -> dict:
-    """The reference's shadow_crossover shape at one shard, barrier and
-    shadow interleaved, best of CROSSOVER["repeats"]: the flush wall, the
-    fences (three an epoch against one), and the rate charging both modes
-    the barrier row's lines, as the reference does.  No gate: the
-    reference gates it at four shards."""
+def shadow_crossover(dev, shard_counts=(1, SHARDS), gated: bool = True
+                     ) -> dict:
+    """The reference's shadow_crossover shape at ``shard_counts``, barrier
+    and shadow interleaved, best of CROSSOVER["repeats"]: the flush wall,
+    the fences (three an epoch against one), and the rate charging both
+    modes the barrier row's lines, as the reference does; each row keeps
+    its epochs' host profile.  The reference gates the four-shard speedup
+    at CROSSOVER_GATE (``gated``; otherwise ``passes_gate`` reports it);
+    the one-shard point is reported beside it ungated."""
     best = {}
     for _ in range(CROSSOVER["repeats"]):
-        for mode in ("barrier", "shadow"):
-            r = sweep_point(1, dev, shape=CROSSOVER, commit_mode=mode)
-            if mode not in best or \
-                    r["flush_wall_s"] < best[mode]["flush_wall_s"]:
-                best[mode] = r
-    bar, sh = best["barrier"], best["shadow"]
-    for r in (bar, sh):
-        r["flush_lines_per_s"] = bar["lines"] / max(r["flush_wall_s"], 1e-9)
-    if bar["fences"] != 3 * bar["epochs"] or sh["fences"] != sh["epochs"]:
-        raise AssertionError(f"crossover fences: barrier {bar['fences']} "
-                             f"over {bar['epochs']} epochs, shadow "
-                             f"{sh['fences']} over {sh['epochs']}")
-    return {"shape": CROSSOVER, "rows": [bar, sh],
-            "speedup": bar["flush_wall_s"] / max(sh["flush_wall_s"], 1e-9)}
+        for ns in shard_counts:
+            for mode in ("barrier", "shadow"):
+                r = sweep_point(ns, dev, shape=CROSSOVER, commit_mode=mode)
+                if (ns, mode) not in best or \
+                        r["flush_wall_s"] < best[ns, mode]["flush_wall_s"]:
+                    best[ns, mode] = r
+    out = {"shape": CROSSOVER, "gate": CROSSOVER_GATE,
+           "host_state": host_state()}
+    for ns in shard_counts:
+        bar, sh = best[ns, "barrier"], best[ns, "shadow"]
+        for r in (bar, sh):
+            r["flush_lines_per_s"] = bar["lines"] / max(r["flush_wall_s"],
+                                                        1e-9)
+        if bar["fences"] != 3 * bar["epochs"] or \
+                sh["fences"] != sh["epochs"]:
+            raise AssertionError(
+                f"crossover at {ns} shards, fences: barrier "
+                f"{bar['fences']} over {bar['epochs']} epochs, shadow "
+                f"{sh['fences']} over {sh['epochs']}")
+        key = "rows" if ns == 1 else f"rows_{ns}"
+        out[key] = [bar, sh]
+        out["speedup" if ns == 1 else f"speedup_{ns}"] = \
+            bar["flush_wall_s"] / max(sh["flush_wall_s"], 1e-9)
+    x = out[f"speedup_{SHARDS}"]
+    out["passes_gate"] = x >= CROSSOVER_GATE
+    if gated and x < CROSSOVER_GATE:
+        raise AssertionError(
+            f"shadow crossover at {SHARDS} shards: {x:.3f}x barrier, below "
+            f"{CROSSOVER_GATE} (walls "
+            f"{ {k: v['flush_wall_s'] for k, v in best.items()} }; host "
+            f"{ {k: no_lists(v['host_profile']) for k, v in best.items()} })")
+    return out
 
 
-def shadow_phase(dev, launches3: dict) -> dict:
-    """Phase 13: shadow commit on one arena at the main path's size."""
+def no_lists(d: dict) -> dict:
+    return {k: v for k, v in d.items() if not isinstance(v, list)}
+
+
+def host_state() -> dict:
+    """What else the host holds when a host-timed gate runs: live threads
+    by name, the load average, this process's resident memory and
+    threads, the machine's free, cached and dirty memory, each NUMA
+    node's free memory, the cores this process may run on, and the
+    collector's counts (all read from /proc and /sys)."""
+    import gc
+    import threading
+
+    def fields(path, keys):
+        try:
+            lines = Path(path).read_text().splitlines()
+        except OSError:
+            return {}
+        return {k: " ".join(ln.split(":", 1)[1].split()) for ln in lines
+                for k in keys if ln.split(":", 1)[0].split()[-1] == k}
+
+    names = {}
+    for t in threading.enumerate():
+        base = t.name.rstrip("0123456789_-")
+        names[base] = names.get(base, 0) + 1
+    nodes = sorted(Path("/sys/devices/system/node").glob("node[0-9]*"))
+    return {"python_threads": names,
+            "process": fields("/proc/self/status", ("VmRSS", "Threads")),
+            "machine": fields("/proc/meminfo",
+                              ("MemFree", "Cached", "Dirty")),
+            "numa_free": {n.name: fields(n / "meminfo", ("MemFree",))
+                          .get("MemFree") for n in nodes},
+            "cores": len(os.sched_getaffinity(0)),
+            "loadavg": os.getloadavg(),
+            "gc_collections": [g["collections"] for g in gc.get_stats()]}
+
+
+class HostSpans:
+    """Per-epoch host wall of chosen methods, inclusive of what they call
+    (the study's breakdown; off in the gated runs): each wrapped call adds
+    its wall to ``Class.method``, ``epoch()`` closes an epoch."""
+
+    def __init__(self, targets):
+        self.targets, self.cur, self.epochs = targets, {}, []
+
+    def __enter__(self):
+        self.saved = []
+        for cls, name in self.targets:
+            real = cls.__dict__[name]
+            label = f"{cls.__name__}.{name}"
+            self.saved.append((cls, name, real))
+
+            def wrapped(*a, _real=real, _label=label, **kw):
+                t0 = time.perf_counter_ns()
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    self.cur[_label] = self.cur.get(_label, 0) + \
+                        time.perf_counter_ns() - t0
+            setattr(cls, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, real in self.saved:
+            setattr(cls, name, real)
+
+    def reset(self) -> None:
+        self.cur, self.epochs = {}, []
+
+    def epoch(self) -> None:
+        self.epochs.append(self.cur)
+        self.cur = {}
+
+    def mean_ms(self) -> dict:
+        keys = sorted(set().union(*self.epochs)) if self.epochs else []
+        n = max(len(self.epochs), 1)
+        return {k: sum(e.get(k, 0) for e in self.epochs) / n / 1e6
+                for k in keys}
+
+
+def span_targets() -> list:
+    from repro_torch.core.arena import Arena, ShardedArena
+    from repro_torch.core.writeset import ShardedWriteSet, WriteSet
+    return [(WriteSet, "gather"), (ShardedWriteSet, "_write_phase"),
+            (ShardedWriteSet, "_flush_shadow"), (ShardedArena, "run_shards"),
+            (Arena, "_shadow_collapse"), (Arena, "_shadow_write"),
+            (Arena, "_integrity_home"), (Arena, "_shadow_seal"),
+            (Arena, "_shadow_retire"), (Arena, "_write_header"),
+            (Arena, "_pay"), (ShardedArena, "_fence"),
+            (ShardedArena, "_write_manifest")]
+
+
+def pool_always(self, fn, shards, lines) -> None:
+    """The pool rule without the stall estimate: every share of work
+    over more than one shard goes to the pool wherever stalls are
+    modeled (the study's other arm)."""
+    shards = list(shards)
+    if len(shards) > 1 and self.synth_line_ns:
+        list(self.pool().map(fn, shards))
+    else:
+        for s in shards:
+            fn(s)
+
+
+def pool_study(dev, position: str, repeats: int = 3) -> dict:
+    """``--crossover-study``: the shard pool's two rules, interleaved in
+    each of ``repeats`` rounds: phase 12's flush-gate points (SWEEP at 1,
+    2, 4 shards) and the four-shard crossover pair, then one more
+    crossover pair per rule under ``HostSpans``.  Walls are the untraced
+    runs'; the spans' run gives the per-epoch breakdown."""
+    from repro_torch.core.arena import ShardedArena
+    rules = {"estimate": ShardedArena.run_shards, "always": pool_always}
+    walls, prof, parts = {}, {}, {}
+    state = host_state()
+    try:
+        for _ in range(repeats):
+            for rule, fn in rules.items():
+                ShardedArena.run_shards = fn
+                for ns in SWEEP_SHARDS:
+                    r = sweep_point(ns, dev)
+                    walls.setdefault(f"{rule}/gate/{ns}", []).append(
+                        r["flush_wall_s"])
+                for mode in ("barrier", "shadow"):
+                    r = sweep_point(SHARDS, dev, shape=CROSSOVER,
+                                    commit_mode=mode)
+                    walls.setdefault(f"{rule}/crossover/{mode}", []).append(
+                        r["flush_wall_s"])
+                    prof.setdefault(f"{rule}/{mode}", []).append(
+                        no_lists(r["host_profile"]))
+        for rule, fn in rules.items():
+            ShardedArena.run_shards = fn
+            for mode in ("barrier", "shadow"):
+                with HostSpans(span_targets()) as sp:
+                    r = sweep_point(SHARDS, dev, shape=CROSSOVER,
+                                    commit_mode=mode, spans=sp)
+                parts[f"{rule}/{mode}"] = {
+                    "wall_ms_per_epoch": r["flush_wall_s"] * 1e3
+                    / r["epochs"], "spans_ms_per_epoch": sp.mean_ms()}
+    finally:
+        ShardedArena.run_shards = rules["estimate"]
+    out = {"position": position, "host_state": state, "walls_s": walls,
+           "host_profile": prof, "parts": parts}
+    for rule in rules:
+        for name, num, den in (("gate_x4", "gate/1", "gate/4"),
+                               ("crossover_x4", "crossover/barrier",
+                                "crossover/shadow")):
+            a, b = walls[f"{rule}/{num}"], walls[f"{rule}/{den}"]
+            out[f"{rule}/{name}"] = min(a) / min(b)
+            out[f"{rule}/{name}_each"] = [x / y for x, y in zip(a, b)]
+    return out
+
+
+def seat_launches(a) -> int:
+    """The ``scatter_rows`` launches one reload of every region of the
+    sharded arena ``a`` makes: one per (region, shard) whose slice it
+    seats by the kernel (a block router's shard holding no full block
+    copies only the region's tail block)."""
+    return sum(1 for r in a.regions.values()
+               for s, sl in enumerate(r.slices)
+               if sl is not None and (not r._blk or r._blocks[s].size))
+
+
+@contextlib.contextmanager
+def commit_counts():
+    """Counts ``ShardedArena.commit`` calls per arena inside the block;
+    yields ``{id: [arena, commits]}``."""
+    from repro_torch.core.arena import ShardedArena
+    seen, real = {}, ShardedArena.commit
+
+    def counted(self, *args, **kw):
+        seen.setdefault(id(self), [self, 0])[1] += 1
+        return real(self, *args, **kw)
+    ShardedArena.commit = counted
+    try:
+        yield seen
+    finally:
+        ShardedArena.commit = real
+
+
+def fences_are_commits(label: str, seen: dict) -> dict:
+    """Every shadow arena of ``seen`` paid exactly one fence a commit, at
+    the sharded level (its shards none)."""
+    out = []
+    for a, commits in seen.values():
+        fences = a._local_stats.fences
+        if a.commit_mode != "shadow" or fences != commits or \
+                any(sh.stats.fences for sh in a.shards):
+            raise AssertionError(f"{label}: {fences} fences for {commits} "
+                                 f"commits ({a.commit_mode})")
+        out.append({"commits": commits, "fences": fences})
+    return out
+
+
+def shadow_sharded_structures(dev, launches3: dict) -> dict:
+    """Phase 13's four-shard structures: phase 3's workload (committed
+    after the inserts too) on four-shard shadow arenas, both modes,
+    integrity off, recovered through RecoveryManager (concurrency 4,
+    per-region load stages), each beside a four-shard barrier twin run
+    just before it: the recovered state checked as phase 3 checks it,
+    pack_rows launches = grouped gathers, one fence a commit and none on
+    a shard, one scatter_rows launch per loaded (region, shard), every
+    chain kernel phase 3 launched launched here."""
+    import torch
+    from repro_torch.core.writeset import WriteSet
+    from repro_torch.kernels import launch_counts
+    rows, chain = [], {k: 0 for k in CHAIN_KERNELS}
+    for kind in KINDS:
+        for mode in ("full", "partly"):
+            n = SHADOW4_N[kind]
+            tw = workload(kind, mode, n, dev, n_shards=SHARDS,
+                          concurrency=SHARDS, commit_after_fill=True)
+            twin = {k: tw[k] for k in ("insert_s", "delete_s", "recover_s",
+                                       "lines", "gathers")}
+            twin["fences"] = tw["stats"]["fences"]
+            del tw
+            torch.cuda.empty_cache()
+            meter, label = {}, f"sharded shadow {kind} {mode}"
+            hook = remap_meter(meter)
+            before, g0 = launch_counts(), WriteSet.gathers
+            r = workload(kind, mode, n, dev, n_shards=SHARDS,
+                         concurrency=SHARDS, commit_mode="shadow",
+                         commit_after_fill=True,
+                         on_arena=lambda a: [hook(sh) for sh in a.shards])
+            after = launch_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            gathers = gathers_check(label, delta, WriteSet.gathers - g0)
+            for k in CHAIN_KERNELS:
+                chain[k] += delta[k]
+            a, st = r["arena"], r["stats"]
+            seats = seat_launches(a)
+            if delta["scatter_rows"] != seats:
+                raise AssertionError(f"{label}: {delta['scatter_rows']} "
+                                     f"scatter_rows launches for {seats} "
+                                     f"loaded (region, shard) slices")
+            if st["fences"] != r["commits"] or \
+                    any(sh.stats.fences for sh in a.shards):
+                raise AssertionError(f"{label}: {st['fences']} fences for "
+                                     f"{r['commits']} commits")
+            rep = r["recovery"]
+            rows.append({"kind": kind, "mode": mode, "n": n,
+                         "lines": r["lines"], "epochs": st["epochs"],
+                         "fences": st["fences"], "commits": r["commits"],
+                         "gathers": r["gathers"], **meter,
+                         "shard_lines": [sh.stats.lines for sh in a.shards],
+                         "scatter_rows": seats,
+                         "insert_s": r["insert_s"],
+                         "delete_s": r["delete_s"],
+                         "recover_s": r["recover_s"], "twin": twin,
+                         "stages": {x.name: x.seconds for x in rep.stages},
+                         "insert_x": r["insert_s"] / twin["insert_s"],
+                         "delete_x": r["delete_s"] / twin["delete_s"],
+                         "write_x": (r["insert_s"] + r["delete_s"])
+                         / (twin["insert_s"] + twin["delete_s"]),
+                         "recover_x": r["recover_s"] / twin["recover_s"],
+                         "launches": gathers})
+            del r, a
+            torch.cuda.empty_cache()
+    missing = [k for k in CHAIN_KERNELS if launches3[k] and not chain[k]]
+    if missing:
+        raise AssertionError(f"phase 13 at {SHARDS} shards never launched "
+                             f"{missing}, which phase 3 launched")
+    return {"rows": rows, "chain_launches": chain}
+
+
+def shadow_sharded_window(dev) -> dict:
+    """Phase 13's four-shard commit window on a mixed shadow arena
+    (TORN_N, partly, snapshots and integrity on): for each k of -1..3 an
+    append whose commit crashes at k (-1: after every shard's seal, before
+    any flip; k: after shard k's flip), recovered through RecoveryManager
+    (concurrency 4, per-region load stages) to the manifest's generation
+    without the append, every shard re-anchored to it and targeting the
+    bank after it, every structure exact; then a commit sealing the next
+    generation on every shard.  Then a committed epoch of DLL deletes
+    (rewrites on every shard), a clean scrub, a flip in a live DLL row
+    that shard 3's authoritative bank remaps (its offset in that shard's
+    bank mirror), scrub naming exactly it, and a salvage cutting the DLL
+    there with the others exact."""
+    import numpy as np
+    import torch
+    from repro_torch.core import faultinject as fi
+    from repro_torch.core.recovery import RecoveryManager
+    with integrity_default():
+        t0 = time.perf_counter()
+        w = mixed_workload("partly", TORN_N, dev, n_shards=SHARDS,
+                           commit_mode="shadow")
+        fill_s = time.perf_counter() - t0
+        a, structs, want = w["arena"], w["structs"], w["want"]
+        if not a.integrity or a.n_shards != SHARDS or \
+                a.commit_mode != "shadow":
+            raise AssertionError("sharded window: not a sharded shadow "
+                                 "integrity arena")
+        d = structs["dll"]
+
+        def recover(label, gen0):
+            mgr = RecoveryManager(a)
+            for kind in KINDS:
+                mgr.add(MIXED_NAMES[kind], f"pstruct.{kind}", structs[kind],
+                        regions=tuple(n for n in a.regions
+                                      if n.startswith(MIXED_NAMES[kind]
+                                                      + ".")))
+            t0 = time.perf_counter()
+            rep = mgr.recover(concurrency=SHARDS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if not rep.valid or rep.generation != gen0 or \
+                    a.generation != gen0 or any(
+                        sh.generation != gen0 or
+                        sh._shadow_target_bank() != (gen0 + 1) % 2
+                        for sh in a.shards):
+                raise AssertionError(f"{label}: recovered generation "
+                                     f"{rep.generation}, the manifest "
+                                     f"sealed {gen0}")
+            for kind in KINDS:
+                check_exact(kind, structs[kind], want[kind], label)
+            return rep, secs
+        windows = []
+        for k in (-1, 0, 1, 2, 3):
+            label = f"sharded shadow window k={k}"
+            gen0 = a.header_generation()
+            d.append_batch(np.full((64, 7), k + 2, np.int64))
+            a.commit(_crash_after_shard=k)
+            heads = [sh.header_generation() for sh in a.shards]
+            if heads != [gen0 + (s <= k) for s in range(SHARDS)]:
+                raise AssertionError(f"{label}: shard headers {heads}")
+            rep, secs = recover(label, gen0)
+            a.commit()
+            if a.header_generation() != gen0 + 1 or not a.header_valid() \
+                    or any(sh.header_generation() != gen0 + 1
+                           for sh in a.shards):
+                raise AssertionError(f"{label}: the next commit did not "
+                                     f"seal {gen0 + 1} everywhere")
+            windows.append({"k": k, "generation": gen0,
+                            "shard_headers": heads, "recover_s": secs,
+                            "stages": {x.name: x.seconds
+                                       for x in rep.stages}})
+        # rewrites on every shard, committed: each shard's bank holds some
+        order = want["dll"]["order"]
+        gone = order[np.linspace(1, order.size - 2, 256).astype(np.int64)]
+        d.delete_batch(np.unique(gone))
+        a.commit()
+        want["dll"]["order"] = order = d.to_list().cpu().numpy()
+        t0 = time.perf_counter()
+        clean = a.scrub()
+        scrub_s = time.perf_counter() - t0
+        if clean:
+            raise AssertionError("sharded shadow: a clean scrub named rows")
+        sh, sl = a.shards[SHARDS - 1], a.regions["dll.nodes"].slices[-1]
+        remapped = sl._gidx[np.flatnonzero(
+            sh._shadow_masks[sh._shadow_auth_bank]["dll.nodes"])]
+        cand = np.flatnonzero(np.isin(order, remapped))
+        if cand.size == 0:
+            raise AssertionError("no live DLL row in the last shard's bank")
+        pos = int(cand[cand.size // 2])
+        row = int(order[pos])
+        a.crash()
+        owner, off, rb = fi.committed_row_offset(a, "dll.nodes", row)
+        bank = sh.header_generation() % 2
+        if owner is not sh or off != sl._shadow_off[bank] + int(
+                a.regions["dll.nodes"].local_of[row]) * rb:
+            raise AssertionError("committed_row_offset missed the last "
+                                 "shard's bank mirror")
+        fi.flip_bits(a, "dll.nodes", row, byte=8, mask=0x40)
+        a.reopen()
+        got = scrub_rows(a)
+        if got != {"dll.nodes": [row]}:
+            raise AssertionError(f"sharded shadow: scrub named {got}, the "
+                                 f"fault was dll.nodes row {row}")
+        rep, salvage_s = salvage_recover(a, structs)
+        res = check_salvaged(structs, want, {"dll": row}, pos, None,
+                             "sharded shadow salvage", faulted=("dll",))
+        if rep.quarantined + rep.degraded != ["dll"]:
+            raise AssertionError(f"sharded shadow salvage named "
+                                 f"{rep.quarantined + rep.degraded}")
+    out = {"sizes": TORN_N, "fill_s": fill_s, "windows": windows,
+           "scrub_s": scrub_s, "fault_row": row, "fault_pos": pos,
+           "fault_shard": SHARDS - 1, "bank": bank,
+           "remapped_dll_rows_last_shard": int(remapped.size),
+           "salvage_s": salvage_s, "quarantined": rep.quarantined,
+           "degraded": rep.degraded, **res}
+    del a, structs, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def shadow_sharded_serving(dev) -> dict:
+    """Phase 13's four-shard serving: the 2-layer full-width engine through
+    the twin protocol (token log slot-per-shard, re-prefill per (shard,
+    prompt length)), then the feature store at phase 9's config and
+    FS11_REQUESTS requests with a torn crash and the exactly-once replay
+    beside its twin, both on four-shard shadow arenas; every arena pays
+    one fence a commit."""
+    import torch
+    from repro_torch.feature_recover import requests, twin
+    from repro_torch.models.backbone import init_params
+    from repro_torch.serve.feature_store import FeatureConfig
+    from repro_torch.serve_recover import run
+    cfg = serve_config(layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    params = init_params(cfg, gen, dev)
+    t0 = time.perf_counter()
+    with commit_counts() as seen:
+        eng = run(cfg, dev, prompt_lens=SERVE_PROMPTS, max_batch=8,
+                  s_max=SERVE_S_MAX, steps=SERVE_STEPS, max_requests=64,
+                  seed=SERVE_SEED, params=params,
+                  workdir=str(ROOT / "build"), n_shards=SHARDS,
+                  concurrency=SHARDS, commit_mode="shadow")
+    eng["run_s"] = time.perf_counter() - t0
+    eng["fences"] = fences_are_commits("sharded shadow engine", seen)
+    del params, seen
+    torch.cuda.empty_cache()
+    fcfg = FeatureConfig(**FS_CONFIG, mode="partly", journal=True,
+                         n_shards=SHARDS, commit_mode="shadow")
+    ops = requests(FS11_REQUESTS, FS_KEYS_PER_REQUEST, FS_KEY_SPACE,
+                   fcfg.dim, seed=FS_SEED)
+    boundary = FS11_REQUESTS * 3 // 4
+    t0 = time.perf_counter()
+    with commit_counts() as seen:
+        fs = twin(fcfg, ops, boundary, torn=True, device=dev,
+                  concurrency=SHARDS)
+    fs["twin_protocol_s"] = time.perf_counter() - t0
+    fs["fences"] = fences_are_commits("sharded shadow feature store", seen)
+    if fs["refused"] != boundary:
+        raise AssertionError(f"sharded shadow feature store refused "
+                             f"{fs['refused']}, not {boundary}")
+    torch.cuda.empty_cache()
+    return {"engine": {k: v for k, v in eng.items()
+                       if k not in ("stats", "paging_stats")},
+            "engine_stats": eng["stats"],
+            "feature_store": {k: v for k, v in fs.items()
+                              if k not in ("stats", "twin_stats")},
+            "feature_stats": fs["stats"], "requests": FS11_REQUESTS,
+            "boundary": boundary}
+
+
+def shadow_phase(dev, launches3: dict, study: bool = False) -> dict:
+    """Phase 13: shadow commit on one arena and at four shards, at the
+    main path's size.  The four-shard crossover gate runs first; the same
+    four-shard crossover runs again last (after the four-shard serving),
+    reported beside the gate; ``study`` adds ``pool_study`` before
+    each."""
     t_phase = time.perf_counter()
     out = {}
-    for name, fn in (("structures", lambda: shadow_structures(dev,
-                                                             launches3)),
-                     ("torn", lambda: shadow_torn(dev)),
-                     ("serving", lambda: shadow_serving(dev)),
-                     ("crossover", lambda: shadow_crossover(dev))):
+    steps = [("crossover", lambda: shadow_crossover(dev)),
+             ("structures", lambda: shadow_structures(dev, launches3)),
+             ("torn", lambda: shadow_torn(dev)),
+             ("serving", lambda: shadow_serving(dev)),
+             ("sharded_structures",
+              lambda: shadow_sharded_structures(dev, launches3)),
+             ("sharded_window", lambda: shadow_sharded_window(dev)),
+             ("sharded_serving", lambda: shadow_sharded_serving(dev)),
+             ("crossover_late",
+              lambda: shadow_crossover(dev, shard_counts=(SHARDS,),
+                                       gated=False))]
+    if study:
+        steps.insert(0, ("study_first", lambda: pool_study(dev, "first")))
+        steps.insert(-1, ("study_late", lambda: pool_study(dev, "late")))
+    for name, fn in steps:
         t0 = time.perf_counter()
         out[name] = fn()
+        if name.startswith("study"):
+            emit({"phase": f"crossover_{name}", **out[name]})
         out[f"{name}_s"] = time.perf_counter() - t0
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -5333,6 +5929,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--report", help="also write every phase's numbers to "
                    "this JSON file")
+    p.add_argument("--crossover-study", action="store_true",
+                   help="in phase 13, also time the shard pool's two rules "
+                   "(pool_study) before each four-shard crossover gate")
     args = p.parse_args(argv)
 
     # cuBLAS reads its workspace setting when it starts, before phase 1's
@@ -5575,6 +6174,19 @@ def main(argv=None) -> int:
                                      f"images, FlushStats or recovered "
                                      f"state differ")
             same.append(f"{kind}.{mode}.shadow:{out['cuda'][0][:12]}")
+    for kind in KINDS:
+        for mode in ("partly", "full"):
+            for integ in (False, True):
+                out = {d: sharded_shadow_small(kind, mode, integ, d)
+                       for d in ("cuda", "cpu")}
+                if out["cuda"] != out["cpu"]:
+                    raise AssertionError(f"{kind} {mode} sharded shadow "
+                                         f"integrity={integ}: card and CPU "
+                                         f"shard images, manifest, "
+                                         f"FlushStats or recovered state "
+                                         f"differ")
+                same.append(f"{kind}.{mode}.shadow.shards_{SHARDS}."
+                            f"integrity_{integ}:{out['cuda'][0][:12]}")
     for mode in ("partly", "full"):
         out = {d: shadow_mixed_small(mode, d) for d in ("cuda", "cpu")}
         if out["cuda"] != out["cpu"]:
@@ -5752,18 +6364,25 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"phase 12 never launched {missing}")
     torch.cuda.empty_cache()
-    # ---- phase 13: shadow commit on one arena at the main path's size
+    # ---- phase 13: shadow commit, one arena and four shards
     reset_launch_counts()
-    shadow = shadow_phase(dev, launches3)
+    shadow = shadow_phase(dev, launches3, study=args.crossover_study)
     launches13 = launch_counts()
     report["shadow"] = shadow
     for row in shadow["structures"]["rows"]:
         emit({"phase": "shadow_structure", **row})
     emit({"phase": "shadow_torn", **shadow["torn"]})
     emit({"phase": "shadow_serving", **shadow["serving"]})
+    for row in shadow["sharded_structures"]["rows"]:
+        emit({"phase": "shadow_sharded_structure", **row})
+    emit({"phase": "shadow_sharded_window", **shadow["sharded_window"]})
+    emit({"phase": "shadow_sharded_serving", **shadow["sharded_serving"]})
     emit({"phase": "shadow_crossover", **shadow["crossover"]})
+    emit({"phase": "shadow_crossover_late", **shadow["crossover_late"]})
     emit({"phase": "shadow", "launches": launches13,
           "chain_launches": shadow["structures"]["chain_launches"],
+          "sharded_chain_launches":
+              shadow["sharded_structures"]["chain_launches"],
           **{k: v for k, v in shadow.items() if k.endswith("_s")}})
     missing = [k for k in CHAIN_KERNELS + ("pack_rows", "scatter_rows",
                                            "flash_attention")

@@ -1,5 +1,5 @@
-"""Persistent arena: the framework's "persistent memory", the port of the
-barrier core of ``repro.core.arena``, single and sharded.
+"""Persistent arena: the framework's "persistent memory", the port of
+``repro.core.arena`` (barrier and shadow commit), single and sharded.
 
 * Every region's VOLATILE copy (``Region.vol``) is a torch tensor on the
   arena's device — the working copy the structures mutate.
@@ -65,13 +65,24 @@ barrier core of ``repro.core.arena``, single and sharded.
   rows over them (``_pimage``).  The layout (meta line, two entry banks,
   a mirror per region per bank, after the last region) and every byte
   are the reference's.  Recovery writes nothing.
+* Shadow commit on a ``ShardedArena``: every shard is a shadow ``Arena``
+  with its own banks.  The drain stays ONE grouped gather over all
+  shards, and each shard with work folds its committed bank, then takes
+  its rewrites and fresh rows.  ``commit()`` folds every shard, drains,
+  seals every shard, pays ONE fence, flips the shards' headers and
+  writes the manifest last; ``_crash_after_shard=-1`` crashes between
+  the seals and the first flip.  The MANIFEST's generation selects each
+  shard's authoritative bank on ``reopen()``, so a shard whose header
+  flipped ahead of a torn manifest overlays (and next targets) the
+  bank the manifest's parity names.  A shard's pinned reload lays its
+  bank's rows over the staged host bytes before the one upload.
 
 The arena runs on ``cuda`` unless the caller passes ``device="cpu"``.  With
 no device given and no GPU present it raises: it never falls back to the
 CPU silently.  ``integrity=None`` and ``snapshot=None`` resolve through the
 reference's env axes (``integrity_enabled``, ``snapshot_enabled``), both
-on by default.  Shadow commit on a sharded arena and paging are not ported
-yet; asking for one raises ``NotImplementedError`` naming it.
+on by default.  Paging is not ported yet; asking for it raises
+``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -88,11 +99,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.writeset import ShardedWriteSet, WriteSet, host_rows
+from repro_torch.core.writeset import (ShardedWriteSet, WriteSet, _row_lines,
+                                      host_rows)
 from repro_torch.kernels.pack_flush import scatter_rows_
 
 LINE = 64                 # flush granularity (bytes) — paper's cache line
 MEDIA_GRAIN = 256         # DCPMM internal granularity (§IV-D bucket sizing)
+SLEEP_NS = 200_000        # a shard's synthetic stall this long sleeps
 
 _MAGIC = b"RPRA"
 _HDR_FMT = "<4sQQ?7x"     # magic, n_regions, generation, valid flag
@@ -770,6 +783,15 @@ class Arena:
             self._shadow_collapsed[b] = True
         return done
 
+    def _fold_lines(self) -> int:
+        """About the lines a fold of the committed bank writes home (a line
+        a sub-line row), 0 once it has collapsed."""
+        b = self.generation % 2
+        if self._shadow_collapsed[b]:
+            return 0
+        return sum(int(np.count_nonzero(m)) * _row_lines(self.regions[n])
+                   for n, m in self._shadow_masks[b].items())
+
     def _shadow_seal(self) -> None:
         """Persist the target bank's entry count.  Safe before the flip:
         the bank is dead until the generation selects it, and the
@@ -817,16 +839,19 @@ class Arena:
         self._shadow_counts = [0, 0]
         self._shadow_collapsed = [True, True]
 
-    def _shadow_parse(self) -> None:
+    def _shadow_parse(self, authority_gen: Optional[int] = None) -> None:
         """After a crash: rebuild the masks from the bank the COMMITTED
         generation selects, reading the persistent image only, and
         re-anchor ``generation`` to it, so the next drain targets bank
-        ``(gen + 1) % 2``.  The other bank's entries (a torn flip's
-        orphans) are never selected, and are overwritten when that bank is
-        next targeted."""
+        ``(gen + 1) % 2``.  The committed generation is the header's, or
+        ``authority_gen`` for a shard: its manifest's, which a header that
+        flipped ahead of a torn manifest write outruns.  The other bank's
+        entries (a torn flip's orphans) are never selected, and are
+        overwritten when that bank is next targeted."""
         if self.commit_mode != "shadow":
             return
-        gen = self.header_generation()
+        gen = self.header_generation() if authority_gen is None \
+            else int(authority_gen)
         b = gen % 2
         cnt = int(self._shadow_meta_view()[b])
         ents = np.array(self._shadow_entries(b)[:cnt])
@@ -960,7 +985,7 @@ class Arena:
         self._pay(ns)
 
     def _pay(self, ns: int) -> None:
-        if self.synth_sleep and ns >= 200_000:
+        if self.synth_sleep and ns >= SLEEP_NS:
             # a shard's big stalls sleep so that shards stalling in the
             # pool overlap; short ones spin (the timer's wake-up slack
             # would swamp them)
@@ -1243,12 +1268,13 @@ class ShardedRegion(_RowAccess):
     # -- Region API --------------------------------------------------------
     def mark_rows(self, rows, fresh: bool = False) -> None:
         """Buffered globally inside an epoch (the per-shard split happens
-        once per drain); outside one, an immediate ``persist_rows``."""
+        once per drain), ``fresh`` with them; outside one, an immediate
+        ``persist_rows``, which writes home in either mode."""
         rows = host_rows(rows)
         if rows.size == 0:
             return
         if self.arena._epoch_depth > 0:
-            self.arena.writeset.mark(self, rows)
+            self.arena.writeset.mark(self, rows, fresh=fresh)
         else:
             self.persist_rows(rows)
 
@@ -1273,11 +1299,13 @@ class ShardedRegion(_RowAccess):
 
     def load_shard(self, s: int) -> None:
         """Reload this region's shard-s rows into the volatile tensor: the
-        shard's persistent slice goes to the device in ONE upload (from
-        pinned memory on a card) and is seated by one ``scatter_rows_``
-        over the tensor's bytes: whole segments of the ``(blocks, B *
-        rowbytes)`` view for a block router (plus the region's partial
-        tail block, which is one shard's), rows otherwise."""
+        shard's persistent slice is staged on the host (in pinned memory on
+        a card), a shadow shard's authoritative bank rows laid over the
+        staged bytes, then goes to the device in ONE upload and is seated
+        by one ``scatter_rows_`` over the tensor's bytes: whole segments
+        of the ``(blocks, B * rowbytes)`` view for a block router (plus the
+        region's partial tail block, which is one shard's), rows
+        otherwise."""
         sl = self.slices[s]
         if sl is None:
             return
@@ -1285,11 +1313,14 @@ class ShardedRegion(_RowAccess):
         m, rb = sl.shape[0], self.rowbytes
         pv = sl._pview().reshape(-1).view(np.uint8)
         if dev.type == "cpu":
-            staged = torch.from_numpy(pv.copy())
+            host = pv.copy()
         else:
             pinned = torch.empty(m * rb, dtype=torch.uint8, pin_memory=True)
-            pinned.numpy()[:] = pv
-            staged = pinned.to(dev, non_blocking=True)
+            host = pinned.numpy()
+            host[:] = pv
+        sl.arena._shadow_overlay(sl, host.view(sl.dtype).reshape(sl.shape))
+        staged = torch.from_numpy(host) if dev.type == "cpu" else \
+            pinned.to(dev, non_blocking=True)
         flat = self.vol.view(-1).view(torch.uint8).view(self.shape[0], rb)
         ids = self._seat_ids[s]
         if self._blk:
@@ -1315,15 +1346,18 @@ class ShardedRegion(_RowAccess):
 
 class ShardedArena:
     """N arena shards behind the single-arena API, plus a manifest that
-    makes the cross-shard generation atomic (barrier commit).
+    makes the cross-shard generation atomic.
 
-    Commit, manifest last: (1) drain the write set, every shard's data
-    regions, then every shard's metadata regions (the data-before-metadata
-    barrier is global); (2) commit each shard (flush its file, bump its
-    header generation, set its valid flag); (3) write the manifest.  A
-    crash between shard commits leaves the manifest at the previous
-    generation, the one every shard has reached, which is what recovery
-    reports.  Each shard is a plain ``Arena`` over ``{path}.s{k}``, the
+    Barrier commit, manifest last: (1) drain the write set, every shard's
+    data regions, then every shard's metadata regions (the
+    data-before-metadata barrier is global); (2) commit each shard (flush
+    its file, bump its header generation, set its valid flag); (3) write
+    the manifest.  A crash between shard commits leaves the manifest at
+    the previous generation, the one every shard has reached, which is
+    what recovery reports.  Shadow commit: fold every shard's committed
+    bank, drain in one phase, seal every shard's target bank, ONE fence,
+    then the same flips and the manifest last, and every shard retires
+    its banks.  Each shard is a plain ``Arena`` over ``{path}.s{k}``, the
     manifest ``{path}.manifest``; the files are the reference's, byte for
     byte.  Synthetic stalls: a shard's sleep (so that shards stalling in
     the pool overlap), the global fence spins."""
@@ -1334,9 +1368,7 @@ class ShardedArena:
                  integrity: Optional[bool] = None, device=None):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-        if commit_mode != "barrier":
-            if commit_mode == "shadow":
-                raise not_ported("shadow commit")
+        if commit_mode not in ("barrier", "shadow"):
             raise ValueError(f"unknown commit_mode {commit_mode!r}")
         if paged_enabled(paged):
             raise not_ported("paging")
@@ -1486,12 +1518,19 @@ class ShardedArena:
     def _pimage(self, region: ShardedRegion, copy: bool = True
                 ) -> np.ndarray:
         """The region's committed persistent image, assembled across the
-        shards (always a copy, whatever ``copy`` says; scrub and salvage
-        never write persistent state)."""
+        shards: each shard's home rows with its authoritative shadow
+        bank's rows over them (always a copy, whatever ``copy`` says;
+        scrub and salvage never write persistent state)."""
         img = np.zeros(region.shape, region.dtype)
         for sl in region.slices:
-            if sl is not None:
-                img[sl._gidx] = sl._pview()
+            if sl is None:
+                continue
+            img[sl._gidx] = sl._pview()
+            sh = sl.arena
+            rows = sh._shadow_rows(sl)
+            if rows is not None:
+                img[sl._gidx[rows]] = sh._shadow_mirror(
+                    sl, sh._shadow_auth_bank)[rows]
         return img
 
     def verify_region(self, region) -> np.ndarray:
@@ -1547,8 +1586,8 @@ class ShardedArena:
                    for sh in self.shards)
 
     def _fence(self) -> None:
-        """The global ordering point: one per barrier phase, one per
-        commit seal."""
+        """The global ordering point: one per barrier phase and one per
+        barrier commit seal, exactly one per shadow commit."""
         self._local_stats.fences += 1
         if self.synth_fence_ns:
             ns = int(self.synth_fence_ns)
@@ -1558,11 +1597,35 @@ class ShardedArena:
                 pass
 
     def commit(self, _crash_after_shard: Optional[int] = None) -> None:
-        """Drain the write set (global data-before-metadata), commit each
-        shard, write the manifest LAST.  ``_crash_after_shard=k`` injects
-        a power loss in the commit window: shards 0..k commit, then the
-        arena crashes before the manifest."""
-        self.writeset.flush()
+        """Drain the write set (barrier: global data-before-metadata),
+        commit each shard, write the manifest LAST.  ``_crash_after_shard=
+        k`` injects a power loss in the commit window: shards 0..k commit,
+        then the arena crashes before the manifest.
+
+        Shadow: every shard folds its committed bank home, the write set
+        drains in one phase, every shard seals its target bank and flushes
+        its file, then the ONE ordering point and the same flips and
+        manifest; each shard retires its banks after the manifest.
+        ``_crash_after_shard=-1`` crashes after the seals and before any
+        flip."""
+        if self.commit_mode == "shadow":
+            # a shard that had work in a drain since the last commit has
+            # folded already
+            self.run_shards(
+                lambda s: self.shards[s]._shadow_collapse(),
+                [s for s, sh in enumerate(self.shards)
+                 if not sh._shadow_collapsed[sh.generation % 2]],
+                lines=lambda s: self.shards[s]._fold_lines())
+            self.writeset.flush()
+            for sh in self.shards:
+                sh._shadow_seal()
+                if isinstance(sh._mm, np.memmap):
+                    sh._mm.flush()
+            if _crash_after_shard is not None and _crash_after_shard < 0:
+                self.crash()
+                return
+        else:
+            self.writeset.flush()
         self._fence()
         tgt = self.generation + 1
         for k, sh in enumerate(self.shards):
@@ -1578,15 +1641,20 @@ class ShardedArena:
         self.generation = tgt
         self._write_manifest(valid=True)
         self._local_stats.calls += 1
+        if self.commit_mode == "shadow":
+            for sh in self.shards:
+                sh._shadow_retire()
 
     def invalidate(self) -> None:
         self._write_manifest(valid=False)
 
     # -- crash simulation ---------------------------------------------------
     def crash(self) -> None:
-        """Drop the pending marks and zero every region's one volatile
-        tensor (slices hold none)."""
+        """Drop the pending marks and every shard's shadow bookkeeping, and
+        zero every region's one volatile tensor (slices hold none)."""
         self.writeset.discard()
+        for sh in self.shards:
+            sh._shadow_discard()
         for r in self.regions.values():
             r._crash_reset()
 
@@ -1595,7 +1663,11 @@ class ShardedArena:
         """Reload every region not in ``exclude`` (regions the caller
         loads itself: the recovery manager's per-region load stages), shard
         by shard, in the pool when ``concurrency > 1``; then re-anchor the
-        generation to the manifest's."""
+        generation to the manifest's.  A shadow arena first parses every
+        shard's bank under the MANIFEST's generation, before any load."""
+        man_gen = self.header_generation()
+        for sh in self.shards:
+            sh._shadow_parse(authority_gen=man_gen)
         regions = [r for n, r in self.regions.items() if n not in exclude]
 
         def load_shard(s: int) -> None:
@@ -1619,6 +1691,25 @@ class ShardedArena:
             self._pool = ThreadPoolExecutor(
                 max_workers=self.n_shards, thread_name_prefix="arena-shard")
         return self._pool
+
+    def run_shards(self, fn, shards, lines) -> None:
+        """``fn(s)`` for each shard id of ``shards``, in the pool only where
+        the arena models media stalls (``synth_line_ns``) that sleep: the
+        pool overlaps them (each shard sleeps its own).  ``lines(s)``
+        estimates the lines shard s stalls on, and the pool runs only if
+        one shard's stall reaches ``SLEEP_NS``: shorter stalls spin,
+        holding the interpreter, so the shards could not overlap and the
+        pool would add only its hand-offs.  Without stalls a shard's share
+        is a few host copies, cheaper on this thread.  ``fn`` must write
+        only shard s's state, so the bytes do not depend on where it
+        runs."""
+        shards = list(shards)
+        if len(shards) > 1 and self.synth_line_ns and \
+                max(map(lines, shards)) * self.synth_line_ns >= SLEEP_NS:
+            list(self.pool().map(fn, shards))
+        else:
+            for s in shards:
+                fn(s)
 
     def close(self) -> None:
         for sh in self.shards:

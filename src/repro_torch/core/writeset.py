@@ -51,7 +51,8 @@ alike, and the host writes the fresh rows (``mark(fresh=True)``, and a
 row marked both ways counts as rewritten) home with their checksums and
 the rest into the target bank's mirrors (``Arena._shadow_write``), their
 checksums into the sidecars' mirrors of the same bank.  No fence: the
-commit's flip is the one ordering point.
+commit's flip is the one ordering point.  A sharded shadow drain keeps the
+one gather across every shard (``ShardedWriteSet._flush_shadow``).
 """
 from __future__ import annotations
 
@@ -73,6 +74,12 @@ def host_rows(rows) -> np.ndarray:
     if isinstance(rows, torch.Tensor):
         return rows.detach().to("cpu", torch.int64).numpy().reshape(-1)
     return np.asarray(rows, np.int64).reshape(-1)
+
+
+def _row_lines(region) -> int:
+    """Lines one row of ``region`` spans at most, a line for a sub-line
+    row: what ``ShardedArena.run_shards`` weighs a shard's stall by."""
+    return max(1, -(-region.rowbytes // 64))
 
 
 class _Planned(NamedTuple):
@@ -214,22 +221,7 @@ class WriteSet:
         (``Arena._shadow_write``, checksums cascading into the same bank).
         Returns whether anything flushed."""
         arena = self.arena
-        plan = []
-        for name in self._order(self._pending):
-            marks = self._pending.pop(name)
-            rew = [r for r, _, f in marks if not f]
-            frs = [r for r, _, f in marks if f]
-            rew = np.unique(np.concatenate(rew)) if rew \
-                else np.empty(0, np.int64)
-            fr = np.unique(np.concatenate(frs)) if frs \
-                else np.empty(0, np.int64)
-            # a row marked both ways is conservatively a rewrite
-            fr = np.setdiff1d(fr, rew, assume_unique=True)
-            plan.append(_Planned(arena.regions[name],
-                                 np.concatenate([fr, rew]),
-                                 sum(w for _, w, _ in marks),
-                                 sum(r.size for r, _, _ in marks),
-                                 int(fr.size)))
+        plan = self._shadow_plan()
         sidecars = []
         with arena.stall_scope():
             arena._shadow_collapse()
@@ -254,6 +246,26 @@ class WriteSet:
                 arena.stats.dedup_rows += p.marked_rows - p.rows.size
         self.seat_sidecars(sidecars)
         return bool(plan)
+
+    def _shadow_plan(self) -> List[_Planned]:
+        """Pop every pending mark, region by region in flush order, as a
+        shadow drain's plan: the fresh rows, then the rewritten ones."""
+        plan = []
+        for name in self._order(self._pending):
+            parts, would, marked = ([], []), 0, 0
+            for r, w, f in self._pending.pop(name):
+                parts[f].append(r)
+                would += w
+                marked += r.size
+            rew, fr = (np.unique(np.concatenate(x)) if x
+                       else np.empty(0, np.int64) for x in parts)
+            if fr.size and rew.size:
+                # a row marked both ways is conservatively a rewrite
+                fr = np.setdiff1d(fr, rew, assume_unique=True)
+            plan.append(_Planned(self.arena.regions[name],
+                                 np.concatenate([fr, rew]), would, marked,
+                                 int(fr.size)))
+        return plan
 
     def _write_phase(self, plan: List[_Planned], staged,
                      sidecars: list) -> bool:
@@ -356,7 +368,7 @@ class WriteSet:
 
 
 class ShardedWriteSet(WriteSet):
-    """The cross-shard write set of a ``ShardedArena`` (barrier commit).
+    """The cross-shard write set of a ``ShardedArena``.
 
     Marks are buffered GLOBALLY per region, one append per ``mark_rows``
     as on a single arena, and split per shard once per drain.  A drain
@@ -372,8 +384,13 @@ class ShardedWriteSet(WriteSet):
     counted at the sharded level, against the per-call line counts of the
     GLOBAL rows (``Arena._rows_line_count`` at base 0), so they equal a
     single arena's for line-aligned rows.  The pool runs only where the
-    arena models media stalls (``synth_line_ns``): without them the
-    shards are written one after another on the calling thread."""
+    arena models media stalls (``ShardedArena.run_shards``): without them
+    the shards are written one after another on the calling thread.
+
+    A shadow drain is one phase (``_flush_shadow``): the same one grouped
+    gather, then per shard, in region-name order, each region's rewrites
+    through the shard's remap and then its fresh rows home; a shard with
+    no work in the drain does not fold its committed bank."""
 
     def _ledger(self):
         return self.arena._local_stats
@@ -388,26 +405,68 @@ class ShardedWriteSet(WriteSet):
 
     def _write_phase(self, plan: List[_Planned], staged,
                      sidecars: list) -> bool:
-        """Write one phase's gathered rows into their shards' images (in
-        the pool where stalls are modeled), then pay the one global
-        fence."""
+        """Write one phase's gathered rows into their shards' images, then
+        pay the one global fence."""
         if not plan:
             return False
-        arena = self.arena
-        work: Dict[int, list] = {}          # shard -> [(slice, local, rows)]
+        sidecars.extend(self._write_shards(
+            plan, [(p.region, p.rows, host, False)
+                   for p, host in zip(plan, staged)], fold=False))
+        self.arena._fence()         # the global cross-shard ordering point
+        return True
+
+    def _flush_shadow(self) -> bool:
+        """The single-phase sharded shadow drain.  Every region's rewrites
+        and fresh rows (a row marked both ways is a rewrite), over all
+        shards, come up in ONE grouped gather.  Then each shard with work
+        folds its committed bank home and takes, region by region in name
+        order, the rewrites through its remap and then the fresh rows
+        home.  Returns whether anything flushed."""
+        plan = self._shadow_plan()
+        if not plan:
+            return False
+        staged = self.gather([(p.region, p.rows) for p in plan])
+        parts = []
         for p, host in zip(plan, staged):
-            for s, local, sel in p.region._split(p.rows):
+            k = p.fresh
+            for rows, part, remap in ((p.rows[k:], host[k:], True),
+                                      (p.rows[:k], host[:k], False)):
+                if rows.size:
+                    parts.append((p.region, rows, part, remap))
+        self.seat_sidecars(self._write_shards(plan, parts, fold=True))
+        return True
+
+    def _write_shards(self, plan: List[_Planned], parts: list,
+                      fold: bool) -> list:
+        """Write ``parts``, ``(region, global rows, gathered rows, remap)``
+        in order, shard by shard: each shard with work first folds its
+        committed bank home when ``fold``, then takes its share of each
+        part, through its remap where ``remap`` (``Arena._shadow_write``
+        on the slice, checksums cascading into the sidecar slice's mirror)
+        and home otherwise, with their checksums.  Saved lines count each
+        shard's whole line delta, a fold included, against the marks'
+        per-call counts of ``plan``'s non-snapshot, non-journal regions,
+        as the reference does.  Returns the sidecar rows to seat."""
+        arena = self.arena
+        work: Dict[int, list] = {}   # shard -> [(slice, local, rows, remap)]
+        for region, rows, host, remap in parts:
+            for s, local, sel in region._split(rows):
                 work.setdefault(s, []).append(
-                    (p.region.slices[s], local,
-                     host if sel is None else host[sel]))
+                    (region.slices[s], local,
+                     host if sel is None else host[sel], remap))
         actual, seats = {}, {}
 
-        def flush_shard(s: int) -> None:
+        def write_shard(s: int) -> None:
             shard = arena.shards[s]
             before = shard.stats.lines
             seats[s] = []
             with shard.stall_scope():
-                for sl, local, host in work[s]:
+                if fold:
+                    shard._shadow_collapse()
+                for sl, local, host, remap in work[s]:
+                    if remap:
+                        seats[s].append(shard._shadow_write(sl, local, host))
+                        continue
                     sl._pview()[local] = host
                     shard._account_rows(sl.offset, sl.rowbytes, local,
                                         snap=sl.snap, jrnl=sl.jrnl)
@@ -415,23 +474,15 @@ class ShardedWriteSet(WriteSet):
             actual[s] = shard.stats.lines - before
 
         shards = sorted(work)
-        if len(shards) > 1 and arena.synth_line_ns:
-            # the pool overlaps the shards' synthetic media stalls (each
-            # shard sleeps its own); without them a shard's share is a few
-            # host copies, cheaper on this thread than a hand-off
-            list(arena.pool().map(flush_shard, shards))
-        else:
-            for s in shards:
-                flush_shard(s)
-        for s in shards:
-            sidecars.extend(_global_seat(u) for u in seats[s])
+        arena.run_shards(write_shard, shards, lines=lambda s: (
+            arena.shards[s]._fold_lines() if fold else 0) + sum(
+                local.size * _row_lines(sl) for sl, local, _, _ in work[s]))
         ledger = [p for p in plan if not (p.region.snap or p.region.jrnl)]
         arena._local_stats.saved_lines += max(
             0, sum(p.would_lines for p in ledger) - sum(actual.values()))
         arena._local_stats.dedup_rows += sum(
             p.marked_rows - p.rows.size for p in ledger)
-        arena._fence()              # the global cross-shard ordering point
-        return True
+        return [_global_seat(u) for s in shards for u in seats[s]]
 
     def persist(self, region, rows: np.ndarray) -> None:
         """A direct (epoch-less) flush of one region's sorted unique global

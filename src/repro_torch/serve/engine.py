@@ -49,9 +49,9 @@ arena and its page pool's arena on sharded arenas (barrier commit): the
 token log stripes slot-per-shard, and re-prefill groups by (token-log
 shard, prompt length), which at one shard is the per-length grouping.
 ``commit_mode="shadow"`` (DESIGN.md §9) commits both arenas by the shadow
-protocol at one shard.  Not ported (raise ``NotImplementedError``, see
-ROADMAP Queue 1), as the port's arena: shadow commit with ``n_shards >
-1``, and paging (``paged=True``, or ``None`` under ``REPRO_PAGED=1``).
+protocol, at any shard count.  Not ported (raises ``NotImplementedError``,
+see ROADMAP Queue 1), as the port's arena: paging (``paged=True``, or
+``None`` under ``REPRO_PAGED=1``).
 """
 from __future__ import annotations
 

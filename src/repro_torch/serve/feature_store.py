@@ -27,9 +27,8 @@ The store does not pin ``integrity``: it resolves through
 table lost are refused (``QuarantinedError``) until ``readmit``,
 quarantined or lost log records replay as holes, and a key whose replayed
 apply count falls short of the table's counter is quarantined by name.
-``n_shards > 1`` opens the store's arena sharded (barrier commit);
-``commit_mode="shadow"`` commits by the shadow protocol (DESIGN.md §9) at
-one shard, and raises ``NotImplementedError`` naming itself at more.
+``n_shards > 1`` opens the store's arena sharded; ``commit_mode="shadow"``
+commits by the shadow protocol (DESIGN.md §9) at any shard count.
 """
 from __future__ import annotations
 

@@ -236,13 +236,39 @@ def test_device_and_feature_axes():
     assert port._meta == ref._meta
     assert any(n.endswith(".integ") for n in port.regions)
     assert np.array_equal(np.asarray(port._mm), np.asarray(ref._mm))
-    # sharding is ported (barrier commit); shadow commit on a sharded arena
-    # is not
+    # sharding is ported, in both commit modes: a sharded shadow arena's
+    # shards carry the reference's shadow layout, and a commit of the same
+    # rows gives every shard's bytes and the manifest
     assert TA.open_arena(None, LAYOUT, n_shards=2, device="cpu",
                          integrity=False).n_shards == 2
-    with pytest.raises(NotImplementedError, match="shadow"):
-        TA.open_arena(None, LAYOUT, n_shards=2, device="cpu",
-                      integrity=False, commit_mode="shadow")
+    port = TA.open_arena(None, LAYOUT, n_shards=2, device="cpu",
+                         integrity=True, commit_mode="shadow")
+    ref = RA.open_arena(None, LAYOUT, n_shards=2, integrity=True,
+                        commit_mode="shadow")
+    assert port.commit_mode == ref.commit_mode == "shadow"
+    for psh, rsh in zip(port.shards, ref.shards):
+        assert psh.commit_mode == rsh.commit_mode == "shadow"
+        assert psh._meta == rsh._meta
+        assert (psh._shadow_meta_off, psh._shadow_ent_off,
+                psh._shadow_cap) == (rsh._shadow_meta_off,
+                                     rsh._shadow_ent_off, rsh._shadow_cap)
+    for a in (port, ref):
+        for name, r in a.regions.items():
+            if not r.integ:
+                r.write_rows(np.arange(r.shape[0]), np.ones(
+                    r.shape, r.dtype))
+        with a.epoch():
+            for name, r in a.regions.items():
+                if not r.integ:
+                    r.mark_rows(np.arange(r.shape[0]))
+        a.commit()
+    assert [bytes(np.asarray(sh._mm)) for sh in port.shards] + \
+        [bytes(np.asarray(port._man))] == \
+        [bytes(np.asarray(sh._mm)) for sh in ref.shards] + \
+        [bytes(np.asarray(ref._man))]
+    assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
+    with pytest.raises(NotImplementedError, match="paging"):
+        TA.open_arena(None, LAYOUT, n_shards=2, device="cpu", paged=True)
 
 
 def test_paged_none_resolves_like_reference(monkeypatch):
@@ -267,8 +293,12 @@ def test_not_ported_names_the_queue_only():
     msg = str(TA.not_ported("x"))
     assert "x" in msg and "ROADMAP Queue 1" in msg
     assert "Slice A" not in msg and "item" not in msg
+    # a sharded shadow arena opens; paging is what a sharded arena still
+    # refuses, naming the queue alone
+    assert TA.ShardedArena(None, n_shards=4, commit_mode="shadow",
+                           device="cpu").commit_mode == "shadow"
     with pytest.raises(NotImplementedError) as err:
         TA.ShardedArena(None, n_shards=4, commit_mode="shadow",
-                        device="cpu")
+                        device="cpu", paged=True)
     msg = str(err.value)
-    assert "shadow" in msg and "ROADMAP Queue 1" in msg and "item" not in msg
+    assert "paging" in msg and "ROADMAP Queue 1" in msg and "item" not in msg

@@ -193,8 +193,41 @@ def test_store_quarantine_gate():
 
 
 def test_store_rejects_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="shadow"):
-        TStore(TConfig(n_shards=2, commit_mode="shadow"), device="cpu")
+    # shadow commit on a sharded arena is ported: every shard file, the
+    # manifest and FlushStats (aggregate and per shard) are the
+    # reference's, request by request, and through a torn request's
+    # recovery
+    kw = dict(n_keys=64, dim=3, n_samples=512, n_shards=2,
+              commit_mode="shadow")
+    ref = JStore(JConfig(**kw), str(tmp_path / "sref"))
+    port = TStore(TConfig(**kw), str(tmp_path / "sport"), device="cpu")
+    assert port.arena.n_shards == 2 and port.arena.commit_mode == "shadow"
+    ops = FR.oracle_script(8, seed=5)
+
+    def files(prefix):
+        return {f.name[len(prefix):]: f.read_bytes()
+                for f in sorted(tmp_path.iterdir())
+                if f.name.startswith(prefix + ".")}
+
+    def same_sharded():
+        assert files("sref") == files("sport")
+        assert [dataclasses.asdict(st) for st in port.arena.shard_stats()] \
+            == [dataclasses.asdict(st) for st in ref.arena.shard_stats()]
+        assert dataclasses.asdict(port.arena.stats) == \
+            dataclasses.asdict(ref.arena.stats)
+        keys = np.arange(72)
+        np.testing.assert_array_equal(port.lookup(keys).numpy(),
+                                      ref.lookup(keys))
+    for op in ops[:6]:
+        assert ref.apply(*op) == port.apply(*op) is True
+        same_sharded()
+    for s in (ref, port):
+        s.apply(*ops[6], _torn_crash=True)
+    assert _details(port.recover()) == _details(ref.recover())
+    same_sharded()
+    assert [port.apply(*op) for op in ops] == \
+        [ref.apply(*op) for op in ops] == [False] * 6 + [True] * 2
+    same_sharded()
     # shadow commit on one arena is ported: the store's file and
     # FlushStats are the reference's, request by request
     ref, port = _stores(tmp_path, commit_mode="shadow")

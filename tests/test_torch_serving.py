@@ -321,8 +321,55 @@ def test_paged_allocator_matches_reference_and_recovers(tmp_path):
         dataclasses.asdict(ref.arena.stats)
 
 
+def _drive_sharded(ref, port, tmp_path):
+    """``_drive`` for engines on sharded arenas: every shard file and the
+    manifest, both arenas' FlushStats (aggregate and per shard) and the
+    page pool's shard images, before and after a crash and recovery."""
+    def files(prefix):
+        return {f.name[len(prefix):]: f.read_bytes()
+                for f in sorted(tmp_path.iterdir())
+                if f.name.startswith(prefix + ".")}
+
+    def same():
+        assert files("ref") == files("port")
+        for pa, ra in ((port.arena, ref.arena),
+                       (port.paging.arena, ref.paging.arena)):
+            assert dataclasses.asdict(pa.stats) == \
+                dataclasses.asdict(ra.stats)
+            assert [dataclasses.asdict(x) for x in pa.shard_stats()] == \
+                [dataclasses.asdict(x) for x in ra.shard_stats()]
+        assert np.array_equal(image_of(port.paging.arena), np.concatenate(
+            [np.asarray(sh._mm) for sh in ref.paging.arena.shards]
+            + [np.asarray(ref.paging.arena._man)]))
+        assert np.array_equal(port.pos, ref.pos)
+        assert np.array_equal(port.slot_rid, ref.slot_rid)
+
+    toks = []
+    for e in (ref, port):
+        e.add_request(101, np.array([1, 2, 3, 4], np.int64))
+        e.add_request(202, np.array([9, 8, 7], np.int64))
+    for _ in range(3):
+        toks.append((ref.step(), port.step()))
+    for e in (ref, port):
+        e.finish_request(101)
+        e.add_request(303, np.array([5, 6, 7, 8, 9], np.int64))
+    toks.append((ref.step(), port.step()))
+    same()
+    for e in (ref, port):
+        e.crash()
+        e.recover()
+    for rs, ps in zip(ref.last_recovery.stages, port.last_recovery.stages):
+        assert ps.name == rs.name
+        assert {k: v for k, v in ps.detail.items() if k not in TIMING} \
+            == {k: v for k, v in rs.detail.items() if k not in TIMING}
+    toks.append((ref.step(), port.step()))
+    same()
+    return toks
+
+
 @pytest.mark.parametrize("kw", [
-    # sharding is ported; a sharded arena's shadow commit is not
+    # sharding is ported in both commit modes: the engine at two shards
+    # under shadow commit serves, crashes and recovers as the reference's
     pytest.param({"n_shards": 2, "commit_mode": "shadow"},
                  id="{'n_shards': 2}"),
     {"commit_mode": "shadow"}, {"paged": True}], ids=str)
@@ -334,6 +381,12 @@ def test_engine_unported_axes_raise(models, kw, tmp_path):
         ref, port = _engines(models, tmp_path, **kw)
         assert port.arena.commit_mode == "shadow"
         assert all(r == p for r, p in _drive(ref, port, tmp_path))
+        return
+    if kw.get("n_shards") == 2:
+        ref, port = _engines(models, tmp_path, **kw)
+        for a in (port.arena, port.paging.arena):
+            assert a.commit_mode == "shadow" and a.n_shards == 2
+        assert all(r == p for r, p in _drive_sharded(ref, port, tmp_path))
         return
     with pytest.raises(NotImplementedError):
         TE.ServingEngine(tm, tp, TE.EngineConfig(max_batch=2, s_max=8, **kw),
