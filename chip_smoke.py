@@ -4,6 +4,7 @@
 Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py [--report PATH] [--crossover-study]
+    python3 chip_smoke.py --ab-parent DIR [--report PATH]
 
 Phases (any failure exits non-zero; no phase catches its own failure):
 
@@ -108,16 +109,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    rank both ways;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
-   the B+Tree at 2**19, both modes, order snapshots and integrity pinned
-   off, every epoch drain through ``pack_rows``; the recovered state is
-   checked; ``pack_rows`` launches must equal the write sets' grouped
-   gathers (one per drain); ``jump_double`` must launch once per
-   ``chain_tables``/``_absorb`` call and every level-synchronous hashmap
-   ``chain_walk`` within 1 + ceil(log2(columns / 8)) ``gather_next``
-   launches, ``walk_segments`` once per ``contract_walk`` call and
-   ``expand_segments`` once per split plan, no run longer than
-   MARK_STRIDE (counted at the call sites); then device syncs per
-   operation, snapshots off and on;
+   the B+Tree at 2**18 (cut from 2**19 for phase 14's time), both modes,
+   order snapshots and integrity pinned off, every epoch drain through
+   ``pack_rows``; the recovered state is checked; ``pack_rows`` launches
+   must equal the write sets' grouped gathers (one per drain);
+   ``jump_double`` must launch once per ``chain_tables``/``_absorb`` call
+   and every level-synchronous hashmap ``chain_walk`` within 1 +
+   ceil(log2(columns / 8)) ``gather_next`` launches, ``walk_segments`` once
+   per ``contract_walk`` call and ``expand_segments`` once per split plan,
+   no run longer than MARK_STRIDE (counted at the call sites); then device
+   syncs per operation, snapshots off and on;
 4. card vs CPU: the same workload at 2**14 on ``cuda`` and on ``cpu``
    must write identical arena images (sha256) and FlushStats; with order
    snapshots on, the DLL and hashmap runs of phase 5 at 2**14 must also
@@ -325,7 +326,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    run's epochs profiled on the host clock.  ``--crossover-study`` adds,
    before each, the shard pool's two rules timed against each other
    (``pool_study``).
-   Four shards: phase 3's workload (DLL and hashmap 2**22, B+Tree
+   Four shards: phase 3's workload (DLL and hashmap 2**21, cut from 2**22
+   for phase 14's time, B+Tree
    2**15), both modes, integrity off, recovered through RecoveryManager
    (concurrency 4, per-region load stages), each beside a four-shard
    barrier twin just before it: recovered state as in phase 3, one fence
@@ -340,7 +342,45 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    3's authoritative bank remaps, scrub naming exactly it, and a salvage
    cutting only the DLL; the 2-layer engine and the feature store (64
    requests) on four-shard shadow arenas beside twins, one fence a
-   commit on every arena.
+   commit on every arena;
+14. paged regions and the block cache (DESIGN.md §12): (a) the
+   reference's ``--paged-parity`` shape (``benchmarks/flush_batching.py``
+   ``paged_parity``: a partly DLL of 12,000 nodes, 8192 scattered
+   deletes in batches of 256, 16 batches an epoch, 4000 ns a line, 4 KiB
+   blocks, a cache that fits the list, best of 3 each side): lines,
+   saved lines, snapshot lines, dedup rows, epochs and fences equal
+   paged and unpaged, no eviction or spill, flush lines/s paged at least
+   0.95x unpaged; the same deletes on a 2**22 DLL with no modeled stall
+   and a cache of 65,552 blocks, reported; (b) the reference's
+   ``paged_budget_report`` (``benchmarks/recovery_bench.py``) at factor
+   10 of a 6554-block cache of 4 KiB blocks (4,194,560 pages), built 75 %
+   live in requests of 2048 pages, 64 a commit, interleaved in the LRU as
+   decode steps append them, every third request freed; crashed,
+   recovered on demand, served (5 allocations, 3 frees): peak resident
+   within (cache_blocks + 16) blocks, the pools' peak device bytes
+   within twice that, the recovered allocator equal to the pre-crash one
+   and to an unpaged reopen of the same file, no spill; block faults per
+   stage and recover seconds beside the unpaged reopen's; with snapshots
+   (the fast path: only the candidate rows verified) and without them
+   (the lru stage ranks the whole NEXT column, read through the cache,
+   on the chain kernels, which must launch); (c) the engine's TTFT after
+   a crash (first admission plus a decode step) on the full-width
+   2-layer llama3.2-3b, paged within 1.5x unpaged (the reference's
+   ``--paged-slo`` component B); (d) (b)'s gates on a four-shard shadow
+   allocator of 524,160 pages (an 819-block cache; cut from 1639
+   blocks for time).  ``pack_rows`` launches equal the grouped gathers
+   through the phase, and ``scatter_rows`` launches equal the fault
+   batches seated in (a) and (b).  Phase 2 adds the grouped
+   ``pack_rows`` over two block pools and a resident 2**22-row region by
+   scattered translated indices, and
+   ``scatter_rows_`` seating a 64-block fault batch of 4 KiB blocks into
+   a 6554-slot pool, each exact and timed beside its bound; phase 4 a
+   paged DLL at PARITY_N (512 B blocks, 8 of them) at 1 and 3 shards,
+   both modes and both commit modes, card against CPU (images,
+   FlushStats, every cache counter, the recovery report, the recovered
+   order) and against an unpaged run's image, and a mixed integrity
+   arena, paged, whose flipped DLL row makes the demand fault of its
+   block raise ``CorruptLineError`` naming the row, card and CPU alike.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
@@ -348,7 +388,9 @@ phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7;
 ``probe``'s in phase 8; ``pack_rows``' and ``jump_double``'s in phase 9;
 ``flash_attention``'s and ``flash_attention_bwd``'s in phase 10; the
 four chain kernels', ``pack_rows``', ``scatter_rows``' (a shard's
-reload) and ``flash_attention``'s in phase 12, and again in phase 13.
+reload) and ``flash_attention``'s in phase 12, and again in phase 13;
+the four chain kernels', ``pack_rows``' and ``scatter_rows``' in phase
+14.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -381,7 +423,7 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 SECTOR = 32                    # bytes moved by one random DRAM access
 BATCH = 8192
-MAIN_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 19}
+MAIN_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 18}
 SNAP_N = 1 << 22
 PARITY_N = 1 << 14
 KINDS = ("dll", "hashmap", "bptree")
@@ -4831,8 +4873,9 @@ def sharded_phase(dev, phase3: dict) -> dict:
 # (benchmarks/flush_batching.py:218-250) at one and four shards: B+Tree
 # mixed 1:1, epochs of 4 x 64, 250 ns a line, 1 ms a fence
 SHADOW_N = {"dll": 1 << 19, "hashmap": 1 << 19, "bptree": 1 << 15}
-# phase 13's four-shard half: phase 3's widths (the B+Tree as above)
-SHADOW4_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 15}
+# phase 13's four-shard half: phase 3's widths, the DLL and the hashmap
+# cut to 2**21 (from 2**22) and the B+Tree as above, for phase 14's time
+SHADOW4_N = {"dll": 1 << 21, "hashmap": 1 << 21, "bptree": 1 << 15}
 CROSSOVER_GATE = 1.3           # the reference's gate, at 4 shards
 TORN_N = {"dll": 1 << 20, "hashmap": 1 << 20, "bptree": 1 << 15}
 CROSSOVER = {"n_init": 4000, "n_ops": 8192, "batch": 64, "group": 4,
@@ -5925,6 +5968,668 @@ def launch_train_on_card() -> dict:
 
 # ---------------------------------------------------------------------- main
 
+# ----------------------------------------------------------------------
+# Paged regions and the block cache (DESIGN.md §12): phase 2's pool
+# kernels, phase 4's paged cases and phase 14
+# ----------------------------------------------------------------------
+
+PAGED_SLOTS = 6554             # (b)'s cache_blocks: the pool phase 2 seats
+PAGED_FAULT_BLOCKS = 64        # phase 2's fault batch
+PAGED_BLOCK = 4096
+PAGED_SMALL = {"block_bytes": 512, "cache_blocks": 8}   # phase 4's cache
+PARITY_SHAPE = {"n_init": 12000, "n_ops": 8192, "batch": 256, "group": 16,
+                "synth_ns": 4000.0, "repeats": 3}
+PARITY_GATE = 0.95             # the reference's --paged-parity gate
+PARITY_BIG_N = (1 << 22) - 64  # cap = 2**22: a cache of 65,552 blocks
+BUDGET_FACTOR = 10
+BUDGET_CACHE = 6554            # (b): n_pages = 10 * 6554 * 64 = 4,194,560
+SHARDED_CACHE = 819            # (d): n_pages = 524,160, four shards (cut
+                               # from 1639 blocks, 1,048,960 pages, for time)
+TTFT_GATE = 1.5                # the reference's --paged-slo gate
+TTFT_REPEATS = 8
+
+
+def paged_kernels(dev, flush) -> dict:
+    """Phase 2's paged shapes: the grouped ``pack_rows`` over two block
+    pools (4 KiB blocks of 64 B rows, of (b)'s and (d)'s caches) and one
+    resident 2**22-row region, BATCH scattered translated indices each,
+    and ``scatter_rows_`` seating a 64-block fault batch of 4 KiB blocks
+    into a pool of 6554 slots; each exact against its plain version and
+    timed beside its byte bound."""
+    import torch
+    from repro_torch.kernels import pack_flush as P
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    br = PAGED_BLOCK // 64
+    srcs = [torch.randint(-(1 << 62), 1 << 62, (rows, 8), dtype=torch.int64,
+                          device=dev, generator=g)
+            for rows in (PAGED_SLOTS * br, SHARDED_CACHE * br, 1 << 22)]
+    m = BATCH
+    idx = torch.cat([torch.randint(0, s.shape[0], (m,), dtype=torch.int32,
+                                   device=dev, generator=g) for s in srcs])
+    counts = [m] * len(srcs)
+    err = require_equal("pack_rows (block pools)", [
+        (P.pack_rows_grouped(srcs, idx, counts),
+         P.pack_rows_grouped_plain(srcs, idx, counts))])
+    pack = {"ms": time_ms(lambda: P.pack_rows_grouped(srcs, idx, counts),
+                          flush=flush),
+            "plain_ms": time_ms(lambda: P.pack_rows_grouped_plain(
+                srcs, idx, counts), flush=flush),
+            "library_ms": None,
+            "bound_ms": bound_ms(3 * m * (2 * 64 + 4)),
+            "max_abs_err": err,
+            "shape": f"3 x {m} rows of 64 B: pools of {PAGED_SLOTS} and "
+                     f"{SHARDED_CACHE} slots of {br} rows, a resident "
+                     f"2**22-row region; scattered translated indices"}
+    del srcs
+    width = PAGED_BLOCK
+    dst = torch.randint(0, 256, (PAGED_SLOTS, width), dtype=torch.uint8,
+                        device=dev, generator=g)
+    packed = torch.randint(0, 256, (PAGED_FAULT_BLOCKS, width),
+                           dtype=torch.uint8, device=dev, generator=g)
+    sidx = torch.randperm(PAGED_SLOTS, device=dev, generator=g)[
+        :PAGED_FAULT_BLOCKS].to(torch.int32)
+    err = require_equal("scatter_rows (fault batch)", [
+        (P.scatter_rows(dst, packed, sidx),
+         P.scatter_rows_plain(dst.clone(), packed, sidx))])
+    lidx = sidx.long()
+    nbytes = PAGED_FAULT_BLOCKS * width
+    scatter = {"ms": time_ms(lambda: P.scatter_rows_(dst, packed, sidx),
+                             flush=flush),
+               "plain_ms": time_ms(lambda: P.scatter_rows_plain(
+                   dst, packed, sidx), flush=flush),
+               "library_ms": time_ms(lambda: dst.index_copy_(0, lidx,
+                                                             packed),
+                                     flush=flush),
+               "bound_ms": bound_ms(2 * nbytes + 4 * PAGED_FAULT_BLOCKS),
+               "max_abs_err": err,
+               "shape": f"{PAGED_FAULT_BLOCKS} blocks of {width} B into a "
+                        f"({PAGED_SLOTS}, {width}) pool"}
+    del dst, packed
+    torch.cuda.empty_cache()
+    return {"pack_rows": pack, "scatter_rows": scatter}
+
+
+def cache_counters(a) -> dict:
+    c = a.cache
+    return {} if c is None else {k: int(getattr(c, k)) for k in (
+        "faults", "hits", "evictions", "spills", "over_budget",
+        "resident_bytes", "peak_resident_bytes")}
+
+
+def paged_small(mode: str, n_shards: int, commit_mode: str, device,
+                paged: bool = True) -> tuple:
+    """Phase 4's paged case: a DLL of PARITY_N rows, snapshots on, on a
+    paged arena whose cache evicts all along (512 B blocks, 8 of them):
+    appends, scattered deletes and pops, a commit after each, an
+    uncommitted tail, a crash and a recovery.  Returns the image's sha256,
+    the FlushStats, every cache counter after the trace and after the
+    recovery, the report without timings and the recovered order's
+    digest."""
+    import numpy as np
+    from repro_torch.core.arena import open_arena
+    from repro_torch.core.recovery import RecoveryManager
+    from repro_torch.interop import image_of
+    from repro_torch.pstruct.dll import DoublyLinkedList
+    n = PARITY_N
+    kw = dict(paged=True, **PAGED_SMALL) if paged else {"paged": False}
+    a = open_arena(None, DoublyLinkedList.layout(n, mode, snapshot=True),
+                   device=device, integrity=False, n_shards=n_shards,
+                   commit_mode=commit_mode, **kw)
+    d = DoublyLinkedList(a, n, mode, snapshot=True)
+    rng = np.random.default_rng(14)
+    vals = rng.integers(0, 1 << 40, (n, 7)).astype(np.int64)
+    live = n * 3 // 4
+    for i in range(0, live, 1024):
+        d.append_batch(vals[i:i + 1024])
+        a.commit()
+    gone = rng.permutation(live)[:2048].astype(np.int64)
+    for i in range(0, gone.size, 256):
+        d.delete_batch(gone[i:i + 256])
+        a.commit()
+    d.pop_front_batch(300)
+    a.commit()
+    d.append_batch(vals[:500])                 # uncommitted tail
+    before = cache_counters(a)
+    a.crash()
+    rep = RecoveryManager(a).add("dll", "pstruct.dll", d, regions=(
+        "dll.nodes", "dll.header", "dll.snapring", "dll.snaprec")).recover()
+    order = d.to_list().cpu().numpy()
+    return (hashlib.sha256(image_of(a)).hexdigest(),
+            dataclasses.asdict(a.stats), before, cache_counters(a),
+            no_timing(rep),
+            hashlib.sha256(order.astype(np.int64).tobytes()).hexdigest())
+
+
+def paged_fault_small(commit_mode: str, device) -> tuple:
+    """Phase 4's paged integrity case: a mixed DLL + B+Tree + hashmap arena,
+    integrity on, paged on 256 B blocks (4 of them); a flipped DLL row; the
+    demand fault of its block must raise ``CorruptLineError`` naming the
+    row.  Returns the row, the error's message and the cache counters."""
+    import numpy as np
+    from repro_torch.core import faultinject as F
+    from repro_torch.core.arena import CorruptLineError, open_arena
+    from repro_torch.pstruct.bptree import BPTree
+    from repro_torch.pstruct.dll import DoublyLinkedList
+    from repro_torch.pstruct.hashmap import Hashmap
+    layout = {}
+    layout.update(DoublyLinkedList.layout(256, "partly", name="dll"))
+    layout.update(BPTree.layout(256, 1024, "partly", name="bt"))
+    layout.update(Hashmap.layout(512, "partly", name="hm"))
+    a = open_arena(None, layout, device=device, integrity=True,
+                   commit_mode=commit_mode, paged=True, block_bytes=256,
+                   cache_blocks=4)
+    d = DoublyLinkedList(a, 256, "partly", name="dll")
+    t = BPTree(a, 256, 1024, "partly", name="bt")
+    h = Hashmap(a, 512, "partly", name="hm")
+    rng = np.random.default_rng(2)
+    key = 0
+    for i in range(12):
+        m = int(rng.integers(2, 7))
+        vals = rng.integers(0, 1 << 30, (m, 7)).astype(np.int64)
+        keys = np.arange(key, key + m, dtype=np.int64)
+        key += m
+        with a.epoch():
+            if i % 3 == 0:
+                d.append_batch(vals)
+            elif i % 3 == 1:
+                t.insert_batch(keys, vals)
+            else:
+                h.insert_batch(keys, vals)
+        a.commit()
+    row = int(d.order()[1])
+    a.crash()
+    F.flip_bits(a, a.regions["dll.nodes"], row, byte=8, mask=0x04)
+    a.reopen()
+    try:
+        a.regions["dll.nodes"].read_rows(np.array([row], np.int64))
+    except CorruptLineError as e:
+        if row not in e.rows.tolist():
+            raise AssertionError(f"paged fault named rows {e.rows}, not "
+                                 f"{row}") from e
+        return row, str(e), cache_counters(a)
+    raise AssertionError(f"{commit_mode}: the demand fault of a corrupt "
+                         f"block was admitted")
+
+
+def paged_card_vs_cpu(dev) -> list:
+    """Phase 4's paged cases, card against CPU, each also against an
+    unpaged run's image on the card."""
+    same = []
+    for mode in ("partly", "full"):
+        for n_shards in (1, 3):
+            for commit_mode in ("barrier", "shadow"):
+                out = {d: paged_small(mode, n_shards, commit_mode, d)
+                       for d in ("cuda", "cpu")}
+                if out["cuda"] != out["cpu"]:
+                    raise AssertionError(
+                        f"paged dll {mode} {n_shards} shards {commit_mode}: "
+                        f"card and CPU images, FlushStats, cache counters "
+                        f"or recovered order differ")
+                flat = paged_small(mode, n_shards, commit_mode, "cuda",
+                                   paged=False)
+                if (flat[0], flat[1], flat[5]) != \
+                        (out["cuda"][0], out["cuda"][1], out["cuda"][5]):
+                    raise AssertionError(
+                        f"paged dll {mode} {n_shards} shards {commit_mode}: "
+                        f"paged and unpaged images differ")
+                c = out["cuda"][2]
+                same.append(f"dll.{mode}.paged.shards_{n_shards}."
+                            f"{commit_mode}:{out['cuda'][0][:12]}:"
+                            f"faults={c['faults']}:"
+                            f"evictions={c['evictions']}")
+    for commit_mode in ("barrier", "shadow"):
+        out = {d: paged_fault_small(commit_mode, d) for d in ("cuda",
+                                                              "cpu")}
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"paged fault verification {commit_mode}: "
+                                 f"card and CPU differ")
+        same.append(f"mixed.paged.{commit_mode}.fault_row_"
+                    f"{out['cuda'][0]}:CorruptLineError")
+    return same
+
+
+class LaunchMeter:
+    """Kernel launches, grouped gathers and fault batches over a block."""
+
+    def __enter__(self):
+        from repro_torch.core.paging import _BlockPool
+        from repro_torch.core.writeset import WriteSet
+        from repro_torch.kernels import launch_counts
+        self._read = lambda: (launch_counts(), WriteSet.gathers,
+                              _BlockPool.fault_batches)
+        self._start = self._read()
+        return self
+
+    def __exit__(self, *exc):
+        end = self._read()
+        self.launches = {k: end[0][k] - self._start[0][k] for k in end[0]}
+        self.gathers = end[1] - self._start[1]
+        self.fault_batches = end[2] - self._start[2]
+        return False
+
+    def check_seats(self, label: str) -> dict:
+        """scatter_rows launches must equal the fault batches seated."""
+        if self.launches["scatter_rows"] != self.fault_batches:
+            raise AssertionError(
+                f"{label}: {self.launches['scatter_rows']} scatter_rows "
+                f"launches for {self.fault_batches} fault batches")
+        return {"scatter_rows": self.fault_batches,
+                "pack_rows": self.launches["pack_rows"],
+                "gathers": self.gathers}
+
+
+def parity_run(dev, paged: bool, n_init: int, n_ops: int, batch: int,
+               group: int, synth_ns: float, build_batch: int = 4096) -> dict:
+    """One side of the reference's ``--paged-parity`` (flush_batching.py
+    ``paged_parity``): a partly DLL of ``n_init`` nodes, ``n_ops``
+    scattered deletes in batches of ``batch``, ``group`` batches an epoch,
+    each epoch's drain and commit timed; the cache fits the list."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arena import open_arena
+    from repro_torch.pstruct.dll import DoublyLinkedList
+    rng = np.random.default_rng(0)
+    cap = n_init + 64
+    a = open_arena(None, DoublyLinkedList.layout(cap, "partly"),
+                   synth_line_ns=synth_ns, paged=paged,
+                   block_bytes=PAGED_BLOCK,
+                   cache_blocks=(cap * 64) // PAGED_BLOCK + 16, device=dev)
+    d = DoublyLinkedList(a, cap, "partly")
+    vals = rng.integers(0, 1 << 40, (n_init, 7)).astype(np.int64)
+    for i in range(0, n_init, build_batch):
+        d.append_batch(vals[i:i + build_batch])
+    a.commit()
+    ids = rng.permutation(n_init)[:n_ops].astype(np.int64)
+    base = a.stats.snapshot()
+    flush_wall = 0.0
+    for g in range(0, n_ops, batch * group):
+        a._epoch_depth += 1
+        for i in range(g, min(g + batch * group, n_ops), batch):
+            d.delete_batch(ids[i:i + batch])
+        a._epoch_depth -= 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.writeset.flush()
+        a.commit()
+        flush_wall += time.perf_counter() - t0
+    st = a.stats.delta(base)
+    c = a.cache
+    row = {"paged": paged, "n_init": n_init, "flush_wall_s": flush_wall,
+           "lines": st.lines, "saved_lines": st.saved_lines,
+           "snapshot_lines": st.snapshot_lines,
+           "dedup_rows": st.dedup_rows, "epochs": st.epochs,
+           "fences": st.fences,
+           "evictions": int(c.evictions) if c else 0,
+           "spills": int(c.spills) if c else 0,
+           "faults": int(c.faults) if c else 0,
+           "pool_bytes": int(c.peak_pool_bytes) if c else 0,
+           "lines_per_s": st.lines / max(flush_wall, 1e-9)}
+    a.close()
+    return row
+
+
+def paged_parity(dev, n_init: int, n_ops: int, batch: int, group: int,
+                 synth_ns: float, repeats: int, gated: bool = True,
+                 build_batch: int = 4096) -> dict:
+    """Best of ``repeats`` per side, unpaged then paged in each round;
+    gated (the reference's gate): equal line, dedup, epoch and fence
+    accounting, zero evictions and spills, lines/s ratio >= 0.95."""
+    best = {}
+    for _ in range(repeats):
+        for paged in (False, True):
+            r = parity_run(dev, paged, n_init, n_ops, batch, group, synth_ns,
+                           build_batch)
+            if paged not in best or \
+                    r["flush_wall_s"] < best[paged]["flush_wall_s"]:
+                best[paged] = r
+    up, pg = best[False], best[True]
+    ratio = pg["lines_per_s"] / max(up["lines_per_s"], 1e-9)
+    out = {"rows": [up, pg], "lines_per_s_ratio": ratio,
+           "synth_line_ns": synth_ns, "gated": gated}
+    if gated:
+        if pg["evictions"] or pg["spills"]:
+            raise AssertionError(f"paged parity: {pg['evictions']} "
+                                 f"evictions, {pg['spills']} spills")
+        for k in ("lines", "saved_lines", "snapshot_lines", "dedup_rows",
+                  "epochs", "fences"):
+            if up[k] != pg[k]:
+                raise AssertionError(f"paged parity: {k} {up[k]} unpaged, "
+                                     f"{pg[k]} paged")
+        if ratio < PARITY_GATE:
+            raise AssertionError(f"paged parity: lines/s ratio {ratio:.3f} "
+                                 f"< {PARITY_GATE}")
+    return out
+
+
+BUILD_REQUESTS = 64            # requests a build commit allocates
+
+
+def alloc_many(pa, rid0: int, sizes) -> None:
+    """Allocate requests ``rid0, rid0 + 1, ...`` of ``sizes`` pages in one
+    epoch, one append batch and one commit, their pages taken from the
+    free stack as ``alloc`` takes them, request by request, and their
+    nodes interleaved in the LRU as decode steps would append them: a page
+    of every request that still grows, then the next."""
+    import numpy as np
+    grid = np.full((len(sizes), max(sizes)), -1, np.int64)
+    owners = []
+    for k, n in enumerate(sizes):
+        top = len(pa.pages_free) - n
+        pages = pa.pages_free[top:][::-1].copy()
+        pa.pages_free = pa.pages_free[:top]
+        grid[k, :n] = pages
+        owners.append((pages, rid0 + k))
+    order = grid.T.reshape(-1)
+    keep = order >= 0
+    vals = np.zeros((int(keep.sum()), 7), np.int64)
+    vals[:, 0] = order[keep]
+    vals[:, 1] = rid0 + np.tile(np.arange(len(sizes)), grid.shape[1])[keep]
+    with pa.arena.epoch():
+        ids = pa.lru.append_batch(vals).cpu().numpy()
+        pa.page_of_node.update(zip(ids.tolist(), vals[:, 0].tolist()))
+        for pages, rid in owners:
+            pa.owner[pages] = rid
+        pa.arena.commit()
+
+
+def free_many(pa, rids) -> None:
+    """Free the requests ``rids`` in one epoch, one delete batch and one
+    commit (``free_request`` of each, merged)."""
+    import numpy as np
+    rids = np.asarray(sorted(rids), np.int64)
+    pages = np.nonzero(np.isin(pa.owner, rids))[0]
+    nd = np.fromiter(pa.page_of_node.keys(), np.int64,
+                     len(pa.page_of_node))
+    pg = np.fromiter(pa.page_of_node.values(), np.int64,
+                     len(pa.page_of_node))
+    nodes = nd[np.isin(pa.owner[pg], rids)]
+    with pa.arena.epoch():
+        pa.lru.delete_batch(nodes)
+        for n in nodes.tolist():
+            pa.page_of_node.pop(n, None)
+        pa.owner[pages] = -1
+        pa.pages_free = np.concatenate([pa.pages_free, pages])
+        pa.arena.commit()
+
+
+def alloc_fingerprint(pa) -> tuple:
+    """The recovered allocator's state: LRU order, owners, free pages."""
+    import numpy as np
+    return (pa.lru.order().cpu().numpy(), pa.owner.copy(),
+            np.sort(pa.pages_free))
+
+
+def same_fingerprint(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def paged_budget(dev, cache_blocks: int, snapshot=None, n_shards: int = 1,
+                 commit_mode: str = "barrier",
+                 factor: int = BUDGET_FACTOR) -> dict:
+    """The reference's ``paged_budget_report`` (recovery_bench.py): a
+    file-backed paged-KV pool ``factor`` times the cache's budget, built
+    about 75 % live in requests of 2048 pages (BUILD_REQUESTS a commit,
+    their pages interleaved in the LRU as decode steps append them) and
+    fragmented by freeing every third request (a delete batch for each
+    commit's requests), crashed, recovered on demand and served.  Gated:
+    peak resident <= (cache_blocks + 16) blocks, the recovered state equal
+    to the pre-crash one and to an unpaged reopen of the same files, zero
+    spills, the pools' peak device bytes <= twice the budget."""
+    import torch
+    from repro_torch.serve.kvcache import PagedAllocator, PagedConfig
+    n_pages = factor * cache_blocks * (PAGED_BLOCK // 64)
+    budget = (cache_blocks + 16) * PAGED_BLOCK
+    root = ROOT / "build" / "chip_smoke_paged"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    path = str(root / "pool.bin")
+    cfg = dict(n_pages=n_pages, snapshot=snapshot, n_shards=n_shards,
+               commit_mode=commit_mode)
+    t0 = time.perf_counter()
+    pa = PagedAllocator(PagedConfig(paged=True, block_bytes=PAGED_BLOCK,
+                                    cache_blocks=cache_blocks, **cfg),
+                        path=path, device=dev)
+    live = int(n_pages * 0.75)
+    sizes = [min(2048, live - i) for i in range(0, live, 2048)]
+    for k in range(0, len(sizes), BUILD_REQUESTS):
+        alloc_many(pa, k, sizes[k:k + BUILD_REQUESTS])
+    rid = len(sizes)
+    for k in range(0, rid, BUILD_REQUESTS):
+        free_many(pa, [r for r in range(k, min(k + BUILD_REQUESTS, rid))
+                       if r % 3 == 0])
+    build_s = time.perf_counter() - t0
+    fp0 = alloc_fingerprint(pa)
+    cache = pa.arena.cache
+    pa.arena.crash()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    cache.reset_peak()
+    with LaunchMeter() as rec:
+        t0 = time.perf_counter()
+        pa.recover()
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+    mem_recovered = torch.cuda.memory_allocated(dev) - mem0
+    fp_rec = alloc_fingerprint(pa)
+    rep = pa.last_recovery
+    faults_per_stage = {s.name: s.detail.get("block_faults")
+                        for s in rep.stages if s.name != "reopen"}
+    lru_chain = rep.stage("lru").detail.get("chain")
+    # an unpaged reopen of the same files, before serving mutates them
+    pu = PagedAllocator(PagedConfig(paged=False, **cfg), path=path,
+                        device=dev)
+    t0 = time.perf_counter()
+    pu.recover()
+    torch.cuda.synchronize()
+    unpaged_s = time.perf_counter() - t0
+    match_unpaged = same_fingerprint(fp_rec, alloc_fingerprint(pu))
+    pu.arena.close()
+    del pu
+    torch.cuda.empty_cache()
+    # serve on the recovered pool under the same budget
+    for k in range(5):
+        pa.alloc(1_000_000 + k, 128)
+    for k in range(0, 5, 2):
+        pa.free_request(1_000_000 + k)
+    torch.cuda.synchronize()
+    row = {"n_pages": n_pages, "factor": factor, "n_shards": n_shards,
+           "commit_mode": commit_mode, "snapshot": snapshot,
+           "built_live_pages": live, "requests": rid, "build_s": build_s,
+           "recover_s": recover_s, "budget_bytes": budget,
+           "capacity_bytes": int(cache.capacity_bytes),
+           "peak_resident_bytes": int(cache.peak_resident_bytes),
+           "peak_pool_bytes": int(cache.peak_pool_bytes),
+           "allocated_delta_bytes": int(mem_recovered),
+           "faults": int(cache.faults), "hits": int(cache.hits),
+           "evictions": int(cache.evictions), "spills": int(cache.spills),
+           "over_budget": int(cache.over_budget),
+           "block_faults_per_stage": faults_per_stage, "lru_chain": lru_chain,
+           "recover_launches": {k: v for k, v in rec.launches.items() if v},
+           "recover_fault_batches": rec.fault_batches,
+           "fingerprint_match_precrash": same_fingerprint(fp_rec, fp0),
+           "unpaged_recover_s": unpaged_s,
+           "fingerprint_match_unpaged": match_unpaged}
+    del fp0, fp_rec
+    pa.arena.close()
+    del pa
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    label = f"paged budget {n_shards} shards {commit_mode} " \
+            f"snapshot={snapshot}"
+    if row["peak_resident_bytes"] > budget:
+        raise AssertionError(f"{label}: peak resident "
+                             f"{row['peak_resident_bytes']} > {budget}")
+    if not (row["fingerprint_match_precrash"]
+            and row["fingerprint_match_unpaged"]):
+        raise AssertionError(f"{label}: recovered state differs "
+                             f"(pre-crash {row['fingerprint_match_precrash']}"
+                             f", unpaged {row['fingerprint_match_unpaged']})")
+    if row["spills"]:
+        raise AssertionError(f"{label}: {row['spills']} spills")
+    if row["peak_pool_bytes"] > 2 * budget:
+        raise AssertionError(f"{label}: pools peaked at "
+                             f"{row['peak_pool_bytes']} B > 2 x {budget}")
+    return row
+
+
+def ttft_row(dev, model, params, paged: bool) -> dict:
+    """The reference's ``--paged-slo`` component B (recovery_bench.py
+    ``ttft_row``): an engine with a 4096-page pool serves four 24-token
+    prompts two steps, then crash and recover (warm), then the first
+    slot's admission after a crash (best of TTFT_REPEATS) plus one decode
+    step (best of 5)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+    ec = EngineConfig(max_batch=4, s_max=32, max_requests=16, n_pages=4096,
+                      paged=paged)
+    eng = ServingEngine(model, params, ec, device=dev)
+    rng = np.random.default_rng(0)
+    for rid in range(4):
+        eng.add_request(100 + rid, rng.integers(1, model.cfg.vocab,
+                                                24).astype(np.int64))
+    for _ in range(2):
+        eng.step()
+    eng.crash()
+    eng.recover()                     # warm
+    admit = None
+    for _ in range(TTFT_REPEATS):
+        first = {}
+
+        def on_ready(slots, tlen, admitted_s):
+            torch.cuda.synchronize()
+            first.setdefault("t", time.perf_counter() - t0)
+
+        eng.crash()
+        eng.on_slot_ready = on_ready
+        t0 = time.perf_counter()
+        sec = eng.recover()
+        eng.on_slot_ready = None
+        t = first.get("t", sec)
+        admit = t if admit is None else min(admit, t)
+    decode = None
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        decode = dt if decode is None else min(decode, dt)
+    c = eng.paging.arena.cache
+    row = {"paged": paged, "n_pages": 4096, "first_admission_s": admit,
+           "first_decode_s": decode, "ttft_after_crash_s": admit + decode,
+           "faults": int(c.faults) if c else 0,
+           "spills": int(c.spills) if c else 0}
+    eng.arena.close()
+    eng.paging.arena.close()
+    return row
+
+
+def paged_ttft(dev) -> dict:
+    """(c): the engine TTFT after a crash, paged against unpaged, on the
+    full-width 2-layer llama3.2-3b of phases 11-13; gated <= 1.5x."""
+    import torch
+    from repro_torch.models.backbone import init_params
+    from repro_torch.models.model import Model
+    cfg = serve_config(layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    params = init_params(cfg, gen, dev)
+    model = Model(cfg, compute_dtype=torch.float32)
+    rows = [ttft_row(dev, model, params, p) for p in (False, True)]
+    del params
+    torch.cuda.empty_cache()
+    ratio = rows[1]["ttft_after_crash_s"] / max(
+        rows[0]["ttft_after_crash_s"], 1e-9)
+    if ratio > TTFT_GATE:
+        raise AssertionError(f"paged TTFT after a crash {ratio:.3f}x the "
+                             f"unpaged > {TTFT_GATE}")
+    return {"rows": rows, "ttft_ratio_paged": ratio}
+
+
+def paged_phase(dev) -> dict:
+    """Phase 14: the reference's two paging gates on the card.  (a) the
+    ``--paged-parity`` shape (gated) and the same deletes on a 2**22 DLL
+    with no modeled stall (reported); (b) ``paged_budget_report`` at factor
+    10 (4,194,560 pages, 6554 blocks of 4 KiB), with snapshots on (the
+    fast path) and off (the lru stage ranks the whole NEXT column, read
+    through the cache, on the chain kernels); (c) the engine's TTFT after
+    a crash, paged against unpaged; (d) (b)'s gates on a four-shard
+    shadow allocator of 524,160 pages.  Throughout: ``pack_rows``
+    launches = grouped gathers, and ``scatter_rows`` launches = fault
+    batches wherever only paged arenas seat rows."""
+    t_phase = time.perf_counter()
+    out = {}
+    with LaunchMeter() as m:
+        out["parity"] = paged_parity(dev, **PARITY_SHAPE)
+        out["parity_2_22"] = paged_parity(
+            dev, PARITY_BIG_N, PARITY_SHAPE["n_ops"], PARITY_SHAPE["batch"],
+            PARITY_SHAPE["group"], 0.0, 1, gated=False, build_batch=1 << 16)
+    out["parity_launches"] = m.check_seats("phase 14 (a)")
+    for label, snap in (("budget", None), ("budget_no_snapshot", False)):
+        with LaunchMeter() as m:
+            out[label] = paged_budget(dev, BUDGET_CACHE, snapshot=snap)
+        out[label]["launches"] = m.check_seats(f"phase 14 ({label})")
+    chain = {k: out["budget_no_snapshot"]["recover_launches"].get(k, 0)
+             for k in CHAIN_KERNELS}
+    if not any(chain.values()):
+        raise AssertionError("phase 14: the snapshot-off recovery launched "
+                             "no chain kernel")
+    if out["budget"]["lru_chain"] != "snapshot":
+        raise AssertionError(f"phase 14: the snapshot recovery took "
+                             f"{out['budget']['lru_chain']}, not the fast "
+                             f"path")
+    out["budget_no_snapshot"]["chain_launches"] = chain
+    out["ttft"] = paged_ttft(dev)
+    out["sharded"] = paged_budget(dev, SHARDED_CACHE, n_shards=SHARDS,
+                                  commit_mode="shadow")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+AB_ONE = r"""
+import json, os, sys
+os.environ["REPRO_INTEGRITY"] = "0"
+sys.path.insert(0, "src")
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as C
+from repro_torch.kernels import _build
+_build.build()
+dev = torch.device("cuda", 0)
+x = C.shadow_crossover(dev, shard_counts=(C.SHARDS,), gated=False)
+out = {"x4": x["speedup_4"]}
+for kind in ("dll", "hashmap"):
+    for mode in ("full", "partly"):
+        r = C.workload(kind, mode, 1 << 22, dev)
+        out[kind + "_" + mode] = {k: r[k] for k in ("insert_s", "delete_s",
+                                                     "recover_s")}
+        del r
+        torch.cuda.empty_cache()
+print("AB " + json.dumps(out), flush=True)
+"""
+
+
+def ab_trees(parent: Path, rounds: int = 3) -> list:
+    """``--ab-parent``: phase 13's four-shard crossover (ungated) and phase
+    3's DLL and hashmap at 2**22, for the tree at ``parent`` and this one
+    in turns (parent, this, this, parent, ...), one process each."""
+    order = [parent, ROOT, ROOT, parent] * ((rounds + 1) // 2)
+    runs = []
+    for tree in order[:2 * rounds]:
+        p = subprocess.run([sys.executable, "-c", AB_ONE], cwd=tree,
+                           capture_output=True, text=True)
+        line = [ln for ln in p.stdout.splitlines() if ln.startswith("AB ")]
+        if p.returncode or not line:
+            raise AssertionError(f"A/B run in {tree} failed: "
+                                 f"{p.stderr[-2000:]}")
+        runs.append({"tree": "parent" if tree == parent else "this",
+                     **json.loads(line[0][3:])})
+        emit({"phase": "ab", **runs[-1]})
+    return runs
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--report", help="also write every phase's numbers to "
@@ -5932,6 +6637,10 @@ def main(argv=None) -> int:
     p.add_argument("--crossover-study", action="store_true",
                    help="in phase 13, also time the shard pool's two rules "
                    "(pool_study) before each four-shard crossover gate")
+    p.add_argument("--ab-parent", metavar="DIR",
+                   help="instead of the phases: phase 13's four-shard "
+                   "crossover and phase 3's DLL and hashmap, for the tree "
+                   "at DIR and this one in turns (ab_trees)")
     args = p.parse_args(argv)
 
     # cuBLAS reads its workspace setting when it starts, before phase 1's
@@ -5947,6 +6656,15 @@ def main(argv=None) -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if args.ab_parent:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip(), flush=True)
+        runs = ab_trees(Path(args.ab_parent).resolve())
+        if args.report:
+            Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.report).write_text(json.dumps(runs, indent=1))
+        return 0
     # phases 1-10 run without integrity sidecars, as they did before the
     # port had them, so their numbers stay comparable (phases 3-6 also pin
     # integrity=False); phase 4's integrity case pins it on, and phase 11
@@ -5997,6 +6715,11 @@ def main(argv=None) -> int:
           "flash_grad_on_card": parity["flash_grad_on_card"],
           "quantize_non_finite": parity["quantize_non_finite"],
           "probe": parity["probe"]})
+    # the grouped gather over block pools and a fault batch's seating
+    paged_k = paged_kernels(dev, l2_flusher(dev))
+    for name in ("pack_rows", "scatter_rows"):
+        parity["rows"][name]["paged"] = paged_k[name]
+    emit({"phase": "paged_kernels", **paged_k})
     drains = drain_parity(dev, report["link"]["bytes_per_s"])
     report["drains"] = drains
     emit({"phase": "drain_parity", **drains})
@@ -6197,6 +6920,9 @@ def main(argv=None) -> int:
                     f"faulted={out['cuda'][2]}:"
                     f"quarantined={out['cuda'][4]['quarantined']}:"
                     f"degraded={out['cuda'][4]['degraded']}")
+    # paged DLLs (one and three shards, both commit modes) and the paged
+    # fault path's verification on a mixed integrity arena
+    same.extend(paged_card_vs_cpu(dev))
     torch.cuda.empty_cache()
     serve = serve_card_vs_cpu(dev)
     same.append(f"serve:{serve['file_sha256']}")
@@ -6389,12 +7115,42 @@ def main(argv=None) -> int:
                if launches13[k] == 0]
     if missing:
         raise AssertionError(f"phase 13 never launched {missing}")
+    torch.cuda.empty_cache()
+    # ---- phase 14: paged regions and the block cache
+    from repro_torch.core.paging import _BlockPool
+    reset_launch_counts()
+    WriteSet.gathers = 0
+    _BlockPool.fault_batches = 0
+    paged = paged_phase(dev)
+    launches14 = launch_counts()
+    gathers14 = gathers_check("paged", launches14, WriteSet.gathers)
+    report["paged"] = paged
+    for name in ("parity", "parity_2_22"):
+        for row in paged[name]["rows"]:
+            emit({"phase": f"paged_{name}", **row})
+        emit({"phase": f"paged_{name}_ratio",
+              "lines_per_s_ratio": paged[name]["lines_per_s_ratio"],
+              "gated": paged[name]["gated"]})
+    for name in ("budget", "budget_no_snapshot", "sharded"):
+        emit({"phase": f"paged_{name}", **paged[name]})
+    for row in paged["ttft"]["rows"]:
+        emit({"phase": "paged_ttft", **row})
+    emit(gathers14)
+    emit({"phase": "paged", "launches": launches14,
+          "fault_batches": _BlockPool.fault_batches,
+          "parity_launches": paged["parity_launches"],
+          "ttft_ratio_paged": paged["ttft"]["ttft_ratio_paged"],
+          "phase_s": paged["phase_s"]})
+    missing = [k for k in CHAIN_KERNELS + ("pack_rows", "scatter_rows")
+               if launches14[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 14 never launched {missing}")
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():
         kernels.append({"name": name, "route": "cuda",
                         "launches": launches[name], "bound_by": "bytes",
-                        **row})
+                        "paged_launches": launches14[name], **row})
     if sorted(k["name"] for k in kernels) != sorted(WRAPPERS):
         raise AssertionError("the kernels line does not list every kernel")
     report["card"] = card

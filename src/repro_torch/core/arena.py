@@ -81,8 +81,16 @@ The arena runs on ``cuda`` unless the caller passes ``device="cpu"``.  With
 no device given and no GPU present it raises: it never falls back to the
 CPU silently.  ``integrity=None`` and ``snapshot=None`` resolve through the
 reference's env axes (``integrity_enabled``, ``snapshot_enabled``), both
-on by default.  Paging is not ported yet; asking for it raises
-``NotImplementedError`` naming it.
+on by default.
+
+* Paged regions (DESIGN.md §12, ``paged=True`` or ``REPRO_PAGED=1``): a
+  data region bigger than one block (``_paged_eligible``) keeps a device
+  block pool behind an arena-wide LRU ``BlockCache`` of ``cache_blocks``
+  blocks of ``block_bytes`` instead of one full-shape tensor
+  (``core/paging.py``).  A ``ShardedArena`` keeps the one cache at the
+  sharded level and opens its shards unpaged.  ``reopen`` resets paged
+  regions lazily; the reconstructors fault what they touch.  The drain is
+  the write-back: ``_note_flushed`` unpins the rows it wrote.
 """
 from __future__ import annotations
 
@@ -242,7 +250,11 @@ class _RowAccess:
     """What ``Region`` and ``ShardedRegion`` share: the region's kind and
     sizes, range forms of marking and persisting, and the row accessors,
     views and copies of the volatile tensor ``vol`` on the arena's device
-    (only ``read_one`` and ``read_row`` bring a value to the host)."""
+    (only ``read_one`` and ``read_row`` bring a value to the host).  The
+    paged regions of ``core/paging.py`` override the accessors to route
+    through the block cache; here the paging hooks are no-ops."""
+
+    is_paged = False
 
     def _declare(self, name: str, dtype, shape: Tuple[int, ...],
                  meta: Optional[bool]) -> None:
@@ -295,10 +307,13 @@ class _RowAccess:
     def read_at(self, rows, col) -> torch.Tensor:
         return self.vol[self._idx(rows), col]
 
-    def read_one(self, row: int, col: int) -> int:
-        """One element as a Python int.  On a card-resident region this is
-        one device sync."""
+    def read_one(self, row, col: int) -> int:
+        """One element as a Python int (``row`` an int or a 0-d tensor).
+        On a card-resident region this is one device sync."""
         return int(self.vol[row, col])
+
+    def read_col(self, col) -> torch.Tensor:
+        return self.vol[:, col]
 
     def write_rows(self, rows, vals) -> None:
         self.vol[self._idx(rows)] = self._val(vals)
@@ -306,19 +321,45 @@ class _RowAccess:
     def write_at(self, rows, col, vals) -> None:
         self.vol[self._idx(rows), col] = self._val(vals)
 
-    def _idx(self, rows) -> torch.Tensor:
+    def _idx(self, rows):
+        if isinstance(rows, (int, np.integer)):
+            return int(rows)
         if isinstance(rows, torch.Tensor):
-            return rows.to(self.vol.device, torch.int64)
+            return rows.to(self.arena.device, torch.int64)
         return torch.as_tensor(np.asarray(rows, np.int64),
-                               device=self.vol.device)
+                               device=self.arena.device)
 
     def _val(self, vals):
         if isinstance(vals, (int, float)):
             return vals
         if isinstance(vals, torch.Tensor):
-            return vals.to(self.vol.device, self.tdtype)
+            return vals.to(self.arena.device, self.tdtype)
         return torch.as_tensor(np.asarray(vals), dtype=self.tdtype,
-                               device=self.vol.device)
+                               device=self.arena.device)
+
+    # -- paging hooks (no-ops on resident regions) ------------------------
+    def _note_flushed(self, rows: np.ndarray) -> None:
+        """Rows just written persistent by the drain: a paged region
+        unpins their blocks."""
+
+    def _note_persisted(self, rows: np.ndarray) -> None:
+        """Rows just written home by a direct persist: a paged region
+        unpins them except where a shadow bank still remaps them."""
+
+    def _note_persisted_range(self, lo: int, hi: int) -> None:
+        pass
+
+    def _persist_script(self, rows: np.ndarray, integ) -> list:
+        """The cache bookkeeping of a direct persist of ``rows``, in the
+        reference's order (``core/paging.drain_positions``): the gather,
+        the note, and the second gather ``_integrity_home`` makes for a
+        covered region."""
+        if not self.is_paged:
+            return []
+        out = [("read", self, rows), ("persisted", self, rows)]
+        if integ is not None:
+            out.append(("read", self, rows))
+        return out
 
 
 class Region(_RowAccess):
@@ -330,6 +371,10 @@ class Region(_RowAccess):
         self.arena = arena
         self.offset = offset
         self._declare(name, dtype, shape, meta)
+        self._init_vol()
+
+    def _init_vol(self) -> None:
+        """The volatile state at creation (a paged region: its pool)."""
         self._crash_reset()
 
     def _crash_reset(self) -> None:
@@ -350,7 +395,8 @@ class Region(_RowAccess):
         if rows.size == 0:
             return
         ws = self.arena.writeset
-        host = ws.gather([(self, rows)])[0]
+        host = ws._gather_paged([(self, rows)], lambda: self._persist_script(
+            rows, self._integ))[0]
         self._pview()[rows] = host
         self.arena._account_rows(self.offset, self.rowbytes, rows,
                                  snap=self.snap, jrnl=self.jrnl,
@@ -374,7 +420,13 @@ class Region(_RowAccess):
         one contiguous byte range (the reference's ``_account_range``)."""
         if hi <= lo:
             return
-        host = self.vol[lo:hi].cpu().numpy()
+        if self.is_paged:
+            rows = np.arange(lo, hi, dtype=np.int64)
+            host = self.arena.writeset.gather(
+                [(self, rows)], script=self._persist_script(rows,
+                                                            self._integ))[0]
+        else:
+            host = self.vol[lo:hi].cpu().numpy()
         self._pview()[lo:hi] = host
         self.arena._account_range(self.offset + lo * self.rowbytes,
                                   (hi - lo) * self.rowbytes, snap=self.snap,
@@ -400,12 +452,17 @@ class Arena:
     def __init__(self, path: Optional[str], synth_line_ns: float = 0.0,
                  commit_mode: str = "barrier",
                  synth_fence_ns: float = 0.0, paged: Optional[bool] = None,
+                 block_bytes: int = 4096, cache_blocks: int = 1024,
                  integrity: Optional[bool] = None, device=None):
         if commit_mode not in ("barrier", "shadow"):
             raise ValueError(f"unknown commit_mode {commit_mode!r}")
-        if paged_enabled(paged):
-            raise not_ported("paging")
         self.device = resolve_device(device)
+        # paged regions fault fixed-size blocks through one arena-wide
+        # cache instead of holding a full-shape tensor each
+        self.paged = paged_enabled(paged)
+        self.block_bytes = int(block_bytes)
+        self.cache_blocks = int(cache_blocks)
+        self.cache = _block_cache(self)
         self.path = path
         self.regions: Dict[str, Region] = {}
         self.stats = FlushStats()
@@ -475,8 +532,13 @@ class Arena:
         # Row-align every region to LINE so a row flush never straddles an
         # unrelated region (paper: __attribute__((aligned(64)))).
         self._cursor = _align(self._cursor, LINE)
-        r = (_cls or Region)(self, name, dtype, shape, self._cursor,
-                             meta=meta, **slice_kw)
+        cls = _cls or Region
+        if cls is Region and self.cache is not None and _paged_eligible(
+                name, meta, dtype, shape, self.block_bytes):
+            from repro_torch.core.paging import PagedRegion
+            cls = PagedRegion
+        r = cls(self, name, dtype, shape, self._cursor, meta=meta,
+                **slice_kw)
         self._cursor += _align(r.nbytes, LINE)
         self.regions[name] = r
         self._region_ids[name] = len(self._region_ids)
@@ -892,7 +954,8 @@ class Arena:
         """Copy every region back to the device from the persistent image,
         and re-anchor the in-memory generation to the committed one.  A
         shadow arena first parses the committed bank, so each load lays
-        its rows over the home rows."""
+        its rows over the home rows.  A paged region's load is a lazy
+        reset of its pool."""
         self._shadow_parse()
         for r in self.regions.values():
             r.load()
@@ -1003,6 +1066,31 @@ class Arena:
 
 def _align(x: int, a: int) -> int:
     return ((x + a - 1) // a) * a
+
+
+def _block_cache(arena):
+    """The arena's ``BlockCache`` when it is paged, else None."""
+    if not arena.paged:
+        return None
+    from repro_torch.core.paging import BlockCache
+    return BlockCache(arena.block_bytes, arena.cache_blocks)
+
+
+def _paged_eligible(name: str, meta: Optional[bool], dtype, shape,
+                    block_bytes: int) -> bool:
+    """Data regions bigger than one block page; headers, order snapshots,
+    journal rings and sidecars stay resident (tiny, hot on every epoch,
+    read in full by recovery anyway).  Decided from the layout spec, before
+    the region is built."""
+    snap = ".snap" in name
+    jrnl = ".jrnl" in name
+    integ = name.endswith(".integ")
+    m = (name.endswith("header") or snap) if meta is None else meta
+    rowbytes = int(np.dtype(dtype).itemsize *
+                   np.prod(shape[1:], dtype=np.int64)) \
+        if len(shape) > 1 else np.dtype(dtype).itemsize
+    return (not (m or snap or jrnl or integ)
+            and rowbytes * shape[0] > block_bytes)
 
 
 # ----------------------------------------------------------------------
@@ -1215,8 +1303,7 @@ class ShardedRegion(_RowAccess):
                  router=None, rr_hint: int = 0):
         self.arena = arena
         self._declare(name, dtype, shape, meta)
-        self.vol = torch.zeros(self.shape, dtype=self.tdtype,
-                               device=arena.device)
+        self._init_vol()
         n = self.shape[0]
         self.router = router = normalize_router(router, n, arena.n_shards,
                                                 rr_hint)
@@ -1241,6 +1328,10 @@ class ShardedRegion(_RowAccess):
         # per shard, the device ids its load seats (blocks, or rows)
         self._seat_ids: List[Optional[torch.Tensor]] = \
             [None] * arena.n_shards
+
+    def _init_vol(self) -> None:
+        self.vol = torch.zeros(self.shape, dtype=self.tdtype,
+                               device=self.arena.device)
 
     def _crash_reset(self) -> None:
         # zeroed in place: the reload writes into the same allocation
@@ -1365,22 +1456,27 @@ class ShardedArena:
     def __init__(self, path: Optional[str], n_shards: int = 2,
                  synth_line_ns: float = 0.0, commit_mode: str = "barrier",
                  synth_fence_ns: float = 0.0, paged: Optional[bool] = None,
+                 block_bytes: int = 4096, cache_blocks: int = 1024,
                  integrity: Optional[bool] = None, device=None):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         if commit_mode not in ("barrier", "shadow"):
             raise ValueError(f"unknown commit_mode {commit_mode!r}")
-        if paged_enabled(paged):
-            raise not_ported("paging")
         self.device = resolve_device(device)
+        # the ONE block cache (like the one volatile tensor it replaces)
+        # lives at the sharded level: shards are always opened unpaged
+        self.paged = paged_enabled(paged)
+        self.block_bytes = int(block_bytes)
+        self.cache_blocks = int(cache_blocks)
+        self.cache = _block_cache(self)
         self.path = path
         self.n_shards = int(n_shards)
         # sidecars are declared at the sharded level, each with its source
         # region's router, so a row's checksum lives on the row's shard
         self.integrity = integrity_enabled(integrity)
         self.shards = [Arena(f"{path}.s{k}" if path else None, synth_line_ns,
-                             commit_mode=commit_mode, integrity=False,
-                             device=self.device)
+                             commit_mode=commit_mode, paged=False,
+                             integrity=False, device=self.device)
                        for k in range(self.n_shards)]
         for sh in self.shards:
             sh.synth_sleep = True
@@ -1436,8 +1532,13 @@ class ShardedArena:
             raise RuntimeError("layout already finalized")
         if name in self.regions:
             raise ValueError(f"region {name!r} already declared")
-        r = ShardedRegion(self, name, dtype, shape, meta=meta,
-                          router=router, rr_hint=self._rr)
+        cls = ShardedRegion
+        if self.cache is not None and _paged_eligible(
+                name, meta, dtype, shape, self.block_bytes):
+            from repro_torch.core.paging import PagedShardedRegion
+            cls = PagedShardedRegion
+        r = cls(self, name, dtype, shape, meta=meta, router=router,
+                rr_hint=self._rr)
         self._rr += 1
         self.regions[name] = r
         return r
@@ -1669,6 +1770,12 @@ class ShardedArena:
         for sh in self.shards:
             sh._shadow_parse(authority_gen=man_gen)
         regions = [r for n, r in self.regions.items() if n not in exclude]
+        # paged regions reload lazily: one pool reset each, and the
+        # post-crash working set faults in on demand
+        for r in regions:
+            if r.is_paged:
+                r.load()
+        regions = [r for r in regions if not r.is_paged]
 
         def load_shard(s: int) -> None:
             # one aggregated media stall per shard, not one per region

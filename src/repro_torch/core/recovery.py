@@ -37,8 +37,12 @@ transitive dependents as degraded, and lets reconstructors drop the rows
 that fail their checksums (``salvage_prefix`` walks what is left of a
 chain with the same kernels).  On a sharded arena the declared regions of
 64 KiB or more load in stages of their own (``load:<region>``, biggest
-first), each pooled across the shards, and the reopen excludes them.  The
-paged block-fault counters wait for paging (ROADMAP Queue 1).
+first), each pooled across the shards, and the reopen excludes them.  On
+paged arenas (DESIGN.md §12) every stage's detail carries
+``block_faults``, the cache faults it caused: a paged region's load is a
+lazy reset, and the faults land on the reconstructor that touches the
+blocks (under concurrent stages the attribution is approximate, the total
+exact).
 """
 from __future__ import annotations
 
@@ -765,9 +769,15 @@ class RecoveryManager:
         if salvage:
             for a in self.arenas:
                 a._salvage = True
+        caches = [a.cache for a in self.arenas
+                  if getattr(a, "cache", None) is not None]
+
+        def cache_faults() -> int:
+            return sum(c.faults for c in caches)
 
         def run_stage(name: str) -> StageReport:
             t0 = time.perf_counter()
+            faults0 = cache_faults()
             bad_deps = sorted(d for d in depends_of[name] if d in tainted)
             if salvage and bad_deps:
                 # skipped, not failed: running it would serve garbage
@@ -816,6 +826,8 @@ class RecoveryManager:
             degraded = bool(detail.pop("degraded", False))
             if quarantined:
                 tainted.add(name)
+            if caches:
+                detail["block_faults"] = cache_faults() - faults0
             t1 = time.perf_counter()
             st = StageReport(name, secs, detail,
                              t_start=t0 - t_all, t_end=t1 - t_all,

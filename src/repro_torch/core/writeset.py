@@ -53,6 +53,14 @@ the rest into the target bank's mirrors (``Arena._shadow_write``), their
 checksums into the sidecars' mirrors of the same bank.  No fence: the
 commit's flip is the one ordering point.  A sharded shadow drain keeps the
 one gather across every shard (``ShardedWriteSet._flush_shadow``).
+
+Paged regions (DESIGN.md §12) ride the same one gather: the drain first
+runs its cache bookkeeping in the reference's order (each region's gather,
+then its ``_note_flushed``; a direct persist's ``_note_persisted``; the
+second gather of a covered rewrite), faulting what is not resident
+(``core/paging.drain_positions``), then gathers the region's rows from its
+block pool by translated index.  The drain IS the dirty blocks'
+write-back.
 """
 from __future__ import annotations
 
@@ -168,8 +176,9 @@ class WriteSet:
             plans.append(self._plan(meta=True))
         else:
             self._pending.clear()   # crash point: metadata marks are lost
-        staged = iter(self.gather([(p.region, p.rows)
-                                   for plan in plans for p in plan]))
+        staged = iter(self._gather_paged(
+            [(p.region, p.rows) for plan in plans for p in plan],
+            lambda: self._barrier_script(plans)))
         flushed, sidecars = False, []
         for plan in plans:
             flushed = self._write_phase(plan, staged, sidecars) or flushed
@@ -193,8 +202,9 @@ class WriteSet:
         own; returns whether anything flushed."""
         plan = self._plan(meta)
         sidecars = []
-        flushed = self._write_phase(plan, iter(self.gather(
-            [(p.region, p.rows) for p in plan])), sidecars)
+        flushed = self._write_phase(plan, iter(self._gather_paged(
+            [(p.region, p.rows) for p in plan],
+            lambda: self._barrier_script([plan]))), sidecars)
         self.seat_sidecars(sidecars)
         return flushed
 
@@ -225,7 +235,12 @@ class WriteSet:
         sidecars = []
         with arena.stall_scope():
             arena._shadow_collapse()
-            staged = self.gather([(p.region, p.rows) for p in plan])
+            staged = self._gather_paged(
+                [(p.region, p.rows) for p in plan],
+                lambda: self._shadow_script(
+                    [(p.region, p.rows[p.fresh:], True) if part else
+                     (p.region, p.rows[:p.fresh], False)
+                     for p in plan for part in (0, 1)]))
             for p, host in zip(plan, staged):
                 region, k = p.region, p.fresh
                 before = arena.stats.lines
@@ -246,6 +261,34 @@ class WriteSet:
                 arena.stats.dedup_rows += p.marked_rows - p.rows.size
         self.seat_sidecars(sidecars)
         return bool(plan)
+
+    def _gather_paged(self, plan, script) -> List[np.ndarray]:
+        """``gather(plan)``, with the cache bookkeeping ``script()`` where
+        ``plan`` holds a paged region."""
+        if any(region.is_paged for region, _ in plan):
+            return self.gather(plan, script=script())
+        return self.gather(plan)
+
+    def _barrier_script(self, plans) -> list:
+        """A barrier drain's cache bookkeeping (``gather``'s ``script``):
+        each paged region's gather, then its note, phase by phase in flush
+        order."""
+        return [(op, p.region, p.rows) for plan in plans for p in plan
+                if p.region.is_paged for op in ("read", "flushed")]
+
+    @staticmethod
+    def _shadow_script(parts) -> list:
+        """A shadow drain's cache bookkeeping, ``parts`` being ``(region,
+        rows, remap)`` in write order: a gather and a note each, and a
+        covered region's rewrite gathers again for its checksums."""
+        out = []
+        for region, rows, remap in parts:
+            if not region.is_paged or rows.size == 0:
+                continue
+            out += [("read", region, rows), ("flushed", region, rows)]
+            if remap and region._integ is not None:
+                out.append(("read", region, rows))
+        return out
 
     def _shadow_plan(self) -> List[_Planned]:
         """Pop every pending mark, region by region in flush order, as a
@@ -321,29 +364,57 @@ class WriteSet:
                 .view(ck.shape)
             pos += m + ck.size
 
-    def gather(self, plan) -> List[np.ndarray]:
+    def gather(self, plan, script=None) -> List[np.ndarray]:
         """Rows ``rows`` (host ids) of each ``(region, rows)`` of ``plan``
         as host arrays, gathered in one grouped gather on the arena's
         device.  On a card the kernel writes them straight into this
         write set's pinned staging buffer, and the arrays are views of it,
-        valid until its next gather."""
+        valid until its next gather.
+
+        A paged region's rows come from its block pool: ``script`` (the
+        drain's cache bookkeeping in the reference's order, default one
+        read per paged region of ``plan``) runs first, under one hold of
+        the cache, and the rows' indices are translated to pool
+        positions."""
         counts = [int(rows.size) for _, rows in plan]
         n = sum(counts)
         if n == 0:
             return [rows.reshape((0,) + region.shape[1:])
                     .astype(region.dtype) for region, rows in plan]
-        srcs = [region.vol.reshape(region.shape[0], -1)
-                for region, _ in plan]
+        paged = [region for region, _ in plan
+                 if getattr(region, "paged_active", False)]
+        if not paged:
+            return self._gather(plan, counts, n)
+        if script is None:
+            script = [("read", region, rows) for region, rows in plan
+                      if region.is_paged]
+        from repro_torch.core.paging import drain_positions
+        with paged[0]._cache.holding():
+            at = drain_positions(script)
+            return self._gather(plan, counts, n, at)
+
+    def _gather(self, plan, counts, n, at=None) -> List[np.ndarray]:
+        """``gather``'s one launch; ``at`` maps a paged region to its rows'
+        pool positions (``drain_positions``)."""
+        srcs, idxs = [], []
+        for region, rows in plan:
+            if at is not None and region in at:
+                urows, upos = at[region]
+                srcs.append(region._pool_rows())
+                idxs.append(upos if urows is rows
+                            else upos[np.searchsorted(urows, rows)])
+            else:
+                srcs.append(region.vol.reshape(region.shape[0], -1))
+                idxs.append(rows)
         offs, total = group_layout(srcs, counts)
         dev = self.arena.device
         if dev.type == "cpu":
-            idx = torch.from_numpy(np.concatenate(
-                [rows for _, rows in plan]).astype(np.int32))
+            idx = torch.from_numpy(np.concatenate(idxs).astype(np.int32))
             buf = pack_rows_grouped(srcs, idx, counts).numpy()
         else:
             hidx = self._pinned("_pinned_idx", 4 * n).view(torch.int32)
             host_idx, pos = hidx.numpy(), 0
-            for (_, rows), m in zip(plan, counts):
+            for rows, m in zip(idxs, counts):
                 host_idx[pos:pos + m] = rows
                 pos += m
             hout = self._pinned("_pinned_out", total)
@@ -425,16 +496,44 @@ class ShardedWriteSet(WriteSet):
         plan = self._shadow_plan()
         if not plan:
             return False
-        staged = self.gather([(p.region, p.rows) for p in plan])
-        parts = []
-        for p, host in zip(plan, staged):
-            k = p.fresh
+        order = [(p.region, rows, remap) for p in plan
+                 for rows, remap in ((p.rows[p.fresh:], True),
+                                     (p.rows[:p.fresh], False))
+                 if rows.size]
+        staged = self._gather_paged([(p.region, p.rows) for p in plan],
+                                    lambda: self._shard_script(order))
+        parts, it = [], iter(staged)
+        for p in plan:
+            host, k = next(it), p.fresh
             for rows, part, remap in ((p.rows[k:], host[k:], True),
                                       (p.rows[:k], host[:k], False)):
                 if rows.size:
                     parts.append((p.region, rows, part, remap))
         self.seat_sidecars(self._write_shards(plan, parts, fold=True))
         return True
+
+    def _barrier_script(self, plans) -> list:
+        return [op for plan in plans for op in self._shard_script(
+            [(p.region, p.rows, None) for p in plan])]
+
+    def _shard_script(self, parts) -> list:
+        """The reference's cache bookkeeping of a sharded drain of
+        ``parts`` (``(region, global rows, remap)`` in write order; None
+        for a barrier phase): shard by shard, each part's share gathered
+        and noted, a covered rewrite gathered again."""
+        work: Dict[int, list] = {}
+        for region, rows, remap in parts:
+            if not region.is_paged:
+                continue
+            for s, local, sel in region._split(rows):
+                work.setdefault(s, []).append(
+                    (region, rows if sel is None else rows[sel], remap))
+        out = []
+        for s in sorted(work):
+            out += self._shadow_script(
+                [(region, rows, bool(remap))
+                 for region, rows, remap in work[s]])
+        return out
 
     def _write_shards(self, plan: List[_Planned], parts: list,
                       fold: bool) -> list:
@@ -488,7 +587,11 @@ class ShardedWriteSet(WriteSet):
         """A direct (epoch-less) flush of one region's sorted unique global
         ``rows``: one gather, then each shard's slice written home,
         accounted per call and checksummed, shard by shard."""
-        host = self.gather([(region, rows)])[0]
+        script = []
+        for s, local, sel in region._split(rows):
+            script += region._persist_script(
+                rows if sel is None else rows[sel], region._integ)
+        host = self._gather_paged([(region, rows)], lambda: script)[0]
         sidecars = []
         for s, local, sel in region._split(rows):
             shard, sl = self.arena.shards[s], region.slices[s]
@@ -515,6 +618,16 @@ def gather_rows(region, rows: np.ndarray) -> np.ndarray:
     tensor as a host array, the way drains gathered before the grouped
     gather: a pageable index upload, ``pack_rows`` on the region alone and
     a pageable download.  Kept to time against ``WriteSet.gather``."""
+    if getattr(region, "paged_active", False):
+        from repro_torch.core.paging import drain_positions
+        with region._cache.holding():
+            urows, upos = drain_positions([("read", region, rows)])[region]
+            vol = region._pool_rows()
+            idx = torch.from_numpy(upos[np.searchsorted(urows, rows)]
+                                   .astype(np.int32)).to(vol.device)
+            staged = pack_rows(vol, idx)
+            return staged.cpu().numpy().reshape((rows.size,)
+                                                + region.shape[1:])
     vol = region.vol.reshape(region.shape[0], -1)
     idx = torch.from_numpy(rows.astype(np.int32)).to(vol.device)
     staged = pack_rows(vol, idx)

@@ -33,6 +33,16 @@ The dirty-slot mask is a bool tensor on the arena's device, so marking a
 slot costs no sync; each emit finds the dirty slots with one
 ``nonzero``.
 
+Every access to the node rows goes through the region's accessors
+(``read_at``, ``read_one``, ``read_col``, ``write_at``), in the reference's
+calls and order: on a resident region they are views and indexed writes of
+the volatile tensor, and on a paged arena (DESIGN.md §12) they route
+through the block cache, so its counters follow the reference's.  Recovery
+on a paged arena adopts a snapshot after verifying only the candidate
+rows' NEXT words (``_gather_verify``), and walks the suffix one
+``read_one`` at a time; ``.data`` and ``.next`` spill a paged region, as in
+the reference.
+
 Salvage (DESIGN.md §13, ``recover(salvage=True)`` on an integrity arena):
 the node rows failing their checksums terminate the chain, and the list
 recovers as the longest committed prefix whose every node verifies.  The
@@ -132,12 +142,13 @@ class DoublyLinkedList:
     @property
     def data(self) -> torch.Tensor:
         """DATA words of every node row, a (capacity, 7) view of the
-        volatile tensor."""
+        volatile tensor (on a paged arena this SPILLS the region)."""
         return self.nodes.vol[:, :DATA_WORDS]
 
     @property
     def next(self) -> torch.Tensor:
-        """The NEXT column, a (capacity,) view of the volatile tensor."""
+        """The NEXT column, a (capacity,) view of the volatile tensor (on a
+        paged arena this SPILLS the region)."""
         return self.nodes.vol[:, DATA_WORDS]
 
     def data_rows(self, ids) -> torch.Tensor:
@@ -146,7 +157,9 @@ class DoublyLinkedList:
         return self.nodes.read_at(ids, slice(0, DATA_WORDS))
 
     def _next_col(self) -> torch.Tensor:
-        return self.nodes.vol[:, DATA_WORDS]
+        """The NEXT column for a full chain walk: a paged region reads it
+        through the block cache; a resident one returns the live view."""
+        return self.nodes.read_col(DATA_WORDS)
 
     @property
     def head(self) -> int:
@@ -193,16 +206,18 @@ class DoublyLinkedList:
         fresh0 = int(hv[H_FRESH])
         ids_h = self._alloc(m, hv)
         ids = self._dev(ids_h)
-        vol = self.nodes.vol
-        vol[ids, :DATA_WORDS] = values
+        nodes = self.nodes
+        # a paged region books its accesses on the host ids
+        at = ids_h if nodes.is_paged else ids
+        nodes.write_at(at, slice(0, DATA_WORDS), values)
         # chain: old_tail -> ids[0] -> ids[1] ... -> NULL
-        vol[ids[:-1], DATA_WORDS] = ids[1:]
-        vol[ids[-1], DATA_WORDS] = NULL
+        nodes.write_at(at[:-1], DATA_WORDS, ids[1:])
+        nodes.write_at(at[-1:], DATA_WORDS, NULL)
         self.prev[ids[1:]] = ids[:-1]
         old_tail = int(hv[H_TAIL]) if hv[H_COUNT] > 0 else NULL
         first = int(ids_h[0])
         if old_tail != NULL:
-            vol[old_tail, DATA_WORDS] = first
+            nodes.write_at(old_tail, DATA_WORDS, first)
             self.prev[first] = old_tail
         else:
             hv[H_HEAD] = first
@@ -211,8 +226,8 @@ class DoublyLinkedList:
         hv[H_COUNT] += m
         hv[H_FLAG] = 1
         if self.mode == "full":
-            vol[ids[1:], DATA_WORDS + 1] = ids[:-1]
-            vol[first, DATA_WORDS + 1] = old_tail
+            nodes.write_at(at[1:], DATA_WORDS + 1, ids[:-1])
+            nodes.write_at(first, DATA_WORDS + 1, old_tail)
         # ring
         if self._r1 + m > self._ring.shape[0]:
             self._compact_ring()
@@ -244,7 +259,7 @@ class DoublyLinkedList:
         if m == 0:
             return self._dev(np.empty(0, np.int64))
         ids = self._ring_pop(m)
-        new_head = int(self.nodes.vol[ids[-1], DATA_WORDS])
+        new_head = self.nodes.read_one(ids[-1], DATA_WORDS)
         hv[H_HEAD] = new_head
         hv[H_COUNT] -= m
         if new_head == NULL:
@@ -257,7 +272,7 @@ class DoublyLinkedList:
         # unreachable from HEAD, so their bytes are dead).
         if self.mode == "full" and new_head != NULL:
             # fully persistent must clear new_head's prev line
-            self.nodes.vol[new_head, DATA_WORDS + 1] = NULL
+            self.nodes.write_at(new_head, DATA_WORDS + 1, NULL)
             self.nodes.mark_rows(np.array([new_head]))
         self.header.mark_rows(np.array([0]))
         return ids
@@ -275,23 +290,23 @@ class DoublyLinkedList:
         # later appends rewrite
         pending = set(ids.tolist())
         hv = self.header.read_row(0)
-        vol = self.nodes.vol
+        nodes = self.nodes
         while pending:
             arr = self._dev(np.fromiter(pending, np.int64, len(pending)))
             ready = ~torch.isin(self.prev[arr], arr)
             batch = arr[ready]
             if batch.numel() == 0:   # adjacent chain; peel one end
                 batch = arr[:1]
-            nxt = vol[batch, DATA_WORDS]
+            nxt = nodes.read_at(batch, DATA_WORDS)
             prv = self.prev[batch]
             # within a round each node has a DISTINCT predecessor and
             # successor, so the scatters are conflict-free
             link = prv != NULL
-            vol[prv[link], DATA_WORDS] = nxt[link]
+            nodes.write_at(prv[link], DATA_WORDS, nxt[link])
             has_nx = nxt != NULL
             self.prev[nxt[has_nx]] = prv[has_nx]
             if self.mode == "full":
-                vol[nxt[has_nx], DATA_WORDS + 1] = prv[has_nx]
+                nodes.write_at(nxt[has_nx], DATA_WORDS + 1, prv[has_nx])
             nxt_h, prv_h = nxt.cpu().numpy(), prv.cpu().numpy()
             for i in np.nonzero(prv_h == NULL)[0]:
                 hv[H_HEAD] = nxt_h[i]
@@ -413,7 +428,9 @@ def _snap_candidate(d: DoublyLinkedList, count: int
     The reference walks the suffix one ``int(nxt[cur])`` at a time; on
     the card that would be one device sync per hop, and after a torn
     newest record the suffix can be a whole batch.  The loaded NEXT
-    column is copied to the host once and walked there instead."""
+    column is copied to the host once and walked there instead.  A paged
+    region walks it one ``read_one`` at a time, as the reference's paged
+    walk does, faulting only the blocks it steps on."""
     best = newest_committed(d.snaprec)
     if best is None:
         return None
@@ -424,11 +441,18 @@ def _snap_candidate(d: DoublyLinkedList, count: int
     base = window[window != NULL]
     if base.numel() == 0 or bool(((base < 0) | (base >= d.capacity)).any()):
         return None
-    nxt = d._next_col().cpu().numpy()
+    if getattr(d.nodes, "paged_active", False):
+        def read_next(cur: int) -> int:
+            return d.nodes.read_one(cur, DATA_WORDS)
+    else:
+        nxt = d._next_col().cpu().numpy()
+
+        def read_next(cur: int) -> int:
+            return int(nxt[cur])
     suffix = []
     cur = int(base[-1])
     while len(suffix) < count:
-        nx = int(nxt[cur])
+        nx = read_next(cur)
         if nx < 0 or nx >= d.capacity:
             break
         suffix.append(nx)
@@ -437,6 +461,24 @@ def _snap_candidate(d: DoublyLinkedList, count: int
     if cand.numel() < count:
         return None
     return ChainSnapshot(cand[cand.numel() - count:], replayed=len(suffix))
+
+
+def _gather_verify(nodes, head: int, count: int, cand: torch.Tensor,
+                   n: int) -> bool:
+    """``chain_order``'s snapshot verify, gathering the NEXT words of only
+    the candidate rows through the block cache: on a paged arena the
+    verify that makes adoption safe faults the working set, not the whole
+    column."""
+    if count is None or cand.numel() != count:
+        return False
+    if int(cand[0]) != int(head):
+        return False
+    if bool(((cand < 0) | (cand >= n)).any()):
+        return False
+    if count > 1 and not torch.equal(
+            nodes.read_at(cand[:-1], DATA_WORDS), cand[1:]):
+        return False
+    return True
 
 
 def _salvage_bad_rows(arena, region) -> np.ndarray:
@@ -514,18 +556,26 @@ def _reconstruct_dll(d: DoublyLinkedList) -> dict:
         hv[H_COUNT] = count
     else:
         snap = _snap_candidate(d, count) if d.snapshot else None
-        try:
-            order = chain_order(d._next_col(), head, count, method=method,
-                                snapshot=snap)
-        except (RuntimeError, ValueError) as e:
-            if salvage:
-                # a structurally impossible chain (cycle, short walk) with
-                # no sidecar to localize it: the whole structure is
-                # untrusted
-                raise CorruptLineError(
-                    d.nodes.name, np.empty(0, np.int64),
-                    detail=f"chain rebuild: {e}") from e
-            raise
+        if getattr(d.nodes, "paged_active", False) and snap is not None \
+                and _gather_verify(d.nodes, head, count, snap.candidate,
+                                   d.capacity):
+            # the paged fast path: adopt the verified snapshot without
+            # reading the whole NEXT column
+            snap.outcome = "snapshot"
+            order = snap.candidate.to(torch.int64).clone()
+        else:
+            try:
+                order = chain_order(d._next_col(), head, count,
+                                    method=method, snapshot=snap)
+            except (RuntimeError, ValueError) as e:
+                if salvage:
+                    # a structurally impossible chain (cycle, short walk)
+                    # with no sidecar to localize it: the whole structure
+                    # is untrusted
+                    raise CorruptLineError(
+                        d.nodes.name, np.empty(0, np.int64),
+                        detail=f"chain rebuild: {e}") from e
+                raise
     d.prev[order[1:]] = order[:-1]
     hv[H_TAIL] = int(order[-1])
     live = torch.zeros(d.capacity, dtype=torch.bool, device=dev)
@@ -542,9 +592,10 @@ def _reconstruct_dll(d: DoublyLinkedList) -> dict:
     d._ring[:count] = order
     d._r0, d._r1 = 0, count
     if d.mode == "full":
-        # pure-reconstructor PREV rebuild stays UNMARKED (derivable)
-        d.nodes.vol[order[1:], DATA_WORDS + 1] = order[:-1]
-        d.nodes.vol[order[:1], DATA_WORDS + 1] = NULL
+        # pure-reconstructor PREV rebuild stays UNMARKED (derivable); on a
+        # paged arena these rows pin their blocks until a later drain
+        d.nodes.write_at(order[1:], DATA_WORDS + 1, order[:-1])
+        d.nodes.write_at(order[:1], DATA_WORDS + 1, NULL)
     d.header.write_row(0, hv)
     detail = {"mode": d.mode, "count": count,
               "chain": chain_method(d.capacity, count, method)}

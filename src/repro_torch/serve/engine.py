@@ -49,9 +49,12 @@ arena and its page pool's arena on sharded arenas (barrier commit): the
 token log stripes slot-per-shard, and re-prefill groups by (token-log
 shard, prompt length), which at one shard is the per-length grouping.
 ``commit_mode="shadow"`` (DESIGN.md §9) commits both arenas by the shadow
-protocol, at any shard count.  Not ported (raises ``NotImplementedError``,
-see ROADMAP Queue 1), as the port's arena: paging (``paged=True``, or
-``None`` under ``REPRO_PAGED=1``).
+protocol, at any shard count.  ``paged=True`` (or ``None`` under
+``REPRO_PAGED=1``, DESIGN.md §12) opens both arenas paged with the
+config's ``block_bytes``/``cache_blocks``: the token log, the request
+table and the LRU's node slab become block pools behind each arena's
+cache (the table and the token log's unconverted consumers spill, as in
+the reference).
 """
 from __future__ import annotations
 
@@ -102,8 +105,7 @@ class EngineConfig:
     # persistent request journal: None defers to REPRO_JOURNAL
     journal: Optional[bool] = None
     # paged regions: None defers to REPRO_PAGED (default off); the block
-    # cache geometry below only matters with paging, which the port's
-    # arena refuses
+    # cache geometry below applies to both arenas
     paged: Optional[bool] = None
     block_bytes: int = 4096
     cache_blocks: int = 1024
@@ -132,7 +134,9 @@ class ServingEngine:
             layout.update(RequestJournal.layout(jr_cap, name="req"))
         self.arena = open_arena(arena_path, layout, n_shards=cfg.n_shards,
                                 commit_mode=cfg.commit_mode,
-                                paged=cfg.paged, device=self.device)
+                                paged=cfg.paged, block_bytes=cfg.block_bytes,
+                                cache_blocks=cfg.cache_blocks,
+                                device=self.device)
         self.table = Hashmap(self.arena, cfg.max_requests, cfg.mode,
                              name="req", chain_method=cfg.chain_method,
                              snapshot=cfg.snapshot)

@@ -40,8 +40,10 @@ class PagedConfig:
     chain_method: str = "auto"
     # order snapshots: None defers to REPRO_SNAPSHOT
     snapshot: Optional[bool] = None
-    # paged regions: None defers to REPRO_PAGED (default off); on raises,
-    # as the port's arena does
+    # paged regions (DESIGN.md §12): None defers to REPRO_PAGED (default
+    # off).  With paging on, the node slab's volatile side is a block pool
+    # behind an LRU cache of cache_blocks x block_bytes, and recovery
+    # faults only the blocks it touches.
     paged: Optional[bool] = None
     block_bytes: int = 4096
     cache_blocks: int = 1024
@@ -60,11 +62,11 @@ class PagedAllocator:
         self.cfg = cfg
         layout = DoublyLinkedList.layout(cfg.n_pages, cfg.mode, name="lru",
                                          snapshot=cfg.snapshot)
-        # block_bytes/cache_blocks configure paging, which the port's
-        # arena refuses (paging resolved on raises)
         self.arena = open_arena(path, layout, n_shards=cfg.n_shards,
                                 commit_mode=cfg.commit_mode,
-                                paged=cfg.paged, device=device)
+                                paged=cfg.paged,
+                                block_bytes=cfg.block_bytes,
+                                cache_blocks=cfg.cache_blocks, device=device)
         self.lru = DoublyLinkedList(self.arena, cfg.n_pages, cfg.mode,
                                     name="lru",
                                     chain_method=cfg.chain_method,
@@ -143,7 +145,7 @@ def _reconstruct_paged_alloc(pa: PagedAllocator) -> dict:
     """Pure rebuild of owner/page_of_node/pages_free from the reconstructed
     LRU: one gather of the node payloads (one copy to the host)."""
     order = pa.lru.order()          # materialized by the DLL reconstructor
-    vals = pa.lru.data_rows(order).cpu().numpy()
+    vals = pa.lru.data_rows(order).cpu().numpy()   # block-routed, no spill
     pages = vals[:, 0]
     pa.page_of_node = dict(zip(order.tolist(), pages.tolist()))
     pa.owner = np.full(pa.cfg.n_pages, -1, np.int64)

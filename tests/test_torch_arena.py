@@ -214,8 +214,18 @@ def test_device_and_feature_axes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TA.Arena(None, integrity=False)   # no silent CPU fallback
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.Arena(None, device="cpu", paged=True)
+    # paging is ported: a paged arena builds the reference's block cache
+    # and pages the reference's regions
+    port = TA.open_arena(None, LAYOUT, device="cpu", integrity=False,
+                         paged=True, block_bytes=512, cache_blocks=4)
+    ref = RA.open_arena(None, LAYOUT, integrity=False, paged=True,
+                        block_bytes=512, cache_blocks=4)
+    assert port.paged and ref.paged
+    assert (port.cache.block_bytes, port.cache.capacity_bytes) == \
+        (ref.cache.block_bytes, ref.cache.capacity_bytes)
+    assert {n: r.is_paged for n, r in port.regions.items()} == \
+        {n: getattr(r, "is_paged", False) for n, r in ref.regions.items()}
+    assert np.array_equal(np.asarray(port._mm), np.asarray(ref._mm))
     # shadow commit on one arena is ported: the reference's layout (meta
     # line, two entry banks, a mirror per region per bank) and bytes
     port = TA.open_arena(None, LAYOUT, device="cpu", integrity=False,
@@ -267,8 +277,15 @@ def test_device_and_feature_axes():
         [bytes(np.asarray(sh._mm)) for sh in ref.shards] + \
         [bytes(np.asarray(ref._man))]
     assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
-    with pytest.raises(NotImplementedError, match="paging"):
-        TA.open_arena(None, LAYOUT, n_shards=2, device="cpu", paged=True)
+    # a sharded arena pages at the sharded level; its shards stay unpaged
+    port = TA.open_arena(None, LAYOUT, n_shards=2, device="cpu",
+                         integrity=False, paged=True, block_bytes=512)
+    ref = RA.open_arena(None, LAYOUT, n_shards=2, integrity=False,
+                        paged=True, block_bytes=512)
+    assert {n: r.is_paged for n, r in port.regions.items()} == \
+        {n: getattr(r, "is_paged", False) for n, r in ref.regions.items()}
+    assert not any(sh.paged or sh.cache for sh in port.shards)
+    assert port.cache.capacity_bytes == ref.cache.capacity_bytes
 
 
 def test_paged_none_resolves_like_reference(monkeypatch):
@@ -278,8 +295,20 @@ def test_paged_none_resolves_like_reference(monkeypatch):
     monkeypatch.setenv("REPRO_PAGED", "1")
     ref = RA.open_arena(None, RDLL.layout(4096, snapshot=False))
     assert ref.paged is True
-    with pytest.raises(NotImplementedError, match="paging"):
-        TA.open_arena(None, TDLL.layout(4096, snapshot=False), device="cpu")
+    port = TA.open_arena(None, TDLL.layout(4096, snapshot=False),
+                         device="cpu")
+    assert port.paged is True and port.regions["dll.nodes"].is_paged
+    # the same appends give the reference's image and cache counters
+    rd = RDLL(ref, 4096, snapshot=False)
+    td = TDLL(port, 4096, snapshot=False)
+    vals = np.random.default_rng(1).integers(0, 99, (300, 7))
+    for d in (rd, td):
+        d.append_batch(vals)
+        d.arena.commit()
+    assert np.array_equal(np.array(ref._mm), np.array(port._mm))
+    assert {k: getattr(port.cache, k) for k in ("faults", "hits",
+                                                 "evictions")} == \
+        {k: getattr(ref.cache, k) for k in ("faults", "hits", "evictions")}
     monkeypatch.delenv("REPRO_PAGED")
     ref = RA.open_arena(None, RDLL.layout(4096, snapshot=False))
     assert ref.paged is False
@@ -293,12 +322,17 @@ def test_not_ported_names_the_queue_only():
     msg = str(TA.not_ported("x"))
     assert "x" in msg and "ROADMAP Queue 1" in msg
     assert "Slice A" not in msg and "item" not in msg
-    # a sharded shadow arena opens; paging is what a sharded arena still
-    # refuses, naming the queue alone
+    # a sharded shadow arena opens, paged too; a feature that still raises
+    # (sliding-window attention) names the queue alone
     assert TA.ShardedArena(None, n_shards=4, commit_mode="shadow",
                            device="cpu").commit_mode == "shadow"
+    assert TA.ShardedArena(None, n_shards=4, commit_mode="shadow",
+                           device="cpu", paged=True).cache is not None
+    from repro_torch.models.layers import blockwise_attention
+    q = torch.zeros(1, 4, 1, 1, 8)
+    k = torch.zeros(1, 4, 1, 8)
     with pytest.raises(NotImplementedError) as err:
-        TA.ShardedArena(None, n_shards=4, commit_mode="shadow",
-                        device="cpu", paged=True)
+        blockwise_attention(q, k, k, causal=True, window=2)
     msg = str(err.value)
-    assert "paging" in msg and "ROADMAP Queue 1" in msg and "item" not in msg
+    assert "sliding-window" in msg and "ROADMAP Queue 1" in msg
+    assert "item" not in msg

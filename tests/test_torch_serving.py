@@ -374,7 +374,6 @@ def _drive_sharded(ref, port, tmp_path):
                  id="{'n_shards': 2}"),
     {"commit_mode": "shadow"}, {"paged": True}], ids=str)
 def test_engine_unported_axes_raise(models, kw, tmp_path):
-    _, _, tm, tp = models
     if kw == {"commit_mode": "shadow"}:
         # shadow commit on one arena is ported: the engine serves, crashes
         # and recovers as the reference's, with its files and FlushStats
@@ -388,9 +387,23 @@ def test_engine_unported_axes_raise(models, kw, tmp_path):
             assert a.commit_mode == "shadow" and a.n_shards == 2
         assert all(r == p for r, p in _drive_sharded(ref, port, tmp_path))
         return
-    with pytest.raises(NotImplementedError):
-        TE.ServingEngine(tm, tp, TE.EngineConfig(max_batch=2, s_max=8, **kw),
-                         device="cpu")
+    # paging is ported: on small blocks the token log, the request table
+    # and the LRU's node slab page, and the engine serves, crashes and
+    # recovers as the reference's, with its files, FlushStats, recovery
+    # details (block_faults included) and the caches' counters
+    ref, port = _engines(models, tmp_path, block_bytes=256, cache_blocks=4,
+                         n_pages=64, **kw)
+    assert port.paging.arena.regions["lru.nodes"].is_paged
+    assert port.arena.regions["tokens"].is_paged
+    assert all(r == p for r, p in _drive(ref, port, tmp_path))
+    for rs, ps in zip(ref.last_recovery.stages, port.last_recovery.stages):
+        assert ("block_faults" in ps.detail) == (rs.name != "reopen")
+    names = ("faults", "hits", "evictions", "spills", "over_budget",
+             "peak_resident_bytes")
+    for ra, pa in ((ref.arena, port.arena),
+                   (ref.paging.arena, port.paging.arena)):
+        assert {k: getattr(pa.cache, k) for k in names} == \
+            {k: getattr(ra.cache, k) for k in names}
 
 
 def test_engine_salvage_and_device_checks(models, tmp_path):
