@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    from ``src/repro_torch/csrc`` (all compilers started together), the
    registers, spills, stack and shared memory of each flash kernel
    (forward; backward: the dK/dV and dQ kernels and the Di pass, each in
-   both dtypes at every head width), and
+   both dtypes at every head width; the forward's D = 256, gemma2's, on a
+   line of its own), and
    the pinned device-to-host rate (256 MB copies), the link bound of the
    drains;
 2. kernels: each kernel against its plain PyTorch version on the card at
@@ -23,10 +24,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and one bf16 rounding of the output), causal with 96 query heads over
    32 KV heads at S = 1024 and at the four shapes phase 7 gives it, in
    both dtypes, and a ragged S = 1000 in f32; untimed at every head width
-   (16, 32, 64, 128) in both dtypes, causal and not, 6 heads over 2 at
-   S = 1000; a llama3.2-3b bf16 prefill at full width and depth (2 x 1536
-   tokens) through the kernel against the same prefill through the plain
-   version, logits within 5e-2 of the largest |logit|;
+   (16, 32, 64, 128, 256) in both dtypes, causal and not, 6 heads over 2
+   at S = 1000; with a sliding window and a score softcap at
+   gemma3-27b's local layer (q (32, 3072, 128) over (16, 3072, 128),
+   window 1024) and gemma2-9b's (q (16, 4608, 256) over (8, 4608, 256),
+   window 4096, softcap 50), both dtypes, timed beside the band-counted
+   flop bound (4 D flops per kept pair), the same call without the
+   window and ``sdpa`` with the boolean band mask (none for a softcap),
+   and untimed at window 1, 100, 129, S and 5 S, causal and not, a
+   softcap alone at D = 64 and 128 and both at D = 256;
+   ``dequantize_blockwise(dtype=bf16)`` bitwise against its plain
+   version at phase 6's embed rows, timed beside its bytes; a llama3.2-3b
+   bf16 prefill at full width and depth (2 x 1536 tokens) through the
+   kernel against the same prefill through the plain version, logits
+   within 5e-2 of the largest |logit|;
    ``flash_attention_bwd`` against its plain version on the
    forward kernel's o and lse at every head width in both dtypes, causal
    and not, 6 query heads over 6 and over 2 KV heads, at S = 1000 and at
@@ -109,7 +120,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    rank both ways;
 3. main path: the quickstart loop (insert, delete/pop, commit, crash,
    reopen, reconstruct) for the DLL and the hashmap at 2**22 entries and
-   the B+Tree at 2**18 (cut from 2**19 for phase 14's time), both modes,
+   the B+Tree at 2**17 (cut from 2**19 for the time of phases 14 and
+   15; phase 11's integrity-off B+Tree twin is this run), both modes,
    order snapshots and integrity pinned off, every epoch drain through
    ``pack_rows``; the recovered state is checked; ``pack_rows`` launches
    must equal the write sets' grouped gathers (one per drain);
@@ -127,7 +139,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the four policies must write identical files (sha256) on both; and
    a llama3.2-3b engine at full width, 2 layers, f32, parameters drawn
    on the CPU and copied to the card, serving two requests for 8 steps
-   on each: prefill and decode logits within 1e-4 of the largest |logit|,
+   on each (also: a train state with bf16 moments under each
+   policy, identical files and an exact restore on the card; the hashmap
+   workload at pack_flush_rows 0, 1 and 10**6, one and four shards,
+   identical images and FlushStats, pack_rows launches equal to
+   gathers): prefill and decode logits within 1e-4 of the largest |logit|,
    the same tokens (a differing token passes only where its top-2 logit
    gap is below that tolerance) and identical engine arena files; the
    feature store (both modes, journal on and off: 48 requests, a torn
@@ -154,7 +170,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    mirrors and the meta line included), FlushStats, recovered states,
    scrub results and salvage reports; then the serving
    launcher ``repro_torch.launch.serve --arch llama3.2-3b --crash`` on
-   the card, which must return 0 after recovering;
+   the card, which must return 0 after recovering, and the same for
+   ``--arch gemma3-27b`` and ``--arch gemma2-9b``;
 5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
    modes, order snapshots on, a commit after every batch of 8192, then
    deletes and pops, a commit, a suffix of 120 appends or inserts and a
@@ -326,8 +343,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    run's epochs profiled on the host clock.  ``--crossover-study`` adds,
    before each, the shard pool's two rules timed against each other
    (``pool_study``).
-   Four shards: phase 3's workload (DLL and hashmap 2**21, cut from 2**22
-   for phase 14's time, B+Tree
+   Four shards: phase 3's workload (DLL and hashmap 2**20, cut from 2**22
+   for the time of phases 14 and 15, B+Tree
    2**15), both modes, integrity off, recovered through RecoveryManager
    (concurrency 4, per-region load stages), each beside a four-shard
    barrier twin just before it: recovered state as in phase 3, one fence
@@ -380,7 +397,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    FlushStats, every cache counter, the recovery report, the recovered
    order) and against an unpaged run's image, and a mixed integrity
    arena, paged, whose flipped DLL row makes the demand fault of its
-   block raise ``CorruptLineError`` naming the row, card and CPU alike.
+   block raise ``CorruptLineError`` naming the row, card and CPU alike;
+15. gemma, f32, through the twin protocol of phase 7
+   (``serve_recover.run``, ``max_batch=2``): gemma3-27b at its published
+   widths (d_model 5376, 32 heads over 16, head width 128, d_ff 21504,
+   vocab 262144, window 1024), 6 layers (one superblock: 5 local, 1
+   global; 3.9 B parameters), two prompts of 3072 tokens, 16 steps, the
+   first request finished, 16 steps, crash and re-prefill, 32 steps; and
+   gemma2-9b at its widths (3584, 16 over 8, head width 256, d_ff 14336,
+   vocab 256000, window 4096, softcaps 50 and 30), 4 layers (two
+   local/global superblocks), prompts of 4608, 8 + 8 steps, crash, 16
+   steps.  Caches, logits and tokens equal the twin's within phase 7's
+   tolerances (the rings compared where both hold the same position);
+   every prefill, on either engine and in each re-prefill group, calls
+   the flash kernel once per local and once per global layer; prefill
+   tokens/s, decode ms per slot-step, recovery seconds, peak memory.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
@@ -390,7 +421,8 @@ phase 6; ``flash_attention``'s and ``scatter_rows``' in phase 7;
 four chain kernels', ``pack_rows``', ``scatter_rows``' (a shard's
 reload) and ``flash_attention``'s in phase 12, and again in phase 13;
 the four chain kernels', ``pack_rows``' and ``scatter_rows``' in phase
-14.
+14; ``flash_attention``'s, ``pack_rows``' and ``scatter_rows``' in
+phase 15.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -423,7 +455,7 @@ F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 SECTOR = 32                    # bytes moved by one random DRAM access
 BATCH = 8192
-MAIN_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 18}
+MAIN_N = {"dll": 1 << 22, "hashmap": 1 << 22, "bptree": 1 << 17}
 SNAP_N = 1 << 22
 PARITY_N = 1 << 14
 KINDS = ("dll", "hashmap", "bptree")
@@ -442,6 +474,9 @@ SERVE_ARCH = "llama3.2-3b"
 SERVE_PROMPTS = (1536, 1536, 1024, 1024, 512, 512, 128, 128)
 SERVE_S_MAX, SERVE_STEPS, SERVE_SEED = 2048, 8, 7
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# gemma's flash shapes: (query heads, KV heads, S, D, window, softcap)
+GEMMA_FLASH = {"gemma3": (32, 16, 3072, 128, 1024, 0.0),
+               "gemma2": (16, 8, 4608, 256, 4096, 50.0)}
 FLASH_PREFILL_TOL = 5e-2       # bf16 prefill logits, of the largest |logit|
 LSE_TOL = 1e-5                 # the forward's lse against the plain one's
 DI_TOL = 1e-5                  # the backward's Di, of the largest |Di|
@@ -476,7 +511,8 @@ def emit(obj) -> None:
 
 def build_structure(kind: str, mode: str, n: int, device,
                     snapshot: bool = False, integrity: bool = False,
-                    n_shards: int = 1, commit_mode: str = "barrier"):
+                    n_shards: int = 1, commit_mode: str = "barrier",
+                    pack_flush_rows: int = 0):
     """One structure on its own arena (``n_shards`` of them: sharded),
     every feature axis pinned."""
     from repro_torch.core.arena import open_arena
@@ -484,7 +520,7 @@ def build_structure(kind: str, mode: str, n: int, device,
     from repro_torch.pstruct.dll import DoublyLinkedList
     from repro_torch.pstruct.hashmap import Hashmap
     kw = dict(device=device, integrity=integrity, n_shards=n_shards,
-              commit_mode=commit_mode)
+              commit_mode=commit_mode, pack_flush_rows=pack_flush_rows)
     if kind == "dll":
         a = open_arena(None, DoublyLinkedList.layout(n, mode,
                                                      snapshot=snapshot),
@@ -562,7 +598,8 @@ def _check(kind: str, label: str, s, want_order=None, live_keys=None,
 def workload(kind: str, mode: str, n: int, device, seed: int = 0,
              integrity: bool = False, n_shards: int = 1,
              concurrency: int = 0, commit_mode: str = "barrier",
-             commit_after_fill: bool = False, on_arena=None) -> dict:
+             commit_after_fill: bool = False, on_arena=None,
+             pack_flush_rows: int = 0) -> dict:
     """Insert n entries in batches of 8192, delete (and, for the DLL, pop)
     1/8 of them, commit, crash, reopen, reconstruct, then check the
     recovered state against what the workload expects.  ``concurrency``
@@ -571,7 +608,8 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0,
     report is returned under ``recovery``.  ``gathers`` counts the write
     set's grouped gathers, ``commits`` the commits (one more after the
     inserts with ``commit_after_fill``).  ``on_arena(arena)`` runs once
-    the arena is built."""
+    the arena is built.  ``pack_flush_rows`` is the arena's (the
+    reference's threshold, which changes nothing here)."""
     import numpy as np
     import torch
     from repro_torch.core.recovery import RecoveryManager
@@ -579,7 +617,8 @@ def workload(kind: str, mode: str, n: int, device, seed: int = 0,
 
     _, keys, vals, gone = _inputs(kind, n, seed)
     a, s = build_structure(kind, mode, n, device, integrity=integrity,
-                           n_shards=n_shards, commit_mode=commit_mode)
+                           n_shards=n_shards, commit_mode=commit_mode,
+                           pack_flush_rows=pack_flush_rows)
     if on_arena is not None:
         on_arena(a)
     gathers0 = WriteSet.gathers
@@ -1173,7 +1212,26 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
         "max_abs_err": err, "shape": shape,
         "source": "src/repro_torch/csrc/quant_pack.cu",
         "replaces": "src/repro/kernels/quant_pack.py:74"}
-    del q, s, qg, sg
+    # the bf16 output: the f32 product rounded to nearest even in
+    # the store, bitwise against the plain version; one library call that
+    # computes it: torch.mul into a bf16 out= tensor
+    xb = Q.dequantize_blockwise(q, s, torch.bfloat16)
+    want = Q.dequantize_blockwise_plain(q, s, torch.bfloat16)
+    if not torch.equal(xb.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("dequantize_blockwise(dtype=bf16) differs from "
+                             "its plain version")
+    outb = torch.empty(qg.shape, dtype=torch.bfloat16, device=dev)
+    rows["dequantize_blockwise"]["bf16"] = {
+        "ms": time_ms(lambda: Q.dequantize_blockwise(q, s, torch.bfloat16),
+                      flush=flush),
+        "plain_ms": time_ms(lambda: Q.dequantize_blockwise_plain(
+            q, s, torch.bfloat16), reps=5),
+        "library_ms": time_ms(lambda: torch.mul(qg, sg, out=outb),
+                              flush=flush),
+        "bound_ms": bound_ms(3 * el + 4 * (el // 256)),
+        "max_abs_err": 0.0, "bitwise": True,
+        "shape": f"({qrows[0]}, {qrows[1]}) int8 + scales -> bf16"}
+    del q, s, qg, sg, xb, want, outb
     quant_non_finite = quantize_non_finite(dev, g)
     # ---- scatter_rows: one re-prefill group (2 slots) seated into the
     # phase-7 cache leaf viewed as rows: (28 * 8, 2048 * 8 * 128) f32
@@ -1220,6 +1278,14 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
                 dev, g, dt, h, hk, seq, 128, flush)
     flash["float32_ragged"] = flash_case(dev, g, torch.float32, 96, 32, 1000,
                                          128, flush)
+    # gemma's layers: gemma3-27b's local layer (32 query heads
+    # over 16, D = 128, window 1024) and gemma2-9b's (16 over 8, D = 256,
+    # window 4096, softcap 50) at the prefill lengths phase 15 gives them
+    for name, (h, hk, seq, d, window, cap) in GEMMA_FLASH.items():
+        for dt in (torch.float32, torch.bfloat16):
+            flash[f"{str(dt).split('.')[-1]}_{name}"] = flash_band_case(
+                dev, g, dt, h, hk, seq, d, window, cap, flush)
+    flash_edges = flash_band_edges(dev, g)
     flash_widths = flash_width_parity(dev, g)
     flash_prefill = flash_prefill_bf16(dev)
     flash_bwd_widths = flash_bwd_parity(dev, g)
@@ -1236,15 +1302,19 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
     rows["flash_attention"] = dict(
         flash["float32"], bound_by="operations",
         shape="q (96, 1024, 128) over k, v (32, 1024, 128) f32, causal; "
-              "bf16, the phase-7 shapes and S = 1000 in the report",
+              "bf16, the phase-7 shapes and S = 1000 in the report; "
+              "gemma3 and gemma2 (window, softcap, D = 256) below",
         source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:91")
+        replaces="src/repro/kernels/flash_attention.py:91",
+        **{f"{dt}_{name}": flash[f"{dt}_{name}"] for name in GEMMA_FLASH
+           for dt in ("float32", "bfloat16")})
     # ---- probe: phase 8's 512 MiB table at uniform, Zipf, one-bucket,
     # out-of-range and small inputs, both kernels, beside the bounds
     probe = probe_parity(dev, probe_inp, flush)
     rows["probe"] = probe.pop("row")
     return {"rows": rows, "pack_rowbytes": pack, "gather_next": gather,
             "flash_attention": flash, "flash_widths": flash_widths,
+            "flash_edges": flash_edges,
             "flash_prefill_bf16": flash_prefill,
             "flash_bwd": flash_bwd, "flash_bwd_widths": flash_bwd_widths,
             "flash_grad_on_card": flash_grad,
@@ -1355,7 +1425,9 @@ def drain_case(dev, ws, plan, link: float, flush) -> dict:
     pinned download; and, to split the write set's cost, the kernel into
     a device buffer plus one pinned download and the kernel writing
     pinned memory (the same host code around each: the A/B of the write
-    set's choice), the wrapper's call alone (indices already on the card)
+    set's choice), the wrapper's call alone (indices already on the card),
+    the write set's form (``pack_rows_grouped_host``: indices read from
+    pinned memory, exact against the plain version) with its synchronize,
     and a bare synchronize."""
     import numpy as np
     import torch
@@ -1428,12 +1500,25 @@ def drain_case(dev, ws, plan, link: float, flush) -> dict:
     want = P.pack_rows_grouped_plain(srcs, idx, counts).cpu()
     require_equal("pack_rows_grouped staged", [(staged_copy(), want)])
     require_equal("pack_rows_grouped zero-copy", [(zero_copy(), want)])
+    hbuf = torch.empty(4 * flat.size, dtype=torch.uint8, pin_memory=True)
+    hbuf.numpy().view(np.int32)[:] = flat
+
+    def host_index():
+        # the write set's form: indices read from pinned memory, rows
+        # written to pinned memory, no upload
+        stream = torch.cuda.current_stream(dev)
+        P.pack_rows_grouped_host(srcs, counts, hbuf, hout, stream)
+        stream.synchronize()
+        return hout
+
+    require_equal("pack_rows_grouped_host", [(host_index(), want)])
     paths = time_host_ms({
         "grouped": lambda: ws.gather(plan), "staged_copy": staged_copy,
         "zero_copy": zero_copy,
         "per_region": lambda: [gather_rows(r, rows)
                                     for r, rows in plan],
         "index_select_cat": index_select_cat, "wrapper_only": wrapper_only,
+        "host_index": host_index,
         "sync_only": torch.cuda.current_stream(dev).synchronize}, flush)
     for name, (host, event) in paths.items():
         out[f"{name}_host_ms"], out[f"{name}_event_ms"] = host, event
@@ -1443,7 +1528,8 @@ def drain_case(dev, ws, plan, link: float, flush) -> dict:
 def grouped_edge_cases(dev, g) -> dict:
     """The grouped kernel against its plain version, exact, on the cases
     the drains do not reach: -1 and out-of-range indices, empty regions,
-    4 B rows, and more than MAX_GROUPS regions (two launches)."""
+    4 B rows, and more than MAX_GROUPS regions (two launches); each also
+    through the drain's host-index form (``pack_rows_grouped_host``)."""
     import torch
     from repro_torch.kernels import pack_flush as P
 
@@ -1480,12 +1566,23 @@ def grouped_edge_cases(dev, g) -> dict:
         before = P.pack_rows.launches
         got = P.pack_rows_grouped(srcs, idx, counts)
         launches = P.pack_rows.launches - before
-        require_equal(f"pack_rows_grouped {name}", [
-            (got, P.pack_rows_grouped_plain(srcs, idx, counts))])
+        plain = P.pack_rows_grouped_plain(srcs, idx, counts)
+        require_equal(f"pack_rows_grouped {name}", [(got, plain)])
         want = -(-len(regs) // P.MAX_GROUPS)
         if launches != want:
             raise AssertionError(f"pack_rows_grouped {name}: {launches} "
                                  f"launches for {len(regs)} regions")
+        # the drain's host-index form on the same inputs
+        hidx = torch.empty(4 * max(1, idx.numel()), dtype=torch.uint8,
+                           pin_memory=True)
+        hidx[:4 * idx.numel()].view(torch.int32).copy_(idx.cpu())
+        hout = torch.zeros(max(16, plain.numel()), dtype=torch.uint8,
+                           pin_memory=True)
+        stream = torch.cuda.current_stream(dev)
+        P.pack_rows_grouped_host(srcs, counts, hidx, hout, stream)
+        stream.synchronize()
+        require_equal(f"pack_rows_grouped_host {name}", [
+            (hout[:plain.numel()].clone(), plain.cpu())])
         out[name] = {"regions": len(regs), "rows": int(idx.numel()),
                      "launches": launches}
     return out
@@ -2450,12 +2547,23 @@ def gathers_check(phase: str, launches: dict, gathers: int) -> dict:
                 PER_REGION_PACK_LAUNCHES.get(phase)}
 
 
+def band_pairs(sq: int, skv: int, causal: bool = True,
+               window: int = 0) -> int:
+    """The (query, key) pairs the mask keeps: key kpos < Skv, kpos <= qpos
+    when causal, qpos - kpos < window when window > 0."""
+    import numpy as np
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
 def flash_bound_ms(h: int, hk: int, sq: int, skv: int, d: int, itemsize: int,
-                   causal: bool = True) -> float:
-    """The larger of the causal pairs' flops (4 per pair and width) over
-    the peak for the input type and q, k, v, o once over the HBM rate."""
-    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
-    flops = 4 * h * d * pairs
+                   causal: bool = True, window: int = 0) -> float:
+    """The larger of the kept pairs' flops (4 per pair and width; a window
+    keeps only its band) over the peak for the input type and q, k, v, o
+    once over the HBM rate."""
+    flops = 4 * h * d * band_pairs(sq, skv, causal, window)
     peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
     nbytes = itemsize * d * (2 * h * sq + 2 * hk * skv)
     return max(flops / peak * 1e3, bound_ms(nbytes))
@@ -2488,10 +2596,95 @@ def flash_case(dev, g, dt, h: int, hk: int, seq: int, d: int, flush) -> dict:
         "max_abs_err": err, "tolerance": tol}
 
 
+def flash_band_case(dev, g, dt, h: int, hk: int, seq: int, d: int,
+                    window: int, softcap: float, flush) -> dict:
+    """flash_attention with a sliding window (and a softcap) against its
+    plain version at a gemma layer's shape, causal, in ``dt``; timed beside
+    its band-counted bound, the same call with no window (the band's
+    skipped tiles) and, where no cap bends the scores,
+    scaled_dot_product_attention with the boolean band mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    q = torch.randn((h, seq, d), generator=g, device=dev).to(dt)
+    k = torch.randn((hk, seq, d), generator=g, device=dev).to(dt)
+    v = torch.randn((hk, seq, d), generator=g, device=dev).to(dt)
+    kw = dict(window=window, softcap=softcap)
+    err = max_abs_err(FA.flash_attention(q, k, v, **kw),
+                      FA.flash_attention_plain(q, k, v, **kw))
+    tol = FLASH_TOL[str(dt).split(".")[-1]]
+    if not err <= tol:
+        raise AssertionError(f"flash_attention {dt} S={seq} D={d} window="
+                             f"{window} softcap={softcap}: max abs err {err} "
+                             f"above {tol}")
+    size = q.element_size()
+    out = {
+        "ms": time_ms(lambda: FA.flash_attention(q, k, v, **kw), flush=flush),
+        "plain_ms": time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                            reps=3),
+        "bound_ms": flash_bound_ms(h, hk, seq, seq, d, size, window=window),
+        "band_pairs_per_head": band_pairs(seq, seq, True, window),
+        "no_window_ms": time_ms(lambda: FA.flash_attention(
+            q, k, v, softcap=softcap), flush=flush),
+        "no_window_bound_ms": flash_bound_ms(h, hk, seq, seq, d, size),
+        "max_abs_err": err, "tolerance": tol,
+        "shape": f"q ({h}, {seq}, {d}) over k, v ({hk}, {seq}, {d}), causal, "
+                 f"window {window}, softcap {softcap}"}
+    if softcap:
+        out["library_ms"] = None
+        out["library_note"] = ("no PyTorch call caps the scores: sdpa "
+                               "takes a mask, not a tanh of the scores")
+    else:
+        ahead = (torch.arange(seq, device=dev)[:, None]
+                 - torch.arange(seq, device=dev)[None, :])
+        band = (ahead >= 0) & (ahead < window)
+        out["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=band, enable_gqa=True),
+            flush=flush)
+        del band, ahead
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_band_edges(dev, g, seq: int = 1000) -> dict:
+    """flash_attention against its plain version, untimed, at the band's
+    edge cases in both dtypes, 6 query heads over 2 KV heads: window 1, a
+    window at and past S, windows that are no multiple of a tile (100,
+    129), causal and not; a softcap alone at D = 64 and 128 (2, every
+    score bent, and gemma2's 50); the two together at D = 256.  Returns
+    {case: max abs err}."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    cases = [(128, w, 0.0, c) for w in (1, seq, 5 * seq, 100, 129)
+             for c in (True, False)]
+    cases += [(d, 0, cap, c) for d in (64, 128) for cap in (2.0, 50.0)
+              for c in (True, False)]
+    cases += [(256, 129, 50.0, c) for c in (True, False)]
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOL[str(dt).split(".")[-1]]
+        for d, window, cap, causal in cases:
+            q = torch.randn((6, seq, d), generator=g, device=dev).to(dt)
+            k = torch.randn((2, seq, d), generator=g, device=dev).to(dt)
+            v = torch.randn((2, seq, d), generator=g, device=dev).to(dt)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            err = max_abs_err(FA.flash_attention(q, k, v, **kw),
+                              FA.flash_attention_plain(q, k, v, **kw))
+            name = (f"{str(dt).split('.')[-1]} D={d} window={window} "
+                    f"softcap={cap} causal={causal}")
+            if not err <= tol:
+                raise AssertionError(f"flash_attention {name} S={seq}: max "
+                                     f"abs err {err} above {tol}")
+            errs[name] = err
+    return errs
+
+
 def flash_width_parity(dev, g, seq: int = 1000) -> dict:
     """flash_attention vs its plain version, untimed, at every head width
-    of ``HEAD_DIMS`` in both dtypes, causal and not: 6 query heads over 2
-    KV heads at a ragged S.  Returns {case: max abs err}."""
+    of ``HEAD_DIMS`` (256 included) in both dtypes, causal and not: 6
+    query heads over 2 KV heads at a ragged S.  Returns {case: max abs
+    err}."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     errs = {}
@@ -2627,9 +2820,9 @@ def flash_build_report() -> dict:
             m = re.search(r"Used (\d+) registers", ln)
             if m and name:
                 out[name]["registers"] = int(m.group(1))
-    # forward: 2 types x 4 widths; backward: the dK/dV and dQ kernels and
+    # forward: 2 types x 5 widths; backward: the dK/dV and dQ kernels and
     # the Di pass, each 2 types x 4 widths
-    if len(out) != 8 + 24 or any("registers" not in v for v in out.values()):
+    if len(out) != 10 + 24 or any("registers" not in v for v in out.values()):
         raise AssertionError(f"ptxas report of the flash kernels "
                              f"incomplete: {out}")
     return out
@@ -2731,7 +2924,7 @@ def flash_bwd_parity(dev, g) -> dict:
     import torch
     from repro_torch.kernels import flash_attention as FA
     out = {}
-    for d in FA.HEAD_DIMS:
+    for d in FA.BWD_HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             for group in (1, 3):
                 for sq, skv in ((1000, 1000), (77, 333)):
@@ -2984,6 +3177,227 @@ def serving_phase(dev) -> dict:
     del params
     torch.cuda.empty_cache()
     return out
+
+
+# -------------------------------------------------------------- gemma
+
+# phase 15: each arch at its published widths, depth cut for time
+# (layers), two prompts longer than the window, steps before the crash
+# (finishing the first request halfway), steps after it, the cache span
+GEMMA_SERVE = {
+    "gemma3-27b": {"layers": 6, "prompts": (3072, 3072), "steps": 16,
+                   "steps_after": 32, "s_max": 3200},
+    "gemma2-9b": {"layers": 4, "prompts": (4608, 4608), "steps": 8,
+                  "steps_after": 16, "s_max": 4672},
+}
+PACK_FLUSH_ROWS = (0, 1, 10 ** 6)
+
+
+class FlashCalls:
+    """Counts the model's attention calls by layer kind (a window: local)
+    and query length, delegating to the real wrapper, whose own launch
+    counter still counts (the spy sits on ``models.layers``' name, never
+    on the kernel module's)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
+        from repro_torch.models import layers
+        self._layers, self._real = layers, FA.flash_attention
+
+        def spy(q, k, v, **kw):
+            key = ("local" if kw.get("window") else "global", q.shape[1])
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return self._real(q, k, v, **kw)
+        layers.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.flash_attention = self._real
+
+
+def gemma_serve_one(dev, arch: str) -> dict:
+    """Phase 15 for one arch: the twin protocol (``serve_recover.run``) at
+    its published widths, f32, depth cut to GEMMA_SERVE's layers; every
+    prefill (admissions and each re-prefill group) must launch the flash
+    kernel once per layer, local and global alike."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.writeset import WriteSet
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.backbone import init_params, parse_tag
+    from repro_torch.serve_recover import run
+    spec = GEMMA_SERVE[arch]
+    cfg = dataclasses.replace(registry.get(arch), n_layers=spec["layers"])
+    pattern, n_super, rem = cfg.pattern_plan()
+    tags = list(pattern) * n_super + list(rem)
+    local = sum(parse_tag(t)[1] == "local" for t in tags)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before, gathers0 = launch_counts(), WriteSet.gathers
+    t0 = time.perf_counter()
+    with FlashCalls() as spy:
+        out = run(cfg, dev, prompt_lens=spec["prompts"], max_batch=2,
+                  s_max=spec["s_max"], steps=spec["steps"],
+                  steps_after=spec["steps_after"], max_requests=16,
+                  seed=SERVE_SEED, params=params,
+                  workdir=str(ROOT / "build"))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    out["gathers"] = WriteSet.gathers - gathers0
+    if launches["pack_rows"] != out["gathers"]:
+        raise AssertionError(f"{arch}: {launches['pack_rows']} pack_rows "
+                             f"launches for {out['gathers']} grouped "
+                             f"gathers")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # admissions, on the engine and on its twin: each prompt and the new
+    # request after recovery; then one prefill per re-prefill group
+    prefills = {}
+    for n in list(spec["prompts"]) + [spec["prompts"][-1]]:
+        prefills[n] = prefills.get(n, 0) + 2
+    for grp in out["groups"]:
+        prefills[grp["tokens"]] = prefills.get(grp["tokens"], 0) + 1
+    want = {}
+    for n, times in prefills.items():
+        want[("local", n)] = local * times
+        want[("global", n)] = (len(tags) - local) * times
+    want = {k: v for k, v in want.items() if v}
+    if spy.calls != want:
+        raise AssertionError(f"{arch}: attention calls by (layer kind, "
+                             f"length) {spy.calls}, expected {want}")
+    n_prefills = sum(prefills.values())
+    if launches["flash_attention"] != len(tags) * n_prefills:
+        raise AssertionError(f"{arch}: {launches['flash_attention']} "
+                             f"flash_attention launches for {n_prefills} "
+                             f"prefills of {len(tags)} layers")
+    for p in out["prefill"]:
+        p["tokens_per_s"] = p["tokens"] / p["seconds"]
+    prev = 0.0
+    for grp in sorted(out["groups"], key=lambda x: x["admitted_s"]):
+        grp["seconds"] = grp["admitted_s"] - prev
+        grp["flash_launches"] = len(tags)
+        prev = grp["admitted_s"]
+    del params
+    torch.cuda.empty_cache()
+    out.pop("stats", None)
+    out.pop("paging_stats", None)
+    out.update({"init_params_s": init_s, "launches": launches,
+                "local_layers": local, "global_layers": len(tags) - local,
+                "window": cfg.window, "attn_softcap": cfg.attn_softcap,
+                "final_softcap": cfg.final_softcap,
+                "head_dim": cfg.resolved_head_dim,
+                "steps_before_crash": 2 * spec["steps"],
+                "steps_after_crash": spec["steps_after"],
+                "flash_calls": {f"{k[0]}:{k[1]}": v
+                                for k, v in sorted(spy.calls.items())}})
+    return out
+
+
+def gemma_phase(dev) -> dict:
+    """Phase 15: gemma3-27b and gemma2-9b served at full width through the
+    twin protocol."""
+    t0 = time.perf_counter()
+    out = {arch: gemma_serve_one(dev, arch) for arch in GEMMA_SERVE}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def launch_serve(arch: str) -> dict:
+    """``repro_torch.launch.serve --arch <arch> --crash`` on the card (its
+    default device); rc 0 and a recovery required."""
+    from repro_torch.launch import serve as tserve
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        rc = tserve.main(["--arch", arch, "--crash"])
+    if rc != 0 or "[serve] recovered" not in said.getvalue():
+        raise AssertionError(f"launch.serve --arch {arch} --crash on the "
+                             f"card: rc {rc}")
+    return {"arch": arch, "rc": rc, "seconds": time.perf_counter() - t0,
+            "lines": len(said.getvalue().splitlines())}
+
+
+def bf16_ckpt_card_vs_cpu(dev) -> list:
+    """A TrainState whose moments are bf16 (``AdamWConfig(moment_dtype=
+    "bfloat16")``), phase 4's small config, saved on the card and on the
+    CPU under each policy: identical files (the reference's bf16 format:
+    raw words, never quantized), and each restored on the card equal to
+    what was saved."""
+    import torch
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core import policy as pol
+    small = ckpt_state(ckpt_config(small=True), torch.device("cpu"), seed=5)
+    small = small._replace(
+        mu=pol.tree_map(lambda t: t.to(torch.bfloat16), small.mu),
+        nu=pol.tree_map(lambda t: t.to(torch.bfloat16), small.nu))
+    small_dev = pol.tree_map(lambda t: t.to(dev), small)
+    same = []
+    for name in ("FULLY_PERSISTENT", "PARTLY_PERSISTENT", "PARTLY_Q8",
+                 "PARTLY_DROP"):
+        root = ROOT / "build" / "chip_smoke_bf16"
+        out = {d: ckpt_files(st, getattr(pol, name), root / d)
+               for d, st in (("cuda", small_dev), ("cpu", small))}
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"bf16 checkpoint {name}: card and CPU "
+                                 f"files differ")
+        back = CheckpointManager(str(root / "cuda"), getattr(
+            pol, name)).restore(small, device=dev)
+        for (path, a), (_, b) in zip(
+                pol.tree_flatten_with_path(back.as_dict()),
+                pol.tree_flatten_with_path(small.as_dict())):
+            if a.dtype != b.dtype or (
+                    path != ("rng",) and not (name == "PARTLY_DROP"
+                                              and path[0] in ("mu", "nu"))
+                    and not torch.equal(a.cpu(), b)):
+                raise AssertionError(f"bf16 checkpoint {name}: restored "
+                                     f"{'/'.join(path)} differs")
+        same.append(f"ckpt_bf16.{name}:{len(out['cuda'])} files:"
+                    f"{out['cuda']['manifest.json'][:12]}")
+    shutil.rmtree(ROOT / "build" / "chip_smoke_bf16")
+    return same
+
+
+def pack_flush_rows_small(dev) -> list:
+    """The reference's ``pack_flush_rows`` thresholds (0: its numpy
+    gather; 1: every region through pack_rows; 10**6: none) on one arena
+    and on four shards, card and CPU: one image and one FlushStats for all
+    six runs of a shard count, and on the card one ``pack_rows`` launch
+    per grouped gather at every threshold."""
+    from repro_torch.core.writeset import WriteSet
+    from repro_torch.interop import image_of
+    from repro_torch.kernels import pack_flush
+    same = []
+    for n_shards in (1, SHARDS):
+        seen = set()
+        for rows in PACK_FLUSH_ROWS:
+            for d in ("cuda", "cpu"):
+                before = pack_flush.pack_rows.launches
+                g0 = WriteSet.gathers
+                r = workload("hashmap", "partly", PARITY_N, d, seed=3,
+                             n_shards=n_shards, pack_flush_rows=rows)
+                if d == "cuda" and pack_flush.pack_rows.launches - before \
+                        != WriteSet.gathers - g0:
+                    raise AssertionError(f"pack_flush_rows={rows}: launches "
+                                         f"differ from gathers")
+                seen.add((hashlib.sha256(image_of(r["arena"])).hexdigest(),
+                          json.dumps(r["stats"], sort_keys=True)))
+        if len(seen) != 1:
+            raise AssertionError(f"pack_flush_rows at {n_shards} shards: "
+                                 f"{len(seen)} different images or "
+                                 f"FlushStats")
+        same.append(f"hashmap.partly.shards_{n_shards}.pack_flush_rows_"
+                    f"{'/'.join(map(str, PACK_FLUSH_ROWS))}:"
+                    f"{next(iter(seen))[0][:12]}")
+    return same
 
 
 # ------------------------------------------------------------ hash probe
@@ -4874,8 +5288,9 @@ def sharded_phase(dev, phase3: dict) -> dict:
 # mixed 1:1, epochs of 4 x 64, 250 ns a line, 1 ms a fence
 SHADOW_N = {"dll": 1 << 19, "hashmap": 1 << 19, "bptree": 1 << 15}
 # phase 13's four-shard half: phase 3's widths, the DLL and the hashmap
-# cut to 2**21 (from 2**22) and the B+Tree as above, for phase 14's time
-SHADOW4_N = {"dll": 1 << 21, "hashmap": 1 << 21, "bptree": 1 << 15}
+# cut to 2**20 (from 2**22) and the B+Tree as above, for the time of
+# phases 14 and 15
+SHADOW4_N = {"dll": 1 << 20, "hashmap": 1 << 20, "bptree": 1 << 15}
 CROSSOVER_GATE = 1.3           # the reference's gate, at 4 shards
 TORN_N = {"dll": 1 << 20, "hashmap": 1 << 20, "bptree": 1 << 15}
 CROSSOVER = {"n_init": 4000, "n_ops": 8192, "batch": 64, "group": 4,
@@ -6596,8 +7011,34 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke as C
 from repro_torch.kernels import _build
-_build.build()
+CROSSOVER_ONLY = sys.argv[1:] == ["crossover"]
+_build.build(("pack_flush",) if CROSSOVER_ONLY else _build.SOURCES)
 dev = torch.device("cuda", 0)
+if CROSSOVER_ONLY:
+    # the epochs' host walls without stalls (median over every epoch of
+    # four rounds), then the crossover at one and four shards three times
+    import statistics
+    host = dict(C.CROSSOVER, synth_ns=0.0, synth_fence_ns=0.0)
+    C.sweep_point(C.SHARDS, dev, shape=host, commit_mode="shadow")
+    ep = {}
+    for _ in range(4):
+        for ns in (1, C.SHARDS):
+            for mode in ("barrier", "shadow"):
+                h = C.sweep_point(ns, dev, shape=host,
+                                  commit_mode=mode)["host_profile"]
+                ep.setdefault(f"{ns}/{mode}", []).extend(
+                    d + c for d, c in zip(h["drain_ms"], h["commit_ms"]))
+    out = {"host_epoch_ms": {k: statistics.median(v)
+                             for k, v in ep.items()}, "crossover": []}
+    for _ in range(3):
+        x = C.shadow_crossover(dev, gated=False)
+        out["crossover"].append({
+            "x1": x["speedup"], "x4": x["speedup_4"],
+            "wall_ms": {f"{r['n_shards']}/{r['commit_mode']}":
+                        r["flush_wall_s"] * 1e3
+                        for key in ("rows", "rows_4") for r in x[key]}})
+    print("AB " + json.dumps(out), flush=True)
+    sys.exit(0)
 x = C.shadow_crossover(dev, shard_counts=(C.SHARDS,), gated=False)
 out = {"x4": x["speedup_4"]}
 for kind in ("dll", "hashmap"):
@@ -6611,14 +7052,19 @@ print("AB " + json.dumps(out), flush=True)
 """
 
 
-def ab_trees(parent: Path, rounds: int = 3) -> list:
+def ab_trees(parent: Path, rounds: int = 3, crossover: bool = False
+             ) -> list:
     """``--ab-parent``: phase 13's four-shard crossover (ungated) and phase
     3's DLL and hashmap at 2**22, for the tree at ``parent`` and this one
-    in turns (parent, this, this, parent, ...), one process each."""
+    in turns (parent, this, this, parent, ...), one process each.  With
+    ``crossover`` (``--ab-crossover``) each process instead times the
+    crossover shape's epochs without stalls (drain + commit, the median
+    epoch) and runs the crossover at one and four shards three times."""
     order = [parent, ROOT, ROOT, parent] * ((rounds + 1) // 2)
     runs = []
     for tree in order[:2 * rounds]:
-        p = subprocess.run([sys.executable, "-c", AB_ONE], cwd=tree,
+        p = subprocess.run([sys.executable, "-c", AB_ONE]
+                           + (["crossover"] if crossover else []), cwd=tree,
                            capture_output=True, text=True)
         line = [ln for ln in p.stdout.splitlines() if ln.startswith("AB ")]
         if p.returncode or not line:
@@ -6641,6 +7087,10 @@ def main(argv=None) -> int:
                    help="instead of the phases: phase 13's four-shard "
                    "crossover and phase 3's DLL and hashmap, for the tree "
                    "at DIR and this one in turns (ab_trees)")
+    p.add_argument("--ab-crossover", action="store_true",
+                   help="with --ab-parent: only the crossover shape, its "
+                   "epochs' host walls without stalls and the crossover at "
+                   "one and four shards, three times a process")
     args = p.parse_args(argv)
 
     # cuBLAS reads its workspace setting when it starts, before phase 1's
@@ -6660,7 +7110,8 @@ def main(argv=None) -> int:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
-        runs = ab_trees(Path(args.ab_parent).resolve())
+        runs = ab_trees(Path(args.ab_parent).resolve(),
+                        crossover=args.ab_crossover)
         if args.report:
             Path(args.report).parent.mkdir(parents=True, exist_ok=True)
             Path(args.report).write_text(json.dumps(runs, indent=1))
@@ -6680,6 +7131,7 @@ def main(argv=None) -> int:
 
     report = {}
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()   # each phase's start goes out as a clock line
     # ---- phase 1: card and build
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6697,8 +7149,14 @@ def main(argv=None) -> int:
                        "l2_bytes": torch.cuda.get_device_properties(
                            0).L2_cache_size}
     emit({"phase": "build", **report["build"]})
+    # the D = 256 forward (gemma2), both designs: registers and spills
+    emit({"phase": "flash_d256_ptxas",
+          **{k: v for k, v in report["build"]["flash_kernels"].items()
+             if k.endswith("D=256")}})
     report["link"] = pinned_d2h(dev)
     emit({"phase": "pinned_d2h", **report["link"]})
+    emit({"phase": "clock", "before": "2",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 2: kernel parity at main-path shapes
     t0 = time.perf_counter()
     probe_inp = probe_inputs()
@@ -6709,6 +7167,7 @@ def main(argv=None) -> int:
           "contraction": parity["contraction"],
           "flash_attention": parity["flash_attention"],
           "flash_widths": parity["flash_widths"],
+          "flash_edges": parity["flash_edges"],
           "flash_prefill_bf16": parity["flash_prefill_bf16"],
           "flash_bwd": parity["flash_bwd"],
           "flash_bwd_widths": parity["flash_bwd_widths"],
@@ -6743,6 +7202,8 @@ def main(argv=None) -> int:
         parity["rows"][name]["packed"] = {
             key: {k: v for k, v in case[name].items()}
             for key, case in packed.items()}
+    emit({"phase": "clock", "before": "3",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 3: the main path at real size
     reset_launch_counts()
     WriteSet.gathers = 0
@@ -6792,6 +7253,8 @@ def main(argv=None) -> int:
              "on": syncs_per_op(dev, SNAP_KINDS, snapshot=True)}
     report["syncs_per_op"] = syncs
     emit({"phase": "syncs_per_op", **syncs})
+    emit({"phase": "clock", "before": "4",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 4: card vs CPU
     same = []
     for kind in KINDS:
@@ -6926,20 +7389,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve = serve_card_vs_cpu(dev)
     same.append(f"serve:{serve['file_sha256']}")
-    # the serving launcher's entry point, on the card (its default device)
-    from repro_torch.launch import serve as tserve
-    said = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(said):
-        rc = tserve.main(["--arch", "llama3.2-3b", "--crash"])
-    launcher = {"rc": rc, "seconds": time.perf_counter() - t0,
-                "lines": len(said.getvalue().splitlines())}
-    if rc != 0 or "[serve] recovered" not in said.getvalue():
-        raise AssertionError(f"launch.serve --crash on the card: rc {rc}")
+    # bf16 checkpoint leaves and the reference's pack_flush_rows=
+    same.extend(bf16_ckpt_card_vs_cpu(dev))
+    same.extend(pack_flush_rows_small(dev))
+    # the serving launcher's entry point, on the card (its default device):
+    # llama3.2-3b, and gemma's two
+    launcher = launch_serve("llama3.2-3b")
+    launcher["gemma"] = [launch_serve(a) for a in GEMMA_SERVE]
     report["card_vs_cpu"] = {"identical": same, "serve": serve,
                              "launch_serve": launcher}
     emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same,
           "serve": serve, "launch_serve": launcher})
+    emit({"phase": "clock", "before": "5",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 5: snapshot recovery at full size
     reset_launch_counts()
     WriteSet.gathers = 0
@@ -6983,6 +7445,8 @@ def main(argv=None) -> int:
     report["size_ranking"].update(contraction_ranking(
         dev, calls3.contractions + calls5.contractions, l2_flusher(dev)))
     emit({"phase": "size_ranking", **report["size_ranking"]})
+    emit({"phase": "clock", "before": "6",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 6: checkpoint save and restore at llama3.2-3b width
     ckpt = checkpoint_phase(dev)
     report["checkpoint"] = ckpt
@@ -7005,6 +7469,8 @@ def main(argv=None) -> int:
     missing = [k for k in quant if launches[k] == 0]
     if missing:
         raise AssertionError(f"phase 6 never launched {missing}")
+    emit({"phase": "clock", "before": "7",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 7: serving at llama3.2-3b full width and depth
     serving = serving_phase(dev)
     report["serving"] = serving
@@ -7015,12 +7481,16 @@ def main(argv=None) -> int:
     missing = [k for k in served if launches[k] == 0]
     if missing:
         raise AssertionError(f"phase 7 never launched {missing}")
+    emit({"phase": "clock", "before": "8",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 8: hash_lookup at real size
     probe = probe_phase(dev, probe_inp)
     del probe_inp
     report["hash_lookup"] = probe
     emit({"phase": "hash_lookup", **probe})
     launches["probe"] = probe["launches"]["probe"]
+    emit({"phase": "clock", "before": "9",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 9: the feature store and the sample index at real size
     with chain_call_sites() as calls9:
         feature = feature_phase(dev)
@@ -7038,6 +7508,8 @@ def main(argv=None) -> int:
           "twin": feature["twin_stats"]})
     emit(feature["gathers"])
     emit({"phase": "feature_store_launch_sizes", **feature["launch_sizes"]})
+    emit({"phase": "clock", "before": "10",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 10: training at llama3.2-3b's published widths
     train = train_phase(dev)
     report["train"] = train
@@ -7052,6 +7524,8 @@ def main(argv=None) -> int:
     emit({"phase": "train_card_vs_cpu", **train_cpu})
     emit({"phase": "launch_train", **launcher})
     torch.cuda.empty_cache()
+    emit({"phase": "clock", "before": "11",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 11: integrity and salvage at the main path's size
     integ = integrity_phase(dev, phase3)
     report["integrity"] = integ
@@ -7069,6 +7543,8 @@ def main(argv=None) -> int:
         emit({"phase": f"integrity_{name}", **integ[name]})
     emit({"phase": "integrity", "phase_s": integ["phase_s"]})
     torch.cuda.empty_cache()
+    emit({"phase": "clock", "before": "12",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 12: sharded arenas at the main path's size
     reset_launch_counts()
     sharded = sharded_phase(dev, phase3)
@@ -7090,6 +7566,8 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"phase 12 never launched {missing}")
     torch.cuda.empty_cache()
+    emit({"phase": "clock", "before": "13",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 13: shadow commit, one arena and four shards
     reset_launch_counts()
     shadow = shadow_phase(dev, launches3, study=args.crossover_study)
@@ -7116,6 +7594,8 @@ def main(argv=None) -> int:
     if missing:
         raise AssertionError(f"phase 13 never launched {missing}")
     torch.cuda.empty_cache()
+    emit({"phase": "clock", "before": "14",
+          "at_s": time.perf_counter() - t_run})
     # ---- phase 14: paged regions and the block cache
     from repro_torch.core.paging import _BlockPool
     reset_launch_counts()
@@ -7145,12 +7625,34 @@ def main(argv=None) -> int:
                if launches14[k] == 0]
     if missing:
         raise AssertionError(f"phase 14 never launched {missing}")
+    torch.cuda.empty_cache()
+    emit({"phase": "clock", "before": "15",
+          "at_s": time.perf_counter() - t_run})
+    # ---- phase 15: gemma3-27b and gemma2-9b served at full width
+    reset_launch_counts()
+    WriteSet.gathers = 0
+    gemma = gemma_phase(dev)
+    launches15 = launch_counts()
+    gathers15 = gathers_check("gemma", launches15, WriteSet.gathers)
+    report["gemma"] = gemma
+    for arch in GEMMA_SERVE:
+        emit({"phase": "gemma_serving", **gemma[arch]})
+    emit(gathers15)
+    emit({"phase": "gemma", "launches": launches15,
+          "phase_s": gemma["phase_s"]})
+    missing = [k for k in ("flash_attention", "pack_rows", "scatter_rows")
+               if launches15[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 15 never launched {missing}")
+    emit({"phase": "clock", "before": "summary",
+          "at_s": time.perf_counter() - t_run})
     # ---- summary
     kernels = []
     for name, row in parity["rows"].items():
         kernels.append({"name": name, "route": "cuda",
                         "launches": launches[name], "bound_by": "bytes",
-                        "paged_launches": launches14[name], **row})
+                        "paged_launches": launches14[name],
+                        "gemma_launches": launches15[name], **row})
     if sorted(k["name"] for k in kernels) != sorted(WRAPPERS):
         raise AssertionError("the kernels line does not list every kernel")
     report["card"] = card

@@ -24,9 +24,14 @@ The paper's discipline, end to end:
 The files are the reference's: the same manifest (json key order
 included), ``_leaf_file`` names, ``.npz`` keys ``q``/``s``/``x`` and md5
 digests of the host bytes, so a checkpoint written by either package
-restores in the other.  Stage names and details of the ``RecoveryReport``
-are the reference's too.  Restoring onto a mesh (``shardings=``) is not
-ported.
+restores in the other.  A bf16 leaf is written as the reference writes
+its ml_dtypes array: the raw 2-byte words under an ``.npy`` header whose
+descr is ``'<V2'`` (``_savez_words``; numpy alone would write ``'|V2'``),
+manifest dtype ``"bfloat16"``, never quantized.  The port restores such a
+leaf from its words; the reference cannot (its ``astype`` from ``'|V2'``
+raises), a departure pinned in ROADMAP Queue 3.  Stage names and
+details of the ``RecoveryReport`` are the reference's too.  Restoring
+onto a mesh (``shardings=``) is not ported.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import json
 import os
 import threading
 import time
+import zipfile
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -74,6 +80,25 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).contiguous().numpy()
 
 
+def _words(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a bf16 tensor's 2-byte words."""
+    return _host(t.view(torch.int16))
+
+
+def _savez_words(f, host: Dict[str, np.ndarray]) -> None:
+    """``np.savez(f, **host)`` for arrays of bf16 words: the same zip
+    (stored, zip64 entries, numpy's fixed timestamps) and ``.npy``
+    headers, with the descr ``'<V2'`` that ml_dtypes' bfloat16 gives."""
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in host.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                np.lib.format.write_array_header_1_0(
+                    fid, {"descr": "<V2", "fortran_order": False,
+                          "shape": val.shape})
+                fid.write(memoryview(np.ascontiguousarray(val)).cast("B"))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -81,10 +106,13 @@ def _sync(device: torch.device) -> None:
 
 class CheckpointManager:
     def __init__(self, directory: str, policy: pol.PersistPolicy,
-                 incremental: bool = False):
+                 incremental: bool = False, use_pack_kernel: bool = False):
         self.dir = directory
         self.policy = policy
         self.incremental = incremental
+        # the reference stores this flag and reads it nowhere; kept for its
+        # argument order, it changes no file
+        self.use_pack_kernel = use_pack_kernel
         os.makedirs(directory, exist_ok=True)
         self._writer: Optional[threading.Thread] = None
         self._write_error: Optional[BaseException] = None
@@ -126,11 +154,13 @@ class CheckpointManager:
             entry = {"shape": list(p.shape), "dtype": str(p.dtype),
                      "kind": p.kind.value, "file": _leaf_file(p.path),
                      "quantized": False}
-            if p.quantized and np.issubdtype(p.dtype, np.floating):
+            if p.quantized and pol.quantizable(p.dtype):
                 q, s = kops.quantize_leaf(leaf)
                 host = {"q": _host(q), "s": _host(s)}
                 entry["quantized"] = True
                 quantized_any = True
+            elif p.dtype is pol.BFLOAT16:
+                host = {"x": _words(leaf)}
             else:
                 host = {"x": _host(leaf)}
             nbytes = sum(v.nbytes for v in host.values())
@@ -156,7 +186,11 @@ class CheckpointManager:
             for host, entry in to_write.values():
                 fp = os.path.join(self.dir, entry["file"])
                 with open(fp + ".tmp", "wb") as f:
-                    np.savez(f, **host)
+                    if entry["dtype"] == pol.BFLOAT16.name \
+                            and not entry["quantized"]:
+                        _savez_words(f, host)
+                    else:
+                        np.savez(f, **host)
                     f.flush()
                     os.fsync(f.fileno())
                 os.replace(fp + ".tmp", fp)
@@ -349,19 +383,25 @@ class CheckpointManager:
         self._warm_result = {}
         return TrainState(**pol.tree_unflatten(sd, leaves))
 
-    def _load_leaf(self, entry: dict, shape, dtype: np.dtype,
+    def _load_leaf(self, entry: dict, shape, dtype,
                    device: torch.device) -> torch.Tensor:
         """A persisted leaf: dequantized on ``device`` when quantized,
-        else a host tensor (``device_put`` moves it)."""
+        else a host tensor (``device_put`` moves it).  A bf16 leaf's
+        file holds its 2-byte words (``'<V2'``), read back as they are."""
         with np.load(os.path.join(self.dir, entry["file"])) as z:
             if entry.get("quantized"):
                 q = torch.from_numpy(z["q"]).to(device)
                 s = torch.from_numpy(z["s"]).to(device)
                 return kops.dequantize_leaf(
                     q, s, tuple(entry["shape"]),
-                    pol.TORCH_DTYPES[np.dtype(entry["dtype"])])
-            return torch.from_numpy(
-                z["x"].reshape(shape).astype(dtype, copy=False))
+                    pol.TORCH_DTYPES[pol.manifest_dtype(entry["dtype"])])
+            x = z["x"].reshape(shape)
+            if dtype is pol.BFLOAT16:
+                if x.dtype.itemsize == 2 and x.dtype.kind in "Vui":
+                    return torch.from_numpy(
+                        x.view(np.int16).copy()).view(torch.bfloat16)
+                return torch.from_numpy(x).to(torch.bfloat16)
+            return torch.from_numpy(x.astype(dtype, copy=False))
 
     def _reconstruct_leaf(self, pstr: str, seed: int, step: int, shape,
                           dtype: torch.dtype) -> torch.Tensor:

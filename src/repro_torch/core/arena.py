@@ -384,9 +384,8 @@ class Region(_RowAccess):
 
     # -- persistence ------------------------------------------------------
     def _pview(self) -> np.ndarray:
-        flat = np.frombuffer(self.arena._mm, dtype=np.uint8,
-                             count=self.nbytes, offset=self.offset)
-        return flat.view(self.dtype).reshape(self.shape)
+        return self.arena._mm_view(self.offset, self.nbytes, self.dtype,
+                                   self.shape)
 
     def persist_rows(self, rows) -> None:
         """Flush the given row indices (volatile -> persistent) NOW, with
@@ -450,12 +449,20 @@ class Arena:
     and flush accounting."""
 
     def __init__(self, path: Optional[str], synth_line_ns: float = 0.0,
-                 commit_mode: str = "barrier",
+                 pack_flush_rows: int = 0, commit_mode: str = "barrier",
                  synth_fence_ns: float = 0.0, paged: Optional[bool] = None,
                  block_bytes: int = 4096, cache_blocks: int = 1024,
                  integrity: Optional[bool] = None, device=None):
+        """The reference's parameters in the reference's order, then
+        ``device``.  ``pack_flush_rows`` is kept for that order and read
+        nowhere: the reference gathers a drain's rows through its Pallas
+        ``pack_rows`` when a region has at least that many and through
+        numpy otherwise, with the same bytes either way; here every drain
+        gathers through the grouped ``pack_rows`` kernel, so the value
+        changes no byte, no FlushStats field and no launch count."""
         if commit_mode not in ("barrier", "shadow"):
             raise ValueError(f"unknown commit_mode {commit_mode!r}")
+        self.pack_flush_rows = int(pack_flush_rows)
         self.device = resolve_device(device)
         # paged regions fault fixed-size blocks through one arena-wide
         # cache instead of holding a full-shape tensor each
@@ -484,6 +491,9 @@ class Arena:
         self._epoch_depth = 0
         self._layout_final = False
         self._mm: Optional[np.ndarray] = None
+        # typed views of the image (``_mm_view``), for the image they view
+        self._views: Dict[tuple, np.ndarray] = {}
+        self._views_of: Optional[np.ndarray] = None
         self._cursor = 4096  # header page
         self._meta: Dict[str, dict] = {}
         self.generation = 0
@@ -753,21 +763,33 @@ class Arena:
     def _shadow_target_bank(self) -> int:
         return (self.generation + 1) % 2
 
+    def _mm_view(self, offset: int, nbytes: int, dtype, shape) -> np.ndarray:
+        """A typed view of ``nbytes`` of the persistent image at
+        ``offset``, kept while the image stays mapped: a drain asks for
+        the same regions' views many times an epoch."""
+        mm = self._mm
+        if self._views_of is not mm:
+            self._views, self._views_of = {}, mm
+        key = (offset, nbytes, dtype, shape)
+        v = self._views.get(key)
+        if v is None:
+            v = self._views[key] = np.frombuffer(
+                mm, dtype=np.uint8, count=nbytes,
+                offset=offset).view(dtype).reshape(shape)
+        return v
+
     def _shadow_mirror(self, region: Region, bank: int) -> np.ndarray:
-        flat = np.frombuffer(self._mm, dtype=np.uint8, count=region.nbytes,
-                             offset=region._shadow_off[bank])
-        return flat.view(region.dtype).reshape(region.shape)
+        return self._mm_view(region._shadow_off[bank], region.nbytes,
+                             region.dtype, region.shape)
 
     def _shadow_entries(self, bank: int) -> np.ndarray:
-        flat = np.frombuffer(self._mm, dtype=np.uint8,
-                             count=self._shadow_cap * 16,
-                             offset=self._shadow_ent_off[bank])
-        return flat.view(np.int64).reshape(self._shadow_cap, 2)
+        return self._mm_view(self._shadow_ent_off[bank],
+                             self._shadow_cap * 16, np.dtype(np.int64),
+                             (self._shadow_cap, 2))
 
     def _shadow_meta_view(self) -> np.ndarray:
-        flat = np.frombuffer(self._mm, dtype=np.uint8, count=LINE,
-                             offset=self._shadow_meta_off)
-        return flat.view(np.int64)
+        return self._mm_view(self._shadow_meta_off, LINE,
+                             np.dtype(np.int64), (LINE // 8,))
 
     def _shadow_rows(self, region: Region) -> Optional[np.ndarray]:
         """Rows of ``region`` the authoritative bank remaps, or None (none,
@@ -794,9 +816,12 @@ class Arena:
         b = self._shadow_target_bank()
         mask = self._shadow_masks[b].get(region.name)
         if mask is None:
+            # the bank's first rows of this region: all of them are new
             mask = self._shadow_masks[b][region.name] = \
                 np.zeros(region.shape[0], bool)
-        new = rows[~mask[rows]]
+            new = rows
+        else:
+            new = rows[~mask[rows]]
         mask[rows] = True
         self._shadow_mirror(region, b)[rows] = data
         self._account_rows(region._shadow_off[b], region.rowbytes, rows,
@@ -1062,6 +1087,7 @@ class Arena:
         if isinstance(self._mm, np.memmap):
             self._mm.flush()
         self._mm = None
+        self._views, self._views_of = {}, None
 
 
 def _align(x: int, a: int) -> int:
@@ -1454,10 +1480,14 @@ class ShardedArena:
     the pool overlap), the global fence spins."""
 
     def __init__(self, path: Optional[str], n_shards: int = 2,
-                 synth_line_ns: float = 0.0, commit_mode: str = "barrier",
-                 synth_fence_ns: float = 0.0, paged: Optional[bool] = None,
-                 block_bytes: int = 4096, cache_blocks: int = 1024,
+                 synth_line_ns: float = 0.0, pack_flush_rows: int = 0,
+                 commit_mode: str = "barrier", synth_fence_ns: float = 0.0,
+                 paged: Optional[bool] = None, block_bytes: int = 4096,
+                 cache_blocks: int = 1024,
                  integrity: Optional[bool] = None, device=None):
+        """The reference's parameters in the reference's order, then
+        ``device``; ``pack_flush_rows`` as ``Arena``'s (kept, changes
+        nothing), handed to every shard."""
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         if commit_mode not in ("barrier", "shadow"):
@@ -1474,9 +1504,11 @@ class ShardedArena:
         # sidecars are declared at the sharded level, each with its source
         # region's router, so a row's checksum lives on the row's shard
         self.integrity = integrity_enabled(integrity)
+        self.pack_flush_rows = int(pack_flush_rows)
         self.shards = [Arena(f"{path}.s{k}" if path else None, synth_line_ns,
-                             commit_mode=commit_mode, paged=False,
-                             integrity=False, device=self.device)
+                             pack_flush_rows, commit_mode=commit_mode,
+                             paged=False, integrity=False,
+                             device=self.device)
                        for k in range(self.n_shards)]
         for sh in self.shards:
             sh.synth_sleep = True

@@ -17,7 +17,10 @@ NamedTuple fields and list/tuple items in order, ``None`` an empty
 subtree, anything else a leaf.  A path is a tuple of keys (dict keys and
 field names as str, sequence positions as ``"[i]"``), joined by
 ``path_str`` into ``"params/blocks/pos0/attn/wq"``.  Leaf dtypes are
-reported as numpy dtypes, the manifest's names.
+reported as numpy dtypes, the manifest's names, and bf16 as
+``BFLOAT16``: numpy has no bfloat16 of its own (the reference's comes
+from ``ml_dtypes``, which the port does not use), so that object stands
+for it where a plan or a manifest needs its name and width.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from typing import Any, Callable, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Kind", "DEFAULT_RULES", "NUMPY_DTYPES", "TORCH_DTYPES",
+__all__ = ["Kind", "BFLOAT16", "DEFAULT_RULES", "NUMPY_DTYPES",
+           "TORCH_DTYPES", "manifest_dtype", "quantizable",
            "PersistPolicy", "FULLY_PERSISTENT", "PARTLY_PERSISTENT",
            "PARTLY_Q8", "PARTLY_DROP", "LeafPlan",
            "classify", "leaf_dtype", "path_str", "persisted_bytes", "plan",
@@ -56,11 +60,40 @@ DEFAULT_RULES: Tuple[Tuple[str, Kind], ...] = (
     ("paging/*", Kind.DERIVABLE),
 )
 
+class _BFloat16:
+    """bfloat16 as a plan and a manifest name it: ``str`` gives the
+    manifest's ``"bfloat16"``, ``itemsize`` its 2 bytes.  Its leaves
+    persist as raw 2-byte words (``ckpt/manager.py``)."""
+    name = "bfloat16"
+    itemsize = 2
+
+    def __str__(self) -> str:
+        return self.name
+
+    def __repr__(self) -> str:
+        return "BFLOAT16"
+
+
+BFLOAT16 = _BFloat16()
+
 # the dtypes a persisted leaf may have, torch -> numpy (the manifest's name)
 NUMPY_DTYPES = {torch.float32: np.dtype("float32"),
                 torch.int32: np.dtype("int32"),
-                torch.uint32: np.dtype("uint32")}
+                torch.uint32: np.dtype("uint32"),
+                torch.bfloat16: BFLOAT16}
 TORCH_DTYPES = {v: k for k, v in NUMPY_DTYPES.items()}
+
+
+def manifest_dtype(name: str):
+    """The dtype a manifest names: ``BFLOAT16`` or a numpy dtype."""
+    return BFLOAT16 if name == BFLOAT16.name else np.dtype(name)
+
+
+def quantizable(dtype) -> bool:
+    """Whether PARTLY_Q8 quantizes a leaf of this dtype: a numpy floating
+    type.  The reference asks ``np.issubdtype(dtype, np.floating)``, which
+    is False for ml_dtypes' bfloat16, so bf16 moments persist raw."""
+    return dtype is not BFLOAT16 and np.issubdtype(dtype, np.floating)
 
 
 # ------------------------------------------------------------------ trees
@@ -130,17 +163,20 @@ def path_str(path) -> str:
     return "/".join(str(k) for k in path)
 
 
-def leaf_dtype(leaf) -> np.dtype:
-    """A leaf's dtype as numpy names it; NotImplementedError for a dtype
-    the checkpoint format does not carry yet."""
+def leaf_dtype(leaf):
+    """A leaf's dtype as numpy names it (``BFLOAT16`` for bf16, also for
+    an ml_dtypes array of the reference's); NotImplementedError for a
+    dtype the checkpoint format does not carry yet."""
     dt = leaf.dtype
     if isinstance(dt, torch.dtype):
         if dt not in NUMPY_DTYPES:
             raise NotImplementedError(
                 f"{dt} leaves are not ported to repro_torch's checkpoint "
-                f"yet (supported: float32, int32, uint32)")
+                f"yet (supported: float32, bfloat16, int32, uint32)")
         return NUMPY_DTYPES[dt]
     dt = np.dtype(dt)
+    if dt.name == BFLOAT16.name:
+        return BFLOAT16
     if dt not in TORCH_DTYPES:
         raise NotImplementedError(f"{dt} leaves are not ported to "
                                   f"repro_torch's checkpoint yet")
@@ -184,7 +220,7 @@ class LeafPlan:
     path: str
     kind: Kind
     shape: Tuple[int, ...]
-    dtype: Any                     # numpy dtype
+    dtype: Any                     # numpy dtype, or BFLOAT16
     nbytes: int
     persisted: bool
     quantized: bool

@@ -14,18 +14,19 @@ arithmetic, so the accounting matches it exactly.  The row DATA stays on
 the arena's device until the drain.  A drain first plans both barrier
 phases on the host (which regions, their unique rows, the line costs),
 then gathers every row it will write, data and metadata phase alike, in
-ONE grouped gather (``WriteSet.gather``): the indices go to the card in
-one pinned copy, ``pack_rows_grouped`` packs every region's rows into
-one staging buffer in pinned host memory, which the kernel writes
-directly over the bus (one launch for up to 64 regions; no device
-staging buffer and no download, one copy fewer than staging on the card
-and copying back, and as fast on an H100 within the host's spread:
-PERF.md), and one stream synchronize precedes the host's reads.  Then,
+ONE grouped gather (``WriteSet.gather``): the host writes the indices
+into a pinned buffer and ``pack_rows_grouped_host`` packs every region's
+rows into one staging buffer in pinned host memory, the kernel reading
+the indices and writing the rows directly over the bus (one launch for
+up to 64 regions; no index upload, no device staging buffer and no
+download: no copy call, one launch and one synchronize, which precedes
+the host's reads; PERF.md).  Then,
 phase by phase in the reference's order, it writes the rows into the
 persistent image, accounts them and fences.  Gathering both phases at
 once is safe: nothing writes the volatile tensors between the two
 phases of one drain.  The reference's ``Arena(pack_flush_rows=N)`` path
-is here always on, and unlike the reference there is no silent
+is here always on, whatever N (the arenas keep the value for the
+reference's argument order), and unlike the reference there is no silent
 fallback: a failed kernel raises.
 
 Every flush first asks the arena's order-snapshot providers for their
@@ -70,7 +71,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.pack_flush import (group_layout, pack_rows,
-                                            pack_rows_grouped)
+                                            pack_rows_grouped,
+                                            pack_rows_grouped_host)
 
 __all__ = ["DigestWriteSet", "ShardedWriteSet", "WriteSet", "gather_rows",
            "host_rows"]
@@ -102,6 +104,32 @@ class _Planned(NamedTuple):
     fresh: int = 0
 
 
+class _Marks:
+    """One region's pending marks: the row arrays of its rewrite marks
+    and of its fresh marks, the line cost their calls claimed and the
+    rows they named, summed as they come so a drain only concatenates."""
+    __slots__ = ("rows", "would", "marked")
+
+    def __init__(self):
+        self.rows: Tuple[List[np.ndarray], List[np.ndarray]] = ([], [])
+        self.would = 0
+        self.marked = 0
+
+    def add(self, rows: np.ndarray, would: int, fresh: bool) -> None:
+        self.rows[fresh].append(rows)
+        self.would += would
+        self.marked += int(rows.size)
+
+
+def _union(parts: List[np.ndarray]) -> np.ndarray:
+    """Sorted unique rows of the sorted unique arrays ``parts``."""
+    if len(parts) == 1:
+        return parts[0]
+    if not parts:
+        return np.empty(0, np.int64)
+    return np.unique(np.concatenate(parts))
+
+
 class WriteSet:
     """Per-arena dirty-row tracker with epoch-batched flushing."""
 
@@ -111,12 +139,14 @@ class WriteSet:
 
     def __init__(self, arena):
         self.arena = arena
-        # region name -> list of (unique rows, per-call line cost, fresh)
-        self._pending: Dict[str, List[Tuple[np.ndarray, int, bool]]] = {}
+        # region name -> its pending marks
+        self._pending: Dict[str, _Marks] = {}
         # pinned host indices and staging, card arenas only: grown on
         # demand, reused by every drain (each ends in a stream synchronize)
         self._pinned_idx: Optional[torch.Tensor] = None
         self._pinned_out: Optional[torch.Tensor] = None
+        # each pinned buffer's numpy view, made once per buffer
+        self._pinned_host: Dict[str, np.ndarray] = {}
 
     def mark(self, region, rows: np.ndarray, fresh: bool = False) -> None:
         """Record dirty rows of `region`; flushed at epoch close.
@@ -126,14 +156,15 @@ class WriteSet:
         rows = np.unique(host_rows(rows))
         if rows.size == 0:
             return
+        marks = self._pending.get(region.name)
+        if marks is None:
+            marks = self._pending[region.name] = _Marks()
         if region.snap or region.jrnl:
             # snapshot and journal rows stay off the marks/dedup/saved
             # ledger
-            self._pending.setdefault(region.name, []).append(
-                (rows, 0, fresh))
+            marks.add(rows, 0, fresh)
             return
-        self._pending.setdefault(region.name, []).append(
-            (rows, self._would(region, rows), fresh))
+        marks.add(rows, self._would(region, rows), fresh)
         self._ledger().marks += 1
 
     def _ledger(self):
@@ -216,11 +247,9 @@ class WriteSet:
         plan = []
         for name in names:
             marks = self._pending.pop(name)
-            plan.append(_Planned(
-                arena.regions[name],
-                np.unique(np.concatenate([r for r, _, _ in marks])),
-                sum(w for _, w, _ in marks),
-                sum(r.size for r, _, _ in marks)))
+            plan.append(_Planned(arena.regions[name],
+                                 _union(marks.rows[0] + marks.rows[1]),
+                                 marks.would, marks.marked))
         return plan
 
     def _flush_shadow(self) -> bool:
@@ -295,18 +324,14 @@ class WriteSet:
         shadow drain's plan: the fresh rows, then the rewritten ones."""
         plan = []
         for name in self._order(self._pending):
-            parts, would, marked = ([], []), 0, 0
-            for r, w, f in self._pending.pop(name):
-                parts[f].append(r)
-                would += w
-                marked += r.size
-            rew, fr = (np.unique(np.concatenate(x)) if x
-                       else np.empty(0, np.int64) for x in parts)
+            marks = self._pending.pop(name)
+            rew, fr = _union(marks.rows[0]), _union(marks.rows[1])
             if fr.size and rew.size:
                 # a row marked both ways is conservatively a rewrite
                 fr = np.setdiff1d(fr, rew, assume_unique=True)
             plan.append(_Planned(self.arena.regions[name],
-                                 np.concatenate([fr, rew]), would, marked,
+                                 np.concatenate([fr, rew]) if fr.size
+                                 else rew, marks.would, marks.marked,
                                  int(fr.size)))
         return plan
 
@@ -412,16 +437,17 @@ class WriteSet:
             idx = torch.from_numpy(np.concatenate(idxs).astype(np.int32))
             buf = pack_rows_grouped(srcs, idx, counts).numpy()
         else:
-            hidx = self._pinned("_pinned_idx", 4 * n).view(torch.int32)
-            host_idx, pos = hidx.numpy(), 0
+            hidx = self._pinned("_pinned_idx", 4 * n)
+            host_idx, pos = self._pinned_host["_pinned_idx"].view(
+                np.int32), 0
             for rows, m in zip(idxs, counts):
                 host_idx[pos:pos + m] = rows
                 pos += m
             hout = self._pinned("_pinned_out", total)
-            idx = hidx[:n].to(dev, non_blocking=True)
-            pack_rows_grouped(srcs, idx, counts, out=hout)
-            torch.cuda.current_stream(dev).synchronize()
-            buf = hout.numpy()
+            stream = torch.cuda.current_stream(dev)
+            pack_rows_grouped_host(srcs, counts, hidx, hout, stream)
+            stream.synchronize()
+            buf = self._pinned_host["_pinned_out"]
         WriteSet.gathers += 1
         return [buf[off:off + m * region.rowbytes].view(region.dtype)
                 .reshape((m,) + region.shape[1:])
@@ -435,6 +461,7 @@ class WriteSet:
             size = 1 << max(12, (nbytes - 1).bit_length())
             buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
             setattr(self, attr, buf)
+            self._pinned_host[attr] = buf.numpy()
         return buf
 
 
@@ -480,9 +507,13 @@ class ShardedWriteSet(WriteSet):
         pay the one global fence."""
         if not plan:
             return False
-        sidecars.extend(self._write_shards(
-            plan, [(p.region, p.rows, host, False)
-                   for p, host in zip(plan, staged)], fold=False))
+        work: Dict[int, list] = {}
+        for p, host in zip(plan, staged):
+            for s, local, sel in p.region._split(p.rows):
+                work.setdefault(s, []).append(
+                    (p.region.slices[s], local,
+                     host if sel is None else host[sel], False))
+        sidecars.extend(self._write_shards(plan, work, fold=False))
         self.arena._fence()         # the global cross-shard ordering point
         return True
 
@@ -496,20 +527,28 @@ class ShardedWriteSet(WriteSet):
         plan = self._shadow_plan()
         if not plan:
             return False
-        order = [(p.region, rows, remap) for p in plan
+        staged = self._gather_paged(
+            [(p.region, p.rows) for p in plan],
+            lambda: self._shard_script(
+                [(p.region, rows, remap) for p in plan
                  for rows, remap in ((p.rows[p.fresh:], True),
                                      (p.rows[:p.fresh], False))
-                 if rows.size]
-        staged = self._gather_paged([(p.region, p.rows) for p in plan],
-                                    lambda: self._shard_script(order))
-        parts, it = [], iter(staged)
-        for p in plan:
-            host, k = next(it), p.fresh
-            for rows, part, remap in ((p.rows[k:], host[k:], True),
-                                      (p.rows[:k], host[:k], False)):
-                if rows.size:
-                    parts.append((p.region, rows, part, remap))
-        self.seat_sidecars(self._write_shards(plan, parts, fold=True))
+                 if rows.size]))
+        # each region's rows split across the shards once, each shard's
+        # share then cut into its rewrites and its fresh rows
+        work: Dict[int, list] = {}
+        for p, host in zip(plan, staged):
+            k, sl_of = p.fresh, p.region.slices
+            for s, local, sel in p.region._split(p.rows):
+                g = host if sel is None else host[sel]
+                cut = k if sel is None else \
+                    int(np.count_nonzero(sel[:k]))
+                w = work.setdefault(s, [])
+                if cut < local.size:
+                    w.append((sl_of[s], local[cut:], g[cut:], True))
+                if cut:
+                    w.append((sl_of[s], local[:cut], g[:cut], False))
+        self.seat_sidecars(self._write_shards(plan, work, fold=True))
         return True
 
     def _barrier_script(self, plans) -> list:
@@ -535,24 +574,18 @@ class ShardedWriteSet(WriteSet):
                  for region, rows, remap in work[s]])
         return out
 
-    def _write_shards(self, plan: List[_Planned], parts: list,
+    def _write_shards(self, plan: List[_Planned], work: Dict[int, list],
                       fold: bool) -> list:
-        """Write ``parts``, ``(region, global rows, gathered rows, remap)``
-        in order, shard by shard: each shard with work first folds its
-        committed bank home when ``fold``, then takes its share of each
-        part, through its remap where ``remap`` (``Arena._shadow_write``
+        """Write ``work``, shard -> ``[(slice, local rows, gathered rows,
+        remap)]`` in order, shard by shard: each shard with work first
+        folds its committed bank home when ``fold``, then takes its
+        parts, through its remap where ``remap`` (``Arena._shadow_write``
         on the slice, checksums cascading into the sidecar slice's mirror)
         and home otherwise, with their checksums.  Saved lines count each
         shard's whole line delta, a fold included, against the marks'
         per-call counts of ``plan``'s non-snapshot, non-journal regions,
         as the reference does.  Returns the sidecar rows to seat."""
         arena = self.arena
-        work: Dict[int, list] = {}   # shard -> [(slice, local, rows, remap)]
-        for region, rows, host, remap in parts:
-            for s, local, sel in region._split(rows):
-                work.setdefault(s, []).append(
-                    (region.slices[s], local,
-                     host if sel is None else host[sel], remap))
         actual, seats = {}, {}
 
         def write_shard(s: int) -> None:

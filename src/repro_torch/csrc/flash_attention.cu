@@ -7,8 +7,13 @@
 // across the KV axis, relying on the TPU's sequential minor-axis order.
 //
 // Computes, for query head h and KV head h / group:
-//   s = q . k^T * scale in f32, masked where kpos > qpos (causal) or where
-//   kpos >= Skv (the ragged tile edge); m_new = max(m, rowmax s);
+//   s = q . k^T * scale in f32; with softcap > 0, s = softcap *
+//   tanh(s / softcap) (gemma2's score cap, before the mask, as the
+//   reference's layer applies it: src/repro/models/layers.py:128); masked
+//   where kpos > qpos (causal), where qpos - kpos >= window (window > 0, a
+//   sliding window; one-sided, on top of causal or not, as the reference's
+//   mask at layers.py:258) or where kpos >= Skv (the ragged tile edge);
+//   m_new = max(m, rowmax s);
 //   p = exp(s - m_new) where s > 0.5 * NEG_INF, else 0;
 //   l = l * exp(m - m_new) + rowsum p; acc = acc * exp(m - m_new) + p . v;
 //   out = acc / max(l, 1e-30), in q's dtype; rows >= Sq are not written;
@@ -16,13 +21,24 @@
 //   (natural units of s), +inf for a row whose l is 0, which the backward
 //   (csrc/flash_attention_bwd.cu) reads to rebuild P.  Serving passes null
 //   and gets the kernels as they were.
-// With group == 1 this is exactly the TPU kernel's function.  Both kernels
+// With group == 1, window 0 and softcap 0 this is exactly the TPU kernel's
+// function; the window and the cap are what the reference computes for
+// gemma's layers in XLA (layers.py:200-285), which its Pallas kernel
+// lacks.  Both kernels
 // give a masked score -inf and exponentiate a row that has no visible key
 // yet against 0, which excludes it as the s > 0.5 * NEG_INF test does.
 //
-// Bound on an H100: operations, 4 * H * Sq * Skv * D flops (about halved
-// when causal); the bytes (q, k, v, o once) are far below.  One C entry
-// point, two kernels, one per input type:
+// Bound on an H100: operations, 4 * D flops per (query, key) pair the mask
+// keeps (H * Sq * Skv in all, about halved when causal, about H * Sq *
+// window under a window); the bytes (q, k, v, o once) are far below.
+//
+// Sliding window: a block's KV loop starts at the tile holding its first
+// row's first visible key, max(0, q0 - window + 1): tiles below the band
+// are skipped, not masked, so a local layer's work grows with S * window,
+// not S^2 / 2.  The element mask runs only on tiles that cross the band's
+// lower edge, the diagonal or the ragged edge.  Softcap: one tanhf per f32
+// score, before the running max, so the lse the kernel writes is that of
+// the capped scores.  One C entry point, two kernels, one per input type:
 //
 // bf16, on the tensor cores (989 TFLOP/s).  A block owns 128 q rows of one
 // head: two consumer warpgroups of 64 rows and one producer warp.  The
@@ -31,7 +47,7 @@
 // described as a 3-D (D, S, heads) tensor so that rows past S are zero
 // filled and never the next head's; an mbarrier per stage reports K, V and
 // the release of the stage.  A consumer computes S = Q.K^T as a chain of
-// wgmma m64n128k16 (both operands K-major in shared memory), scales the f32
+// wgmma m64nBKk16 (both operands K-major in shared memory), scales the f32
 // scores after the product (Q stays unscaled bf16, so no rounding is added
 // before the product), runs the online softmax on the accumulator fragments
 // in log2 units, one ex2 per score (row max and row sum are quad shuffles;
@@ -46,7 +62,11 @@
 // diagonal or the ragged edge are masked.  The output is stored from
 // registers, rows >= Sq masked.  A barrier wait that never ends traps
 // rather than hanging the card.  The mbarrier, TMA, descriptor and wgmma
-// helpers are in csrc/hopper.cuh, which the backward shares.
+// helpers are in csrc/hopper.cuh, which the backward shares.  D = 256
+// (gemma2) takes KV tiles of 64 keys: Q (64 KB) and a two-stage ring of K
+// and V tiles (4 x 32 KB) fill 193 KB of shared memory, and each thread
+// holds its 128 f32 output accumulators, 32 scores and P's 16 words
+// (O += P.V is one wgmma m64n256k16 per 16 keys, four 64-column slabs).
 //
 // f32, on the FMA units (67 TFLOP/s; the reference's products are f32 and
 // its 1e-4 tolerance rules out TF32).  A block of 128 threads owns 64 q
@@ -62,6 +82,8 @@
 // P rows to 36, so the reads of a warp fall in distinct 16-byte bank
 // groups.  Q is scaled in f32 on load, as the TPU kernel does; P and each
 // row's rescale pass through shared memory between the two products.
+// At D = 256 one block needs 205 KB of shared memory, so one block (four
+// warps) runs on an SM.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,7 +169,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     flash_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int sq, int skv, int group,
-              int causal, float scale) {
+              int causal, float scale, int window, float softcap) {
   using S = Shape<D>;
   constexpr int OC = S::NCH * S::VEC;   // o columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -176,9 +198,14 @@ __global__ void __launch_bounds__(THREADS, 2)
   const float* vh = v + (int64_t)(h / group) * skv * D;
   const int kv_end = causal ? min(skv, q0 + BQ) : skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
+  // the tiles below the window's band hold no key any row of the block sees
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
-  load_kv<D>(ks, vs, kh, vh, 0, skv, tid);
-  cp_async_commit();
+  if (t_first < n_tiles) {
+    load_kv<D>(ks, vs, kh, vh, t_first * BK, skv, tid);
+    cp_async_commit();
+  }
+  if (tid < BQ) l_s[tid] = 0.f;   // a row that sees no key sums to 0
   for (int i = tid; i < BQ * D / 4; i += THREADS) {
     const int r = i / (D / 4), c = (i - r * (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -202,9 +229,9 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    const int buf = t & 1;
+    const int buf = (t - t_first) & 1;
     cp_async_wait0();    // this tile's copies have landed ...
     __syncthreads();     // ... for every thread, and tile t - 1 is done
     if (t + 1 < n_tiles) {
@@ -251,11 +278,19 @@ __global__ void __launch_bounds__(THREADS, 2)
         const float theirs = dh ? sp[i][jj] : sp[i][jj + 4];
         s[i][jj] = mine + __shfl_xor_sync(0xffffffffu, theirs, 16);
       }
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          s[i][jj] = softcap * tanhf(s[i][jj] / softcap);
+    }
 
     // a masked key is -inf; a row with no visible key yet keeps m = -inf
     // and exponentiates against 0, so its p are 0 (the TPU kernel's
     // s > 0.5 * NEG_INF exclusion)
-    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > q0);
+    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && q0 + BQ - 1 - k0 >= window);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = rg + 16 * i;
@@ -263,7 +298,9 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const int kp = k0 + kg + 4 * jj + 16 * dh;
-          if (kp >= skv || (causal && kp > q0 + row)) s[i][jj] = -INFINITY;
+          if (kp >= skv || (causal && kp > q0 + row) ||
+              (window > 0 && q0 + row - kp >= window))
+            s[i][jj] = -INFINITY;
         }
       }
       // a row's 32 keys lie on the 8 lanes that differ in bits 0, 1, 4
@@ -325,6 +362,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       }
     }
   }
+  __syncthreads();   // l_s is final (also when the block saw no tile)
 
   float* oh = o + (int64_t)h * sq * D;
 #pragma unroll
@@ -354,7 +392,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int64_t h, int64_t sq, int64_t skv, int group,
-                   int causal, float scale, cudaStream_t stream) {
+                   int causal, float scale, int window, float softcap,
+                   cudaStream_t stream) {
   constexpr size_t smem = Shape<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -363,7 +402,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_f32<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, (int)sq,
-      (int)skv, group, causal, scale);
+      (int)skv, group, causal, scale, window, softcap);
   return cudaGetLastError();
 }
 
@@ -373,7 +412,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 namespace bf16p {
 
 constexpr int BQ = 128;                 // two consumer warpgroups of 64 rows
-constexpr int BK = 128;
 constexpr int STAGES = 2;
 constexpr int CONSUMERS = 256;
 constexpr int THREADS = CONSUMERS + 32; // and one producer warp
@@ -382,6 +420,8 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Shape {
+  // keys a KV tile holds: 64 at D = 256, where tiles of 128 would not fit
+  static constexpr int BK = D > 128 ? 64 : 128;
   static constexpr int ROWB = (D < 64 ? D : 64) * 2;  // bytes of a swizzled row
   static constexpr int SLABS = D * 2 / ROWB;          // 64-column slabs
   static constexpr int KPS = ROWB / 32;               // k16 steps per slab
@@ -394,15 +434,27 @@ struct Shape {
       QBYTES + 2 * STAGES * KBYTES + 1024 + 8 * (1 + 3 * STAGES);
 };
 
+// S (64 x BK) (+)= Q . K^T, both K-major in shared memory
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (BK == 128)
+    wgmma_ss_n128(d, da, db, 1);
+  else
+    wgmma_ss_n64(d, da, db, 1);
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bf16(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int sq,
-               int skv, int group, int causal, float scale) {
+               int skv, int group, int causal, float scale, int window,
+               float softcap) {
   using S = Shape<D>;
   constexpr int ROWB = S::ROWB;
+  constexpr int BK = S::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ks = qs + S::QBYTES;                 // STAGES x KBYTES
@@ -418,6 +470,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int q0 = qb * BQ;
   const int kv_end = causal ? min(skv, q0 + BQ) : skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
+  // the tiles below the window's band hold no key any row of the block
+  // sees: neither loaded nor waited for
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -438,9 +493,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_expect_tx(qfull, S::QBYTES);
       for (int c = 0; c < S::SLABS; ++c)
         tma_load(qs + c * BQ * ROWB, &tq, qfull, c * 64, q0, h);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % STAGES;
-        if (t >= STAGES) mbar_wait(empty + st, (t / STAGES - 1) & 1);
+      for (int t = t_first; t < n_tiles; ++t) {
+        const int j = t - t_first;   // the ring's count of tiles
+        const int st = j % STAGES;
+        if (j >= STAGES) mbar_wait(empty + st, (j / STAGES - 1) & 1);
         uint8_t* kd = ks + st * S::KBYTES;
         uint8_t* vd = vs + st * S::KBYTES;
         mbar_expect_tx(kfull + st, S::KBYTES);
@@ -469,16 +525,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   mbar_wait(qfull, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % STAGES;
-    const int par = (t / STAGES) & 1;
+  for (int t = t_first; t < n_tiles; ++t) {
+    const int st = (t - t_first) % STAGES;
+    const int par = ((t - t_first) / STAGES) & 1;
     const int k0 = t * BK;
-    // a tile wholly above this warpgroup's rows (or rows past Sq) is only
-    // waited for, so the stage is released in order
-    const bool dead = rows_dead || (causal && k0 > wg_first + 63);
+    // a tile wholly above this warpgroup's rows, wholly below their window
+    // band, or over rows past Sq, is only waited for, so the stage is
+    // released in order
+    const bool dead = rows_dead || (causal && k0 > wg_first + 63) ||
+                      (window > 0 && wg_first - (k0 + BK - 1) >= window);
     mbar_wait(kfull + st, par);
     if (!dead) {
-      // S = Q . K^T, f32, 64 x 128 per warpgroup
+      // S = Q . K^T, f32, 64 x BK per warpgroup
       float sacc[BK / 2];
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
@@ -488,11 +546,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int slab = kk / S::KPS, sub = (kk % S::KPS) * 32;
-        wgmma_ss_n128(
+        wgmma_qk<BK>(
             sacc,
             smem_desc(qaddr + slab * BQ * ROWB + sub, 16, 8 * ROWB, S::SWZ),
-            smem_desc(kaddr + slab * BK * ROWB + sub, 16, 8 * ROWB, S::SWZ),
-            1);
+            smem_desc(kaddr + slab * BK * ROWB + sub, 16, 8 * ROWB, S::SWZ));
       }
       wgmma_commit();
       wgmma_wait0();
@@ -503,17 +560,23 @@ __global__ void __launch_bounds__(THREADS, 1)
       // exponents are in log2 units (x = s * scale * log2 e, p = 2^(x - m));
       // a masked key is -inf, and a row with no visible key yet keeps
       // m = -inf and exponentiates against 0, so its p are 0: the TPU
-      // kernel's s > 0.5 * NEG_INF exclusion, without a compare per score
+      // kernel's s > 0.5 * NEG_INF exclusion, without a compare per score.
+      // A capped score is capped in natural units, then taken to log2 ones
       const float c = scale * LOG2E;
-      const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > wg_first);
+      const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > wg_first) ||
+                        (window > 0 && wg_first + 63 - k0 >= window);
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
-        float x = sacc[i] * c;
+        float x = softcap > 0.f
+                      ? softcap * tanhf(sacc[i] * scale / softcap) * LOG2E
+                      : sacc[i] * c;
         if (edge) {
           const int kp = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
           const int qp = (i & 2) ? qp1 : qp0;
-          if (kp >= skv || (causal && kp > qp)) x = -INFINITY;
+          if (kp >= skv || (causal && kp > qp) ||
+              (window > 0 && qp - kp >= window))
+            x = -INFINITY;
         }
         sacc[i] = x;
         if (i & 2)
@@ -605,16 +668,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int64_t h, int64_t sq, int64_t skv, int group, int causal,
-           float scale, cudaStream_t stream) {
+           float scale, int window, float softcap, cudaStream_t stream) {
   using S = Shape<D>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   CUresult res = make_map(encode, &tq, q, D, sq, h, BQ, S::ROWB);
   if (res == CUDA_SUCCESS)
-    res = make_map(encode, &tk, k, D, skv, h / group, BK, S::ROWB);
+    res = make_map(encode, &tk, k, D, skv, h / group, S::BK, S::ROWB);
   if (res == CUDA_SUCCESS)
-    res = make_map(encode, &tv, v, D, skv, h / group, BK, S::ROWB);
+    res = make_map(encode, &tv, v, D, skv, h / group, S::BK, S::ROWB);
   if (res != CUDA_SUCCESS) return ENCODE_ERROR + (int)res;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -623,7 +686,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((unsigned)h, (unsigned)((sq + BQ - 1) / BQ));
   flash_bf16<D><<<grid, THREADS, S::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, (int)sq, (int)skv,
-      group, causal, scale);
+      group, causal, scale, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -633,35 +696,43 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // q, o: (h, sq, d); k, v: (h / group, skv, d); all contiguous, 16-byte
 // aligned, one dtype (f32 when is_bf16 == 0, bf16 otherwise); lse null or
-// (h, sq) f32.  Returns 0, a CUDA runtime error code, or 10000 + the
-// driver's CUresult when a tensor map cannot be encoded.
+// (h, sq) f32; window 0 (none) or the keys a row sees back to itself;
+// softcap 0 (none) or the score cap.  Returns 0, a CUDA runtime error
+// code, or 10000 + the driver's CUresult when a tensor map cannot be
+// encoded.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse_out,
                                       int64_t h, int64_t sq, int64_t skv,
                                       int d, int group, int causal,
-                                      float scale, int is_bf16,
-                                      void* stream) {
+                                      float scale, int window, float softcap,
+                                      int is_bf16, void* stream) {
   if (h <= 0 || sq <= 0 || skv <= 0 || group <= 0 || h % group ||
+      window < 0 || !(softcap >= 0.f) ||
       sq > (int64_t)f32p::BQ * 65535 || sq > INT32_MAX || skv > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
+#define FLASH_ARGS \
+  q, k, v, o, lse, h, sq, skv, group, causal, scale, window, softcap, s
   if (is_bf16) {
     switch (d) {
-      case 16: return bf16p::launch<16>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
-      case 32: return bf16p::launch<32>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
-      case 64: return bf16p::launch<64>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
-      case 128: return bf16p::launch<128>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
+      case 16: return bf16p::launch<16>(FLASH_ARGS);
+      case 32: return bf16p::launch<32>(FLASH_ARGS);
+      case 64: return bf16p::launch<64>(FLASH_ARGS);
+      case 128: return bf16p::launch<128>(FLASH_ARGS);
+      case 256: return bf16p::launch<256>(FLASH_ARGS);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (d) {
-    case 16: return (int)f32p::launch<16>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
-    case 32: return (int)f32p::launch<32>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
-    case 64: return (int)f32p::launch<64>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
-    case 128: return (int)f32p::launch<128>(q, k, v, o, lse, h, sq, skv, group, causal, scale, s);
+    case 16: return (int)f32p::launch<16>(FLASH_ARGS);
+    case 32: return (int)f32p::launch<32>(FLASH_ARGS);
+    case 64: return (int)f32p::launch<64>(FLASH_ARGS);
+    case 128: return (int)f32p::launch<128>(FLASH_ARGS);
+    case 256: return (int)f32p::launch<256>(FLASH_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_ARGS
 }
 
 // dynamic shared memory of the kernel that takes head width d in the given
@@ -672,6 +743,7 @@ extern "C" int flash_attention_smem_bytes(int d, int is_bf16) {
     case 32: return (int)(is_bf16 ? bf16p::Shape<32>::SMEM : f32p::Shape<32>::SMEM);
     case 64: return (int)(is_bf16 ? bf16p::Shape<64>::SMEM : f32p::Shape<64>::SMEM);
     case 128: return (int)(is_bf16 ? bf16p::Shape<128>::SMEM : f32p::Shape<128>::SMEM);
+    case 256: return (int)(is_bf16 ? bf16p::Shape<256>::SMEM : f32p::Shape<256>::SMEM);
     default: return -1;
   }
 }

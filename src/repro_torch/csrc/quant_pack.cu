@@ -16,23 +16,27 @@
 // A NaN in the group makes absmax and the scale NaN, +-inf makes them inf
 // (the max carries NaN through, as the reference's does), and a NaN
 // quotient quantizes to 0, as XLA's conversion to int8 gives.
-// and back: x' = float(q) * scale.
+// and back: x' = float(q) * scale, written as f32, or as bf16 rounded to
+// nearest even from that f32 product in the same pass (the reference's
+// (q * s in f32).astype(dtype), src/repro/kernels/quant_pack.py:60-85).
 //
 // Bound on an H100: bytes.  quantize reads 4 B and writes 1 B per element
 // plus 4 B per 256; dequantize the reverse: about 5.02 B per element at
-// 3.35 TB/s.  The arithmetic (one division per element) is far below the
-// card's rate.
+// 3.35 TB/s (3.02 B with bf16 output).  The arithmetic (one division per
+// element) is far below the card's rate.
 //
 // Design: quantize gives one warp to each (row, group): lane l loads
 // elements [8l, 8l+8) as two float4, a __shfl_xor_sync max-reduction gives
 // the absmax in every lane, and the lane writes its 8 int8 with one 8-byte
 // store; lane 0 writes the scale.  dequantize gives each thread 4
 // elements: one 4-byte load of int8, its group's scale (shared by 64
-// neighbouring threads), one float4 store, so a warp reads 128 and writes
-// 512 contiguous bytes per instruction.  (Sixteen elements a thread, with
+// neighbouring threads), one float4 store (bf16: one 8-byte store of four
+// __float2bfloat16_rn), so a warp reads 128 and writes 512 (256)
+// contiguous bytes per instruction.  (Sixteen elements a thread, with
 // four float4 stores 64 bytes apart, would make each store instruction
 // span 2 KB at a quarter density.)  Both walk their work grid-stride with
 // 64-bit indices.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,9 +89,24 @@ __global__ void quantize_kernel(const float* __restrict__ x,
   }
 }
 
+__device__ __forceinline__ void store4(float* x, int64_t c, float4 v) {
+  reinterpret_cast<float4*>(x)[c] = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* x, int64_t c,
+                                       float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 w;
+  w.x = *reinterpret_cast<uint32_t*>(&lo);
+  w.y = *reinterpret_cast<uint32_t*>(&hi);
+  reinterpret_cast<uint2*>(x)[c] = w;
+}
+
+template <typename T>
 __global__ void dequantize_kernel(const int8_t* __restrict__ q,
                                   const float* __restrict__ scales,
-                                  float* __restrict__ x, int64_t quads) {
+                                  T* __restrict__ x, int64_t quads) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        c < quads; c += stride) {
@@ -99,7 +118,7 @@ __global__ void dequantize_kernel(const int8_t* __restrict__ q,
     v.y = (float)(int8_t)((w >> 8) & 0xff) * s;
     v.z = (float)(int8_t)((w >> 16) & 0xff) * s;
     v.w = (float)(int8_t)((w >> 24) & 0xff) * s;
-    reinterpret_cast<float4*>(x)[c] = v;
+    store4(x, c, v);
   }
 }
 
@@ -124,16 +143,22 @@ extern "C" int quantize_blockwise_launch(const void* x, void* q, void* scales,
   return (int)cudaGetLastError();
 }
 
-// q (n_el,) int8, scales (n_el / 256,) f32 -> x (n_el,) f32; n_el a
-// multiple of 256, q 4-byte and x 16-byte aligned.
+// q (n_el,) int8, scales (n_el / 256,) f32 -> x (n_el,) f32, or bf16 when
+// is_bf16; n_el a multiple of 256, q 4-byte and x 16-byte aligned.
 extern "C" int dequantize_blockwise_launch(const void* q, const void* scales,
                                            void* x, int64_t n_el,
-                                           void* stream) {
+                                           int is_bf16, void* stream) {
   const int64_t quads = n_el / 4;
   const int threads = 256;
-  dequantize_kernel<<<(unsigned)blocks_for(quads, threads), threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(x), quads);
+  const unsigned blocks = (unsigned)blocks_for(quads, threads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* qq = static_cast<const int8_t*>(q);
+  const float* ss = static_cast<const float*>(scales);
+  if (is_bf16)
+    dequantize_kernel<<<blocks, threads, 0, s>>>(
+        qq, ss, static_cast<__nv_bfloat16*>(x), quads);
+  else
+    dequantize_kernel<<<blocks, threads, 0, s>>>(
+        qq, ss, static_cast<float*>(x), quads);
   return (int)cudaGetLastError();
 }

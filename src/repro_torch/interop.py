@@ -81,12 +81,22 @@ def image_of(arena) -> np.ndarray:
     return np.array(arena._mm, np.uint8)
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """A copy of numpy array ``a`` on ``device``, its dtype kept: a
+    bfloat16 array (the reference's, from ml_dtypes, which numpy itself
+    lacks) moves as its 2-byte words."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
 def params_from_numpy(tree, device=None):
     """A parameter tree (nested dicts of numpy arrays) as torch tensors on
     ``device`` (None means the GPU), dtypes kept."""
     device = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
-        device), tree)
+    return tree_map(lambda a: _tensor(a, device), tree)
 
 
 def params_to_numpy(tree):
@@ -97,12 +107,10 @@ def params_to_numpy(tree):
 def state_from_numpy(tree, device=None) -> TrainState:
     """A port TrainState on ``device`` (None means the GPU) holding copies
     of ``tree``'s numpy leaves (any NamedTuple with TrainState's fields,
-    the reference's included); dtypes are kept, uint32 included."""
+    the reference's included); dtypes are kept, uint32 and bfloat16
+    included."""
     device = resolve_device(device)
-
-    def conv(leaf):
-        return torch.from_numpy(np.array(leaf, copy=True)).to(device)
-    return TrainState(**{k: tree_map(conv, v)
+    return TrainState(**{k: tree_map(lambda a: _tensor(a, device), v)
                          for k, v in tree._asdict().items()})
 
 

@@ -59,11 +59,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "quant_pack": {
         "quantize_blockwise_launch": [_P, _P, _P, _I64, _P],
-        "dequantize_blockwise_launch": [_P, _P, _P, _I64, _P],
+        "dequantize_blockwise_launch": [_P, _P, _P, _I64, _INT, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _P, _I64, _I64, _I64,
-                                   _INT, _INT, _INT, _F32, _INT, _P],
+                                   _INT, _INT, _INT, _F32, _INT, _F32, _INT,
+                                   _P],
         "flash_attention_smem_bytes": [_INT, _INT],
     },
     "flash_attention_bwd": {

@@ -7,16 +7,26 @@ K/V.  With group 1 this is the function of the TPU kernel it replaces,
 ``repro/kernels/flash_attention.py:flash_attention``: scores and the
 running max, sum and accumulator are f32, masked scores are excluded by
 ``s > 0.5 * NEG_INF``, and the output is ``acc / max(l, 1e-30)`` in q's
-dtype.  ``csrc/flash_attention.cu`` holds the two kernels and their design
-note: bf16 inputs run on the tensor cores (wgmma on TMA-filled tiles, the
-scale applied to the f32 scores, P rounded to bf16 for P.V); f32 inputs run
-a register-blocked FMA kernel with q scaled in f32 before the product, as
-the TPU kernel does.  The ragged edge (any Sq, Skv) is masked in the
-kernels, where the TPU wrapper asserted divisibility.
+dtype.  ``window`` and ``softcap`` add what the reference's layer
+computes for gemma in XLA (``repro/models/layers.py:blockwise_attention``,
+which its Pallas kernel lacks): the scaled scores are capped as
+``softcap * tanh(s / softcap)`` before the mask, and a key is hidden when
+``qpos - kpos >= window`` on top of the causal mask (one-sided: without
+causal, later keys stay visible, as in the reference).  The kernel skips
+the tiles below a block's window band.  Head widths 16 to 256 (gemma2's
+256 only in the forward).  ``csrc/flash_attention.cu`` holds the two
+kernels and their design note: bf16 inputs run on the tensor cores (wgmma
+on TMA-filled tiles, the scale applied to the f32 scores, P rounded to
+bf16 for P.V); f32 inputs run a register-blocked FMA kernel with q scaled
+in f32 before the product, as the TPU kernel does.  The ragged edge (any
+Sq, Skv) is masked in the kernels, where the TPU wrapper asserted
+divisibility.
 
-Bound: the larger of 4·H·Sq·Skv·D flops (halved when causal) over the f32
-rate (67 TFLOP/s) or, for bf16, 989 TFLOP/s, and the bytes of q, k, v and
-o once over 3.35 TB/s; operations bound it at every shape the model uses.
+Bound: the larger of 4·D flops per (query, key) pair the mask keeps
+(H·Sq·Skv, halved when causal, about H·Sq·window under a window) over the
+f32 rate (67 TFLOP/s) or, for bf16, 989 TFLOP/s, and the bytes of q, k, v
+and o once over 3.35 TB/s; operations bound it at every shape the model
+uses.
 
 Training needs the gradient, which the TPU kernel never had (the reference
 differentiates its jnp ``blockwise_attention`` through XLA).  With grad
@@ -28,7 +38,10 @@ the per-row logsumexp ``lse`` (H, Sq) f32, and its backward is
 then dK and dV over KV tiles, then dQ over Q tiles; bf16 on the tensor
 cores with P and dS rounded to bf16, f32 register-blocked on the FMA
 units; f32 sums, no atomics, so the bits repeat).  Bound of the backward:
-10·H·Sq·Skv·D flops (halved when causal) over the same rates.
+10·H·Sq·Skv·D flops (halved when causal) over the same rates.  The
+backward has no window, no softcap and no head width 256 yet: a call
+that needs the gradient with any of them raises ``NotImplementedError``
+on every device (ROADMAP Queue 1 item 4).
 
 Every wrapper dispatches by where its tensors live: CPU tensors take the
 plain versions (``flash_attention_plain``, ``flash_attention_bwd_plain``);
@@ -44,12 +57,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bwd",
+__all__ = ["BWD_HEAD_DIMS", "FlashAttentionFn", "HEAD_DIMS",
+           "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_delta_plain", "flash_attention_bwd_plain",
            "flash_attention_plain", "NEG_INF"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 # the kernels flash_attention_bwd_launch runs, by bit: the Di pass, dK/dV, dQ
 BWD_DELTA, BWD_DKDV, BWD_DQ = 1, 2, 4
 BWD_ALL = BWD_DELTA | BWD_DKDV | BWD_DQ
@@ -76,31 +91,50 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return h // hk
 
 
-def _masked(s: torch.Tensor, causal: bool) -> torch.Tensor:
+def _masked(s: torch.Tensor, causal: bool, window: int = 0) -> torch.Tensor:
     """Scores (H, Sq, Skv) with NEG_INF where causal hides a key (kpos >
-    qpos); the softmax then excludes ``s <= 0.5 * NEG_INF``."""
-    if not causal:
+    qpos) or the window does (qpos - kpos >= window); the softmax then
+    excludes ``s <= 0.5 * NEG_INF``."""
+    if not causal and not window:
         return s
     sq, skv = s.shape[-2:]
-    keep = (torch.arange(sq, device=s.device)[:, None]
-            >= torch.arange(skv, device=s.device)[None, :])
+    ahead = (torch.arange(sq, device=s.device)[:, None]
+             - torch.arange(skv, device=s.device)[None, :])
+    keep = torch.ones_like(ahead, dtype=torch.bool)
+    if causal:
+        keep &= ahead >= 0
+    if window:
+        keep &= ahead < window
     return torch.where(keep, s, NEG_INF)
+
+
+def _capped(s: torch.Tensor, softcap: float) -> torch.Tensor:
+    return softcap * torch.tanh(s / softcap) if softcap else s
+
+
+def _check_band(window: int, softcap: float) -> None:
+    if window < 0 or not softcap >= 0:
+        raise ValueError(f"flash_attention: window >= 0 and softcap >= 0 "
+                         f"expected, got {window}, {softcap}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           scale: Optional[float] = None,
+                          window: int = 0, softcap: float = 0.0,
                           return_lse: bool = False):
-    """Plain version: materialized f32 scores per head, masked softmax,
-    product, in q's dtype.  K/V are repeated per query group.  With
-    ``return_lse``, also the per-row logsumexp of the scaled scores,
-    (H, Sq) f32, +inf for a row with no visible key."""
+    """Plain version: materialized f32 scores per head, capped, masked
+    softmax, product, in q's dtype.  K/V are repeated per query group.
+    With ``return_lse``, also the per-row logsumexp of the scaled (and
+    capped) scores, (H, Sq) f32, +inf for a row with no visible key."""
     g = _check(q, k, v)
+    _check_band(window, softcap)
     d = q.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     kk = k.float().repeat_interleave(g, dim=0)
     vv = v.float().repeat_interleave(g, dim=0)
-    s = _masked(torch.matmul(q.float() * scale, kk.transpose(1, 2)), causal)
+    s = _masked(_capped(torch.matmul(q.float() * scale, kk.transpose(1, 2)),
+                        softcap), causal, window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
@@ -166,14 +200,14 @@ def _check_bwd(q: torch.Tensor, k: torch.Tensor, o: torch.Tensor,
 
 
 def _kernel_ready(name: str, q: torch.Tensor, k: torch.Tensor,
-                  *more: torch.Tensor) -> None:
+                  *more: torch.Tensor, widths=HEAD_DIMS) -> None:
     """Raise unless the kernel takes these CUDA tensors: a head width of
-    HEAD_DIMS, at least one key, 16-byte aligned contiguous bases."""
+    ``widths``, at least one key, 16-byte aligned contiguous bases."""
     if q.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {q.device}")
-    if q.shape[2] not in HEAD_DIMS:
+    if q.shape[2] not in widths:
         raise ValueError(f"{name}: head width {q.shape[2]} not in "
-                         f"{HEAD_DIMS}")
+                         f"{widths}")
     if k.shape[1] == 0:
         raise ValueError(f"{name}: no keys (Skv = 0)")
     # the kernels read 16-byte vectors and the TMA maps need 16-byte-aligned
@@ -184,16 +218,17 @@ def _kernel_ready(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, scale: Optional[float], with_lse: bool):
+             causal: bool, scale: Optional[float], with_lse: bool,
+             window: int = 0, softcap: float = 0.0):
     """(out, lse or None): the plain version on CPU tensors, else one
     launch of the forward kernel, which writes lse when asked."""
     g = _check(q, k, v)
+    _check_band(window, softcap)
     if q.device.type == "cpu":
-        if with_lse:
-            return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                         return_lse=True)
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     scale=scale), None
+        out = flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                    window=window, softcap=softcap,
+                                    return_lse=with_lse)
+        return out if with_lse else (out, None)
     h, sq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
@@ -210,7 +245,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, h, sq, k.shape[1], d, g,
-            int(causal), scale, int(q.dtype == torch.bfloat16), stream)
+            int(causal), scale, int(window), float(softcap),
+            int(q.dtype == torch.bfloat16), stream)
     if rc:
         raise RuntimeError(f"flash_attention: kernel launch failed (error "
                            f"{rc}: a CUDA error, or 10000 + the driver's "
@@ -240,7 +276,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     di = torch.empty((h, sq), dtype=torch.float32, device=q.device)
     _kernel_ready("flash_attention_bwd", q, k, v, o, do, lse, di, dq, dk,
-                  dv)
+                  dv, widths=BWD_HEAD_DIMS)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     lib = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
@@ -266,7 +302,14 @@ class FlashAttentionFn(torch.autograd.Function):
     them.  On CPU tensors the same wiring runs the plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, window=0, softcap=0.0):
+        if window or softcap or q.shape[2] not in BWD_HEAD_DIMS:
+            # imported here: core.arena imports the kernels package
+            from repro_torch.core.arena import not_ported
+            raise not_ported(
+                f"the flash_attention backward with a sliding window "
+                f"({window}), a score softcap ({softcap}) or head width "
+                f"{q.shape[2]} (Queue 1 item 4)")
         out, lse = _forward(q, k, v, causal, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
@@ -277,22 +320,26 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), lse,
                                          causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """Attention of q (H, Sq, D) over k, v (H / G, Skv, D), query head h
     reading KV head h // G; causal masks kpos > qpos (positions from 0 on
-    both axes, as the TPU kernel).  Returns (H, Sq, D) in q's dtype.  With
-    grad enabled and an input that requires it, the call goes through
-    ``FlashAttentionFn``, whose backward is ``flash_attention_bwd``."""
+    both axes, as the TPU kernel), ``window`` > 0 also qpos - kpos >=
+    window, and ``softcap`` > 0 caps the scaled scores first.  Returns
+    (H, Sq, D) in q's dtype.  With grad enabled and an input that requires
+    it, the call goes through ``FlashAttentionFn``, whose backward is
+    ``flash_attention_bwd`` (no window, softcap or D = 256 yet: those
+    raise)."""
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, scale)
-    return _forward(q, k, v, causal, scale, with_lse=False)[0]
+        return FlashAttentionFn.apply(q, k, v, causal, scale, window,
+                                      softcap)
+    return _forward(q, k, v, causal, scale, False, window, softcap)[0]
 
 
 flash_attention.launches = 0

@@ -80,7 +80,11 @@ def quantize_leaf(x: torch.Tensor):
 
 def dequantize_leaf(q: torch.Tensor, s: torch.Tensor, shape,
                     dtype: torch.dtype) -> torch.Tensor:
-    rows = quant_pack.dequantize_blockwise(q, s)
+    """Rows back to a ``dtype`` leaf of ``shape``; an f32 or bf16 leaf is
+    written in its dtype by the kernel itself."""
+    rows = quant_pack.dequantize_blockwise(
+        q, s, dtype if dtype in (torch.float32, torch.bfloat16)
+        else torch.float32)
     n_el = 1
     for d in shape:
         n_el *= int(d)

@@ -4,10 +4,11 @@ packed rows back.
 The device half of the epoch drain (core/writeset.py): the dirty rows of
 every region a drain writes are packed by ``pack_rows_grouped`` into one
 byte staging buffer, one 16-byte-aligned segment per region, in one
-launch (up to ``MAX_GROUPS`` regions a launch); the drain passes a pinned
-host buffer, which the kernel writes across the bus, and writes each
-segment into the persistent image.  ``pack_rows`` is the one-region
-case, with the reference's signature.  ``csrc/pack_flush.cu`` holds the
+launch (up to ``MAX_GROUPS`` regions a launch).  The drain calls its
+form ``pack_rows_grouped_host``: the indices and the staging buffer lie
+in pinned host memory, which the kernel reads and writes across the bus,
+and the drain writes each segment into the persistent image.
+``pack_rows`` is the one-region case, with the reference's signature.  ``csrc/pack_flush.cu`` holds the
 Hopper kernel and its design note.
 
 ``scatter_rows_`` is the inverse, in place: ``dst[idx[i]] = packed[i]``.
@@ -16,11 +17,13 @@ launch per cache leaf per group (``serve/engine.py``); ``scatter_rows`` is
 the reference's functional form on a copy.
 
 All dispatch by where their tensors live: CPU tensors take the plain
-version; CUDA tensors launch the kernel or raise.
+version; CUDA tensors launch the kernel or raise (``pack_rows_grouped_host``
+dispatches on its sources and has no plain form: CPU sources raise).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +31,9 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["MAX_GROUPS", "group_layout", "pack_rows", "pack_rows_grouped",
-           "pack_rows_grouped_plain", "pack_rows_plain", "scatter_rows",
-           "scatter_rows_", "scatter_rows_plain"]
+           "pack_rows_grouped_host", "pack_rows_grouped_plain",
+           "pack_rows_plain", "scatter_rows", "scatter_rows_",
+           "scatter_rows_plain"]
 
 MAX_GROUPS = 64      # region descriptors in one launch's parameter space
 SEG_ALIGN = 16       # every segment of the staging buffer starts here
@@ -150,6 +154,68 @@ def pack_rows_grouped(srcs: Sequence[torch.Tensor], idx: torch.Tensor,
         raise RuntimeError(f"pack_rows: no kernel for device {idx.device}")
     if out is None:
         out = torch.empty(total, dtype=torch.uint8, device=idx.device)
+    _launch_grouped(srcs, counts, offs, idx.data_ptr(), out.data_ptr(),
+                    idx.device, torch.cuda.current_stream(idx.device))
+    return out
+
+
+# pinned host buffers seen by pack_rows_grouped_host, by id: a tensor
+# stays pinned for its life, so each is asked once
+_PINNED: Dict[int, "weakref.ref"] = {}
+
+
+def _pinned_buffer(buf: torch.Tensor, what: str) -> None:
+    ref = _PINNED.get(id(buf))
+    if ref is not None and ref() is buf:
+        return
+    if buf.device.type != "cpu" or buf.dtype != torch.uint8 or \
+            buf.dim() != 1 or not buf.is_contiguous() or \
+            buf.data_ptr() % SEG_ALIGN or not buf.is_pinned():
+        raise ValueError(f"pack_rows: {what} must be a contiguous 1-D uint8 "
+                         f"pinned host buffer, 16-byte aligned")
+    _PINNED[id(buf)] = weakref.ref(
+        buf, lambda _, key=id(buf): _PINNED.pop(key, None))
+
+
+def pack_rows_grouped_host(srcs: Sequence[torch.Tensor],
+                           counts: Sequence[int], idx: torch.Tensor,
+                           out: torch.Tensor,
+                           stream: "torch.cuda.Stream") -> None:
+    """``pack_rows_grouped`` of sources on a card with the indices and the
+    staging buffer both in pinned host memory, which the kernel reads and
+    writes directly across the bus (mapped under unified addressing):
+    ``idx`` holds the ``sum(counts)`` int32 indices in its first bytes,
+    ``out`` receives the segments of ``group_layout``.  Both are uint8
+    buffers the caller keeps (each is checked once for its life), the
+    launch goes on ``stream``, and the caller synchronizes it before it
+    reads ``out`` or writes ``idx`` again.  This is the epoch drain's
+    gather: no index upload precedes the launch."""
+    if not srcs:
+        return
+    device = srcs[0].device
+    if device.type != "cuda":
+        raise RuntimeError(f"pack_rows: no kernel for device {device}")
+    if len(srcs) != len(counts) or any(m < 0 for m in counts):
+        raise ValueError(f"pack_rows_grouped: {len(srcs)} sources, counts "
+                         f"{list(counts)}")
+    for src in srcs:
+        _check_src(src, device)
+    _pinned_buffer(idx, "idx")
+    _pinned_buffer(out, "out")
+    offs, total = group_layout(srcs, counts)
+    if 4 * sum(counts) > idx.shape[0] or total > out.shape[0]:
+        raise ValueError(f"pack_rows: {sum(counts)} indices and {total} "
+                         f"bytes do not fit buffers of {idx.shape[0]} and "
+                         f"{out.shape[0]} bytes")
+    _launch_grouped(srcs, counts, offs, idx.data_ptr(), out.data_ptr(),
+                    device, stream)
+
+
+def _launch_grouped(srcs, counts, offs, idx_ptr: int, out_ptr: int,
+                    device: torch.device, stream) -> None:
+    """The grouped kernel's launches over checked arguments: one for every
+    ``MAX_GROUPS`` regions with rows, each counted in
+    ``pack_rows.launches``."""
     desc, pos = [], 0
     for src, m, off in zip(srcs, counts, offs):
         rowbytes = _rowbytes(src)
@@ -161,21 +227,19 @@ def pack_rows_grouped(srcs: Sequence[torch.Tensor], idx: torch.Tensor,
         desc.append((src.data_ptr(), src.shape[0], off, pos, m, rowbytes,
                      chunk))
         pos += m
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
+    with torch.cuda.device(device):
         for lo in range(0, len(desc), MAX_GROUPS):
             part = np.array(desc[lo:lo + MAX_GROUPS], np.int64)
             rows = int(part[:, 4].sum())
             if rows == 0:
                 continue
             rc = _build.load("pack_flush").pack_rows_grouped_launch(
-                part.ctypes.data, len(part), idx.data_ptr(), out.data_ptr(),
-                stream)
+                part.ctypes.data, len(part), idx_ptr, out_ptr,
+                stream.cuda_stream)
             if rc:
                 raise RuntimeError(f"pack_rows: kernel launch failed (CUDA "
                                    f"error {rc})")
             _build.note_launch(pack_rows, rows)
-    return out
 
 
 def pack_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,10 @@ holding NaN or +-inf they give the reference's bits too: a NaN absmax
 makes the scale NaN, an infinite one inf, and every NaN quotient
 quantizes to 0.
 
+``dequantize_blockwise(..., dtype=torch.bfloat16)`` rounds the f32
+product to bf16 (nearest even) as it stores it, in the same pass: the
+reference's ``(q * s in f32).astype(dtype)`` bit for bit.
+
 The wrappers dispatch by where their tensors live: CPU tensors take the
 ``*_plain`` version; CUDA tensors launch the kernel or raise.
 """
@@ -30,6 +34,7 @@ __all__ = ["GROUP", "quantize_blockwise", "quantize_blockwise_plain",
 
 GROUP = 256
 _INV127 = float(np.float32(1.0 / 127.0))     # exact in f32
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_rows(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
@@ -69,12 +74,20 @@ def quantize_blockwise_plain(x: torch.Tensor):
     return q.to(torch.int8).reshape(n, d), scale
 
 
-def dequantize_blockwise_plain(q: torch.Tensor, s: torch.Tensor):
+def _check_out(dtype: torch.dtype) -> None:
+    if dtype not in _OUT_DTYPES:
+        raise TypeError(f"dequantize_blockwise: dtype must be one of "
+                        f"{_OUT_DTYPES}, got {dtype}")
+
+
+def dequantize_blockwise_plain(q: torch.Tensor, s: torch.Tensor,
+                               dtype: torch.dtype = torch.float32):
     """Plain version of ``dequantize_blockwise``."""
     _check_scales(q, s)
+    _check_out(dtype)
     n, d = q.shape
     x = q.reshape(n, d // GROUP, GROUP).to(torch.float32) * s[..., None]
-    return x.reshape(n, d)
+    return x.reshape(n, d).to(dtype)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -117,13 +130,16 @@ def quantize_blockwise(x: torch.Tensor):
     return q, s
 
 
-def dequantize_blockwise(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """q (N, 256k) int8, scales (N, k) f32 -> (N, 256k) f32."""
+def dequantize_blockwise(q: torch.Tensor, s: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """q (N, 256k) int8, scales (N, k) f32 -> (N, 256k) in ``dtype`` (f32
+    or bf16)."""
     _check_scales(q, s)
+    _check_out(dtype)
     if q.device.type == "cpu":
-        return dequantize_blockwise_plain(q, s)
+        return dequantize_blockwise_plain(q, s, dtype)
     _require_cuda("dequantize_blockwise", q)
-    x = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    x = torch.empty(q.shape, dtype=dtype, device=q.device)
     _aligned("dequantize_blockwise", q, x)
     if q.numel() == 0:
         return x
@@ -131,6 +147,7 @@ def dequantize_blockwise(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(q.device):
         rc = lib.dequantize_blockwise_launch(q.data_ptr(), s.data_ptr(),
                                              x.data_ptr(), q.numel(),
+                                             int(dtype == torch.bfloat16),
                                              _stream(q))
     if rc:
         raise RuntimeError(f"dequantize_blockwise: kernel launch failed "

@@ -10,9 +10,12 @@ encoder's ``enc_blocks``/``enc_final_norm``.  Decode caches have the same
 tree shape (``cache_specs``).
 
 ``apply_layer`` runs the dense attention layers (base ``dense`` or
-``attn``, full or ``bidir``) in train, prefill and decode mode.  Every
-other base or variant (``local``, ``cross``, ``moe``, ``hybrid``,
-``mlstm``, ``slstm``) raises ``NotImplementedError`` naming itself.
+``attn``: ``full``, ``bidir``, and ``local``, gemma's sliding-window
+layer, whose ring cache holds ``min(window, s_max)`` positions) in train,
+prefill and decode mode.  Every other base or variant (``cross``,
+``moe``, ``hybrid``, ``mlstm``, ``slstm``) raises ``NotImplementedError``
+naming itself; so does a local layer's training gradient (the flash
+backward has no window yet).
 
 Train mode is a full-sequence forward with no caches.  ``REMAT`` picks
 what a training forward keeps of each superblock for the backward
@@ -348,7 +351,7 @@ def _seat_cache(k_all: torch.Tensor, cap_total: int) -> torch.Tensor:
     return out
 
 
-DENSE_VARIANTS = ("full", "bidir")
+DENSE_VARIANTS = ("full", "bidir", "local")
 
 
 def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
@@ -371,6 +374,7 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
     b, s, d = x.shape
     s_max = s_max or s
     new_cache: Dict[str, torch.Tensor] = {}
+    window = cfg.window if var == "local" else 0
     y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "decode":
         cap = cache["k"].shape[1]
@@ -381,16 +385,18 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
         k_c = L.ring_write(cache["k"], k_new, pos, cap)
         v_c = L.ring_write(cache["v"], v_new, pos, cap)
         kv_pos = L.ring_slot_positions(pos, cap, x.device)
-        att = L.decode_attention(q, k_c, v_c, kv_pos, pos,
+        att = L.decode_attention(q, k_c, v_c, kv_pos, pos, window=window,
                                  softcap=cfg.attn_softcap)
         new_cache["k"], new_cache["v"] = k_c, v_c
     else:
         positions = torch.arange(s, device=x.device)
         att, k_all, v_all = _self_attention_seq(
-            cfg, p["attn"], y, positions, causal=var != "bidir", window=0)
+            cfg, p["attn"], y, positions, causal=var != "bidir",
+            window=window)
         if mode == "prefill":
-            new_cache["k"] = _seat_cache(k_all, s_max)
-            new_cache["v"] = _seat_cache(v_all, s_max)
+            cap = min(cfg.window, s_max) if var == "local" else s_max
+            new_cache["k"] = _seat_cache(k_all, cap)
+            new_cache["v"] = _seat_cache(v_all, cap)
     x = x + L.attn_out(att, p["attn"]["wo"])
     y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + L.gated_mlp(y, p["mlp"]["w_gate"], p["mlp"]["w_up"],

@@ -18,7 +18,9 @@ scales q in f32 before the product, as the TPU kernel does; the
 reference's layer rounds ``q * scale`` to q's dtype first.  In f32 the two
 agree to rounding; in bf16 they differ by one bf16 rounding of q, which is
 inside the 2e-2 the reference's own kernel tests allow.  Sliding windows
-and score softcaps, which the kernel does not compute, raise.
+and score softcaps (gemma's local layers and gemma2's cap) go to the
+kernel too, which skips the tiles below a window's band; their backward
+is not ported yet and raises.
 
 Not ported: ``LOWP_ROW_REDUCE`` (a distributed-cell switch) and the mesh
 hooks ``constrain_activations``/``seq_parallel``, which are identities
@@ -33,7 +35,6 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.arena import not_ported
 from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -152,20 +153,17 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The (B, K, G) axes fold into the kernel's query heads and (B, K) into
     its KV heads, so query head (b, k, g) reads KV head (b, k) with no
-    repeated K/V.  ``q_block``/``kv_block`` are the reference's XLA tiling
-    and are not used: the kernel tiles itself."""
-    if window:
-        raise not_ported("sliding-window attention (flash_attention has no "
-                         "window)")
-    if softcap:
-        raise not_ported("attention softcap (flash_attention has no "
-                         "softcap)")
+    repeated K/V.  ``window`` and ``softcap`` are the reference's (a key is
+    hidden when qpos - kpos >= window; scores are capped before the mask).
+    ``q_block``/``kv_block`` are the reference's XLA tiling and are not
+    used: the kernel tiles itself."""
     b, s, n_kv, g, dh = q.shape
     skv = k.shape[1]
     qh = q.permute(0, 2, 3, 1, 4).reshape(b * n_kv * g, s, dh)
     kh = k.permute(0, 2, 1, 3).reshape(b * n_kv, skv, dh)
     vh = v.permute(0, 2, 1, 3).reshape(b * n_kv, skv, dh)
-    out = flash_attention(qh, kh, vh, causal=causal, scale=scale)
+    out = flash_attention(qh, kh, vh, causal=causal, scale=scale,
+                          window=window, softcap=softcap)
     return out.reshape(b, n_kv, g, s, dh).permute(0, 3, 1, 2, 4)
 
 

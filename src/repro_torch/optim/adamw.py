@@ -6,9 +6,9 @@ The update keeps the reference's order of operations leaf by leaf (clip
 scale, moments, bias correction, the step, the decay) in f32 and returns
 new trees, as the reference's functional update does; it runs on the
 parameters' device under ``no_grad``.  Moments are f32 by default;
-``moment_dtype="bfloat16"`` computes, but a checkpoint of such moments
-raises (``core/policy.leaf_dtype``) until the bf16 host format is
-ported."""
+``moment_dtype="bfloat16"`` keeps them in bf16, and a checkpoint saves
+them as the reference's files and restores them (``ckpt/manager.py``;
+the reference itself cannot restore them, ROADMAP Queue 3)."""
 from __future__ import annotations
 
 import dataclasses

@@ -64,19 +64,34 @@ def prompts_for(lens: Sequence[int], vocab: int, seed: int
     return [rng.integers(1, vocab, int(n)).astype(np.int64) for n in lens]
 
 
+def _held(n: int, cap: int) -> torch.Tensor:
+    """Cache slots that hold the same position in an uninterrupted engine
+    (positions [0, n)) and in a re-prefilled one (positions [0, n]): all
+    of [0, n) in a linear cache, and in a ring of ``cap`` slots that has
+    wrapped every slot but n % cap, which the re-prefill already moved on
+    to position n."""
+    if n < cap:
+        return torch.arange(n)
+    return torch.tensor([j for j in range(cap) if j != n % cap])
+
+
 def cache_error(a: ServingEngine, b: ServingEngine, slots) -> Dict:
     """Max abs difference of two engines' caches over ``slots``, each at
     the positions an uninterrupted engine holds there, ``[0, pos - 1)``
-    (the last token of the log is cached by the next decode step), and the
-    largest |value| of ``b``'s over the same positions."""
+    (the last token of the log is cached by the next decode step; a local
+    layer's ring holds the last ``window`` of them), and the largest
+    |value| of ``b``'s over the same positions."""
     err, amax = 0.0, 0.0
     for grp in a.cache:
         for pos in a.cache[grp]:
             for name, leaf in a.cache[grp][pos].items():
                 other = b.cache[grp][pos][name]
+                ax = 2 if grp == "blocks" else 1    # the cache slot axis
                 for s in slots:
-                    n = int(b.pos[s]) - 1
-                    x, y = (t[:, s, :n] if grp == "blocks" else t[s, :n]
+                    held = _held(int(b.pos[s]) - 1,
+                                 leaf.shape[ax]).to(leaf.device)
+                    x, y = ((t[:, s] if grp == "blocks" else t[s])
+                            .index_select(ax - 1, held)
                             for t in (leaf, other))
                     err = max(err, float((x - y).abs().max()))
                     amax = max(amax, float(y.abs().max()))
@@ -109,14 +124,15 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         s_max: int, steps: int = 8, max_requests: int = 64, seed: int = 0,
         concurrency: int = 1, params=None,
         workdir: Optional[str] = None, n_shards: int = 1,
-        commit_mode: str = "barrier") -> Dict:
+        commit_mode: str = "barrier",
+        steps_after: Optional[int] = None) -> Dict:
     """The twin protocol at ``cfg``: admit one request per prompt length to
     both engines, serve ``steps``, finish the first request, serve
     ``steps`` more, crash and recover one engine, compare caches, check
-    the finished rid, admit a new request on its slot and serve ``steps``
-    further, all in f32.  ``n_shards`` shards both engines' arenas;
-    ``commit_mode`` is their commit protocol.  Returns the run's numbers;
-    raises on any mismatch."""
+    the finished rid, admit a new request on its slot and serve
+    ``steps_after`` (default ``steps``) further, all in f32.  ``n_shards``
+    shards both engines' arenas; ``commit_mode`` is their commit
+    protocol.  Returns the run's numbers; raises on any mismatch."""
     device = resolve_device(device)
     model = Model(cfg, compute_dtype=torch.float32)
     if params is None:
@@ -193,7 +209,7 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         if slots != (freed, freed):
             raise AssertionError(f"new request seated on {slots}, not on "
                                  f"the freed slot {freed}")
-        for _ in range(steps):
+        for _ in range(steps if steps_after is None else steps_after):
             _step_both(eng, twin, log, "after")
         out["logit_rel_err"] = {k: log[f"{k}_logit_rel_err"]
                                 for k in ("before", "after")}

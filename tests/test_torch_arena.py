@@ -323,16 +323,18 @@ def test_not_ported_names_the_queue_only():
     assert "x" in msg and "ROADMAP Queue 1" in msg
     assert "Slice A" not in msg and "item" not in msg
     # a sharded shadow arena opens, paged too; a feature that still raises
-    # (sliding-window attention) names the queue alone
+    # (an MoE layer; sliding-window attention is ported) names
+    # the queue alone
     assert TA.ShardedArena(None, n_shards=4, commit_mode="shadow",
                            device="cpu").commit_mode == "shadow"
     assert TA.ShardedArena(None, n_shards=4, commit_mode="shadow",
                            device="cpu", paged=True).cache is not None
-    from repro_torch.models.layers import blockwise_attention
-    q = torch.zeros(1, 4, 1, 1, 8)
-    k = torch.zeros(1, 4, 1, 8)
+    from repro_torch.configs import base, registry
+    from repro_torch.models.backbone import apply_layer
+    cfg = base.reduced(registry.get("llama3.2-3b"))
     with pytest.raises(NotImplementedError) as err:
-        blockwise_attention(q, k, k, causal=True, window=2)
+        apply_layer(cfg, "moe", {}, torch.zeros(1, 4, cfg.d_model),
+                    mode="prefill")
     msg = str(err.value)
-    assert "sliding-window" in msg and "ROADMAP Queue 1" in msg
+    assert "moe" in msg and "ROADMAP Queue 1" in msg
     assert "item" not in msg

@@ -209,6 +209,19 @@ def test_pack_rows_grouped_wrapper_dispatch_and_checks():
         tpf.pack_rows(meta[0], idx[:3].to("meta"))
 
 
+def test_pack_rows_grouped_host_needs_a_card():
+    """The drain's host-index form launches the kernel or raises: CPU
+    sources take no plain version and count no launch."""
+    srcs = [torch.arange(32, dtype=torch.int64).reshape(4, 8)]
+    buf = torch.zeros(64, dtype=torch.uint8)
+    before = launch_counts()["pack_rows"]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tpf.pack_rows_grouped_host(srcs, [2], buf, buf.clone(),
+                                   stream=None)
+    assert launch_counts()["pack_rows"] == before
+    tpf.pack_rows_grouped_host([], [], buf, buf, stream=None)  # nothing
+
+
 def test_launch_size_histogram_and_reset():
     from repro_torch.kernels import _build, launch_sizes, reset_launch_counts
 

@@ -261,16 +261,16 @@ def test_flash_attention_checks():
     with pytest.raises(TypeError):
         flash_attention(q.double(), torch.zeros(3, 8, 16).double(),
                         torch.zeros(3, 8, 16).double())
-    with pytest.raises(NotImplementedError):
-        TL.blockwise_attention(torch.zeros(1, 4, 1, 1, 8),
-                               torch.zeros(1, 4, 1, 8),
-                               torch.zeros(1, 4, 1, 8), causal=True,
-                               window=2)
-    with pytest.raises(NotImplementedError):
-        TL.blockwise_attention(torch.zeros(1, 4, 1, 1, 8),
-                               torch.zeros(1, 4, 1, 8),
-                               torch.zeros(1, 4, 1, 8), causal=True,
-                               softcap=30.0)
+    # a window and a softcap are ported now: each matches the reference's
+    # layer (tests/test_torch_gemma.py sweeps them)
+    rng = np.random.default_rng(2)
+    q, k, v = _rand(rng, 1, 4, 1, 1, 8), _rand(rng, 1, 4, 1, 8), \
+        _rand(rng, 1, 4, 1, 8)
+    for kw in ({"window": 2}, {"softcap": 30.0}):
+        got = TL.blockwise_attention(*(torch.from_numpy(a)
+                                       for a in (q, k, v)), causal=True, **kw)
+        _close(got, np.asarray(JL.blockwise_attention(q, k, v, causal=True,
+                                                      **kw)))
 
 
 # ------------------------------------------------------------------ model
@@ -330,7 +330,7 @@ def test_model_prefill_and_decode_match_reference(reduced_llama):
         tok = np.argmax(np.asarray(jl), -1)
 
 
-@pytest.mark.parametrize("tag", ["dense:local", "dense:cross", "attn_local",
+@pytest.mark.parametrize("tag", ["dense:cross", "attn_local",
                                  "moe", "hybrid", "hybrid:local", "mlstm",
                                  "slstm"])
 def test_non_dense_layer_tags_raise(tag):
