@@ -12,8 +12,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    from ``src/repro_torch/csrc`` (all compilers started together), the
    registers, spills, stack and shared memory of each flash kernel
    (forward; backward: the dK/dV and dQ kernels and the Di pass, each in
-   both dtypes at every head width; the forward's D = 256, gemma2's, on a
-   line of its own), and
+   both dtypes at every head width; the D = 256 kernels, gemma2's, on a
+   line of their own), and
    the pinned device-to-host rate (256 MB copies), the link bound of the
    drains;
 2. kernels: each kernel against its plain PyTorch version on the card at
@@ -39,11 +39,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    kernel against the same prefill through the plain version, logits
    within 5e-2 of the largest |logit|;
    ``flash_attention_bwd`` against its plain version on the
-   forward kernel's o and lse at every head width in both dtypes, causal
-   and not, 6 query heads over 6 and over 2 KV heads, at S = 1000 and at
-   Sq = 77 over Skv = 333: within 1e-4 (f32) and 2e-2 (bf16) of the
-   largest |grad|, two runs equal bit for bit, the forward's lse within
-   1e-5 of the plain one's, the Di pass within 1e-5 of the largest |Di|;
+   forward kernel's o and lse at every head width (256 included) in both
+   dtypes, causal and not, 6 query heads over 6 and over 2 KV heads, at
+   S = 1000 and at Sq = 77 over Skv = 333: within 1e-4 (f32) and 2e-2
+   (bf16) of the largest |grad|, two runs equal bit for bit, the
+   forward's lse within 1e-5 of the plain one's, the Di pass within 1e-5
+   of the largest |Di|; the same checks with a window and a softcap at
+   window 1, 100, 129, S and 5 S, causal and not, a softcap alone at
+   D = 64 and 128, both at D = 256 (also Sq = 77 over Skv = 333 and 333
+   over 77, where rows see no key), and at phase 16's training layers:
+   gemma3-27b's local layer (q (32, 2048, 128) over (16, 2048, 128),
+   window 1024) and gemma2-9b's local and global ones (q (16, 8192, 256)
+   over (8, 8192, 256), softcap 50, window 4096 and none), both dtypes,
+   timed beside the band-counted flop bound (10 D flops per kept pair),
+   the design's floor (14, 22 at D = 256), the same call without the
+   window and ``sdpa``'s backward with the boolean band mask (none under
+   a softcap);
    flash_attention's autograd on CUDA tensors (one backward launch,
    non-zero grads equal to torch autograd through the plain forward); the
    backward timed at phase 10's shape (96 query heads over 32 KV heads,
@@ -171,7 +182,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    scrub results and salvage reports; then the serving
    launcher ``repro_torch.launch.serve --arch llama3.2-3b --crash`` on
    the card, which must return 0 after recovering, and the same for
-   ``--arch gemma3-27b`` and ``--arch gemma2-9b``;
+   ``--arch gemma3-27b`` and ``--arch gemma2-9b``; reduced gemma3-27b and
+   gemma2-9b (window 8, softcaps 50 and 30 for gemma2) trained 3 steps in
+   f32 on the card and on the CPU from the same parameters, losses within
+   1e-5 relative;
 5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
    modes, order snapshots on, a commit after every batch of 8192, then
    deletes and pops, a commit, a suffix of 120 appends or inserts and a
@@ -411,7 +425,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    tolerances (the rings compared where both hold the same position);
    every prefill, on either engine and in each re-prefill group, calls
    the flash kernel once per local and once per global layer; prefill
-   tokens/s, decode ms per slot-step, recovery seconds, peak memory.
+   tokens/s, decode ms per slot-step, recovery seconds, peak memory;
+16. gemma training at the published widths, depth cut for the card's
+   memory and the run's time: gemma3-27b with 2 layers, both local
+   (window 1024; 2,235,067,136 parameters, 35.8 GB of f32 params, grads
+   and moments), 2 x 2048 tokens a step, so the band hides a quarter of
+   the causal pairs (the global layer's backward is phase 10's, with no
+   window); gemma2-9b with 2 layers, one local (window 4096) and one
+   global, head width 256, softcaps 50 and 30 (1,313,883,648 parameters,
+   21.0 GB), 1 x 8192 tokens a step.  Each trained 3 steps in f32 twice
+   from the same parameters, then 3 steps in bf16 (as the launcher
+   trains on a card) twice, torch's kernels deterministic: losses and
+   final parameters equal bit for bit and finite; flash_attention
+   launched once a layer a step and once more for each layer a
+   superblock's remat recomputes (gemma2's two; gemma3's two layers are
+   the pattern's remainder, which is not rematerialized, as in the
+   reference), flash_attention_bwd once a layer a step; step ms,
+   tokens/s, peak memory and one more step's attention share (CUDA
+   events around the flash launches); then ``repro_torch.launch.train
+   --arch gemma2-9b --crash-at-step 6 --steps 10 --device cuda``
+   (reduced, bf16) in a subprocess, which must return 0.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
@@ -422,7 +455,8 @@ four chain kernels', ``pack_rows``', ``scatter_rows``' (a shard's
 reload) and ``flash_attention``'s in phase 12, and again in phase 13;
 the four chain kernels', ``pack_rows``' and ``scatter_rows``' in phase
 14; ``flash_attention``'s, ``pack_rows``' and ``scatter_rows``' in
-phase 15.
+phase 15; ``flash_attention``'s and ``flash_attention_bwd``'s in phase
+16.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -436,6 +470,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -477,6 +512,11 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # gemma's flash shapes: (query heads, KV heads, S, D, window, softcap)
 GEMMA_FLASH = {"gemma3": (32, 16, 3072, 128, 1024, 0.0),
                "gemma2": (16, 8, 4608, 256, 4096, 50.0)}
+# gemma's training layers, phase 16's (one gemma3 sequence of its two a
+# step): (query heads, KV heads, S, D, window, softcap)
+GEMMA_BWD = {"gemma3": (32, 16, 2048, 128, 1024, 0.0),
+             "gemma2_local": (16, 8, 8192, 256, 4096, 50.0),
+             "gemma2_global": (16, 8, 8192, 256, 0, 50.0)}
 FLASH_PREFILL_TOL = 5e-2       # bf16 prefill logits, of the largest |logit|
 LSE_TOL = 1e-5                 # the forward's lse against the plain one's
 DI_TOL = 1e-5                  # the backward's Di, of the largest |Di|
@@ -1291,14 +1331,25 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
     flash_bwd_widths = flash_bwd_parity(dev, g)
     flash_grad = flash_grad_on_card(dev, g)
     flash_bwd = flash_bwd_timing(dev, g, flush)
+    # gemma's training layers (phase 16): gemma3-27b's local layer and
+    # gemma2-9b's local and global ones, window, softcap and D = 256
+    flash_bwd_edges = flash_bwd_band_edges(dev, g)
+    for name, (h, hk, seq, d, window, cap) in GEMMA_BWD.items():
+        for dt in (torch.float32, torch.bfloat16):
+            flash_bwd[f"{str(dt).split('.')[-1]}_{name}"] = \
+                flash_bwd_band_case(dev, g, dt, h, hk, seq, d, window, cap,
+                                    flush)
     rows["flash_attention_bwd"] = dict(
         flash_bwd["float32"], bound_by="operations",
         shape="q, o, dO (96, 1024, 128), k, v (32, 1024, 128) f32, causal "
-              "(phase 10's layer); bf16 in the report",
+              "(phase 10's layer); bf16 in the report; gemma3 and gemma2 "
+              "(window, softcap, D = 256) below",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="none: no Pallas kernel; the reference takes this "
                  "gradient by XLA autodiff of "
-                 "src/repro/models/layers.py:200")
+                 "src/repro/models/layers.py:200",
+        **{f"{dt}_{name}": flash_bwd[f"{dt}_{name}"] for name in GEMMA_BWD
+           for dt in ("float32", "bfloat16")})
     rows["flash_attention"] = dict(
         flash["float32"], bound_by="operations",
         shape="q (96, 1024, 128) over k, v (32, 1024, 128) f32, causal; "
@@ -1317,6 +1368,7 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
             "flash_edges": flash_edges,
             "flash_prefill_bf16": flash_prefill,
             "flash_bwd": flash_bwd, "flash_bwd_widths": flash_bwd_widths,
+            "flash_bwd_edges": flash_bwd_edges,
             "flash_grad_on_card": flash_grad,
             "quantize_non_finite": quant_non_finite,
             "contraction": contraction, "probe": probe}
@@ -2776,7 +2828,8 @@ def flash_build_report() -> dict:
     """Registers, spills and stack of each flash kernel, forward and
     backward (the dK/dV and dQ kernels and the Di pass), read from the
     build's ptxas report, and the dynamic shared memory each launches with
-    (ptxas reports static shared memory only; the Di pass has none).  A
+    (ptxas reports static shared memory only; the Di pass has none); the
+    bf16 backward's kernels twice, with and without the softcap.  A
     kernel with setmaxnreg reports its registers at entry: the bf16
     backward's consumers run with 240, its producer with 24."""
     import re
@@ -2790,8 +2843,9 @@ def flash_build_report() -> dict:
                        fwd.flash_attention_smem_bytes(
                            int(m.group(2)), int(m.group(1) == "bf16"))))],
         "flash_attention_bwd": [(
-            r"flash_bwd_(dkdv|dq)_(f32|bf16)ILi(\d+)E",
-            lambda m: (f"bwd_{m.group(1)} {m.group(2)} D={m.group(3)}",
+            r"flash_bwd_(dkdv|dq)_(f32|bf16)ILi(\d+)E(Lb1E)?",
+            lambda m: (f"bwd_{m.group(1)} {m.group(2)} D={m.group(3)}"
+                       f"{' softcap' if m.group(4) else ''}",
                        bwd.flash_attention_bwd_smem_bytes(
                            int(m.group(3)), int(m.group(2) == "bf16"),
                            int(m.group(1) == "dq")))), (
@@ -2820,9 +2874,10 @@ def flash_build_report() -> dict:
             m = re.search(r"Used (\d+) registers", ln)
             if m and name:
                 out[name]["registers"] = int(m.group(1))
-    # forward: 2 types x 5 widths; backward: the dK/dV and dQ kernels and
-    # the Di pass, each 2 types x 4 widths
-    if len(out) != 10 + 24 or any("registers" not in v for v in out.values()):
+    # forward: 2 types x 5 widths; backward: the dK/dV and dQ kernels (bf16
+    # with and without the softcap) and the Di pass, each 2 types x 5
+    # widths
+    if len(out) != 10 + 40 or any("registers" not in v for v in out.values()):
         raise AssertionError(f"ptxas report of the flash kernels "
                              f"incomplete: {out}")
     return out
@@ -2830,18 +2885,20 @@ def flash_build_report() -> dict:
 
 def flash_bwd_bound_ms(h: int, hk: int, sq: int, skv: int, d: int,
                       itemsize: int, causal: bool = True,
-                      flops_per_pair: int = 10) -> float:
-    """The larger of the backward's flops (10 per causal pair and width:
-    S and dP, dV, dK and dQ; the kernels' two-launch design does 14, S and
-    dP twice) over the peak for the input type and q, k, v, o, dO and lse
-    read once, dq, dk, dv written once, over the HBM rate."""
-    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+                      flops_per_pair: int = 10, window: int = 0) -> float:
+    """The larger of the backward's flops (10 per kept pair and width: S
+    and dP, dV, dK and dQ; the kernels' two-launch design does 14, S and
+    dP twice, 22 at D = 256; a window keeps only its band) over the peak
+    for the input type and q, k, v, o, dO and lse read once, dq, dk, dv
+    written once, over the HBM rate."""
+    pairs = band_pairs(sq, skv, causal, window)
     peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
     nbytes = itemsize * d * (4 * h * sq + 4 * hk * skv) + 4 * h * sq
     return max(flops_per_pair * h * d * pairs / peak * 1e3, bound_ms(nbytes))
 
 
-def bwd_launch(q, k, v, o, do, lse, causal: bool, parts: int, out=None):
+def bwd_launch(q, k, v, o, do, lse, causal: bool, parts: int, out=None,
+               window: int = 0, softcap: float = 0.0):
     """One direct call of ``flash_attention_bwd_launch`` running the
     kernels in ``parts`` (``FA.BWD_DELTA | BWD_DKDV | BWD_DQ``), outside the
     wrapper, whose count does not move: Di's check and each kernel's time.
@@ -2856,7 +2913,8 @@ def bwd_launch(q, k, v, o, do, lse, causal: bool, parts: int, out=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), h, sq, k.shape[1], d, h // k.shape[0], int(causal),
-        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), parts,
+        1.0 / math.sqrt(d), window, softcap, int(q.dtype == torch.bfloat16),
+        parts,
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise AssertionError(f"flash_attention_bwd_launch parts={parts}: "
@@ -2874,7 +2932,8 @@ def flash_bwd_inputs(dev, g, dt, h: int, hk: int, sq: int, skv: int,
     return q, k, v, do
 
 
-def flash_bwd_check(q, k, v, do, causal: bool) -> dict:
+def flash_bwd_check(q, k, v, do, causal: bool, window: int = 0,
+                    softcap: float = 0.0) -> dict:
     """The forward kernel's lse against the plain forward's (LSE_TOL,
     absolute: the kernels' exp and sums round differently, lse is O(10)),
     the backward's Di pass against its plain version (DI_TOL of the largest
@@ -2883,24 +2942,37 @@ def flash_bwd_check(q, k, v, do, causal: bool) -> dict:
     same inputs, within FLASH_TOL of the largest |grad| (f32: summation
     order; bf16: also the rounding of P, dS and each output to bf16), and
     a second backward run equal bit for bit (no atomics: the order of
-    every sum is fixed)."""
+    every sum is fixed); ``window`` and ``softcap`` as the forward's."""
     import torch
     from repro_torch.kernels import flash_attention as FA
-    o, lse = FA._forward(q, k, v, causal, None, with_lse=True)
+    band = dict(window=window, softcap=softcap)
+    o, lse = FA._forward(q, k, v, causal, None, True, window, softcap)
     _, lse_plain = FA.flash_attention_plain(q, k, v, causal=causal,
-                                            return_lse=True)
-    lse_err = max_abs_err(lse, lse_plain)
-    di = bwd_launch(q, k, v, o, do, lse, causal, FA.BWD_DELTA)[0]
+                                            return_lse=True, **band)
+    # a row that sees no key (a window past Skv) has lse +inf in both
+    seen = torch.isfinite(lse_plain)
+    if not torch.equal(seen, torch.isfinite(lse)):
+        raise AssertionError("flash_attention lse: the kernel's rows with "
+                             "no visible key differ from the plain one's")
+    lse_err = max_abs_err(lse[seen], lse_plain[seen])
+    del lse_plain, seen
+    di = bwd_launch(q, k, v, o, do, lse, causal, FA.BWD_DELTA, **band)[0]
     di_plain = FA.flash_attention_bwd_delta_plain(o, do)
     di_err = max_abs_err(di, di_plain) / float(di_plain.abs().max())
-    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
-    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
-    want = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, **band)
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                   **band)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want = FA.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                        **band)
     top = max(float(w.float().abs().max()) for w in want)
     err = max(max_abs_err(a, b) for a, b in zip(got, want)) / top
+    del got, want
     tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
     name = (f"{str(q.dtype).split('.')[-1]} q {tuple(q.shape)} k "
-            f"{tuple(k.shape)} causal={causal}")
+            f"{tuple(k.shape)} causal={causal} window={window} "
+            f"softcap={softcap}")
     if not lse_err <= LSE_TOL:
         raise AssertionError(f"flash_attention lse {name}: max abs err "
                              f"{lse_err} above {LSE_TOL}")
@@ -2910,7 +2982,7 @@ def flash_bwd_check(q, k, v, do, causal: bool) -> dict:
     if not err <= tol:
         raise AssertionError(f"flash_attention_bwd {name}: max abs err "
                              f"{err} of the largest |grad| above {tol}")
-    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+    if not same:
         raise AssertionError(f"flash_attention_bwd {name}: two runs differ")
     return {"lse_err": lse_err, "di_rel_err": di_err, "rel_err": err,
             "max_abs_grad": top}
@@ -2918,9 +2990,9 @@ def flash_bwd_check(q, k, v, do, causal: bool) -> dict:
 
 def flash_bwd_parity(dev, g) -> dict:
     """flash_attention_bwd against its plain version, untimed, at every
-    head width in both dtypes, causal and not, 6 query heads over 6 (G =
-    1) and over 2 (G = 3) KV heads, at a ragged S = 1000 and at Sq = 77
-    over Skv = 333.  Returns {case: errors}."""
+    head width (256 included) in both dtypes, causal and not, 6 query heads
+    over 6 (G = 1) and over 2 (G = 3) KV heads, at a ragged S = 1000 and at
+    Sq = 77 over Skv = 333.  Returns {case: errors}."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     out = {}
@@ -3010,6 +3082,96 @@ def flash_bwd_timing(dev, g, flush) -> dict:
         del q, k, v, do, o, lse, lib, out, bufs
     torch.cuda.empty_cache()
     return rows
+
+
+def flash_bwd_band_edges(dev, g, seq: int = 1000) -> dict:
+    """flash_attention_bwd against its plain version, untimed, at the
+    band's edge cases in both dtypes, 6 query heads over 2 KV heads, each
+    run twice bit for bit (flash_bwd_check): window 1, a window at and past
+    S, windows that are no multiple of a tile (100, 129), causal and not; a
+    softcap alone at D = 64 and 128 (2, every score bent, and gemma2's
+    50); the two together at D = 256, also at Sq = 77 over Skv = 333 and
+    Sq = 333 over Skv = 77 (rows that see no key).  Returns {case:
+    errors}."""
+    import torch
+    cases = [(128, seq, seq, w, 0.0, c) for w in (1, seq, 5 * seq, 100, 129)
+             for c in (True, False)]
+    cases += [(d, seq, seq, 0, cap, c) for d in (64, 128)
+              for cap in (2.0, 50.0) for c in (True, False)]
+    cases += [(256, sq, skv, 129, 50.0, c)
+              for sq, skv in ((seq, seq), (77, 333), (333, 77))
+              for c in (True, False)]
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for d, sq, skv, window, cap, causal in cases:
+            q, k, v, do = flash_bwd_inputs(dev, g, dt, 6, 2, sq, skv, d)
+            name = (f"{str(dt).split('.')[-1]} D={d} {sq}x{skv} window="
+                    f"{window} softcap={cap} causal={causal}")
+            out[name] = flash_bwd_check(q, k, v, do, causal, window, cap)
+    return out
+
+
+def flash_bwd_band_case(dev, g, dt, h: int, hk: int, seq: int, d: int,
+                        window: int, softcap: float, flush) -> dict:
+    """flash_attention_bwd with a gemma layer's window and softcap against
+    its plain version at phase 16's training shape, causal, in ``dt``
+    (flash_bwd_check: lse, Di, grads, two runs bit for bit); timed with
+    CUDA events under the L2 eviction beside its band-counted bound (10
+    flops per kept pair and width) and its design's floor (14, 22 at D =
+    256), the same call with no window (the band's skipped tiles) and,
+    where no cap bends the scores, the backward of
+    scaled_dot_product_attention with the boolean band mask (a yardstick,
+    never on the path); ``null`` under a cap (no PyTorch call caps the
+    scores)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, do = flash_bwd_inputs(dev, g, dt, h, hk, seq, seq, d)
+    errs = flash_bwd_check(q, k, v, do, True, window, softcap)
+    band = dict(window=window, softcap=softcap)
+    o, lse = FA._forward(q, k, v, True, None, True, window, softcap)
+    size = q.element_size()
+    floor = 22 if d > 128 else 14
+    reps = 5 if d > 128 else 20      # gemma2's launches take tens of ms
+    out = {
+        "ms": time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, lse,
+                                                     **band), reps=reps,
+                      flush=flush),
+        "plain_ms": time_ms(lambda: FA.flash_attention_bwd_plain(
+            q, k, v, o, do, lse, **band), reps=2),
+        "bound_ms": flash_bwd_bound_ms(h, hk, seq, seq, d, size,
+                                       window=window),
+        "floor_ms": flash_bwd_bound_ms(h, hk, seq, seq, d, size,
+                                       flops_per_pair=floor, window=window),
+        "band_pairs_per_head": band_pairs(seq, seq, True, window),
+        "max_abs_err": errs["rel_err"] * errs["max_abs_grad"],
+        "rel_err": errs["rel_err"], "lse_err": errs["lse_err"],
+        "di_rel_err": errs["di_rel_err"],
+        "tolerance": FLASH_TOL[str(dt).split(".")[-1]],
+        "shape": f"q, o, dO ({h}, {seq}, {d}) over k, v ({hk}, {seq}, {d}), "
+                 f"causal, window {window}, softcap {softcap}"}
+    if window:
+        out["no_window_ms"] = time_ms(lambda: FA.flash_attention_bwd(
+            q, k, v, o, do, lse, softcap=softcap), reps=reps, flush=flush)
+        out["no_window_bound_ms"] = flash_bwd_bound_ms(h, hk, seq, seq, d,
+                                                       size)
+    if softcap:
+        out["library_ms"] = None
+        out["library_note"] = ("no PyTorch call caps the scores: sdpa "
+                               "takes a mask, not a tanh of the scores")
+    else:
+        ahead = (torch.arange(seq, device=dev)[:, None]
+                 - torch.arange(seq, device=dev)[None, :])
+        mask = (ahead >= 0) & (ahead < window) if window else ahead >= 0
+        lib = [t[None].clone().requires_grad_() for t in (q, k, v)]
+        res = F.scaled_dot_product_attention(*lib, attn_mask=mask,
+                                             enable_gqa=True)
+        out["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            res, lib, do[None], retain_graph=True), flush=flush)
+        del ahead, mask, lib, res
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return out
 
 
 def quantize_non_finite(dev, g) -> dict:
@@ -6237,8 +6399,7 @@ def train_phase(dev) -> dict:
     if res["resumed_at"] != want_at:
         raise AssertionError(f"phase 10 resumed at {res['resumed_at']}, "
                              f"not {want_at}")
-    want = {"flash_attention": 2 * cfg.n_layers * steps_run,
-            "flash_attention_bwd": cfg.n_layers * steps_run}
+    want = {k: v * steps_run for k, v in flash_per_step(cfg).items()}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"phase 10 launched {got}, not {want}")
@@ -6311,8 +6472,7 @@ def train_bf16(dev) -> dict:
                              f"{differ[:8]}")
     if not all(math.isfinite(x) for x in losses[0]):
         raise AssertionError(f"bf16 training: losses not finite: {losses}")
-    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_BF16_STEPS,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_BF16_STEPS}
+    want = {k: v * TRAIN_BF16_STEPS for k, v in flash_per_step(cfg).items()}
     for c in counts:
         got = {k: c[k] for k in want}
         if got != want:
@@ -6321,8 +6481,9 @@ def train_bf16(dev) -> dict:
     return res
 
 
-def train_card_vs_cpu(dev) -> dict:
-    """The small checkpoint config trained TRAIN_CPU_STEPS steps in f32 on
+def train_card_vs_cpu(dev, cfg=None) -> dict:
+    """``cfg`` (the small checkpoint config unless given; phase 4 gives
+    reduced gemma3 and gemma2) trained TRAIN_CPU_STEPS steps in f32 on
     the card and on the CPU from the same parameters (drawn on the CPU):
     losses within TRAIN_LOSS_TOL relative (cuBLAS and the CPU's BLAS sum
     in other orders; the warm-up's learning rates, 0 then 3e-6 and 6e-6,
@@ -6334,7 +6495,7 @@ def train_card_vs_cpu(dev) -> dict:
     from repro_torch.optim.adamw import AdamWConfig, init_moments
     from repro_torch.train.state import new_state
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = ckpt_config(small=True)
+    cfg = cfg or ckpt_config(small=True)
     model = Model(cfg, compute_dtype=torch.float32)
     g = torch.Generator()
     g.manual_seed(TRAIN_SEED)
@@ -6356,29 +6517,177 @@ def train_card_vs_cpu(dev) -> dict:
     err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                   losses["cpu"]))
     if not err <= TRAIN_LOSS_TOL:
-        raise AssertionError(f"training card vs CPU: losses {losses} differ "
-                             f"by {err} relative")
-    return {"losses": losses, "rel_err": err, "tolerance": TRAIN_LOSS_TOL}
+        raise AssertionError(f"training {cfg.name} card vs CPU: losses "
+                             f"{losses} differ by {err} relative")
+    return {"arch": cfg.name, "losses": losses, "rel_err": err,
+            "tolerance": TRAIN_LOSS_TOL}
 
 
-def launch_train_on_card() -> dict:
-    """``python -m repro_torch.launch.train --arch llama3.2-3b
-    --crash-at-step 6 --steps 10 --device cuda`` (the reduced config, bf16)
-    in a subprocess; it must return 0 after its crash."""
+def launch_train_on_card(arch: str = "llama3.2-3b") -> dict:
+    """``python -m repro_torch.launch.train --arch <arch> --crash-at-step 6
+    --steps 10 --device cuda`` (the reduced config, bf16) in a subprocess;
+    it must return 0 after its crash."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "llama3.2-3b", "--crash-at-step", "6", "--steps", "10",
-           "--device", "cuda"]
+           arch, "--crash-at-step", "6", "--steps", "10", "--device", "cuda"]
     t0 = time.perf_counter()
     done = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=600)
-    res = {"rc": done.returncode, "seconds": time.perf_counter() - t0,
+    res = {"arch": arch, "rc": done.returncode,
+           "seconds": time.perf_counter() - t0,
            "lines": done.stdout.splitlines()[-8:]}
     if done.returncode != 0 or "CRASH injected at step 6" not in done.stdout:
-        raise AssertionError(f"launch.train on the card: rc "
+        raise AssertionError(f"launch.train --arch {arch} on the card: rc "
                              f"{done.returncode}\n{done.stdout[-2000:]}\n"
                              f"{done.stderr[-4000:]}")
     return res
+
+
+# ----------------------------------------------------------------------
+# Phase 16: gemma3-27b and gemma2-9b trained at their published widths
+# ----------------------------------------------------------------------
+
+# depth cut for the card's memory and the run's time, widths as published:
+# gemma3-27b two local layers (window 1024; 2,235,067,136 parameters,
+# 35.8 GB of f32 params, grads and moments), two sequences of 2048 tokens
+# a step; gemma2-9b one local and one global layer (head width 256,
+# softcaps 50 and 30; 1,313,883,648 parameters, 21.0 GB), one sequence of
+# 8192 tokens a step
+GEMMA_TRAIN = {"gemma3-27b": {"layers": 2, "batch": 2, "seq": 2048},
+               "gemma2-9b": {"layers": 2, "batch": 1, "seq": 8192}}
+# each of the twin runs, per dtype; cut from 4 for the run's time: with 4
+# the whole run took 991.3 s on an NVIDIA H100 80GB HBM3 at 700 W, past
+# its earlier slowest, 984.0 s
+GEMMA_TRAIN_STEPS = 3
+GEMMA_TRAIN_DIR = ROOT / "build" / "chip_smoke_gemma_train"
+
+
+def flash_per_step(cfg) -> dict:
+    """The flash launches one training step makes: the forward once a
+    layer and again for each layer a superblock's remat recomputes (the
+    remainder's layers are not rematerialized, as in the reference), the
+    backward once a layer."""
+    from repro_torch.models import backbone as B
+    pattern, n_super, rem = cfg.pattern_plan()
+    remat = n_super * len(pattern) if B.REMAT["policy"] != "none" else 0
+    return {"flash_attention": cfg.n_layers + remat,
+            "flash_attention_bwd": cfg.n_layers}
+
+
+def gemma_train_one(dev, arch: str) -> dict:
+    """Phase 16 for one arch: GEMMA_TRAIN's depth and tokens at the
+    published widths, trained GEMMA_TRAIN_STEPS steps in f32 and then in
+    bf16 (as the launcher trains on a card), each dtype twice from the
+    same parameters (the trainer's seeded init), torch's kernels
+    deterministic, no checkpoint inside the steps.  The twins' losses and
+    final parameters must be equal bit for bit and finite, and each run
+    must launch flash_attention and flash_attention_bwd as
+    ``flash_per_step`` says a step.  Returns per dtype the step ms (median
+    past the first), tokens/s, peak memory and one more step's attention
+    share (CUDA events around the flash launches)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import policy as pol
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    spec = GEMMA_TRAIN[arch]
+    cfg = dataclasses.replace(registry.get(arch), n_layers=spec["layers"])
+    per_step = flash_per_step(cfg)
+    tokens = spec["batch"] * spec["seq"]
+    tc = TrainerConfig(steps=GEMMA_TRAIN_STEPS, ckpt_every=0,
+                       ckpt_dir=str(GEMMA_TRAIN_DIR), seed=TRAIN_SEED,
+                       global_batch=spec["batch"], seq_len=spec["seq"])
+    out = {"arch": arch, "layers": cfg.n_layers, "params": cfg.param_count(),
+           "tags": list(cfg.pattern_plan()[0] * cfg.pattern_plan()[1]
+                        + cfg.pattern_plan()[2]),
+           "window": cfg.window, "attn_softcap": cfg.attn_softcap,
+           "final_softcap": cfg.final_softcap,
+           "head_dim": cfg.resolved_head_dim, "global_batch": spec["batch"],
+           "seq_len": spec["seq"], "steps": GEMMA_TRAIN_STEPS,
+           "flash_per_step": per_step}
+    deterministic(dev)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            model = Model(cfg, compute_dtype=dtype)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            losses, step_s, counts, first = [], [], [], None
+            for run in range(2):
+                # a first call into torch's checkpoint leaves an import's
+                # frames, and the locals of the step that made it, to the
+                # garbage collector: collect them before a state is made
+                gc.collect()
+                torch.cuda.empty_cache()
+                tr = Trainer(model, AdamWConfig(), tc, device=dev)
+                tr.init()
+                before = launch_counts()
+                tr.run()
+                counts.append({k: v - before[k]
+                               for k, v in launch_counts().items()})
+                losses.append([m["loss"] for m in tr.metrics_log])
+                step_s.append([m["sec"] for m in tr.metrics_log])
+                if run == 0:
+                    # the first run's final parameters, in pinned host
+                    # memory (a non-blocking copy pins its output): two
+                    # states would not fit on the card beside each other
+                    first = {p: t.to("cpu", non_blocking=True) for p, t in
+                             pol.tree_flatten_with_path(tr.state.params)}
+                    torch.cuda.synchronize()
+                    del tr
+            peak = torch.cuda.max_memory_allocated(dev)
+            differ = [pol.path_str(p) for p, t in
+                      pol.tree_flatten_with_path(tr.state.params)
+                      if not torch.equal(t, first[p].to(dev,
+                                                       non_blocking=True))]
+            del first
+            share = attention_share(tr)
+            del tr
+            torch.cuda.empty_cache()
+            name = str(dtype).split(".")[-1]
+            med = statistics.median(step_s[0][1:] + step_s[1][1:])
+            out[name] = {"losses": losses[0], "step_ms": med * 1e3,
+                         "first_step_ms": step_s[0][0] * 1e3,
+                         "step_ms_each": [[x * 1e3 for x in r]
+                                          for r in step_s],
+                         "tokens_per_s": tokens / med, "peak_bytes": peak,
+                         "attention": share,
+                         "launches": {k: counts[0][k] for k in per_step}}
+            if losses[0] != losses[1] or differ:
+                raise AssertionError(f"{arch} {name} training: two runs from "
+                                     f"the same parameters differ: losses "
+                                     f"{losses}, params {differ[:8]}")
+            if not all(math.isfinite(x) for x in losses[0]):
+                raise AssertionError(f"{arch} {name} training: losses not "
+                                     f"finite: {losses}")
+            want = {k: v * GEMMA_TRAIN_STEPS for k, v in per_step.items()}
+            for c in counts:
+                got = {k: c[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"{arch} {name} training launched "
+                                         f"{got}, not {want}")
+            if share["launches"] != {"flash_attention_bwd":
+                                     per_step["flash_attention_bwd"],
+                                     "flash_attention":
+                                     per_step["flash_attention"]}:
+                raise AssertionError(f"{arch} {name}: the timed step made "
+                                     f"{share['launches']} flash launches")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(GEMMA_TRAIN_DIR, ignore_errors=True)
+    return out
+
+
+def gemma_train_phase(dev) -> dict:
+    """Phase 16: gemma3-27b and gemma2-9b trained at their published widths
+    (``gemma_train_one``), then the launcher on the card for gemma2-9b."""
+    t0 = time.perf_counter()
+    out = {arch: gemma_train_one(dev, arch) for arch in GEMMA_TRAIN}
+    out["launch_train"] = launch_train_on_card("gemma2-9b")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------- main
@@ -7152,7 +7461,7 @@ def main(argv=None) -> int:
     # the D = 256 forward (gemma2), both designs: registers and spills
     emit({"phase": "flash_d256_ptxas",
           **{k: v for k, v in report["build"]["flash_kernels"].items()
-             if k.endswith("D=256")}})
+             if "D=256" in k}})
     report["link"] = pinned_d2h(dev)
     emit({"phase": "pinned_d2h", **report["link"]})
     emit({"phase": "clock", "before": "2",
@@ -7171,6 +7480,7 @@ def main(argv=None) -> int:
           "flash_prefill_bf16": parity["flash_prefill_bf16"],
           "flash_bwd": parity["flash_bwd"],
           "flash_bwd_widths": parity["flash_bwd_widths"],
+          "flash_bwd_edges": parity["flash_bwd_edges"],
           "flash_grad_on_card": parity["flash_grad_on_card"],
           "quantize_non_finite": parity["quantize_non_finite"],
           "probe": parity["probe"]})
@@ -7396,10 +7706,16 @@ def main(argv=None) -> int:
     # llama3.2-3b, and gemma's two
     launcher = launch_serve("llama3.2-3b")
     launcher["gemma"] = [launch_serve(a) for a in GEMMA_SERVE]
+    # reduced gemma3 and gemma2 trained on the card and on the CPU
+    from repro_torch.configs import base as cbase, registry as creg
+    gemma_cpu = [train_card_vs_cpu(dev, cbase.reduced(creg.get(a)))
+                 for a in GEMMA_TRAIN]
     report["card_vs_cpu"] = {"identical": same, "serve": serve,
-                             "launch_serve": launcher}
+                             "launch_serve": launcher,
+                             "gemma_train": gemma_cpu}
     emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same,
-          "serve": serve, "launch_serve": launcher})
+          "serve": serve, "launch_serve": launcher,
+          "gemma_train": gemma_cpu})
     emit({"phase": "clock", "before": "5",
           "at_s": time.perf_counter() - t_run})
     # ---- phase 5: snapshot recovery at full size
@@ -7644,6 +7960,22 @@ def main(argv=None) -> int:
                if launches15[k] == 0]
     if missing:
         raise AssertionError(f"phase 15 never launched {missing}")
+    emit({"phase": "clock", "before": "16",
+          "at_s": time.perf_counter() - t_run})
+    # ---- phase 16: gemma3-27b and gemma2-9b trained at full width
+    reset_launch_counts()
+    gemma_train = gemma_train_phase(dev)
+    launches16 = launch_counts()
+    report["gemma_train"] = gemma_train
+    for arch in GEMMA_TRAIN:
+        emit({"phase": "gemma_train", **gemma_train[arch]})
+    emit({"phase": "gemma_train_launch", **gemma_train["launch_train"]})
+    emit({"phase": "gemma_train_phase", "launches": launches16,
+          "phase_s": gemma_train["phase_s"]})
+    missing = [k for k in ("flash_attention", "flash_attention_bwd")
+               if launches16[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 16 never launched {missing}")
     emit({"phase": "clock", "before": "summary",
           "at_s": time.perf_counter() - t_run})
     # ---- summary
@@ -7652,7 +7984,8 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda",
                         "launches": launches[name], "bound_by": "bytes",
                         "paged_launches": launches14[name],
-                        "gemma_launches": launches15[name], **row})
+                        "gemma_launches": launches15[name],
+                        "gemma_train_launches": launches16[name], **row})
     if sorted(k["name"] for k in kernels) != sorted(WRAPPERS):
         raise AssertionError("the kernels line does not list every kernel")
     report["card"] = card

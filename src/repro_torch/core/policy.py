@@ -113,19 +113,24 @@ def _children(node) -> List[Tuple[str, Any]]:
 def tree_flatten_with_path(tree) -> List[Tuple[Tuple[str, ...], Any]]:
     """[(path, leaf)] in JAX's flatten order."""
     out: List[Tuple[Tuple[str, ...], Any]] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for k, c in kids:
-            walk(c, path + (k,))
-
-    walk(tree, ())
+    _flatten_into(out, tree, ())
     return out
+
+
+# The walks below are module functions, not closures that call themselves:
+# a nested recursive function is a reference cycle (the function, its
+# cell), which keeps whatever its cells hold (the flattened leaves, the
+# unflattened ones' iterator) alive until the garbage collector runs, so
+# a train step's old parameters and gradients outlived it.
+def _flatten_into(out: list, node, path) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for k, c in kids:
+        _flatten_into(out, c, path + (k,))
 
 
 def tree_unflatten(skeleton, leaves):
@@ -141,20 +146,22 @@ def tree_unflatten(skeleton, leaves):
 def tree_map(fn: Callable, tree, with_path: bool = False):
     """``tree`` with every leaf replaced by ``fn(leaf)`` (``fn(path,
     leaf)`` with ``with_path``), containers rebuilt as they were."""
-    def walk(node, path):
-        if node is None:
-            return None
-        kids = _children(node)
-        if kids is None:
-            return fn(path, node) if with_path else fn(node)
-        if isinstance(node, dict):       # rebuilt in sorted order, as JAX
-            return {k: walk(node[k], path + (str(k),)) for k in sorted(node)}
-        vals = [walk(c, path + (k,)) for k, c in kids]
-        if hasattr(node, "_fields"):
-            return type(node)(*vals)
-        return type(node)(vals)
+    return _map(fn, tree, (), with_path)
 
-    return walk(tree, ())
+
+def _map(fn: Callable, node, path, with_path: bool):
+    if node is None:
+        return None
+    kids = _children(node)
+    if kids is None:
+        return fn(path, node) if with_path else fn(node)
+    if isinstance(node, dict):       # rebuilt in sorted order, as JAX
+        return {k: _map(fn, node[k], path + (str(k),), with_path)
+                for k in sorted(node)}
+    vals = [_map(fn, c, path + (k,), with_path) for k, c in kids]
+    if hasattr(node, "_fields"):
+        return type(node)(*vals)
+    return type(node)(vals)
 
 
 def path_str(path) -> str:

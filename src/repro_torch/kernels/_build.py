@@ -70,7 +70,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _I64, _I64, _I64, _INT, _INT,
-                                       _INT, _F32, _INT, _INT, _P],
+                                       _INT, _F32, _INT, _F32, _INT, _INT,
+                                       _P],
         "flash_attention_bwd_smem_bytes": [_INT, _INT, _INT],
     },
     "hash_probe": {

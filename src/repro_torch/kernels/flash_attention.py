@@ -13,8 +13,7 @@ which its Pallas kernel lacks): the scaled scores are capped as
 ``softcap * tanh(s / softcap)`` before the mask, and a key is hidden when
 ``qpos - kpos >= window`` on top of the causal mask (one-sided: without
 causal, later keys stay visible, as in the reference).  The kernel skips
-the tiles below a block's window band.  Head widths 16 to 256 (gemma2's
-256 only in the forward).  ``csrc/flash_attention.cu`` holds the two
+the tiles below a block's window band.  Head widths 16 to 256.  ``csrc/flash_attention.cu`` holds the two
 kernels and their design note: bf16 inputs run on the tensor cores (wgmma
 on TMA-filled tiles, the scale applied to the f32 scores, P rounded to
 bf16 for P.V); f32 inputs run a register-blocked FMA kernel with q scaled
@@ -37,11 +36,20 @@ the per-row logsumexp ``lse`` (H, Sq) f32, and its backward is
 (``csrc/flash_attention_bwd.cu``: Di = rowsum(dO·o) once into a scratch,
 then dK and dV over KV tiles, then dQ over Q tiles; bf16 on the tensor
 cores with P and dS rounded to bf16, f32 register-blocked on the FMA
-units; f32 sums, no atomics, so the bits repeat).  Bound of the backward:
-10·H·Sq·Skv·D flops (halved when causal) over the same rates.  The
-backward has no window, no softcap and no head width 256 yet: a call
-that needs the gradient with any of them raises ``NotImplementedError``
-on every device (ROADMAP Queue 1 item 4).
+units; f32 sums, no atomics, so the bits repeat).  The backward takes the
+forward's ``window`` and ``softcap`` and every head width of
+``HEAD_DIMS``: it recomputes each score as the forward does (capped in
+f32 before the mask), so P = exp(s - lse) is the forward's, skips the
+tiles outside a window's band in both of its walks (a key tile is seen
+only by the query tiles from its own up to its last key + window - 1) and
+masks only the band's edge tiles, and multiplies dS by the cap's chain
+rule factor 1 - tanh(s_raw / softcap)^2 before dS feeds dK and dQ.  At
+head width 256 each block keeps 64 keys (or rows) and its two halves of
+threads own the two 128-column halves of dK and dV (or dQ), each
+recomputing the scores: twice the score work, the accumulators of width
+128.  Bound of the backward: 10·D flops per (query, key) pair the mask
+keeps (H·Sq·Skv, halved when causal, about H·Sq·window under a window)
+over the same rates.
 
 Every wrapper dispatches by where its tensors live: CPU tensors take the
 plain versions (``flash_attention_plain``, ``flash_attention_bwd_plain``);
@@ -64,7 +72,7 @@ __all__ = ["BWD_HEAD_DIMS", "FlashAttentionFn", "HEAD_DIMS",
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = HEAD_DIMS
 # the kernels flash_attention_bwd_launch runs, by bit: the Di pass, dK/dV, dQ
 BWD_DELTA, BWD_DKDV, BWD_DQ = 1, 2, 4
 BWD_ALL = BWD_DELTA | BWD_DKDV | BWD_DQ
@@ -156,25 +164,33 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               do: torch.Tensor, lse: torch.Tensor, *,
                               causal: bool = True,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              window: int = 0, softcap: float = 0.0):
     """Plain version of the backward: (dq, dk, dv) of the forward's output
     ``o`` under the incoming gradient ``do``, from the forward's ``lse``,
     the explicit formula of ``csrc/flash_attention_bwd.cu`` in f32, each
-    in its input's dtype; dk, dv summed over each KV head's query
-    group."""
+    in its input's dtype; dk, dv summed over each KV head's query group.
+    The scores are capped and masked as the forward's (``window``,
+    ``softcap``), and dS takes the cap's factor 1 - tanh(s_raw /
+    softcap)^2."""
     g = _check(q, k, v)
     _check_bwd(q, k, o, do, lse)
+    _check_band(window, softcap)
     h, sq, d = q.shape
     hk, skv = k.shape[:2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qf, dof = q.float(), do.float()
     kk = k.float().repeat_interleave(g, dim=0)
     vv = v.float().repeat_interleave(g, dim=0)
-    s = _masked(torch.matmul(qf, kk.transpose(1, 2)) * scale, causal)
+    s = torch.matmul(qf, kk.transpose(1, 2)) * scale
+    t = torch.tanh(s / softcap) if softcap else None
+    s = _masked(softcap * t if softcap else s, causal, window)
     p = torch.where(s > 0.5 * NEG_INF, torch.exp(s - lse[..., None]), 0.0)
     di = flash_attention_bwd_delta_plain(o, do)[..., None]
     dv = torch.matmul(p.transpose(1, 2), dof)
     ds = p * (torch.matmul(dof, vv.transpose(1, 2)) - di)
+    if softcap:
+        ds = ds * (1.0 - t * t)
     dq = torch.matmul(ds, kk) * scale
     dk = torch.matmul(ds.transpose(1, 2), qf) * scale
     dk = dk.reshape(hk, g, skv, d).sum(dim=1)
@@ -258,17 +274,21 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, window: int = 0,
+                        softcap: float = 0.0):
     """(dq, dk, dv) of ``flash_attention``: CPU tensors take
     ``flash_attention_bwd_plain``; CUDA tensors launch the three backward
     kernels (the Di pass, dK/dV, then dQ) of
     ``csrc/flash_attention_bwd.cu``, counted as one launch of this
-    wrapper, or raise."""
+    wrapper, or raise.  ``window`` and ``softcap`` must be the
+    forward's."""
     g = _check(q, k, v)
     _check_bwd(q, k, o, do, lse)
+    _check_band(window, softcap)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
-                                         scale=scale)
+                                         scale=scale, window=window,
+                                         softcap=softcap)
     h, sq, d = q.shape
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -285,8 +305,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), h, sq, k.shape[1], d, g,
-            int(causal), scale, int(q.dtype == torch.bfloat16),
-            BWD_ALL, stream)
+            int(causal), scale, int(window), float(softcap),
+            int(q.dtype == torch.bfloat16), BWD_ALL, stream)
     if rc:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed "
                            f"(error {rc}: a CUDA error, or 10000 + the "
@@ -303,23 +323,19 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window=0, softcap=0.0):
-        if window or softcap or q.shape[2] not in BWD_HEAD_DIMS:
-            # imported here: core.arena imports the kernels package
-            from repro_torch.core.arena import not_ported
-            raise not_ported(
-                f"the flash_attention backward with a sliding window "
-                f"({window}), a score softcap ({softcap}) or head width "
-                f"{q.shape[2]} (Queue 1 item 4)")
-        out, lse = _forward(q, k, v, causal, scale, with_lse=True)
+        out, lse = _forward(q, k, v, causal, scale, True, window, softcap)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
+        ctx.window, ctx.softcap = window, softcap
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), lse,
-                                         causal=ctx.causal, scale=ctx.scale)
+                                         causal=ctx.causal, scale=ctx.scale,
+                                         window=ctx.window,
+                                         softcap=ctx.softcap)
         return dq, dk, dv, None, None, None, None
 
 
@@ -332,8 +348,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window, and ``softcap`` > 0 caps the scaled scores first.  Returns
     (H, Sq, D) in q's dtype.  With grad enabled and an input that requires
     it, the call goes through ``FlashAttentionFn``, whose backward is
-    ``flash_attention_bwd`` (no window, softcap or D = 256 yet: those
-    raise)."""
+    ``flash_attention_bwd`` with the same window and cap."""
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -14,8 +14,7 @@ tree shape (``cache_specs``).
 layer, whose ring cache holds ``min(window, s_max)`` positions) in train,
 prefill and decode mode.  Every other base or variant (``cross``,
 ``moe``, ``hybrid``, ``mlstm``, ``slstm``) raises ``NotImplementedError``
-naming itself; so does a local layer's training gradient (the flash
-backward has no window yet).
+naming itself.
 
 Train mode is a full-sequence forward with no caches.  ``REMAT`` picks
 what a training forward keeps of each superblock for the backward

@@ -19,8 +19,8 @@ reference's layer rounds ``q * scale`` to q's dtype first.  In f32 the two
 agree to rounding; in bf16 they differ by one bf16 rounding of q, which is
 inside the 2e-2 the reference's own kernel tests allow.  Sliding windows
 and score softcaps (gemma's local layers and gemma2's cap) go to the
-kernel too, which skips the tiles below a window's band; their backward
-is not ported yet and raises.
+kernel too, which skips the tiles below a window's band, and so does
+their gradient: the backward kernels take the same window and cap.
 
 Not ported: ``LOWP_ROW_REDUCE`` (a distributed-cell switch) and the mesh
 hooks ``constrain_activations``/``seq_parallel``, which are identities

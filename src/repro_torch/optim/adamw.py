@@ -5,7 +5,13 @@ outside the sqrt, the global gradient norm clipped to ``max_grad_norm``.
 The update keeps the reference's order of operations leaf by leaf (clip
 scale, moments, bias correction, the step, the decay) in f32 and returns
 new trees, as the reference's functional update does; it runs on the
-parameters' device under ``no_grad``.  Moments are f32 by default;
+parameters' device under ``no_grad``.  A leaf larger than
+``UPDATE_CHUNK`` elements is updated a chunk of its elements at a time
+into the new tensors: each element goes through the same operations, so
+the bits are the same, and the step's temporaries stay a few chunks
+instead of several copies of the largest leaf (gemma3-27b's tied
+embedding is 1.41 B parameters, 5.6 GB a copy in f32).  Moments are f32
+by default;
 ``moment_dtype="bfloat16"`` keeps them in bf16, and a checkpoint saves
 them as the reference's files and restores them (``ckpt/manager.py``;
 the reference itself cannot restore them, ROADMAP Queue 3)."""
@@ -22,6 +28,7 @@ from repro_torch.core.policy import tree_flatten_with_path, tree_map, \
 PyTree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+UPDATE_CHUNK = 1 << 24      # elements of a leaf updated at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +80,7 @@ def update(params: PyTree, grads: PyTree, mu: PyTree, nu: PyTree,
     lr = torch.as_tensor(lr).to(dev, torch.float32)
     mdt = _DTYPES[cfg.moment_dtype]
 
-    def leaf(p, g, m, v):
+    def part(p, g, m, v):
         g = g.float() * scale
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
         v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
@@ -83,6 +90,21 @@ def update(params: PyTree, grads: PyTree, mu: PyTree, nu: PyTree,
         p32 = p.float()
         p_new = p32 - lr * (upd + cfg.weight_decay * p32)
         return p_new.to(p.dtype), m32.to(mdt), v32.to(mdt)
+
+    def leaf(p, g, m, v):
+        n = p.numel()
+        if n <= UPDATE_CHUNK:
+            return part(p, g, m, v)
+        out = (torch.empty_like(p), torch.empty(p.shape, dtype=mdt,
+                                                device=p.device),
+               torch.empty(p.shape, dtype=mdt, device=p.device))
+        ins = [t.reshape(-1) for t in (p, g, m, v)]
+        flat = [t.view(-1) for t in out]
+        for i in range(0, n, UPDATE_CHUNK):
+            for dst, src in zip(flat, part(*(t[i:i + UPDATE_CHUNK]
+                                             for t in ins))):
+                dst[i:i + UPDATE_CHUNK] = src
+        return out
 
     out = [leaf(*x) for x in zip(_leaves(params), _leaves(grads),
                                  _leaves(mu), _leaves(nu))]

@@ -95,8 +95,8 @@ def test_window_past_the_sequence_is_plain_causal():
 
 
 def test_lse_is_of_the_capped_scores():
-    """The lse the forward keeps (for the next slice's backward) is the
-    logsumexp of the capped, masked scores."""
+    """The lse the forward keeps for the backward is the logsumexp of the
+    capped, masked scores."""
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(_rand(rng, 2, 20, 16) * 3) for _ in range(3))
     out, lse = FA.flash_attention_plain(q, k, v, window=5, softcap=2.0,
@@ -111,13 +111,23 @@ def test_lse_is_of_the_capped_scores():
 
 
 @pytest.mark.parametrize("kw", [{"window": 4}, {"softcap": 30.0}, {"d": 256}])
-def test_grad_with_window_softcap_or_d256_raises(kw):
+def test_grad_with_window_softcap_or_d256_goes_through_the_function(kw):
+    """With grad enabled, a window, a softcap or head width 256 runs
+    FlashAttentionFn (on the CPU: the plain forward and backward), whose
+    grads equal torch autograd through the plain forward."""
     d = kw.pop("d", 16)
-    q, k, v = (torch.zeros(2, 8, d, requires_grad=True) for _ in range(3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        FA.flash_attention(q, k, v, **kw)
-    with torch.no_grad():                  # the forward alone runs
-        assert FA.flash_attention(q, k, v, **kw).shape == (2, 8, d)
+    rng = np.random.default_rng(d)
+    base = [torch.from_numpy(_rand(rng, 2, 8, d) * 2) for _ in range(3)]
+    do = torch.from_numpy(_rand(rng, 2, 8, d))
+    leaves = [t.clone().requires_grad_(True) for t in base]
+    out = FA.flash_attention(*leaves, **kw)
+    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, leaves, do)
+    ref = [t.clone().requires_grad_(True) for t in base]
+    want = torch.autograd.grad(FA.flash_attention_plain(*ref, **kw), ref, do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert launch_counts()["flash_attention_bwd"] == 0
 
 
 def test_bad_window_or_softcap_raise():
@@ -186,17 +196,6 @@ def test_gemma_prefill_and_decode_match_reference(gemma):
         tok = np.argmax(np.asarray(jl), -1)
         seen |= set(tok.tolist())
     assert len(seen) > 3
-
-
-def test_gemma_train_mode_raises_in_the_backward_only(gemma):
-    _, _, tm, tp = gemma
-    params = tree_map(lambda t: t.clone().requires_grad_(True), tp)
-    batch = {"tokens": torch.zeros(1, 12, dtype=torch.int64),
-             "labels": torch.zeros(1, 12, dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tm.loss(params, batch)
-    with torch.no_grad():
-        assert torch.isfinite(tm.loss(tp, batch))
 
 
 @pytest.mark.parametrize("arch", GEMMAS)
