@@ -4,7 +4,7 @@
 Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py [--report PATH] [--crossover-study]
-    python3 chip_smoke.py --ab-parent DIR [--report PATH]
+    python3 chip_smoke.py --ab-parent DIR [--ab-crossover | --ab-model] [--report PATH]
 
 Phases (any failure exits non-zero; no phase catches its own failure):
 
@@ -185,7 +185,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``--arch gemma3-27b`` and ``--arch gemma2-9b``; reduced gemma3-27b and
    gemma2-9b (window 8, softcaps 50 and 30 for gemma2) trained 3 steps in
    f32 on the card and on the CPU from the same parameters, losses within
-   1e-5 relative;
+   1e-5 relative; reduced dbrx-132b and llama4-maverick-400b-a17b (4
+   experts, top 2 and 1, groups of 64) served as the llama3.2-3b engine
+   is, prefill and decode logits within 1e-4 with the same tokens, and
+   trained 3 steps in f32 on the card (twice, torch's kernels
+   deterministic: losses and parameters equal bit for bit) and on the
+   CPU, losses within 1e-5 relative; ``launch.serve --arch dbrx-132b
+   --crash`` and ``launch.train --arch llama4-maverick-400b-a17b
+   --crash-at-step 6`` on the card, rc 0; before those, the card's bf16
+   products with f32 results (``torch.mm``/``bmm`` with ``out_dtype``)
+   against the CPU's upcast on the same bf16 values: ``decode_attention``
+   at ROADMAP Queue 3 item 19's smallest input, softcap 0 and 50, within
+   2**-7 of the largest |output| (the scores rounded to bf16 before the
+   cap, run beside it, must exceed that), and ``f32_product`` at
+   llama3.2-3b's gate and dbrx-132b's expert widths within 5e-5 of the
+   largest |result| (the product rounded to bf16 must exceed that), with
+   ``gate_up`` and the 2-D product's gradients within 2**-7;
 5. snapshot recovery: the DLL and the hashmap at 2**22 entries, both
    modes, order snapshots on, a commit after every batch of 8192, then
    deletes and pops, a commit, a suffix of 120 appends or inserts and a
@@ -444,7 +459,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    tokens/s, peak memory and one more step's attention share (CUDA
    events around the flash launches); then ``repro_torch.launch.train
    --arch gemma2-9b --crash-at-step 6 --steps 10 --device cuda``
-   (reduced, bf16) in a subprocess, which must return 0.
+   (reduced, bf16) in a subprocess, which must return 0;
+17. MoE serving at the published widths (``models/moe.py``): dbrx-132b
+   (d_model 6144, 48 heads over 8, head width 128, 16 experts top-4,
+   expert d_ff 10752, vocab 100352, untied) cut to 2 of its 40 layers
+   (7,751,301,120 parameters, 31.0 GB) in f32, and llama4-maverick-400b-
+   a17b (5120, 40 over 8, 128 experts top-1 of d_ff 8192 with a shared
+   expert, dense d_ff 16384, vocab 202048, untied) cut to one superblock
+   (a dense and an MoE layer, 18.7 B parameters) with bf16 parameters
+   and compute, each through ``serve_recover.run``'s MoE rule: prompts of
+   1024 and 4096 tokens (one router group: capacity 1280 and 40), 8
+   steps, the first (1024-token) request finished, 8 steps, crash and
+   re-prefill (the 4096-token log, 4112 tokens by then, in one group:
+   capacity 1285 and 41), 8 steps.  The recovered caches equal a crash-free prefill of the same
+   token logs (1e-4 of the largest |k|, |v| in f32, 2e-2 in bf16) and
+   serve on beside it with equal tokens; the decode-built twin is held
+   on the first layer's caches only, and its other differences are
+   reported with the assignments the re-prefill dropped; the same
+   prefill twice gives bitwise-equal logits; every prefill calls the
+   flash kernel once a layer; prefill tokens/s, decode ms per slot-step
+   beside its weight-read bound, recovery seconds, peak memory.  Then one
+   dbrx-width MoE layer in train mode on 1 x 4096 tokens, no optimizer,
+   forward and backward twice in f32 and in bf16 compute, torch's
+   kernels deterministic: every gradient equal bit for bit.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
@@ -456,7 +493,8 @@ reload) and ``flash_attention``'s in phase 12, and again in phase 13;
 the four chain kernels', ``pack_rows``' and ``scatter_rows``' in phase
 14; ``flash_attention``'s, ``pack_rows``' and ``scatter_rows``' in
 phase 15; ``flash_attention``'s and ``flash_attention_bwd``'s in phase
-16.
+16; ``flash_attention``'s, ``pack_rows``' and ``scatter_rows``' in phase
+17.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -3232,14 +3270,107 @@ def serve_once(cfg, params, device, prompts, steps: int, path: Path) -> dict:
             "file": (path / "engine").read_bytes()}
 
 
-def serve_card_vs_cpu(dev) -> dict:
-    """Phase 4's serving check: full width, 2 layers, f32, parameters drawn
-    once on the CPU and copied to the card."""
+# the f32 results of bf16 products (layers.f32_product): on the card
+# torch.mm/bmm with an f32 output, on the CPU the operands upcast
+BF16_DECODE_SEEDS = range(5)
+BF16_PRODUCT_TOL = 5e-5        # f32 product, of the largest |result|
+BF16_ULP_TOL = 2.0 ** -7       # a bf16 result, of the largest |result|
+
+
+def bf16_products_card_vs_cpu(dev) -> dict:
+    """Phase 4's bf16 products, the card's branch of ``f32_product``
+    against the CPU's upcast on the same bf16 values.  ``decode_attention``
+    at ROADMAP Queue 3 item 19's smallest input (q (1, 1, 2, 2, 64), k and
+    v caches (1, 64, 2, 64), q and k from N(0, 16), pos 63), softcap 0
+    and 50, five seeds: within BF16_ULP_TOL of the largest |output|,
+    which the scores rounded to bf16 before the cap (the repaired fault,
+    run on the card) exceed at some seed.  ``f32_product`` at model
+    widths, llama3.2-3b's gate (512 x 3072 by 3072 x 8192) and dbrx-132b's
+    experts (4 of its 16: 4 x 64 x 6144 by 4 x 6144 x 10752): within
+    BF16_PRODUCT_TOL of the largest |result|, which the product rounded to
+    bf16 exceeds; ``gate_up`` on the same values within BF16_ULP_TOL, and
+    the 2-D product's gradients (bf16 products) within BF16_ULP_TOL of
+    the largest |grad|."""
+    import torch
+    from repro_torch.models import layers as TL
+    out = {"decode": [], "products": []}
+
+    def rel(a, b):
+        return float((a.float().cpu() - b.float()).abs().max()
+                     / b.float().abs().max())
+    for softcap in (0.0, 50.0):
+        worst = old_worst = 0.0
+        for seed in BF16_DECODE_SEEDS:
+            g = torch.Generator().manual_seed(seed)
+            q, k = (torch.randn(s, generator=g) * 4.0 for s in
+                    ((1, 1, 2, 2, 64), (1, 64, 2, 64)))
+            v = torch.randn((1, 64, 2, 64), generator=g)
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            want = TL.decode_attention(q, k, v, torch.arange(64), 63,
+                                       softcap=softcap)
+            qd, kd, vd = (t.to(dev) for t in (q, k, v))
+            got = TL.decode_attention(qd, kd, vd,
+                                      torch.arange(64, device=dev), 63,
+                                      softcap=softcap)
+            s = torch.einsum("bkgd,bjkd->bkgj", qd[:, 0] * 0.125,
+                             kd).float()          # scores rounded to bf16
+            pr = torch.softmax(TL._softcap(s, softcap), dim=-1)
+            old = torch.einsum("bkgj,bjkd->bkgd", pr.to(torch.bfloat16),
+                               vd)[:, None]
+            worst = max(worst, rel(got, want))
+            old_worst = max(old_worst, rel(old, want))
+        out["decode"].append({"softcap": softcap, "rel_err": worst,
+                              "bf16_scores_rel_err": old_worst})
+        if worst > BF16_ULP_TOL or old_worst <= BF16_ULP_TOL:
+            raise AssertionError(f"bf16 decode_attention softcap {softcap}: "
+                                 f"card vs CPU {worst}, scores rounded to "
+                                 f"bf16 {old_worst} (tolerance "
+                                 f"{BF16_ULP_TOL})")
+    g = torch.Generator().manual_seed(19)
+    for name, sa, sb in (("llama3.2-3b gate", (512, 3072), (3072, 8192)),
+                         ("dbrx-132b experts", (4, 64, 6144),
+                          (4, 6144, 10752))):
+        a = torch.randn(sa, generator=g).to(torch.bfloat16)
+        w_g, w_u = ((torch.randn(sb, generator=g) * 0.02).to(torch.bfloat16)
+                    for _ in range(2))
+        want = TL.f32_product(a, w_g)
+        ad, wgd, wud = (t.to(dev) for t in (a, w_g, w_u))
+        if len(sa) == 2:
+            ad.requires_grad_()
+            wgd.requires_grad_()
+        got = TL.f32_product(ad, wgd)
+        row = {"case": name, "a": list(sa), "b": list(sb),
+               "dtype": str(got.dtype), "rel_err": rel(got.detach(), want),
+               "bf16_rel_err": rel(got.detach().to(torch.bfloat16), want)}
+        h = TL.gate_up(ad.detach(), wgd.detach(), wud, "silu")
+        row["gate_up_rel_err"] = rel(h, TL.gate_up(a, w_g, w_u, "silu"))
+        if len(sa) == 2:
+            r = torch.randn(got.shape, generator=g)
+            ga, gb = torch.autograd.grad(got, (ad, wgd), r.to(dev))
+            ac, bc = (t.clone().requires_grad_() for t in (a, w_g))
+            wa, wb = torch.autograd.grad(TL.f32_product(ac, bc), (ac, bc), r)
+            row["grad_rel_err"] = max(rel(ga, wa), rel(gb, wb))
+        out["products"].append(row)
+        if (got.dtype != torch.float32 or row["rel_err"] > BF16_PRODUCT_TOL
+                or row["bf16_rel_err"] <= BF16_PRODUCT_TOL
+                or row["gate_up_rel_err"] > BF16_ULP_TOL
+                or row.get("grad_rel_err", 0.0) > BF16_ULP_TOL):
+            raise AssertionError(f"bf16 f32_product/gate_up card vs CPU: "
+                                 f"{row}")
+        del a, w_g, w_u, ad, wgd, wud, got, want, h
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_card_vs_cpu(dev, cfg=None) -> dict:
+    """Phase 4's serving check: ``cfg`` (llama3.2-3b at full width, 2
+    layers, unless given), f32, parameters drawn once on the CPU and
+    copied to the card."""
     import torch
     from repro_torch.core.policy import tree_map
     from repro_torch.models.backbone import init_params
     from repro_torch.serve_recover import LOGIT_TOL, prompts_for
-    cfg = serve_config(layers=2)
+    cfg = cfg or serve_config(layers=2)
     gen = torch.Generator()
     gen.manual_seed(SERVE_SEED)
     cpu_params = init_params(cfg, gen, "cpu")
@@ -3274,7 +3405,8 @@ def serve_card_vs_cpu(dev) -> dict:
         raise AssertionError("serve: same tokens but different engine "
                              "arena files or FlushStats")
     shutil.rmtree(ROOT / "build" / "chip_smoke_serve")
-    return {"logit_rel_err": worst, "same_tokens": same_tokens,
+    return {"arch": cfg.name, "logit_rel_err": worst,
+            "same_tokens": same_tokens,
             "min_top2_gap": min(gaps),
             "tokens": [list(t.values()) for t in cpu["tokens"]],
             "file_sha256": hashlib.sha256(card["file"]).hexdigest()[:12]}
@@ -6481,14 +6613,17 @@ def train_bf16(dev) -> dict:
     return res
 
 
-def train_card_vs_cpu(dev, cfg=None) -> dict:
+def train_card_vs_cpu(dev, cfg=None, twins: bool = False) -> dict:
     """``cfg`` (the small checkpoint config unless given; phase 4 gives
-    reduced gemma3 and gemma2) trained TRAIN_CPU_STEPS steps in f32 on
-    the card and on the CPU from the same parameters (drawn on the CPU):
-    losses within TRAIN_LOSS_TOL relative (cuBLAS and the CPU's BLAS sum
-    in other orders; the warm-up's learning rates, 0 then 3e-6 and 6e-6,
-    keep the parameters within a few 1e-6 of each other whatever the
-    updates, so the losses can only part by rounding)."""
+    reduced gemma3, gemma2 and the two MoE archs) trained TRAIN_CPU_STEPS
+    steps in f32 on the card and on the CPU from the same parameters
+    (drawn on the CPU): losses within TRAIN_LOSS_TOL relative (cuBLAS and
+    the CPU's BLAS sum in other orders; the warm-up's learning rates, 0
+    then 3e-6 and 6e-6, keep the parameters within a few 1e-6 of each
+    other whatever the updates, so the losses can only part by
+    rounding).  ``twins`` trains on the card twice with torch's kernels
+    deterministic: the two runs' losses and parameters must be equal bit
+    for bit."""
     import torch
     from repro_torch.core import policy as pol
     from repro_torch.models.model import Model
@@ -6500,27 +6635,43 @@ def train_card_vs_cpu(dev, cfg=None) -> dict:
     g = torch.Generator()
     g.manual_seed(TRAIN_SEED)
     params = model.init_params(g, "cpu")
-    losses = {}
-    for d in ("cuda", "cpu"):
-        tr = Trainer(model, AdamWConfig(),
-                     TrainerConfig(steps=TRAIN_CPU_STEPS, ckpt_every=0,
-                                   ckpt_dir=str(TRAIN_DIR) + "_" + d,
-                                   seed=TRAIN_SEED,
-                                   global_batch=TRAIN_CPU_BATCH,
-                                   seq_len=TRAIN_CPU_SEQ), device=d)
-        p = pol.tree_map(lambda t: t.to(tr.device), params)
-        tr.state = new_state(p, *init_moments(p, AdamWConfig()), TRAIN_SEED,
-                             tr.device)
-        tr.run()
-        losses[d] = [m["loss"] for m in tr.metrics_log]
-        shutil.rmtree(str(TRAIN_DIR) + "_" + d, ignore_errors=True)
+    losses, finals = {}, []
+    runs = ("cuda", "cuda_twin", "cpu") if twins else ("cuda", "cpu")
+    try:
+        if twins:
+            from repro_torch.launch.train import deterministic
+            deterministic(dev)
+        for d in runs:
+            if d == "cpu":
+                torch.use_deterministic_algorithms(False)
+            tr = Trainer(model, AdamWConfig(),
+                         TrainerConfig(steps=TRAIN_CPU_STEPS, ckpt_every=0,
+                                       ckpt_dir=str(TRAIN_DIR) + "_" + d,
+                                       seed=TRAIN_SEED,
+                                       global_batch=TRAIN_CPU_BATCH,
+                                       seq_len=TRAIN_CPU_SEQ),
+                         device=d.split("_")[0])
+            p = pol.tree_map(lambda t: t.to(tr.device), params)
+            tr.state = new_state(p, *init_moments(p, AdamWConfig()),
+                                 TRAIN_SEED, tr.device)
+            tr.run()
+            losses[d] = [m["loss"] for m in tr.metrics_log]
+            if d.startswith("cuda"):
+                finals.append(pol.tree_flatten_with_path(tr.state.params))
+            shutil.rmtree(str(TRAIN_DIR) + "_" + d, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if twins and (losses["cuda"] != losses.pop("cuda_twin") or not all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(*finals))):
+        raise AssertionError(f"training {cfg.name} on the card: two runs "
+                             f"from the same parameters differ")
     err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                   losses["cpu"]))
     if not err <= TRAIN_LOSS_TOL:
         raise AssertionError(f"training {cfg.name} card vs CPU: losses "
                              f"{losses} differ by {err} relative")
     return {"arch": cfg.name, "losses": losses, "rel_err": err,
-            "tolerance": TRAIN_LOSS_TOL}
+            "tolerance": TRAIN_LOSS_TOL, "twins_bitwise": twins}
 
 
 def launch_train_on_card(arch: str = "llama3.2-3b") -> dict:
@@ -6686,6 +6837,234 @@ def gemma_train_phase(dev) -> dict:
     t0 = time.perf_counter()
     out = {arch: gemma_train_one(dev, arch) for arch in GEMMA_TRAIN}
     out["launch_train"] = launch_train_on_card("gemma2-9b")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 17: the MoE archs served at their published widths
+# ----------------------------------------------------------------------
+
+# depth cut for the card's memory, widths as published: dbrx-132b 2 of
+# its 40 layers in f32 (7,751,301,120 parameters, 31.0 GB); maverick one
+# superblock, a dense and an MoE layer, in bf16 (in f32 its 74.7 GB
+# would not fit beside the caches)
+MOE_SERVE = {
+    "dbrx-132b": {"layers": 2, "dtype": "float32"},
+    "llama4-maverick-400b-a17b": {"layers": 2, "dtype": "bfloat16"},
+}
+# 4096: one router group (capacity 1280 and 40); the first request, which
+# finishes before the crash, is the shorter, so the 4096-token log is live
+# at the crash and re-prefilled (with its decoded tokens, one group of
+# 4112 tokens: capacity 1285 and 41)
+MOE_PROMPTS = (1024, 4096)
+MOE_STEPS = 8                  # before the finish, after it, after recovery
+MOE_S_MAX = 4096 + 4 * MOE_STEPS
+MOE_BWD_TOKENS = 4096          # the backward twins' sequence
+
+
+def decode_bound_ms(cfg, params) -> dict:
+    """The weight reads of one decode step, every expert's included (the
+    dispatch runs each expert's capacity slots, one at decode): every
+    parameter byte but the embedding table's (one row is read), over
+    HBM_BYTES_PER_S; and the experts' alone."""
+    from repro_torch.core.policy import path_str, tree_flatten_with_path
+    total = experts = 0
+    for path, t in tree_flatten_with_path(params):
+        name = path_str(path)
+        if name == "embed":
+            continue
+        nbytes = t.numel() * t.element_size()
+        total += nbytes
+        if "moe" in name and any(w in name for w in ("w_gate", "w_up",
+                                                    "w_down")):
+            experts += nbytes
+    return {"weight_bytes": total, "expert_bytes": experts,
+            "bound_ms": 1e3 * total / HBM_BYTES_PER_S,
+            "expert_bound_ms": 1e3 * experts / HBM_BYTES_PER_S}
+
+
+def moe_serve_one(dev, arch: str) -> dict:
+    """Phase 17 for one arch: ``serve_recover.run``'s MoE rule at the
+    published widths (MOE_SERVE's depth and dtype), then the same 4096
+    token prefill twice for bitwise-equal logits.  Every prefill (the
+    admissions on the engine, its twin and the crash-free prefill engine,
+    and each re-prefill group) must launch the flash kernel once a
+    layer."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.writeset import WriteSet
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.backbone import init_params
+    from repro_torch.models.model import Model
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve_recover import prompts_for, run
+    spec = MOE_SERVE[arch]
+    dtype = getattr(torch, spec["dtype"])
+    cfg = dataclasses.replace(registry.get(arch), n_layers=spec["layers"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev, dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before, gathers0 = launch_counts(), WriteSet.gathers
+    t0 = time.perf_counter()
+    with FlashCalls() as spy:
+        out = run(cfg, dev, prompt_lens=MOE_PROMPTS, max_batch=3,
+                  s_max=MOE_S_MAX, steps=MOE_STEPS, max_requests=16,
+                  seed=SERVE_SEED, params=params, compute_dtype=dtype,
+                  workdir=str(ROOT / "build"))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    out["gathers"] = WriteSet.gathers - gathers0
+    if launches["pack_rows"] != out["gathers"]:
+        raise AssertionError(f"{arch}: {launches['pack_rows']} pack_rows "
+                             f"launches for {out['gathers']} grouped "
+                             f"gathers")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # admissions on the engine and its twin, the new request on those and
+    # on the crash-free prefill engine, each re-prefill group, and the
+    # crash-free prefill of each live log (its group's length)
+    prefills = {}
+    for n in MOE_PROMPTS:
+        prefills[n] = prefills.get(n, 0) + 2
+    prefills[MOE_PROMPTS[-1]] = prefills[MOE_PROMPTS[-1]] + 3
+    for grp in out["groups"]:
+        prefills[grp["tokens"]] = prefills.get(grp["tokens"], 0) + 1 \
+            + len(grp["slots"])
+    want = {("global", n): cfg.n_layers * times
+            for n, times in prefills.items()}
+    if spy.calls != want:
+        raise AssertionError(f"{arch}: attention calls by (layer kind, "
+                             f"length) {spy.calls}, expected {want}")
+    n_prefills = sum(prefills.values())
+    if launches["flash_attention"] != cfg.n_layers * n_prefills:
+        raise AssertionError(f"{arch}: {launches['flash_attention']} "
+                             f"flash_attention launches for {n_prefills} "
+                             f"prefills of {cfg.n_layers} layers")
+    # routing is deterministic: the same prefill twice, bitwise (and timed
+    # warm: the engine's first admission also pays the libraries' first
+    # calls)
+    model = Model(cfg, compute_dtype=dtype)
+    tokens = torch.as_tensor(prompts_for(MOE_PROMPTS[-1:], cfg.vocab,
+                                         SERVE_SEED)[0][None]).to(dev)
+    twice, warm = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twice.append(model.prefill(params, {"tokens": tokens})[0])
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    if not torch.equal(*twice):
+        raise AssertionError(f"{arch}: the same prefill twice gave "
+                             f"different logits")
+    if not bool(torch.isfinite(twice[0]).all()):
+        raise AssertionError(f"{arch}: prefill logits not finite")
+    for p in out["prefill"]:
+        p["tokens_per_s"] = p["tokens"] / p["seconds"]
+    bound = decode_bound_ms(cfg, params)
+    del params, twice, model
+    torch.cuda.empty_cache()
+    out.pop("stats", None)
+    out.pop("paging_stats", None)
+    out.update({"init_params_s": init_s, "launches": launches,
+                "decode_bound": bound, "prefill_twice_equal": True,
+                "prefill_warm_s": warm,
+                "prefill_warm_tokens_per_s": MOE_PROMPTS[-1] / min(warm),
+                "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+                "expert_d_ff": cfg.moe.expert_d_ff or cfg.d_ff,
+                "shared_expert": cfg.moe.shared_expert,
+                "capacity": {n: capacity(n, cfg.moe) for n in MOE_PROMPTS},
+                "flash_calls": {f"{k[0]}:{k[1]}": v
+                                for k, v in sorted(spy.calls.items())}})
+    return out
+
+
+def moe_backward_twins(dev) -> dict:
+    """One dbrx-132b MoE layer at its published widths (12.7 GB of expert
+    weights in f32) in train mode on 1 x MOE_BWD_TOKENS tokens, no
+    optimizer: forward and backward of a fixed projection of its output,
+    twice in f32 and twice in bf16 compute, torch's kernels
+    deterministic.  Every gradient (the layer's parameters and its input)
+    must be equal bit for bit between a dtype's two runs, and finite; one
+    flash forward and one backward launch a run."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models import backbone as B
+    from repro_torch.core.policy import (tree_flatten_with_path, tree_map,
+                                         tree_unflatten)
+    cfg = dataclasses.replace(registry.get("dbrx-132b"), n_layers=1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_SEED)
+    params = tree_map(lambda spec: B.init_leaf(spec, gen, dev),
+                      B._leaf_specs(B.layer_shapes(cfg, "moe")))
+    x = torch.randn((1, MOE_BWD_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)
+    r = torch.randn(x.shape, generator=gen, device=dev)
+    n_params = sum(t.numel() for _, t in tree_flatten_with_path(params))
+    out = {"arch": cfg.name, "tokens": MOE_BWD_TOKENS, "params": n_params}
+    deterministic(dev)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            grads, ms, counts = None, [], []
+            for _ in range(2):
+                torch.cuda.empty_cache()
+                leaves = [t.detach().requires_grad_() for _, t in
+                          tree_flatten_with_path(params)]
+                xin = x.to(dtype).requires_grad_()
+                p = tree_unflatten(params, leaves)
+                before = launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y, _ = B.apply_layer(cfg, "moe", p, xin, mode="train")
+                g = torch.autograd.grad((y.float() * r).sum(),
+                                        leaves + [xin])
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                counts.append({k: v - before[k] for k, v in
+                               launch_counts().items()
+                               if k.startswith("flash")})
+                if grads is None:
+                    grads = g
+                    continue
+                differ = [i for i, (a, b) in enumerate(zip(grads, g))
+                          if not torch.equal(a, b)]
+                finite = all(bool(torch.isfinite(a).all()) for a in g)
+            name = str(dtype).split(".")[-1]
+            out[name] = {"fwd_bwd_ms": ms, "launches": counts[0],
+                         "grads_bitwise": not differ, "finite": finite}
+            del grads, g, leaves, xin, y
+            if differ or not finite:
+                raise AssertionError(f"dbrx MoE layer {name}: two forward "
+                                     f"and backward runs differ in "
+                                     f"gradients {differ[:8]} (finite "
+                                     f"{finite})")
+            for c in counts:
+                if c != {"flash_attention": 1, "flash_attention_bwd": 1}:
+                    raise AssertionError(f"dbrx MoE layer {name}: flash "
+                                         f"launches {c} a run")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del params, x, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(dev) -> dict:
+    """Phase 17: dbrx-132b and maverick served at their published widths,
+    then the dbrx-width MoE layer's backward twins."""
+    t0 = time.perf_counter()
+    out = {}
+    out["dbrx-132b"] = moe_serve_one(dev, "dbrx-132b")
+    out["backward"] = moe_backward_twins(dev)
+    arch = "llama4-maverick-400b-a17b"
+    out[arch] = moe_serve_one(dev, arch)
     out["phase_s"] = time.perf_counter() - t0
     return out
 
@@ -7323,6 +7702,24 @@ from repro_torch.kernels import _build
 CROSSOVER_ONLY = sys.argv[1:] == ["crossover"]
 _build.build(("pack_flush",) if CROSSOVER_ONLY else _build.SOURCES)
 dev = torch.device("cuda", 0)
+if sys.argv[1:] == ["model"]:
+    # phase 7's Model.decode_step, phase 10's bf16 step and phase 16's
+    # gemma2-9b steps, each through its phase's own function
+    from repro_torch.models.backbone import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = C.serve_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C.SERVE_SEED)
+    params = init_params(cfg, gen, dev)
+    out = {"model_decode_ms": C.model_decode_ms(cfg, params, dev)}
+    del params
+    torch.cuda.empty_cache()
+    out["train_bf16_step_ms"] = C.train_bf16(dev)["step_ms"]
+    g2 = C.gemma_train_one(dev, "gemma2-9b")
+    out["gemma2_step_ms"] = {d: g2[d]["step_ms"] for d in ("float32",
+                                                          "bfloat16")}
+    print("AB " + json.dumps(out), flush=True)
+    sys.exit(0)
 if CROSSOVER_ONLY:
     # the epochs' host walls without stalls (median over every epoch of
     # four rounds), then the crossover at one and four shards three times
@@ -7361,19 +7758,22 @@ print("AB " + json.dumps(out), flush=True)
 """
 
 
-def ab_trees(parent: Path, rounds: int = 3, crossover: bool = False
-             ) -> list:
+def ab_trees(parent: Path, rounds: int = 3, crossover: bool = False,
+             model: bool = False) -> list:
     """``--ab-parent``: phase 13's four-shard crossover (ungated) and phase
     3's DLL and hashmap at 2**22, for the tree at ``parent`` and this one
     in turns (parent, this, this, parent, ...), one process each.  With
     ``crossover`` (``--ab-crossover``) each process instead times the
     crossover shape's epochs without stalls (drain + commit, the median
-    epoch) and runs the crossover at one and four shards three times."""
+    epoch) and runs the crossover at one and four shards three times;
+    with ``model`` (``--ab-model``) phase 7's ``Model.decode_step``
+    (``model_decode_ms``), phase 10's bf16 step (``train_bf16``) and
+    phase 16's gemma2-9b steps (``gemma_train_one``)."""
     order = [parent, ROOT, ROOT, parent] * ((rounds + 1) // 2)
+    mode = ["crossover"] if crossover else ["model"] if model else []
     runs = []
     for tree in order[:2 * rounds]:
-        p = subprocess.run([sys.executable, "-c", AB_ONE]
-                           + (["crossover"] if crossover else []), cwd=tree,
+        p = subprocess.run([sys.executable, "-c", AB_ONE] + mode, cwd=tree,
                            capture_output=True, text=True)
         line = [ln for ln in p.stdout.splitlines() if ln.startswith("AB ")]
         if p.returncode or not line:
@@ -7400,6 +7800,10 @@ def main(argv=None) -> int:
                    help="with --ab-parent: only the crossover shape, its "
                    "epochs' host walls without stalls and the crossover at "
                    "one and four shards, three times a process")
+    p.add_argument("--ab-model", action="store_true",
+                   help="with --ab-parent: phase 7's Model.decode_step, "
+                   "phase 10's bf16 training step and phase 16's gemma2-9b "
+                   "steps")
     args = p.parse_args(argv)
 
     # cuBLAS reads its workspace setting when it starts, before phase 1's
@@ -7420,7 +7824,7 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
         runs = ab_trees(Path(args.ab_parent).resolve(),
-                        crossover=args.ab_crossover)
+                        crossover=args.ab_crossover, model=args.ab_model)
         if args.report:
             Path(args.report).parent.mkdir(parents=True, exist_ok=True)
             Path(args.report).write_text(json.dumps(runs, indent=1))
@@ -7710,12 +8114,23 @@ def main(argv=None) -> int:
     from repro_torch.configs import base as cbase, registry as creg
     gemma_cpu = [train_card_vs_cpu(dev, cbase.reduced(creg.get(a)))
                  for a in GEMMA_TRAIN]
+    # reduced dbrx-132b and maverick served and trained (twins bitwise)
+    # on the card and on the CPU, and both launchers for an MoE arch;
+    # first the bf16 products the decode scores and the expert FFN use
+    moe_cpu = {"bf16_products": bf16_products_card_vs_cpu(dev),
+               "serve": [serve_card_vs_cpu(dev, cbase.reduced(creg.get(a)))
+                         for a in MOE_SERVE],
+               "train": [train_card_vs_cpu(dev, cbase.reduced(creg.get(a)),
+                                           twins=True) for a in MOE_SERVE]}
+    launcher["moe"] = launch_serve("dbrx-132b")
+    moe_cpu["launch_train"] = launch_train_on_card(
+        "llama4-maverick-400b-a17b")
     report["card_vs_cpu"] = {"identical": same, "serve": serve,
                              "launch_serve": launcher,
-                             "gemma_train": gemma_cpu}
+                             "gemma_train": gemma_cpu, "moe": moe_cpu}
     emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same,
           "serve": serve, "launch_serve": launcher,
-          "gemma_train": gemma_cpu})
+          "gemma_train": gemma_cpu, "moe": moe_cpu})
     emit({"phase": "clock", "before": "5",
           "at_s": time.perf_counter() - t_run})
     # ---- phase 5: snapshot recovery at full size
@@ -7976,6 +8391,24 @@ def main(argv=None) -> int:
                if launches16[k] == 0]
     if missing:
         raise AssertionError(f"phase 16 never launched {missing}")
+    emit({"phase": "clock", "before": "17",
+          "at_s": time.perf_counter() - t_run})
+    # ---- phase 17: dbrx-132b and maverick served at their published widths
+    reset_launch_counts()
+    WriteSet.gathers = 0
+    moe = moe_phase(dev)
+    launches17 = launch_counts()
+    gathers17 = gathers_check("moe", launches17, WriteSet.gathers)
+    report["moe"] = moe
+    for arch in MOE_SERVE:
+        emit({"phase": "moe_serving", **moe[arch]})
+    emit({"phase": "moe_backward", **moe["backward"]})
+    emit(gathers17)
+    emit({"phase": "moe", "launches": launches17, "phase_s": moe["phase_s"]})
+    missing = [k for k in ("flash_attention", "pack_rows", "scatter_rows")
+               if launches17[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 17 never launched {missing}")
     emit({"phase": "clock", "before": "summary",
           "at_s": time.perf_counter() - t_run})
     # ---- summary
@@ -7985,7 +8418,8 @@ def main(argv=None) -> int:
                         "launches": launches[name], "bound_by": "bytes",
                         "paged_launches": launches14[name],
                         "gemma_launches": launches15[name],
-                        "gemma_train_launches": launches16[name], **row})
+                        "gemma_train_launches": launches16[name],
+                        "moe_launches": launches17[name], **row})
     if sorted(k["name"] for k in kernels) != sorted(WRAPPERS):
         raise AssertionError("the kernels line does not list every kernel")
     report["card"] = card

@@ -8,7 +8,7 @@ harness for the fault-tolerance contract.  It runs on the card unless
 ``--device`` names another device, computing in bf16 there and in f32 on
 the CPU, as the reference does on its accelerator and on the CPU.
 Parameters come from the port's seeded init, not the reference's JAX
-init.  Dense-attention archs run; every other arch raises the
+init.  Dense-attention and MoE archs run; every other arch raises the
 ``NotImplementedError`` that ``models/`` raises for its layer kind.
 
 Fault-tolerance loop: the trainer runs in incarnations.  When the process

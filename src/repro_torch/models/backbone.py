@@ -9,12 +9,13 @@ stacked on a leading axis, so ``param_specs`` has the reference's tree:
 encoder's ``enc_blocks``/``enc_final_norm``.  Decode caches have the same
 tree shape (``cache_specs``).
 
-``apply_layer`` runs the dense attention layers (base ``dense`` or
-``attn``: ``full``, ``bidir``, and ``local``, gemma's sliding-window
-layer, whose ring cache holds ``min(window, s_max)`` positions) in train,
-prefill and decode mode.  Every other base or variant (``cross``,
-``moe``, ``hybrid``, ``mlstm``, ``slstm``) raises ``NotImplementedError``
-naming itself.
+``apply_layer`` runs the attention layers with a dense or an MoE FFN
+(base ``dense``, ``attn`` or ``moe``, the latter through
+``models/moe.py``; variants ``full``, ``bidir``, and ``local``, gemma's
+sliding-window layer, whose ring cache holds ``min(window, s_max)``
+positions) in train, prefill and decode mode.  Every other base or
+variant (``cross``, ``hybrid``, ``mlstm``, ``slstm``) raises
+``NotImplementedError`` naming itself.
 
 Train mode is a full-sequence forward with no caches.  ``REMAT`` picks
 what a training forward keeps of each superblock for the backward
@@ -38,6 +39,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.arena import not_ported
 from repro_torch.core.policy import tree_map
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 PyTree = Any
 
@@ -48,7 +50,8 @@ REMAT = {"policy": "full"}
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
-    if op == torch.ops.aten.mm.default:
+    # mm.dtype: a bf16 product with an f32 result (layers.f32_product)
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -210,27 +213,31 @@ def param_specs(cfg: ArchConfig) -> PyTree:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device=None) -> PyTree:
+                device=None, dtype=torch.float32) -> PyTree:
     """Materialize real parameters with the reference's scale rule: 0-d
     and 1-d leaves (norms, biases, gates) start at zero, the others are
     ``min(0.02, fan_in**-0.5) * N(0, 1)``; then the SSM special inits.
     Leaves draw from ``generator`` (on ``device``; None means the
-    generator's) in flatten order.  Torch's draws are not JAX's: only
-    shapes and the init rule are held against the reference."""
+    generator's) in flatten order, in f32, each rounded to ``dtype`` as
+    it is drawn (so a bf16 tree never holds more than one f32 leaf).
+    Torch's draws are not JAX's: only shapes and the init rule are held
+    against the reference."""
     device = generator.device if device is None else torch.device(device)
-
-    def init(spec):
-        shape = tuple(spec.shape)
-        if len(shape) <= 1:
-            return torch.zeros(shape, dtype=torch.float32, device=device)
-        fan_in = shape[0]
-        scale = min(0.02, (1.0 / fan_in) ** 0.5)
-        x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return x.mul_(scale)
-
-    params = tree_map(init, param_specs(cfg))
+    params = tree_map(lambda spec: init_leaf(spec, generator, device, dtype),
+                      param_specs(cfg))
     return _fix_special_inits(params)
+
+
+def init_leaf(spec, generator: torch.Generator, device,
+              dtype=torch.float32) -> torch.Tensor:
+    """One leaf of ``init_params``' rule (before the SSM special inits)."""
+    shape = tuple(spec.shape)
+    if len(shape) <= 1:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    scale = min(0.02, (1.0 / shape[0]) ** 0.5)       # shape[0]: fan-in
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return x.mul_(scale).to(dtype)
 
 
 def _fix_special_inits(params: PyTree) -> PyTree:
@@ -360,11 +367,11 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
                 pos: Optional[int] = None,
                 s_max: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Apply one dense attention layer in ``train``, ``prefill`` or
-    ``decode`` mode.  Returns (x, new_cache), the cache None in train
-    mode.  ``pos`` (decode) is the position written."""
+    """Apply one attention layer with a dense or an MoE FFN in ``train``,
+    ``prefill`` or ``decode`` mode.  Returns (x, new_cache), the cache
+    None in train mode.  ``pos`` (decode) is the position written."""
     base, var = parse_tag(tag)
-    if base not in ("dense", "attn"):
+    if base not in ("dense", "attn", "moe"):
         raise not_ported(f"layer base {base!r} ({tag})")
     if var not in DENSE_VARIANTS:
         raise not_ported(f"layer variant {var!r} ({tag})")
@@ -398,6 +405,15 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
             new_cache["v"] = _seat_cache(v_all, cap)
     x = x + L.attn_out(att, p["attn"]["wo"])
     y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + L.gated_mlp(y, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                        p["mlp"]["w_down"], cfg.act)
+    if base == "moe":
+        mp = M.MoEParams(router=p["moe"]["router"],
+                         w_gate=p["moe"]["w_gate"], w_up=p["moe"]["w_up"],
+                         w_down=p["moe"]["w_down"],
+                         s_gate=p["moe"].get("s_gate"),
+                         s_up=p["moe"].get("s_up"),
+                         s_down=p["moe"].get("s_down"))
+        x = x + M.moe_ffn(y, mp, cfg.moe, cfg.act)
+    else:
+        x = x + L.gated_mlp(y, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                            p["mlp"]["w_down"], cfg.act)
     return x, (new_cache or None)

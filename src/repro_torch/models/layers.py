@@ -4,9 +4,14 @@ RoPE, gated MLPs, attention for prefill and decode, ring-buffer helpers.
 Plain functions on tensors in the reference's layouts (``(B, S, K, G, Dh)``
 queries, ``(B, S, K, Dh)`` keys and values), so the two packages compare
 like with like.  Norms, RoPE and softmax compute in f32 and return the
-input's dtype; matrix products run in the compute dtype (a bf16 product on
-the card accumulates in f32 and rounds its output to bf16, where the
-reference asks XLA for an f32 output and rounds after the activation).
+input's dtype; matrix products run in the compute dtype.  Where the
+reference asks XLA for an f32 result that it uses before rounding (the
+gated MLPs' gate and up products, the decode scores), ``f32_product``
+gives one: on the card a bf16 tensor-core product with an f32 output
+(``torch.mm``/``torch.bmm`` with ``out_dtype``), on the CPU the same
+values from the operands upcast; its backward is the bf16 products the
+rounded result had.  The other products round their f32 accumulation to
+the compute dtype once, as the reference's ``.astype(dt)`` does.
 
 Prefill and training attention, ``blockwise_attention``, is the
 ``flash_attention`` kernel on a CUDA tensor and its plain version on the
@@ -91,14 +96,61 @@ def act_fn(name: str):
             "gelu": lambda t: F.gelu(t, approximate="tanh")}[name]
 
 
+class _F32Product(torch.autograd.Function):
+    """``a @ b`` of two bf16 operands, (M, K) x (K, N) or batched
+    (E, M, K) x (E, K, N), with an f32 result.  The backward rounds the
+    incoming gradient to bf16 and runs the two bf16 products autograd
+    would run for a bf16 result cast to f32, so only the forward gains
+    precision."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        if a.is_cuda:
+            return mm(a, b, out_dtype=torch.float32)
+        return mm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        ga = mm(g, b.transpose(-1, -2)) if ctx.needs_input_grad[0] else None
+        gb = mm(a.transpose(-1, -2), g) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in f32, from operands in the compute dtype: a (..., K)
+    times b (K, N), or a (E, M, K) times b (E, K, N) batched.  f32
+    operands take ``torch.matmul`` as before; bf16 ones keep bf16
+    tensor-core products on the card (never f32 operands)."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if b.dim() == 2:
+        out = _F32Product.apply(a.reshape(-1, a.shape[-1]), b)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return _F32Product.apply(a, b)
+
+
+def gate_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            act: str) -> torch.Tensor:
+    """``act(x @ w_gate) * (x @ w_up)`` with both products' results in f32,
+    rounded to x's dtype: the reference's gated-MLP inner product
+    (``preferred_element_type=f32``) for a gated MLP (w (d, f)) or the
+    experts of an MoE layer (x (E, M, d), w (E, d, f))."""
+    dt = x.dtype
+    g = f32_product(x, w_gate.to(dt))
+    u = f32_product(x, w_up.to(dt))
+    return (act_fn(act)(g) * u).to(dt)
+
+
 def gated_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
               w_down: torch.Tensor, act: str) -> torch.Tensor:
     """x: (..., d).  w_gate/w_up: (d, f); w_down: (f, d)."""
-    dt = x.dtype
-    g = torch.matmul(x, w_gate.to(dt)).float()
-    u = torch.matmul(x, w_up.to(dt)).float()
-    h = (act_fn(act)(g) * u).to(dt)
-    return torch.matmul(h, w_down.to(dt))
+    h = gate_up(x, w_gate, w_up, act)
+    return torch.matmul(h, w_down.to(x.dtype))
 
 
 # ------------------------------------------------------------ attention
@@ -174,11 +226,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-step attention against a cache.  q: (B, 1, K, G, Dh);
     k_cache/v_cache: (B, C, K, Dh); kv_positions: (C,) absolute position
     held by each cache slot (-1 empty); pos: the current position."""
-    dh = q.shape[-1]
+    b, _, n_kv, g, dh = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     qs = q[:, 0] * scale                                  # (B, K, G, Dh)
-    s = torch.einsum("bkgd,bjkd->bkgj", qs, k_cache).float()
-    s = _softcap(s, softcap)
+    # f32 scores from the compute-dtype q and k, as the reference asks
+    # XLA for them: the softcap and the softmax see no bf16 rounding
+    kt = k_cache.permute(0, 2, 1, 3).reshape(b * n_kv, -1, dh)
+    s = f32_product(qs.reshape(b * n_kv, g, dh), kt.transpose(1, 2))
+    s = _softcap(s.reshape(b, n_kv, g, -1), softcap)
     valid = (kv_positions >= 0) & (kv_positions <= pos)
     if window:
         valid &= kv_positions > pos - window

@@ -70,8 +70,9 @@ class Model:
     def param_specs(self) -> PyTree:
         return B.param_specs(self.cfg)
 
-    def init_params(self, generator: torch.Generator, device=None) -> PyTree:
-        return B.init_params(self.cfg, generator, device)
+    def init_params(self, generator: torch.Generator, device=None,
+                    dtype=torch.float32) -> PyTree:
+        return B.init_params(self.cfg, generator, device, dtype)
 
     def cache_specs(self, batch: int, s_max: int) -> PyTree:
         return B.cache_specs(self.cfg, batch, s_max, self.compute_dtype)

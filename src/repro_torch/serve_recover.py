@@ -22,6 +22,17 @@ reference engine's step feeds token p - 1 at position p, so its
 recovered caches differ from its twin's once tokens vary; the port's
 engine feeds it at p - 1, see ``serve/engine.py``.)
 
+An arch with MoE layers takes another rule.  A prefill group routes its
+tokens under a capacity that drops some of them, while decode routes one
+token at a time and drops none (the reference's own behaviour), so a
+re-prefilled cache cannot equal a cache that decoding built past the
+first MoE layer.  There the recovered caches are held against a
+crash-free prefill of the same token logs (a third engine admitting each
+live request with its whole log), and serve on beside it with tokens
+equal; against the decode-built twin only the first layer's caches,
+which no MoE output feeds, are held, and the rest is reported with the
+number of assignments the re-prefill dropped.
+
 It runs llama3.2-3b at full width on the card; ``--device cpu`` runs on
 the CPU, ``--layers`` cuts the depth, ``--reduced`` takes the reduced
 smoke config:
@@ -51,6 +62,7 @@ from repro_torch.serve.journal import DuplicateRequestError
 ARCH = "llama3.2-3b"
 CACHE_TOL = 1e-4      # recovered vs twin cache, relative to max |k|, |v|
 LOGIT_TOL = 1e-4      # recovered vs twin logits, relative to max |logit|
+BF16_TOL = 2e-2       # both, when the engines compute in bf16
 
 
 def _sync(device: torch.device) -> None:
@@ -75,34 +87,66 @@ def _held(n: int, cap: int) -> torch.Tensor:
     return torch.tensor([j for j in range(cap) if j != n % cap])
 
 
-def cache_error(a: ServingEngine, b: ServingEngine, slots) -> Dict:
-    """Max abs difference of two engines' caches over ``slots``, each at
-    the positions an uninterrupted engine holds there, ``[0, pos - 1)``
-    (the last token of the log is cached by the next decode step; a local
-    layer's ring holds the last ``window`` of them), and the largest
-    |value| of ``b``'s over the same positions."""
+def _first_layer(cache: Dict) -> Dict:
+    """The first layer's part of a cache tree (superblock 0's first
+    position, or the first remainder layer), in the tree's shape."""
+    if "blocks" in cache:
+        return {"blocks": {"pos0": {n: t[:1] for n, t in
+                                    cache["blocks"]["pos0"].items()}}}
+    return {"rem": {"rem0": cache["rem"]["rem0"]}}
+
+
+def cache_error(a: ServingEngine, b: ServingEngine, slots,
+                b_slots=None, first_layer: bool = False,
+                whole: bool = False) -> Dict:
+    """Max abs difference of two engines' caches over ``slots`` of ``a``
+    (``b_slots`` of ``b``, the same slots by default), each at the
+    positions an uninterrupted engine holds there, ``[0, pos - 1)`` (the
+    last token of the log is cached by the next decode step; a local
+    layer's ring holds the last ``window`` of them), or every cache slot
+    with ``whole``, and the largest |value| of ``b``'s over the same
+    positions.  ``first_layer`` compares the first layer alone."""
+    ca, cb = a.cache, b.cache
+    if first_layer:
+        ca, cb = _first_layer(ca), _first_layer(cb)
+    b_slots = slots if b_slots is None else b_slots
     err, amax = 0.0, 0.0
-    for grp in a.cache:
-        for pos in a.cache[grp]:
-            for name, leaf in a.cache[grp][pos].items():
-                other = b.cache[grp][pos][name]
+    for grp in ca:
+        for pos in ca[grp]:
+            for name, leaf in ca[grp][pos].items():
+                other = cb[grp][pos][name]
                 ax = 2 if grp == "blocks" else 1    # the cache slot axis
-                for s in slots:
-                    held = _held(int(b.pos[s]) - 1,
-                                 leaf.shape[ax]).to(leaf.device)
-                    x, y = ((t[:, s] if grp == "blocks" else t[s])
+                for s, sb in zip(slots, b_slots):
+                    held = torch.arange(leaf.shape[ax]) if whole else \
+                        _held(int(b.pos[sb]) - 1, leaf.shape[ax])
+                    held = held.to(leaf.device)
+                    x, y = ((t[:, i] if grp == "blocks" else t[i])
                             .index_select(ax - 1, held)
-                            for t in (leaf, other))
+                            for t, i in ((leaf, s), (other, sb)))
                     err = max(err, float((x - y).abs().max()))
                     amax = max(amax, float(y.abs().max()))
     return {"max_abs_err": err, "max_abs": amax,
             "rel_err": err / amax if amax else 0.0}
 
 
+def _logit_err(eng: ServingEngine, twin: ServingEngine) -> float:
+    """The largest logit difference of the last steps, relative to the
+    twin's largest |logit|, over the requests both stepped and the real
+    vocabulary (the padded entries hold the dtype's lowest value)."""
+    err, v = 0.0, eng.model.cfg.vocab
+    for rid, lg in eng.step_logits.items():
+        if rid in twin.step_logits:
+            ref = twin.step_logits[rid][:v]
+            err = max(err, float((lg[:v] - ref).abs().max())
+                      / float(ref.abs().max()))
+    return err
+
+
 def _step_both(eng: ServingEngine, twin: ServingEngine, log: Dict,
-               key: str) -> None:
+               key: str, reported: Optional[ServingEngine] = None) -> None:
     """One step of each engine; tokens must be equal, logits are compared
-    relative to the twin's largest |logit|."""
+    relative to the twin's largest |logit|.  ``reported`` steps too, and
+    its token agreement and logit difference are only logged."""
     _sync(eng.device)
     t0 = time.perf_counter()
     got = eng.step()
@@ -112,12 +156,17 @@ def _step_both(eng: ServingEngine, twin: ServingEngine, log: Dict,
     want = twin.step()
     if got != want:
         raise AssertionError(f"{key}: tokens {got} != twin's {want}")
-    for rid, lg in eng.step_logits.items():
-        ref = twin.step_logits[rid]
-        e = float((lg - ref).abs().max()) / float(ref.abs().max())
-        log[f"{key}_logit_rel_err"] = max(log.get(f"{key}_logit_rel_err",
-                                                  0.0), e)
+    log[f"{key}_logit_rel_err"] = max(log.get(f"{key}_logit_rel_err", 0.0),
+                                      _logit_err(eng, twin))
     log.setdefault("tokens", []).extend(got.values())
+    if reported is not None:
+        other = reported.step()
+        log["decode_twin_same_tokens"] = log.get(
+            "decode_twin_same_tokens", 0) + sum(
+            other.get(r) == t for r, t in got.items())
+        log["decode_twin_logit_rel_err"] = max(
+            log.get("decode_twin_logit_rel_err", 0.0),
+            _logit_err(eng, reported))
 
 
 def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
@@ -125,20 +174,30 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         concurrency: int = 1, params=None,
         workdir: Optional[str] = None, n_shards: int = 1,
         commit_mode: str = "barrier",
-        steps_after: Optional[int] = None) -> Dict:
+        steps_after: Optional[int] = None,
+        compute_dtype=torch.float32) -> Dict:
     """The twin protocol at ``cfg``: admit one request per prompt length to
     both engines, serve ``steps``, finish the first request, serve
     ``steps`` more, crash and recover one engine, compare caches, check
     the finished rid, admit a new request on its slot and serve
-    ``steps_after`` (default ``steps``) further, all in f32.  ``n_shards``
-    shards both engines' arenas; ``commit_mode`` is their commit
-    protocol.  Returns the run's numbers; raises on any mismatch."""
+    ``steps_after`` (default ``steps``) further.  The engines compute in
+    ``compute_dtype`` (f32 by default; bf16 loosens both tolerances to
+    ``BF16_TOL``) over parameters drawn in ``compute_dtype`` when
+    ``params`` is None.  An arch with MoE layers holds the recovered engine against
+    a crash-free prefill of the same token logs (see the module's
+    docstring).  ``n_shards`` shards the engines' arenas;
+    ``commit_mode`` is their commit protocol.  Returns the run's numbers;
+    raises on any mismatch."""
+    from repro_torch.models.moe import collect_drops
     device = resolve_device(device)
-    model = Model(cfg, compute_dtype=torch.float32)
+    model = Model(cfg, compute_dtype=compute_dtype)
     if params is None:
         g = torch.Generator(device=device)
         g.manual_seed(seed)
-        params = model.init_params(g, device)
+        params = model.init_params(g, device, compute_dtype)
+    tol = CACHE_TOL if compute_dtype == torch.float32 else BF16_TOL
+    logit_tol = LOGIT_TOL if compute_dtype == torch.float32 else BF16_TOL
+    moe = cfg.moe is not None
     ec = EngineConfig(max_batch=max_batch, s_max=s_max,
                       max_requests=max_requests, n_shards=n_shards,
                       commit_mode=commit_mode)
@@ -147,6 +206,7 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
     rids = [1000 + i for i in range(len(prompt_lens))]
     out: Dict = {"arch": cfg.name, "layers": cfg.n_layers,
                  "d_model": cfg.d_model, "device": str(device),
+                 "dtype": str(compute_dtype).split(".")[-1],
                  "params": sum(t.numel() for _, t in
                                tree_flatten_with_path(params)),
                  "prompt_lens": list(prompt_lens), "steps": steps}
@@ -183,14 +243,37 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         eng.on_slot_ready = lambda sl, tl, s: admitted.append(
             {"slots": [int(x) for x in sl], "tokens": int(tl),
              "admitted_s": s})
-        out["recover_s"] = eng.recover(concurrency=concurrency)
+        with collect_drops() as drops:
+            out["recover_s"] = eng.recover(concurrency=concurrency)
         eng.on_slot_ready = None
         rep = eng.last_recovery
         out["stages"] = {st.name: st.seconds for st in rep.stages}
         out["engine_detail"] = rep.stage("engine").detail
         out["groups"] = admitted
-        out["cache"] = cache_error(eng, twin, live)
-        if out["cache"]["rel_err"] > CACHE_TOL:
+        ref = None
+        if moe:
+            out["reprefill_dropped"] = int(sum(int(d) for d in drops))
+            out["cache_vs_decode_twin"] = cache_error(eng, twin, live)
+            out["cache"] = cache_error(eng, twin, live, first_layer=True)
+            # the crash-free prefill of the same token logs
+            ref = ServingEngine(model, params, ec, os.path.join(td, "ref"),
+                                device=device)
+            ref_slots = []
+            for s in live:
+                toks = eng.tok_region.read_at([s], slice(0, int(eng.pos[s])))
+                ref_slots.append(ref.add_request(
+                    int(eng.slot_rid[s]), toks[0].cpu().numpy().astype(
+                        np.int64)))
+            out["cache_vs_prefill"] = cache_error(eng, ref, live, ref_slots,
+                                                  whole=True)
+            if out["cache_vs_prefill"]["rel_err"] > tol:
+                raise AssertionError(f"recovered cache differs from a "
+                                     f"crash-free prefill of the same "
+                                     f"token logs: "
+                                     f"{out['cache_vs_prefill']}")
+        else:
+            out["cache"] = cache_error(eng, twin, live)
+        if out["cache"]["rel_err"] > tol:
             raise AssertionError(f"recovered cache differs from the twin's: "
                                  f"{out['cache']}")
         # ---- the finished request stays finished; its slot takes new work
@@ -209,13 +292,23 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         if slots != (freed, freed):
             raise AssertionError(f"new request seated on {slots}, not on "
                                  f"the freed slot {freed}")
+        if ref is not None:
+            ref.add_request(new_rid, prompts[-1])
         for _ in range(steps if steps_after is None else steps_after):
-            _step_both(eng, twin, log, "after")
+            if ref is None:
+                _step_both(eng, twin, log, "after")
+            else:
+                _step_both(eng, ref, log, "after", reported=twin)
         out["logit_rel_err"] = {k: log[f"{k}_logit_rel_err"]
                                 for k in ("before", "after")}
-        if out["logit_rel_err"]["after"] > LOGIT_TOL:
+        if ref is not None:
+            out["decode_twin"] = {
+                "same_tokens": log["decode_twin_same_tokens"],
+                "logit_rel_err": log["decode_twin_logit_rel_err"]}
+        if out["logit_rel_err"]["after"] > logit_tol:
             raise AssertionError(f"logits after recovery differ from the "
-                                 f"twin's: {out['logit_rel_err']}")
+                                 f"{'prefill' if moe else 'twin'}'s: "
+                                 f"{out['logit_rel_err']}")
         out["decode_ms_per_slot_step"] = 1e3 * float(np.median(
             log["slot_step_s"]))
         out["distinct_tokens"] = len(set(log["tokens"]))

@@ -213,12 +213,14 @@ def test_model_loss_single_chunk_and_unported_layers():
     lj = mj.loss(pj, {k: jnp.asarray(v) for k, v in batch.items()})
     lt = mt.loss(pt, _torch_tree(batch))
     assert abs(float(lt) - float(lj)) <= 1e-6 * abs(float(lj))
-    moe = tbuild(tbase.reduced(treg.get("dbrx-132b")),
-                 compute_dtype=torch.float32)
+    # MoE trains now (tests/test_torch_moe_model.py); xlstm's layers are
+    # still to port
+    xl = tbuild(tbase.reduced(treg.get("xlstm-1.3b")),
+                compute_dtype=torch.float32)
     g = torch.Generator()
     g.manual_seed(0)
-    with pytest.raises(NotImplementedError, match="moe"):
-        moe.loss(moe.init_params(g, "cpu"), _torch_tree(batch))
+    with pytest.raises(NotImplementedError, match="lstm"):
+        xl.loss(xl.init_params(g, "cpu"), _torch_tree(batch))
 
 
 # -------------------------------------------------------- optimizer, data
