@@ -4,7 +4,7 @@
 Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py [--report PATH] [--crossover-study]
-    python3 chip_smoke.py --ab-parent DIR [--ab-crossover | --ab-model] [--report PATH]
+    python3 chip_smoke.py --ab-parent DIR [--ab-crossover | --ab-model | --ab-paged] [--report PATH]
 
 Phases (any failure exits non-zero; no phase catches its own failure):
 
@@ -255,10 +255,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 10. training: llama3.2-3b at its published widths, cut to 4
    layers (796,683,264 parameters; params, grads and moments 12.7 GB),
    f32, 4 x 1024 tokens a step, PARTLY_PERSISTENT with async checkpoints
-   every 4 steps, a crash after step 6, a resume at 4 and a run to 8,
-   beside an uninterrupted twin of 8 steps (cut from 12 steps and a
-   crash after 10 for the time phase 13's four-shard half takes: one
-   9.56 GB save fewer), torch's kernels
+   every 4 steps, a crash after step 5, a resume at 4 and a run to 8
+   (a 9.56 GB save before the crash and one after the resume), beside an
+   uninterrupted twin of 8 steps (cut from 12 steps and a crash after 10
+   for the time phase 13's four-shard half takes: one save fewer),
+   torch's kernels
    deterministic (``CUBLAS_WORKSPACE_CONFIG`` is set before phase 1):
    every loss and the final parameters equal the twin's bit for bit
    (delta 0); flash_attention launched 2 x layers per step (the forward
@@ -274,7 +275,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the card and on the CPU from the same parameters (losses within 1e-5
    relative); and ``repro_torch.launch.train --arch
    llama3.2-3b --crash-at-step 6 --steps 10 --device cuda`` (reduced,
-   bf16) in a subprocess, which must return 0;
+   bf16) with ``python -m`` in a process of its own, as users run it
+   (the launcher sets ``CUBLAS_WORKSPACE_CONFIG`` itself there), which
+   must return 0;
 11. integrity and salvage (DESIGN.md §13), with ``REPRO_INTEGRITY``
    unset so integrity resolves on: phase 3's workload with integrity on
    and snapshots off (DLL and hashmap 2**22, the B+Tree 2**17), both
@@ -459,7 +462,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    tokens/s, peak memory and one more step's attention share (CUDA
    events around the flash launches); then ``repro_torch.launch.train
    --arch gemma2-9b --crash-at-step 6 --steps 10 --device cuda``
-   (reduced, bf16) in a subprocess, which must return 0;
+   (reduced, bf16) through its ``main``, which must return 0;
 17. MoE serving at the published widths (``models/moe.py``): dbrx-132b
    (d_model 6144, 48 heads over 8, head width 128, 16 experts top-4,
    expert d_ff 10752, vocab 100352, untied) cut to 2 of its 40 layers
@@ -482,6 +485,43 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    dbrx-width MoE layer in train mode on 1 x 4096 tokens, no optimizer,
    forward and backward twice in f32 and in bf16 compute, torch's
    kernels deterministic: every gradient equal bit for bit.
+18. the context archs at their published widths (``models/model.py``
+   ``_context``/``_encode``, the ``cross`` layers of
+   ``models/backbone.py``): llama-3.2-vision-90b (d_model 8192, 64 heads
+   over 8, head width 128, d_ff 28672, vocab 128256, untied, 1600 image
+   patches) cut to one superblock, 4 dense layers and the gated cross
+   layer of its 100 (6,379,626,497 parameters, 25.5 GB in f32), and
+   whisper-large-v3 whole (32 encoder and 32 decoder layers, 20 heads of
+   width 64, 1500 frames, s_max 448; 1,954,163,200 parameters), f32,
+   each through ``serve_recover.run``'s dense twin rule: prompts of 1024
+   and 4096 (vision) or 64 and 224 (whisper) tokens, 8 steps, the first
+   request finished, 8 steps, crash and re-prefill (whisper's re-runs
+   the encoder over 1500 frames), 8 steps; the engine's context is zeros,
+   as the reference engine's is.  Every prefill calls the flash kernel 5
+   times (vision: 4 self, 1 cross) or 96 (whisper: 32 encoder, 32 self,
+   32 cross).  Then, on the same parameters with every xgate 1, a seeded
+   context (the pipeline's ``context_at`` / ``frames_at``), batch 2: the
+   prefill through the kernels against the same prefill through
+   ``flash_attention_plain`` (1e-4 of the largest |logit| in f32, 5e-2 in
+   bf16), a prefill of n tokens and a decode step at n against the
+   prefill of n + 1 (1e-4, the reference's rule), and the same prefill
+   twice, bitwise.  whisper trained at its published widths and depth, 3
+   steps of 2 x 448 tokens with 2 x 1500 frames, f32 and bf16 twins
+   bitwise, flash launches a step counted (encoder, self and cross,
+   again under remat); one vision cross layer's forward and backward at
+   4096 tokens over 1600 patches twice in each dtype, bitwise, its cross
+   weights' gradients non-zero.  Phase 2 holds both flash kernels at
+   those layers' shapes (non-causal: q (64, 4096, 128) over (8, 1600,
+   128), (20, 1500, 64) over (20, 1500, 64), (20, 448, 64) over (20,
+   1500, 64)) in both dtypes, timed beside the flop bound and ``sdpa``;
+   phase 4 serves the reduced archs with a seeded context and trains
+   them card vs CPU, and runs ``launch.serve --arch whisper-large-v3
+   --crash`` and ``launch.train --arch llama-3.2-vision-90b`` on the card.
+
+``--ab-parent DIR --ab-paged`` runs phase 14 (a)'s paged parity
+(ungated) for an unpacked parent tree at DIR and this one in turns, with
+each side's flush wall, the ratio and the paged drain's host code per
+epoch on the host clock.
 
 The first five kernels' launch counters must move over phases 3 and 5
 together, and ``gather_next``'s in phase 5; the quantize kernels' in
@@ -494,7 +534,8 @@ the four chain kernels', ``pack_rows``' and ``scatter_rows``' in phase
 14; ``flash_attention``'s, ``pack_rows``' and ``scatter_rows``' in
 phase 15; ``flash_attention``'s and ``flash_attention_bwd``'s in phase
 16; ``flash_attention``'s, ``pack_rows``' and ``scatter_rows``' in phase
-17.
+17; ``flash_attention``'s, ``flash_attention_bwd``'s, ``pack_rows``' and
+``scatter_rows``' in phase 18.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -536,8 +577,9 @@ SNAP_KINDS = ("dll", "hashmap")
 CKPT_ARCH, CKPT_LAYERS = "llama3.2-3b", 4
 CKPT_SEED, CKPT_STEP = 7, 1000
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
-# cut from 12 steps and a crash after 10 (three saves) to two saves
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 8, 4, 6
+# cut from 12 steps and a crash after 10 (three saves) to two saves for
+# the run's time: one before the crash, one after the resume at 4
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 8, 4, 5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 4, 1024, 5
 TRAIN_BF16_STEPS = 6           # each of the bf16 step's two runs
 TRAIN_CPU_STEPS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 3, 2, 128
@@ -555,6 +597,11 @@ GEMMA_FLASH = {"gemma3": (32, 16, 3072, 128, 1024, 0.0),
 GEMMA_BWD = {"gemma3": (32, 16, 2048, 128, 1024, 0.0),
              "gemma2_local": (16, 8, 8192, 256, 4096, 50.0),
              "gemma2_global": (16, 8, 8192, 256, 0, 50.0)}
+# phase 18's cross and encoder attention, non-causal: (query heads, KV
+# heads, Sq, Skv, D); neither 1500 nor 1600 is a multiple of a key tile
+CROSS_FLASH = {"vision_cross": (64, 8, 4096, 1600, 128),
+               "whisper_encoder": (20, 20, 1500, 1500, 64),
+               "whisper_cross": (20, 20, 448, 1500, 64)}
 FLASH_PREFILL_TOL = 5e-2       # bf16 prefill logits, of the largest |logit|
 LSE_TOL = 1e-5                 # the forward's lse against the plain one's
 DI_TOL = 1e-5                  # the backward's Di, of the largest |Di|
@@ -1377,25 +1424,38 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
             flash_bwd[f"{str(dt).split('.')[-1]}_{name}"] = \
                 flash_bwd_band_case(dev, g, dt, h, hk, seq, d, window, cap,
                                     flush)
+    # phase 18's cross and encoder layers, non-causal, forward and
+    # backward: vision's cross layer (64 query heads over 8, 4096 tokens
+    # over 1600 patches), whisper's encoder (20 over 20, 1500 x 1500
+    # frames) and its decoder's cross layer (448 tokens over 1500 frames)
+    for name, (h, hk, sq, skv, d) in CROSS_FLASH.items():
+        for dt in (torch.float32, torch.bfloat16):
+            key = f"{str(dt).split('.')[-1]}_{name}"
+            flash[key], flash_bwd[key] = flash_cross_case(
+                dev, g, dt, h, hk, sq, skv, d, flush)
     rows["flash_attention_bwd"] = dict(
         flash_bwd["float32"], bound_by="operations",
         shape="q, o, dO (96, 1024, 128), k, v (32, 1024, 128) f32, causal "
               "(phase 10's layer); bf16 in the report; gemma3 and gemma2 "
-              "(window, softcap, D = 256) below",
+              "(window, softcap, D = 256) and the cross and encoder "
+              "layers (non-causal) below",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="none: no Pallas kernel; the reference takes this "
                  "gradient by XLA autodiff of "
                  "src/repro/models/layers.py:200",
-        **{f"{dt}_{name}": flash_bwd[f"{dt}_{name}"] for name in GEMMA_BWD
+        **{f"{dt}_{name}": flash_bwd[f"{dt}_{name}"]
+           for name in list(GEMMA_BWD) + list(CROSS_FLASH)
            for dt in ("float32", "bfloat16")})
     rows["flash_attention"] = dict(
         flash["float32"], bound_by="operations",
         shape="q (96, 1024, 128) over k, v (32, 1024, 128) f32, causal; "
               "bf16, the phase-7 shapes and S = 1000 in the report; "
-              "gemma3 and gemma2 (window, softcap, D = 256) below",
+              "gemma3 and gemma2 (window, softcap, D = 256) and the cross "
+              "and encoder layers (non-causal) below",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91",
-        **{f"{dt}_{name}": flash[f"{dt}_{name}"] for name in GEMMA_FLASH
+        **{f"{dt}_{name}": flash[f"{dt}_{name}"]
+           for name in list(GEMMA_FLASH) + list(CROSS_FLASH)
            for dt in ("float32", "bfloat16")})
     # ---- probe: phase 8's 512 MiB table at uniform, Zipf, one-bucket,
     # out-of-range and small inputs, both kernels, beside the bounds
@@ -3212,6 +3272,62 @@ def flash_bwd_band_case(dev, g, dt, h: int, hk: int, seq: int, d: int,
     return out
 
 
+def flash_cross_case(dev, g, dt, h: int, hk: int, sq: int, skv: int,
+                     d: int, flush) -> tuple:
+    """flash_attention and flash_attention_bwd, non-causal, at a cross or
+    encoder layer's shape (Sq queries over Skv keys of a context) in
+    ``dt``: the forward against its plain version (FLASH_TOL), the
+    backward as flash_bwd_check holds it (lse, Di, grads, two runs bit for
+    bit); each timed beside its flop bound (4, then 10 flops a pair and
+    width; the backward's design floor 14), its plain version and
+    scaled_dot_product_attention (grouped, no mask) forward and backward.
+    Returns (forward row, backward row)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, do = flash_bwd_inputs(dev, g, dt, h, hk, sq, skv, d)
+    err = max_abs_err(FA.flash_attention(q, k, v, causal=False),
+                      FA.flash_attention_plain(q, k, v, causal=False))
+    tol = FLASH_TOL[str(dt).split(".")[-1]]
+    shape = f"q ({h}, {sq}, {d}) over k, v ({hk}, {skv}, {d}), non-causal"
+    if not err <= tol:
+        raise AssertionError(f"flash_attention {dt} {shape}: max abs err "
+                             f"{err} above {tol}")
+    size = q.element_size()
+    fwd = {
+        "ms": time_ms(lambda: FA.flash_attention(q, k, v, causal=False),
+                      flush=flush),
+        "plain_ms": time_ms(lambda: FA.flash_attention_plain(
+            q, k, v, causal=False), reps=3),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], enable_gqa=True), flush=flush),
+        "bound_ms": flash_bound_ms(h, hk, sq, skv, d, size, causal=False),
+        "max_abs_err": err, "tolerance": tol, "shape": shape}
+    errs = flash_bwd_check(q, k, v, do, False)
+    o, lse = FA._forward(q, k, v, False, None, True)
+    lib = [t[None].clone().requires_grad_() for t in (q, k, v)]
+    res = F.scaled_dot_product_attention(*lib, enable_gqa=True)
+    bwd = {
+        "ms": time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, lse,
+                                                     causal=False),
+                      flush=flush),
+        "plain_ms": time_ms(lambda: FA.flash_attention_bwd_plain(
+            q, k, v, o, do, lse, causal=False), reps=3),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            res, lib, do[None], retain_graph=True), flush=flush),
+        "bound_ms": flash_bwd_bound_ms(h, hk, sq, skv, d, size,
+                                       causal=False),
+        "floor_ms": flash_bwd_bound_ms(h, hk, sq, skv, d, size,
+                                       causal=False, flops_per_pair=14),
+        "max_abs_err": errs["rel_err"] * errs["max_abs_grad"],
+        "rel_err": errs["rel_err"], "lse_err": errs["lse_err"],
+        "di_rel_err": errs["di_rel_err"], "tolerance": tol,
+        "shape": shape}
+    del q, k, v, do, o, lse, lib, res
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def quantize_non_finite(dev, g) -> dict:
     """quantize_blockwise against its plain version, exactly (scales
     compared as bits: NaN != NaN), on groups holding NaN, +inf and -inf
@@ -3412,6 +3528,51 @@ def serve_card_vs_cpu(dev, cfg=None) -> dict:
             "file_sha256": hashlib.sha256(card["file"]).hexdigest()[:12]}
 
 
+def context_card_vs_cpu(dev, arch: str, steps: int = 6) -> dict:
+    """Phase 4's context check: ``arch`` at its reduced config, f32,
+    parameters drawn once on the CPU (every xgate 1) and copied to the
+    card; two prompts of 12 tokens with the pipeline's seeded context or
+    frames, a prefill, then ``steps`` greedy decode steps on each device
+    from its own tokens: tokens equal, logits within LOGIT_TOL of the
+    largest |logit|."""
+    import torch
+    from repro_torch.configs import base as cbase, registry as creg
+    from repro_torch.core.policy import tree_map
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.models.backbone import init_params
+    from repro_torch.models.model import Model
+    from repro_torch.serve_recover import LOGIT_TOL
+    cfg = cbase.reduced(creg.get(arch))
+    gen = torch.Generator()
+    gen.manual_seed(SERVE_SEED)
+    cpu_params = init_params(cfg, gen, "cpu")
+    open_gates(cpu_params)
+    batch = Pipeline(cfg, 2, 12, seed=SERVE_SEED).batch_at(0)
+    key = "frames" if cfg.family == "audio" else "context"
+    model = Model(cfg, compute_dtype=torch.float32)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        prm = tree_map(lambda t: t.to(d), cpu_params)
+        lg, kv = model.prefill(prm, {"tokens": torch.from_numpy(
+            batch["tokens"]).to(d), key: torch.from_numpy(batch[key]).to(
+            d)}, s_max=12 + steps)
+        logits, toks = [lg.cpu()], []
+        for pos in range(12, 12 + steps):
+            toks.append(lg.argmax(-1))
+            lg, kv = model.decode_step(prm, kv, toks[-1], pos)
+            logits.append(lg.cpu())
+        runs.append((logits, [t.cpu().tolist() for t in toks]))
+    (card, card_toks), (cpu, cpu_toks) = runs
+    v = cfg.vocab
+    err = max(float((a[:, :v] - b[:, :v]).abs().max())
+              / float(b[:, :v].abs().max()) for a, b in zip(card, cpu))
+    if card_toks != cpu_toks or not err <= LOGIT_TOL:
+        raise AssertionError(f"{arch} card vs CPU: tokens {card_toks} / "
+                             f"{cpu_toks}, logits {err} of the largest")
+    return {"arch": cfg.name, "logit_rel_err": err, "tokens": cpu_toks,
+            "context_key": key}
+
+
 def model_decode_ms(cfg, params, dev) -> float:
     """Median host time of one ``Model.decode_step`` at batch 1 against a
     2048-slot cache at position 1600, ending in a sync: the model's share
@@ -3512,6 +3673,59 @@ class FlashCalls:
         self._layers.flash_attention = self._real
 
 
+def counted_twin_run(dev, cfg, params, **run_kw) -> tuple:
+    """``serve_recover.run`` at ``cfg`` over ``params`` (SERVE_SEED, the
+    build directory for its arenas) under ``FlashCalls``; its pack_rows
+    launches must equal its grouped gathers.  Returns (its numbers with
+    the run's seconds, gathers, launches and peak memory, each prefill's
+    tokens/s and each re-prefill group's seconds since the previous
+    admission; the attention calls by (layer kind, query length))."""
+    import torch
+    from repro_torch.core.writeset import WriteSet
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve_recover import run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before, gathers0 = launch_counts(), WriteSet.gathers
+    t0 = time.perf_counter()
+    with FlashCalls() as spy:
+        out = run(cfg, dev, seed=SERVE_SEED, params=params,
+                  workdir=str(ROOT / "build"), **run_kw)
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = {k: v - before[k] for k, v in launch_counts().items()}
+    out["gathers"] = WriteSet.gathers - gathers0
+    if out["launches"]["pack_rows"] != out["gathers"]:
+        raise AssertionError(f"{cfg.name}: {out['launches']['pack_rows']} "
+                             f"pack_rows launches for {out['gathers']} "
+                             f"grouped gathers")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for p in out["prefill"]:
+        p["tokens_per_s"] = p["tokens"] / p["seconds"]
+    prev = 0.0
+    for grp in sorted(out["groups"], key=lambda x: x["admitted_s"]):
+        grp["seconds"] = grp["admitted_s"] - prev
+        prev = grp["admitted_s"]
+    out.pop("stats", None)
+    out.pop("paging_stats", None)
+    out["flash_calls"] = {f"{k[0]}:{k[1]}": v
+                          for k, v in sorted(spy.calls.items())}
+    return out, spy.calls
+
+
+def check_flash_calls(cfg, out: dict, calls: dict, want: dict) -> None:
+    """The attention calls by (layer kind, query length) must be ``want``,
+    and the flash kernel launched once for each."""
+    if calls != want:
+        raise AssertionError(f"{cfg.name}: attention calls by (layer kind, "
+                             f"length) {calls}, expected {want}")
+    if out["launches"]["flash_attention"] != sum(want.values()):
+        raise AssertionError(f"{cfg.name}: "
+                             f"{out['launches']['flash_attention']} "
+                             f"flash_attention launches for "
+                             f"{sum(want.values())} attention calls")
+
+
 def gemma_serve_one(dev, arch: str) -> dict:
     """Phase 15 for one arch: the twin protocol (``serve_recover.run``) at
     its published widths, f32, depth cut to GEMMA_SERVE's layers; every
@@ -3519,10 +3733,7 @@ def gemma_serve_one(dev, arch: str) -> dict:
     kernel once per layer, local and global alike."""
     import torch
     from repro_torch.configs import registry
-    from repro_torch.core.writeset import WriteSet
-    from repro_torch.kernels import launch_counts
     from repro_torch.models.backbone import init_params, parse_tag
-    from repro_torch.serve_recover import run
     spec = GEMMA_SERVE[arch]
     cfg = dataclasses.replace(registry.get(arch), n_layers=spec["layers"])
     pattern, n_super, rem = cfg.pattern_plan()
@@ -3534,25 +3745,10 @@ def gemma_serve_one(dev, arch: str) -> dict:
     params = init_params(cfg, gen, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    before, gathers0 = launch_counts(), WriteSet.gathers
-    t0 = time.perf_counter()
-    with FlashCalls() as spy:
-        out = run(cfg, dev, prompt_lens=spec["prompts"], max_batch=2,
-                  s_max=spec["s_max"], steps=spec["steps"],
-                  steps_after=spec["steps_after"], max_requests=16,
-                  seed=SERVE_SEED, params=params,
-                  workdir=str(ROOT / "build"))
-    torch.cuda.synchronize()
-    out["run_s"] = time.perf_counter() - t0
-    launches = {k: v - before[k] for k, v in launch_counts().items()}
-    out["gathers"] = WriteSet.gathers - gathers0
-    if launches["pack_rows"] != out["gathers"]:
-        raise AssertionError(f"{arch}: {launches['pack_rows']} pack_rows "
-                             f"launches for {out['gathers']} grouped "
-                             f"gathers")
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out, calls = counted_twin_run(
+        dev, cfg, params, prompt_lens=spec["prompts"], max_batch=2,
+        s_max=spec["s_max"], steps=spec["steps"],
+        steps_after=spec["steps_after"], max_requests=16)
     # admissions, on the engine and on its twin: each prompt and the new
     # request after recovery; then one prefill per re-prefill group
     prefills = {}
@@ -3560,39 +3756,21 @@ def gemma_serve_one(dev, arch: str) -> dict:
         prefills[n] = prefills.get(n, 0) + 2
     for grp in out["groups"]:
         prefills[grp["tokens"]] = prefills.get(grp["tokens"], 0) + 1
+        grp["flash_launches"] = len(tags)
     want = {}
     for n, times in prefills.items():
         want[("local", n)] = local * times
         want[("global", n)] = (len(tags) - local) * times
-    want = {k: v for k, v in want.items() if v}
-    if spy.calls != want:
-        raise AssertionError(f"{arch}: attention calls by (layer kind, "
-                             f"length) {spy.calls}, expected {want}")
-    n_prefills = sum(prefills.values())
-    if launches["flash_attention"] != len(tags) * n_prefills:
-        raise AssertionError(f"{arch}: {launches['flash_attention']} "
-                             f"flash_attention launches for {n_prefills} "
-                             f"prefills of {len(tags)} layers")
-    for p in out["prefill"]:
-        p["tokens_per_s"] = p["tokens"] / p["seconds"]
-    prev = 0.0
-    for grp in sorted(out["groups"], key=lambda x: x["admitted_s"]):
-        grp["seconds"] = grp["admitted_s"] - prev
-        grp["flash_launches"] = len(tags)
-        prev = grp["admitted_s"]
+    check_flash_calls(cfg, out, calls, {k: v for k, v in want.items() if v})
     del params
     torch.cuda.empty_cache()
-    out.pop("stats", None)
-    out.pop("paging_stats", None)
-    out.update({"init_params_s": init_s, "launches": launches,
+    out.update({"init_params_s": init_s,
                 "local_layers": local, "global_layers": len(tags) - local,
                 "window": cfg.window, "attn_softcap": cfg.attn_softcap,
                 "final_softcap": cfg.final_softcap,
                 "head_dim": cfg.resolved_head_dim,
                 "steps_before_crash": 2 * spec["steps"],
-                "steps_after_crash": spec["steps_after"],
-                "flash_calls": {f"{k[0]}:{k[1]}": v
-                                for k, v in sorted(spy.calls.items())}})
+                "steps_after_crash": spec["steps_after"]})
     return out
 
 
@@ -6674,23 +6852,44 @@ def train_card_vs_cpu(dev, cfg=None, twins: bool = False) -> dict:
             "tolerance": TRAIN_LOSS_TOL, "twins_bitwise": twins}
 
 
-def launch_train_on_card(arch: str = "llama3.2-3b") -> dict:
-    """``python -m repro_torch.launch.train --arch <arch> --crash-at-step 6
-    --steps 10 --device cuda`` (the reduced config, bf16) in a subprocess;
-    it must return 0 after its crash."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           arch, "--crash-at-step", "6", "--steps", "10", "--device", "cuda"]
+def launch_train_on_card(arch: str = "llama3.2-3b",
+                         own_process: bool = False) -> dict:
+    """``repro_torch.launch.train --arch <arch> --crash-at-step 6 --steps
+    10 --device cuda`` (the reduced config, bf16); it must return 0 after
+    its crash.  With ``own_process`` it runs as users run it, ``python -m``
+    in a fresh process, where the launcher's own ``CUBLAS_WORKSPACE_CONFIG``
+    must come before CUDA starts.  Else through its ``main`` in this
+    process, as ``launch_serve`` runs its launcher (a process of its own
+    pays about 20 s to reach the card, for about 2 s of training); the
+    launcher turns torch's deterministic algorithms on, and they are turned
+    off after it."""
+    import torch
+    argv = ["--arch", arch, "--crash-at-step", "6", "--steps", "10",
+            "--device", "cuda"]
     t0 = time.perf_counter()
-    done = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    res = {"arch": arch, "rc": done.returncode,
-           "seconds": time.perf_counter() - t0,
-           "lines": done.stdout.splitlines()[-8:]}
-    if done.returncode != 0 or "CRASH injected at step 6" not in done.stdout:
+    if own_process:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        env.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        done = subprocess.run([sys.executable, "-m",
+                               "repro_torch.launch.train"] + argv, cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        rc, out, err = done.returncode, done.stdout, done.stderr
+    else:
+        from repro_torch.launch import train as tlaunch
+        said = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(said):
+                rc = tlaunch.main(argv)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out, err = said.getvalue(), ""
+    lines = out.splitlines()
+    res = {"arch": arch, "rc": rc, "own_process": own_process,
+           "seconds": time.perf_counter() - t0, "lines": lines[-8:]}
+    if rc != 0 or "CRASH injected at step 6" not in out:
         raise AssertionError(f"launch.train --arch {arch} on the card: rc "
-                             f"{done.returncode}\n{done.stdout[-2000:]}\n"
-                             f"{done.stderr[-4000:]}")
+                             f"{rc}\n{out[-2000:]}\n{err[-4000:]}")
     return res
 
 
@@ -6714,22 +6913,28 @@ GEMMA_TRAIN_DIR = ROOT / "build" / "chip_smoke_gemma_train"
 
 
 def flash_per_step(cfg) -> dict:
-    """The flash launches one training step makes: the forward once a
-    layer and again for each layer a superblock's remat recomputes (the
-    remainder's layers are not rematerialized, as in the reference), the
-    backward once a layer."""
+    """The flash launches one training step makes: the forward once an
+    attention call (an audio cross layer makes two, an encoder layer one)
+    and again for each call a remat recomputes (a superblock's and an
+    encoder layer's; the remainder's layers are not rematerialized, as in
+    the reference), the backward once an attention call."""
     from repro_torch.models import backbone as B
     pattern, n_super, rem = cfg.pattern_plan()
-    remat = n_super * len(pattern) if B.REMAT["policy"] != "none" else 0
-    return {"flash_attention": cfg.n_layers + remat,
-            "flash_attention_bwd": cfg.n_layers}
+
+    def calls(tags):
+        return sum(2 if B.parse_tag(t)[1] == "cross" and
+                   cfg.family == "audio" else 1 for t in tags)
+    fwd = n_super * calls(pattern) + calls(rem) + cfg.encoder_layers
+    remat = n_super * calls(pattern) + cfg.encoder_layers \
+        if B.REMAT["policy"] != "none" else 0
+    return {"flash_attention": fwd + remat, "flash_attention_bwd": fwd}
 
 
-def gemma_train_one(dev, arch: str) -> dict:
-    """Phase 16 for one arch: GEMMA_TRAIN's depth and tokens at the
-    published widths, trained GEMMA_TRAIN_STEPS steps in f32 and then in
-    bf16 (as the launcher trains on a card), each dtype twice from the
-    same parameters (the trainer's seeded init), torch's kernels
+def train_twins(dev, cfg, batch: int, seq: int, steps: int,
+                ckpt_dir: Path) -> dict:
+    """``cfg`` trained ``steps`` steps of ``batch`` x ``seq`` tokens in f32
+    and then in bf16 (as the launcher trains on a card), each dtype twice
+    from the same parameters (the trainer's seeded init), torch's kernels
     deterministic, no checkpoint inside the steps.  The twins' losses and
     final parameters must be equal bit for bit and finite, and each run
     must launch flash_attention and flash_attention_bwd as
@@ -6737,28 +6942,16 @@ def gemma_train_one(dev, arch: str) -> dict:
     past the first), tokens/s, peak memory and one more step's attention
     share (CUDA events around the flash launches)."""
     import torch
-    from repro_torch.configs import registry
     from repro_torch.core import policy as pol
     from repro_torch.kernels import launch_counts
     from repro_torch.launch.train import deterministic
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    spec = GEMMA_TRAIN[arch]
-    cfg = dataclasses.replace(registry.get(arch), n_layers=spec["layers"])
     per_step = flash_per_step(cfg)
-    tokens = spec["batch"] * spec["seq"]
-    tc = TrainerConfig(steps=GEMMA_TRAIN_STEPS, ckpt_every=0,
-                       ckpt_dir=str(GEMMA_TRAIN_DIR), seed=TRAIN_SEED,
-                       global_batch=spec["batch"], seq_len=spec["seq"])
-    out = {"arch": arch, "layers": cfg.n_layers, "params": cfg.param_count(),
-           "tags": list(cfg.pattern_plan()[0] * cfg.pattern_plan()[1]
-                        + cfg.pattern_plan()[2]),
-           "window": cfg.window, "attn_softcap": cfg.attn_softcap,
-           "final_softcap": cfg.final_softcap,
-           "head_dim": cfg.resolved_head_dim, "global_batch": spec["batch"],
-           "seq_len": spec["seq"], "steps": GEMMA_TRAIN_STEPS,
-           "flash_per_step": per_step}
+    tc = TrainerConfig(steps=steps, ckpt_every=0, ckpt_dir=str(ckpt_dir),
+                       seed=TRAIN_SEED, global_batch=batch, seq_len=seq)
+    out = {"flash_per_step": per_step}
     deterministic(dev)
     try:
         for dtype in (torch.float32, torch.bfloat16):
@@ -6803,31 +6996,47 @@ def gemma_train_one(dev, arch: str) -> dict:
                          "first_step_ms": step_s[0][0] * 1e3,
                          "step_ms_each": [[x * 1e3 for x in r]
                                           for r in step_s],
-                         "tokens_per_s": tokens / med, "peak_bytes": peak,
-                         "attention": share,
+                         "tokens_per_s": batch * seq / med,
+                         "peak_bytes": peak, "attention": share,
                          "launches": {k: counts[0][k] for k in per_step}}
             if losses[0] != losses[1] or differ:
-                raise AssertionError(f"{arch} {name} training: two runs from "
-                                     f"the same parameters differ: losses "
-                                     f"{losses}, params {differ[:8]}")
+                raise AssertionError(f"{cfg.name} {name} training: two runs "
+                                     f"from the same parameters differ: "
+                                     f"losses {losses}, params {differ[:8]}")
             if not all(math.isfinite(x) for x in losses[0]):
-                raise AssertionError(f"{arch} {name} training: losses not "
-                                     f"finite: {losses}")
-            want = {k: v * GEMMA_TRAIN_STEPS for k, v in per_step.items()}
+                raise AssertionError(f"{cfg.name} {name} training: losses "
+                                     f"not finite: {losses}")
+            want = {k: v * steps for k, v in per_step.items()}
             for c in counts:
                 got = {k: c[k] for k in want}
                 if got != want:
-                    raise AssertionError(f"{arch} {name} training launched "
-                                         f"{got}, not {want}")
-            if share["launches"] != {"flash_attention_bwd":
-                                     per_step["flash_attention_bwd"],
-                                     "flash_attention":
-                                     per_step["flash_attention"]}:
-                raise AssertionError(f"{arch} {name}: the timed step made "
-                                     f"{share['launches']} flash launches")
+                    raise AssertionError(f"{cfg.name} {name} training "
+                                         f"launched {got}, not {want}")
+            if share["launches"] != per_step:
+                raise AssertionError(f"{cfg.name} {name}: the timed step "
+                                     f"made {share['launches']} flash "
+                                     f"launches")
     finally:
         torch.use_deterministic_algorithms(False)
-        shutil.rmtree(GEMMA_TRAIN_DIR, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def gemma_train_one(dev, arch: str) -> dict:
+    """Phase 16 for one arch: GEMMA_TRAIN's depth and tokens at the
+    published widths, GEMMA_TRAIN_STEPS steps a twin (``train_twins``)."""
+    from repro_torch.configs import registry
+    spec = GEMMA_TRAIN[arch]
+    cfg = dataclasses.replace(registry.get(arch), n_layers=spec["layers"])
+    pattern, n_super, rem = cfg.pattern_plan()
+    out = {"arch": arch, "layers": cfg.n_layers, "params": cfg.param_count(),
+           "tags": list(pattern * n_super + rem),
+           "window": cfg.window, "attn_softcap": cfg.attn_softcap,
+           "final_softcap": cfg.final_softcap,
+           "head_dim": cfg.resolved_head_dim, "global_batch": spec["batch"],
+           "seq_len": spec["seq"], "steps": GEMMA_TRAIN_STEPS}
+    out.update(train_twins(dev, cfg, spec["batch"], spec["seq"],
+                           GEMMA_TRAIN_STEPS, GEMMA_TRAIN_DIR))
     return out
 
 
@@ -6866,13 +7075,15 @@ MOE_BWD_TOKENS = 4096          # the backward twins' sequence
 def decode_bound_ms(cfg, params) -> dict:
     """The weight reads of one decode step, every expert's included (the
     dispatch runs each expert's capacity slots, one at decode): every
-    parameter byte but the embedding table's (one row is read), over
-    HBM_BYTES_PER_S; and the experts' alone."""
+    parameter byte but the embedding table's when the head is untied (one
+    row is read) and the encoder's (decode reads the cached cross keys and
+    values instead), over HBM_BYTES_PER_S; and the experts' alone."""
     from repro_torch.core.policy import path_str, tree_flatten_with_path
     total = experts = 0
     for path, t in tree_flatten_with_path(params):
         name = path_str(path)
-        if name == "embed":
+        if (name == "embed" and not cfg.tie_embeddings) or \
+                name.startswith("enc_"):
             continue
         nbytes = t.numel() * t.element_size()
         total += nbytes
@@ -6893,12 +7104,10 @@ def moe_serve_one(dev, arch: str) -> dict:
     layer."""
     import torch
     from repro_torch.configs import registry
-    from repro_torch.core.writeset import WriteSet
-    from repro_torch.kernels import launch_counts
     from repro_torch.models.backbone import init_params
     from repro_torch.models.model import Model
     from repro_torch.models.moe import capacity
-    from repro_torch.serve_recover import prompts_for, run
+    from repro_torch.serve_recover import prompts_for
     spec = MOE_SERVE[arch]
     dtype = getattr(torch, spec["dtype"])
     cfg = dataclasses.replace(registry.get(arch), n_layers=spec["layers"])
@@ -6908,24 +7117,10 @@ def moe_serve_one(dev, arch: str) -> dict:
     params = init_params(cfg, gen, dev, dtype)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    before, gathers0 = launch_counts(), WriteSet.gathers
-    t0 = time.perf_counter()
-    with FlashCalls() as spy:
-        out = run(cfg, dev, prompt_lens=MOE_PROMPTS, max_batch=3,
-                  s_max=MOE_S_MAX, steps=MOE_STEPS, max_requests=16,
-                  seed=SERVE_SEED, params=params, compute_dtype=dtype,
-                  workdir=str(ROOT / "build"))
-    torch.cuda.synchronize()
-    out["run_s"] = time.perf_counter() - t0
-    launches = {k: v - before[k] for k, v in launch_counts().items()}
-    out["gathers"] = WriteSet.gathers - gathers0
-    if launches["pack_rows"] != out["gathers"]:
-        raise AssertionError(f"{arch}: {launches['pack_rows']} pack_rows "
-                             f"launches for {out['gathers']} grouped "
-                             f"gathers")
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out, calls = counted_twin_run(
+        dev, cfg, params, prompt_lens=MOE_PROMPTS, max_batch=3,
+        s_max=MOE_S_MAX, steps=MOE_STEPS, max_requests=16,
+        compute_dtype=dtype)
     # admissions on the engine and its twin, the new request on those and
     # on the crash-free prefill engine, each re-prefill group, and the
     # crash-free prefill of each live log (its group's length)
@@ -6936,16 +7131,8 @@ def moe_serve_one(dev, arch: str) -> dict:
     for grp in out["groups"]:
         prefills[grp["tokens"]] = prefills.get(grp["tokens"], 0) + 1 \
             + len(grp["slots"])
-    want = {("global", n): cfg.n_layers * times
-            for n, times in prefills.items()}
-    if spy.calls != want:
-        raise AssertionError(f"{arch}: attention calls by (layer kind, "
-                             f"length) {spy.calls}, expected {want}")
-    n_prefills = sum(prefills.values())
-    if launches["flash_attention"] != cfg.n_layers * n_prefills:
-        raise AssertionError(f"{arch}: {launches['flash_attention']} "
-                             f"flash_attention launches for {n_prefills} "
-                             f"prefills of {cfg.n_layers} layers")
+    check_flash_calls(cfg, out, calls, {("global", n): cfg.n_layers * times
+                                        for n, times in prefills.items()})
     # routing is deterministic: the same prefill twice, bitwise (and timed
     # warm: the engine's first admission also pays the libraries' first
     # calls)
@@ -6964,41 +7151,97 @@ def moe_serve_one(dev, arch: str) -> dict:
                              f"different logits")
     if not bool(torch.isfinite(twice[0]).all()):
         raise AssertionError(f"{arch}: prefill logits not finite")
-    for p in out["prefill"]:
-        p["tokens_per_s"] = p["tokens"] / p["seconds"]
     bound = decode_bound_ms(cfg, params)
     del params, twice, model
     torch.cuda.empty_cache()
-    out.pop("stats", None)
-    out.pop("paging_stats", None)
-    out.update({"init_params_s": init_s, "launches": launches,
+    out.update({"init_params_s": init_s,
                 "decode_bound": bound, "prefill_twice_equal": True,
                 "prefill_warm_s": warm,
                 "prefill_warm_tokens_per_s": MOE_PROMPTS[-1] / min(warm),
                 "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
                 "expert_d_ff": cfg.moe.expert_d_ff or cfg.d_ff,
                 "shared_expert": cfg.moe.shared_expert,
-                "capacity": {n: capacity(n, cfg.moe) for n in MOE_PROMPTS},
-                "flash_calls": {f"{k[0]}:{k[1]}": v
-                                for k, v in sorted(spy.calls.items())}})
+                "capacity": {n: capacity(n, cfg.moe) for n in MOE_PROMPTS}})
+    return out
+
+
+def layer_backward_twins(dev, cfg, tag: str, params, inputs: dict,
+                         r) -> dict:
+    """``tag``'s layer of ``cfg`` at ``params`` in train mode on
+    ``inputs`` (``x``, and ``ctx`` for a cross layer), no optimizer:
+    forward and backward of ``(y * r).sum()``, twice in f32 and twice in
+    bf16 compute, torch's kernels deterministic.  Every gradient (the
+    parameters' and the inputs') must be equal bit for bit between a
+    dtype's two runs, and finite; one flash forward and one backward
+    launch a run.  Returns per dtype the runs' ms, the launches and each
+    gradient's largest |value|."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models import backbone as B
+    from repro_torch.core.policy import (path_str, tree_flatten_with_path,
+                                         tree_unflatten)
+    names = [path_str(p) for p, _ in tree_flatten_with_path(params)]
+    names += list(inputs)
+    out = {}
+    deterministic(dev)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            grads, ms, counts = None, [], []
+            for _ in range(2):
+                torch.cuda.empty_cache()
+                leaves = [t.detach().requires_grad_() for _, t in
+                          tree_flatten_with_path(params)]
+                ins = {k: v.to(dtype).requires_grad_()
+                       for k, v in inputs.items()}
+                p = tree_unflatten(params, leaves)
+                before = launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y, _ = B.apply_layer(cfg, tag, p, ins["x"], mode="train",
+                                     ctx=ins.get("ctx"))
+                g = torch.autograd.grad((y.float() * r).sum(),
+                                        leaves + list(ins.values()))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                counts.append({k: v - before[k] for k, v in
+                               launch_counts().items()
+                               if k.startswith("flash")})
+                if grads is None:
+                    grads = g
+                    continue
+                differ = [n for n, a, b in zip(names, grads, g)
+                          if not torch.equal(a, b)]
+                finite = all(bool(torch.isfinite(a).all()) for a in g)
+            name = str(dtype).split(".")[-1]
+            out[name] = {"fwd_bwd_ms": ms, "launches": counts[0],
+                         "grads_bitwise": not differ, "finite": finite,
+                         "grad_max": {n: float(a.abs().max())
+                                      for n, a in zip(names, g)}}
+            del grads, g, leaves, ins, y
+            if differ or not finite:
+                raise AssertionError(f"{cfg.name} {tag} layer {name}: two "
+                                     f"forward and backward runs differ in "
+                                     f"gradients {differ[:8]} (finite "
+                                     f"{finite})")
+            for c in counts:
+                if c != {"flash_attention": 1, "flash_attention_bwd": 1}:
+                    raise AssertionError(f"{cfg.name} {tag} layer {name}: "
+                                         f"flash launches {c} a run")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
     return out
 
 
 def moe_backward_twins(dev) -> dict:
     """One dbrx-132b MoE layer at its published widths (12.7 GB of expert
-    weights in f32) in train mode on 1 x MOE_BWD_TOKENS tokens, no
-    optimizer: forward and backward of a fixed projection of its output,
-    twice in f32 and twice in bf16 compute, torch's kernels
-    deterministic.  Every gradient (the layer's parameters and its input)
-    must be equal bit for bit between a dtype's two runs, and finite; one
-    flash forward and one backward launch a run."""
+    weights in f32) on 1 x MOE_BWD_TOKENS tokens, its forward and backward
+    twice a dtype (``layer_backward_twins``)."""
     import torch
     from repro_torch.configs import registry
-    from repro_torch.kernels import launch_counts
-    from repro_torch.launch.train import deterministic
     from repro_torch.models import backbone as B
-    from repro_torch.core.policy import (tree_flatten_with_path, tree_map,
-                                         tree_unflatten)
+    from repro_torch.core.policy import tree_flatten_with_path, tree_map
     cfg = dataclasses.replace(registry.get("dbrx-132b"), n_layers=1)
     gen = torch.Generator(device=dev)
     gen.manual_seed(TRAIN_SEED)
@@ -7009,48 +7252,7 @@ def moe_backward_twins(dev) -> dict:
     r = torch.randn(x.shape, generator=gen, device=dev)
     n_params = sum(t.numel() for _, t in tree_flatten_with_path(params))
     out = {"arch": cfg.name, "tokens": MOE_BWD_TOKENS, "params": n_params}
-    deterministic(dev)
-    try:
-        for dtype in (torch.float32, torch.bfloat16):
-            grads, ms, counts = None, [], []
-            for _ in range(2):
-                torch.cuda.empty_cache()
-                leaves = [t.detach().requires_grad_() for _, t in
-                          tree_flatten_with_path(params)]
-                xin = x.to(dtype).requires_grad_()
-                p = tree_unflatten(params, leaves)
-                before = launch_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                y, _ = B.apply_layer(cfg, "moe", p, xin, mode="train")
-                g = torch.autograd.grad((y.float() * r).sum(),
-                                        leaves + [xin])
-                torch.cuda.synchronize()
-                ms.append(1e3 * (time.perf_counter() - t0))
-                counts.append({k: v - before[k] for k, v in
-                               launch_counts().items()
-                               if k.startswith("flash")})
-                if grads is None:
-                    grads = g
-                    continue
-                differ = [i for i, (a, b) in enumerate(zip(grads, g))
-                          if not torch.equal(a, b)]
-                finite = all(bool(torch.isfinite(a).all()) for a in g)
-            name = str(dtype).split(".")[-1]
-            out[name] = {"fwd_bwd_ms": ms, "launches": counts[0],
-                         "grads_bitwise": not differ, "finite": finite}
-            del grads, g, leaves, xin, y
-            if differ or not finite:
-                raise AssertionError(f"dbrx MoE layer {name}: two forward "
-                                     f"and backward runs differ in "
-                                     f"gradients {differ[:8]} (finite "
-                                     f"{finite})")
-            for c in counts:
-                if c != {"flash_attention": 1, "flash_attention_bwd": 1}:
-                    raise AssertionError(f"dbrx MoE layer {name}: flash "
-                                         f"launches {c} a run")
-    finally:
-        torch.use_deterministic_algorithms(False)
+    out.update(layer_backward_twins(dev, cfg, "moe", params, {"x": x}, r))
     del params, x, r
     torch.cuda.empty_cache()
     return out
@@ -7066,6 +7268,271 @@ def moe_phase(dev) -> dict:
     arch = "llama4-maverick-400b-a17b"
     out[arch] = moe_serve_one(dev, arch)
     out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 18: the context archs, llama-3.2-vision-90b and whisper-large-v3
+# ----------------------------------------------------------------------
+
+CONTEXT_STEPS = 8              # before the finish, after it, after recovery
+# widths as published; vision's depth cut for the card's memory to one
+# superblock, 4 dense layers and the cross layer of its 100 (6,379,626,497
+# parameters, 25.5 GB in f32); whisper whole, 32 encoder and 32 decoder
+# layers (1,954,163,200 parameters, 7.82 GB), s_max its text context
+CONTEXT_SERVE = {
+    "llama-3.2-vision-90b": {"layers": 5, "prompts": (1024, 4096),
+                             "s_max": 4096 + 4 * CONTEXT_STEPS},
+    "whisper-large-v3": {"layers": 32, "prompts": (64, 224), "s_max": 448},
+}
+# (c): the prompt a seeded context's prefill-vs-decode rule is held at
+CONTEXT_CHECK = {"llama-3.2-vision-90b": 1023, "whisper-large-v3": 223}
+# (d): whisper trained at its published widths and depth, and one vision
+# cross layer's forward and backward over its 1600 patches
+CONTEXT_TRAIN = {"batch": 2, "seq": 448, "steps": 3}
+CONTEXT_LAYER_TOKENS = 4096
+CONTEXT_TRAIN_DIR = ROOT / "build" / "chip_smoke_context_train"
+
+
+def attention_calls(cfg) -> dict:
+    """The flash calls one prefill (or training forward) makes, by query
+    length: each decoder layer once, an audio cross layer twice (self,
+    then cross), at the prompt's length; each encoder layer once at
+    ``encoder_seq``.  {"decoder": calls at the prompt, "encoder": calls at
+    encoder_seq}."""
+    from repro_torch.models.backbone import parse_tag
+    pattern, n_super, rem = cfg.pattern_plan()
+    tags = list(pattern) * n_super + list(rem)
+    dec = sum(2 if parse_tag(t)[1] == "cross" and cfg.family == "audio"
+              else 1 for t in tags)
+    return {"decoder": dec, "encoder": cfg.encoder_layers}
+
+
+def open_gates(params) -> int:
+    """Set every ``xgate`` leaf to 1 in place (the init's 0 shuts the image
+    layers: tanh(0) = 0); returns how many were set."""
+    from repro_torch.core.policy import path_str, tree_flatten_with_path
+    n = 0
+    for path, t in tree_flatten_with_path(params):
+        if path_str(path).endswith("xgate"):
+            t.fill_(1.0)
+            n += 1
+    return n
+
+
+def context_serve_one(dev, arch: str, params, cfg) -> dict:
+    """Phase 18 (a)/(b) for one arch: the twin protocol
+    (``serve_recover.run``, the dense rule of phase 15) at CONTEXT_SERVE's
+    depth, f32: prompts, CONTEXT_STEPS steps, the first request finished,
+    CONTEXT_STEPS more, a crash and the re-prefill, CONTEXT_STEPS after
+    it.  The engine prefills with a context of zeros, as the reference's
+    does.  Every prefill (admissions on both engines, the new request,
+    each re-prefill group) must call the flash kernel once a decoder
+    layer, twice an audio cross layer and once an encoder layer
+    (``attention_calls``: 5 a vision prefill, 96 a whisper one)."""
+    spec = CONTEXT_SERVE[arch]
+    calls = attention_calls(cfg)
+    per_prefill = calls["decoder"] + calls["encoder"]
+    out, seen = counted_twin_run(
+        dev, cfg, params, prompt_lens=spec["prompts"], max_batch=2,
+        s_max=spec["s_max"], steps=CONTEXT_STEPS, max_requests=16)
+    prefills = {}
+    for n in list(spec["prompts"]) + [spec["prompts"][-1]]:
+        prefills[n] = prefills.get(n, 0) + 2
+    for grp in out["groups"]:
+        prefills[grp["tokens"]] = prefills.get(grp["tokens"], 0) + 1
+        grp["flash_launches"] = per_prefill
+    want = {("global", n): calls["decoder"] * times
+            for n, times in prefills.items()}
+    if calls["encoder"]:
+        key = ("global", cfg.encoder_seq)
+        want[key] = want.get(key, 0) + calls["encoder"] * sum(
+            prefills.values())
+    check_flash_calls(cfg, out, seen, want)
+    out.update({"flash_launches_per_prefill": per_prefill,
+                "decode_bound": decode_bound_ms(cfg, params),
+                "context_len": cfg.encoder_seq if cfg.family == "audio"
+                else cfg.context_seq})
+    return out
+
+
+def context_cross_checks(dev, arch: str, params, cfg) -> dict:
+    """Phase 18 (c): the cross path with a real context, every xgate 1
+    (set by the caller).  A batch of 2 prompts of n + 1 tokens
+    (CONTEXT_CHECK's n) with the pipeline's seeded ``context_at`` /
+    ``frames_at`` (0.02 N(0, 1)): ``Model.prefill`` through the kernels
+    against the same prefill with ``flash_attention_plain`` substituted
+    (logits within 1e-4 of the largest |logit| in f32, FLASH_PREFILL_TOL
+    in bf16; ``attention_calls`` launches a prefill); a prefill of n
+    tokens and ``decode_step`` at n against the prefill of n + 1 (last
+    logits within 1e-4 in f32, the reference's own rule); the same
+    prefill twice, bitwise equal."""
+    import torch
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers
+    from repro_torch.models.model import Model
+    from repro_torch.serve_recover import LOGIT_TOL
+    n = CONTEXT_CHECK[arch]
+    batch = Pipeline(cfg, 2, n + 1, seed=SERVE_SEED).batch_at(0)
+    key = "frames" if cfg.family == "audio" else "context"
+    full = {"tokens": torch.from_numpy(batch["tokens"]).to(dev),
+            key: torch.from_numpy(batch[key]).to(dev)}
+    calls = attention_calls(cfg)
+    per_prefill = calls["decoder"] + calls["encoder"]
+
+    def prefill(model, b, attention, s_max=None):
+        layers.flash_attention = attention
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = FA.flash_attention.launches
+            out = model.prefill(params, b, s_max=s_max)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, \
+                FA.flash_attention.launches - before
+        finally:
+            layers.flash_attention = FA.flash_attention
+    out = {"tokens": n + 1, "batch": 2, "context_key": key}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = Model(cfg, compute_dtype=dtype)
+        name = str(dtype).split(".")[-1]
+        prefill(model, full, FA.flash_attention_plain)   # first-use set-up
+        (got, _), kernel_s, launched = prefill(model, full,
+                                               FA.flash_attention)
+        (again, _), _, _ = prefill(model, full, FA.flash_attention)
+        (want, _), plain_s, _ = prefill(model, full,
+                                        FA.flash_attention_plain)
+        if launched != per_prefill:
+            raise AssertionError(f"{arch} {name}: a prefill launched "
+                                 f"flash_attention {launched} times, not "
+                                 f"{per_prefill}")
+        if not (bool(torch.isfinite(got).all())
+                and got.shape == (2, cfg.vocab_padded)):
+            raise AssertionError(f"{arch} {name}: prefill logits not "
+                                 f"finite or misshapen")
+        v = cfg.vocab
+        err = float((got[:, :v] - want[:, :v]).abs().max()) / float(
+            want[:, :v].abs().max())
+        tol = LOGIT_TOL if dtype == torch.float32 else FLASH_PREFILL_TOL
+        row = {"kernel_vs_plain": err, "tolerance": tol,
+               "launches": launched, "prefill_s": kernel_s,
+               "plain_prefill_s": plain_s,
+               "repeat_bitwise": bool(torch.equal(got, again))}
+        if not err <= tol:
+            raise AssertionError(f"{arch} {name}: kernel prefill logits "
+                                 f"differ from the plain attention's by "
+                                 f"{err} of the largest |logit|")
+        if not row["repeat_bitwise"]:
+            raise AssertionError(f"{arch} {name}: the same prefill twice "
+                                 f"gave different logits")
+        if dtype == torch.float32:
+            short = dict(full, tokens=full["tokens"][:, :n])
+            (_, kv), _, _ = prefill(model, short, FA.flash_attention,
+                                    s_max=n + 1)
+            inc, _ = model.decode_step(params, kv, full["tokens"][:, n], n)
+            dec = float((inc[:, :v] - got[:, :v]).abs().max()) / float(
+                got[:, :v].abs().max())
+            row["decode_vs_prefill"] = dec
+            del kv
+            if not dec <= LOGIT_TOL:
+                raise AssertionError(f"{arch}: prefill + decode at {n} "
+                                     f"differs from the prefill of {n + 1} "
+                                     f"by {dec} of the largest |logit|")
+        out[name] = row
+        del got, again, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def context_train_whisper(dev) -> dict:
+    """Phase 18 (d): whisper-large-v3 at its published widths and depth,
+    CONTEXT_TRAIN's steps on 2 x 448 tokens with 2 x 1500 frames (the
+    pipeline's ``frames_at``) a twin (``train_twins``: f32 and bf16, bitwise
+    twins, flash launches a step counted with the encoder's and the cross
+    layers')."""
+    from repro_torch.configs import registry
+    cfg = registry.get("whisper-large-v3")
+    spec = CONTEXT_TRAIN
+    out = {"arch": cfg.name, "params": cfg.param_count(),
+           "encoder_layers": cfg.encoder_layers, "layers": cfg.n_layers,
+           "frames": cfg.encoder_seq, "global_batch": spec["batch"],
+           "seq_len": spec["seq"], "steps": spec["steps"]}
+    out.update(train_twins(dev, cfg, spec["batch"], spec["seq"],
+                           spec["steps"], CONTEXT_TRAIN_DIR))
+    return out
+
+
+def context_layer_twins(dev) -> dict:
+    """Phase 18 (d): one llama-3.2-vision-90b cross layer at its published
+    widths (855,638,017 parameters) on 1 x CONTEXT_LAYER_TOKENS tokens
+    over 1600 image patches (0.02 N(0, 1)), xgate 1: its forward and
+    backward twice a dtype (``layer_backward_twins``), every gradient of
+    the cross attention's weights and the gate non-zero."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import backbone as B
+    from repro_torch.core.policy import tree_flatten_with_path, tree_map
+    cfg = registry.get("llama-3.2-vision-90b")
+    tag = "dense:cross"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_SEED)
+    params = tree_map(lambda spec: B.init_leaf(spec, gen, dev),
+                      B._leaf_specs(B.layer_shapes(cfg, tag)))
+    open_gates(params)
+    x = torch.randn((1, CONTEXT_LAYER_TOKENS, cfg.d_model), generator=gen,
+                    device=dev)
+    ctx = 0.02 * torch.randn((1, cfg.context_seq, cfg.d_model),
+                             generator=gen, device=dev)
+    r = torch.randn(x.shape, generator=gen, device=dev)
+    out = {"arch": cfg.name, "tokens": CONTEXT_LAYER_TOKENS,
+           "patches": cfg.context_seq,
+           "params": sum(t.numel() for _, t in
+                         tree_flatten_with_path(params))}
+    out.update(layer_backward_twins(dev, cfg, tag, params,
+                                    {"x": x, "ctx": ctx}, r))
+    for name in ("float32", "bfloat16"):
+        zero = [n for n, m in out[name]["grad_max"].items()
+                if ("xattn" in n or n == "xgate") and not m > 0]
+        if zero:
+            raise AssertionError(f"vision cross layer {name}: zero "
+                                 f"gradients {zero}")
+    del params, x, ctx, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def context_phase(dev) -> dict:
+    """Phase 18: each context arch served at its published widths
+    (``context_serve_one``), then its cross path with a seeded context and
+    open gates (``context_cross_checks``) on the same parameters; whisper
+    trained at its published widths and depth; one vision cross layer's
+    backward twins."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models.backbone import init_params
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, spec in CONTEXT_SERVE.items():
+        cfg = dataclasses.replace(registry.get(arch),
+                                  n_layers=spec["layers"])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SERVE_SEED)
+        t0 = time.perf_counter()
+        params = init_params(cfg, gen, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        serve = context_serve_one(dev, arch, params, cfg)
+        serve["init_params_s"] = init_s
+        gates = open_gates(params)
+        cross = context_cross_checks(dev, arch, params, cfg)
+        cross["gates_opened"] = gates
+        out[arch] = {"serve": serve, "cross": cross}
+        del params
+        torch.cuda.empty_cache()
+    out["train"] = context_train_whisper(dev)
+    out["layer_twins"] = context_layer_twins(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -7323,11 +7790,14 @@ class LaunchMeter:
 
 
 def parity_run(dev, paged: bool, n_init: int, n_ops: int, batch: int,
-               group: int, synth_ns: float, build_batch: int = 4096) -> dict:
+               group: int, synth_ns: float, build_batch: int = 4096,
+               spans=None) -> dict:
     """One side of the reference's ``--paged-parity`` (flush_batching.py
     ``paged_parity``): a partly DLL of ``n_init`` nodes, ``n_ops``
     scattered deletes in batches of ``batch``, ``group`` batches an epoch,
-    each epoch's drain and commit timed; the cache fits the list."""
+    each epoch's drain and commit timed; the cache fits the list.  With
+    ``spans``, an entered ``HostSpans``, each epoch's drain and commit
+    alone (and their wall, ``flush_wall``) close one of its epochs."""
     import numpy as np
     import torch
     from repro_torch.core.arena import open_arena
@@ -7352,10 +7822,16 @@ def parity_run(dev, paged: bool, n_init: int, n_ops: int, batch: int,
             d.delete_batch(ids[i:i + batch])
         a._epoch_depth -= 1
         torch.cuda.synchronize()
+        if spans is not None:
+            spans.cur = {}
         t0 = time.perf_counter()
         a.writeset.flush()
         a.commit()
-        flush_wall += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        flush_wall += dt
+        if spans is not None:
+            spans.cur["flush_wall"] = dt * 1e9
+            spans.epoch()
     st = a.stats.delta(base)
     c = a.cache
     row = {"paged": paged, "n_init": n_init, "flush_wall_s": flush_wall,
@@ -7700,8 +8176,59 @@ import torch
 import chip_smoke as C
 from repro_torch.kernels import _build
 CROSSOVER_ONLY = sys.argv[1:] == ["crossover"]
-_build.build(("pack_flush",) if CROSSOVER_ONLY else _build.SOURCES)
+PAGED_ONLY = sys.argv[1:] == ["paged"]
+_build.build(("pack_flush",) if CROSSOVER_ONLY or PAGED_ONLY
+             else _build.SOURCES)
 dev = torch.device("cuda", 0)
+if PAGED_ONLY:
+    # phase 14 (a)'s --paged-parity shape ungated (best of 3 a side, as
+    # gated), then one more run a side under host spans: the drain's and
+    # the commit's cache bookkeeping on the host clock, per epoch.  The
+    # spans are defined here, so both trees take the same ones; a method
+    # one tree lacks is left out of its profile.
+    import importlib
+    x = C.paged_parity(dev, **C.PARITY_SHAPE, gated=False)
+    out = {"ratio": x["lines_per_s_ratio"],
+           "flush_wall_ms": {("paged" if r["paged"] else "unpaged"):
+                             r["flush_wall_s"] * 1e3 for r in x["rows"]}}
+    targets = []
+    for mod, cls, name in (
+            ("repro_torch.core.paging", None, "drain_positions"),
+            ("repro_torch.core.paging", "_BlockPool", "_positions"),
+            ("repro_torch.core.paging", "_BlockPool", "_touch"),
+            ("repro_torch.core.paging", "BlockCache", "hit_many"),
+            ("repro_torch.core.paging", "_BlockPool", "_pin"),
+            ("repro_torch.core.paging", "_BlockPool", "_unpin"),
+            ("repro_torch.core.paging", "_BlockPool", "_note_flushed"),
+            ("repro_torch.core.paging", "_BlockPool", "_seat"),
+            ("repro_torch.core.writeset", "WriteSet", "gather"),
+            ("repro_torch.core.writeset", "WriteSet", "_gather"),
+            ("repro_torch.core.writeset", "WriteSet", "_write_phase"),
+            ("repro_torch.core.writeset", "WriteSet", "_drain_snapshots"),
+            ("repro_torch.core.writeset", "WriteSet", "flush"),
+            ("repro_torch.core.arena", "Arena", "commit")):
+        owner = importlib.import_module(mod)
+        owner = getattr(owner, cls) if cls else owner
+        if name in vars(owner):
+            targets.append((owner, name))
+    # parity_run's timed drains and commits alone, one run a side; where
+    # a tree's parity_run takes no spans, the spans patched around the
+    # whole call (build and deletes too) give one total
+    import inspect
+    per_epoch = "spans" in inspect.signature(C.parity_run).parameters
+    shape = {k: v for k, v in C.PARITY_SHAPE.items() if k != "repeats"}
+    key = "host_ms_per_epoch" if per_epoch else "host_ms_whole_run"
+    out[key] = {}
+    for paged in (False, True):
+        with C.HostSpans(targets) as spans:
+            C.parity_run(dev, paged, **shape,
+                         **({"spans": spans} if per_epoch else {}))
+        if not per_epoch:
+            spans.epoch()
+        out[key]["paged" if paged else "unpaged"] = {
+            k.split(".")[-1]: v for k, v in spans.mean_ms().items()}
+    print("AB " + json.dumps(out), flush=True)
+    sys.exit(0)
 if sys.argv[1:] == ["model"]:
     # phase 7's Model.decode_step, phase 10's bf16 step and phase 16's
     # gemma2-9b steps, each through its phase's own function
@@ -7759,7 +8286,7 @@ print("AB " + json.dumps(out), flush=True)
 
 
 def ab_trees(parent: Path, rounds: int = 3, crossover: bool = False,
-             model: bool = False) -> list:
+             model: bool = False, paged: bool = False) -> list:
     """``--ab-parent``: phase 13's four-shard crossover (ungated) and phase
     3's DLL and hashmap at 2**22, for the tree at ``parent`` and this one
     in turns (parent, this, this, parent, ...), one process each.  With
@@ -7768,9 +8295,13 @@ def ab_trees(parent: Path, rounds: int = 3, crossover: bool = False,
     epoch) and runs the crossover at one and four shards three times;
     with ``model`` (``--ab-model``) phase 7's ``Model.decode_step``
     (``model_decode_ms``), phase 10's bf16 step (``train_bf16``) and
-    phase 16's gemma2-9b steps (``gemma_train_one``)."""
+    phase 16's gemma2-9b steps (``gemma_train_one``); with ``paged``
+    (``--ab-paged``) phase 14 (a)'s ``paged_parity`` ungated, each side's
+    flush wall and the ratio, then one run a side with the drain's and the
+    commit's host code on the host clock per epoch (``HostSpans``)."""
     order = [parent, ROOT, ROOT, parent] * ((rounds + 1) // 2)
-    mode = ["crossover"] if crossover else ["model"] if model else []
+    mode = ["crossover"] if crossover else ["model"] if model else \
+        ["paged"] if paged else []
     runs = []
     for tree in order[:2 * rounds]:
         p = subprocess.run([sys.executable, "-c", AB_ONE] + mode, cwd=tree,
@@ -7800,6 +8331,10 @@ def main(argv=None) -> int:
                    help="with --ab-parent: only the crossover shape, its "
                    "epochs' host walls without stalls and the crossover at "
                    "one and four shards, three times a process")
+    p.add_argument("--ab-paged", action="store_true",
+                   help="with --ab-parent: phase 14 (a)'s paged parity "
+                   "ungated, each side's flush wall and the ratio, and the "
+                   "paged drain's host code per epoch")
     p.add_argument("--ab-model", action="store_true",
                    help="with --ab-parent: phase 7's Model.decode_step, "
                    "phase 10's bf16 training step and phase 16's gemma2-9b "
@@ -7824,7 +8359,8 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
         runs = ab_trees(Path(args.ab_parent).resolve(),
-                        crossover=args.ab_crossover, model=args.ab_model)
+                        crossover=args.ab_crossover, model=args.ab_model,
+                        paged=args.ab_paged)
         if args.report:
             Path(args.report).parent.mkdir(parents=True, exist_ok=True)
             Path(args.report).write_text(json.dumps(runs, indent=1))
@@ -8125,12 +8661,23 @@ def main(argv=None) -> int:
     launcher["moe"] = launch_serve("dbrx-132b")
     moe_cpu["launch_train"] = launch_train_on_card(
         "llama4-maverick-400b-a17b")
+    # the reduced context archs: a seeded context's prefill and decode,
+    # trained, and their launchers on the card
+    context_cpu = {"serve": [context_card_vs_cpu(dev, a)
+                             for a in CONTEXT_SERVE],
+                   "train": [train_card_vs_cpu(dev, cbase.reduced(
+                       creg.get(a))) for a in CONTEXT_SERVE]}
+    launcher["context"] = launch_serve("whisper-large-v3")
+    context_cpu["launch_train"] = launch_train_on_card(
+        "llama-3.2-vision-90b")
     report["card_vs_cpu"] = {"identical": same, "serve": serve,
                              "launch_serve": launcher,
-                             "gemma_train": gemma_cpu, "moe": moe_cpu}
+                             "gemma_train": gemma_cpu, "moe": moe_cpu,
+                             "context": context_cpu}
     emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same,
           "serve": serve, "launch_serve": launcher,
-          "gemma_train": gemma_cpu, "moe": moe_cpu})
+          "gemma_train": gemma_cpu, "moe": moe_cpu,
+          "context": context_cpu})
     emit({"phase": "clock", "before": "5",
           "at_s": time.perf_counter() - t_run})
     # ---- phase 5: snapshot recovery at full size
@@ -8249,7 +8796,7 @@ def main(argv=None) -> int:
     report["train_bf16"] = train_bf16(dev)
     emit({"phase": "train_bf16", **report["train_bf16"]})
     train_cpu = train_card_vs_cpu(dev)
-    launcher = launch_train_on_card()
+    launcher = launch_train_on_card(own_process=True)
     report["train_card_vs_cpu"] = train_cpu
     report["launch_train"] = launcher
     emit({"phase": "train_card_vs_cpu", **train_cpu})
@@ -8409,6 +8956,26 @@ def main(argv=None) -> int:
                if launches17[k] == 0]
     if missing:
         raise AssertionError(f"phase 17 never launched {missing}")
+    emit({"phase": "clock", "before": "18",
+          "at_s": time.perf_counter() - t_run})
+    # ---- phase 18: llama-3.2-vision-90b and whisper-large-v3, contexts
+    reset_launch_counts()
+    context = context_phase(dev)
+    launches18 = launch_counts()
+    report["context"] = context
+    for arch in CONTEXT_SERVE:
+        emit({"phase": "context_serving", **context[arch]["serve"]})
+        emit({"phase": "context_cross", "arch": arch,
+              **context[arch]["cross"]})
+    emit({"phase": "context_train", **context["train"]})
+    emit({"phase": "context_layer_twins", **context["layer_twins"]})
+    emit({"phase": "context", "launches": launches18,
+          "phase_s": context["phase_s"]})
+    missing = [k for k in ("flash_attention", "flash_attention_bwd",
+                           "pack_rows", "scatter_rows")
+               if launches18[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 18 never launched {missing}")
     emit({"phase": "clock", "before": "summary",
           "at_s": time.perf_counter() - t_run})
     # ---- summary
@@ -8419,7 +8986,8 @@ def main(argv=None) -> int:
                         "paged_launches": launches14[name],
                         "gemma_launches": launches15[name],
                         "gemma_train_launches": launches16[name],
-                        "moe_launches": launches17[name], **row})
+                        "moe_launches": launches17[name],
+                        "context_launches": launches18[name], **row})
     if sorted(k["name"] for k in kernels) != sorted(WRAPPERS):
         raise AssertionError("the kernels line does not list every kernel")
     report["card"] = card
@@ -8427,6 +8995,8 @@ def main(argv=None) -> int:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(report, indent=1,
                                                 default=str))
+    emit({"phase": "clock", "before": "exit",
+          "at_s": time.perf_counter() - t_run})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,10 +11,16 @@ tree shape (``cache_specs``).
 
 ``apply_layer`` runs the attention layers with a dense or an MoE FFN
 (base ``dense``, ``attn`` or ``moe``, the latter through
-``models/moe.py``; variants ``full``, ``bidir``, and ``local``, gemma's
+``models/moe.py``; variants ``full``, ``bidir``, ``local``, gemma's
 sliding-window layer, whose ring cache holds ``min(window, s_max)``
-positions) in train, prefill and decode mode.  Every other base or
-variant (``cross``, ``hybrid``, ``mlstm``, ``slstm``) raises
+positions, and ``cross``) in train, prefill and decode mode.  A
+``cross`` layer attends to a context ``ctx`` (B, C, d) with no RoPE and
+no mask (``_cross_attention_seq``): in a ``vlm`` model it replaces
+self-attention and is gated by ``tanh(xgate)``; in an ``audio`` model it
+follows causal self-attention (``ln_x``).  Prefill caches the context's
+keys and values as computed (``xk``, ``xv``, C long, not a ring) and
+decode reads them back unchanged, passing the same tensors on.  Every
+other base (``hybrid``, ``mlstm``, ``slstm``) raises
 ``NotImplementedError`` naming itself.
 
 Train mode is a full-sequence forward with no caches.  ``REMAT`` picks
@@ -345,6 +351,36 @@ def _self_attention_seq(cfg: ArchConfig, p, x, positions, *, causal,
     return att, k, v
 
 
+def _cross_attention_seq(cfg: ArchConfig, p, x: torch.Tensor,
+                         ctx: torch.Tensor):
+    """Attention of ``x`` (B, S, d) to the context ``ctx`` (B, C, d): q
+    from x, keys and values from ctx, each product rounded once to x's
+    dtype, no RoPE, no mask (``causal=False``).  Returns (attended
+    (B, S, K, G, Dh), xk, xv (B, C, K, Dh))."""
+    dt = x.dtype
+    q = L._proj(x, p["wq"])
+    b, s, h, e = q.shape
+    q = q.reshape(b, s, cfg.n_kv_heads, h // cfg.n_kv_heads, e)
+    c = ctx.to(dt)
+    xk, xv = L._proj(c, p["wk"]), L._proj(c, p["wv"])
+    att = L.blockwise_attention(q, xk, xv, causal=False)
+    return att, xk, xv
+
+
+def _cross_decode(cfg: ArchConfig, p, y: torch.Tensor, cache,
+                  new_cache) -> torch.Tensor:
+    """One decode step's cross attention of ``y`` (B, 1, d) to the cached
+    context keys and values, which pass on unchanged (the same tensors,
+    so the engine writes nothing back for them)."""
+    b, s, _ = y.shape
+    q = L._proj(y, p["wq"])
+    q = q.reshape(b, s, cfg.n_kv_heads, cfg.q_group, -1)
+    xk, xv = cache["xk"], cache["xv"]
+    ctx_pos = torch.arange(xk.shape[1], device=y.device)
+    new_cache["xk"], new_cache["xv"] = xk, xv
+    return L.decode_attention(q, xk, xv, ctx_pos, 1 << 30)
+
+
 def _seat_cache(k_all: torch.Tensor, cap_total: int) -> torch.Tensor:
     """Place the tail of prefill K/V (B, S, ...) into a fresh ring/linear
     cache of capacity cap_total, at the slots decode will expect
@@ -357,7 +393,7 @@ def _seat_cache(k_all: torch.Tensor, cap_total: int) -> torch.Tensor:
     return out
 
 
-DENSE_VARIANTS = ("full", "bidir", "local")
+DENSE_VARIANTS = ("full", "bidir", "local", "cross")
 
 
 def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
@@ -369,7 +405,8 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Apply one attention layer with a dense or an MoE FFN in ``train``,
     ``prefill`` or ``decode`` mode.  Returns (x, new_cache), the cache
-    None in train mode.  ``pos`` (decode) is the position written."""
+    None in train mode.  ``pos`` (decode) is the position written;
+    ``ctx`` (train, prefill) is a cross layer's context."""
     base, var = parse_tag(tag)
     if base not in ("dense", "attn", "moe"):
         raise not_ported(f"layer base {base!r} ({tag})")
@@ -382,6 +419,17 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
     new_cache: Dict[str, torch.Tensor] = {}
     window = cfg.window if var == "local" else 0
     y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if var == "cross" and cfg.family == "vlm":
+        # the image layer: gated cross attention in place of self-attention
+        if mode == "decode":
+            att = _cross_decode(cfg, p["xattn"], y, cache, new_cache)
+        else:
+            att, xk, xv = _cross_attention_seq(cfg, p["xattn"], y, ctx)
+            if mode == "prefill":
+                new_cache["xk"], new_cache["xv"] = xk, xv
+        gate = torch.tanh(p["xgate"].float()).to(x.dtype)
+        x = x + gate * L.attn_out(att, p["xattn"]["wo"])
+        return _ffn(cfg, base, p, x), new_cache or None
     if mode == "decode":
         cap = cache["k"].shape[1]
         positions = torch.tensor([pos], device=x.device)
@@ -404,6 +452,23 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
             new_cache["k"] = _seat_cache(k_all, cap)
             new_cache["v"] = _seat_cache(v_all, cap)
     x = x + L.attn_out(att, p["attn"]["wo"])
+    if var == "cross":
+        # the audio decoder: causal self-attention, then cross attention
+        # to the encoder's output
+        y2 = L.rms_norm(x, p["ln_x"], cfg.norm_eps)
+        if mode == "decode":
+            att2 = _cross_decode(cfg, p["xattn"], y2, cache, new_cache)
+        else:
+            att2, xk, xv = _cross_attention_seq(cfg, p["xattn"], y2, ctx)
+            if mode == "prefill":
+                new_cache["xk"], new_cache["xv"] = xk, xv
+        x = x + L.attn_out(att2, p["xattn"]["wo"])
+    return _ffn(cfg, base, p, x), new_cache or None
+
+
+def _ffn(cfg: ArchConfig, base: str, p: Dict[str, Any],
+         x: torch.Tensor) -> torch.Tensor:
+    """The layer's FFN branch: ``x + ffn(rms_norm(x))``, dense or MoE."""
     y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if base == "moe":
         mp = M.MoEParams(router=p["moe"]["router"],
@@ -412,8 +477,6 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
                          s_gate=p["moe"].get("s_gate"),
                          s_up=p["moe"].get("s_up"),
                          s_down=p["moe"].get("s_down"))
-        x = x + M.moe_ffn(y, mp, cfg.moe, cfg.act)
-    else:
-        x = x + L.gated_mlp(y, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                            p["mlp"]["w_down"], cfg.act)
-    return x, (new_cache or None)
+        return x + M.moe_ffn(y, mp, cfg.moe, cfg.act)
+    return x + L.gated_mlp(y, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                           p["mlp"]["w_down"], cfg.act)

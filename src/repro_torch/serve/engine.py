@@ -11,7 +11,10 @@ State classification (the paper's contract, applied to serving):
   from its persistent NEXT chain (``serve/kvcache.py``).
 
 Decode runs ``Model.decode_step`` per slot at batch 1 over slot-contiguous
-caches; greedy sampling keeps recovery checkable.  A step feeds the last
+caches; greedy sampling keeps recovery checkable.  A context model (vlm,
+audio) prefills with a context of zeros, as the reference's engine does,
+and its cross caches (``xk``, ``xv``) pass through decode without a
+copy.  A step feeds the last
 logged token at its own position p - 1 and logs the greedy token at p, so
 cache slot j always holds token j and a re-prefill of the log rebuilds
 exactly the cache that decoding built.  This is the one place the port
@@ -222,8 +225,19 @@ class ServingEngine:
         cache rows into their slots with one ``scatter_rows`` launch per
         cache leaf."""
         tokens = torch.as_tensor(tokens).to(self.device)
-        _, kv = self.model.prefill(self.params, {"tokens": tokens},
-                                   s_max=self.cfg.s_max)
+        batch = {"tokens": tokens}
+        # a context model serves with a context of zeros, as the
+        # reference's engine does (its requests carry no frames or image)
+        cfg = self.model.cfg
+        if cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (len(slots), cfg.encoder_seq, cfg.d_model),
+                dtype=self.model.compute_dtype, device=self.device)
+        if cfg.family == "vlm":
+            batch["context"] = torch.zeros(
+                (len(slots), cfg.context_seq, cfg.d_model),
+                dtype=self.model.compute_dtype, device=self.device)
+        _, kv = self.model.prefill(self.params, batch, s_max=self.cfg.s_max)
         # the model call above runs lock-free (groups prefill in threads
         # under recover(concurrency>1)); the scatter serializes
         with self._cache_lock:
@@ -291,8 +305,8 @@ class ServingEngine:
         logits, one2 = self.model.decode_step(
             self.params, one, torch.tensor([token], device=self.device), p)
         with self._cache_lock:
-            _map_slot(self.cache, one2, lambda full, o, ax: full.narrow(
-                ax, slot, 1).copy_(o))
+            _map_slot(self.cache, one2, lambda full, o, ax: _reseat(
+                full.narrow(ax, slot, 1), o))
         return logits[0]
 
     # ------------------------------------------------------------------
@@ -458,6 +472,16 @@ def _reconstruct_engine(eng: ServingEngine) -> dict:
         out.update(degraded=True, quarantined_rids=sorted(lost),
                    lost_token_rows=lost_tok)
     return out
+
+
+def _reseat(view: torch.Tensor, new: torch.Tensor) -> None:
+    """Write a decoded slot's leaf back into its view of the full cache,
+    unless decode passed that view on unchanged (the cross caches): the
+    same storage, shape and strides need no copy."""
+    if new.data_ptr() == view.data_ptr() and new.shape == view.shape \
+            and new.stride() == view.stride():
+        return
+    view.copy_(new)
 
 
 def _scatter_batch(full: torch.Tensor, grp: torch.Tensor, slots, ax: int

@@ -63,6 +63,7 @@ ARCH = "llama3.2-3b"
 CACHE_TOL = 1e-4      # recovered vs twin cache, relative to max |k|, |v|
 LOGIT_TOL = 1e-4      # recovered vs twin logits, relative to max |logit|
 BF16_TOL = 2e-2       # both, when the engines compute in bf16
+CROSS_LEAVES = ("xk", "xv")
 
 
 def _sync(device: torch.device) -> None:
@@ -104,8 +105,9 @@ def cache_error(a: ServingEngine, b: ServingEngine, slots,
     positions an uninterrupted engine holds there, ``[0, pos - 1)`` (the
     last token of the log is cached by the next decode step; a local
     layer's ring holds the last ``window`` of them), or every cache slot
-    with ``whole``, and the largest |value| of ``b``'s over the same
-    positions.  ``first_layer`` compares the first layer alone."""
+    with ``whole`` (and always for a cross layer's context keys and
+    values), and the largest |value| of ``b``'s over the same positions.
+    ``first_layer`` compares the first layer alone."""
     ca, cb = a.cache, b.cache
     if first_layer:
         ca, cb = _first_layer(ca), _first_layer(cb)
@@ -117,7 +119,10 @@ def cache_error(a: ServingEngine, b: ServingEngine, slots,
                 other = cb[grp][pos][name]
                 ax = 2 if grp == "blocks" else 1    # the cache slot axis
                 for s, sb in zip(slots, b_slots):
-                    held = torch.arange(leaf.shape[ax]) if whole else \
+                    # a cross cache (a context's keys and values) is held
+                    # whole: it is no ring over the token positions
+                    held = torch.arange(leaf.shape[ax]) \
+                        if whole or name in CROSS_LEAVES else \
                         _held(int(b.pos[sb]) - 1, leaf.shape[ax])
                     held = held.to(leaf.device)
                     x, y = ((t[:, i] if grp == "blocks" else t[i])

@@ -10,7 +10,6 @@ on logits and 1e-5 on caches through the whole reduced model.  On the CPU
 ``blockwise_attention`` runs ``flash_attention_plain``; the kernel is held
 to the same plain version on the card by ``chip_smoke.py``.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -330,9 +329,10 @@ def test_model_prefill_and_decode_match_reference(reduced_llama):
         tok = np.argmax(np.asarray(jl), -1)
 
 
-@pytest.mark.parametrize("tag", ["dense:cross", "attn_local",
-                                 # MoE is ported; its cross variant is not
-                                 pytest.param("moe:cross", id="moe"),
+@pytest.mark.parametrize("tag", ["hybrid:cross", "attn_local",
+                                 # dense, MoE and the cross variant are
+                                 # ported; the recurrent bases are not
+                                 pytest.param("slstm:local", id="slstm"),
                                  "hybrid", "hybrid:local", "mlstm",
                                  "slstm"])
 def test_non_dense_layer_tags_raise(tag):
@@ -345,7 +345,8 @@ def test_non_dense_layer_tags_raise(tag):
 def test_train_mode_and_context_families_raise(reduced_llama):
     # train mode is ported now: one dense layer's full-sequence forward,
     # no cache, against the reference's (1e-5, f32 sums in another order);
-    # the vlm/audio context families still raise
+    # the vlm/audio contexts are ported too, and a hybrid model still
+    # raises
     jm, jp, tm, tp = reduced_llama
     x = np.random.default_rng(9).standard_normal(
         (2, 7, tm.cfg.d_model)).astype(np.float32)
@@ -362,7 +363,10 @@ def test_train_mode_and_context_families_raise(reduced_llama):
     with pytest.raises(ValueError):
         TB.apply_layer(tm.cfg, "dense", {}, torch.from_numpy(x),
                        mode="serve")
-    vlm = tbuild(dataclasses.replace(tm.cfg, family="vlm"),
-                 compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        vlm.prefill(tp, {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+    hymba = tbuild(tbase.reduced(treg.get("hymba-1.5b")),
+                   compute_dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        hymba.prefill(hymba.init_params(gen, "cpu"),
+                      {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
