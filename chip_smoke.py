@@ -255,10 +255,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 10. training: llama3.2-3b at its published widths, cut to 4
    layers (796,683,264 parameters; params, grads and moments 12.7 GB),
    f32, 4 x 1024 tokens a step, PARTLY_PERSISTENT with async checkpoints
-   every 4 steps, a crash after step 5, a resume at 4 and a run to 8
-   (a 9.56 GB save before the crash and one after the resume), beside an
-   uninterrupted twin of 8 steps (cut from 12 steps and a crash after 10
-   for the time phase 13's four-shard half takes: one save fewer),
+   every 4 steps, a crash after step 5, a resume at 4 and a run to 6
+   (a 9.56 GB save before the crash), beside an uninterrupted twin of 6
+   steps (cut from 12 steps and a crash after 10, then from 8 and a save
+   after the resume, for the run's time),
    torch's kernels
    deterministic (``CUBLAS_WORKSPACE_CONFIG`` is set before phase 1):
    every loss and the final parameters equal the twin's bit for bit
@@ -451,8 +451,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the causal pairs (the global layer's backward is phase 10's, with no
    window); gemma2-9b with 2 layers, one local (window 4096) and one
    global, head width 256, softcaps 50 and 30 (1,313,883,648 parameters,
-   21.0 GB), 1 x 8192 tokens a step.  Each trained 3 steps in f32 twice
-   from the same parameters, then 3 steps in bf16 (as the launcher
+   21.0 GB), 1 x 8192 tokens a step.  Each trained 2 steps in f32 twice
+   from the same parameters, then 2 steps in bf16 (as the launcher
    trains on a card) twice, torch's kernels deterministic: losses and
    final parameters equal bit for bit and finite; flash_attention
    launched once a layer a step and once more for each layer a
@@ -473,8 +473,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and compute, each through ``serve_recover.run``'s MoE rule: prompts of
    1024 and 4096 tokens (one router group: capacity 1280 and 40), 8
    steps, the first (1024-token) request finished, 8 steps, crash and
-   re-prefill (the 4096-token log, 4112 tokens by then, in one group:
-   capacity 1285 and 41), 8 steps.  The recovered caches equal a crash-free prefill of the same
+   re-prefill (the 4096-token log, 4112 tokens by then, all but its
+   last in one group: capacity 1285 and 41), 8 steps.  The recovered caches equal a crash-free prefill of the same
    token logs (1e-4 of the largest |k|, |v| in f32, 2e-2 in bf16) and
    serve on beside it with equal tokens; the decode-built twin is held
    on the first layer's caches only, and its other differences are
@@ -494,9 +494,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    whisper-large-v3 whole (32 encoder and 32 decoder layers, 20 heads of
    width 64, 1500 frames, s_max 448; 1,954,163,200 parameters), f32,
    each through ``serve_recover.run``'s dense twin rule: prompts of 1024
-   and 4096 (vision) or 64 and 224 (whisper) tokens, 8 steps, the first
-   request finished, 8 steps, crash and re-prefill (whisper's re-runs
-   the encoder over 1500 frames), 8 steps; the engine's context is zeros,
+   and 4096 (vision) or 64 and 224 (whisper) tokens, 4 steps, the first
+   request finished, 4 steps, crash and re-prefill (whisper's re-runs
+   the encoder over 1500 frames), 4 steps; the engine's context is zeros,
    as the reference engine's is.  Every prefill calls the flash kernel 5
    times (vision: 4 self, 1 cross) or 96 (whisper: 32 encoder, 32 self,
    32 cross).  Then, on the same parameters with every xgate 1, a seeded
@@ -517,6 +517,37 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    phase 4 serves the reduced archs with a seeded context and trains
    them card vs CPU, and runs ``launch.serve --arch whisper-large-v3
    --crash`` and ``launch.train --arch llama-3.2-vision-90b`` on the card.
+19. hymba-1.5b whole at its published widths (``models/ssm.py``, the
+   ``hybrid`` layers of ``models/backbone.py``: 32 layers, a full and
+   seven sliding-window layers a superblock, d_model 1600, 25 heads over
+   5 of width 64, window 1024, SSM state 16; 1,352,603,200 parameters,
+   5.41 GB in f32), f32, through ``serve_recover.run``'s dense twin rule
+   with the ``ssm`` state and ``conv`` tail held beside the K/V caches,
+   each against its own largest |value|: prompts whose admissions
+   prefill 1024 and 4096 tokens (8 and 32 scan chunks; the 4096 wraps
+   the local rings) and 999 (one chunk, the chunk rule's fallback), 4
+   steps, the first request finished, 4 steps, crash and re-prefill, 4
+   steps.  Every prefill calls the flash kernel 32 times (4 full, 28
+   windowed) and every seating (admission or re-prefill group) launches
+   ``scatter_rows`` once per cache leaf.  After the last step each live
+   slot's ``ssm`` and ``conv`` caches, on the recovered engine and on its
+   twin, equal a fresh prefill of its logged tokens but the last within
+   1e-4 of their largest |value|.  Prefill tokens/s, decode ms per
+   slot-step beside the 1.61 ms weight-read bound, recovery seconds,
+   peak memory, and the scan's share of a 4096-token prefill and of a
+   decode step (CUDA events around ``ssm_scan`` / ``ssm_step``).  Then
+   batch 2 of 1025 tokens: the prefill through the kernels against the
+   plain attention (1e-4 f32, 5e-2 bf16), a prefill of 1024 and a decode
+   step against the prefill of 1025 (1e-4), repeats bitwise.  Then
+   trained whole, 3 steps of 2 x 2048 tokens, f32 and bf16 twins
+   bitwise, flash launches a step counted (32 forward, 32 under remat,
+   32 backward), step ms, attention share, peak, and the scan's share of
+   a step (its forward and backward timed alone at the step's shape).
+   Phase 2 holds both flash kernels at hymba's attention shapes (q (25,
+   4096, 64) over (5, 4096, 64), causal, window 1024 and none) in both
+   dtypes; phase 4 serves and trains the reduced hymba card vs CPU and
+   runs ``launch.serve --arch hymba-1.5b --crash`` and ``launch.train
+   --arch hymba-1.5b`` on the card.
 
 ``--ab-parent DIR --ab-paged`` runs phase 14 (a)'s paged parity
 (ungated) for an unpacked parent tree at DIR and this one in turns, with
@@ -535,7 +566,7 @@ the four chain kernels', ``pack_rows``' and ``scatter_rows``' in phase
 phase 15; ``flash_attention``'s and ``flash_attention_bwd``'s in phase
 16; ``flash_attention``'s, ``pack_rows``' and ``scatter_rows``' in phase
 17; ``flash_attention``'s, ``flash_attention_bwd``'s, ``pack_rows``' and
-``scatter_rows``' in phase 18.
+``scatter_rows``' in phases 18 and 19.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -578,8 +609,12 @@ CKPT_ARCH, CKPT_LAYERS = "llama3.2-3b", 4
 CKPT_SEED, CKPT_STEP = 7, 1000
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # cut from 12 steps and a crash after 10 (three saves) to two saves for
-# the run's time: one before the crash, one after the resume at 4
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 8, 4, 5
+# the run's time, then to 6 steps and one save (before the crash, at 4;
+# the resume runs to 6) when phase 19 came: the save after the resume
+# took this phase from 89.9 to 130.7 s of a 1036.6 s run on an NVIDIA
+# H100 80GB HBM3 at 700 W, and the save after a restore runs in the
+# launchers
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 6, 4, 5
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED = 4, 1024, 5
 TRAIN_BF16_STEPS = 6           # each of the bf16 step's two runs
 TRAIN_CPU_STEPS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 3, 2, 128
@@ -602,6 +637,12 @@ GEMMA_BWD = {"gemma3": (32, 16, 2048, 128, 1024, 0.0),
 CROSS_FLASH = {"vision_cross": (64, 8, 4096, 1600, 128),
                "whisper_encoder": (20, 20, 1500, 1500, 64),
                "whisper_cross": (20, 20, 448, 1500, 64)}
+# phase 19's hybrid layers, forward and backward: hymba's 25 query heads
+# over 5 KV heads (G = 5), D = 64, a 4096-token sequence, causal, a local
+# layer's window 1024 and a full layer's none: (query heads, KV heads, S,
+# D, window)
+HYMBA_FLASH = {"hymba_local": (25, 5, 4096, 64, 1024),
+               "hymba_full": (25, 5, 4096, 64, 0)}
 FLASH_PREFILL_TOL = 5e-2       # bf16 prefill logits, of the largest |logit|
 LSE_TOL = 1e-5                 # the forward's lse against the plain one's
 DI_TOL = 1e-5                  # the backward's Di, of the largest |Di|
@@ -1433,30 +1474,40 @@ def kernel_parity(dev, probe_inp: dict, n: int = 1 << 22) -> dict:
             key = f"{str(dt).split('.')[-1]}_{name}"
             flash[key], flash_bwd[key] = flash_cross_case(
                 dev, g, dt, h, hk, sq, skv, d, flush)
+    # phase 19's hybrid layers: hymba's local and full attention halves
+    # (25 query heads over 5, D = 64, 4096 tokens), forward and backward
+    for name, (h, hk, seq, d, window) in HYMBA_FLASH.items():
+        for dt in (torch.float32, torch.bfloat16):
+            key = f"{str(dt).split('.')[-1]}_{name}"
+            flash[key] = flash_band_case(dev, g, dt, h, hk, seq, d, window,
+                                         0.0, flush)
+            flash_bwd[key] = flash_bwd_band_case(dev, g, dt, h, hk, seq, d,
+                                                 window, 0.0, flush)
     rows["flash_attention_bwd"] = dict(
         flash_bwd["float32"], bound_by="operations",
         shape="q, o, dO (96, 1024, 128), k, v (32, 1024, 128) f32, causal "
               "(phase 10's layer); bf16 in the report; gemma3 and gemma2 "
-              "(window, softcap, D = 256) and the cross and encoder "
-              "layers (non-causal) below",
+              "(window, softcap, D = 256), the cross and encoder "
+              "layers (non-causal) and hymba's (G = 5, D = 64) below",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="none: no Pallas kernel; the reference takes this "
                  "gradient by XLA autodiff of "
                  "src/repro/models/layers.py:200",
         **{f"{dt}_{name}": flash_bwd[f"{dt}_{name}"]
            for name in list(GEMMA_BWD) + list(CROSS_FLASH)
-           for dt in ("float32", "bfloat16")})
+           + list(HYMBA_FLASH) for dt in ("float32", "bfloat16")})
     rows["flash_attention"] = dict(
         flash["float32"], bound_by="operations",
         shape="q (96, 1024, 128) over k, v (32, 1024, 128) f32, causal; "
               "bf16, the phase-7 shapes and S = 1000 in the report; "
-              "gemma3 and gemma2 (window, softcap, D = 256) and the cross "
-              "and encoder layers (non-causal) below",
+              "gemma3 and gemma2 (window, softcap, D = 256), the cross "
+              "and encoder layers (non-causal) and hymba's (G = 5, D = 64) "
+              "below",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91",
         **{f"{dt}_{name}": flash[f"{dt}_{name}"]
            for name in list(GEMMA_FLASH) + list(CROSS_FLASH)
-           for dt in ("float32", "bfloat16")})
+           + list(HYMBA_FLASH) for dt in ("float32", "bfloat16")})
     # ---- probe: phase 8's 512 MiB table at uniform, Zipf, one-bucket,
     # out-of-range and small inputs, both kernels, beside the bounds
     probe = probe_parity(dev, probe_inp, flush)
@@ -2749,10 +2800,11 @@ def flash_case(dev, g, dt, h: int, hk: int, seq: int, d: int, flush) -> dict:
 def flash_band_case(dev, g, dt, h: int, hk: int, seq: int, d: int,
                     window: int, softcap: float, flush) -> dict:
     """flash_attention with a sliding window (and a softcap) against its
-    plain version at a gemma layer's shape, causal, in ``dt``; timed beside
-    its band-counted bound, the same call with no window (the band's
-    skipped tiles) and, where no cap bends the scores,
-    scaled_dot_product_attention with the boolean band mask."""
+    plain version at a gemma or hymba layer's shape, causal, in ``dt``;
+    timed beside its band-counted bound, the same call with no window (the
+    band's skipped tiles) and, where no cap bends the scores,
+    scaled_dot_product_attention with the boolean band mask.  Window 0 is
+    a causal layer with no window: no band, ``sdpa`` causal."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
@@ -2774,17 +2826,18 @@ def flash_band_case(dev, g, dt, h: int, hk: int, seq: int, d: int,
                             reps=3),
         "bound_ms": flash_bound_ms(h, hk, seq, seq, d, size, window=window),
         "band_pairs_per_head": band_pairs(seq, seq, True, window),
-        "no_window_ms": time_ms(lambda: FA.flash_attention(
-            q, k, v, softcap=softcap), flush=flush),
-        "no_window_bound_ms": flash_bound_ms(h, hk, seq, seq, d, size),
         "max_abs_err": err, "tolerance": tol,
         "shape": f"q ({h}, {seq}, {d}) over k, v ({hk}, {seq}, {d}), causal, "
                  f"window {window}, softcap {softcap}"}
+    if window:
+        out["no_window_ms"] = time_ms(lambda: FA.flash_attention(
+            q, k, v, softcap=softcap), flush=flush)
+        out["no_window_bound_ms"] = flash_bound_ms(h, hk, seq, seq, d, size)
     if softcap:
         out["library_ms"] = None
         out["library_note"] = ("no PyTorch call caps the scores: sdpa "
                                "takes a mask, not a tanh of the scores")
-    else:
+    elif window:
         ahead = (torch.arange(seq, device=dev)[:, None]
                  - torch.arange(seq, device=dev)[None, :])
         band = (ahead >= 0) & (ahead < window)
@@ -2792,6 +2845,10 @@ def flash_band_case(dev, g, dt, h: int, hk: int, seq: int, d: int,
             q[None], k[None], v[None], attn_mask=band, enable_gqa=True),
             flush=flush)
         del band, ahead
+    else:
+        out["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True, enable_gqa=True),
+            flush=flush)
     del q, k, v
     torch.cuda.empty_cache()
     return out
@@ -3623,11 +3680,11 @@ def serving_phase(dev) -> dict:
     prev = 0.0
     for grp in sorted(out["groups"], key=lambda x: x["admitted_s"]):
         grp["seconds"] = grp["admitted_s"] - prev
-        grp["tokens_per_s"] = len(grp["slots"]) * grp["tokens"] \
+        grp["tokens_per_s"] = len(grp["slots"]) * grp["prefilled"] \
             / grp["seconds"]
         prev = grp["admitted_s"]
     for p in out["prefill"]:
-        p["tokens_per_s"] = p["tokens"] / p["seconds"]
+        p["tokens_per_s"] = p["prefilled"] / p["seconds"]
     out["model_decode_ms"] = model_decode_ms(cfg, params, dev)
     del params
     torch.cuda.empty_cache()
@@ -3701,7 +3758,7 @@ def counted_twin_run(dev, cfg, params, **run_kw) -> tuple:
                              f"grouped gathers")
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     for p in out["prefill"]:
-        p["tokens_per_s"] = p["tokens"] / p["seconds"]
+        p["tokens_per_s"] = p["prefilled"] / p["seconds"]
     prev = 0.0
     for grp in sorted(out["groups"], key=lambda x: x["admitted_s"]):
         grp["seconds"] = grp["admitted_s"] - prev
@@ -3750,12 +3807,13 @@ def gemma_serve_one(dev, arch: str) -> dict:
         s_max=spec["s_max"], steps=spec["steps"],
         steps_after=spec["steps_after"], max_requests=16)
     # admissions, on the engine and on its twin: each prompt and the new
-    # request after recovery; then one prefill per re-prefill group
+    # request after recovery; then one prefill per re-prefill group; each
+    # of every logged token but the last
     prefills = {}
     for n in list(spec["prompts"]) + [spec["prompts"][-1]]:
-        prefills[n] = prefills.get(n, 0) + 2
+        prefills[n - 1] = prefills.get(n - 1, 0) + 2
     for grp in out["groups"]:
-        prefills[grp["tokens"]] = prefills.get(grp["tokens"], 0) + 1
+        prefills[grp["prefilled"]] = prefills.get(grp["prefilled"], 0) + 1
         grp["flash_launches"] = len(tags)
     want = {}
     for n, times in prefills.items():
@@ -6905,10 +6963,11 @@ def launch_train_on_card(arch: str = "llama3.2-3b",
 # 8192 tokens a step
 GEMMA_TRAIN = {"gemma3-27b": {"layers": 2, "batch": 2, "seq": 2048},
                "gemma2-9b": {"layers": 2, "batch": 1, "seq": 8192}}
-# each of the twin runs, per dtype; cut from 4 for the run's time: with 4
-# the whole run took 991.3 s on an NVIDIA H100 80GB HBM3 at 700 W, past
-# its earlier slowest, 984.0 s
-GEMMA_TRAIN_STEPS = 3
+# each of the twin runs, per dtype; cut from 4 for the run's time (with 4
+# the whole run took 991.3 s on an NVIDIA H100 80GB HBM3 at 700 W), then
+# from 3 when phase 19 came (3 steps: this phase 43.3 s of a 1036.6 s
+# run; 2 steps: 36.7 s)
+GEMMA_TRAIN_STEPS = 2
 GEMMA_TRAIN_DIR = ROOT / "build" / "chip_smoke_gemma_train"
 
 
@@ -7064,8 +7123,8 @@ MOE_SERVE = {
 }
 # 4096: one router group (capacity 1280 and 40); the first request, which
 # finishes before the crash, is the shorter, so the 4096-token log is live
-# at the crash and re-prefilled (with its decoded tokens, one group of
-# 4112 tokens: capacity 1285 and 41)
+# at the crash and re-prefilled (with its decoded tokens, 4112 tokens by
+# then, all but the last in one group of 4111: capacity 1285 and 41)
 MOE_PROMPTS = (1024, 4096)
 MOE_STEPS = 8                  # before the finish, after it, after recovery
 MOE_S_MAX = 4096 + 4 * MOE_STEPS
@@ -7123,13 +7182,14 @@ def moe_serve_one(dev, arch: str) -> dict:
         compute_dtype=dtype)
     # admissions on the engine and its twin, the new request on those and
     # on the crash-free prefill engine, each re-prefill group, and the
-    # crash-free prefill of each live log (its group's length)
+    # crash-free prefill of each live log (its group's length); each of
+    # every logged token but the last
     prefills = {}
     for n in MOE_PROMPTS:
-        prefills[n] = prefills.get(n, 0) + 2
-    prefills[MOE_PROMPTS[-1]] = prefills[MOE_PROMPTS[-1]] + 3
+        prefills[n - 1] = prefills.get(n - 1, 0) + 2
+    prefills[MOE_PROMPTS[-1] - 1] += 3
     for grp in out["groups"]:
-        prefills[grp["tokens"]] = prefills.get(grp["tokens"], 0) + 1 \
+        prefills[grp["prefilled"]] = prefills.get(grp["prefilled"], 0) + 1 \
             + len(grp["slots"])
     check_flash_calls(cfg, out, calls, {("global", n): cfg.n_layers * times
                                         for n, times in prefills.items()})
@@ -7275,7 +7335,9 @@ def moe_phase(dev) -> dict:
 # Phase 18: the context archs, llama-3.2-vision-90b and whisper-large-v3
 # ----------------------------------------------------------------------
 
-CONTEXT_STEPS = 8              # before the finish, after it, after recovery
+# before the finish, after it, after recovery; cut from 8 when phase 19
+# came (whisper decodes at about 82 ms a slot-step)
+CONTEXT_STEPS = 4
 # widths as published; vision's depth cut for the card's memory to one
 # superblock, 4 dense layers and the cross layer of its 100 (6,379,626,497
 # parameters, 25.5 GB in f32); whisper whole, 32 encoder and 32 decoder
@@ -7338,9 +7400,9 @@ def context_serve_one(dev, arch: str, params, cfg) -> dict:
         s_max=spec["s_max"], steps=CONTEXT_STEPS, max_requests=16)
     prefills = {}
     for n in list(spec["prompts"]) + [spec["prompts"][-1]]:
-        prefills[n] = prefills.get(n, 0) + 2
+        prefills[n - 1] = prefills.get(n - 1, 0) + 2
     for grp in out["groups"]:
-        prefills[grp["tokens"]] = prefills.get(grp["tokens"], 0) + 1
+        prefills[grp["prefilled"]] = prefills.get(grp["prefilled"], 0) + 1
         grp["flash_launches"] = per_prefill
     want = {("global", n): calls["decoder"] * times
             for n, times in prefills.items()}
@@ -7360,26 +7422,37 @@ def context_cross_checks(dev, arch: str, params, cfg) -> dict:
     """Phase 18 (c): the cross path with a real context, every xgate 1
     (set by the caller).  A batch of 2 prompts of n + 1 tokens
     (CONTEXT_CHECK's n) with the pipeline's seeded ``context_at`` /
-    ``frames_at`` (0.02 N(0, 1)): ``Model.prefill`` through the kernels
-    against the same prefill with ``flash_attention_plain`` substituted
-    (logits within 1e-4 of the largest |logit| in f32, FLASH_PREFILL_TOL
-    in bf16; ``attention_calls`` launches a prefill); a prefill of n
-    tokens and ``decode_step`` at n against the prefill of n + 1 (last
-    logits within 1e-4 in f32, the reference's own rule); the same
-    prefill twice, bitwise equal."""
+    ``frames_at`` (0.02 N(0, 1)), held by ``prefill_checks`` with
+    ``attention_calls`` launches a prefill."""
     import torch
     from repro_torch.data.pipeline import Pipeline
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.models import layers
-    from repro_torch.models.model import Model
-    from repro_torch.serve_recover import LOGIT_TOL
     n = CONTEXT_CHECK[arch]
     batch = Pipeline(cfg, 2, n + 1, seed=SERVE_SEED).batch_at(0)
     key = "frames" if cfg.family == "audio" else "context"
     full = {"tokens": torch.from_numpy(batch["tokens"]).to(dev),
             key: torch.from_numpy(batch[key]).to(dev)}
     calls = attention_calls(cfg)
-    per_prefill = calls["decoder"] + calls["encoder"]
+    out = {"tokens": n + 1, "batch": 2, "context_key": key}
+    out.update(prefill_checks(dev, arch, cfg, params, full, n,
+                              calls["decoder"] + calls["encoder"]))
+    return out
+
+
+def prefill_checks(dev, label: str, cfg, params, full: dict, n: int,
+                   per_prefill: int) -> dict:
+    """``Model.prefill`` of the batch ``full`` (tokens n + 1 long) in f32
+    and in bf16 compute: through the kernels against the same prefill
+    with ``flash_attention_plain`` substituted (logits within 1e-4 of the
+    largest |logit| in f32, FLASH_PREFILL_TOL in bf16; ``per_prefill``
+    flash launches a prefill); in f32 a prefill of n tokens and
+    ``decode_step`` at n against the prefill of n + 1 (last logits within
+    1e-4, the reference's own rule); the same prefill twice, bitwise
+    equal.  Returns per dtype the errors and the prefill seconds."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers
+    from repro_torch.models.model import Model
+    from repro_torch.serve_recover import LOGIT_TOL
 
     def prefill(model, b, attention, s_max=None):
         layers.flash_attention = attention
@@ -7393,7 +7466,7 @@ def context_cross_checks(dev, arch: str, params, cfg) -> dict:
                 FA.flash_attention.launches - before
         finally:
             layers.flash_attention = FA.flash_attention
-    out = {"tokens": n + 1, "batch": 2, "context_key": key}
+    out = {}
     for dtype in (torch.float32, torch.bfloat16):
         model = Model(cfg, compute_dtype=dtype)
         name = str(dtype).split(".")[-1]
@@ -7404,12 +7477,13 @@ def context_cross_checks(dev, arch: str, params, cfg) -> dict:
         (want, _), plain_s, _ = prefill(model, full,
                                         FA.flash_attention_plain)
         if launched != per_prefill:
-            raise AssertionError(f"{arch} {name}: a prefill launched "
+            raise AssertionError(f"{label} {name}: a prefill launched "
                                  f"flash_attention {launched} times, not "
                                  f"{per_prefill}")
         if not (bool(torch.isfinite(got).all())
-                and got.shape == (2, cfg.vocab_padded)):
-            raise AssertionError(f"{arch} {name}: prefill logits not "
+                and got.shape == (full["tokens"].shape[0],
+                                  cfg.vocab_padded)):
+            raise AssertionError(f"{label} {name}: prefill logits not "
                                  f"finite or misshapen")
         v = cfg.vocab
         err = float((got[:, :v] - want[:, :v]).abs().max()) / float(
@@ -7420,11 +7494,11 @@ def context_cross_checks(dev, arch: str, params, cfg) -> dict:
                "plain_prefill_s": plain_s,
                "repeat_bitwise": bool(torch.equal(got, again))}
         if not err <= tol:
-            raise AssertionError(f"{arch} {name}: kernel prefill logits "
+            raise AssertionError(f"{label} {name}: kernel prefill logits "
                                  f"differ from the plain attention's by "
                                  f"{err} of the largest |logit|")
         if not row["repeat_bitwise"]:
-            raise AssertionError(f"{arch} {name}: the same prefill twice "
+            raise AssertionError(f"{label} {name}: the same prefill twice "
                                  f"gave different logits")
         if dtype == torch.float32:
             short = dict(full, tokens=full["tokens"][:, :n])
@@ -7436,7 +7510,7 @@ def context_cross_checks(dev, arch: str, params, cfg) -> dict:
             row["decode_vs_prefill"] = dec
             del kv
             if not dec <= LOGIT_TOL:
-                raise AssertionError(f"{arch}: prefill + decode at {n} "
+                raise AssertionError(f"{label}: prefill + decode at {n} "
                                      f"differs from the prefill of {n + 1} "
                                      f"by {dec} of the largest |logit|")
         out[name] = row
@@ -7532,6 +7606,292 @@ def context_phase(dev) -> dict:
         torch.cuda.empty_cache()
     out["train"] = context_train_whisper(dev)
     out["layer_twins"] = context_layer_twins(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 19: hymba-1.5b's hybrid layers, served and trained whole
+# ----------------------------------------------------------------------
+
+HYMBA = "hymba-1.5b"
+# (a): whole (32 layers, 1,352,603,200 parameters, 5.41 GB in f32).  The
+# admissions prefill 1024 and 4096 tokens (8 and 32 scan chunks of 128;
+# 4096 wraps the local layers' 1024-slot rings) and 999 (no multiple of
+# 128: one chunk, the chunk rule's fallback); the first request finishes
+# before the crash, the new one after it takes the last length
+HYMBA_PROMPTS = (1025, 4097, 1000)
+HYMBA_STEPS = 4                # before the finish, after it, after recovery
+HYMBA_S_MAX = 4097 + 4 * HYMBA_STEPS
+HYMBA_STATE_TOL = 1e-4         # (b): a slot's ssm, conv against a prefill
+HYMBA_CHECK = 1024             # (c): prefill + decode at n against n + 1
+HYMBA_TRAIN = {"batch": 2, "seq": 2048, "steps": 3}
+HYMBA_TRAIN_DIR = ROOT / "build" / "chip_smoke_hymba_train"
+
+
+class ScanEvents:
+    """CUDA events around every ``ssm_scan`` and ``ssm_step`` call of
+    ``models/ssm.py`` (the backbone calls them through the module), so
+    the scan's device time inside a prefill or a decode step can be
+    summed."""
+
+    def __enter__(self):
+        from repro_torch.models import ssm as S
+        self._mod, self.events = S, []
+        self._real = {n: getattr(S, n) for n in ("ssm_scan", "ssm_step")}
+        for n, fn in self._real.items():
+            setattr(S, n, self._timed(fn))
+        return self
+
+    def _timed(self, fn):
+        import torch
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for n, fn in self._real.items():
+            setattr(self._mod, n, fn)
+
+    def ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def hymba_scan_shares(dev, cfg, params) -> dict:
+    """(a): the scan's share of a 4096-token prefill and of a decode step
+    at position 4096 (batch 1, f32, warm): CUDA events around each
+    ``ssm_scan`` / ``ssm_step`` call summed, against events around the
+    whole call; the median of three by the call's time."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.serve_recover import prompts_for
+    model = Model(cfg, compute_dtype=torch.float32)
+    tokens = torch.as_tensor(prompts_for((4096,), cfg.vocab, SERVE_SEED)[0][
+        None]).to(dev)
+    _, kv = model.prefill(params, {"tokens": tokens}, s_max=HYMBA_S_MAX)
+    tok = tokens[:, -1]
+    out = {}
+    for name, fn in (
+            ("prefill", lambda: model.prefill(params, {"tokens": tokens},
+                                              s_max=HYMBA_S_MAX)),
+            ("decode", lambda: model.decode_step(params, kv, tok, 4096))):
+        fn()                                     # warm
+        rows = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with ScanEvents() as ev:
+                start.record()
+                fn()
+                end.record()
+            end.synchronize()
+            rows.append({"ms": start.elapsed_time(end), "scan_ms": ev.ms(),
+                         "scan_calls": len(ev.events)})
+        row = sorted(rows, key=lambda r: r["ms"])[1]
+        row["share"] = row["scan_ms"] / row["ms"]
+        out[name] = row
+    del kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def hymba_serve(dev, cfg, params) -> dict:
+    """Phase 19 (a) and (b): the dense twin rule (``serve_recover.run``,
+    phase 15's tolerances, now over the ``ssm`` state and ``conv`` tail
+    too, each against its own largest |value|) at HYMBA_PROMPTS, f32:
+    HYMBA_STEPS steps, the first request finished, as many, a crash and
+    the re-prefill, as many again.  Every prefill calls the flash kernel once a
+    layer (4 full, 28 windowed); ``scatter_rows`` launches once a cache
+    leaf per admission and per re-prefill group.  (b): after the last
+    step each live slot's ``ssm`` and ``conv`` caches, on the recovered
+    engine and on its twin, equal a fresh prefill of that slot's logged
+    tokens but the last within HYMBA_STATE_TOL of their largest |value|.
+    Then the scan's share of a prefill and of a decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.models.backbone import parse_tag
+    from repro_torch.models.model import Model
+    pattern, n_super, rem = cfg.pattern_plan()
+    if rem:
+        raise AssertionError(f"{cfg.name}: a remainder layer, not checked")
+    tags = list(pattern) * n_super
+    local = sum(parse_tag(t)[1] == "local" for t in tags)
+    model = Model(cfg, compute_dtype=torch.float32)
+    held = []
+
+    def check(eng, twin):
+        for name, e in (("recovered", eng), ("twin", twin)):
+            for s in np.flatnonzero(e.slot_rid >= 0):
+                n = int(e.pos[s]) - 1
+                toks = e.tok_region.read_at([int(s)], slice(0, n)).to(dev)
+                _, kv = model.prefill(params, {"tokens": toks},
+                                      s_max=e.cfg.s_max)
+                row = {"engine": name, "slot": int(s), "tokens": n}
+                for leaf in ("ssm", "conv"):
+                    err = top = 0.0
+                    for pos, c in e.cache["blocks"].items():
+                        x = c[leaf][:, s].float()
+                        y = kv["blocks"][pos][leaf][:, 0].float()
+                        err = max(err, float((x - y).abs().max()))
+                        top = max(top, float(y.abs().max()))
+                    row[leaf] = err / top
+                held.append(row)
+                del kv
+    out, calls = counted_twin_run(
+        dev, cfg, params, prompt_lens=HYMBA_PROMPTS, max_batch=3,
+        s_max=HYMBA_S_MAX, steps=HYMBA_STEPS, max_requests=16, check=check)
+    bad = [r for r in held if not max(r["ssm"], r["conv"])
+           <= HYMBA_STATE_TOL]
+    if bad or len(held) != 6:
+        raise AssertionError(f"{cfg.name}: live slots' recurrent caches "
+                             f"against a prefill of their logs but the "
+                             f"last: {held}")
+    # admissions on the engine and its twin (each prompt and the new
+    # request), each re-prefill group, and (b)'s prefills; each of every
+    # logged token but the last
+    prefills = {}
+    for n in list(HYMBA_PROMPTS) + [HYMBA_PROMPTS[-1]]:
+        prefills[n - 1] = prefills.get(n - 1, 0) + 2
+    for grp in out["groups"]:
+        prefills[grp["prefilled"]] = prefills.get(grp["prefilled"], 0) + 1
+        grp["flash_launches"] = len(tags)
+    for row in held:
+        prefills[row["tokens"]] = prefills.get(row["tokens"], 0) + 1
+    want = {}
+    for n, times in prefills.items():
+        want[("local", n)] = local * times
+        want[("global", n)] = (len(tags) - local) * times
+    check_flash_calls(cfg, out, calls, want)
+    leaves = sum(len(v) for v in model.cache_specs(1, 1)["blocks"].values())
+    seats = 2 * (len(HYMBA_PROMPTS) + 1) + len(out["groups"])
+    if out["launches"]["scatter_rows"] != leaves * seats:
+        raise AssertionError(f"{cfg.name}: {out['launches']['scatter_rows']}"
+                             f" scatter_rows launches, not one per cache "
+                             f"leaf ({leaves}) per seating ({seats})")
+    out.update({"flash_launches_per_prefill": len(tags),
+                "local_layers": local, "global_layers": len(tags) - local,
+                "cache_leaves": leaves, "seatings": seats,
+                "state_vs_prefill": held,
+                "decode_bound": decode_bound_ms(cfg, params),
+                "scan": hymba_scan_shares(dev, cfg, params)})
+    return out
+
+
+def hymba_checks(dev, cfg, params) -> dict:
+    """Phase 19 (c): a batch of 2 seeded prompts of HYMBA_CHECK + 1
+    tokens (one scan chunk of 1025; its first 1024 tokens, 8 chunks, for
+    the decode rule) held by ``prefill_checks``, 32 flash launches a
+    prefill."""
+    import numpy as np
+    import torch
+    from repro_torch.serve_recover import prompts_for
+    toks = np.stack(prompts_for((HYMBA_CHECK + 1,) * 2, cfg.vocab,
+                                SERVE_SEED + 1))
+    full = {"tokens": torch.as_tensor(toks).to(dev)}
+    out = {"tokens": HYMBA_CHECK + 1, "batch": 2}
+    out.update(prefill_checks(dev, cfg.name, cfg, params, full, HYMBA_CHECK,
+                              cfg.n_layers))
+    return out
+
+
+def hymba_scan_train(dev, cfg, step_ms: dict) -> dict:
+    """Phase 19 (d): ``ssm_scan`` alone at the training step's shape (2 x
+    2048 tokens of d_inner 1600, state 16; x and dt in the step's dtype),
+    its forward with a gradient wanted and its forward and backward
+    (each chunk recomputed), CUDA-event medians.  A step runs a layer's
+    scan forward twice (the superblock's remat recomputes it) and its
+    backward once, so the scan's estimated share of a step is layers x
+    (forward + forward and backward) over the step's ms."""
+    import torch
+    from repro_torch.models import ssm as S
+    b, s = HYMBA_TRAIN["batch"], HYMBA_TRAIN["seq"]
+    c, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_SEED)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def leaf(*shape, dt=torch.float32):
+            return torch.randn(shape, generator=gen, device=dev).to(
+                dt).requires_grad_()
+        x = leaf(b, s, c, dt=dtype)
+        # step sizes as the init gives them: softplus(N(0, 1) - 2)
+        dtp = torch.nn.functional.softplus(torch.randn(
+            (b, s, c), generator=gen, device=dev) - 2.0).to(
+            dtype).requires_grad_()
+        a_log = torch.log(torch.arange(1, n + 1, device=dev,
+                                       dtype=torch.float32)).expand(
+            c, n).contiguous().requires_grad_()
+        bm, cm, d = leaf(b, s, n), leaf(b, s, n), leaf(c)
+        st0 = torch.zeros((b, c, n), device=dev)
+        args = (x, dtp, a_log, bm, cm, d, st0)
+        r = torch.randn((b, s, c), generator=gen, device=dev)
+
+        def fwd():
+            return S.ssm_scan(*args)
+
+        def fwd_bwd():
+            y, st = S.ssm_scan(*args)
+            torch.autograd.grad((y.float() * r).sum() + st.sum(),
+                                [x, dtp, a_log, bm, cm, d])
+        name = str(dtype).split(".")[-1]
+        f_ms, fb_ms = time_ms(fwd, reps=5), time_ms(fwd_bwd, reps=5)
+        est = cfg.n_layers * (f_ms + fb_ms)
+        out[name] = {"forward_ms": f_ms, "forward_backward_ms": fb_ms,
+                     "per_step_ms": est, "step_ms": step_ms[name],
+                     "share": est / step_ms[name]}
+        del args, x, dtp, a_log, bm, cm, d, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def hymba_train(dev) -> dict:
+    """Phase 19 (d): hymba-1.5b whole at its published widths,
+    HYMBA_TRAIN's steps of 2 x 2048 tokens a twin (``train_twins``: f32
+    and bf16, bitwise twins, flash launches a step: 32 forward, 32 more
+    for the remat, 32 backward; step ms, attention share, peak), then the
+    scan's share (``hymba_scan_train``)."""
+    from repro_torch.configs import registry
+    cfg = registry.get(HYMBA)
+    spec = HYMBA_TRAIN
+    out = {"arch": cfg.name, "params": cfg.param_count(),
+           "layers": cfg.n_layers, "global_batch": spec["batch"],
+           "seq_len": spec["seq"], "steps": spec["steps"]}
+    out.update(train_twins(dev, cfg, spec["batch"], spec["seq"],
+                           spec["steps"], HYMBA_TRAIN_DIR))
+    out["scan"] = hymba_scan_train(dev, cfg, {
+        k: out[k]["step_ms"] for k in ("float32", "bfloat16")})
+    return out
+
+
+def hymba_phase(dev) -> dict:
+    """Phase 19: hymba-1.5b whole, f32, served through the twin rule with
+    its recurrent caches checked against fresh prefills (``hymba_serve``),
+    the kernel-vs-plain and decode-vs-prefill rules on the same
+    parameters (``hymba_checks``), then trained (``hymba_train``)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models.backbone import init_params
+    t_phase = time.perf_counter()
+    cfg = registry.get(HYMBA)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    out = {"init_params_s": time.perf_counter() - t0,
+           "params": cfg.param_count()}
+    out["serve"] = hymba_serve(dev, cfg, params)
+    out["checks"] = hymba_checks(dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    out["train"] = hymba_train(dev)
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -8670,14 +9030,21 @@ def main(argv=None) -> int:
     launcher["context"] = launch_serve("whisper-large-v3")
     context_cpu["launch_train"] = launch_train_on_card(
         "llama-3.2-vision-90b")
+    # the reduced hymba served and trained (twins bitwise) on the card and
+    # on the CPU, and both launchers for it on the card
+    hymba_small = cbase.reduced(creg.get(HYMBA))
+    hybrid_cpu = {"serve": serve_card_vs_cpu(dev, hymba_small),
+                  "train": train_card_vs_cpu(dev, hymba_small, twins=True)}
+    launcher["hybrid"] = launch_serve(HYMBA)
+    hybrid_cpu["launch_train"] = launch_train_on_card(HYMBA)
     report["card_vs_cpu"] = {"identical": same, "serve": serve,
                              "launch_serve": launcher,
                              "gemma_train": gemma_cpu, "moe": moe_cpu,
-                             "context": context_cpu}
+                             "context": context_cpu, "hybrid": hybrid_cpu}
     emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same,
           "serve": serve, "launch_serve": launcher,
           "gemma_train": gemma_cpu, "moe": moe_cpu,
-          "context": context_cpu})
+          "context": context_cpu, "hybrid": hybrid_cpu})
     emit({"phase": "clock", "before": "5",
           "at_s": time.perf_counter() - t_run})
     # ---- phase 5: snapshot recovery at full size
@@ -8976,6 +9343,27 @@ def main(argv=None) -> int:
                if launches18[k] == 0]
     if missing:
         raise AssertionError(f"phase 18 never launched {missing}")
+    emit({"phase": "clock", "before": "19",
+          "at_s": time.perf_counter() - t_run})
+    # ---- phase 19: hymba-1.5b's hybrid layers, whole
+    reset_launch_counts()
+    hymba = hymba_phase(dev)
+    launches19 = launch_counts()
+    report["hymba"] = hymba
+    emit({"phase": "hymba_serving", **{k: v for k, v in
+                                       hymba["serve"].items()
+                                       if k != "scan"}})
+    emit({"phase": "hymba_scan_share", **hymba["serve"]["scan"]})
+    emit({"phase": "hymba_checks", **hymba["checks"]})
+    emit({"phase": "hymba_train", **hymba["train"]})
+    emit({"phase": "hymba", "launches": launches19,
+          "init_params_s": hymba["init_params_s"],
+          "phase_s": hymba["phase_s"]})
+    missing = [k for k in ("flash_attention", "flash_attention_bwd",
+                           "pack_rows", "scatter_rows")
+               if launches19[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 19 never launched {missing}")
     emit({"phase": "clock", "before": "summary",
           "at_s": time.perf_counter() - t_run})
     # ---- summary
@@ -8987,7 +9375,8 @@ def main(argv=None) -> int:
                         "gemma_launches": launches15[name],
                         "gemma_train_launches": launches16[name],
                         "moe_launches": launches17[name],
-                        "context_launches": launches18[name], **row})
+                        "context_launches": launches18[name],
+                        "hymba_launches": launches19[name], **row})
     if sorted(k["name"] for k in kernels) != sorted(WRAPPERS):
         raise AssertionError("the kernels line does not list every kernel")
     report["card"] = card

@@ -19,9 +19,20 @@ no mask (``_cross_attention_seq``): in a ``vlm`` model it replaces
 self-attention and is gated by ``tanh(xgate)``; in an ``audio`` model it
 follows causal self-attention (``ln_x``).  Prefill caches the context's
 keys and values as computed (``xk``, ``xv``, C long, not a ring) and
-decode reads them back unchanged, passing the same tensors on.  Every
-other base (``hybrid``, ``mlstm``, ``slstm``) raises
-``NotImplementedError`` naming itself.
+decode reads them back unchanged, passing the same tensors on.
+
+A ``hybrid`` layer (hymba; variants ``full`` and ``local``) runs
+attention and mamba heads side by side on the same normed input
+(``_hybrid``): causal attention through ``blockwise_attention``, the
+mamba branch through ``models/ssm.py`` (``_mamba_seq`` from a zero state
+in train and prefill mode, ``_mamba_step`` on the cached ``ssm`` state
+and ``conv`` tail in decode), each branch normed and projected, the two
+averaged, then the gated MLP.  The reference's cast points are kept: the
+input projection rounds to the compute dtype, ``x_proj``'s product and
+with it ``dt_low``/``bmat``/``cmat`` stay f32, the step sizes round to
+the compute dtype before the scan, and the two output projections are
+compute-dtype products.  The xLSTM bases (``mlstm``, ``slstm``) raise
+``NotImplementedError`` naming themselves.
 
 Train mode is a full-sequence forward with no caches.  ``REMAT`` picks
 what a training forward keeps of each superblock for the backward
@@ -38,6 +49,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -46,6 +58,7 @@ from repro_torch.core.arena import not_ported
 from repro_torch.core.policy import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 PyTree = Any
 
@@ -342,13 +355,44 @@ def _attn_params(p: Dict[str, torch.Tensor]) -> L.AttnParams:
                         k_norm=p.get("k_norm"))
 
 
-def _self_attention_seq(cfg: ArchConfig, p, x, positions, *, causal,
-                        window):
+def _self_attention_seq(cfg: ArchConfig, p, x, *, causal, window,
+                        softcap):
+    """Self-attention over the whole sequence x (B, S, d): (attended
+    (B, S, K, G, Dh), k, v (B, S, K, Dh))."""
+    positions = torch.arange(x.shape[1], device=x.device)
     q, k, v = L.project_qkv(x, _attn_params(p), cfg.n_kv_heads,
                             positions=positions, theta=cfg.rope_theta)
     att = L.blockwise_attention(q, k, v, causal=causal, window=window,
-                                softcap=cfg.attn_softcap)
+                                softcap=softcap)
     return att, k, v
+
+
+def _self_attention_decode(cfg: ArchConfig, p, y, cache, new_cache, pos,
+                           *, window, softcap) -> torch.Tensor:
+    """One decode step's self-attention of y (B, 1, d) at ``pos``: its
+    keys and values written into copies of the cached ring (``k``,
+    ``v``, set in ``new_cache``), then attention over the ring."""
+    cap = cache["k"].shape[1]
+    positions = torch.tensor([pos], device=y.device)
+    q, k_new, v_new = L.project_qkv(y, _attn_params(p), cfg.n_kv_heads,
+                                    positions=positions,
+                                    theta=cfg.rope_theta)
+    k_c = L.ring_write(cache["k"], k_new, pos, cap)
+    v_c = L.ring_write(cache["v"], v_new, pos, cap)
+    new_cache["k"], new_cache["v"] = k_c, v_c
+    kv_pos = L.ring_slot_positions(pos, cap, y.device)
+    return L.decode_attention(q, k_c, v_c, kv_pos, pos, window=window,
+                              softcap=softcap)
+
+
+def _seat_kv(cfg: ArchConfig, var: str, s_max: int, k_all, v_all,
+             new_cache) -> None:
+    """A prefill's keys and values seated in their decode caches: a
+    ring of ``min(window, s_max)`` slots on a local layer, else
+    ``s_max``."""
+    cap = min(cfg.window, s_max) if var == "local" else s_max
+    new_cache["k"] = _seat_cache(k_all, cap)
+    new_cache["v"] = _seat_cache(v_all, cap)
 
 
 def _cross_attention_seq(cfg: ArchConfig, p, x: torch.Tensor,
@@ -393,7 +437,85 @@ def _seat_cache(k_all: torch.Tensor, cap_total: int) -> torch.Tensor:
     return out
 
 
+def _mamba_seq(cfg: ArchConfig, p, x: torch.Tensor,
+               conv_tail: Optional[torch.Tensor], state0: torch.Tensor):
+    """The mamba branch over a sequence x (B, S, d): (y (B, S, d_inner),
+    the new conv tail, the final f32 state)."""
+    n = cfg.ssm.state_dim
+    dt_rank = max(1, cfg.d_model // 16)
+    dt_ = x.dtype
+    xs, z = torch.matmul(x, p["in_proj"].to(dt_)).chunk(2, dim=-1)
+    xc, new_tail = S.depthwise_conv(xs, p["conv"], conv_tail)
+    xc = F.silu(xc.float()).to(dt_)
+    # f32 coefficients, as the reference's preferred_element_type leaves
+    # them
+    proj = L.f32_product(xc, p["x_proj"].to(dt_))
+    dt_low, bmat, cmat = torch.split(proj, [dt_rank, n, n], dim=-1)
+    dt_full = F.softplus(torch.matmul(dt_low, p["dt_w"].float())
+                         + p["dt_bias"].float())
+    y, state = S.ssm_scan(xc, dt_full.to(dt_), p["a_log"], bmat, cmat,
+                          p["d_skip"], state0)
+    return y * F.silu(z.float()).to(dt_), new_tail, state
+
+
+def _mamba_step(cfg: ArchConfig, p, x_t: torch.Tensor,
+                conv_tail: torch.Tensor, state: torch.Tensor):
+    """One decode step of the mamba branch, x_t (B, 1, d): (y (B, 1,
+    d_inner), the new conv tail, the new f32 state)."""
+    n = cfg.ssm.state_dim
+    dt_rank = max(1, cfg.d_model // 16)
+    dt_ = x_t.dtype
+    xs, z = torch.matmul(x_t, p["in_proj"].to(dt_)).chunk(2, dim=-1)
+    full = torch.cat([conv_tail, xs], 1)               # (B, cw, di)
+    xc = (full.float() * p["conv"].float().t()[None]).sum(1, keepdim=True)
+    xc = F.silu(xc).to(dt_)
+    proj = L.f32_product(xc, p["x_proj"].to(dt_))
+    dt_low, bmat, cmat = torch.split(proj, [dt_rank, n, n], dim=-1)
+    dt_full = F.softplus(torch.matmul(dt_low, p["dt_w"].float())
+                         + p["dt_bias"].float())
+    y, state = S.ssm_step(xc[:, 0], dt_full[:, 0].to(dt_), p["a_log"],
+                          bmat[:, 0], cmat[:, 0], p["d_skip"], state)
+    return y[:, None] * F.silu(z.float()).to(dt_), full[:, 1:], state
+
+
+def _hybrid(cfg: ArchConfig, var: str, p: Dict[str, Any], x: torch.Tensor,
+            mode: str, cache, pos, s_max: int
+            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """hymba's layer: attention and mamba heads on the same normed input,
+    ``x + 0.5 * (rms(att) @ wo + rms(mamba) @ w_mamba_out)``, then the
+    gated MLP.  Causal attention with no softcap (a ``local`` layer's
+    window); the mamba branch starts from a zero state outside decode."""
+    b, s, d = x.shape
+    new_cache: Dict[str, torch.Tensor] = {}
+    window = cfg.window if var == "local" else 0
+    y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    # the reference's hybrid attention takes no softcap
+    if mode == "decode":
+        att = _self_attention_decode(cfg, p["attn"], y, cache, new_cache,
+                                     pos, window=window, softcap=0.0)
+        m_out, new_cache["conv"], new_cache["ssm"] = _mamba_step(
+            cfg, p["mamba"], y, cache["conv"], cache["ssm"])
+    else:
+        att, k_all, v_all = _self_attention_seq(
+            cfg, p["attn"], y, causal=True, window=window, softcap=0.0)
+        state0 = torch.zeros((b, cfg.ssm.expand * d, cfg.ssm.state_dim),
+                             dtype=torch.float32, device=x.device)
+        m_out, new_tail, new_state = _mamba_seq(cfg, p["mamba"], y, None,
+                                                state0)
+        if mode == "prefill":
+            _seat_kv(cfg, var, s_max, k_all, v_all, new_cache)
+            new_cache["conv"], new_cache["ssm"] = new_tail, new_state
+    rms = L.rms_norm
+    a_mix = torch.matmul(rms(att.reshape(b, s, -1), p["norm_attn"],
+                             cfg.norm_eps), p["wo"].to(x.dtype))
+    m_mix = torch.matmul(rms(m_out, p["norm_mamba"], cfg.norm_eps),
+                         p["w_mamba_out"].to(x.dtype))
+    x = x + 0.5 * (a_mix + m_mix)
+    return _ffn(cfg, "hybrid", p, x), new_cache or None
+
+
 DENSE_VARIANTS = ("full", "bidir", "local", "cross")
+HYBRID_VARIANTS = ("full", "local")
 
 
 def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
@@ -403,19 +525,21 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
                 pos: Optional[int] = None,
                 s_max: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Apply one attention layer with a dense or an MoE FFN in ``train``,
-    ``prefill`` or ``decode`` mode.  Returns (x, new_cache), the cache
-    None in train mode.  ``pos`` (decode) is the position written;
-    ``ctx`` (train, prefill) is a cross layer's context."""
+    """Apply one attention layer with a dense or an MoE FFN, or a hybrid
+    layer, in ``train``, ``prefill`` or ``decode`` mode.  Returns (x,
+    new_cache), the cache None in train mode.  ``pos`` (decode) is the
+    position written; ``ctx`` (train, prefill) is a cross layer's
+    context."""
     base, var = parse_tag(tag)
-    if base not in ("dense", "attn", "moe"):
+    if base not in ("dense", "attn", "moe", "hybrid"):
         raise not_ported(f"layer base {base!r} ({tag})")
-    if var not in DENSE_VARIANTS:
+    if var not in (HYBRID_VARIANTS if base == "hybrid" else DENSE_VARIANTS):
         raise not_ported(f"layer variant {var!r} ({tag})")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    b, s, d = x.shape
-    s_max = s_max or s
+    s_max = s_max or x.shape[1]
+    if base == "hybrid":
+        return _hybrid(cfg, var, p, x, mode, cache, pos, s_max)
     new_cache: Dict[str, torch.Tensor] = {}
     window = cfg.window if var == "local" else 0
     y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -431,26 +555,15 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
         x = x + gate * L.attn_out(att, p["xattn"]["wo"])
         return _ffn(cfg, base, p, x), new_cache or None
     if mode == "decode":
-        cap = cache["k"].shape[1]
-        positions = torch.tensor([pos], device=x.device)
-        q, k_new, v_new = L.project_qkv(
-            y, _attn_params(p["attn"]), cfg.n_kv_heads,
-            positions=positions, theta=cfg.rope_theta)
-        k_c = L.ring_write(cache["k"], k_new, pos, cap)
-        v_c = L.ring_write(cache["v"], v_new, pos, cap)
-        kv_pos = L.ring_slot_positions(pos, cap, x.device)
-        att = L.decode_attention(q, k_c, v_c, kv_pos, pos, window=window,
-                                 softcap=cfg.attn_softcap)
-        new_cache["k"], new_cache["v"] = k_c, v_c
+        att = _self_attention_decode(cfg, p["attn"], y, cache, new_cache,
+                                     pos, window=window,
+                                     softcap=cfg.attn_softcap)
     else:
-        positions = torch.arange(s, device=x.device)
         att, k_all, v_all = _self_attention_seq(
-            cfg, p["attn"], y, positions, causal=var != "bidir",
-            window=window)
+            cfg, p["attn"], y, causal=var != "bidir", window=window,
+            softcap=cfg.attn_softcap)
         if mode == "prefill":
-            cap = min(cfg.window, s_max) if var == "local" else s_max
-            new_cache["k"] = _seat_cache(k_all, cap)
-            new_cache["v"] = _seat_cache(v_all, cap)
+            _seat_kv(cfg, var, s_max, k_all, v_all, new_cache)
     x = x + L.attn_out(att, p["attn"]["wo"])
     if var == "cross":
         # the audio decoder: causal self-attention, then cross attention

@@ -14,16 +14,25 @@ Decode runs ``Model.decode_step`` per slot at batch 1 over slot-contiguous
 caches; greedy sampling keeps recovery checkable.  A context model (vlm,
 audio) prefills with a context of zeros, as the reference's engine does,
 and its cross caches (``xk``, ``xv``) pass through decode without a
-copy.  A step feeds the last
-logged token at its own position p - 1 and logs the greedy token at p, so
-cache slot j always holds token j and a re-prefill of the log rebuilds
-exactly the cache that decoding built.  This is the one place the port
-departs from the reference, whose step feeds token p - 1 at position p:
-there the prompt's last token is cached twice and every later slot holds
-the token before it, so a recovered engine differs from an uninterrupted
-one as soon as two consecutive tokens differ (ROADMAP Queue 3).  Models
-whose greedy tokens repeat their last input, as the reference's random
-test models do, give the same tokens under both.  A crash clears the
+copy.
+
+The caches hold every logged token but the last.  Admission prefills a
+prompt's first p - 1 tokens; a step feeds the last logged token at its
+own position p - 1 and logs the greedy token at p; recovery re-prefills
+each live log but its last token.  A log of one token seats the zero
+caches ``init_cache`` gives, which is what a prefill of nothing leaves.
+So cache slot j holds token j, a recurrent state (hymba's ``ssm`` and
+``conv``) has taken each logged token exactly once, and a re-prefill
+rebuilds the caches decoding built, up to the prefill's rounding.  This
+is the one place the port departs from the reference, whose step feeds
+token p - 1 at position p after a prefill that already took it: there
+every K/V slot past the prompt holds the token before its own, and a
+recurrent state takes the prompt's last token twice (and, after a
+re-prefill, the log's last token twice), so a recovered engine differs
+from an uninterrupted one as soon as two consecutive tokens differ
+(ROADMAP Queue 3 departure 3).  Models whose greedy tokens repeat their
+last input, as the reference's random test models do, give the same
+tokens under both on attention archs.  A crash clears the
 per-slot readiness bitmap (``slot_ready``); recovery re-admits each slot
 the moment its grouped re-prefill lands, so ``step()`` decodes ready slots
 and ``add_request`` seats new work only on ready slots.  ``on_slot_ready``
@@ -209,8 +218,9 @@ class ServingEngine:
                 self.journal.log(OP_ADMIT, rid,
                                  digest=args_digest(prompt), info=slot)
             self.arena.commit()
-        # DERIVABLE: device prefill into the slot
-        self._prefill_slot(slot, prompt)
+        # DERIVABLE: device prefill into the slot of every token but the
+        # last, which the first step feeds
+        self._prefill_slot(slot, prompt[:-1])
         self.slot_rid[slot] = rid
         self.pos[slot] = plen
         return slot
@@ -223,8 +233,16 @@ class ServingEngine:
         """Prefill a group of slots sharing one length with a single
         batched model call (tokens: (g, plen)), then seat the (g, ...)
         cache rows into their slots with one ``scatter_rows`` launch per
-        cache leaf."""
+        cache leaf.  ``plen`` 0 seats zero caches, as a prefill of
+        nothing would leave them."""
         tokens = torch.as_tensor(tokens).to(self.device)
+        if tokens.shape[1] == 0:
+            kv = self.model.init_cache(len(slots), self.cfg.s_max,
+                                       self.device)
+            with self._cache_lock:
+                _map_slot(self.cache, kv, lambda full, grp, ax:
+                          _scatter_batch(full, grp, slots, ax))
+            return
         batch = {"tokens": tokens}
         # a context model serves with a context of zeros, as the
         # reference's engine does (its requests carry no frames or image)
@@ -259,7 +277,8 @@ class ServingEngine:
                     continue
                 # one device sync on a card-resident token log
                 last_tok = self.tok_region.read_one(slot, p - 1)
-                # the last token at its own position (the reference: p)
+                # the last logged token, the one the caches do not hold
+                # yet, at its own position (the reference: p)
                 logits = self._decode_slot(slot, last_tok, p - 1)
                 tok = int(torch.argmax(logits))
                 # ESSENTIAL: append the generated token + bump lengths
@@ -381,8 +400,9 @@ class ServingEngine:
 def _reconstruct_engine(eng: ServingEngine) -> dict:
     """Pure rebuild of the engine's DERIVABLE state from the recovered
     request table: one scan of the dense entry slab (one copy to the
-    host), then grouped re-prefill: slots sharing a (token-log shard,
-    length) pair share one batched prefill.  Each group's slots are
+    host), then grouped re-prefill of each live log but its last token:
+    slots sharing a (token-log shard, length) pair share one batched
+    prefill.  Each group's slots are
     re-admitted the moment its caches are seated; empty slots admit right
     after the scan.  With a journal, its must-retry set is cross-checked
     against the table's live set first."""
@@ -443,7 +463,9 @@ def _reconstruct_engine(eng: ServingEngine) -> dict:
     def prefill_group(key: Tuple[int, int]) -> float:
         shard, tl = key
         sel = slots[(shards == shard) & (tlens == tl)]
-        eng._prefill_slots(sel, eng.tok_region.read_at(sel, slice(0, tl)))
+        # every logged token but the last, which the next step feeds
+        eng._prefill_slots(sel, eng.tok_region.read_at(sel,
+                                                       slice(0, tl - 1)))
         if eng.device.type == "cuda":
             torch.cuda.synchronize(eng.device)
         with eng._admit_lock:

@@ -15,12 +15,14 @@ the other never crashes.  Then:
 The comparison covers caches and logits because greedy tokens alone prove
 little: a small model with random weights and tied embeddings tends to
 repeat its last input token.  The run prints how many distinct tokens it
-generated.  Caches are compared where the twin holds them, positions
-``[0, pos - 1)`` of each live slot: the last logged token is cached by
-the next decode step, while the re-prefill already holds it.  (The
-reference engine's step feeds token p - 1 at position p, so its
-recovered caches differ from its twin's once tokens vary; the port's
-engine feeds it at p - 1, see ``serve/engine.py``.)
+generated.  Both engines' caches hold every logged token but the last
+(``serve/engine.py``): the K/V caches are compared at positions
+``[0, pos - 1)`` of each live slot, and a recurrent layer's ``ssm``
+state and ``conv`` tail whole, each kind of leaf against its own largest
+|value|.  (The reference engine's step feeds token p - 1 at position p
+after a prefill that already took it, so its recovered caches differ
+from its twin's once tokens vary, and a recurrent state takes a token
+twice.)
 
 An arch with MoE layers takes another rule.  A prefill group routes its
 tokens under a capacity that drops some of them, while decode routes one
@@ -35,9 +37,12 @@ number of assignments the re-prefill dropped.
 
 It runs llama3.2-3b at full width on the card; ``--device cpu`` runs on
 the CPU, ``--layers`` cuts the depth, ``--reduced`` takes the reduced
-smoke config:
+smoke config, ``--arch`` another arch (hymba-1.5b among them; only the
+xLSTM arch raises ``NotImplementedError``):
 
-    PYTHONPATH=src python -m repro_torch.serve_recover [--device cpu] [--layers N]
+    PYTHONPATH=src python -m repro_torch.serve_recover [--device cpu]
+    PYTHONPATH=src python -m repro_torch.serve_recover --arch hymba-1.5b \\
+        --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ import json
 import os
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -64,6 +69,7 @@ CACHE_TOL = 1e-4      # recovered vs twin cache, relative to max |k|, |v|
 LOGIT_TOL = 1e-4      # recovered vs twin logits, relative to max |logit|
 BF16_TOL = 2e-2       # both, when the engines compute in bf16
 CROSS_LEAVES = ("xk", "xv")
+RECURRENT_LEAVES = ("ssm", "conv")    # a hybrid layer's state, conv tail
 
 
 def _sync(device: torch.device) -> None:
@@ -78,14 +84,10 @@ def prompts_for(lens: Sequence[int], vocab: int, seed: int
 
 
 def _held(n: int, cap: int) -> torch.Tensor:
-    """Cache slots that hold the same position in an uninterrupted engine
-    (positions [0, n)) and in a re-prefilled one (positions [0, n]): all
-    of [0, n) in a linear cache, and in a ring of ``cap`` slots that has
-    wrapped every slot but n % cap, which the re-prefill already moved on
-    to position n."""
-    if n < cap:
-        return torch.arange(n)
-    return torch.tensor([j for j in range(cap) if j != n % cap])
+    """The cache slots that hold positions [0, n): all of [0, n) in a
+    linear cache, every slot of a ring of ``cap`` slots that has
+    wrapped."""
+    return torch.arange(min(n, cap))
 
 
 def _first_layer(cache: Dict) -> Dict:
@@ -101,37 +103,44 @@ def cache_error(a: ServingEngine, b: ServingEngine, slots,
                 b_slots=None, first_layer: bool = False,
                 whole: bool = False) -> Dict:
     """Max abs difference of two engines' caches over ``slots`` of ``a``
-    (``b_slots`` of ``b``, the same slots by default), each at the
-    positions an uninterrupted engine holds there, ``[0, pos - 1)`` (the
-    last token of the log is cached by the next decode step; a local
-    layer's ring holds the last ``window`` of them), or every cache slot
-    with ``whole`` (and always for a cross layer's context keys and
-    values), and the largest |value| of ``b``'s over the same positions.
-    ``first_layer`` compares the first layer alone."""
+    (``b_slots`` of ``b``, the same slots by default), each K/V cache at
+    the positions both engines hold there, ``[0, pos - 1)`` (the last
+    token of the log is cached by the next decode step; a local layer's
+    ring holds the last ``window`` of them), or every cache slot with
+    ``whole``; a cross layer's context keys and values and a recurrent
+    layer's state and conv tail always whole.  Each kind of leaf (``k``,
+    ``ssm``, ...) is held against the largest |value| of ``b``'s leaves
+    of that kind: ``rel_err`` is the largest of those ratios (``leaves``
+    has each), ``max_abs_err`` and ``max_abs`` the largest difference and
+    value overall.  ``first_layer`` compares the first layer alone."""
     ca, cb = a.cache, b.cache
     if first_layer:
         ca, cb = _first_layer(ca), _first_layer(cb)
     b_slots = slots if b_slots is None else b_slots
-    err, amax = 0.0, 0.0
+    errs: Dict[str, List[float]] = {}
     for grp in ca:
         for pos in ca[grp]:
             for name, leaf in ca[grp][pos].items():
                 other = cb[grp][pos][name]
                 ax = 2 if grp == "blocks" else 1    # the cache slot axis
+                e = errs.setdefault(name, [0.0, 0.0])
                 for s, sb in zip(slots, b_slots):
-                    # a cross cache (a context's keys and values) is held
-                    # whole: it is no ring over the token positions
-                    held = torch.arange(leaf.shape[ax]) \
-                        if whole or name in CROSS_LEAVES else \
-                        _held(int(b.pos[sb]) - 1, leaf.shape[ax])
-                    held = held.to(leaf.device)
                     x, y = ((t[:, i] if grp == "blocks" else t[i])
-                            .index_select(ax - 1, held)
                             for t, i in ((leaf, s), (other, sb)))
-                    err = max(err, float((x - y).abs().max()))
-                    amax = max(amax, float(y.abs().max()))
-    return {"max_abs_err": err, "max_abs": amax,
-            "rel_err": err / amax if amax else 0.0}
+                    # a context's keys and values and a recurrent state
+                    # are no ring over the token positions
+                    if not (whole or name in CROSS_LEAVES
+                            or name in RECURRENT_LEAVES):
+                        held = _held(int(b.pos[sb]) - 1,
+                                     leaf.shape[ax]).to(leaf.device)
+                        x, y = (t.index_select(ax - 1, held)
+                                for t in (x, y))
+                    e[0] = max(e[0], float((x - y).abs().max()))
+                    e[1] = max(e[1], float(y.abs().max()))
+    return {"max_abs_err": max(e for e, _ in errs.values()),
+            "max_abs": max(m for _, m in errs.values()),
+            "rel_err": max(e / m if m else 0.0 for e, m in errs.values()),
+            "leaves": {n: e / m if m else 0.0 for n, (e, m) in errs.items()}}
 
 
 def _logit_err(eng: ServingEngine, twin: ServingEngine) -> float:
@@ -180,7 +189,9 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         workdir: Optional[str] = None, n_shards: int = 1,
         commit_mode: str = "barrier",
         steps_after: Optional[int] = None,
-        compute_dtype=torch.float32) -> Dict:
+        compute_dtype=torch.float32,
+        check: Optional[Callable[[ServingEngine, ServingEngine],
+                                 None]] = None) -> Dict:
     """The twin protocol at ``cfg``: admit one request per prompt length to
     both engines, serve ``steps``, finish the first request, serve
     ``steps`` more, crash and recover one engine, compare caches, check
@@ -191,8 +202,9 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
     ``params`` is None.  An arch with MoE layers holds the recovered engine against
     a crash-free prefill of the same token logs (see the module's
     docstring).  ``n_shards`` shards the engines' arenas;
-    ``commit_mode`` is their commit protocol.  Returns the run's numbers;
-    raises on any mismatch."""
+    ``commit_mode`` is their commit protocol.  ``check``, when given, is
+    called with the recovered engine and its twin after the last step.
+    Returns the run's numbers; raises on any mismatch."""
     from repro_torch.models.moe import collect_drops
     device = resolve_device(device)
     model = Model(cfg, compute_dtype=compute_dtype)
@@ -228,7 +240,9 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
             t0 = time.perf_counter()
             eng.add_request(rid, prompt)
             _sync(device)
+            # the admission prefills every prompt token but the last
             prefill.append({"tokens": len(prompt),
+                            "prefilled": len(prompt) - 1,
                             "seconds": time.perf_counter() - t0})
             twin.add_request(rid, prompt)
         out["prefill"] = prefill
@@ -245,9 +259,10 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         # ---- crash and recover
         eng.crash()
         admitted = []
+        # a group of logs of tl tokens re-prefills tl - 1 of them
         eng.on_slot_ready = lambda sl, tl, s: admitted.append(
             {"slots": [int(x) for x in sl], "tokens": int(tl),
-             "admitted_s": s})
+             "prefilled": int(tl) - 1, "admitted_s": s})
         with collect_drops() as drops:
             out["recover_s"] = eng.recover(concurrency=concurrency)
         eng.on_slot_ready = None
@@ -316,6 +331,8 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
                                  f"{out['logit_rel_err']}")
         out["decode_ms_per_slot_step"] = 1e3 * float(np.median(
             log["slot_step_s"]))
+        if check is not None:
+            check(eng, twin)
         out["distinct_tokens"] = len(set(log["tokens"]))
         out["tokens_generated"] = len(log["tokens"])
         out["stats"] = dataclasses.asdict(eng.arena.stats)
@@ -327,12 +344,14 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU)")
+    p.add_argument("--arch", default=ARCH, choices=list(registry.ARCHS),
+                   help=f"the model (default {ARCH})")
     p.add_argument("--layers", type=int, default=None,
                    help="cut the depth to N layers")
     p.add_argument("--reduced", action="store_true",
                    help="the reduced smoke config instead of full width")
     args = p.parse_args(argv)
-    cfg = registry.get(ARCH)
+    cfg = registry.get(args.arch)
     if args.reduced:
         cfg = base.reduced(cfg)
     if args.layers:
@@ -344,7 +363,9 @@ def main(argv=None) -> None:
           f"{out['device']}: {len(lens)} requests, recovered in "
           f"{out['recover_s']:.3f} s, stages {out['stages']}")
     print(f"cache vs twin: max abs err {out['cache']['max_abs_err']:.3e} "
-          f"over max |k|,|v| {out['cache']['max_abs']:.3e}")
+          f"over max |value| {out['cache']['max_abs']:.3e}; relative, "
+          f"by leaf: " + ", ".join(f"{n} {e:.2e}" for n, e in
+                                   out["cache"]["leaves"].items()))
     print(f"logits vs twin (relative): {out['logit_rel_err']}; "
           f"{out['distinct_tokens']} distinct of {out['tokens_generated']} "
           f"tokens generated")

@@ -18,7 +18,7 @@ CPU against the JAX reference.
 * ``SampleIndex``: the reference's recovery test, and parity with the
   JAX index.
 * ``python -m repro_torch.launch.serve``: a dense arch serves, crashes and
-  recovers on the CPU; an MoE arch raises ``NotImplementedError``.
+  recovers on the CPU; the xLSTM arch raises ``NotImplementedError``.
 """
 import dataclasses
 
@@ -291,7 +291,8 @@ def test_launch_serve_dense_runs_with_crash(capsys):
 
 
 def test_launch_serve_moe_raises():
-    # MoE archs serve now (tests/test_torch_moe_model.py); a family still
-    # to port, hymba's hybrid layers, raises naming itself
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tserve.main(["--arch", "hymba-1.5b", "--device", "cpu"])
+    # MoE archs serve now (tests/test_torch_moe_model.py), and so does
+    # hymba (tests/test_torch_hybrid_model.py); the family still to port,
+    # the xLSTM layers, raises naming itself
+    with pytest.raises(NotImplementedError, match="lstm"):
+        tserve.main(["--arch", "xlstm-1.3b", "--device", "cpu"])

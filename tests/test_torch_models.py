@@ -330,10 +330,12 @@ def test_model_prefill_and_decode_match_reference(reduced_llama):
 
 
 @pytest.mark.parametrize("tag", ["hybrid:cross", "attn_local",
-                                 # dense, MoE and the cross variant are
-                                 # ported; the recurrent bases are not
+                                 # dense, MoE, the cross variant and the
+                                 # hybrid layer are ported; the xLSTM
+                                 # bases are not, nor a hybrid variant
+                                 # other than full and local
                                  pytest.param("slstm:local", id="slstm"),
-                                 "hybrid", "hybrid:local", "mlstm",
+                                 "hybrid:bidir", "mlstm:local", "mlstm",
                                  "slstm"])
 def test_non_dense_layer_tags_raise(tag):
     cfg = tbase.reduced(treg.get("llama3.2-3b"))
@@ -345,8 +347,8 @@ def test_non_dense_layer_tags_raise(tag):
 def test_train_mode_and_context_families_raise(reduced_llama):
     # train mode is ported now: one dense layer's full-sequence forward,
     # no cache, against the reference's (1e-5, f32 sums in another order);
-    # the vlm/audio contexts are ported too, and a hybrid model still
-    # raises
+    # the vlm/audio contexts and the hybrid layers are ported too, and
+    # an xLSTM model still raises
     jm, jp, tm, tp = reduced_llama
     x = np.random.default_rng(9).standard_normal(
         (2, 7, tm.cfg.d_model)).astype(np.float32)
@@ -363,10 +365,10 @@ def test_train_mode_and_context_families_raise(reduced_llama):
     with pytest.raises(ValueError):
         TB.apply_layer(tm.cfg, "dense", {}, torch.from_numpy(x),
                        mode="serve")
-    hymba = tbuild(tbase.reduced(treg.get("hymba-1.5b")),
-                   compute_dtype=torch.float32)
+    xl = tbuild(tbase.reduced(treg.get("xlstm-1.3b")),
+                compute_dtype=torch.float32)
     gen = torch.Generator()
     gen.manual_seed(0)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        hymba.prefill(hymba.init_params(gen, "cpu"),
-                      {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+    with pytest.raises(NotImplementedError, match="lstm"):
+        xl.prefill(xl.init_params(gen, "cpu"),
+                   {"tokens": torch.zeros(1, 4, dtype=torch.int64)})

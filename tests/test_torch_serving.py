@@ -162,10 +162,12 @@ def test_recovery_matches_twin_where_tokens_vary(models, tmp_path):
 
 def _reference_decode(jm, jp, prompt, steps, s_max):
     """Greedy tokens and logits of one request through the reference
-    model's prefill and decode_step, each step feeding the last token at
-    its own position p - 1 (the port engine's convention)."""
+    model's prefill of every prompt token but the last and decode_step,
+    each step feeding the last token at its own position p - 1 (the port
+    engine's convention)."""
     log = [int(t) for t in prompt]
-    _, kv = jm.prefill(jp, {"tokens": jnp.asarray(prompt[None], jnp.int32)},
+    _, kv = jm.prefill(jp, {"tokens": jnp.asarray(prompt[None, :-1],
+                                                  jnp.int32)},
                        s_max=s_max)
     logits = []
     for _ in range(steps):
