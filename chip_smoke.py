@@ -308,7 +308,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    twin's; phase 4's engine at full width, 2 layers: rid 0's token-log
    row flipped, that rid refused until ``readmit``, the others' logits
    within 1e-4 of a twin's; ``CheckpointCatalog`` at its default
-   capacity, 4096 steps recorded, crash, reopen, ``steps()`` and
+   capacity, 1024 steps recorded, crash, reopen, ``steps()`` and
    ``latest()`` unchanged.  The phase's seconds are printed;
 12. sharded arenas (DESIGN.md §7, barrier commit), four shards: phase
    3's workload (DLL and hashmap 2**19, the B+Tree 2**15: cut from 2**22
@@ -459,9 +459,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    superblock's remat recomputes (gemma2's two; gemma3's two layers are
    the pattern's remainder, which is not rematerialized, as in the
    reference), flash_attention_bwd once a layer a step; step ms,
-   tokens/s, peak memory and one more step's attention share (CUDA
-   events around the flash launches); then ``repro_torch.launch.train
-   --arch gemma2-9b --crash-at-step 6 --steps 10 --device cuda``
+   tokens/s, peak memory and the second twin's last step's attention
+   share (CUDA events around the flash launches); then
+   ``repro_torch.launch.train --arch gemma2-9b --crash-at-step 6
+   --steps 10 --device cuda``
    (reduced, bf16) through its ``main``, which must return 0;
 17. MoE serving at the published widths (``models/moe.py``): dbrx-132b
    (d_model 6144, 48 heads over 8, head width 128, 16 experts top-4,
@@ -539,7 +540,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    batch 2 of 1025 tokens: the prefill through the kernels against the
    plain attention (1e-4 f32, 5e-2 bf16), a prefill of 1024 and a decode
    step against the prefill of 1025 (1e-4), repeats bitwise.  Then
-   trained whole, 3 steps of 2 x 2048 tokens, f32 and bf16 twins
+   trained whole, 2 steps of 2 x 2048 tokens, f32 and bf16 twins
    bitwise, flash launches a step counted (32 forward, 32 under remat,
    32 backward), step ms, attention share, peak, and the scan's share of
    a step (its forward and backward timed alone at the step's shape).
@@ -548,6 +549,41 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    dtypes; phase 4 serves and trains the reduced hymba card vs CPU and
    runs ``launch.serve --arch hymba-1.5b --crash`` and ``launch.train
    --arch hymba-1.5b`` on the card.
+20. xlstm-1.3b whole at its published widths (``models/xlstm.py``, the
+   ``mlstm`` and ``slstm`` layers of ``models/backbone.py``: 48 layers,
+   six superblocks of seven mLSTM layers and an sLSTM layer, d_model
+   2048, 4 heads, mLSTM dv 512 and dk 256, sLSTM dh 512 with a gated MLP
+   of 4096, chunk 256, vocab 50432 untied; 1,214,150,992 parameters,
+   4.86 GB in f32), f32, through ``serve_recover.run``'s prefill rule,
+   every recurrent leaf kind (``mlstm.c`` apart from ``slstm.c``) against
+   its own largest |value|: prompts whose admissions prefill 1024 and
+   4096 tokens (4 and 16 mLSTM chunks) and 999 (one chunk, the chunk
+   rule's fallback), 4 steps, the first request finished, 4 steps, crash
+   and re-prefill, 4 steps.  The recovered caches equal a crash-free
+   prefill of each live log but its last token within 1e-4 and serve on
+   beside it with equal tokens; the decode-built twin is held on its
+   first layer within 1e-4 and reported superblock by superblock (a
+   chunkwise prefill and the step round differently, and the gates
+   amplify that through the sequence and the depth, the reference's
+   prefill and decode as much: ``tests/test_torch_xlstm_model.py``).  No
+   prefill calls the flash kernel (the model has no attention layer);
+   every seating launches ``scatter_rows`` once per cache leaf (25).
+   Prefill tokens/s, decode ms per slot-step beside the 1.45 ms
+   weight-read bound, recovery seconds, peak memory, and the mLSTM's and
+   sLSTM's shares of a 4096-token prefill and of a decode step (CUDA
+   events around ``mlstm_chunkwise``/``mlstm_step`` and
+   ``slstm_scan``/``slstm_step``).  Then batch 2 of 1025 tokens: a
+   prefill of 1024 and a decode step against the prefill of 1025, the
+   first layer's caches within 1e-4 and the logits reported, and each
+   layer kind alone on the same input to both, its output and caches
+   within 1e-4 (no kernel-vs-plain prefill: no flash kernel runs).  Then
+   trained whole, 2 steps of 2 x 512 tokens (two mLSTM chunks a layer),
+   f32 and bf16 twins bitwise, no flash launch, step ms, tokens/s, peak,
+   and the two recurrences' shares of the second twin's last step (CUDA
+   events around their forward calls and their backward nodes).
+   Phase 4 serves and trains the reduced xlstm card vs CPU and runs
+   ``launch.serve --arch xlstm-1.3b --crash`` and ``launch.train --arch
+   xlstm-1.3b`` on the card.
 
 ``--ab-parent DIR --ab-paged`` runs phase 14 (a)'s paged parity
 (ungated) for an unpacked parent tree at DIR and this one in turns, with
@@ -566,7 +602,8 @@ the four chain kernels', ``pack_rows``' and ``scatter_rows``' in phase
 phase 15; ``flash_attention``'s and ``flash_attention_bwd``'s in phase
 16; ``flash_attention``'s, ``pack_rows``' and ``scatter_rows``' in phase
 17; ``flash_attention``'s, ``flash_attention_bwd``'s, ``pack_rows``' and
-``scatter_rows``' in phases 18 and 19.
+``scatter_rows``' in phases 18 and 19; ``pack_rows``' and
+``scatter_rows``' in phase 20, where neither flash kernel may launch.
 Each count is zeroed just before its phase and read just after; phases
 3, 5 and 9 also print each kernel's launches by power-of-two size, and
 phases 3 and 5 the hops and rounds of the two chain kernels' launches.
@@ -4342,7 +4379,10 @@ MIXED_REGION = {"dll": "dll.nodes", "bptree": "bt.nodes",
 INTEG_GATE = 0.95              # the reference's integrity-overhead gate
 GATE_OPS, GATE_EPOCH, GATE_REPEATS = 30000, 1024, 7
 FS11_REQUESTS = 64             # phase 11's feature-store requests
-CATALOG_STEPS = 4096           # CheckpointCatalog's default capacity
+# steps recorded: cut from 4096, the catalog's default capacity, when
+# phase 20 came (recording took 15.6 s of a 957.6 s run on an NVIDIA H100
+# 80GB HBM3 at 700 W)
+CATALOG_STEPS = 1024
 CHAIN_KERNELS = ("jump_double", "gather_next", "walk_segments",
                  "expand_segments")
 
@@ -4908,7 +4948,7 @@ def engine_salvage(dev) -> dict:
 
 def catalog_phase(dev) -> dict:
     """``CheckpointCatalog`` at its default capacity (4096) with its
-    default integrity: record CATALOG_STEPS steps, crash, reopen;
+    default integrity: record CATALOG_STEPS steps (1024), crash, reopen;
     ``steps()`` and ``latest()`` must equal the pre-crash values."""
     import numpy as np
     import torch
@@ -6976,12 +7016,14 @@ def flash_per_step(cfg) -> dict:
     attention call (an audio cross layer makes two, an encoder layer one)
     and again for each call a remat recomputes (a superblock's and an
     encoder layer's; the remainder's layers are not rematerialized, as in
-    the reference), the backward once an attention call."""
+    the reference), the backward once an attention call.  An xLSTM layer
+    makes none."""
     from repro_torch.models import backbone as B
     pattern, n_super, rem = cfg.pattern_plan()
 
     def calls(tags):
-        return sum(2 if B.parse_tag(t)[1] == "cross" and
+        return sum(0 if B.parse_tag(t)[0] in ("mlstm", "slstm") else
+                   2 if B.parse_tag(t)[1] == "cross" and
                    cfg.family == "audio" else 1 for t in tags)
     fwd = n_super * calls(pattern) + calls(rem) + cfg.encoder_layers
     remat = n_super * calls(pattern) + cfg.encoder_layers \
@@ -6990,7 +7032,7 @@ def flash_per_step(cfg) -> dict:
 
 
 def train_twins(dev, cfg, batch: int, seq: int, steps: int,
-                ckpt_dir: Path) -> dict:
+                ckpt_dir: Path, share=attention_share) -> dict:
     """``cfg`` trained ``steps`` steps of ``batch`` x ``seq`` tokens in f32
     and then in bf16 (as the launcher trains on a card), each dtype twice
     from the same parameters (the trainer's seeded init), torch's kernels
@@ -6998,8 +7040,10 @@ def train_twins(dev, cfg, batch: int, seq: int, steps: int,
     final parameters must be equal bit for bit and finite, and each run
     must launch flash_attention and flash_attention_bwd as
     ``flash_per_step`` says a step.  Returns per dtype the step ms (median
-    past the first), tokens/s, peak memory and one more step's attention
-    share (CUDA events around the flash launches)."""
+    past the first), tokens/s, peak memory and the second twin's last
+    step's attention share (CUDA events around the flash launches, which
+    change no bit; ``share`` runs that step, ``attention_share`` or a
+    function that also times other calls)."""
     import torch
     from repro_torch.core import policy as pol
     from repro_torch.kernels import launch_counts
@@ -7027,7 +7071,12 @@ def train_twins(dev, cfg, batch: int, seq: int, steps: int,
                 tr = Trainer(model, AdamWConfig(), tc, device=dev)
                 tr.init()
                 before = launch_counts()
-                tr.run()
+                if run == 0:
+                    tr.run()
+                else:
+                    # the second twin's last step is the timed one
+                    tr.run(steps - 1)
+                    shares = share(tr)
                 counts.append({k: v - before[k]
                                for k, v in launch_counts().items()})
                 losses.append([m["loss"] for m in tr.metrics_log])
@@ -7045,9 +7094,7 @@ def train_twins(dev, cfg, batch: int, seq: int, steps: int,
                       pol.tree_flatten_with_path(tr.state.params)
                       if not torch.equal(t, first[p].to(dev,
                                                        non_blocking=True))]
-            del first
-            share = attention_share(tr)
-            del tr
+            del first, tr
             torch.cuda.empty_cache()
             name = str(dtype).split(".")[-1]
             med = statistics.median(step_s[0][1:] + step_s[1][1:])
@@ -7056,7 +7103,7 @@ def train_twins(dev, cfg, batch: int, seq: int, steps: int,
                          "step_ms_each": [[x * 1e3 for x in r]
                                           for r in step_s],
                          "tokens_per_s": batch * seq / med,
-                         "peak_bytes": peak, "attention": share,
+                         "peak_bytes": peak, "attention": shares,
                          "launches": {k: counts[0][k] for k in per_step}}
             if losses[0] != losses[1] or differ:
                 raise AssertionError(f"{cfg.name} {name} training: two runs "
@@ -7071,9 +7118,9 @@ def train_twins(dev, cfg, batch: int, seq: int, steps: int,
                 if got != want:
                     raise AssertionError(f"{cfg.name} {name} training "
                                          f"launched {got}, not {want}")
-            if share["launches"] != per_step:
+            if shares["launches"] != per_step:
                 raise AssertionError(f"{cfg.name} {name}: the timed step "
-                                     f"made {share['launches']} flash "
+                                     f"made {shares['launches']} flash "
                                      f"launches")
     finally:
         torch.use_deterministic_algorithms(False)
@@ -7625,25 +7672,39 @@ HYMBA_STEPS = 4                # before the finish, after it, after recovery
 HYMBA_S_MAX = 4097 + 4 * HYMBA_STEPS
 HYMBA_STATE_TOL = 1e-4         # (b): a slot's ssm, conv against a prefill
 HYMBA_CHECK = 1024             # (c): prefill + decode at n against n + 1
-HYMBA_TRAIN = {"batch": 2, "seq": 2048, "steps": 3}
+# 3 steps a twin until phase 20 came (phase 19 68.7 s of a 957.6 s run
+# on an NVIDIA H100 80GB HBM3 at 700 W)
+HYMBA_TRAIN = {"batch": 2, "seq": 2048, "steps": 2}
 HYMBA_TRAIN_DIR = ROOT / "build" / "chip_smoke_hymba_train"
 
 
 class ScanEvents:
-    """CUDA events around every ``ssm_scan`` and ``ssm_step`` call of
-    ``models/ssm.py`` (the backbone calls them through the module), so
-    the scan's device time inside a prefill or a decode step can be
-    summed."""
+    """CUDA events around every call of the named functions, by label:
+    by default the ``ssm_scan`` and ``ssm_step`` calls of
+    ``models/ssm.py`` (the backbone calls them through the module), so a
+    recurrence's device time inside a prefill, a decode step or a
+    training step can be summed.  ``targets`` maps a label to (owner,
+    attribute) pairs; a staticmethod (an autograd Function's backward,
+    which autograd looks up on the class when it runs) stays one."""
+
+    def __init__(self, targets=None):
+        if targets is None:
+            from repro_torch.models import ssm as S
+            targets = {"scan": ((S, "ssm_scan"), (S, "ssm_step"))}
+        self.targets = targets
 
     def __enter__(self):
-        from repro_torch.models import ssm as S
-        self._mod, self.events = S, []
-        self._real = {n: getattr(S, n) for n in ("ssm_scan", "ssm_step")}
-        for n, fn in self._real.items():
-            setattr(S, n, self._timed(fn))
+        self.events, self._real = [], []
+        for label, pairs in self.targets.items():
+            for owner, name in pairs:
+                real = vars(owner)[name]
+                self._real.append((owner, name, real))
+                fn = self._timed(label, getattr(owner, name))
+                setattr(owner, name, staticmethod(fn)
+                        if isinstance(real, staticmethod) else fn)
         return self
 
-    def _timed(self, fn):
+    def _timed(self, label, fn):
         import torch
 
         def timed(*args, **kw):
@@ -7652,16 +7713,20 @@ class ScanEvents:
             start.record()
             out = fn(*args, **kw)
             end.record()
-            self.events.append((start, end))
+            self.events.append((label, start, end))
             return out
         return timed
 
     def __exit__(self, *exc):
-        for n, fn in self._real.items():
-            setattr(self._mod, n, fn)
+        for owner, name, real in self._real:
+            setattr(owner, name, real)
 
-    def ms(self) -> float:
-        return sum(s.elapsed_time(e) for s, e in self.events)
+    def ms(self, label=None) -> float:
+        return sum(s.elapsed_time(e) for lb, s, e in self.events
+                   if label in (None, lb))
+
+    def calls(self, label=None) -> int:
+        return sum(label in (None, lb) for lb, _, _ in self.events)
 
 
 def hymba_scan_shares(dev, cfg, params) -> dict:
@@ -7693,7 +7758,7 @@ def hymba_scan_shares(dev, cfg, params) -> dict:
                 end.record()
             end.synchronize()
             rows.append({"ms": start.elapsed_time(end), "scan_ms": ev.ms(),
-                         "scan_calls": len(ev.events)})
+                         "scan_calls": ev.calls()})
         row = sorted(rows, key=lambda r: r["ms"])[1]
         row["share"] = row["scan_ms"] / row["ms"]
         out[name] = row
@@ -7892,6 +7957,273 @@ def hymba_phase(dev) -> dict:
     del params
     torch.cuda.empty_cache()
     out["train"] = hymba_train(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 20: xlstm-1.3b's mLSTM and sLSTM layers, served and trained whole
+# ----------------------------------------------------------------------
+
+XLSTM = "xlstm-1.3b"
+# (a): whole (48 layers, 1,214,150,992 parameters, 4.86 GB in f32).  The
+# admissions prefill 1024 and 4096 tokens (4 and 16 mLSTM chunks of 256)
+# and 999 (no multiple of 256: one chunk, the chunk rule's fallback); the
+# first request finishes before the crash, the new one after it takes
+# the last length
+XLSTM_PROMPTS = (1025, 4097, 1000)
+XLSTM_STEPS = 4                # before the finish, after it, after recovery
+XLSTM_S_MAX = 4097 + 4 * XLSTM_STEPS
+XLSTM_CHECK = 1024             # (b): prefill + decode at n against n + 1
+# (c): cut from 2 x 1024 tokens for the run's time: the sLSTM loop runs
+# once a token a layer, forward (twice under the remat) and backward; 512
+# keeps two mLSTM chunks a layer
+XLSTM_TRAIN = {"batch": 2, "seq": 512, "steps": 2}
+XLSTM_TRAIN_DIR = ROOT / "build" / "chip_smoke_xlstm_train"
+
+
+def xlstm_targets(train: bool = False) -> dict:
+    """``ScanEvents`` targets of the two recurrences: serving's forward
+    and decode-step calls, or a training step's forward calls (again
+    under the superblock's remat) and their backward nodes (each mLSTM
+    chunk's recomputing backward, the sLSTM scan's reversed loop)."""
+    from repro_torch.models import xlstm as X
+    if train:
+        return {"mlstm": ((X, "mlstm_chunkwise"), (X._ChunkRemat,
+                                                   "backward")),
+                "slstm": ((X, "slstm_scan"), (X._SLSTMScan, "backward"))}
+    return {"mlstm": ((X, "mlstm_chunkwise"), (X, "mlstm_step")),
+            "slstm": ((X, "slstm_scan"), (X, "slstm_step"))}
+
+
+def xlstm_shares(dev, cfg, params) -> dict:
+    """(a): the two recurrences' shares of a 4096-token prefill and of a
+    decode step at position 4096 on its caches (batch 1, f32, warm from
+    the serving run): CUDA events around each mLSTM and sLSTM call
+    summed, against events around the whole call."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.serve_recover import prompts_for
+    model = Model(cfg, compute_dtype=torch.float32)
+    tokens = torch.as_tensor(prompts_for((4096,), cfg.vocab, SERVE_SEED)[0][
+        None]).to(dev)
+    out, kv = {}, None
+    for name in ("prefill", "decode"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with ScanEvents(xlstm_targets()) as ev:
+            start.record()
+            if name == "prefill":
+                _, kv = model.prefill(params, {"tokens": tokens},
+                                      s_max=XLSTM_S_MAX)
+            else:
+                model.decode_step(params, kv, tokens[:, -1], 4096)
+            end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        out[name] = {"ms": ms}
+        for r in ("mlstm", "slstm"):
+            out[name].update({f"{r}_ms": ev.ms(r), f"{r}_calls": ev.calls(r),
+                              f"{r}_share": ev.ms(r) / ms})
+    del kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_serve(dev, cfg, params) -> dict:
+    """Phase 20 (a): ``serve_recover.run``'s prefill rule at XLSTM_PROMPTS,
+    f32: XLSTM_STEPS steps, the first request finished, as many, a crash
+    and the re-prefill, as many again.  The recovered engine's caches,
+    every leaf kind (``mlstm.c``, ``slstm.c``, ...) against its own
+    largest |value|, equal a crash-free prefill of each live slot's
+    logged tokens but the last within 1e-4 (a third engine admitting each
+    live log) and serve on beside it with equal tokens; the decode-built
+    twin is held on the first layer (fed by the embedding alone) within
+    1e-4, and its other layers are reported, superblock by superblock
+    (``cache_vs_decode_twin``'s ``superblocks``, at the recovery): the
+    chunkwise prefill and the step round differently and
+    the gates amplify that through the sequence and the depth, as in the
+    reference (``tests/test_torch_xlstm_model.py``).  No prefill calls the
+    flash kernel; ``scatter_rows`` launches once a cache leaf (25: 7
+    mLSTM positions of 3, an sLSTM position of 4) per seating (each
+    admission, each re-prefill group, each crash-free prefill).  Then the
+    recurrences' shares (``xlstm_shares``)."""
+    import torch
+    from repro_torch.models.model import Model
+    out, calls = counted_twin_run(
+        dev, cfg, params, prompt_lens=XLSTM_PROMPTS, max_batch=3,
+        s_max=XLSTM_S_MAX, steps=XLSTM_STEPS, max_requests=16)
+    # no attention layer: no flash call at all
+    check_flash_calls(cfg, out, calls, {})
+    model = Model(cfg, compute_dtype=torch.float32)
+    leaves = sum(len(v) for v in model.cache_specs(1, 1)["blocks"].values())
+    live = sum(len(g["slots"]) for g in out["groups"])
+    # admissions on the engine and its twin, the re-prefill groups, the
+    # crash-free prefill engine's live logs and its new request
+    seats = 2 * (len(XLSTM_PROMPTS) + 1) + len(out["groups"]) + live + 1
+    if out["launches"]["scatter_rows"] != leaves * seats:
+        raise AssertionError(f"{cfg.name}: {out['launches']['scatter_rows']}"
+                             f" scatter_rows launches, not one per cache "
+                             f"leaf ({leaves}) per seating ({seats})")
+    out.update({"flash_launches_per_prefill": 0,
+                "cache_leaves": leaves, "seatings": seats,
+                "decode_bound": decode_bound_ms(cfg, params),
+                "recurrences": xlstm_shares(dev, cfg, params)})
+    return out
+
+
+def xlstm_layer_check(dev, cfg, params, pos: str, n: int) -> dict:
+    """One layer of superblock 0 (``pos``) on 2 seeded N(0, 1) inputs of n
+    + 1 tokens: a prefill of the first n and a decode step at n against
+    the prefill of all n + 1, the step's output (less its residual input)
+    and every cache leaf within 1e-4 of their largest |value|."""
+    import torch
+    from repro_torch.core.policy import tree_map
+    from repro_torch.models.backbone import apply_layer
+    from repro_torch.serve_recover import LOGIT_TOL
+    tag = cfg.layer_pattern[int(pos[3:])]
+    p = tree_map(lambda t: t[0], params["blocks"][pos])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    x = torch.randn((2, n + 1, cfg.d_model), generator=gen, device=dev)
+    y, full = apply_layer(cfg, tag, p, x, mode="prefill")
+    _, kv = apply_layer(cfg, tag, p, x[:, :n], mode="prefill")
+    y1, kv1 = apply_layer(cfg, tag, p, x[:, n:], mode="decode", cache=kv,
+                          pos=n)
+    want = y[:, n] - x[:, n]
+    row = {"tag": tag, "position": pos, "tokens": n + 1,
+           "output": float((y1[:, 0] - x[:, n] - want).abs().max())
+           / float(want.abs().max())}
+    for leaf, t in kv1.items():
+        row[leaf] = float((t - full[leaf]).abs().max()) / float(
+            full[leaf].abs().max())
+    bad = {k: v for k, v in row.items() if isinstance(v, float)
+           and not v <= LOGIT_TOL}
+    if bad:
+        raise AssertionError(f"{cfg.name} {tag} layer: prefill + decode at "
+                             f"{n} against the prefill of {n + 1}: {bad}")
+    return row
+
+
+def xlstm_checks(dev, cfg, params) -> dict:
+    """Phase 20 (b): a batch of 2 seeded prompts of XLSTM_CHECK + 1 tokens
+    (one mLSTM chunk of 1025: the fallback), f32: a prefill of their
+    first XLSTM_CHECK tokens (4 chunks) and a decode step at XLSTM_CHECK
+    against the prefill of all of them: logits finite and of the
+    expected shape; the first layer's caches within 1e-4 of each leaf's
+    largest |value| (the reference's rule, ``tests/test_arch_smoke.py``,
+    held where no recurrence feeds the layer); the last logits' difference
+    reported (the depth amplifies the recurrences' rounding, as (a)'s
+    twin shows).  Then each layer kind alone at that length, on the same
+    input to both (``xlstm_layer_check``), gated at 1e-4.  No
+    kernel-vs-plain prefill: the model launches no flash kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.serve_recover import LOGIT_TOL, prompts_for
+    n = XLSTM_CHECK
+    toks = torch.as_tensor(np.stack(prompts_for((n + 1,) * 2, cfg.vocab,
+                                                SERVE_SEED + 1))).to(dev)
+    model = Model(cfg, compute_dtype=torch.float32)
+    before = launch_counts()["flash_attention"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, kv_full = model.prefill(params, {"tokens": toks}, s_max=n + 1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    _, kv = model.prefill(params, {"tokens": toks[:, :n]}, s_max=n + 1)
+    inc, kv = model.decode_step(params, kv, toks[:, n], n)
+    v = cfg.vocab
+    if not (bool(torch.isfinite(full[:, :v]).all())
+            and full.shape == (2, cfg.vocab_padded)):
+        raise AssertionError(f"{cfg.name}: prefill logits not finite or "
+                             f"misshapen")
+    dec = float((inc[:, :v] - full[:, :v]).abs().max()) / float(
+        full[:, :v].abs().max())
+    first = {leaf: float((t[0] - kv_full["blocks"]["pos0"][leaf][0]).abs()
+                         .max()) / float(kv_full["blocks"]["pos0"][leaf][0]
+                                         .abs().max())
+             for leaf, t in kv["blocks"]["pos0"].items()}
+    if not max(first.values()) <= LOGIT_TOL:
+        raise AssertionError(f"{cfg.name}: prefill + decode at {n}: the "
+                             f"first layer's caches differ from the "
+                             f"prefill of {n + 1}'s by {first}")
+    launched = launch_counts()["flash_attention"] - before
+    if launched:
+        raise AssertionError(f"{cfg.name}: {launched} flash launches")
+    del kv, kv_full, full, inc
+    layers = [xlstm_layer_check(dev, cfg, params, pos, n)
+              for pos in ("pos0", "pos7")]
+    torch.cuda.empty_cache()
+    return {"tokens": n + 1, "batch": 2,
+            "decode_vs_prefill_logits": dec,
+            "decode_vs_prefill_first_layer": first,
+            "layers": layers, "tolerance": LOGIT_TOL,
+            "prefill_s": prefill_s, "flash_launches": launched,
+            "kernel_vs_plain": "not run: the model launches no flash kernel"}
+
+
+def xlstm_step_share(trainer) -> dict:
+    """``attention_share``'s step (no flash launch here) with the two
+    recurrences' forward and backward timed by CUDA events
+    (``xlstm_targets(train=True)``)."""
+    import torch
+    with ScanEvents(xlstm_targets(train=True)) as ev:
+        out = attention_share(trainer)
+    torch.cuda.synchronize()
+    for r in ("mlstm", "slstm"):
+        out.update({f"{r}_ms": ev.ms(r), f"{r}_calls": ev.calls(r),
+                    f"{r}_share": ev.ms(r) / out["step_ms"]})
+    return out
+
+
+def xlstm_train(dev) -> dict:
+    """Phase 20 (c): xlstm-1.3b whole at its published widths,
+    XLSTM_TRAIN's steps of 2 x 512 tokens a twin (``train_twins``: f32
+    and bf16, bitwise twins, no flash launch), step ms, tokens/s, peak,
+    and the second twin's last step's recurrence shares
+    (``xlstm_step_share``)."""
+    from repro_torch.configs import registry
+    cfg = registry.get(XLSTM)
+    spec = XLSTM_TRAIN
+    out = {"arch": cfg.name, "params": cfg.param_count(),
+           "layers": cfg.n_layers, "global_batch": spec["batch"],
+           "seq_len": spec["seq"], "steps": spec["steps"]}
+    out.update(train_twins(dev, cfg, spec["batch"], spec["seq"],
+                           spec["steps"], XLSTM_TRAIN_DIR,
+                           share=xlstm_step_share))
+    return out
+
+
+def xlstm_phase(dev) -> dict:
+    """Phase 20: xlstm-1.3b whole, f32, served through the twin rule with
+    its recurrent caches checked against fresh prefills (``xlstm_serve``),
+    decode against prefill on the same parameters (``xlstm_checks``),
+    then trained (``xlstm_train``)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models.backbone import init_params
+    t_phase = time.perf_counter()
+    cfg = registry.get(XLSTM)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    out = {"init_params_s": time.perf_counter() - t0,
+           "params": cfg.param_count()}
+    t0 = time.perf_counter()
+    out["serve"] = xlstm_serve(dev, cfg, params)
+    out["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["checks"] = xlstm_checks(dev, cfg, params)
+    out["checks_s"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["train"] = xlstm_train(dev)
+    out["train_s"] = time.perf_counter() - t0
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -9037,14 +9369,22 @@ def main(argv=None) -> int:
                   "train": train_card_vs_cpu(dev, hymba_small, twins=True)}
     launcher["hybrid"] = launch_serve(HYMBA)
     hybrid_cpu["launch_train"] = launch_train_on_card(HYMBA)
+    # the reduced xlstm likewise
+    xlstm_small = cbase.reduced(creg.get(XLSTM))
+    xlstm_cpu = {"serve": serve_card_vs_cpu(dev, xlstm_small),
+                 "train": train_card_vs_cpu(dev, xlstm_small, twins=True)}
+    launcher["xlstm"] = launch_serve(XLSTM)
+    xlstm_cpu["launch_train"] = launch_train_on_card(XLSTM)
     report["card_vs_cpu"] = {"identical": same, "serve": serve,
                              "launch_serve": launcher,
                              "gemma_train": gemma_cpu, "moe": moe_cpu,
-                             "context": context_cpu, "hybrid": hybrid_cpu}
+                             "context": context_cpu, "hybrid": hybrid_cpu,
+                             "xlstm": xlstm_cpu}
     emit({"phase": "card_vs_cpu", "n": PARITY_N, "identical": same,
           "serve": serve, "launch_serve": launcher,
           "gemma_train": gemma_cpu, "moe": moe_cpu,
-          "context": context_cpu, "hybrid": hybrid_cpu})
+          "context": context_cpu, "hybrid": hybrid_cpu,
+          "xlstm": xlstm_cpu})
     emit({"phase": "clock", "before": "5",
           "at_s": time.perf_counter() - t_run})
     # ---- phase 5: snapshot recovery at full size
@@ -9364,6 +9704,32 @@ def main(argv=None) -> int:
                if launches19[k] == 0]
     if missing:
         raise AssertionError(f"phase 19 never launched {missing}")
+    emit({"phase": "clock", "before": "20",
+          "at_s": time.perf_counter() - t_run})
+    # ---- phase 20: xlstm-1.3b's mLSTM and sLSTM layers, whole
+    reset_launch_counts()
+    xlstm = xlstm_phase(dev)
+    launches20 = launch_counts()
+    report["xlstm"] = xlstm
+    emit({"phase": "xlstm_serving", **{k: v for k, v in
+                                       xlstm["serve"].items()
+                                       if k != "recurrences"}})
+    emit({"phase": "xlstm_recurrence_share",
+          **xlstm["serve"]["recurrences"]})
+    emit({"phase": "xlstm_checks", **xlstm["checks"]})
+    emit({"phase": "xlstm_train", **xlstm["train"]})
+    emit({"phase": "xlstm", "launches": launches20,
+          **{k: v for k, v in xlstm.items() if k.endswith("_s")}})
+    missing = [k for k in ("pack_rows", "scatter_rows")
+               if launches20[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 20 never launched {missing}")
+    attention = {k: launches20[k] for k in ("flash_attention",
+                                            "flash_attention_bwd")
+                 if launches20[k]}
+    if attention:
+        raise AssertionError(f"phase 20 (no attention layer) launched "
+                             f"{attention}")
     emit({"phase": "clock", "before": "summary",
           "at_s": time.perf_counter() - t_run})
     # ---- summary
@@ -9376,7 +9742,8 @@ def main(argv=None) -> int:
                         "gemma_train_launches": launches16[name],
                         "moe_launches": launches17[name],
                         "context_launches": launches18[name],
-                        "hymba_launches": launches19[name], **row})
+                        "hymba_launches": launches19[name],
+                        "xlstm_launches": launches20[name], **row})
     if sorted(k["name"] for k in kernels) != sorted(WRAPPERS):
         raise AssertionError("the kernels line does not list every kernel")
     report["card"] = card

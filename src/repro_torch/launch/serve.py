@@ -9,11 +9,10 @@ all device and volatile host state halfway and recovers it from the
 persistent arenas (the token log re-prefills every live request).  It runs
 on the card unless ``--device`` names another device.  Parameters come
 from a seeded ``torch.Generator``, not the reference's JAX init; the
-launcher compares nothing.  Dense-attention, MoE, the context archs
-(llama-3.2-vision-90b, whisper-large-v3: the engine serves them with a
-context of zeros, as the reference's does) and hymba-1.5b's hybrid
-layers run; only the xLSTM arch (xlstm-1.3b) raises the
-``NotImplementedError`` that ``models/`` raises for its layer kinds.
+launcher compares nothing.  Every registered arch runs: dense attention,
+MoE, the context archs (llama-3.2-vision-90b, whisper-large-v3: the
+engine serves them with a context of zeros, as the reference's does),
+hymba-1.5b's hybrid layers and xlstm-1.3b's mLSTM and sLSTM layers.
 """
 from __future__ import annotations
 

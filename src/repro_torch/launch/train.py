@@ -8,10 +8,10 @@ harness for the fault-tolerance contract.  It runs on the card unless
 ``--device`` names another device, computing in bf16 there and in f32 on
 the CPU, as the reference does on its accelerator and on the CPU.
 Parameters come from the port's seeded init, not the reference's JAX
-init.  Dense-attention, MoE, the context archs (llama-3.2-vision-90b,
-whisper-large-v3: the pipeline draws each step's context or frames) and
-hymba-1.5b's hybrid layers run; only the xLSTM arch (xlstm-1.3b) raises
-the ``NotImplementedError`` that ``models/`` raises for its layer kinds.
+init.  Every registered arch runs: dense attention, MoE, the context
+archs (llama-3.2-vision-90b, whisper-large-v3: the pipeline draws each
+step's context or frames), hymba-1.5b's hybrid layers and xlstm-1.3b's
+mLSTM and sLSTM layers.
 
 Fault-tolerance loop: the trainer runs in incarnations.  When the process
 is told to crash (``--crash-at-step``), the incarnation ends and the next

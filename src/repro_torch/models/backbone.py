@@ -31,8 +31,19 @@ averaged, then the gated MLP.  The reference's cast points are kept: the
 input projection rounds to the compute dtype, ``x_proj``'s product and
 with it ``dt_low``/``bmat``/``cmat`` stay f32, the step sizes round to
 the compute dtype before the scan, and the two output projections are
-compute-dtype products.  The xLSTM bases (``mlstm``, ``slstm``) raise
-``NotImplementedError`` naming themselves.
+compute-dtype products.
+
+The xLSTM layers (``mlstm``, ``slstm``; variant ``full``) run through
+``models/xlstm.py``: the chunkwise mLSTM from a zero state in train and
+prefill mode and ``mlstm_step`` on the cached ``c``/``n``/``m`` in decode;
+the sLSTM scan likewise, its cache ``c``/``n``/``h``/``m``.  The
+reference's cast points are kept: q, k and v are f32 products rounded to
+the compute dtype, the mLSTM gates and output gate stay f32, the mLSTM
+output projection is an f32 product rounded once, the sLSTM gate
+pre-activations are an f32 product plus bias rounded to the compute
+dtype, and the sLSTM output is cast to the layer's dtype before its norm
+and compute-dtype projection, then the gated MLP.  Any other variant of
+those bases raises ``NotImplementedError`` naming itself.
 
 Train mode is a full-sequence forward with no caches.  ``REMAT`` picks
 what a training forward keeps of each superblock for the backward
@@ -59,6 +70,7 @@ from repro_torch.core.policy import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 
 PyTree = Any
 
@@ -514,8 +526,78 @@ def _hybrid(cfg: ArchConfig, var: str, p: Dict[str, Any], x: torch.Tensor,
     return _ffn(cfg, "hybrid", p, x), new_cache or None
 
 
+def _mlstm_proj(cfg: ArchConfig, p, x: torch.Tensor):
+    """The mLSTM projections of x (B, S, d): q, k, v (f32 products rounded
+    to x's dtype), and f32 input and forget gate pre-activations (B, S,
+    H) and output gate (B, S, H, Dv)."""
+    b, s, d = x.shape
+    dt = x.dtype
+    q, k, v = (L._proj(x, p[n]) for n in ("wq", "wk", "wv"))
+    gates = L.f32_product(x, p["w_if"].to(dt).reshape(d, -1)).reshape(
+        b, s, 2, -1) + p["b_if"].float()
+    og = L.f32_product(x, p["w_og"].to(dt).reshape(d, -1)).reshape(
+        b, s, *p["w_og"].shape[1:])
+    return q, k, v, gates[:, :, 0], gates[:, :, 1], og
+
+
+def _mlstm(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor, mode: str,
+           cache) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The mLSTM layer: ``x + out_norm(mlstm(rms(x)) * sigmoid(og)) @
+    wo``, no FFN."""
+    b, s, _ = x.shape
+    y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v, i_pre, f_pre, og = _mlstm_proj(cfg, p, y)
+    new_cache = None
+    if mode == "decode":
+        st = X.MLSTMState(cache["c"], cache["n"], cache["m"])
+        yc, st2 = X.mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0],
+                               f_pre[:, 0], st)
+        yc = yc[:, None]
+        new_cache = {"c": st2.c, "n": st2.n, "m": st2.m}
+    else:
+        st = X.mlstm_init_state(b, cfg.n_heads, q.shape[-1], v.shape[-1],
+                                x.device)
+        chunk = cfg.xlstm.chunk if cfg.xlstm else 256
+        yc, st2 = X.mlstm_chunkwise(q, k, v, i_pre, f_pre, st, chunk=chunk)
+        if mode == "prefill":
+            new_cache = {"c": st2.c, "n": st2.n, "m": st2.m}
+    yc = yc * torch.sigmoid(og).to(yc.dtype)
+    flat = L.rms_norm(yc.reshape(b, s, -1), p["out_norm"], cfg.norm_eps)
+    out = L.f32_product(flat, p["wo"].to(x.dtype).reshape(flat.shape[-1],
+                                                          -1))
+    return x + out.to(x.dtype), new_cache
+
+
+def _slstm(cfg: ArchConfig, p: Dict[str, Any], x: torch.Tensor, mode: str,
+           cache) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The sLSTM layer: ``x + out_norm(slstm(rms(x))) @ wo``, then the
+    gated MLP."""
+    b, s, d = x.shape
+    y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    w_in = p["w_in"]
+    pre = (L.f32_product(y, w_in.to(y.dtype).reshape(d, -1)).reshape(
+        b, s, *w_in.shape[1:]) + p["b_in"].float()).to(y.dtype)
+    new_cache = None
+    if mode == "decode":
+        st = X.SLSTMState(cache["c"], cache["n"], cache["h"], cache["m"])
+        h_out, st2 = X.slstm_step(pre[:, 0], p["r"], st)
+        h_out = h_out[:, None]
+        new_cache = st2._asdict()
+    else:
+        st = X.slstm_init_state(b, cfg.n_heads, d // cfg.n_heads, x.device)
+        h_out, st2 = X.slstm_scan(pre, p["r"], st)
+        if mode == "prefill":
+            new_cache = st2._asdict()
+    flat = L.rms_norm(h_out.reshape(b, s, d).to(x.dtype), p["out_norm"],
+                      cfg.norm_eps)
+    x = x + torch.matmul(flat, p["wo"].to(x.dtype))
+    return _ffn(cfg, "slstm", p, x), new_cache
+
+
 DENSE_VARIANTS = ("full", "bidir", "local", "cross")
-HYBRID_VARIANTS = ("full", "local")
+VARIANTS = {"dense": DENSE_VARIANTS, "attn": DENSE_VARIANTS,
+            "moe": DENSE_VARIANTS, "hybrid": ("full", "local"),
+            "mlstm": ("full",), "slstm": ("full",)}
 
 
 def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
@@ -525,21 +607,25 @@ def apply_layer(cfg: ArchConfig, tag: str, p: Dict[str, Any],
                 pos: Optional[int] = None,
                 s_max: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Apply one attention layer with a dense or an MoE FFN, or a hybrid
-    layer, in ``train``, ``prefill`` or ``decode`` mode.  Returns (x,
-    new_cache), the cache None in train mode.  ``pos`` (decode) is the
-    position written; ``ctx`` (train, prefill) is a cross layer's
-    context."""
+    """Apply one layer (attention with a dense or an MoE FFN, hybrid,
+    mLSTM or sLSTM) in ``train``, ``prefill`` or ``decode`` mode.
+    Returns (x, new_cache), the cache None in train mode.  ``pos``
+    (decode) is the position written; ``ctx`` (train, prefill) is a cross
+    layer's context."""
     base, var = parse_tag(tag)
-    if base not in ("dense", "attn", "moe", "hybrid"):
+    if base not in VARIANTS:
         raise not_ported(f"layer base {base!r} ({tag})")
-    if var not in (HYBRID_VARIANTS if base == "hybrid" else DENSE_VARIANTS):
+    if var not in VARIANTS[base]:
         raise not_ported(f"layer variant {var!r} ({tag})")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     s_max = s_max or x.shape[1]
     if base == "hybrid":
         return _hybrid(cfg, var, p, x, mode, cache, pos, s_max)
+    if base == "mlstm":
+        return _mlstm(cfg, p, x, mode, cache)
+    if base == "slstm":
+        return _slstm(cfg, p, x, mode, cache)
     new_cache: Dict[str, torch.Tensor] = {}
     window = cfg.window if var == "local" else 0
     y = L.rms_norm(x, p["ln1"], cfg.norm_eps)

@@ -22,7 +22,8 @@ own position p - 1 and logs the greedy token at p; recovery re-prefills
 each live log but its last token.  A log of one token seats the zero
 caches ``init_cache`` gives, which is what a prefill of nothing leaves.
 So cache slot j holds token j, a recurrent state (hymba's ``ssm`` and
-``conv``) has taken each logged token exactly once, and a re-prefill
+``conv``, xLSTM's ``c``, ``n``, ``m``, ``h``) has taken each logged token
+exactly once, and a re-prefill
 rebuilds the caches decoding built, up to the prefill's rounding.  This
 is the one place the port departs from the reference, whose step feeds
 token p - 1 at position p after a prefill that already took it: there

@@ -17,12 +17,13 @@ little: a small model with random weights and tied embeddings tends to
 repeat its last input token.  The run prints how many distinct tokens it
 generated.  Both engines' caches hold every logged token but the last
 (``serve/engine.py``): the K/V caches are compared at positions
-``[0, pos - 1)`` of each live slot, and a recurrent layer's ``ssm``
-state and ``conv`` tail whole, each kind of leaf against its own largest
-|value|.  (The reference engine's step feeds token p - 1 at position p
-after a prefill that already took it, so its recovered caches differ
-from its twin's once tokens vary, and a recurrent state takes a token
-twice.)
+``[0, pos - 1)`` of each live slot, and a recurrent layer's leaves (a
+hybrid layer's ``ssm`` state and ``conv`` tail, an mLSTM layer's ``c``,
+``n``, ``m``, an sLSTM layer's ``c``, ``n``, ``h``, ``m``) whole, each
+kind of leaf against its own largest |value|.  (The reference engine's
+step feeds token p - 1 at position p after a prefill that already took
+it, so its recovered caches differ from its twin's once tokens vary,
+and a recurrent state takes a token twice.)
 
 An arch with MoE layers takes another rule.  A prefill group routes its
 tokens under a capacity that drops some of them, while decode routes one
@@ -35,13 +36,24 @@ equal; against the decode-built twin only the first layer's caches,
 which no MoE output feeds, are held, and the rest is reported with the
 number of assignments the re-prefill dropped.
 
+The xLSTM arch takes the same rule for another reason.  Its chunkwise
+prefill and its step compute the same recurrences in other orders (the
+chunk's log-decay sums cancel, the step multiplies), and the exponential
+gates and running stabilizers carry those roundings forward through the
+sequence and amplify them through the depth: at full width a re-prefill
+parts from the decode-built caches past the first layer by more than any
+rounding tolerance, as the reference's own prefill and decode part where
+the gates' pre-activations are as large
+(``tests/test_torch_xlstm_model.py``).  The first layer, fed by the
+embedding alone, is held against the twin; a crash-free prefill of the
+same logs is computed as the re-prefill is, and is held whole.
+
 It runs llama3.2-3b at full width on the card; ``--device cpu`` runs on
 the CPU, ``--layers`` cuts the depth, ``--reduced`` takes the reduced
-smoke config, ``--arch`` another arch (hymba-1.5b among them; only the
-xLSTM arch raises ``NotImplementedError``):
+smoke config, ``--arch`` another arch (any of the ten):
 
     PYTHONPATH=src python -m repro_torch.serve_recover [--device cpu]
-    PYTHONPATH=src python -m repro_torch.serve_recover --arch hymba-1.5b \\
+    PYTHONPATH=src python -m repro_torch.serve_recover --arch xlstm-1.3b \\
         --reduced --device cpu
 """
 from __future__ import annotations
@@ -60,6 +72,7 @@ import torch
 from repro_torch.configs import base, registry
 from repro_torch.core.arena import resolve_device
 from repro_torch.core.policy import tree_flatten_with_path
+from repro_torch.models.backbone import parse_tag
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import EngineConfig, ServingEngine
 from repro_torch.serve.journal import DuplicateRequestError
@@ -69,7 +82,10 @@ CACHE_TOL = 1e-4      # recovered vs twin cache, relative to max |k|, |v|
 LOGIT_TOL = 1e-4      # recovered vs twin logits, relative to max |logit|
 BF16_TOL = 2e-2       # both, when the engines compute in bf16
 CROSS_LEAVES = ("xk", "xv")
-RECURRENT_LEAVES = ("ssm", "conv")    # a hybrid layer's state, conv tail
+# a recurrent layer's state leaves, by layer base: no ring over the token
+# positions, so always compared whole
+RECURRENT_LEAVES = {"hybrid": ("ssm", "conv"), "mlstm": ("c", "n", "m"),
+                    "slstm": ("c", "n", "h", "m")}
 
 
 def _sync(device: torch.device) -> None:
@@ -108,39 +124,60 @@ def cache_error(a: ServingEngine, b: ServingEngine, slots,
     token of the log is cached by the next decode step; a local layer's
     ring holds the last ``window`` of them), or every cache slot with
     ``whole``; a cross layer's context keys and values and a recurrent
-    layer's state and conv tail always whole.  Each kind of leaf (``k``,
-    ``ssm``, ...) is held against the largest |value| of ``b``'s leaves
-    of that kind: ``rel_err`` is the largest of those ratios (``leaves``
-    has each), ``max_abs_err`` and ``max_abs`` the largest difference and
-    value overall.  ``first_layer`` compares the first layer alone."""
+    layer's state leaves (``RECURRENT_LEAVES``, known by the layer's
+    base) always whole.  Each kind of leaf is held against the largest
+    |value| of ``b``'s leaves of that kind: a K/V or cross leaf's kind is
+    its name (``k``, ``xv``), a recurrent leaf's its base and name
+    (``hybrid.ssm``, ``mlstm.c`` apart from ``slstm.c``).  ``rel_err`` is
+    the largest of those ratios (``leaves`` has each), ``max_abs_err``
+    and ``max_abs`` the largest difference and value overall.
+    ``superblocks`` has each superblock's ratios.  ``first_layer``
+    compares the first layer alone."""
     ca, cb = a.cache, b.cache
     if first_layer:
         ca, cb = _first_layer(ca), _first_layer(cb)
     b_slots = slots if b_slots is None else b_slots
+    pattern, _, rem = a.model.cfg.pattern_plan()
+    bases = {("blocks", f"pos{i}"): t for i, t in enumerate(pattern)}
+    bases.update({("rem", f"rem{i}"): t for i, t in enumerate(rem)})
     errs: Dict[str, List[float]] = {}
+    per_block: Dict[int, Dict[str, List[float]]] = {}
+
+    def note(table, kind, x, y):
+        e = table.setdefault(kind, [0.0, 0.0])
+        e[0] = max(e[0], float((x - y).abs().max()))
+        e[1] = max(e[1], float(y.abs().max()))
     for grp in ca:
         for pos in ca[grp]:
+            base = parse_tag(bases[grp, pos])[0]
+            recurrent = RECURRENT_LEAVES.get(base, ())
             for name, leaf in ca[grp][pos].items():
                 other = cb[grp][pos][name]
                 ax = 2 if grp == "blocks" else 1    # the cache slot axis
-                e = errs.setdefault(name, [0.0, 0.0])
+                kind = f"{base}.{name}" if name in recurrent else name
                 for s, sb in zip(slots, b_slots):
                     x, y = ((t[:, i] if grp == "blocks" else t[i])
                             for t, i in ((leaf, s), (other, sb)))
                     # a context's keys and values and a recurrent state
                     # are no ring over the token positions
                     if not (whole or name in CROSS_LEAVES
-                            or name in RECURRENT_LEAVES):
+                            or name in recurrent):
                         held = _held(int(b.pos[sb]) - 1,
                                      leaf.shape[ax]).to(leaf.device)
                         x, y = (t.index_select(ax - 1, held)
                                 for t in (x, y))
-                    e[0] = max(e[0], float((x - y).abs().max()))
-                    e[1] = max(e[1], float(y.abs().max()))
+                    note(errs, kind, x, y)
+                    if grp == "blocks":
+                        for j in range(x.shape[0]):
+                            note(per_block.setdefault(j, {}), kind, x[j],
+                                 y[j])
+
+    def ratios(table):
+        return {n: e / m if m else 0.0 for n, (e, m) in table.items()}
     return {"max_abs_err": max(e for e, _ in errs.values()),
             "max_abs": max(m for _, m in errs.values()),
-            "rel_err": max(e / m if m else 0.0 for e, m in errs.values()),
-            "leaves": {n: e / m if m else 0.0 for n, (e, m) in errs.items()}}
+            "rel_err": max(ratios(errs).values()), "leaves": ratios(errs),
+            "superblocks": [ratios(per_block[j]) for j in sorted(per_block)]}
 
 
 def _logit_err(eng: ServingEngine, twin: ServingEngine) -> float:
@@ -199,9 +236,9 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
     ``steps_after`` (default ``steps``) further.  The engines compute in
     ``compute_dtype`` (f32 by default; bf16 loosens both tolerances to
     ``BF16_TOL``) over parameters drawn in ``compute_dtype`` when
-    ``params`` is None.  An arch with MoE layers holds the recovered engine against
-    a crash-free prefill of the same token logs (see the module's
-    docstring).  ``n_shards`` shards the engines' arenas;
+    ``params`` is None.  An arch with MoE or xLSTM layers holds the
+    recovered engine against a crash-free prefill of the same token logs
+    (see the module's docstring).  ``n_shards`` shards the engines' arenas;
     ``commit_mode`` is their commit protocol.  ``check``, when given, is
     called with the recovered engine and its twin after the last step.
     Returns the run's numbers; raises on any mismatch."""
@@ -214,7 +251,8 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         params = model.init_params(g, device, compute_dtype)
     tol = CACHE_TOL if compute_dtype == torch.float32 else BF16_TOL
     logit_tol = LOGIT_TOL if compute_dtype == torch.float32 else BF16_TOL
-    moe = cfg.moe is not None
+    # the prefill rule: the decode-built twin is held on its first layer
+    prefill_rule = cfg.moe is not None or cfg.xlstm is not None
     ec = EngineConfig(max_batch=max_batch, s_max=s_max,
                       max_requests=max_requests, n_shards=n_shards,
                       commit_mode=commit_mode)
@@ -271,7 +309,7 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
         out["engine_detail"] = rep.stage("engine").detail
         out["groups"] = admitted
         ref = None
-        if moe:
+        if prefill_rule:
             out["reprefill_dropped"] = int(sum(int(d) for d in drops))
             out["cache_vs_decode_twin"] = cache_error(eng, twin, live)
             out["cache"] = cache_error(eng, twin, live, first_layer=True)
@@ -327,7 +365,7 @@ def run(cfg, device, *, prompt_lens: Sequence[int], max_batch: int,
                 "logit_rel_err": log["decode_twin_logit_rel_err"]}
         if out["logit_rel_err"]["after"] > logit_tol:
             raise AssertionError(f"logits after recovery differ from the "
-                                 f"{'prefill' if moe else 'twin'}'s: "
+                                 f"{'prefill' if prefill_rule else 'twin'}'s: "
                                  f"{out['logit_rel_err']}")
         out["decode_ms_per_slot_step"] = 1e3 * float(np.median(
             log["slot_step_s"]))
@@ -362,10 +400,15 @@ def main(argv=None) -> None:
     print(f"{out['arch']} x{out['layers']} d_model {out['d_model']} on "
           f"{out['device']}: {len(lens)} requests, recovered in "
           f"{out['recover_s']:.3f} s, stages {out['stages']}")
-    print(f"cache vs twin: max abs err {out['cache']['max_abs_err']:.3e} "
-          f"over max |value| {out['cache']['max_abs']:.3e}; relative, "
-          f"by leaf: " + ", ".join(f"{n} {e:.2e}" for n, e in
-                                   out["cache"]["leaves"].items()))
+    for key, what in (("cache", "cache vs twin"),
+                      ("cache_vs_decode_twin", "every layer vs twin"),
+                      ("cache_vs_prefill", "cache vs crash-free prefill")):
+        if key in out:
+            e = out[key]
+            print(f"{what}: max abs err {e['max_abs_err']:.3e} over max "
+                  f"|value| {e['max_abs']:.3e}; relative, by leaf: "
+                  + ", ".join(f"{n} {r:.2e}" for n, r in
+                              e["leaves"].items()))
     print(f"logits vs twin (relative): {out['logit_rel_err']}; "
           f"{out['distinct_tokens']} distinct of {out['tokens_generated']} "
           f"tokens generated")

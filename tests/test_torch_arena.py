@@ -323,7 +323,7 @@ def test_not_ported_names_the_queue_only():
     assert "x" in msg and "ROADMAP Queue 1" in msg
     assert "Slice A" not in msg and "item" not in msg
     # a sharded shadow arena opens, paged too; a feature that still raises
-    # (an mLSTM layer; sliding-window attention and MoE are ported) names
+    # (a variant the mLSTM layer lacks; every layer kind is ported) names
     # the queue alone
     assert TA.ShardedArena(None, n_shards=4, commit_mode="shadow",
                            device="cpu").commit_mode == "shadow"
@@ -333,8 +333,8 @@ def test_not_ported_names_the_queue_only():
     from repro_torch.models.backbone import apply_layer
     cfg = base.reduced(registry.get("llama3.2-3b"))
     with pytest.raises(NotImplementedError) as err:
-        apply_layer(cfg, "mlstm", {}, torch.zeros(1, 4, cfg.d_model),
+        apply_layer(cfg, "mlstm:local", {}, torch.zeros(1, 4, cfg.d_model),
                     mode="prefill")
     msg = str(err.value)
-    assert "mlstm" in msg and "ROADMAP Queue 1" in msg
+    assert "mlstm:local" in msg and "ROADMAP Queue 1" in msg
     assert "item" not in msg

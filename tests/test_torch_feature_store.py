@@ -17,8 +17,8 @@ CPU against the JAX reference.
   bench's own size equal ``benchmarks/recovery_bench.py``'s.
 * ``SampleIndex``: the reference's recovery test, and parity with the
   JAX index.
-* ``python -m repro_torch.launch.serve``: a dense arch serves, crashes and
-  recovers on the CPU; the xLSTM arch raises ``NotImplementedError``.
+* ``python -m repro_torch.launch.serve``: a dense arch and the xLSTM arch
+  serve, crash and recover on the CPU.
 """
 import dataclasses
 
@@ -290,9 +290,11 @@ def test_launch_serve_dense_runs_with_crash(capsys):
     assert "[serve] recovered in" in out and "[serve] step 3:" in out
 
 
-def test_launch_serve_moe_raises():
-    # MoE archs serve now (tests/test_torch_moe_model.py), and so does
-    # hymba (tests/test_torch_hybrid_model.py); the family still to port,
-    # the xLSTM layers, raises naming itself
-    with pytest.raises(NotImplementedError, match="lstm"):
-        tserve.main(["--arch", "xlstm-1.3b", "--device", "cpu"])
+def test_launch_serve_moe_raises(capsys):
+    # MoE archs serve now (tests/test_torch_moe_model.py), and so do
+    # hymba (tests/test_torch_hybrid_model.py) and xLSTM, the last
+    # family: the launcher serves its reduced config and recovers
+    assert tserve.main(["--arch", "xlstm-1.3b", "--crash", "--device",
+                        "cpu", "--steps", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] recovered in" in out and "[serve] step 3:" in out

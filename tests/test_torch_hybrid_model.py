@@ -281,7 +281,7 @@ def test_hybrid_twin_recovery(dtype, monkeypatch):
               steps=4, max_requests=16, compute_dtype=dt)
     tol = CACHE_TOL if dtype == "float32" else 2e-2
     leaves = out["cache"]["leaves"]
-    assert set(leaves) == {"k", "v", "ssm", "conv"}
+    assert set(leaves) == {"k", "v", "hybrid.ssm", "hybrid.conv"}
     assert max(leaves.values()) <= tol, leaves
     assert out["logit_rel_err"]["after"] <= max(tol, TOL)
     assert out["distinct_tokens"] > 3
@@ -330,11 +330,11 @@ def test_recovered_state_equals_twin_where_parent_rule_drifts(tmp_path):
     one the log's last token once more than the twin: the states part by
     more than a hundred times that tolerance."""
     err, want, got = _recovered_vs_twin(TE.ServingEngine, tmp_path / "new")
-    assert err["leaves"]["ssm"] <= CACHE_TOL
-    assert err["leaves"]["conv"] <= CACHE_TOL
+    assert err["leaves"]["hybrid.ssm"] <= CACHE_TOL
+    assert err["leaves"]["hybrid.conv"] <= CACHE_TOL
     assert got == want
     old, _, _ = _recovered_vs_twin(_ParentRule, tmp_path / "old")
-    assert old["leaves"]["ssm"] > 100 * CACHE_TOL, old["leaves"]
+    assert old["leaves"]["hybrid.ssm"] > 100 * CACHE_TOL, old["leaves"]
 
 
 def test_one_token_prompt_seats_zero_caches(tmp_path):

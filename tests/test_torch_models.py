@@ -330,13 +330,13 @@ def test_model_prefill_and_decode_match_reference(reduced_llama):
 
 
 @pytest.mark.parametrize("tag", ["hybrid:cross", "attn_local",
-                                 # dense, MoE, the cross variant and the
-                                 # hybrid layer are ported; the xLSTM
-                                 # bases are not, nor a hybrid variant
-                                 # other than full and local
+                                 # every layer base is ported; a variant
+                                 # a base lacks is not (hybrid: full and
+                                 # local; the xLSTM bases: full)
                                  pytest.param("slstm:local", id="slstm"),
-                                 "hybrid:bidir", "mlstm:local", "mlstm",
-                                 "slstm"])
+                                 "hybrid:bidir", "mlstm:local",
+                                 pytest.param("mlstm:bidir", id="mlstm"),
+                                 pytest.param("slstm:cross", id="slstm")])
 def test_non_dense_layer_tags_raise(tag):
     cfg = tbase.reduced(treg.get("llama3.2-3b"))
     x = torch.zeros(1, 4, cfg.d_model)
@@ -347,8 +347,9 @@ def test_non_dense_layer_tags_raise(tag):
 def test_train_mode_and_context_families_raise(reduced_llama):
     # train mode is ported now: one dense layer's full-sequence forward,
     # no cache, against the reference's (1e-5, f32 sums in another order);
-    # the vlm/audio contexts and the hybrid layers are ported too, and
-    # an xLSTM model still raises
+    # the vlm/audio contexts, the hybrid and the xLSTM layers are ported
+    # too: a reduced xLSTM model prefills and decodes (its parity with
+    # the reference: tests/test_torch_xlstm_model.py)
     jm, jp, tm, tp = reduced_llama
     x = np.random.default_rng(9).standard_normal(
         (2, 7, tm.cfg.d_model)).astype(np.float32)
@@ -369,6 +370,12 @@ def test_train_mode_and_context_families_raise(reduced_llama):
                 compute_dtype=torch.float32)
     gen = torch.Generator()
     gen.manual_seed(0)
-    with pytest.raises(NotImplementedError, match="lstm"):
-        xl.prefill(xl.init_params(gen, "cpu"),
-                   {"tokens": torch.zeros(1, 4, dtype=torch.int64)})
+    xp = xl.init_params(gen, "cpu")
+    logits, kv = xl.prefill(xp, {"tokens": torch.zeros(1, 4,
+                                                       dtype=torch.int64)})
+    assert logits.shape == (1, xl.cfg.vocab_padded)
+    assert bool(torch.isfinite(logits[:, :xl.cfg.vocab]).all())
+    assert sorted(kv["blocks"]["pos0"]) == ["c", "m", "n"]
+    assert sorted(kv["blocks"]["pos7"]) == ["c", "h", "m", "n"]
+    step, _ = xl.decode_step(xp, kv, torch.zeros(1, dtype=torch.int64), 4)
+    assert bool(torch.isfinite(step[:, :xl.cfg.vocab]).all())

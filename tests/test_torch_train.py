@@ -213,14 +213,19 @@ def test_model_loss_single_chunk_and_unported_layers():
     lj = mj.loss(pj, {k: jnp.asarray(v) for k, v in batch.items()})
     lt = mt.loss(pt, _torch_tree(batch))
     assert abs(float(lt) - float(lj)) <= 1e-6 * abs(float(lj))
-    # MoE trains now (tests/test_torch_moe_model.py); xlstm's layers are
-    # still to port
+    # MoE trains now (tests/test_torch_moe_model.py), and so do xlstm's
+    # layers: a finite loss whose gradient reaches the sLSTM recurrent
+    # weights (parity with the reference: tests/test_torch_xlstm_train.py)
     xl = tbuild(tbase.reduced(treg.get("xlstm-1.3b")),
                 compute_dtype=torch.float32)
     g = torch.Generator()
     g.manual_seed(0)
-    with pytest.raises(NotImplementedError, match="lstm"):
-        xl.loss(xl.init_params(g, "cpu"), _torch_tree(batch))
+    xp = xl.init_params(g, "cpu")
+    r = xp["blocks"]["pos7"]["r"].requires_grad_()
+    lx = xl.loss(xp, _torch_tree(batch))
+    assert bool(torch.isfinite(lx))
+    (gr,) = torch.autograd.grad(lx, [r])
+    assert bool(torch.isfinite(gr).all()) and bool(gr.abs().max() > 0)
 
 
 # -------------------------------------------------------- optimizer, data
